@@ -1,0 +1,97 @@
+"""Where the device time of portfft_tpu_torch's main path goes, per bench row.
+
+    python3 chip_profile.py
+
+For each row of ``bench.py``'s ``CONFIGS``, ``backward_medium`` and
+``LADDER_CONFIGS`` it commits the plan on the card, makes 3 warm-up calls,
+then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
+plan, the wall ms per call on the host clock around those 5 calls, the
+device-busy ms per call (the sum of the kernels' device time), and each
+kernel's device ms per launch in launch order.  The first line is the card's
+name and power limit as ``nvidia-smi`` gives them.  Needs one CUDA device;
+exits non-zero when the profiler records no device time.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROWS = [
+    ("small_1d", 16, 8 << 20, "forward"),
+    ("medium_small_1d", 256, 512 << 10, "forward"),
+    ("medium_large_1d", 4096, 32 << 10, "forward"),
+    ("large_1d", 65536, 2048, "forward"),
+    ("backward_medium", 4096, 32 << 10, "backward"),
+    ("ladder_2^17", 1 << 17, 1024, "forward"),
+    ("ladder_2^18", 1 << 18, 512, "forward"),
+    ("ladder_2^19", 1 << 19, 256, "forward"),
+    ("ladder_2^20", 1 << 20, 128, "forward"),
+]
+CALLS = 5
+
+
+def kernel_name(name: str) -> str:
+    m = re.search(r"(\w+_kernel)", name)
+    return m.group(1) if m else name[:60]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    print(smi.stdout.strip())
+
+    import portfft_tpu_torch as pf
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's start-up
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    for name, n, batch, direction in ROWS:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch).commit(
+            device="cuda"
+        )
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.rand(2 * batch * n, generator=gen, device="cuda") * 2 - 1
+        compute = (plan.compute_forward if direction == "forward"
+                   else plan.compute_backward)
+        for _ in range(3):
+            compute(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                compute(x)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / CALLS
+        per: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                us = getattr(e, "device_time", None)
+                if us is None:
+                    us = e.cuda_time
+                per.setdefault(kernel_name(e.name), []).append(us / 1e3)
+        busy = sum(sum(v) for v in per.values()) / CALLS
+        if busy <= 0:
+            sys.exit(f"{name}: the profiler recorded no device time")
+        print(json.dumps({
+            "row": name, "n": n, "batch": batch, "direction": direction,
+            "plan": plan.plan_description()[n],
+            "wall_ms_per_call": wall, "device_busy_ms_per_call": busy,
+            "device_ms_per_launch": {k: v[: len(v) // CALLS] for k, v in per.items()},
+        }))
+        del x, plan
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""portfft_tpu_torch — the batched FFT framework of ``portfft_tpu`` on
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (H100).
+
+The describe → commit → execute API of the JAX package::
+
+    import portfft_tpu_torch as pfft
+    desc = pfft.Descriptor(lengths=[4096], number_of_transforms=1024)
+    plan = desc.commit(device="cuda")
+    y = plan.compute_forward(x)      # x: complex64 tensor on the card
+    x2 = plan.compute_backward(y)    # unnormalized inverse
+
+This version runs the main path: 1D C2C fp32, INTERLEAVED storage, PACKED
+layout, zero offsets, in-place or out-of-place.  Other configurations raise
+:class:`UnsupportedConfiguration` at commit, naming the ROADMAP item that
+will port them.  ``commit(device="cpu")`` runs the kernels' plain PyTorch
+versions.  The package never imports JAX.
+"""
+
+from .committed import CommittedDescriptor
+from .config import DeviceConfig, resolve_device_config
+from .descriptor import Descriptor
+from .enums import (
+    ComplexStorage,
+    Direction,
+    Domain,
+    Layout,
+    Level,
+    Placement,
+    inv,
+)
+from .exceptions import (
+    InternalError,
+    InvalidConfiguration,
+    OutOfVmemError,
+    PortFFTError,
+    UnsupportedConfiguration,
+)
+
+__all__ = [
+    "CommittedDescriptor",
+    "ComplexStorage",
+    "Descriptor",
+    "DeviceConfig",
+    "Direction",
+    "Domain",
+    "InternalError",
+    "InvalidConfiguration",
+    "Layout",
+    "Level",
+    "OutOfVmemError",
+    "Placement",
+    "PortFFTError",
+    "UnsupportedConfiguration",
+    "inv",
+    "resolve_device_config",
+]
+
+__version__ = "0.1.0"

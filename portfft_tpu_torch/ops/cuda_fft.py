@@ -1,0 +1,181 @@
+"""K1 ``direct`` and K2 ``fused2``: wrappers of the CUDA kernels
+(``csrc/fft_direct.cu``, ``csrc/fft_fused2.cu``) and their plain PyTorch
+versions.
+
+Counterparts of ``portfft_tpu/ops/pallas_fft.py``: ``direct_raw_call``
+(K1) and ``fused2_raw_mm_call`` (K2).  Every function takes and returns the
+PACKED interleaved buffer as a flat float32 tensor of ``2·batch·n`` scalars.
+
+The rule of every wrapper: a tensor on the CPU goes to the plain version; a
+tensor on a CUDA device goes to the kernel, and a failed build or launch
+raises.  Nothing falls back.  The plain versions are the same decomposition
+as ``torch.matmul`` calls against the bank's DFT matrices, in full float32;
+tests and ``chip_smoke.py`` call them on the card to hold the kernels to.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..exceptions import InvalidConfiguration
+from ..planner import Plan1D
+from . import _build
+from .torch_fft import complex_matmul, complex_mul, full_fp32_matmuls, is_two_stage
+
+
+@dataclasses.dataclass(frozen=True)
+class SubTables:
+    """The device tables of one DIRECT or FUSED [a, 128] transform of
+    length ``m``: ``wr``/``wi`` the m×m DFT planes (DIRECT) or a×a (FUSED);
+    FUSED also ``br``/``bi`` (128×128) and ``ur``/``ui`` (the (a, 128)
+    inner twiddle)."""
+
+    m: int
+    a: int  # 0 for DIRECT
+    wr: torch.Tensor
+    wi: torch.Tensor
+    br: torch.Tensor | None = None
+    bi: torch.Tensor | None = None
+    ur: torch.Tensor | None = None
+    ui: torch.Tensor | None = None
+
+    def pointers(self) -> list:
+        """The six table pointers (None where unused) in the order of the C
+        entry points: wr, wi, br, bi, ur, ui."""
+        tabs = (self.wr, self.wi, self.br, self.bi, self.ur, self.ui)
+        return [None if t is None else t.data_ptr() for t in tabs]
+
+
+def sub_tables(plan: Plan1D, sign: int, keys: dict, arrays: dict) -> SubTables:
+    """Resolve the tables of a DIRECT or two-stage FUSED plan from the bank
+    (``keys`` from ``torch_fft.collect_bank_keys``)."""
+    if is_two_stage(plan):
+        a = plan.factors[0]
+        wa, wb = keys[("W", a, sign)], keys[("W", 128, sign)]
+        u = keys[("U", a, 128, sign)]
+        return SubTables(
+            plan.n, a, arrays[wa + "r"], arrays[wa + "i"],
+            arrays[wb + "r"], arrays[wb + "i"], arrays[u + "r"], arrays[u + "i"],
+        )
+    w = keys[("W", plan.n, sign)]
+    return SubTables(plan.n, 0, arrays[w + "r"], arrays[w + "i"])
+
+
+def rows_plain(sub: SubTables, xr: torch.Tensor, xi: torch.Tensor):
+    """The m-point transform of the last axis of the (re, im) planes, in
+    natural output order.  DIRECT: one complex matmul with the DFT matrix.
+    FUSED: stage A (W_a from the left over n1), the inner twiddle, stage B
+    (W_128 over n2), and the digit reversal out[k1 + a·k2] = C[k1, k2]."""
+    if sub.a == 0:
+        return complex_matmul(xr, xi, sub.wr, sub.wi)
+    lead = xr.shape[:-1]
+    xr = xr.reshape(*lead, sub.a, 128)
+    xi = xi.reshape(*lead, sub.a, 128)
+    ar, ai = complex_matmul(sub.wr, sub.wi, xr, xi)  # DFT matrices are symmetric
+    ar, ai = complex_mul(ar, ai, sub.ur, sub.ui)
+    cr, ci = complex_matmul(ar, ai, sub.br, sub.bi)
+    return (
+        cr.transpose(-1, -2).reshape(*lead, sub.m),
+        ci.transpose(-1, -2).reshape(*lead, sub.m),
+    )
+
+
+def interleave(yr: torch.Tensor, yi: torch.Tensor, scale: float) -> torch.Tensor:
+    return (torch.stack((yr, yi), dim=-1) * scale).reshape(-1)
+
+
+def rows_plain_raw(raw: torch.Tensor, batch: int, sub: SubTables, scale: float):
+    """Plain version of K1 and K2: ``rows_plain`` on each of the ``batch``
+    rows of the raw buffer — one matmul with the DFT matrix (DIRECT) or the
+    two-stage [a, 128] decomposition (FUSED) — scaled and interleaved."""
+    full_fp32_matmuls(raw)
+    x = raw.view(batch, sub.m, 2)
+    return interleave(*rows_plain(sub, x[..., 0], x[..., 1]), scale)
+
+
+def check_buffer(raw: torch.Tensor, numel: int, what: str) -> None:
+    """The kernels take a flat, contiguous float32 tensor of exactly
+    ``numel`` scalars whose address is float2-aligned."""
+    if raw.dtype != torch.float32 or raw.dim() != 1 or not raw.is_contiguous():
+        raise InvalidConfiguration(
+            f"{what}: expected a flat contiguous float32 tensor, got "
+            f"{raw.dtype} of shape {tuple(raw.shape)}"
+        )
+    if raw.numel() != numel:
+        raise InvalidConfiguration(
+            f"{what}: expected {numel} scalars, got {raw.numel()}"
+        )
+    if raw.is_cuda and raw.data_ptr() % 8:
+        raise InvalidConfiguration(f"{what}: buffer is not 8-byte aligned")
+
+
+def require_cuda(raw: torch.Tensor, what: str) -> None:
+    if not raw.is_cuda:
+        raise InvalidConfiguration(
+            f"{what}: tensors on {raw.device.type} are not supported"
+        )
+
+
+def into(out: torch.Tensor | None, y: torch.Tensor) -> torch.Tensor:
+    """Return ``y``, or copy it into ``out`` and return ``out``."""
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def direct(raw, batch: int, sub: SubTables, scale: float, out=None):
+    """K1: ``batch`` DIRECT transforms of length ``sub.m``.  ``out`` (may
+    be ``raw`` itself) receives the result; otherwise a new tensor."""
+    check_buffer(raw, 2 * batch * sub.m, "direct")
+    if raw.device.type == "cpu":
+        return into(out, rows_plain_raw(raw, batch, sub, scale))
+    require_cuda(raw, "direct")
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    with torch.cuda.device(raw.device):  # launch on the tensor's card
+        err = lib.pf_direct(
+            raw.data_ptr(), y.data_ptr(), *sub.pointers()[:2],
+            batch, sub.m, scale, stream_of(raw),
+        )
+    _build.check(lib, err, "direct kernel")
+    direct.launches += 1
+    return y
+
+
+direct.launches = 0
+direct.plain = rows_plain_raw
+
+
+def fused2(raw, batch: int, sub: SubTables, scale: float, out=None):
+    """K2: ``batch`` FUSED [a, 128] transforms of length ``sub.m``.  For
+    n > 8192 the kernel runs as two launches through a scratch buffer the
+    size of the input (see ``csrc/fft_fused2.cu``)."""
+    check_buffer(raw, 2 * batch * sub.m, "fused2")
+    if raw.device.type == "cpu":
+        return into(out, rows_plain_raw(raw, batch, sub, scale))
+    require_cuda(raw, "fused2")
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    scratch = (
+        torch.empty_like(raw) if lib.pf_fused2_needs_scratch(sub.a) else None
+    )
+    with torch.cuda.device(raw.device):
+        err = lib.pf_fused2(
+            raw.data_ptr(), y.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            *sub.pointers(), batch, sub.a, scale, stream_of(raw),
+        )
+    _build.check(lib, err, "fused2 kernel")
+    fused2.launches += 1
+    return y
+
+
+fused2.launches = 0
+fused2.plain = rows_plain_raw

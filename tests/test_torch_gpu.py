@@ -1,0 +1,105 @@
+"""portfft_tpu_torch on a CUDA card: each kernel against its plain PyTorch
+version, and the committed main path against ``torch.fft`` (oracle only).
+
+Skipped without a CUDA device.  On a machine with a card (and without JAX)
+run ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``: the
+repo's conftest.py configures JAX, which this file does not import.
+
+Tolerance, as in ``chip_smoke.py``: max|kernel − plain| ≤ 1e-5·max|plain|,
+and every element within the absolute 2·eps·N·log2(N)·|scale| of the
+oracle.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import portfft_tpu_torch as pf
+from chip_smoke import KERNEL_TOL, oracle_tol
+from portfft_tpu_torch import fastpath
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize(
+    "n,batch,kind",
+    [
+        (1, 5, "direct"), (3, 7, "direct"), (16, 1000, "direct"),
+        (100, 37, "direct"), (512, 9, "direct"),
+        (640, 3, "fused2"), (4096, 4, "fused2"), (8192, 2, "fused2"),
+        (16384, 2, "fused2"), (32768, 2, "fused2"),
+        (65536, 2, "global2"), (1 << 17, 1, "global2"),
+        (393216, 1, "global2"), (1 << 19, 1, "global2"),
+    ],
+)
+@pytest.mark.parametrize("inplace", [False, True])
+def test_kernel_matches_plain(cuda, n, batch, kind, inplace):
+    plan = pf.Descriptor(
+        lengths=[n], number_of_transforms=batch, forward_scale=0.5,
+        backward_scale=3.0 / n,
+    ).commit(device=cuda)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(
+        rng.uniform(-1, 1, 2 * batch * n).astype(np.float32)
+    ).to(cuda)
+    for direction in (pf.Direction.FORWARD, pf.Direction.BACKWARD):
+        entry = plan._raw_fast[direction]
+        assert entry[0] == kind
+        kernel, args = fastpath.kernel_args(plan, entry)
+        before = kernel.launches
+        want = kernel.plain(x, *args)
+        if inplace:
+            got = x.clone()
+            kernel(got, *args, out=got)
+        else:
+            got = kernel(x, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
+
+
+@pytest.mark.parametrize("n,batch", [(16, 64), (256, 8), (4096, 4), (65536, 2)])
+def test_main_path_matches_oracle(cuda, n, batch):
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch).commit()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(batch, n, dtype=torch.complex64, generator=gen, device=cuda)
+    for direction, compute in (
+        (pf.Direction.FORWARD, plan.compute_forward),
+        (pf.Direction.BACKWARD, plan.compute_backward),
+    ):
+        y = compute(x)
+        assert y.dtype == torch.complex64 and y.device == x.device
+        xd = x.to(torch.complex128)
+        ref = (torch.fft.fft(xd) if direction == pf.Direction.FORWARD
+               else torch.fft.ifft(xd) * n)
+        diff = (y.reshape(batch, n).to(torch.complex128) - ref).abs().max()
+        assert diff.item() <= oracle_tol(n), diff.item()
+
+
+def test_in_place_writes_caller_tensor(cuda):
+    n, batch = 4096, 3
+    plan = pf.Descriptor(
+        lengths=[n], number_of_transforms=batch,
+        placement=pf.Placement.IN_PLACE,
+    ).commit(device="cuda")
+    x = torch.randn(batch * n, dtype=torch.complex64, device=cuda)
+    ref = torch.fft.fft(x.reshape(batch, n).to(torch.complex128))
+    y = plan.compute_forward(x)
+    assert y is x
+    diff = (x.reshape(batch, n).to(torch.complex128) - ref).abs().max().item()
+    assert diff <= oracle_tol(n), diff
+
+
+def test_tensor_on_other_device_raises(cuda):
+    plan = pf.Descriptor(lengths=[16]).commit(device="cuda")
+    with pytest.raises(pf.InvalidConfiguration):
+        plan.compute_forward(torch.zeros(16, dtype=torch.complex64))
