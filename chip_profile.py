@@ -3,7 +3,8 @@
     python3 chip_profile.py
 
 For each row of ``bench.py``'s ``CONFIGS``, ``backward_medium`` and
-``LADDER_CONFIGS`` it commits the plan on the card, makes 3 warm-up calls,
+``LADDER_CONFIGS``, and of its ``REAL_CONFIGS`` and real_large backward, it
+commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
 device-busy ms per call (the sum of the kernels' device time), and each
@@ -34,6 +35,13 @@ ROWS = [
     ("ladder_2^19", 1 << 19, 256, "forward"),
     ("ladder_2^20", 1 << 20, 128, "forward"),
 ]
+REAL_ROWS = [
+    ("real_small", 32, 2 << 20, "forward"),
+    ("real_medium", 512, 256 << 10, "forward"),
+    ("real_large", 8192, 16 << 10, "forward"),
+    ("real_131072", 131072, 1024, "forward"),
+    ("real_large_backward", 8192, 16 << 10, "backward"),
+]
 CALLS = 5
 
 
@@ -56,12 +64,17 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's start-up
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    for name, n, batch, direction in ROWS:
-        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch).commit(
-            device="cuda"
-        )
+    rows = [(*r, pf.Domain.COMPLEX) for r in ROWS]
+    rows += [(*r, pf.Domain.REAL) for r in REAL_ROWS]
+    for name, n, batch, direction, domain in rows:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             domain=domain).commit(device="cuda")
+        if domain == pf.Domain.COMPLEX:
+            numel = 2 * batch * n
+        else:  # reals forward, raw half spectra backward
+            numel = batch * n if direction == "forward" else batch * (n + 2)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        x = torch.rand(2 * batch * n, generator=gen, device="cuda") * 2 - 1
+        x = torch.rand(numel, generator=gen, device="cuda") * 2 - 1
         compute = (plan.compute_forward if direction == "forward"
                    else plan.compute_backward)
         for _ in range(3):
@@ -85,7 +98,7 @@ def main() -> None:
             sys.exit(f"{name}: the profiler recorded no device time")
         print(json.dumps({
             "row": name, "n": n, "batch": batch, "direction": direction,
-            "plan": plan.plan_description()[n],
+            "plan": plan.plan_description(),
             "wall_ms_per_call": wall, "device_busy_ms_per_call": busy,
             "device_ms_per_launch": {k: v[: len(v) // CALLS] for k, v in per.items()},
         }))

@@ -6,30 +6,40 @@
    CUDA versions; exits non-zero when no CUDA device is available.
 2. Builds the kernels from ``portfft_tpu_torch/csrc`` and prints the build
    time and the compiler's register report (on stderr).
-3. Kernel phase: each kernel (K1 direct, K2 fused2, K3 global2) at every
-   plan shape of the bench rows and the ladder, forward and backward with
+3. Kernel phase: each C2C kernel (K1 direct, K2 fused2, K3 global2) at
+   every plan shape of the bench rows and the ladder, and each REAL kernel
+   (K8a untangle, K8b retangle, K9 small_real) at every shape of the REAL
+   bench rows plus n = 1000 (h = 500), 4 and 100, forward and backward with
    scale != 1, held on the same inputs to
    - its plain PyTorch version: max|kernel - plain| <= 1e-5 · max|plain|;
-   - ``torch.fft`` (oracle only) on a sample of rows: every element within
-     the absolute 2·eps·N·log2(N)·|scale|.
+   - ``torch.fft`` (``fft``/``ifft``, ``rfft``/``irfft``; oracle only) on a
+     sample of rows: every element within the absolute
+     2·eps·N·log2(N)·|scale|.  K8a's input is the C2C kernel's spectrum of
+     the reals, and K8b's output goes through the backward C2C kernel
+     before the comparison, so the oracle sees a whole R2C or C2R.
    Each case also plants two faults, the kernel run with one of its tables
    conjugated and an all-zero output, and fails unless both checks reject
-   both.
-4. Main-path phase: ``Descriptor(...).commit(device="cuda")`` and
-   ``compute_forward``/``compute_backward`` on a raw float32 tensor on the
-   card, for the bench rows.  Launch counts are reset just before and read
-   just after; each row's kernel must have launched.  A sample of rows is
-   held to ``torch.fft`` at the absolute 2·eps·N·log2(N) per element.
-   Kernel path and plain path are timed with CUDA events (3 warm-up calls,
-   median of 10).
-5. Prints the kernel table as one JSON line, then, as the last line,
-   ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
-   that line.
+   both.  The REAL kernels are timed alone here at the bench shapes.
+4. Main-path phases, C2C then REAL: ``Descriptor(...).commit(device="cuda")``
+   and ``compute_forward``/``compute_backward`` on a float32 tensor on the
+   card, for the C2C bench rows, then for the four REAL bench rows and
+   real_large backward.  Each phase resets the launch counts just before
+   and reads them just after; each row's kernels (for a REAL row, its K8 or
+   K9 and the C2C kernel under it) must have launched.  A sample of rows is
+   held to ``torch.fft`` at the absolute 2·eps·N·log2(N) per element.  The
+   kernel path, the plain path and one ``torch.fft`` call of the same
+   function (the yardstick; the port never calls it) are timed with CUDA
+   events (3 warm-up calls, median of 10).
+5. Prints the kernel table as one JSON line (each kernel's launches on the
+   main path, largest error against its plain version, ms, plain ms, bound
+   ms and library ms), then, as the last line, ``{"ok": true, "device":
+   {...}}``.  Any failure exits non-zero before that line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -64,6 +74,22 @@ KERNEL_CASES = [
     (65536, 2048), (1 << 17, 1024), (1 << 18, 512), (1 << 19, 32),
     (1 << 20, 128),
 ]
+# REAL bench rows (bench.py REAL_CONFIGS) and real_large backward: name,
+# n, batch, direction.
+REAL_ROWS = [
+    ("real_small", 32, 2 * 1024 * 1024, "forward"),
+    ("real_medium", 512, 256 * 1024, "forward"),
+    ("real_large", 8192, 16 * 1024, "forward"),
+    ("real_131072", 131072, 1024, "forward"),
+    ("real_large_backward", 8192, 16 * 1024, "backward"),
+]
+# REAL kernel phase: (n, batch); the REAL bench shapes (K9 at 32 and 512,
+# K8 at h = 4096 over K2 and h = 65536 over K3), h = 500 (K8 over K1, a
+# half length that is no multiple of 128) and K9 at n = 4 and 100.
+REAL_KERNEL_CASES = [
+    (4, 1 << 16), (32, 2 * 1024 * 1024), (100, 1 << 15), (512, 256 * 1024),
+    (1000, 1 << 12), (8192, 16 * 1024), (131072, 1024),
+]
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -71,7 +97,19 @@ SOURCES = {
                "portfft_tpu/ops/pallas_fft.py:791"),
     "global2": ("portfft_tpu_torch/csrc/fft_global2.cu",
                 "portfft_tpu/ops/pallas_global.py:1031"),
+    "untangle": ("portfft_tpu_torch/csrc/fft_real.cu",
+                 "portfft_tpu/ops/pallas_real.py:125"),
+    "retangle": ("portfft_tpu_torch/csrc/fft_real.cu",
+                 "portfft_tpu/ops/pallas_real.py:426"),
+    "small_real": ("portfft_tpu_torch/csrc/fft_real.cu",
+                   "portfft_tpu/ops/pallas_real.py:567"),
 }
+C2C_KINDS = ("direct", "fused2", "global2")
+REAL_KINDS = ("untangle", "retangle", "small_real")
+# The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
+# fp32 outside the tensor cores, per millisecond.
+HBM_BYTES_PER_MS = 3.35e9
+FP32_FLOPS_PER_MS = 67e9
 
 
 class SmokeFailure(Exception):
@@ -80,6 +118,29 @@ class SmokeFailure(Exception):
 
 def oracle_tol(n: int) -> float:
     return 2.0 * EPS32 * n * max(math.log2(n), 1.0)
+
+
+def work(kind: str, n: int, batch: int) -> tuple[int, float]:
+    """(bytes, flops) of one call of a kernel or path over ``batch`` rows of
+    length ``n`` (for the un/retangle, the REAL length 2h): each input byte
+    read once, each output byte written once; flops the nominal
+    5·n·log2(n) of a complex transform, 2.5·n·log2(n) of a real one, and
+    18 per bin for the un/retangle."""
+    lg, h = max(math.log2(n), 1.0), n // 2
+    if kind in C2C_KINDS:
+        return 16 * batch * n, 5 * n * lg * batch
+    if kind in ("untangle", "retangle"):
+        return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
+    return 4 * batch * n + 8 * batch * (h + 1), 2.5 * n * lg * batch
+
+
+def bound_of(kind: str, n: int, batch: int) -> tuple[float, str]:
+    """``(bound_ms, bound_by)``: the least time the card could take for the
+    work, the larger of its bytes over the memory rate and its flops over
+    the fp32 peak, and which of the two it is."""
+    nbytes, flops = work(kind, n, batch)
+    by_bytes, by_flops = nbytes / HBM_BYTES_PER_MS, flops / FP32_FLOPS_PER_MS
+    return max(by_bytes, by_flops), "bytes" if by_bytes >= by_flops else "operations"
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
@@ -109,25 +170,67 @@ def kernel_and_args(plan, direction):
     return entry[0], kernel, args
 
 
-def random_raw(numel: int, seed: int) -> torch.Tensor:
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.rand(numel, generator=gen, device="cuda") * 2 - 1
+def random_raw(numel: int, seed: int, device: str = "cuda") -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(numel, generator=gen, device=device) * 2 - 1
+
+
+def sample_rows(batch: int) -> list[int]:
+    return sorted({0, min(1, batch - 1), batch // 2, batch - 1})
 
 
 def oracle_excess(y, x, n: int, batch: int, sign: int, scale: float) -> float:
     """Largest |y - ref| over a sample of rows, in units of the absolute
     bound 2·eps·N·log2(N)·|scale|; ref is ``torch.fft`` in complex128 (the
     oracle only).  At most 1 passes."""
-    rows = sorted({0, min(1, batch - 1), batch // 2, batch - 1})
+    rows = sample_rows(batch)
     xs = torch.view_as_complex(x.view(batch, n, 2)[rows]).to(torch.complex128)
     ys = torch.view_as_complex(y.view(batch, n, 2)[rows]).to(torch.complex128)
     ref = (torch.fft.fft(xs) if sign < 0 else torch.fft.ifft(xs) * n) * scale
     return (ys - ref).abs().max().item() / (oracle_tol(n) * abs(scale))
 
 
+def real_oracle_excess(y, src, n: int, batch: int, sign: int,
+                       scale: float) -> float:
+    """``oracle_excess`` of a REAL transform: forward, ``y`` holds the
+    interleaved half spectra of the reals ``src``; backward, ``y`` holds the
+    reals of the half spectra ``src`` (unnormalized).  ref is
+    ``torch.fft.rfft``/``irfft`` in complex128 (the oracle only)."""
+    rows, h = sample_rows(batch), n // 2
+    if sign < 0:
+        ref = torch.fft.rfft(src.view(batch, n)[rows].double()) * scale
+        got = torch.view_as_complex(y.view(batch, h + 1, 2)[rows])
+    else:
+        spec = torch.view_as_complex(src.view(batch, h + 1, 2)[rows])
+        ref = torch.fft.irfft(spec.to(torch.complex128), n, norm="forward") * scale
+        got = y.view(batch, n)[rows]
+    return (got.to(ref.dtype) - ref).abs().max().item() / (oracle_tol(n) * abs(scale))
+
+
+def half_spectra(batch: int, n: int, seed: int, device: str = "cuda") -> torch.Tensor:
+    """Random half spectra of real signals (Im X[0] = Im X[n/2] = 0) as raw
+    float32 pairs."""
+    raw = random_raw(batch * (n + 2), seed, device)
+    bins = raw.view(batch, n // 2 + 1, 2)
+    bins[:, 0, 1] = 0.0
+    bins[:, -1, 1] = 0.0
+    return raw
+
+
 def planted(kind: str, args: tuple) -> tuple:
-    """A kernel's arguments with one table conjugated: the roots (K1), the
-    inner twiddle (K2) or the inter-pass twiddle (K3)."""
+    """A kernel's arguments with one table conjugated: the roots (K1, K9),
+    the inner twiddle (K2), the inter-pass twiddle (K3) or the REAL
+    post-twiddle (K8).  K9's plain version reads the matrix, whose
+    conjugate negates the imaginary outputs (forward) or inputs
+    (backward)."""
+    if kind in ("untangle", "retangle"):
+        batch, h, wr, wi, scale = args
+        return (batch, h, wr, -wi, scale)
+    if kind == "small_real":
+        batch, tabs = args
+        mat = tabs.mat.clone()
+        (mat[:, 1::2] if tabs.sign < 0 else mat[1::2]).neg_()
+        return (batch, dataclasses.replace(tabs, wi=-tabs.wi, mat=mat))
     if kind == "global2":
         batch, sub1, sub2, tr, ti, scale = args
         return (batch, sub1, sub2, tr, -ti, scale)
@@ -138,18 +241,59 @@ def planted(kind: str, args: tuple) -> tuple:
 
 
 def check_kernel(kind: str, kernel, args: tuple, x, n: int, sign: int) -> dict:
-    """Hold one call of ``kernel`` to its plain version and to the oracle,
-    and check that both checks reject two planted faults.  Returns the
-    measured numbers; raises :class:`SmokeFailure`."""
+    """Hold one call of a C2C ``kernel`` to its plain version and to the
+    oracle, and check that both checks reject two planted faults.  Returns
+    the measured numbers; raises :class:`SmokeFailure`."""
     batch, scale = args[0], args[-1]
-    what = f"{kind} n={n} sign={sign:+d}"
+    return check_against(
+        f"{kind} n={n} sign={sign:+d}", kind, kernel, args, x,
+        lambda y: oracle_excess(y, x, n, batch, sign, scale),
+    )
+
+
+def real_case(plan, direction, x, spec) -> tuple:
+    """``(kind, kernel, args, input, finish)`` of the REAL kernel of one
+    direction of ``plan``, given the reals ``x`` and the half spectra
+    ``spec``: K9 takes them as they are; K8a takes the spectrum the C2C
+    kernel makes of ``x``; K8b's output goes through the backward C2C
+    kernel (``finish``) to become the reals."""
+    from portfft_tpu_torch import fastpath
+
+    entry = plan._raw_fast[direction]
+    kernel, args = fastpath.kernel_args(plan, entry)
+    forward = entry[0] in ("realf", "realsf")
+    if entry[0] in ("realsf", "realsb"):
+        return "small_real", kernel, args, x if forward else spec, None
+    c2c, c2c_args = fastpath.kernel_args(plan, entry[1])
+    if forward:
+        return "untangle", kernel, args, c2c(x, *c2c_args), None
+    return "retangle", kernel, args, spec, lambda z: c2c(z, *c2c_args)
+
+
+def check_real(kind: str, kernel, args: tuple, inp, finish, src, n: int,
+               sign: int, scale: float) -> dict:
+    """``check_kernel`` for a REAL kernel: ``inp`` is its input, ``finish``
+    (or None) turns its output into the transform's, and ``src`` is the
+    transform's input for the oracle."""
+    batch = args[0]
+    finish = finish or (lambda y: y)
+    return check_against(
+        f"{kind} n={n} sign={sign:+d}", kind, kernel, args, inp,
+        lambda y: real_oracle_excess(finish(y), src, n, batch, sign, scale),
+    )
+
+
+def check_against(what: str, kind: str, kernel, args: tuple, x, oracle) -> dict:
+    """Hold one call of ``kernel`` on ``x`` to its plain version and, through
+    ``oracle`` (output -> multiples of the oracle bound), to the oracle;
+    check that both checks reject two planted faults."""
     got = kernel(x, *args)
     want = kernel.plain(x, *args)
     peak = want.abs().max().item()
 
     def judged(y):
         err = (y - want).abs().max().item()
-        return err, err / peak, oracle_excess(y, x, n, batch, sign, scale)
+        return err, err / peak, oracle(y)
 
     if not torch.isfinite(got).all():
         raise SmokeFailure(f"{what}: non-finite output")
@@ -172,34 +316,35 @@ def check_kernel(kind: str, kernel, args: tuple, x, n: int, sign: int) -> dict:
     return {"err": err, "rel": rel, "excess": excess, "caught": caught}
 
 
-def run() -> None:
-    if not torch.cuda.is_available():
-        raise SmokeFailure("torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        raise SmokeFailure(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)  # name and power limit, as nvidia-smi gives them
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+def plain_path(plan, entry):
+    """The plain versions of an entry's kernels, chained as the path chains
+    the kernels: ``fn(x) -> y``."""
+    from portfft_tpu_torch import fastpath
 
-    import portfft_tpu_torch as pf
-    from portfft_tpu_torch.ops import _build, cuda_fft, cuda_global
+    kernel, args = fastpath.kernel_args(plan, entry)
+    if entry[0] in ("realf", "realb"):
+        c2c, c2c_args = fastpath.kernel_args(plan, entry[1])
+        if entry[0] == "realf":
+            return lambda x: kernel.plain(c2c.plain(x, *c2c_args), *args)
+        return lambda x: c2c.plain(kernel.plain(x, *args), *c2c_args)
+    return lambda x: kernel.plain(x, *args)
 
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path().name})")
-    print(_build.build_log(), file=sys.stderr)
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: full fp32
 
-    counters = {"direct": cuda_fft.direct, "fused2": cuda_fft.fused2,
-                "global2": cuda_global.global2}
+def library_call(x, n: int, batch: int, real: bool, forward: bool):
+    """One ``torch.fft`` call that computes the same function as the path
+    (unnormalized backward, scale 1): the yardstick, timed only."""
+    if real and forward:
+        return lambda: torch.fft.rfft(x.view(batch, n))
+    if real:
+        spec = torch.view_as_complex(x.view(batch, n // 2 + 1, 2))
+        return lambda: torch.fft.irfft(spec, n, norm="forward")
+    xc = torch.view_as_complex(x.view(batch, n, 2))
+    if forward:
+        return lambda: torch.fft.fft(xc)
+    return lambda: torch.fft.ifft(xc, norm="forward")
 
-    # -- kernel phase ------------------------------------------------------
-    max_err: dict[str, float] = {}
+
+def c2c_kernel_phase(pf, max_err: dict) -> None:
     for n, batch in KERNEL_CASES:
         desc = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                              forward_scale=0.5, backward_scale=2.0 / n)
@@ -213,32 +358,77 @@ def run() -> None:
             torch.cuda.synchronize()
             if kernel.launches != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
-            caught = " ".join(f"{name}: {rel:.2e}·max|plain|, {exc:.2e}×oracle;"
-                              for name, (rel, exc) in r["caught"].items())
-            print(f"kernel {kind:8s} n={n:<8d} batch={batch:<8d} "
-                  f"{direction.value:8s} max|k-plain|={r['err']:.3e} "
-                  f"={r['rel']:.2e}·max|plain| (tol {KERNEL_TOL:g}) "
-                  f"oracle {r['excess']:.2e}×bound | planted faults rejected: "
-                  f"{caught}")
+            report(kind, n, batch, direction, r)
             max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
         del plan, x
         torch.cuda.empty_cache()
 
-    # -- main-path phase ---------------------------------------------------
+
+def report(kind: str, n: int, batch: int, direction, r: dict) -> None:
+    caught = " ".join(f"{name}: {rel:.2e}·max|plain|, {exc:.2e}×oracle;"
+                      for name, (rel, exc) in r["caught"].items())
+    print(f"kernel {kind:10s} n={n:<8d} batch={batch:<8d} "
+          f"{direction.value:8s} max|k-plain|={r['err']:.3e} "
+          f"={r['rel']:.2e}·max|plain| (tol {KERNEL_TOL:g}) "
+          f"oracle {r['excess']:.2e}×bound | planted faults rejected: "
+          f"{caught}")
+
+
+def real_kernel_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K8a, K8b and K9 at ``REAL_KERNEL_CASES``; returns
+    ``{(kind, n, batch): (ms, plain_ms)}`` of each timed alone at the REAL
+    bench shapes."""
+    bench = {(n, batch) for _, n, batch, _ in REAL_ROWS}
+    alone = {}
+    for n, batch in REAL_KERNEL_CASES:
+        scales = {pf.Direction.FORWARD: 0.5, pf.Direction.BACKWARD: 2.0 / n}
+        plan = pf.Descriptor(
+            lengths=[n], number_of_transforms=batch, domain=pf.Domain.REAL,
+            forward_scale=scales[pf.Direction.FORWARD],
+            backward_scale=scales[pf.Direction.BACKWARD],
+        ).commit(device="cuda")
+        x = random_raw(batch * n, seed=n)
+        spec = half_spectra(batch, n, seed=n + 1)
+        for direction, sign in ((pf.Direction.FORWARD, -1),
+                                (pf.Direction.BACKWARD, +1)):
+            kind, kernel, args, inp, finish = real_case(plan, direction, x, spec)
+            before = kernel.launches
+            r = check_real(kind, kernel, args, inp, finish,
+                           x if sign < 0 else spec, n, sign, scales[direction])
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
+            report(kind, n, batch, direction, r)
+            max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+            if (n, batch) in bench:
+                ms = time_ms(lambda: kernel(inp, *args))
+                plain_ms = time_ms(lambda: kernel.plain(inp, *args))
+                bound, by = bound_of(kind, n, batch)
+                alone[(kind, n, batch)] = (ms, plain_ms)
+                print(f"alone  {kind:10s} n={n:<8d} batch={batch:<8d} "
+                      f"{direction.value:8s} kernel {ms:.3f} ms | plain "
+                      f"{plain_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
+            del inp
+        del plan, x, spec
+        torch.cuda.empty_cache()
+    return alone
+
+
+def c2c_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     results = []
     for c in counters.values():
         c.launches = 0
     for name, n, batch, dname in ROWS:
         direction = pf.Direction(dname)
-        sign = -1 if direction == pf.Direction.FORWARD else +1
+        forward = direction == pf.Direction.FORWARD
+        sign = -1 if forward else +1
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch).commit(
             device="cuda"
         )
         kind, kernel, args = kernel_and_args(plan, direction)
         before = counters[kind].launches
         x = random_raw(2 * batch * n, seed=0)
-        compute = (plan.compute_forward if direction == pf.Direction.FORWARD
-                   else plan.compute_backward)
+        compute = plan.compute_forward if forward else plan.compute_backward
         y = compute(x)
         torch.cuda.synchronize()
         rose = counters[kind].launches - before
@@ -253,33 +443,162 @@ def run() -> None:
                                f"{oracle_tol(n):.3e}")
         del y
         ms = time_ms(lambda: compute(x))
-        plain_ms = time_ms(lambda: kernel.plain(x, *args))
-        nbytes = 16 * batch * n
-        flops = 5 * n * math.log2(n) * batch
+        plain_ms = time_ms(functools.partial(
+            plain_path(plan, plan._raw_fast[direction]), x))
+        library_ms = time_ms(library_call(x, n, batch, False, forward))
+        nbytes, flops = work(kind, n, batch)
+        bound, by = bound_of(kind, n, batch)
         print(f"row {name:16s} n={n:<8d} batch={batch:<8d} {kind:8s} "
               f"launches +{rose} oracle max|diff|={excess * oracle_tol(n):.3e} "
               f"tol={oracle_tol(n):.3e} | "
               f"kernel {ms:.3f} ms {nbytes / ms / 1e6:.1f} GB/s "
               f"{flops / ms / 1e6:.1f} GFLOP/s | plain {plain_ms:.3f} ms "
               f"{nbytes / plain_ms / 1e6:.1f} GB/s "
-              f"{flops / plain_ms / 1e6:.1f} GFLOP/s | {card}")
-        results.append((name, kind, ms, plain_ms))
+              f"{flops / plain_ms / 1e6:.1f} GFLOP/s | torch.fft {library_ms:.3f} ms "
+              f"| bound {bound:.3f} ms ({by}) | {card}")
+        results.append((name, kind, n, batch, ms, plain_ms, library_ms))
         del plan, x
         torch.cuda.empty_cache()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: counters[k].launches for k in C2C_KINDS}
     print(f"main-path launches: {launches}")
     for kind, count in launches.items():
         if count == 0:
             raise SmokeFailure(f"kernel {kind} was never launched on the main path")
+    return results, launches
+
+
+REAL_KIND_OF = {"realsf": "small_real", "realsb": "small_real",
+                "realf": "untangle", "realb": "retangle"}
+
+
+def real_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
+    results = []
+    for c in counters.values():
+        c.launches = 0
+    for name, n, batch, dname in REAL_ROWS:
+        direction = pf.Direction(dname)
+        forward = direction == pf.Direction.FORWARD
+        sign = -1 if forward else +1
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             domain=pf.Domain.REAL).commit(device="cuda")
+        entry = plan._raw_fast[direction]
+        kinds = [REAL_KIND_OF[entry[0]]]
+        if entry[0] in ("realf", "realb"):
+            kinds.append(entry[1][0])  # the C2C kernel under it
+        x = random_raw(batch * n, seed=0) if forward else half_spectra(batch, n, 0)
+        compute = plan.compute_forward if forward else plan.compute_backward
+        before = {k: counters[k].launches for k in kinds}
+        y = compute(x)
+        torch.cuda.synchronize()
+        rose = {k: counters[k].launches - before[k] for k in kinds}
+        if min(rose.values()) <= 0:
+            raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
+        numel = batch * (n + 2) if forward else batch * n
+        if y.shape != (numel,) or not torch.isfinite(y).all():
+            raise SmokeFailure(f"{name}: output of shape {tuple(y.shape)} "
+                               f"(expected ({numel},)) or not finite")
+        excess = real_oracle_excess(y, x, n, batch, sign, 1.0)
+        if not excess <= 1.0:
+            raise SmokeFailure(f"{name}: {excess:.3e} times the oracle bound "
+                               f"{oracle_tol(n):.3e}")
+        del y
+        ms = time_ms(lambda: compute(x))
+        plain_ms = time_ms(functools.partial(plain_path(plan, entry), x))
+        library_ms = time_ms(library_call(x, n, batch, True, forward))
+        nbytes, _ = work("small_real", n, batch)  # the same bytes for every REAL path
+        bound, by = bound_of("small_real", n, batch)
+        print(f"row {name:20s} n={n:<8d} batch={batch:<8d} "
+              f"{'+'.join(kinds):18s} launches {rose} oracle max|diff|="
+              f"{excess * oracle_tol(n):.3e} tol={oracle_tol(n):.3e} | path "
+              f"{ms:.3f} ms {nbytes / ms / 1e6:.1f} GB/s | plain {plain_ms:.3f} ms "
+              f"| torch.fft {library_ms:.3f} ms | bound {bound:.3f} ms ({by}) "
+              f"| {card}")
+        results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
+        del plan, x
+        torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"REAL main-path launches: {launches}")
+    for kind in REAL_KINDS:
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on the REAL path")
+    return results, launches
+
+
+def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
+                 alone) -> list[dict]:
+    """One entry per kernel.  K1-K3 and K9 take their numbers from the first
+    main-path row that runs them (the path is that one kernel); K8a and K8b
+    from their timing alone at real_large, where no single ``torch.fft``
+    call computes the same function."""
+    def entry(kind, launches, ms, plain_ms, library_ms, n, batch):
+        source, replaces = SOURCES[kind]
+        bound, by = bound_of(kind, n, batch)
+        return {"name": kind, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_err[kind], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
     kernels = []
-    for kind, (source, replaces) in SOURCES.items():
-        name, _, ms, plain_ms = next(r for r in results if r[1] == kind)
-        kernels.append({
-            "name": kind, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kind],
-            "max_abs_err": max_err[kind], "ms": ms, "plain_ms": plain_ms,
-        })
+    for kind in C2C_KINDS:
+        _, _, n, batch, ms, plain_ms, library_ms = next(
+            r for r in c2c_rows if r[1] == kind)
+        kernels.append(entry(kind, c2c_launches[kind], ms, plain_ms,
+                             library_ms, n, batch))
+    _, n, batch, _ = next(r for r in REAL_ROWS if r[0] == "real_large")
+    for kind in ("untangle", "retangle"):
+        ms, plain_ms = alone[(kind, n, batch)]
+        kernels.append(entry(kind, real_launches[kind], ms, plain_ms, None,
+                             n, batch))
+    _, _, n, batch, ms, plain_ms, library_ms = next(
+        r for r in real_rows if r[1] == ["small_real"])
+    kernels.append(entry("small_real", real_launches["small_real"], ms,
+                         plain_ms, library_ms, n, batch))
+    return kernels
+
+
+def run() -> None:
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise SmokeFailure(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)  # name and power limit, as nvidia-smi gives them
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    import portfft_tpu_torch as pf
+    from portfft_tpu_torch.ops import _build, cuda_fft, cuda_global, cuda_real
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path().name})")
+    print(_build.build_log(), file=sys.stderr)
+
+    counters = {"direct": cuda_fft.direct, "fused2": cuda_fft.fused2,
+                "global2": cuda_global.global2, "untangle": cuda_real.untangle,
+                "retangle": cuda_real.retangle, "small_real": cuda_real.small_real}
+    max_err: dict[str, float] = {}
+    phases = []
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases.append(f"{name} {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase("C2C kernels", c2c_kernel_phase, pf, max_err)
+    alone = phase("REAL kernels", real_kernel_phase, pf, max_err, card)
+    c2c_rows, c2c_launches = phase("C2C main path", c2c_main_path, pf, counters, card)
+    real_rows, real_launches = phase("REAL main path", real_main_path, pf,
+                                     counters, card)
+    print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
+    kernels = kernel_table(max_err, c2c_rows, c2c_launches, real_rows,
+                           real_launches, alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ The describe → commit → execute API of the JAX package::
     x2 = plan.compute_backward(y)    # unnormalized inverse
 
 This version runs the main path: 1D C2C fp32, INTERLEAVED storage, PACKED
-layout, zero offsets, in-place or out-of-place.  Other configurations raise
+layout, zero offsets, in-place or out-of-place; and the 1D REAL fp32 path,
+R2C forward and C2R backward (``domain=Domain.REAL``), INTERLEAVED PACKED,
+out-of-place.  Other configurations raise
 :class:`UnsupportedConfiguration` at commit, naming the ROADMAP item that
 will port them.  ``commit(device="cpu")`` runs the kernels' plain PyTorch
 versions.  The package never imports JAX.

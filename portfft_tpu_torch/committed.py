@@ -1,12 +1,13 @@
 """Committed plan: plans, constant tables on the device, and the kernel that
 runs each direction.
 
-Counterpart of ``portfft_tpu.committed.CommittedDescriptor`` for the slice
+Counterpart of ``portfft_tpu.committed.CommittedDescriptor`` for the slices
 this package covers (``fastpath.py``): 1D C2C fp32 INTERLEAVED PACKED with
-zero offsets, out-of-place or in-place, forward and backward, each with its
-own scale.
+zero offsets, out-of-place or in-place, and 1D REAL fp32 (R2C forward, C2R
+backward) INTERLEAVED PACKED with zero offsets, out-of-place; forward and
+backward each with its own scale.
 
-I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
+C2C I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
 
 * a numpy array — complex (cast to complex64) or raw float32 (re, im)
   pairs — gives a numpy array of the same kind;
@@ -18,6 +19,13 @@ IN_PLACE writes the result into the caller's buffer (a tensor or a numpy
 array) and returns that buffer; the JAX package donates its device buffer
 instead.  Elements past the descriptor's input count are left as they
 are.  Out-of-place returns a new buffer of exactly the output count.
+
+REAL I/O follows the JAX package's ``_compute_real``: forward takes a real
+buffer (numpy or float tensor; a complex one raises
+:class:`InvalidConfiguration`) and returns the half spectra, complex64 for
+numpy input and raw float32 pairs of ``batch·(n+2)`` scalars for a tensor;
+backward takes the half spectra (complex or raw pairs) and returns
+``batch·n`` float32 reals, numpy for numpy input.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 
 from . import fastpath
 from .config import resolve_device_config
-from .enums import Direction, Placement
+from .enums import Direction, Domain, Placement
 from .exceptions import InvalidConfiguration, UnsupportedConfiguration
 from .ops.torch_fft import TwiddleBank, collect_bank_keys
 from .planner import plan_1d
@@ -66,12 +74,33 @@ class CommittedDescriptor:
             n: plan_1d(n, self.config, self.precision.itemsize)
             for n in set(descriptor.lengths)
         }
+        n_last = descriptor.lengths[-1]
+        real = descriptor.domain == Domain.REAL
+        # REAL, even n past the small path: the h = n/2 complex plan of the
+        # packed half-length transform.  The JAX package adds it from
+        # n = 1024 (below that its plane path is faster on a TPU); here the
+        # small path ends at 512, so 512 < n < 1024 gets it too.
+        half = real and n_last > fastpath.SMALL_REAL_MAX_N
+        if half and n_last // 2 not in self.plans:
+            self.plans[n_last // 2] = plan_1d(
+                n_last // 2, self.config, self.precision.itemsize
+            )
         self._bank = TwiddleBank(np.float32)
         self._bank_keys: dict = {}
         self._raw_fast = fastpath.register(self)
-        for sign in (-1, +1):
-            for plan in self.plans.values():
-                collect_bank_keys(plan, sign, self._bank, self._bank_keys)
+        # the tables of the kernels the entries run, both directions
+        keys = self._bank_keys
+        for direction, sign in ((Direction.FORWARD, -1), (Direction.BACKWARD, +1)):
+            if half:
+                collect_bank_keys(self.plans[n_last // 2], sign, self._bank, keys)
+                keys[("R", n_last, sign)] = self._bank.rfft_untangle(n_last, sign)
+            elif real:
+                keys[("W", n_last, sign)] = self._bank.dft(n_last, sign)
+                keys[("RM", n_last, sign)] = self._bank.real_small(
+                    n_last, sign, float(descriptor.get_scale(direction))
+                )
+            else:
+                collect_bank_keys(self.plans[n_last], sign, self._bank, keys)
         self._bank_arrays = self._bank.device_arrays(self.device)
         self._fns = {
             direction: fastpath.build_fn(self, entry)
@@ -117,18 +146,23 @@ class CommittedDescriptor:
             raise InvalidConfiguration(
                 "INTERLEAVED_COMPLEX storage takes a single complex buffer"
             )
+        if d.domain == Domain.REAL:
+            return self._compute_real(direction, x)
         return self._compute_interleaved(direction, x)
+
+    def _check_device(self, x: torch.Tensor) -> None:
+        if x.device != self.device:
+            raise InvalidConfiguration(
+                f"tensor on {x.device} given to a plan committed on "
+                f"{self.device}"
+            )
 
     def _to_raw(self, x):
         """Any accepted interleaved buffer -> (flat float32 tensor on the
         plan's device, kind, aliases) where ``aliases`` says whether the
         tensor shares memory with ``x``."""
         if isinstance(x, torch.Tensor):
-            if x.device != self.device:
-                raise InvalidConfiguration(
-                    f"tensor on {x.device} given to a plan committed on "
-                    f"{self.device}"
-                )
+            self._check_device(x)
             if x.is_complex():
                 flat = x.to(torch.complex64).contiguous().reshape(-1)
                 raw = torch.view_as_real(flat).reshape(-1)
@@ -191,3 +225,45 @@ class CommittedDescriptor:
             return x
         np.copyto(x, self._from_raw(raw, kind).reshape(np.shape(x)), casting="unsafe")
         return x
+
+    def _to_real(self, x):
+        """A real buffer -> (flat float32 tensor on the plan's device,
+        whether ``x`` is a tensor)."""
+        if isinstance(x, torch.Tensor):
+            self._check_device(x)
+            if x.is_complex():
+                raise InvalidConfiguration(
+                    "REAL domain forward input must be a real buffer"
+                )
+            return x.to(torch.float32).contiguous().reshape(-1), True
+        arr = np.asarray(x)
+        if np.iscomplexobj(arr):
+            raise InvalidConfiguration(
+                "REAL domain forward input must be a real buffer"
+            )
+        host = np.ascontiguousarray(arr, dtype=np.float32).reshape(-1)
+        return torch.from_numpy(host).to(self.device), False
+
+    def _compute_real(self, direction, x):
+        """R2C forward / C2R backward, out-of-place (see the module
+        docstring for the I/O types)."""
+        d = self.descriptor
+        fn = self._fns[direction]
+        if direction == Direction.FORWARD:
+            real, is_tensor = self._to_real(x)
+            need = d.get_input_count(direction)
+            if real.numel() < need:
+                raise InvalidConfiguration(
+                    f"real input buffer has {real.numel()} elements, needs {need}"
+                )
+            y = fn(real[:need])
+            return y if is_tensor else self._from_raw(y, "np_complex")
+        raw, kind, _ = self._to_raw(x)
+        need = 2 * d.get_input_count(direction)
+        if raw.numel() < need:
+            raise InvalidConfiguration(
+                f"half-spectrum input buffer has {raw.numel() // 2} complex "
+                f"elements, needs {need // 2}"
+            )
+        y = fn(raw[:need])
+        return self._from_raw(y, "np_raw") if kind.startswith("np") else y

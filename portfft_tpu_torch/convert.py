@@ -27,9 +27,12 @@ def bank_from_reference(
     package's ``TwiddleBank.host``.
 
     Key strings are shared, so the result can stand in for
-    ``TwiddleBank.device_arrays(device)`` of a plan built here.  Only
-    float32 tables are carried: the JAX package's bf16 tables (its
-    matrix-unit precision scheme) have no reader in this package.
+    ``TwiddleBank.device_arrays(device)`` of a plan built here; that
+    includes the REAL post-twiddles ``R{f|b}{n}``.  Only float32 tables
+    are carried: the JAX package's bf16 tables (its matrix-unit precision
+    scheme, among them the small-n REAL stacks ``RS…k``) have no reader in
+    this package, whose small-n REAL matrix is its own float32
+    ``RM{f|b}{n}_{scale}m``.
     """
     bank = TwiddleBank(np.float32)
     for name, arr in host.items():

@@ -10,6 +10,17 @@ interleaved buffer, chosen by plan level:
 | FUSED [a, 128] | ``cuda_fft.fused2`` (K2) | ``pallas_fft.fused2_raw_mm_call`` |
 | GLOBAL, DIRECT or FUSED [a, 128] subs | ``cuda_global.global2`` (K3) | ``pallas_global.global2_raw_call`` |
 
+The 1D REAL fp32 transform (R2C forward, C2R backward, INTERLEAVED PACKED,
+out-of-place) runs, for even n ≤ ``SMALL_REAL_MAX_N``, as one call of
+``cuda_real.small_real`` (K9, entries ``realsf``/``realsb``); for longer
+even n as the C2C kernel of the h = n/2 plan at scale 1 on the real buffer
+viewed as h complex pairs, followed (forward, ``realf``) by
+``cuda_real.untangle`` (K8a) or preceded (backward, ``realb``) by
+``cuda_real.retangle`` (K8b), which apply the direction's scale.  The JAX
+package declines some of these shapes to its plane path (h not a multiple
+of 128, h ≥ 2^15, 512 < n < 1024, batches that do not group); the kernels
+here take them all.
+
 Registration happens at commit.  Anything outside this slice raises
 :class:`RawFastUnavailable` (an :class:`UnsupportedConfiguration`) naming
 the ROADMAP Queue 1 item that will port it; no configuration is quietly
@@ -18,10 +29,10 @@ sent down another path.
 
 from __future__ import annotations
 
-from .enums import ComplexStorage, Direction, Domain, Layout, Level
+from .enums import ComplexStorage, Direction, Domain, Layout, Level, Placement
 from .enums import inv as _inv
 from .exceptions import UnsupportedConfiguration
-from .ops import cuda_fft, cuda_global
+from .ops import cuda_fft, cuda_global, cuda_real
 from .ops.torch_fft import is_two_stage
 from .utils.layout import get_layout
 
@@ -38,6 +49,10 @@ _SIGNS = {Direction.FORWARD: -1, Direction.BACKWARD: +1}
 #: csrc/fft_common.cuh) fits the 227 KB of shared memory a block may use up
 #: to this length.  The C side checks no length; a launch past it fails.
 GLOBAL_SUB_MAX = 8192
+
+#: Longest REAL transform K9 takes whole; longer even lengths run the
+#: half-length path.  The JAX package's limit (``pallas_real``) too.
+SMALL_REAL_MAX_N = 512
 
 
 def _leaf_ok(plan) -> bool:
@@ -71,31 +86,9 @@ def _entry_1d(plan0, batch: int, sign: int, scale: float):
     )
 
 
-def register(committed) -> dict:
-    """The per-direction entry table of a committed plan.  Raises
-    :class:`RawFastUnavailable` for every descriptor outside the slice."""
-    d = committed.descriptor
-    if committed.precision.name != "float32":
-        raise RawFastUnavailable(
-            "fp64 transforms are not ported yet (ROADMAP Queue 1 item 12)"
-        )
-    if d.domain != Domain.COMPLEX:
-        raise RawFastUnavailable(
-            "REAL-domain transforms are not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    if len(d.lengths) >= 2:
-        raise RawFastUnavailable(
-            "multi-dimensional transforms are not ported yet "
-            "(ROADMAP Queue 1 item 10)"
-        )
-    if d.complex_storage != ComplexStorage.INTERLEAVED_COMPLEX:
-        raise RawFastUnavailable(
-            "SPLIT_COMPLEX storage is not ported yet (ROADMAP Queue 1 item 8)"
-        )
-    out: dict = {}
-    n0 = d.lengths[0]
-    plan0 = committed.plans[n0]
-    for direction, sign in _SIGNS.items():
+def _check_packed(d) -> None:
+    """Zero offsets and PACKED layouts in both directions."""
+    for direction in _SIGNS:
         out_dir = _inv(direction)
         if d.get_offset(direction) or d.get_offset(out_dir):
             raise RawFastUnavailable(
@@ -109,18 +102,95 @@ def register(committed) -> dict:
                 "strided and BATCH_INTERLEAVED layouts are not ported yet "
                 "(ROADMAP Queue 1 item 8)"
             )
-        out[direction] = _entry_1d(
+
+
+def _register_real(committed) -> dict:
+    """Entries of a 1D REAL transform: ``(kind, n, batch, sign, scale)``
+    for the small path, ``(kind, c2c_entry, h, batch, sign, scale)`` for
+    the half-length path, whose C2C entry runs at scale 1."""
+    d = committed.descriptor
+    if len(d.lengths) >= 2:
+        raise RawFastUnavailable(
+            "multi-dimensional REAL transforms are not ported yet "
+            "(ROADMAP Queue 1 item 9, with multi-dim item 10)"
+        )
+    if d.placement == Placement.IN_PLACE:
+        raise RawFastUnavailable(
+            "in-place REAL transforms (the FFTW padded layout) are not "
+            "ported yet (ROADMAP Queue 1 item 9)"
+        )
+    if d.complex_storage != ComplexStorage.INTERLEAVED_COMPLEX:
+        raise RawFastUnavailable(
+            "SPLIT_COMPLEX REAL transforms are not ported yet "
+            "(ROADMAP Queue 1 item 9)"
+        )
+    _check_packed(d)
+    n, batch = d.lengths[0], d.number_of_transforms
+    out: dict = {}
+    for direction, sign in _SIGNS.items():
+        scale = float(d.get_scale(direction))
+        forward = direction == Direction.FORWARD
+        if n <= SMALL_REAL_MAX_N:
+            out[direction] = ("realsf" if forward else "realsb", n, batch,
+                              sign, scale)
+        else:
+            h = n // 2
+            sub = _entry_1d(committed.plans[h], batch, sign, 1.0)
+            out[direction] = ("realf" if forward else "realb", sub, h, batch,
+                              sign, scale)
+    return out
+
+
+def register(committed) -> dict:
+    """The per-direction entry table of a committed plan.  Raises
+    :class:`RawFastUnavailable` for every descriptor outside the slice."""
+    d = committed.descriptor
+    if committed.precision.name != "float32":
+        raise RawFastUnavailable(
+            "fp64 transforms are not ported yet (ROADMAP Queue 1 item 12)"
+        )
+    if d.domain == Domain.REAL:
+        return _register_real(committed)
+    if len(d.lengths) >= 2:
+        raise RawFastUnavailable(
+            "multi-dimensional transforms are not ported yet "
+            "(ROADMAP Queue 1 item 10)"
+        )
+    if d.complex_storage != ComplexStorage.INTERLEAVED_COMPLEX:
+        raise RawFastUnavailable(
+            "SPLIT_COMPLEX storage is not ported yet (ROADMAP Queue 1 item 8)"
+        )
+    _check_packed(d)
+    plan0 = committed.plans[d.lengths[0]]
+    return {
+        direction: _entry_1d(
             plan0, d.number_of_transforms, sign, float(d.get_scale(direction))
         )
-    return out
+        for direction, sign in _SIGNS.items()
+    }
 
 
 def kernel_args(committed, entry):
     """``(kernel, args)`` of an entry: the wrapper (``cuda_fft.direct``,
-    ``cuda_fft.fused2`` or ``cuda_global.global2``) and the arguments that
-    follow the raw buffer, with the committed plan's device tables."""
-    kind, plan0, batch, sign, scale = entry
+    ``cuda_fft.fused2``, ``cuda_global.global2``, ``cuda_real.small_real``,
+    or for the half-length REAL entries ``cuda_real.untangle``/``retangle``)
+    and the arguments that follow the buffer, with the committed plan's
+    device tables.  A half-length REAL entry's C2C kernel is
+    ``kernel_args(committed, entry[1])``."""
+    kind = entry[0]
     keys, arrays = committed._bank_keys, committed._bank_arrays
+    if kind in ("realsf", "realsb"):
+        _, n, batch, sign, scale = entry
+        w, m = keys[("W", n, sign)], keys[("RM", n, sign)]
+        return cuda_real.small_real, (batch, cuda_real.SmallRealTables(
+            n, sign, scale, arrays[w + "r"], arrays[w + "i"], arrays[m + "m"]
+        ))
+    if kind in ("realf", "realb"):
+        _, _, h, batch, sign, scale = entry
+        r = keys[("R", 2 * h, sign)]
+        kernel = cuda_real.untangle if kind == "realf" else cuda_real.retangle
+        return kernel, (batch, h, arrays[r + "r"], arrays[r + "i"], scale)
+    _, plan0, batch, sign, scale = entry
     if kind == "global2":
         g1, g2 = plan0.sub
         t = keys[("T", g1.n, g2.n, sign)]
@@ -136,9 +206,32 @@ def kernel_args(committed, entry):
 
 def build_fn(committed, entry):
     """``fn(raw, out=None) -> tensor`` for an entry: ``raw`` is the flat
-    float32 buffer of exactly 2·batch·n scalars on the plan's device; ``out``
-    (may be ``raw``) receives the result."""
+    float32 input buffer on the plan's device, of exactly the entry's input
+    count; ``out`` (C2C only; may be ``raw``) receives the result."""
     kernel, args = kernel_args(committed, entry)
+    kind = entry[0]
+    if kind in ("realf", "realb"):
+        c2c, c2c_args = kernel_args(committed, entry[1])
+        if kind == "realf":
+
+            def fn(raw):
+                # the real rows are the h-point input z = x_even + i·x_odd
+                return kernel(c2c(raw, *c2c_args), *args)
+
+        else:
+
+            def fn(raw):
+                z = kernel(raw, *args)
+                # the h-point transform of Z, in place, is the real rows
+                return c2c(z, *c2c_args, out=z)
+
+        return fn
+    if kind in ("realsf", "realsb"):
+
+        def fn(raw):
+            return kernel(raw, *args)
+
+        return fn
 
     def fn(raw, out=None):
         return kernel(raw, *args, out=out)

@@ -90,9 +90,9 @@ def rows_plain_raw(raw: torch.Tensor, batch: int, sub: SubTables, scale: float):
     """Plain version of K1 and K2: ``rows_plain`` on each of the ``batch``
     rows of the raw buffer — one matmul with the DFT matrix (DIRECT) or the
     two-stage [a, 128] decomposition (FUSED) — scaled and interleaved."""
-    full_fp32_matmuls(raw)
     x = raw.view(batch, sub.m, 2)
-    return interleave(*rows_plain(sub, x[..., 0], x[..., 1]), scale)
+    with full_fp32_matmuls(raw):
+        return interleave(*rows_plain(sub, x[..., 0], x[..., 1]), scale)
 
 
 def check_buffer(raw: torch.Tensor, numel: int, what: str) -> None:

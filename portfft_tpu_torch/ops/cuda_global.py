@@ -32,12 +32,12 @@ def global2_plain(
     pass 1 ``S[b, n2, k1] = (G1-point transform of x[b, :, n2])[k1] ·
     T[n2, k1]``; pass 2 ``out[b, k1 + G1·k2] = scale ·
     (G2-point transform of S[b, :, k1])[k2]``."""
-    full_fp32_matmuls(raw)
     g1, g2 = sub1.m, sub2.m
     x = raw.view(batch, g1, g2, 2).transpose(1, 2)  # [b, n2, n1]
-    sr, si = rows_plain(sub1, x[..., 0], x[..., 1])
-    sr, si = complex_mul(sr, si, tr, ti)  # T stored (g2, g1) = [n2, k1]
-    cr, ci = rows_plain(sub2, sr.transpose(1, 2), si.transpose(1, 2))
+    with full_fp32_matmuls(raw):
+        sr, si = rows_plain(sub1, x[..., 0], x[..., 1])
+        sr, si = complex_mul(sr, si, tr, ti)  # T stored (g2, g1) = [n2, k1]
+        cr, ci = rows_plain(sub2, sr.transpose(1, 2), si.transpose(1, 2))
     return interleave(cr.transpose(1, 2), ci.transpose(1, 2), scale)
 
 

@@ -1,0 +1,165 @@
+"""K8a ``untangle``, K8b ``retangle`` and K9 ``small_real``: wrappers of the
+CUDA kernels (``csrc/fft_real.cu``) and their plain PyTorch versions.
+
+Counterparts of ``portfft_tpu/ops/pallas_real.py``: ``untangle_raw_call``
+(K8a), ``retangle_raw_call`` (K8b) and ``small_real_raw_call`` (K9).  The
+plain versions of K8 follow the JAX package's plane path
+(``committed._core_real_forward``/``_core_real_backward``); K9's multiplies
+the rows by the bank's small-n REAL matrix (``TwiddleBank.real_small``).
+
+Buffers are flat float32 tensors: the raw Z spectrum of ``2·batch·h``
+scalars, the interleaved half spectrum of ``batch·(2h+2)`` and the real rows
+of ``batch·n``.  Same rule as ``cuda_fft``: CPU tensors go to the plain
+version, CUDA tensors to the kernel, and nothing falls back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..exceptions import InvalidConfiguration
+from . import _build
+from .cuda_fft import check_buffer, interleave, require_cuda, stream_of
+from .torch_fft import complex_mul, full_fp32_matmuls
+
+
+@dataclasses.dataclass(frozen=True)
+class SmallRealTables:
+    """The device tables of one direction of K9 at length ``n``: ``wr``/
+    ``wi`` the n×n DFT planes (the kernel reads row 1, the root table) and
+    ``mat`` the real matrix the plain version multiplies by, (n, n+2)
+    forward or (n+2, n) backward, with ``scale`` folded in."""
+
+    n: int
+    sign: int
+    scale: float
+    wr: torch.Tensor
+    wi: torch.Tensor
+    mat: torch.Tensor
+
+
+def _check_tables(buf: torch.Tensor, numel: int, what: str, *tables) -> None:
+    for t in tables:
+        if t.device != buf.device or t.dtype != torch.float32 or t.numel() != numel:
+            raise InvalidConfiguration(
+                f"{what}: expected float32 tables of {numel} scalars on "
+                f"{buf.device}, got {t.dtype} of {t.numel()} on {t.device}"
+            )
+
+
+def untangle_plain(z, batch: int, h: int, wr, wi, scale: float):
+    """Plain version of K8a: X[k] = E[k] + W^k·O[k] for k < h from Z and
+    its reversal Z[(h−k) mod h], X[h] = Re Z[0] − Im Z[0], times scale."""
+    zc = z.view(batch, h, 2)
+    zr, zi = zc[..., 0], zc[..., 1]
+    rr = torch.roll(torch.flip(zr, [-1]), 1, -1)
+    ri = torch.roll(torch.flip(zi, [-1]), 1, -1)
+    er = 0.5 * (zr + rr)
+    ei = 0.5 * (zi - ri)
+    our = 0.5 * (zi + ri)
+    oui = -0.5 * (zr - rr)
+    tr, ti = complex_mul(our, oui, wr, wi)
+    xr = torch.cat([er + tr, zr[:, :1] - zi[:, :1]], -1)
+    xi = torch.cat([ei + ti, torch.zeros_like(zi[:, :1])], -1)
+    return interleave(xr, xi, scale)
+
+
+def retangle_plain(x, batch: int, h: int, wr, wi, scale: float):
+    """Plain version of K8b: Z = E2 + i·W^k·N2 with E2 = X[k] + conj X[h−k]
+    and N2 = X[k] − conj X[h−k] (k = 0 reads X[h]), times scale."""
+    xc = x.view(batch, h + 1, 2)
+    xr, xi = xc[..., 0], xc[..., 1]
+    rev_r = torch.flip(xr[:, 1:], [-1])
+    rev_i = torch.flip(xi[:, 1:], [-1])
+    e2r = xr[:, :h] + rev_r
+    e2i = xi[:, :h] - rev_i
+    n2r = xr[:, :h] - rev_r
+    n2i = xi[:, :h] + rev_i
+    o2r, o2i = complex_mul(n2r, n2i, wr, wi)
+    return interleave(e2r - o2i, e2i + o2r, scale)
+
+
+def small_real_plain(raw, batch: int, tabs: SmallRealTables):
+    """Plain version of K9: each row times the small-n REAL matrix."""
+    rows = raw.view(batch, tabs.mat.shape[0])
+    with full_fp32_matmuls(raw):
+        return torch.matmul(rows, tabs.mat).reshape(-1)
+
+
+def _half_length(kernel_name: str, src, batch, h, wr, wi, scale, out_numel):
+    lib = _build.load()
+    out = torch.empty(out_numel, dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
+        err = getattr(lib, "pf_" + kernel_name)(
+            src.data_ptr(), out.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+            batch, h, scale, stream_of(src),
+        )
+    _build.check(lib, err, kernel_name + " kernel")
+    return out
+
+
+def untangle(z, batch: int, h: int, wr, wi, scale: float):
+    """K8a: the raw Z spectrum of ``batch`` h-point forward transforms ->
+    the interleaved half spectra of length n = 2h.  ``wr``/``wi``: the
+    bank's ("R", n, -1) planes."""
+    check_buffer(z, 2 * batch * h, "untangle")
+    if z.device.type == "cpu":
+        return untangle_plain(z, batch, h, wr, wi, scale)
+    require_cuda(z, "untangle")
+    _check_tables(z, h, "untangle", wr, wi)
+    x = _half_length("untangle", z, batch, h, wr, wi, scale, batch * (2 * h + 2))
+    untangle.launches += 1
+    return x
+
+
+untangle.launches = 0
+untangle.plain = untangle_plain
+
+
+def retangle(x, batch: int, h: int, wr, wi, scale: float):
+    """K8b: ``batch`` interleaved half spectra of length n = 2h -> the raw
+    Z spectrum that the h-point backward transform turns into the reals.
+    ``wr``/``wi``: the bank's ("R", n, +1) planes."""
+    check_buffer(x, batch * (2 * h + 2), "retangle")
+    if x.device.type == "cpu":
+        return retangle_plain(x, batch, h, wr, wi, scale)
+    require_cuda(x, "retangle")
+    _check_tables(x, h, "retangle", wr, wi)
+    z = _half_length("retangle", x, batch, h, wr, wi, scale, 2 * batch * h)
+    retangle.launches += 1
+    return z
+
+
+retangle.launches = 0
+retangle.plain = retangle_plain
+
+
+def small_real(raw, batch: int, tabs: SmallRealTables):
+    """K9: ``batch`` whole REAL transforms of even length ``tabs.n`` ≤ 512:
+    forward (``tabs.sign`` < 0) ``batch·n`` reals -> ``batch·(n+2)``
+    interleaved half spectra; backward the reverse (irfft semantics).  The
+    kernel reads ``tabs.wr``/``wi`` and ``tabs.scale``."""
+    n = tabs.n
+    forward = tabs.sign < 0
+    check_buffer(raw, batch * (n if forward else n + 2), "small_real")
+    if raw.device.type == "cpu":
+        return small_real_plain(raw, batch, tabs)
+    require_cuda(raw, "small_real")
+    _check_tables(raw, n * n, "small_real", tabs.wr, tabs.wi)
+    lib = _build.load()
+    y = torch.empty(batch * (n + 2 if forward else n), dtype=torch.float32,
+                    device=raw.device)
+    with torch.cuda.device(raw.device):
+        err = lib.pf_small_real(
+            raw.data_ptr(), y.data_ptr(), tabs.wr.data_ptr(), tabs.wi.data_ptr(),
+            batch, n, tabs.sign, tabs.scale, stream_of(raw),
+        )
+    _build.check(lib, err, "small_real kernel")
+    small_real.launches += 1
+    return y
+
+
+small_real.launches = 0
+small_real.plain = small_real_plain

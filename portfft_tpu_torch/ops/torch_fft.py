@@ -4,13 +4,18 @@ plain PyTorch versions of the kernels share.
 :class:`TwiddleBank` keeps host numpy tables under the JAX package's key
 strings (``portfft_tpu.ops.xla_fft.TwiddleBank``): ``W{f|b}{n}`` for DFT
 matrices, ``T{f|b}{f}x{m}`` for inter-factor twiddles stored transposed
-(m, f), ``U{f|b}{f}x{m}`` for the same twiddles in (f, m) orientation, each
-with an ``r``/``i`` plane suffix.  The values are the JAX package's too
+(m, f), ``U{f|b}{f}x{m}`` for the same twiddles in (f, m) orientation,
+``R{f|b}{n}`` for the REAL untangle/retangle post-twiddle, each with an
+``r``/``i`` plane suffix.  The values are the JAX package's too
 (``twiddle.py``), so a table carried over from it (``convert.py``) and one
-built here are interchangeable.
+built here are interchangeable.  ``RM{f|b}{n}_{scale}m`` (the small-n REAL
+matrix, :meth:`TwiddleBank.real_small`) has no counterpart there: the JAX
+package keeps the same matrix only as a bf16 stack.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -57,6 +62,40 @@ class TwiddleBank:
             re, im = tw.twiddles(f, m, sign, self.dtype)
             self.host[key + "r"] = re
             self.host[key + "i"] = im
+            self.host[key] = None
+        return key
+
+    def rfft_untangle(self, n: int, sign: int) -> str:
+        """Post-twiddle W^k = exp(sign·2πi·k/n), k < n/2, of the packed
+        half-length REAL transform (forward untangle, backward retangle)."""
+        key = f"R{'f' if sign < 0 else 'b'}{n}"
+        if key not in self.host:
+            k = np.arange(n // 2, dtype=np.float64)
+            theta = (2.0 * np.pi / n) * k
+            self.host[key + "r"] = np.cos(theta).astype(self.dtype)
+            self.host[key + "i"] = (np.float64(sign) * np.sin(theta)).astype(
+                self.dtype
+            )
+            self.host[key] = None
+        return key
+
+    def real_small(self, n: int, sign: int, scale: float) -> str:
+        """The whole small-n REAL transform of one row as a real matrix over
+        the row's raw floats, scale folded in.  Forward (sign < 0): (n, n+2),
+        row j = float view of ``rfft(e_j)``.  Backward: (n+2, n), row j =
+        ``irfft(float basis j)·n`` (the unnormalized inverse; irfft drops the
+        imaginary parts of bins 0 and n/2).  Built in float64 as the JAX
+        package's ``TwiddleBank.real_small`` builds it, then cast."""
+        key = f"RM{'f' if sign < 0 else 'b'}{n}_{scale!r}"
+        if key not in self.host:
+            if sign < 0:
+                eye = np.eye(n, dtype=np.float64)
+                m = np.fft.rfft(eye, axis=1) * scale
+                m = np.ascontiguousarray(m).view(np.float64)
+            else:
+                basis = np.eye(n + 2, dtype=np.float64).view(np.complex128)
+                m = np.fft.irfft(basis, n, axis=1) * n * scale
+            self.host[key + "m"] = m.astype(self.dtype)
             self.host[key] = None
         return key
 
@@ -108,9 +147,18 @@ def complex_mul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
 
 
-def full_fp32_matmuls(t: torch.Tensor) -> None:
-    """Plain versions multiply in full float32: on a CUDA tensor, turn off
-    TF32 for matmuls explicitly (it keeps about three decimal digits and
-    would miss the 2·eps·N·log2N tolerance)."""
-    if t.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
+@contextlib.contextmanager
+def full_fp32_matmuls(t: torch.Tensor):
+    """Plain versions multiply in full float32: on a CUDA tensor, TF32 for
+    matmuls is off inside the block (it keeps about three decimal digits
+    and would miss the 2·eps·N·log2N tolerance), and the caller's setting
+    is restored on the way out."""
+    if not t.is_cuda:
+        yield
+        return
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed

@@ -1,5 +1,6 @@
 """portfft_tpu_torch on a CUDA card: each kernel against its plain PyTorch
-version, and the committed main path against ``torch.fft`` (oracle only).
+version, and the committed C2C and REAL paths against ``torch.fft`` (oracle
+only).
 
 Skipped without a CUDA device.  On a machine with a card (and without JAX)
 run ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``: the
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 import portfft_tpu_torch as pf
-from chip_smoke import KERNEL_TOL, oracle_tol
+from chip_smoke import KERNEL_TOL, oracle_tol, real_case
 from portfft_tpu_torch import fastpath
 
 pytestmark = pytest.mark.gpu
@@ -25,7 +26,6 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -103,3 +103,75 @@ def test_tensor_on_other_device_raises(cuda):
     plan = pf.Descriptor(lengths=[16]).commit(device="cuda")
     with pytest.raises(pf.InvalidConfiguration):
         plan.compute_forward(torch.zeros(16, dtype=torch.complex64))
+
+
+def test_plain_versions_leave_the_tf32_setting_alone(cuda):
+    plan = pf.Descriptor(lengths=[4096], number_of_transforms=2).commit()
+    kernel, args = fastpath.kernel_args(plan, plan._raw_fast[pf.Direction.FORWARD])
+    x = torch.rand(2 * 2 * 4096, device=cuda)
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for setting in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = setting
+            kernel.plain(x, *args)
+            assert torch.backends.cuda.matmul.allow_tf32 is setting
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+
+
+def _half_spectra(rng, batch, n, device):
+    spec = rng.uniform(-1, 1, (batch, n // 2 + 1, 2)).astype(np.float32)
+    spec[:, 0, 1] = spec[:, -1, 1] = 0.0  # the spectrum of a real signal
+    return torch.from_numpy(spec.reshape(-1)).to(device)
+
+
+@pytest.mark.parametrize(
+    "n,batch,kinds",
+    [
+        (4, 9, ("small_real",) * 2), (32, 1000, ("small_real",) * 2),
+        (100, 37, ("small_real",) * 2), (512, 9, ("small_real",) * 2),
+        (1000, 3, ("untangle", "retangle")), (1022, 2, ("untangle", "retangle")),
+        (8192, 2, ("untangle", "retangle")), (1 << 17, 1, ("untangle", "retangle")),
+    ],
+)
+def test_real_kernel_matches_plain(cuda, n, batch, kinds):
+    plan = pf.Descriptor(
+        lengths=[n], number_of_transforms=batch, domain=pf.Domain.REAL,
+        forward_scale=0.5, backward_scale=3.0 / n,
+    ).commit(device=cuda)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.uniform(-1, 1, batch * n).astype(np.float32)).to(cuda)
+    spec = _half_spectra(rng, batch, n, cuda)
+    for direction, want_kind in zip(pf.Direction, kinds):
+        kind, kernel, args, inp, _ = real_case(plan, direction, x, spec)
+        assert kind == want_kind
+        before = kernel.launches
+        want = kernel.plain(inp, *args)
+        got = kernel(inp, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
+
+
+@pytest.mark.parametrize("n,batch", [(32, 64), (512, 8), (1000, 4), (8192, 4),
+                                     (1 << 17, 1)])
+def test_real_main_path_matches_oracle(cuda, n, batch):
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         domain=pf.Domain.REAL).commit()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(batch, n, generator=gen, device=cuda)
+    y = plan.compute_forward(x)
+    assert y.dtype == torch.float32 and y.shape == (batch * (n + 2),)
+    ref = torch.fft.rfft(x.double())
+    got = torch.view_as_complex(y.view(batch, n // 2 + 1, 2)).to(torch.complex128)
+    assert (got - ref).abs().max().item() <= oracle_tol(n)
+    # O(1) half spectra, as the absolute tolerance assumes
+    spec = torch.view_as_complex(
+        _half_spectra(np.random.default_rng(n), batch, n, cuda).view(batch, -1, 2)
+    )
+    back = plan.compute_backward(spec)
+    assert back.dtype == torch.float32 and back.shape == (batch * n,)
+    want = torch.fft.irfft(spec.to(torch.complex128), n, norm="forward")
+    diff = (back.view(batch, n).double() - want).abs().max().item()
+    assert diff <= oracle_tol(n), diff

@@ -167,7 +167,8 @@ def test_commit_needs_cuda_unless_cpu_is_named(monkeypatch):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(lengths=[16], domain="REAL"), "item 9"),
+        (dict(lengths=[16], domain="REAL", complex_storage="SPLIT_COMPLEX"),
+         "item 9"),
         (dict(lengths=[4, 4]), "item 10"),
         (dict(lengths=[16], complex_storage="SPLIT_COMPLEX"), "item 8"),
         (dict(lengths=[16], number_of_transforms=2, forward_strides=[2],
@@ -215,6 +216,10 @@ import portfft_tpu_torch.convert, portfft_tpu_torch.fastpath
 plan = pt.Descriptor(lengths=[65536], number_of_transforms=1).commit(device="cpu")
 y = plan.compute_forward(np.ones(65536, np.complex64))
 assert abs(y[0] - 65536) < 1e-2 and abs(y[1:]).max() < 1e-2
+real = pt.Descriptor(lengths=[1000], number_of_transforms=2,
+                     domain=pt.Domain.REAL).commit(device="cpu")
+r = real.compute_forward(np.ones(2000, np.float32))
+assert abs(r[0] - 1000) < 1e-2 and abs(r[1:501]).max() < 1e-2
 assert not any(m.split(".")[0] in ("jax", "portfft_tpu") for m in sys.modules)
 print("ok")
 """
