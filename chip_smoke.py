@@ -20,16 +20,24 @@
    Each case also plants two faults, the kernel run with one of its tables
    conjugated and an all-zero output, and fails unless both checks reject
    both.  The REAL kernels are timed alone here at the bench shapes.
-4. Main-path phases, C2C then REAL: ``Descriptor(...).commit(device="cuda")``
-   and ``compute_forward``/``compute_backward`` on a float32 tensor on the
+   Then the multi-dim kernels the same way: K10 col at the (bpre, L, rest)
+   views of ``MD_COL_CASES`` (oracle ``fft`` along L) and K11 md2 at the
+   (batch, n1, n2) shapes of ``MD2_CASES`` (oracle ``fft2``), N being the
+   transform's size; K10 timed alone at md_1024x1024's column pass and K11
+   at md_512x512, beside their plain versions and one ``torch.fft`` call.
+4. Main-path phases, C2C, REAL, then multi-dim:
+   ``Descriptor(...).commit(device="cuda")`` and
+   ``compute_forward``/``compute_backward`` on a float32 tensor on the
    card, for the C2C bench rows, then for the four REAL bench rows and
-   real_large backward.  Each phase resets the launch counts just before
-   and reads them just after; each row's kernels (for a REAL row, its K8 or
-   K9 and the C2C kernel under it) must have launched.  A sample of rows is
-   held to ``torch.fft`` at the absolute 2·eps·N·log2(N) per element.  The
-   kernel path, the plain path and one ``torch.fft`` call of the same
-   function (the yardstick; the port never calls it) are timed with CUDA
-   events (3 warm-up calls, median of 10).
+   real_large backward, then for the three ``MULTIDIM_CONFIGS`` rows,
+   md_1024x1024 backward and the BATCH_INTERLEAVED row bi_4096.  Each phase
+   resets the launch counts just before and reads them just after; each
+   row's kernels (for a REAL row, its K8 or K9 and the C2C kernel under it;
+   for a multi-dim row, every kernel of its route) must have launched.  A
+   sample of transforms is held to ``torch.fft`` at the absolute
+   2·eps·N·log2(N) per element.  The kernel path, the plain path and one
+   ``torch.fft`` call of the same function (the yardstick; the port never
+   calls it) are timed with CUDA events (3 warm-up calls, median of 10).
 5. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms), then, as the last line, ``{"ok": true, "device":
@@ -90,6 +98,29 @@ REAL_KERNEL_CASES = [
     (4, 1 << 16), (32, 2 * 1024 * 1024), (100, 1 << 15), (512, 256 * 1024),
     (1000, 1 << 12), (8192, 16 * 1024), (131072, 1024),
 ]
+# Multi-dim rows (bench.py MULTIDIM_CONFIGS, md_1024x1024 backward) and the
+# BATCH_INTERLEAVED row bi_4096 (strides [batch], distance 1): name, lengths,
+# batch, direction, batch-interleaved.
+MD_ROWS = [
+    ("md_512x512", (512, 512), 256, "forward", False),
+    ("md_1024x1024", (1024, 1024), 64, "forward", False),
+    ("md_128^3", (128, 128, 128), 32, "forward", False),
+    ("md_1024x1024_backward", (1024, 1024), 64, "backward", False),
+    ("bi_4096", (4096,), 32768, "forward", True),
+]
+# Multi-dim kernel phase.  K10 at (bpre, L, rest): the column passes of
+# md_1024x1024 (FUSED [8, 128]) and md_128^3 (DIRECT), bi_4096, an odd
+# DIRECT length, the longest one-tile FUSED length and the two-launch
+# [128, 128].  K11 at (batch, n1,
+# n2): md_512x512, the trailing pair of md_128^3, and FUSED phases A and B.
+MD_COL_CASES = [(64, 1024, 1024), (32, 128, 16384), (1, 4096, 32768),
+                (4, 100, 4096), (1, 8192, 2048), (2, 16384, 512)]
+MD2_CASES = [(256, 512, 512), (4096, 128, 128), (64, 1024, 128),
+             (64, 128, 1024)]
+# The cases timed alone: md_1024x1024's column pass and md_512x512.
+MD_ALONE = {"col": (64, 1024, 1024), "md2": (256, 512, 512)}
+# The transformed axes of each kernel's complex (b, ., .) view.
+MD_DIMS = {"col": (1,), "md2": (1, 2)}
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -103,9 +134,14 @@ SOURCES = {
                  "portfft_tpu/ops/pallas_real.py:426"),
     "small_real": ("portfft_tpu_torch/csrc/fft_real.cu",
                    "portfft_tpu/ops/pallas_real.py:567"),
+    "col": ("portfft_tpu_torch/csrc/fft_col.cu",
+            "portfft_tpu/ops/pallas_multidim.py:264"),
+    "md2": ("portfft_tpu_torch/csrc/fft_md2.cu",
+            "portfft_tpu/ops/pallas_multidim.py:403"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
+MD_KINDS = ("col", "md2")
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
 # fp32 outside the tensor cores, per millisecond.
 HBM_BYTES_PER_MS = 3.35e9
@@ -121,13 +157,13 @@ def oracle_tol(n: int) -> float:
 
 
 def work(kind: str, n: int, batch: int) -> tuple[int, float]:
-    """(bytes, flops) of one call of a kernel or path over ``batch`` rows of
-    length ``n`` (for the un/retangle, the REAL length 2h): each input byte
-    read once, each output byte written once; flops the nominal
-    5·n·log2(n) of a complex transform, 2.5·n·log2(n) of a real one, and
-    18 per bin for the un/retangle."""
+    """(bytes, flops) of one call of a kernel or path over ``batch``
+    transforms of size ``n`` (for the un/retangle, the REAL length 2h; for
+    K11, n = n1·n2): each input byte read once, each output byte written
+    once; flops the nominal 5·n·log2(n) of a complex transform,
+    2.5·n·log2(n) of a real one, and 18 per bin for the un/retangle."""
     lg, h = max(math.log2(n), 1.0), n // 2
-    if kind in C2C_KINDS:
+    if kind in C2C_KINDS or kind in MD_KINDS:
         return 16 * batch * n, 5 * n * lg * batch
     if kind in ("untangle", "retangle"):
         return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
@@ -183,11 +219,24 @@ def oracle_excess(y, x, n: int, batch: int, sign: int, scale: float) -> float:
     """Largest |y - ref| over a sample of rows, in units of the absolute
     bound 2·eps·N·log2(N)·|scale|; ref is ``torch.fft`` in complex128 (the
     oracle only).  At most 1 passes."""
-    rows = sample_rows(batch)
-    xs = torch.view_as_complex(x.view(batch, n, 2)[rows]).to(torch.complex128)
-    ys = torch.view_as_complex(y.view(batch, n, 2)[rows]).to(torch.complex128)
-    ref = (torch.fft.fft(xs) if sign < 0 else torch.fft.ifft(xs) * n) * scale
-    return (ys - ref).abs().max().item() / (oracle_tol(n) * abs(scale))
+    return nd_oracle_excess(y, x, (batch, n), (1,), sign, scale)
+
+
+def nd_oracle_excess(y, x, shape, dims, sign: int, scale: float) -> float:
+    """``oracle_excess`` of the transform over ``dims`` of the complex
+    ``shape`` view of ``x`` and ``y``, on a sample of the first index; N is
+    the transform's size.  ref is ``torch.fft.fftn``/``ifftn`` in
+    complex128 (the oracle only)."""
+    rows = sample_rows(shape[0])
+
+    def pick(t):
+        return torch.view_as_complex(t.view(*shape, 2)[rows]).to(torch.complex128)
+
+    xs = pick(x)
+    ref = (torch.fft.fftn(xs, dim=dims) if sign < 0
+           else torch.fft.ifftn(xs, dim=dims, norm="forward")) * scale
+    n = math.prod(shape[d] for d in dims)
+    return (pick(y) - ref).abs().max().item() / (oracle_tol(n) * abs(scale))
 
 
 def real_oracle_excess(y, src, n: int, batch: int, sign: int,
@@ -217,9 +266,17 @@ def half_spectra(batch: int, n: int, seed: int, device: str = "cuda") -> torch.T
     return raw
 
 
+def conjugated(sub):
+    """Sub-tables with the roots (DIRECT) or the inner twiddle (FUSED)
+    conjugated."""
+    field = "ui" if sub.a else "wi"
+    return dataclasses.replace(sub, **{field: -getattr(sub, field)})
+
+
 def planted(kind: str, args: tuple) -> tuple:
-    """A kernel's arguments with one table conjugated: the roots (K1, K9),
-    the inner twiddle (K2), the inter-pass twiddle (K3) or the REAL
+    """A kernel's arguments with one table conjugated: the roots (K1, K9,
+    a DIRECT K10 or K11 axis), the inner twiddle (K2, a FUSED K10 or K11
+    axis; K11's second axis), the inter-pass twiddle (K3) or the REAL
     post-twiddle (K8).  K9's plain version reads the matrix, whose
     conjugate negates the imaginary outputs (forward) or inputs
     (backward)."""
@@ -234,10 +291,14 @@ def planted(kind: str, args: tuple) -> tuple:
     if kind == "global2":
         batch, sub1, sub2, tr, ti, scale = args
         return (batch, sub1, sub2, tr, -ti, scale)
+    if kind == "col":
+        bpre, rest, sub, scale = args
+        return (bpre, rest, conjugated(sub), scale)
+    if kind == "md2":
+        batch, sub1, sub2, scale = args
+        return (batch, sub1, conjugated(sub2), scale)
     batch, sub, scale = args
-    field = "ui" if kind == "fused2" else "wi"
-    return (batch, dataclasses.replace(sub, **{field: -getattr(sub, field)}),
-            scale)
+    return (batch, conjugated(sub), scale)
 
 
 def check_kernel(kind: str, kernel, args: tuple, x, n: int, sign: int) -> dict:
@@ -321,6 +382,15 @@ def plain_path(plan, entry):
     the kernels: ``fn(x) -> y``."""
     from portfft_tpu_torch import fastpath
 
+    if entry[0] == "multidim":
+        steps = [fastpath.kernel_args(plan, s) for s in entry[2]]
+
+        def chain(x):
+            for kernel, args in steps:
+                x = kernel.plain(x, *args)
+            return x
+
+        return chain
     kernel, args = fastpath.kernel_args(plan, entry)
     if entry[0] in ("realf", "realb"):
         c2c, c2c_args = fastpath.kernel_args(plan, entry[1])
@@ -358,17 +428,16 @@ def c2c_kernel_phase(pf, max_err: dict) -> None:
             torch.cuda.synchronize()
             if kernel.launches != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
-            report(kind, n, batch, direction, r)
+            report(kind, f"n={n:<8d} batch={batch:<8d} {direction.value:8s}", r)
             max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
         del plan, x
         torch.cuda.empty_cache()
 
 
-def report(kind: str, n: int, batch: int, direction, r: dict) -> None:
+def report(kind: str, where: str, r: dict) -> None:
     caught = " ".join(f"{name}: {rel:.2e}·max|plain|, {exc:.2e}×oracle;"
                       for name, (rel, exc) in r["caught"].items())
-    print(f"kernel {kind:10s} n={n:<8d} batch={batch:<8d} "
-          f"{direction.value:8s} max|k-plain|={r['err']:.3e} "
+    print(f"kernel {kind:10s} {where} max|k-plain|={r['err']:.3e} "
           f"={r['rel']:.2e}·max|plain| (tol {KERNEL_TOL:g}) "
           f"oracle {r['excess']:.2e}×bound | planted faults rejected: "
           f"{caught}")
@@ -398,7 +467,7 @@ def real_kernel_phase(pf, max_err: dict, card: str) -> dict:
             torch.cuda.synchronize()
             if kernel.launches != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
-            report(kind, n, batch, direction, r)
+            report(kind, f"n={n:<8d} batch={batch:<8d} {direction.value:8s}", r)
             max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
             if (n, batch) in bench:
                 ms = time_ms(lambda: kernel(inp, *args))
@@ -524,12 +593,150 @@ def real_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     return results, launches
 
 
+def sub_tables_of(pf, n: int, sign: int, device: str = "cuda"):
+    """The device tables of the length-``n`` plan for one direction, from a
+    1D commit of that length."""
+    from portfft_tpu_torch.ops import cuda_fft
+
+    plan = pf.Descriptor(lengths=[n]).commit(device=device)
+    return cuda_fft.sub_tables(plan.plans[n], sign, plan._bank_keys,
+                               plan._bank_arrays)
+
+
+def md_kernel_case(pf, kind: str, shape: tuple, sign: int, scale: float,
+                   device: str = "cuda") -> tuple:
+    """``(kernel, args)`` of a K10 case, ``shape`` = (bpre, L, rest), or a
+    K11 case, (batch, n1, n2)."""
+    from portfft_tpu_torch.ops import cuda_multidim
+
+    if kind == "col":
+        bpre, length, rest = shape
+        sub = sub_tables_of(pf, length, sign, device)
+        return cuda_multidim.col, (bpre, rest, sub, scale)
+    batch, n1, n2 = shape
+    return cuda_multidim.md2, (batch, sub_tables_of(pf, n1, sign, device),
+                               sub_tables_of(pf, n2, sign, device), scale)
+
+
+def check_md(kind: str, kernel, args: tuple, x, shape: tuple, sign: int) -> dict:
+    """``check_kernel`` for K10 or K11 on the complex ``shape`` view."""
+    return check_against(
+        f"{kind} {shape} sign={sign:+d}", kind, kernel, args, x,
+        lambda y: nd_oracle_excess(y, x, shape, MD_DIMS[kind], sign, args[-1]),
+    )
+
+
+def fftn_call(x, shape: tuple, dims: tuple, forward: bool):
+    """One ``torch.fft`` call of the unscaled transform over ``dims`` of the
+    complex ``shape`` view of ``x`` (the yardstick, timed only)."""
+    xc = torch.view_as_complex(x.view(*shape, 2))
+    if forward:
+        return lambda: torch.fft.fftn(xc, dim=dims)
+    return lambda: torch.fft.ifftn(xc, dim=dims, norm="forward")
+
+
+def md_kernel_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K10 at ``MD_COL_CASES`` and K11 at ``MD2_CASES``, forward
+    (scale 0.5) and backward (scale 2/N); returns ``{kind: (ms, plain_ms,
+    library_ms)}`` of each timed alone forward at its ``MD_ALONE`` shape."""
+    alone = {}
+    cases = [("col", s) for s in MD_COL_CASES] + [("md2", s) for s in MD2_CASES]
+    for kind, shape in cases:
+        x = random_raw(2 * math.prod(shape), seed=sum(shape))
+        dims = MD_DIMS[kind]
+        n = math.prod(shape[d] for d in dims)  # the transform's size
+        for sign in (-1, +1):
+            scale = 0.5 if sign < 0 else 2.0 / n
+            kernel, args = md_kernel_case(pf, kind, shape, sign, scale)
+            before = kernel.launches
+            r = check_md(kind, kernel, args, x, shape, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"{kind} {shape}: launch counter did not rise")
+            report(kind, f"{str(shape):18s} sign={sign:+d}", r)
+            max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+            if sign < 0 and MD_ALONE[kind] == shape:
+                ms = time_ms(lambda: kernel(x, *args))
+                plain_ms = time_ms(lambda: kernel.plain(x, *args))
+                library_ms = time_ms(fftn_call(x, shape, dims, True))
+                bound, by = bound_of(kind, n, math.prod(shape) // n)
+                alone[kind] = (ms, plain_ms, library_ms)
+                print(f"alone  {kind:10s} {str(shape):18s} kernel {ms:.3f} ms | "
+                      f"plain {plain_ms:.3f} ms | torch.fft {library_ms:.3f} ms | "
+                      f"bound {bound:.3f} ms ({by}) | {card}")
+            del kernel, args
+        del x
+        torch.cuda.empty_cache()
+    return alone
+
+
+def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
+    """The multi-dim and BATCH_INTERLEAVED rows through the committed
+    plan; every kernel of each row's route must launch."""
+    results = []
+    for c in counters.values():
+        c.launches = 0
+    for name, lengths, batch, dname, bi in MD_ROWS:
+        direction = pf.Direction(dname)
+        forward = direction == pf.Direction.FORWARD
+        sign = -1 if forward else +1
+        kw = dict(forward_strides=[batch], backward_strides=[batch],
+                  forward_distance=1, backward_distance=1) if bi else {}
+        plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                             **kw).commit(device="cuda")
+        entry = plan._raw_fast[direction]
+        steps = entry[2] if entry[0] == "multidim" else (entry,)
+        kinds = ["col" if s[0] in ("col", "bi_col") else s[0] for s in steps]
+        n = math.prod(lengths)
+        x = random_raw(2 * batch * n, seed=0)
+        compute = plan.compute_forward if forward else plan.compute_backward
+        before = {k: counters[k].launches for k in kinds}
+        y = compute(x)
+        torch.cuda.synchronize()
+        rose = {k: counters[k].launches - before[k] for k in kinds}
+        if min(rose.values()) <= 0:
+            raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
+        if y.shape != x.shape or not torch.isfinite(y).all():
+            raise SmokeFailure(f"{name}: output of shape {tuple(y.shape)} "
+                               "or not finite")
+        # BATCH_INTERLEAVED: one transform down each column of (n, batch)
+        shape = (1, n, batch) if bi else (batch, *lengths)
+        dims = (1,) if bi else tuple(range(1, len(shape)))
+        excess = nd_oracle_excess(y, x, shape, dims, sign, 1.0)
+        if not excess <= 1.0:
+            raise SmokeFailure(f"{name}: {excess:.3e} times the oracle bound "
+                               f"{oracle_tol(n):.3e}")
+        del y
+        ms = time_ms(lambda: compute(x))
+        plain_ms = time_ms(functools.partial(plain_path(plan, entry), x))
+        library_ms = time_ms(fftn_call(x, shape, dims, forward))
+        nbytes, flops = work("md2", n, batch)
+        bound, by = bound_of("md2", n, batch)
+        print(f"row {name:22s} {'x'.join(map(str, lengths)):12s} batch={batch:<6d} "
+              f"{'+'.join(kinds):12s} launches {rose} oracle max|diff|="
+              f"{excess * oracle_tol(n):.3e} tol={oracle_tol(n):.3e} | path "
+              f"{ms:.3f} ms {nbytes / ms / 1e6:.1f} GB/s | plain {plain_ms:.3f} ms "
+              f"| torch.fft {library_ms:.3f} ms | bound {bound:.3f} ms ({by}), "
+              f"{len(kinds)} pass floor {len(kinds) * nbytes / HBM_BYTES_PER_MS:.3f} ms "
+              f"| {card}")
+        results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
+        del plan, x
+        torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"multi-dim main-path launches: {launches}")
+    for kind in MD_KINDS:
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on the multi-dim path")
+    return results, launches
+
+
 def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
-                 alone) -> list[dict]:
+                 alone, md_launches, md_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
-    call computes the same function."""
+    call computes the same function; K10 and K11 from their timing alone at
+    ``MD_ALONE``, with the launches of the multi-dim main path."""
     def entry(kind, launches, ms, plain_ms, library_ms, n, batch):
         source, replaces = SOURCES[kind]
         bound, by = bound_of(kind, n, batch)
@@ -553,6 +760,11 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
         r for r in real_rows if r[1] == ["small_real"])
     kernels.append(entry("small_real", real_launches["small_real"], ms,
                          plain_ms, library_ms, n, batch))
+    for kind in MD_KINDS:
+        shape = MD_ALONE[kind]
+        n = shape[1] if kind == "col" else shape[1] * shape[2]
+        kernels.append(entry(kind, md_launches[kind], *md_alone[kind], n,
+                             math.prod(shape) // n))
     return kernels
 
 
@@ -572,7 +784,13 @@ def run() -> None:
           f"python {sys.version.split()[0]}")
 
     import portfft_tpu_torch as pf
-    from portfft_tpu_torch.ops import _build, cuda_fft, cuda_global, cuda_real
+    from portfft_tpu_torch.ops import (
+        _build,
+        cuda_fft,
+        cuda_global,
+        cuda_multidim,
+        cuda_real,
+    )
 
     t0 = time.perf_counter()
     _build.load()
@@ -581,7 +799,8 @@ def run() -> None:
 
     counters = {"direct": cuda_fft.direct, "fused2": cuda_fft.fused2,
                 "global2": cuda_global.global2, "untangle": cuda_real.untangle,
-                "retangle": cuda_real.retangle, "small_real": cuda_real.small_real}
+                "retangle": cuda_real.retangle, "small_real": cuda_real.small_real,
+                "col": cuda_multidim.col, "md2": cuda_multidim.md2}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -593,12 +812,14 @@ def run() -> None:
 
     phase("C2C kernels", c2c_kernel_phase, pf, max_err)
     alone = phase("REAL kernels", real_kernel_phase, pf, max_err, card)
+    md_alone = phase("multi-dim kernels", md_kernel_phase, pf, max_err, card)
     c2c_rows, c2c_launches = phase("C2C main path", c2c_main_path, pf, counters, card)
     real_rows, real_launches = phase("REAL main path", real_main_path, pf,
                                      counters, card)
+    _, md_launches = phase("multi-dim main path", md_main_path, pf, counters, card)
     print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
     kernels = kernel_table(max_err, c2c_rows, c2c_launches, real_rows,
-                           real_launches, alone)
+                           real_launches, alone, md_launches, md_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

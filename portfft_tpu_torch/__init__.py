@@ -9,10 +9,13 @@ The describe → commit → execute API of the JAX package::
     y = plan.compute_forward(x)      # x: complex64 tensor on the card
     x2 = plan.compute_backward(y)    # unnormalized inverse
 
-This version runs the main path: 1D C2C fp32, INTERLEAVED storage, PACKED
-layout, zero offsets, in-place or out-of-place; and the 1D REAL fp32 path,
-R2C forward and C2R backward (``domain=Domain.REAL``), INTERLEAVED PACKED,
-out-of-place.  Other configurations raise
+This version runs C2C fp32 with INTERLEAVED storage and zero offsets,
+in-place or out-of-place: 1D PACKED (the main path), 1D BATCH_INTERLEAVED
+(``forward_strides=[batch]``, ``forward_distance=1`` and the same
+backward), and multi-dimensional PACKED of any rank
+(``Descriptor(lengths=[512, 512], number_of_transforms=256)``); and the 1D
+REAL fp32 path, R2C forward and C2R backward (``domain=Domain.REAL``),
+INTERLEAVED PACKED, out-of-place.  Other configurations raise
 :class:`UnsupportedConfiguration` at commit, naming the ROADMAP item that
 will port them.  ``commit(device="cpu")`` runs the kernels' plain PyTorch
 versions.  The package never imports JAX.

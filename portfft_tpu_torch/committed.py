@@ -2,10 +2,12 @@
 runs each direction.
 
 Counterpart of ``portfft_tpu.committed.CommittedDescriptor`` for the slices
-this package covers (``fastpath.py``): 1D C2C fp32 INTERLEAVED PACKED with
-zero offsets, out-of-place or in-place, and 1D REAL fp32 (R2C forward, C2R
-backward) INTERLEAVED PACKED with zero offsets, out-of-place; forward and
-backward each with its own scale.
+this package covers (``fastpath.py``): C2C fp32 INTERLEAVED with zero
+offsets, out-of-place or in-place, as 1D PACKED (K1, K2 or K3), 1D
+BATCH_INTERLEAVED (K10) and multi-dimensional PACKED of any rank (K11 and
+K10, or the last axis's 1D kernel and K10); and 1D REAL fp32 (R2C forward,
+C2R backward) INTERLEAVED PACKED with zero offsets, out-of-place; forward
+and backward each with its own scale.
 
 C2C I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
 
@@ -99,8 +101,9 @@ class CommittedDescriptor:
                 keys[("RM", n_last, sign)] = self._bank.real_small(
                     n_last, sign, float(descriptor.get_scale(direction))
                 )
-            else:
-                collect_bank_keys(self.plans[n_last], sign, self._bank, keys)
+            else:  # every axis length's tables: rows, columns, K11
+                for n in set(descriptor.lengths):
+                    collect_bank_keys(self.plans[n], sign, self._bank, keys)
         self._bank_arrays = self._bank.device_arrays(self.device)
         self._fns = {
             direction: fastpath.build_fn(self, entry)

@@ -172,57 +172,87 @@ __device__ inline void load_roots(float2* dst, const float* wr,
     dst[i] = make_float2(__ldg(wr + row + i), __ldg(wi + row + i));
 }
 
-// The body of every pass kernel.  x and y may be the same buffer when a
-// tile is read only by the block that writes it.
-__device__ inline void run_pass(const Pass& p, const float2* x, float2* y) {
-  extern __shared__ float2 smem[];
+// A pass's shared memory: the root tables ra (m-point DIRECT or a-point
+// FUSED) and rb (128-point, FUSED only), then the ping-pong tiles b0, b1.
+struct TileSmem {
+  float2* ra;
+  float2* rb;
+  float2* b0;
+  float2* b1;
+};
+
+__device__ inline TileSmem tile_smem(const Sub& s, int T, float2* smem) {
+  TileSmem t;
+  t.ra = smem;
+  t.rb = t.ra + (s.a ? s.a : s.m);
+  t.b0 = t.rb + (s.a ? 128 : 0);
+  t.b1 = t.b0 + tile_rows(s) * tile_pitch(T);
+  return t;
+}
+
+// Loads the sub-transform's root tables; the first __syncthreads of the
+// next tile makes them visible.
+__device__ inline void load_sub_roots(const Sub& s, const TileSmem& sm) {
+  if (s.a) {
+    load_roots(sm.ra, s.wr, s.wi, s.a);
+    load_roots(sm.rb, s.br, s.bi, 128);
+  } else {
+    load_roots(sm.ra, s.wr, s.wi, s.m);
+  }
+}
+
+// One tile of a pass: columns c0 .. c0+T-1 of batch b, loaded, transformed,
+// stored.  Ends with __syncthreads, so the block's global writes are
+// visible to all its threads afterwards.
+__device__ inline void pass_tile(const Pass& p, int64_t b, int64_t c0,
+                                 const float2* x, float2* y,
+                                 const TileSmem& sm) {
   const Sub& s = p.sub;
   const int m = s.m;
   const int T = p.T;
   const int es = tile_pitch(T);
-  float2* ra = smem;
-  float2* rb = ra + (s.a ? s.a : m);
-  float2* b0 = rb + (s.a ? 128 : 0);
-  float2* b1 = b0 + tile_rows(s) * es;
-  if (s.a) {
-    load_roots(ra, s.wr, s.wi, s.a);
-    load_roots(rb, s.br, s.bi, 128);
-  } else {
-    load_roots(ra, s.wr, s.wi, m);
-  }
-  const int64_t per_batch = (p.ncols + T - 1) / T;
-  const int64_t ntiles = p.nbatch * per_batch;
   const int total = m * T;
   // Walk the tile with columns fastest where columns are contiguous in
   // device memory, else elements fastest.
   const bool in_cols_fast = p.ics == 1 && T > 1;
   const bool out_cols_fast = p.ocs == 1 && T > 1;
+  const int64_t left = p.ncols - c0;
+  const int tv = left < T ? int(left) : T;
+  const float2* xb = x + b * p.ibs + c0 * p.ics;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int i = in_cols_fast ? e / T : e % m;
+    const int t = in_cols_fast ? e - i * T : e / m;
+    if (t < tv) sm.b0[tile_pos(s, i) * es + t] = xb[i * p.iis + t * p.ics];
+  }
+  __syncthreads();
+  const float2* res = sub_dft(s, sm.ra, sm.rb, sm.b0, sm.b1, T, es);
+  float2* yb = y + b * p.obs + c0 * p.ocs;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int k = out_cols_fast ? e / T : e % m;
+    const int t = out_cols_fast ? e - k * T : e / m;
+    if (t >= tv) continue;
+    float2 v = res[tile_pos(s, k) * es + t];
+    if (p.twr) {
+      const int64_t ti = (c0 + t) * p.tcs + k * p.tks;
+      v = cmul(v, make_float2(__ldg(p.twr + ti), __ldg(p.twi + ti)));
+    }
+    yb[k * p.oks + t * p.ocs] = make_float2(p.scale * v.x, p.scale * v.y);
+  }
+  __syncthreads();
+}
+
+// The body of every pass kernel: the blocks share out the tiles.  x and y
+// may be the same buffer when a tile is read only by the block that writes
+// it.
+__device__ inline void run_pass(const Pass& p, const float2* x, float2* y) {
+  extern __shared__ float2 smem[];
+  const TileSmem sm = tile_smem(p.sub, p.T, smem);
+  load_sub_roots(p.sub, sm);
+  const int64_t per_batch = (p.ncols + p.T - 1) / p.T;
+  const int64_t ntiles = p.nbatch * per_batch;
   for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int64_t b = tile / per_batch;
-    const int64_t c0 = (tile - b * per_batch) * T;
-    const int64_t left = p.ncols - c0;
-    const int tv = left < T ? int(left) : T;
-    const float2* xb = x + b * p.ibs + c0 * p.ics;
-    for (int e = threadIdx.x; e < total; e += blockDim.x) {
-      const int i = in_cols_fast ? e / T : e % m;
-      const int t = in_cols_fast ? e - i * T : e / m;
-      if (t < tv) b0[tile_pos(s, i) * es + t] = xb[i * p.iis + t * p.ics];
-    }
-    __syncthreads();
-    const float2* res = sub_dft(s, ra, rb, b0, b1, T, es);
-    float2* yb = y + b * p.obs + c0 * p.ocs;
-    for (int e = threadIdx.x; e < total; e += blockDim.x) {
-      const int k = out_cols_fast ? e / T : e % m;
-      const int t = out_cols_fast ? e - k * T : e / m;
-      if (t >= tv) continue;
-      float2 v = res[tile_pos(s, k) * es + t];
-      if (p.twr) {
-        const int64_t ti = (c0 + t) * p.tcs + k * p.tks;
-        v = cmul(v, make_float2(__ldg(p.twr + ti), __ldg(p.twi + ti)));
-      }
-      yb[k * p.oks + t * p.ocs] = make_float2(p.scale * v.x, p.scale * v.y);
-    }
-    __syncthreads();
+    pass_tile(p, b, (tile - b * per_batch) * p.T, x, y, sm);
   }
 }
 

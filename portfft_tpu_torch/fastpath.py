@@ -21,6 +21,23 @@ package declines some of these shapes to its plane path (h not a multiple
 of 128, h ≥ 2^15, 512 < n < 1024, batches that do not group); the kernels
 here take them all.
 
+Multi-dimensional C2C fp32 (rank >= 2, INTERLEAVED PACKED, zero offsets)
+runs as an ``("multidim", md2, steps)`` entry: the kernels in the order they
+run, the first out of place (or into the caller's buffer in place) and the
+rest in place on its result.  Route as the JAX package's
+``_register_multidim``:
+
+| route | kernels, in order |
+|---|---|
+| md2 (``cuda_multidim.md2_supported`` of the two trailing plans) | ``cuda_multidim.md2`` (K11) on the trailing 2D transforms, then ``cuda_multidim.col`` (K10) for axes −3 … 0 |
+| per axis | the last axis's 1D kernel (K1, K2 or K3) at batch B·prod(lengths[:-1]), then K10 for axes −2 … 0 |
+
+Length-1 axes are skipped; the direction's scale goes into the last kernel
+that runs.  Every outer axis must be one K10 takes (DIRECT ≤ 512 or FUSED
+[a, 128] with a | 128, so up to 16384).  The 1D BATCH_INTERLEAVED
+layout (stride = batch, distance 1, both domains) is one K10 call with
+bpre = 1: the ``bi_col`` entry.
+
 Registration happens at commit.  Anything outside this slice raises
 :class:`RawFastUnavailable` (an :class:`UnsupportedConfiguration`) naming
 the ROADMAP Queue 1 item that will port it; no configuration is quietly
@@ -29,10 +46,12 @@ sent down another path.
 
 from __future__ import annotations
 
+import math
+
 from .enums import ComplexStorage, Direction, Domain, Layout, Level, Placement
 from .enums import inv as _inv
 from .exceptions import UnsupportedConfiguration
-from .ops import cuda_fft, cuda_global, cuda_real
+from .ops import cuda_fft, cuda_global, cuda_multidim, cuda_real
 from .ops.torch_fft import is_two_stage
 from .utils.layout import get_layout
 
@@ -86,22 +105,73 @@ def _entry_1d(plan0, batch: int, sign: int, scale: float):
     )
 
 
-def _check_packed(d) -> None:
-    """Zero offsets and PACKED layouts in both directions."""
+def _check_packed(d, layout: Layout = Layout.PACKED) -> None:
+    """Zero offsets, and ``layout`` in both domains."""
     for direction in _SIGNS:
         out_dir = _inv(direction)
         if d.get_offset(direction) or d.get_offset(out_dir):
             raise RawFastUnavailable(
                 "buffer offsets are not ported yet (ROADMAP Queue 1 item 8)"
             )
-        if (
-            get_layout(d, direction) != Layout.PACKED
-            or get_layout(d, out_dir) != Layout.PACKED
-        ):
+        if get_layout(d, direction) != layout or get_layout(d, out_dir) != layout:
             raise RawFastUnavailable(
-                "strided and BATCH_INTERLEAVED layouts are not ported yet "
-                "(ROADMAP Queue 1 item 8)"
+                "strided layouts, and BATCH_INTERLEAVED in one domain only, "
+                "are not ported yet (ROADMAP Queue 1 item 8)"
             )
+
+
+def _check_col_axis(plan, config, what: str) -> None:
+    """Raise unless K10 takes a transform of ``plan`` over ``what``."""
+    if not cuda_multidim.col_axis_supported(plan, config.direct_threshold):
+        raise RawFastUnavailable(
+            f"{what} of plan {plan.describe()} is not one the column kernel "
+            "K10 takes (DIRECT <= 512 or FUSED [a, 128] with a | 128); it "
+            "needs the torch executor, ROADMAP Queue 1 item 4, with the "
+            "plane column kernel K12"
+        )
+
+
+def _register_multidim(committed) -> dict:
+    """Entries of a multi-dimensional C2C transform: ``("multidim", md2,
+    steps)``, the steps in the order they run (see the module docstring).
+    A column step is ``("col", bpre, plan, rest, sign, scale)``, the K11
+    step ``("md2", batch, plan1, plan2, sign, scale)``, a row step a 1D
+    entry."""
+    d = committed.descriptor
+    lengths, plans = list(d.lengths), committed.plans
+    for ln in lengths[:-1]:
+        if ln > 1:
+            _check_col_axis(plans[ln], committed.config, "an outer axis")
+    batch = d.number_of_transforms
+    total = batch * math.prod(lengths)
+    plan_last = plans[lengths[-1]]
+    plan_a = plans[lengths[-2]] if lengths[-2] > 1 else None
+    md2 = plan_a is not None and cuda_multidim.md2_supported(
+        plan_a, plan_last, committed.config
+    )
+    first = len(lengths) - (3 if md2 else 2)
+    cols = [
+        (plans[lengths[ax]], batch * math.prod(lengths[:ax]),
+         math.prod(lengths[ax + 1:]))
+        for ax in range(first, -1, -1)
+        if lengths[ax] > 1
+    ]
+    out: dict = {}
+    for direction, sign in _SIGNS.items():
+        scale = float(d.get_scale(direction))
+        # the scale goes into the last kernel that runs
+        head_scale = 1.0 if cols else scale
+        if md2:
+            n2d = lengths[-2] * lengths[-1]
+            head = ("md2", total // n2d, plan_a, plan_last, sign, head_scale)
+        else:
+            head = _entry_1d(plan_last, total // lengths[-1], sign, head_scale)
+        steps = [head] + [
+            ("col", bpre, plan, rest, sign, scale if i == len(cols) - 1 else 1.0)
+            for i, (plan, bpre, rest) in enumerate(cols)
+        ]
+        out[direction] = ("multidim", md2, tuple(steps))
+    return out
 
 
 def _register_real(committed) -> dict:
@@ -151,17 +221,26 @@ def register(committed) -> dict:
         )
     if d.domain == Domain.REAL:
         return _register_real(committed)
-    if len(d.lengths) >= 2:
-        raise RawFastUnavailable(
-            "multi-dimensional transforms are not ported yet "
-            "(ROADMAP Queue 1 item 10)"
-        )
     if d.complex_storage != ComplexStorage.INTERLEAVED_COMPLEX:
         raise RawFastUnavailable(
             "SPLIT_COMPLEX storage is not ported yet (ROADMAP Queue 1 item 8)"
         )
-    _check_packed(d)
+    if len(d.lengths) >= 2:
+        _check_packed(d)
+        return _register_multidim(committed)
     plan0 = committed.plans[d.lengths[0]]
+    if get_layout(d, Direction.FORWARD) == Layout.BATCH_INTERLEAVED:
+        # the (n, batch) buffer is one column transform with bpre = 1
+        _check_packed(d, Layout.BATCH_INTERLEAVED)
+        _check_col_axis(plan0, committed.config,
+                        "a BATCH_INTERLEAVED transform")
+        batch = d.number_of_transforms
+        return {
+            direction: ("bi_col", 1, plan0, batch, sign,
+                        float(d.get_scale(direction)))
+            for direction, sign in _SIGNS.items()
+        }
+    _check_packed(d)
     return {
         direction: _entry_1d(
             plan0, d.number_of_transforms, sign, float(d.get_scale(direction))
@@ -173,12 +252,26 @@ def register(committed) -> dict:
 def kernel_args(committed, entry):
     """``(kernel, args)`` of an entry: the wrapper (``cuda_fft.direct``,
     ``cuda_fft.fused2``, ``cuda_global.global2``, ``cuda_real.small_real``,
-    or for the half-length REAL entries ``cuda_real.untangle``/``retangle``)
-    and the arguments that follow the buffer, with the committed plan's
-    device tables.  A half-length REAL entry's C2C kernel is
-    ``kernel_args(committed, entry[1])``."""
+    ``cuda_multidim.col`` for ``bi_col`` and a column step,
+    ``cuda_multidim.md2`` for a K11 step, or for the half-length REAL
+    entries ``cuda_real.untangle``/``retangle``) and the arguments that
+    follow the buffer, with the committed plan's device tables.  A
+    half-length REAL entry's C2C kernel is ``kernel_args(committed,
+    entry[1])``; a multi-dim entry's are those of its steps,
+    ``entry[2]``."""
     kind = entry[0]
     keys, arrays = committed._bank_keys, committed._bank_arrays
+    if kind in ("col", "bi_col"):
+        _, bpre, plan, rest, sign, scale = entry
+        return cuda_multidim.col, (
+            bpre, rest, cuda_fft.sub_tables(plan, sign, keys, arrays), scale
+        )
+    if kind == "md2":
+        _, batch, plan1, plan2, sign, scale = entry
+        return cuda_multidim.md2, (
+            batch, cuda_fft.sub_tables(plan1, sign, keys, arrays),
+            cuda_fft.sub_tables(plan2, sign, keys, arrays), scale,
+        )
     if kind in ("realsf", "realsb"):
         _, n, batch, sign, scale = entry
         w, m = keys[("W", n, sign)], keys[("RM", n, sign)]
@@ -208,8 +301,18 @@ def build_fn(committed, entry):
     """``fn(raw, out=None) -> tensor`` for an entry: ``raw`` is the flat
     float32 input buffer on the plan's device, of exactly the entry's input
     count; ``out`` (C2C only; may be ``raw``) receives the result."""
-    kernel, args = kernel_args(committed, entry)
     kind = entry[0]
+    if kind == "multidim":
+        (head, head_args), *rest = [kernel_args(committed, s) for s in entry[2]]
+
+        def fn(raw, out=None):
+            x = head(raw, *head_args, out=out)
+            for kernel, args in rest:
+                x = kernel(x, *args, out=x)
+            return x
+
+        return fn
+    kernel, args = kernel_args(committed, entry)
     if kind in ("realf", "realb"):
         c2c, c2c_args = kernel_args(committed, entry[1])
         if kind == "realf":

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "pf_untangle": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
     "pf_retangle": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
     "pf_small_real": ([_P, _P, _P, _P, _I64, _I, _I, _F, _P], _I),
+    "pf_col_needs_scratch": ([_I], _I),
+    "pf_col": ([_P, _P, _P] + _SUB + [_I64, _I64, _F, _P], _I),
+    "pf_md2": ([_P, _P] + _SUB + _SUB + [_I64, _F, _P], _I),
     "pf_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -175,3 +175,107 @@ def test_real_main_path_matches_oracle(cuda, n, batch):
     want = torch.fft.irfft(spec.to(torch.complex128), n, norm="forward")
     diff = (back.view(batch, n).double() - want).abs().max().item()
     assert diff <= oracle_tol(n), diff
+
+
+def _steps(plan, direction):
+    """The (kind, kernel, args) of each step of a multi-dim or BI entry."""
+    entry = plan._raw_fast[direction]
+    steps = entry[2] if entry[0] == "multidim" else (entry,)
+    return [(s[0], *fastpath.kernel_args(plan, s)) for s in steps]
+
+
+@pytest.mark.parametrize(
+    "lengths,batch,kinds",
+    [
+        ([16, 64], 2, ("direct", "col")), ([1024, 16], 1, ("direct", "col")),
+        ([100, 24], 3, ("direct", "col")), ([4, 8, 32], 2, ("direct", "col", "col")),
+        ([8192, 3], 1, ("direct", "col")), ([16384, 3], 2, ("direct", "col")),
+        ([256, 128], 2, ("md2",)), ([1024, 128], 1, ("md2",)),
+        ([128, 1024], 1, ("md2",)), ([512, 512], 2, ("md2",)),
+        ([2, 128, 128], 3, ("md2", "col")), ([1024, 1024], 1, ("fused2", "col")),
+    ],
+)
+@pytest.mark.parametrize("inplace", [False, True])
+def test_multidim_kernels_match_plain(cuda, lengths, batch, kinds, inplace):
+    n = int(np.prod(lengths))
+    plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
+                         forward_scale=0.5, backward_scale=3.0 / n).commit(device=cuda)
+    rng = np.random.default_rng(n)
+    for direction in (pf.Direction.FORWARD, pf.Direction.BACKWARD):
+        steps = _steps(plan, direction)
+        assert tuple(s[0] for s in steps) == kinds
+        for kind, kernel, args in steps:
+            x = torch.from_numpy(
+                rng.uniform(-1, 1, 2 * batch * n).astype(np.float32)).to(cuda)
+            before = kernel.launches
+            want = kernel.plain(x, *args)
+            if inplace:
+                got = x.clone()
+                kernel(got, *args, out=got)
+            else:
+                got = kernel(x, *args)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            err = (got - want).abs().max().item()
+            assert err <= KERNEL_TOL * want.abs().max().item(), (kind, direction, err)
+
+
+@pytest.mark.parametrize(
+    "lengths,batch",
+    [([16, 64], 2), ([1024, 16], 1), ([256, 128], 2), ([128, 1024], 1),
+     ([4, 8, 32], 2), ([2, 128, 128], 1), ([1, 64, 32], 2), ([1, 128, 128], 1),
+     ([512, 512], 2), ([1024, 1024], 1), ([16, 65536], 1)],
+)
+def test_multidim_main_path_matches_oracle(cuda, lengths, batch):
+    plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch).commit()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(batch, *lengths, dtype=torch.complex64, generator=gen,
+                    device=cuda)
+    n = int(np.prod(lengths))
+    dims = tuple(range(1, len(lengths) + 1))
+    xd = x.to(torch.complex128)
+    for direction, compute in (
+        (pf.Direction.FORWARD, plan.compute_forward),
+        (pf.Direction.BACKWARD, plan.compute_backward),
+    ):
+        y = compute(x)  # flat, as the JAX package returns it
+        assert y.dtype == torch.complex64 and y.shape == (x.numel(),)
+        ref = (torch.fft.fftn(xd, dim=dims) if direction == pf.Direction.FORWARD
+               else torch.fft.ifftn(xd, dim=dims, norm="forward"))
+        diff = (y.reshape(x.shape).to(torch.complex128) - ref).abs().max().item()
+        assert diff <= oracle_tol(n), (direction, diff)
+
+
+@pytest.mark.parametrize("n,batch", [(64, 8), (1024, 4), (4096, 33), (100, 7),
+                                     (16384, 5)])
+def test_bi_main_path_in_place_matches_oracle(cuda, n, batch):
+    plan = pf.Descriptor(
+        lengths=[n], number_of_transforms=batch, forward_strides=[batch],
+        backward_strides=[batch], forward_distance=1, backward_distance=1,
+        placement=pf.Placement.IN_PLACE,
+    ).commit()
+    assert plan._raw_fast[pf.Direction.FORWARD][0] == "bi_col"
+    x = torch.randn(n, batch, dtype=torch.complex64, device=cuda)
+    ref = torch.fft.fft(x.to(torch.complex128), dim=0)
+    y = plan.compute_forward(x)
+    assert y is x
+    diff = (x.to(torch.complex128) - ref).abs().max().item()
+    assert diff <= oracle_tol(n), diff
+
+
+def test_kernels_launch_on_the_tensor_card(cuda):
+    """A tensor on cuda:0 while another card is current: K10 and K11 launch
+    on cuda:0 and agree with their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    plan = pf.Descriptor(lengths=[4, 128, 128], number_of_transforms=1).commit(
+        device="cuda:0")
+    x = torch.rand(2 * 4 * 128 * 128, device="cuda:0")
+    with torch.cuda.device(1):
+        for _, kernel, args in _steps(plan, pf.Direction.FORWARD):
+            got = kernel(x, *args)
+            torch.cuda.synchronize(0)
+            want = kernel.plain(x, *args)
+            assert got.device == x.device
+            err = (got - want).abs().max().item()
+            assert err <= KERNEL_TOL * want.abs().max().item()

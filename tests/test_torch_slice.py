@@ -169,14 +169,13 @@ def test_commit_needs_cuda_unless_cpu_is_named(monkeypatch):
     [
         (dict(lengths=[16], domain="REAL", complex_storage="SPLIT_COMPLEX"),
          "item 9"),
-        (dict(lengths=[4, 4]), "item 10"),
+        (dict(lengths=[4, 4], domain="REAL"), "item 10"),  # multi-dim REAL
         (dict(lengths=[16], complex_storage="SPLIT_COMPLEX"), "item 8"),
         (dict(lengths=[16], number_of_transforms=2, forward_strides=[2],
               backward_strides=[2], forward_distance=32,
               backward_distance=32), "item 8"),
         (dict(lengths=[16], number_of_transforms=4, forward_strides=[4],
-              forward_distance=1, backward_strides=[4],
-              backward_distance=1), "item 8"),
+              forward_distance=1), "item 8"),  # BATCH_INTERLEAVED one way
         (dict(lengths=[16], forward_offset=2), "item 8"),
         (dict(lengths=[16], precision="fp64"), "item 12"),
         (dict(lengths=[65537]), "item 11"),
