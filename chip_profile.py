@@ -4,7 +4,9 @@
 
 For each row of ``bench.py``'s ``CONFIGS``, ``backward_medium`` and
 ``LADDER_CONFIGS``, of its ``REAL_CONFIGS`` and real_large backward, and of
-its ``MULTIDIM_CONFIGS`` plus the BATCH_INTERLEAVED row bi_4096, it
+its ``MULTIDIM_CONFIGS`` plus the BATCH_INTERLEAVED row bi_4096, and of
+the plane path's rows (``large_1d_prime`` both ways, n = 1031, 1000 and
+2062 at about 1 GiB; the executor's glue shows as torch's own kernels), it
 commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
@@ -53,6 +55,15 @@ MD_ROWS = [
     ("md_1024x1024", [1024, 1024], 64, "forward", False),
     ("md_128^3", [128, 128, 128], 32, "forward", False),
     ("bi_4096", [4096], 32768, "forward", True),
+]
+# The plane path (chip_smoke.PLANE_ROWS): K6 around the executor, whose
+# glue between K13 and K15 launches runs as torch kernels.
+PLANE_ROWS = [
+    ("large_1d_prime", 65537, 2048, "forward"),
+    ("large_1d_prime_backward", 65537, 2048, "backward"),
+    ("bluestein_1031", 1031, 1 << 17, "forward"),
+    ("chain_1000", 1000, 1 << 17, "forward"),
+    ("global_2062", 2062, 1 << 16, "forward"),
 ]
 CALLS = 5
 #: Profiles of a row taken until every kernel shows a whole number of
@@ -105,6 +116,7 @@ def main() -> None:
     rows += [(name, lengths, b, dn, dict(bi, forward_strides=[b],
                                          backward_strides=[b]) if is_bi else {})
              for name, lengths, b, dn, is_bi in MD_ROWS]
+    rows += [(name, [n], b, dn, {}) for name, n, b, dn in PLANE_ROWS]
     for name, lengths, batch, direction, kw in rows:
         plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
                              **kw).commit(device="cuda")

@@ -25,12 +25,25 @@
    (batch, n1, n2) shapes of ``MD2_CASES`` (oracle ``fft2``), N being the
    transform's size; K10 timed alone at md_1024x1024's column pass and K11
    at md_512x512, beside their plain versions and one ``torch.fft`` call.
-4. Main-path phases, C2C, REAL, then multi-dim:
+   Then the plane path's kernels: K6 (deinterleave and interleave with a
+   scale) at the ``IO_CASES`` element counts against its plain version and
+   the exact strided copy; K13 chain at ``CHAIN_CASES`` (DIRECT, [a, 128]
+   in one and two launches, the general factor chain in one and two
+   launches) and K15 bluestein at ``BLUESTEIN_CASES``, on planes, against
+   their plain versions and ``fft``/``ifft``, with the same two planted
+   faults (K6: a conjugated result; K13: its roots or inner twiddle
+   conjugated; K15: its pass-1 chirp conjugated).  K6 and K15 are timed
+   alone at large_1d_prime, K13 at the [24, 128] convolution of n = 1031
+   and in its chain mode at n = 1000.
+4. Main-path phases, C2C, REAL, multi-dim, then the plane path:
    ``Descriptor(...).commit(device="cuda")`` and
    ``compute_forward``/``compute_backward`` on a float32 tensor on the
    card, for the C2C bench rows, then for the four REAL bench rows and
    real_large backward, then for the three ``MULTIDIM_CONFIGS`` rows,
-   md_1024x1024 backward and the BATCH_INTERLEAVED row bi_4096.  Each phase
+   md_1024x1024 backward and the BATCH_INTERLEAVED row bi_4096, then for
+   ``PLANE_ROWS`` (large_1d_prime 65537x2048 both ways through K6, K15,
+   K6; n = 1031, 1000 and 2062 at about 1 GiB through K6, K13 and the
+   executor's glue, K6).  Each phase
    resets the launch counts just before and reads them just after; each
    row's kernels (for a REAL row, its K8 or K9 and the C2C kernel under it;
    for a multi-dim row, every kernel of its route) must have launched.  A
@@ -121,6 +134,33 @@ MD2_CASES = [(256, 512, 512), (4096, 128, 128), (64, 1024, 128),
 MD_ALONE = {"col": (64, 1024, 1024), "md2": (256, 512, 512)}
 # The transformed axes of each kernel's complex (b, ., .) view.
 MD_DIMS = {"col": (1,), "md2": (1, 2)}
+# Plane path rows (bench.py EXTRA_CONFIGS large_1d_prime, both directions,
+# and one row per other route at about 1 GiB of input): name, n, batch,
+# direction.  1031: generic Bluestein over K13 [24, 128]; 1000: K13's
+# chain [125, 8]; 2062: GLOBAL 2 x Bluestein 1031.
+PLANE_ROWS = [
+    ("large_1d_prime", 65537, 2048, "forward"),
+    ("large_1d_prime_backward", 65537, 2048, "backward"),
+    ("bluestein_1031", 1031, 1 << 17, "forward"),
+    ("chain_1000", 1000, 1 << 17, "forward"),
+    ("global_2062", 2062, 1 << 16, "forward"),
+]
+# Plane kernel phase.  K6 at M complex elements (one M no multiple of 128,
+# large_1d_prime's); K13 at (n, batch): DIRECT 3 and 100, [24, 128] and the
+# two-launch [192, 128] (Bluestein convolutions), the chains [125, 8],
+# [120, 5] and the two-launch [81, 81, 3]; K15 at (n, batch) over the
+# convolutions 256 x 192, 384 x 384 and FUSED [16, 128] x 144.
+IO_CASES = [1031 * 1000, 1 << 20, 65537 * 2048]
+CHAIN_CASES = [(3, 1 << 20), (100, 1 << 17), (3072, 4096), (24576, 512),
+               (1000, 8192), (600, 8192), (19683, 512)]
+BLUESTEIN_CASES = [(20011, 512), (65537, 256), (131101, 64)]
+# The shapes timed alone: K6 and K15 at large_1d_prime, K13 at the
+# [24, 128] convolution of the bluestein_1031 row.
+PLANE_ALONE = {"interleave": (65537 * 2048, 1), "chain": (3072, 1 << 17),
+               "bluestein": (65537, 2048)}
+# K13's general chain mode, timed alone beside the table's shape: the
+# [125, 8] chain of the chain_1000 row.
+CHAIN_MODE_ALONE = (1000, 1 << 17)
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -138,10 +178,18 @@ SOURCES = {
             "portfft_tpu/ops/pallas_multidim.py:264"),
     "md2": ("portfft_tpu_torch/csrc/fft_md2.cu",
             "portfft_tpu/ops/pallas_multidim.py:403"),
+    "interleave": ("portfft_tpu_torch/csrc/fft_io.cu",
+                   "portfft_tpu/ops/pallas_io.py:62"),
+    "chain": ("portfft_tpu_torch/csrc/fft_chain.cu",
+              "portfft_tpu/ops/pallas_fft.py:189"),
+    "bluestein": ("portfft_tpu_torch/csrc/fft_bluestein.cu",
+                  "portfft_tpu/ops/pallas_bluestein.py:177"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
 MD_KINDS = ("col", "md2")
+# K6 is one kernel of the table with two wrappers (deinterleave, interleave).
+PLANE_KINDS = ("interleave", "chain", "bluestein")
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
 # fp32 outside the tensor cores, per millisecond.
 HBM_BYTES_PER_MS = 3.35e9
@@ -163,7 +211,9 @@ def work(kind: str, n: int, batch: int) -> tuple[int, float]:
     once; flops the nominal 5·n·log2(n) of a complex transform,
     2.5·n·log2(n) of a real one, and 18 per bin for the un/retangle."""
     lg, h = max(math.log2(n), 1.0), n // 2
-    if kind in C2C_KINDS or kind in MD_KINDS:
+    if kind == "interleave":  # both K6 kernels, n the element count
+        return 32 * batch * n, 2.0 * batch * n
+    if kind in C2C_KINDS or kind in MD_KINDS or kind in PLANE_KINDS:
         return 16 * batch * n, 5 * n * lg * batch
     if kind in ("untangle", "retangle"):
         return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
@@ -297,6 +347,15 @@ def planted(kind: str, args: tuple) -> tuple:
     if kind == "md2":
         batch, sub1, sub2, scale = args
         return (batch, sub1, conjugated(sub2), scale)
+    if kind == "chain":  # the first stage's roots, or as K1/K2
+        (tabs,) = args
+        if tabs.mode != "chain":
+            return (dataclasses.replace(tabs, sub=conjugated(tabs.sub)),)
+        (wr, wi, tr, ti), *rest = tabs.stages
+        return (dataclasses.replace(tabs, stages=((wr, -wi, tr, ti), *rest)),)
+    if kind == "bluestein":  # the pass-1 chirp
+        (tabs,) = args
+        return (dataclasses.replace(tabs, pre=(tabs.pre[0], -tabs.pre[1])),)
     batch, sub, scale = args
     return (batch, conjugated(sub), scale)
 
@@ -382,6 +441,8 @@ def plain_path(plan, entry):
     the kernels: ``fn(x) -> y``."""
     from portfft_tpu_torch import fastpath
 
+    if entry[0] == "plane":
+        return fastpath.plane_fn(plan, entry, plain=True)
     if entry[0] == "multidim":
         steps = [fastpath.kernel_args(plan, s) for s in entry[2]]
 
@@ -730,8 +791,224 @@ def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     return results, launches
 
 
+def on_raw(kernel, n: int):
+    """A plane kernel (K13, K15) as a function of the raw interleaved
+    buffer of rows of ``n``, with its plain version, for
+    :func:`check_against`."""
+    def over(k):
+        def fn(x, *args):
+            xr, xi = x.view(-1, n, 2).unbind(-1)
+            yr, yi = k(xr.contiguous(), xi.contiguous(), *args)
+            return torch.stack((yr, yi), dim=-1).reshape(-1)
+        return fn
+
+    fn = over(kernel)
+    fn.plain = over(kernel.plain)
+    return fn
+
+
+def plane_case(pf, kind: str, n: int, sign: int, device: str = "cuda"):
+    """``(kernel, args)`` of a K13 (``kind`` "chain") or K15 case: the
+    length-n plan's tables for one direction, from a 1D commit."""
+    from portfft_tpu_torch.ops import cuda_bluestein, cuda_chain
+
+    plan = pf.Descriptor(lengths=[n]).commit(device=device)
+    keys, arrays = plan._bank_keys, plan._bank_arrays
+    if kind == "chain":
+        return cuda_chain.chain, (
+            cuda_chain.chain_tables(plan.plans[n], sign, keys, arrays),)
+    return cuda_bluestein.bluestein, (
+        cuda_bluestein.bluestein_tables(plan.plans[n], sign, keys, arrays),)
+
+
+def check_plane(kind: str, kernel, args: tuple, x, n: int, batch: int,
+                sign: int) -> dict:
+    """``check_kernel`` for K13 or K15 on rows of ``n``."""
+    return check_against(
+        f"{kind} n={n} sign={sign:+d}", kind, on_raw(kernel, n), args, x,
+        lambda y: oracle_excess(y, x, n, batch, sign, 1.0),
+    )
+
+
+def check_io(m: int, x, scale: float) -> dict:
+    """K6 on ``m`` elements: the deinterleave against its plain version and
+    against the strided views of ``x``, the interleave of its planes (times
+    ``scale``) against its plain version and ``x·scale``; every check must
+    reject two planted faults, a conjugated result and zeros.  The
+    largest relative error of the two kernels is returned as ``rel`` and
+    their largest absolute error as ``err``."""
+    from portfft_tpu_torch.ops import cuda_io
+
+    pairs = x.view(m, 2)
+    re, im = cuda_io.deinterleave(x)
+    want_re, want_im = cuda_io.deinterleave.plain(x)
+    y = cuda_io.interleave(re, im, scale)
+    want_y = cuda_io.interleave.plain(want_re, want_im, scale)
+    exact = (torch.cat((pairs[:, 0], pairs[:, 1])), x * scale)
+    got = (torch.cat((re, im)), y)
+    plain = (torch.cat((want_re, want_im)), want_y)
+    faults = {"conjugated": (torch.cat((re, -im)), torch.stack(
+        (pairs[:, 0], -pairs[:, 1]), dim=-1).reshape(-1) * scale)}
+    faults["zeros"] = tuple(torch.zeros_like(g) for g in got)
+    r = {"err": 0.0, "rel": 0.0, "excess": 0.0, "caught": {}}
+    for i, what in enumerate(("deinterleave", "interleave")):
+        peak = plain[i].abs().max().item()
+        err = (got[i] - plain[i]).abs().max().item()
+        excess = (got[i] - exact[i]).abs().max().item() / peak
+        if not err <= KERNEL_TOL * peak or excess > 0.0:
+            raise SmokeFailure(f"{what} m={m}: max|kernel - plain| = {err:.3e}, "
+                               f"max|kernel - exact| = {excess:.3e}·max")
+        for name, fault in faults.items():
+            f_rel = (fault[i] - plain[i]).abs().max().item() / peak
+            f_exc = (fault[i] - exact[i]).abs().max().item() / peak
+            if f_rel <= KERNEL_TOL or f_exc <= KERNEL_TOL:
+                raise SmokeFailure(f"{what} m={m}: planted fault ({name}) passed")
+            r["caught"][f"{what} {name}"] = (f_rel, f_exc)
+        r["err"], r["rel"] = max(r["err"], err), max(r["rel"], err / peak)
+    return r
+
+
+def io_library_calls(x, re, im) -> tuple:
+    """K6's one-call PyTorch counterparts, at scale 1 (neither folds a
+    scale in): the deinterleave of ``x`` as one copy of its transposed
+    (m, 2) view, which writes the re plane and then the im plane, and the
+    interleave of ``re``, ``im`` as ``torch.complex``."""
+    m = x.numel() // 2
+    return (lambda: x.view(m, 2).t().contiguous(),
+            lambda: torch.complex(re, im))
+
+
+def plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K6 at ``IO_CASES``, K13 at ``CHAIN_CASES`` and K15 at
+    ``BLUESTEIN_CASES`` (both directions); returns ``{kind: (ms, plain_ms,
+    library_ms)}`` of each timed alone at its ``PLANE_ALONE`` shape."""
+    from portfft_tpu_torch.ops import cuda_bluestein, cuda_chain, cuda_io
+
+    alone = {}
+    for m in IO_CASES:
+        x = random_raw(2 * m, seed=m)
+        before = cuda_io.deinterleave.launches + cuda_io.interleave.launches
+        r = check_io(m, x, 0.5)
+        if cuda_io.deinterleave.launches + cuda_io.interleave.launches != before + 2:
+            raise SmokeFailure(f"interleave m={m}: launch counters did not rise")
+        print(f"kernel interleave  m={m:<10d} max|k-plain|={r['err']:.3e} "
+              f"={r['rel']:.2e}·max|plain| (tol {KERNEL_TOL:g}), exact | planted "
+              f"faults rejected: {sorted(r['caught'])}")
+        max_err["interleave"] = max(max_err.get("interleave", 0.0), r["err"])
+        if (m, 1) == PLANE_ALONE["interleave"]:
+            re, im = cuda_io.deinterleave(x)
+            ms = (time_ms(lambda: cuda_io.deinterleave(x))
+                  + time_ms(lambda: cuda_io.interleave(re, im, 0.5)))
+            plain_ms = (time_ms(lambda: cuda_io.deinterleave.plain(x))
+                        + time_ms(lambda: cuda_io.interleave.plain(re, im, 0.5)))
+            library_ms = sum(time_ms(f) for f in io_library_calls(x, re, im))
+            bound, by = bound_of("interleave", m, 1)
+            alone["interleave"] = (ms, plain_ms, library_ms)
+            print(f"alone  interleave  m={m:<10d} deinterleave + interleave "
+                  f"{ms:.3f} ms | plain {plain_ms:.3f} ms | library (scale 1) "
+                  f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
+            del re, im
+        del x
+        torch.cuda.empty_cache()
+    cases = ([("chain", c) for c in CHAIN_CASES]
+             + [("bluestein", c) for c in BLUESTEIN_CASES])
+    for kind, (n, batch) in cases:
+        x = random_raw(2 * batch * n, seed=n)
+        for sign in (-1, +1):
+            kernel, args = plane_case(pf, kind, n, sign)
+            before = kernel.launches
+            r = check_plane(kind, kernel, args, x, n, batch, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
+            mode = args[0].mode if kind == "chain" else (
+                f"{args[0].g1}x{args[0].g2}")
+            report(kind, f"n={n:<8d} batch={batch:<8d} {mode:9s} sign={sign:+d}", r)
+            max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+        del x
+        torch.cuda.empty_cache()
+    for kind, (n, batch) in (("chain", PLANE_ALONE["chain"]),
+                             ("chain", CHAIN_MODE_ALONE),
+                             ("bluestein", PLANE_ALONE["bluestein"])):
+        kernel, args = plane_case(pf, kind, n, -1)
+        xr, xi = random_raw(2 * batch * n, seed=1).view(batch, n, 2).unbind(-1)
+        xr, xi = xr.contiguous(), xi.contiguous()
+        xc = torch.complex(xr, xi)
+        ms = time_ms(lambda: kernel(xr, xi, *args))
+        plain_ms = time_ms(lambda: kernel.plain(xr, xi, *args))
+        library_ms = time_ms(lambda: torch.fft.fft(xc))
+        bound, by = bound_of(kind, n, batch)
+        if (n, batch) == PLANE_ALONE[kind]:
+            alone[kind] = (ms, plain_ms, library_ms)
+        print(f"alone  {kind:10s} n={n:<8d} batch={batch:<8d} kernel {ms:.3f} ms "
+              f"| plain {plain_ms:.3f} ms | torch.fft {library_ms:.3f} ms | "
+              f"bound {bound:.3f} ms ({by}) | {card}")
+        del xr, xi, xc, kernel, args
+        torch.cuda.empty_cache()
+    return alone
+
+
+def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
+    """The ``PLANE_ROWS`` through the committed plan: K6 around the
+    executor and every K13 or K15 kernel of each row's route must
+    launch."""
+    results = []
+    for c in counters.values():
+        c.launches = 0
+    for name, n, batch, dname in PLANE_ROWS:
+        direction = pf.Direction(dname)
+        forward = direction == pf.Direction.FORWARD
+        sign = -1 if forward else +1
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch).commit(
+            device="cuda")
+        entry = plan._raw_fast[direction]
+        if entry[0] != "plane":
+            raise SmokeFailure(f"{name}: entry {entry[0]}, not the plane path")
+        routes = set(entry[-1].values())
+        kinds = ["deinterleave", "interleave"]
+        kinds += ["chain"] if routes & {"direct", "two_stage", "chain"} else []
+        kinds += ["bluestein"] if "bluestein" in routes else []
+        x = random_raw(2 * batch * n, seed=0)
+        compute = plan.compute_forward if forward else plan.compute_backward
+        before = {k: counters[k].launches for k in kinds}
+        y = compute(x)
+        torch.cuda.synchronize()
+        rose = {k: counters[k].launches - before[k] for k in kinds}
+        if min(rose.values()) <= 0:
+            raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
+        if y.shape != x.shape or not torch.isfinite(y).all():
+            raise SmokeFailure(f"{name}: output of shape {tuple(y.shape)} "
+                               "or not finite")
+        excess = oracle_excess(y, x, n, batch, sign, 1.0)
+        if not excess <= 1.0:
+            raise SmokeFailure(f"{name}: {excess:.3e} times the oracle bound "
+                               f"{oracle_tol(n):.3e}")
+        del y
+        ms = time_ms(lambda: compute(x))
+        plain_ms = time_ms(functools.partial(plain_path(plan, entry), x))
+        library_ms = time_ms(library_call(x, n, batch, False, forward))
+        nbytes, flops = work("bluestein", n, batch)
+        bound, by = bound_of("bluestein", n, batch)
+        print(f"row {name:24s} n={n:<6d} batch={batch:<7d} "
+              f"{'+'.join(kinds):36s} launches {rose} route {entry[-1]} oracle "
+              f"max|diff|={excess * oracle_tol(n):.3e} tol={oracle_tol(n):.3e} | "
+              f"path {ms:.3f} ms {nbytes / ms / 1e6:.1f} GB/s | plain "
+              f"{plain_ms:.3f} ms | torch.fft {library_ms:.3f} ms | bound "
+              f"{bound:.3f} ms ({by}) | {card}")
+        results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
+        del plan, x
+        torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"plane main-path launches: {launches}")
+    for kind in ("deinterleave", "interleave", "chain", "bluestein"):
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on the plane path")
+    return results, launches
+
+
 def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
-                 alone, md_launches, md_alone) -> list[dict]:
+                 alone, md_launches, md_alone, plane_launches,
+                 plane_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
@@ -765,6 +1042,11 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
         n = shape[1] if kind == "col" else shape[1] * shape[2]
         kernels.append(entry(kind, md_launches[kind], *md_alone[kind], n,
                              math.prod(shape) // n))
+    for kind in PLANE_KINDS:
+        launches = (plane_launches["deinterleave"] + plane_launches["interleave"]
+                    if kind == "interleave" else plane_launches[kind])
+        kernels.append(entry(kind, launches, *plane_alone[kind],
+                             *PLANE_ALONE[kind]))
     return kernels
 
 
@@ -786,8 +1068,11 @@ def run() -> None:
     import portfft_tpu_torch as pf
     from portfft_tpu_torch.ops import (
         _build,
+        cuda_bluestein,
+        cuda_chain,
         cuda_fft,
         cuda_global,
+        cuda_io,
         cuda_multidim,
         cuda_real,
     )
@@ -800,7 +1085,10 @@ def run() -> None:
     counters = {"direct": cuda_fft.direct, "fused2": cuda_fft.fused2,
                 "global2": cuda_global.global2, "untangle": cuda_real.untangle,
                 "retangle": cuda_real.retangle, "small_real": cuda_real.small_real,
-                "col": cuda_multidim.col, "md2": cuda_multidim.md2}
+                "col": cuda_multidim.col, "md2": cuda_multidim.md2,
+                "deinterleave": cuda_io.deinterleave,
+                "interleave": cuda_io.interleave, "chain": cuda_chain.chain,
+                "bluestein": cuda_bluestein.bluestein}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -813,13 +1101,17 @@ def run() -> None:
     phase("C2C kernels", c2c_kernel_phase, pf, max_err)
     alone = phase("REAL kernels", real_kernel_phase, pf, max_err, card)
     md_alone = phase("multi-dim kernels", md_kernel_phase, pf, max_err, card)
+    plane_alone = phase("plane kernels", plane_kernel_phase, pf, max_err, card)
     c2c_rows, c2c_launches = phase("C2C main path", c2c_main_path, pf, counters, card)
     real_rows, real_launches = phase("REAL main path", real_main_path, pf,
                                      counters, card)
     _, md_launches = phase("multi-dim main path", md_main_path, pf, counters, card)
+    _, plane_launches = phase("plane main path", plane_main_path, pf, counters,
+                              card)
     print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
     kernels = kernel_table(max_err, c2c_rows, c2c_launches, real_rows,
-                           real_launches, alone, md_launches, md_alone)
+                           real_launches, alone, md_launches, md_alone,
+                           plane_launches, plane_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ The describe → commit → execute API of the JAX package::
     x2 = plan.compute_backward(y)    # unnormalized inverse
 
 This version runs C2C fp32 with INTERLEAVED storage and zero offsets,
-in-place or out-of-place: 1D PACKED (the main path), 1D BATCH_INTERLEAVED
+in-place or out-of-place: 1D PACKED of every length (the main path; the
+lengths no single kernel takes, such as primes past 512, run on the plane
+path: K6 deinterleave, the executor with K13 and K15, K6 interleave), 1D
+BATCH_INTERLEAVED
 (``forward_strides=[batch]``, ``forward_distance=1`` and the same
 backward), and multi-dimensional PACKED of any rank
 (``Descriptor(lengths=[512, 512], number_of_transforms=256)``); and the 1D

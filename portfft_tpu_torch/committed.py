@@ -3,7 +3,8 @@ runs each direction.
 
 Counterpart of ``portfft_tpu.committed.CommittedDescriptor`` for the slices
 this package covers (``fastpath.py``): C2C fp32 INTERLEAVED with zero
-offsets, out-of-place or in-place, as 1D PACKED (K1, K2 or K3), 1D
+offsets, out-of-place or in-place, as 1D PACKED (K1, K2 or K3, or the
+plane path K6 → executor with K13/K15 → K6 for every other length), 1D
 BATCH_INTERLEAVED (K10) and multi-dimensional PACKED of any rank (K11 and
 K10, or the last axis's 1D kernel and K10); and 1D REAL fp32 (R2C forward,
 C2R backward) INTERLEAVED PACKED with zero offsets, out-of-place; forward

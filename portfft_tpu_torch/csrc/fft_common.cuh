@@ -1,5 +1,6 @@
-// Shared device routines of the three FFT kernels (fft_direct.cu,
-// fft_fused2.cu, fft_global2.cu).
+// Shared device routines of the FFT kernels (fft_direct.cu, fft_fused2.cu,
+// fft_global2.cu, fft_col.cu, fft_md2.cu, and on (re, im) planes
+// fft_chain.cu and fft_bluestein.cu).
 //
 // Every kernel here is one "pass": for each batch b and each column c of an
 // (m x ncols) matrix view of the buffer, it takes the m-point transform down
@@ -201,50 +202,101 @@ __device__ inline void load_sub_roots(const Sub& s, const TileSmem& sm) {
   }
 }
 
-// One tile of a pass: columns c0 .. c0+T-1 of batch b, loaded, transformed,
-// stored.  Ends with __syncthreads, so the block's global writes are
-// visible to all its threads afterwards.
-__device__ inline void pass_tile(const Pass& p, int64_t b, int64_t c0,
-                                 const float2* x, float2* y,
-                                 const TileSmem& sm) {
+// The buffers a pass reads and writes: interleaved float2 (a pointer), or
+// two float planes (the plane path's kernels).  ld/st take the element
+// index.
+struct Planes {
+  float* re;
+  float* im;
+};
+struct ConstPlanes {
+  const float* re;
+  const float* im;
+};
+__device__ __forceinline__ float2 ld(const float2* x, int64_t i) {
+  return x[i];
+}
+__device__ __forceinline__ float2 ld(const ConstPlanes& x, int64_t i) {
+  return make_float2(x.re[i], x.im[i]);
+}
+__device__ __forceinline__ void st(float2* y, int64_t i, float2 v) {
+  y[i] = v;
+}
+__device__ __forceinline__ void st(const Planes& y, int64_t i, float2 v) {
+  y.re[i] = v.x;
+  y.im[i] = v.y;
+}
+
+// Loads columns c0 .. c0+T-1 of batch b into the tile dst (element i of
+// column t at tile_pos(i)*es + t); ends with __syncthreads.  The walk goes
+// columns fastest where columns are contiguous in device memory, else
+// elements fastest.
+template <class X>
+__device__ inline void tile_load(const Pass& p, int64_t b, int64_t c0, X x,
+                                 float2* dst) {
   const Sub& s = p.sub;
   const int m = s.m;
   const int T = p.T;
   const int es = tile_pitch(T);
   const int total = m * T;
-  // Walk the tile with columns fastest where columns are contiguous in
-  // device memory, else elements fastest.
-  const bool in_cols_fast = p.ics == 1 && T > 1;
-  const bool out_cols_fast = p.ocs == 1 && T > 1;
+  const bool cols_fast = p.ics == 1 && T > 1;
   const int64_t left = p.ncols - c0;
   const int tv = left < T ? int(left) : T;
-  const float2* xb = x + b * p.ibs + c0 * p.ics;
+  const int64_t xo = b * p.ibs + c0 * p.ics;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int i = in_cols_fast ? e / T : e % m;
-    const int t = in_cols_fast ? e - i * T : e / m;
-    if (t < tv) sm.b0[tile_pos(s, i) * es + t] = xb[i * p.iis + t * p.ics];
+    const int i = cols_fast ? e / T : e % m;
+    const int t = cols_fast ? e - i * T : e / m;
+    if (t < tv) dst[tile_pos(s, i) * es + t] = ld(x, xo + i * p.iis + t * p.ics);
   }
   __syncthreads();
-  const float2* res = sub_dft(s, sm.ra, sm.rb, sm.b0, sm.b1, T, es);
-  float2* yb = y + b * p.obs + c0 * p.ocs;
+}
+
+// Stores the transformed tile res: element k of column t, times the pass's
+// twiddle (if any) and scale, to y[b*obs + k*oks + (c0+t)*ocs]; ends with
+// __syncthreads, so the block's global writes are visible to all its
+// threads afterwards.
+template <class Y>
+__device__ inline void tile_store(const Pass& p, int64_t b, int64_t c0,
+                                  const float2* res, Y y) {
+  const Sub& s = p.sub;
+  const int m = s.m;
+  const int T = p.T;
+  const int es = tile_pitch(T);
+  const int total = m * T;
+  const bool cols_fast = p.ocs == 1 && T > 1;
+  const int64_t left = p.ncols - c0;
+  const int tv = left < T ? int(left) : T;
+  const int64_t yo = b * p.obs + c0 * p.ocs;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int k = out_cols_fast ? e / T : e % m;
-    const int t = out_cols_fast ? e - k * T : e / m;
+    const int k = cols_fast ? e / T : e % m;
+    const int t = cols_fast ? e - k * T : e / m;
     if (t >= tv) continue;
     float2 v = res[tile_pos(s, k) * es + t];
     if (p.twr) {
       const int64_t ti = (c0 + t) * p.tcs + k * p.tks;
       v = cmul(v, make_float2(__ldg(p.twr + ti), __ldg(p.twi + ti)));
     }
-    yb[k * p.oks + t * p.ocs] = make_float2(p.scale * v.x, p.scale * v.y);
+    st(y, yo + k * p.oks + t * p.ocs, make_float2(p.scale * v.x, p.scale * v.y));
   }
   __syncthreads();
+}
+
+// One tile of a pass: columns c0 .. c0+T-1 of batch b, loaded, transformed,
+// stored.
+template <class X, class Y>
+__device__ inline void pass_tile(const Pass& p, int64_t b, int64_t c0, X x,
+                                 Y y, const TileSmem& sm) {
+  tile_load(p, b, c0, x, sm.b0);
+  const float2* res =
+      sub_dft(p.sub, sm.ra, sm.rb, sm.b0, sm.b1, p.T, tile_pitch(p.T));
+  tile_store(p, b, c0, res, y);
 }
 
 // The body of every pass kernel: the blocks share out the tiles.  x and y
 // may be the same buffer when a tile is read only by the block that writes
 // it.
-__device__ inline void run_pass(const Pass& p, const float2* x, float2* y) {
+template <class X, class Y>
+__device__ inline void run_pass(const Pass& p, X x, Y y) {
   extern __shared__ float2 smem[];
   const TileSmem sm = tile_smem(p.sub, p.T, smem);
   load_sub_roots(p.sub, sm);
@@ -256,21 +308,33 @@ __device__ inline void run_pass(const Pass& p, const float2* x, float2* y) {
   }
 }
 
+// Launches `kernel(args...)` on `stream` with `smem` bytes of dynamic shared
+// memory and one block per tile (at most 2^30 blocks; the kernels stride
+// over the rest); returns the CUDA error code (0 = success).
+template <class Kernel, class... Args>
+inline int launch_tiles(Kernel kernel, size_t smem, int64_t tiles,
+                        cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const int64_t cap = int64_t(1) << 30;
+  const unsigned grid = unsigned(tiles < cap ? tiles : cap);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return int(cudaGetLastError());
+}
+
+inline int64_t pass_tiles(const Pass& p) {
+  return p.nbatch * ((p.ncols + p.T - 1) / p.T);
+}
+
 using PassKernel = void (*)(Pass, const float2*, float2*);
 
 // Launches one pass on `stream`; returns the CUDA error code (0 = success).
 inline int launch_pass(PassKernel kernel, const Pass& p, const float* x,
                        float* y, cudaStream_t stream) {
-  const size_t smem = pass_smem_bytes(p.sub, p.T);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const int64_t tiles = p.nbatch * ((p.ncols + p.T - 1) / p.T);
-  const int64_t cap = int64_t(1) << 30;
-  const unsigned grid = unsigned(tiles < cap ? tiles : cap);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      p, reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(y));
-  return int(cudaGetLastError());
+  return launch_tiles(kernel, pass_smem_bytes(p.sub, p.T), pass_tiles(p),
+                      stream, p, reinterpret_cast<const float2*>(x),
+                      reinterpret_cast<float2*>(y));
 }
 
 }  // namespace pfft

@@ -9,6 +9,22 @@ interleaved buffer, chosen by plan level:
 | DIRECT | ``cuda_fft.direct`` (K1) | ``pallas_fft.direct_raw_call`` |
 | FUSED [a, 128] | ``cuda_fft.fused2`` (K2) | ``pallas_fft.fused2_raw_mm_call`` |
 | GLOBAL, DIRECT or FUSED [a, 128] subs | ``cuda_global.global2`` (K3) | ``pallas_global.global2_raw_call`` |
+| anything else (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | the plane path, ``("plane", ...)`` below | ``committed._traced_interleaved`` |
+
+The plane path (``plane_fn``) runs ``cuda_io.deinterleave`` (K6), then the
+executor ``ops/torch_exec.exec_plan`` on the (re, im) planes with a leaf
+hook that runs each node's kernel, then ``cuda_io.interleave`` (K6) with
+the direction's scale.  The route of every node is fixed at commit
+(``plane_routes``) by the JAX package's ``leaf_dispatch`` gates:
+
+| node | kernel | JAX counterpart |
+|---|---|---|
+| DIRECT, FUSED [a >= 8, 128], any other FUSED chain | ``cuda_chain.chain`` (K13: its direct, two-stage and chain modes) | ``pallas_fft.fused_chain``, ``_generic_chain_call`` |
+| BLUESTEIN with a GLOBAL convolution (``cuda_bluestein.supported``) | ``cuda_bluestein.bluestein`` (K15) | ``pallas_bluestein.bluestein_call`` |
+| other BLUESTEIN, GLOBAL | the executor's glue around the kernels of its subs | ``xla_fft._exec_bluestein``, ``exec_plan`` |
+
+A node the JAX package gives to its plane GLOBAL kernel (``global2_call``,
+K14) raises at commit.
 
 The 1D REAL fp32 transform (R2C forward, C2R backward, INTERLEAVED PACKED,
 out-of-place) runs, for even n ≤ ``SMALL_REAL_MAX_N``, as one call of
@@ -51,7 +67,16 @@ import math
 from .enums import ComplexStorage, Direction, Domain, Layout, Level, Placement
 from .enums import inv as _inv
 from .exceptions import UnsupportedConfiguration
-from .ops import cuda_fft, cuda_global, cuda_multidim, cuda_real
+from .ops import (
+    cuda_bluestein,
+    cuda_chain,
+    cuda_fft,
+    cuda_global,
+    cuda_io,
+    cuda_multidim,
+    cuda_real,
+    torch_exec,
+)
 from .ops.torch_fft import is_two_stage
 from .utils.layout import get_layout
 
@@ -67,6 +92,7 @@ _SIGNS = {Direction.FORWARD: -1, Direction.BACKWARD: +1}
 #: ping-pong tiles of float2 plus its root table (``pass_smem_bytes`` in
 #: csrc/fft_common.cuh) fits the 227 KB of shared memory a block may use up
 #: to this length.  The C side checks no length; a launch past it fails.
+#: K15's convolution subs share the tile geometry and the limit.
 GLOBAL_SUB_MAX = 8192
 
 #: Longest REAL transform K9 takes whole; longer even lengths run the
@@ -78,9 +104,9 @@ def _leaf_ok(plan) -> bool:
     return plan.level == Level.DIRECT or is_two_stage(plan)
 
 
-def _entry_1d(plan0, batch: int, sign: int, scale: float):
-    """The entry of one 1D PACKED transform: ``(kind, plan, batch, sign,
-    scale)``."""
+def _raw_entry(plan0, batch: int, sign: int, scale: float):
+    """The raw entry of one 1D PACKED transform, ``(kind, plan, batch,
+    sign, scale)``, or None where the plan needs the plane path."""
     if plan0.level == Level.DIRECT:
         return ("direct", plan0, batch, sign, scale)
     if is_two_stage(plan0):
@@ -89,20 +115,135 @@ def _entry_1d(plan0, batch: int, sign: int, scale: float):
         g1, g2 = plan0.sub
         if _leaf_ok(g1) and _leaf_ok(g2) and max(g1.n, g2.n) <= GLOBAL_SUB_MAX:
             return ("global2", plan0, batch, sign, scale)
-        raise RawFastUnavailable(
-            f"GLOBAL plan {plan0.describe()} has a sub-transform that is "
-            f"neither DIRECT nor FUSED [a, 128] of length <= {GLOBAL_SUB_MAX}; "
-            "the torch executor that runs such plans is ROADMAP Queue 1 item 4"
-        )
+    return None
+
+
+def _plane_reason(plan0) -> str:
+    """Why ``plan0`` needs the plane path, naming its ROADMAP item."""
     if plan0.level == Level.BLUESTEIN:
-        raise RawFastUnavailable(
-            f"BLUESTEIN plan {plan0.describe()} is not ported yet "
-            "(ROADMAP Queue 1 item 11)"
-        )
-    raise RawFastUnavailable(
-        f"FUSED plan {plan0.describe()} is not the two-stage [a, 128] shape; "
-        "the torch executor that runs it is ROADMAP Queue 1 item 4"
-    )
+        return (f"BLUESTEIN plan {plan0.describe()} runs on the plane path "
+                "(Bluestein, ROADMAP Queue 1 item 11)")
+    if plan0.level == Level.GLOBAL:
+        return (f"GLOBAL plan {plan0.describe()} has a sub-transform that is "
+                f"neither DIRECT nor FUSED [a, 128] of length <= "
+                f"{GLOBAL_SUB_MAX}, so it runs on the plane path (the torch "
+                "executor, ROADMAP Queue 1 item 4)")
+    return (f"FUSED plan {plan0.describe()} is not the two-stage [a, 128] "
+            "shape, so it runs on the plane path (the torch executor, "
+            "ROADMAP Queue 1 item 4)")
+
+
+def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str):
+    """The raw entry of one 1D PACKED transform inside a REAL or
+    multi-dimensional route; raises where the plan needs the plane path,
+    which those routes do not take yet (``where`` names their item)."""
+    entry = _raw_entry(plan0, batch, sign, scale)
+    if entry is None:
+        raise RawFastUnavailable(f"{_plane_reason(plan0)}; {where}")
+    return entry
+
+
+# -- the plane path -----------------------------------------------------------
+
+
+def plane_routes(plan0, config) -> dict:
+    """The plane path's route of ``plan0``, chosen at commit with the JAX
+    package's gates (``pallas_fft.leaf_dispatch``): ``{n: kind}`` for every
+    node of the plan tree (a length has one plan, so one kind).  Kinds:
+    ``"direct"``, ``"two_stage"``, ``"chain"`` (K13's modes, as
+    ``fused_chain`` picks), ``"bluestein"`` (K15, where
+    ``bluestein_call`` takes the plan) and ``"generic"`` (a GLOBAL
+    four-step or Bluestein transform whose glue runs in the executor around
+    its nodes' kernels).  Raises :class:`RawFastUnavailable` where the JAX
+    package would run its plane GLOBAL kernel (``global2_call``, K14) or
+    where K13 or K15 do not take a node."""
+    routes: dict = {}
+    k14 = ("the JAX package runs it on its plane GLOBAL kernel "
+           "(pallas_global.global2_call, K14, ROADMAP Queue 2), which is not "
+           "ported yet: it comes with SPLIT storage (ROADMAP Queue 1 item 8)")
+
+    def walk(p):
+        if p.level in (Level.DIRECT, Level.FUSED):
+            mode = cuda_chain.leaf_mode(p)
+            if mode == "chain" and not cuda_chain.chain_fits(p):
+                raise RawFastUnavailable(
+                    f"FUSED plan {p.describe()} is a factor chain the chain "
+                    f"kernel K13 does not take (more than "
+                    f"{cuda_chain.MAX_FACTORS} factors, or a tile past "
+                    f"{cuda_chain.CHAIN_TILE_MAX} points after its first "
+                    "factor)")
+            routes[p.n] = mode
+        elif p.level == Level.GLOBAL:
+            if cuda_bluestein.global2_supported(p, config.direct_threshold):
+                raise RawFastUnavailable(f"GLOBAL plan {p.describe()}: {k14}")
+            routes[p.n] = "generic"
+            walk(p.sub[0])
+            walk(p.sub[1])
+        elif cuda_bluestein.supported(p, config):
+            if max(s.n for s in p.conv.sub) > GLOBAL_SUB_MAX:
+                raise RawFastUnavailable(
+                    f"BLUESTEIN plan {p.describe()} has a convolution sub "
+                    f"longer than {GLOBAL_SUB_MAX}, past the tile of "
+                    "the Bluestein kernel K15")
+            routes[p.n] = "bluestein"
+        else:
+            if p.conv.level == Level.GLOBAL and cuda_bluestein.global2_supported(
+                    p.conv, config.direct_threshold):
+                raise RawFastUnavailable(
+                    f"BLUESTEIN plan {p.describe()}: its convolution folds "
+                    f"b̂ into the plane GLOBAL kernel; {k14}")
+            routes[p.n] = "generic"
+            walk(p.conv)
+
+    walk(plan0)
+    return routes
+
+
+def plane_steps(committed, plan0, routes: dict) -> dict:
+    """``{(n, sign): (kernel, args)}``: the kernel of every node of
+    ``plan0``'s tree that runs one (K13 ``cuda_chain.chain`` or K15
+    ``cuda_bluestein.bluestein``), in both directions (a Bluestein
+    transform runs its convolution both ways), with the committed plan's
+    device tables."""
+    keys, arrays = committed._bank_keys, committed._bank_arrays
+    steps = {}
+
+    def walk(p):
+        kind = routes.get(p.n, "generic")
+        for sign in (-1, +1):
+            if kind == "bluestein":
+                steps[(p.n, sign)] = (cuda_bluestein.bluestein, (
+                    cuda_bluestein.bluestein_tables(p, sign, keys, arrays),))
+            elif kind != "generic":
+                steps[(p.n, sign)] = (cuda_chain.chain, (
+                    cuda_chain.chain_tables(p, sign, keys, arrays),))
+        if kind == "generic":
+            for q in p.sub or (p.conv,):
+                walk(q)
+
+    walk(plan0)
+    return steps
+
+
+def leaf_hook(steps: dict, plain: bool = False):
+    """The executor's ``leaf_fn`` (``torch_exec.exec_plan``): the kernel of
+    a node's step (its plain version if ``plain``), None for a generic
+    node.  A DIRECT or FUSED node without a step is a routing fault and
+    raises: no torch chain stands in for K13."""
+
+    def leaf_fn(xr, xi, plan, sign, bank):
+        step = steps.get((plan.n, sign))
+        if step is None:
+            if plan.level in (Level.DIRECT, Level.FUSED):
+                raise AssertionError(f"no kernel step for {plan.describe()}")
+            return None
+        kernel, args = step
+        yr, yi = (kernel.plain if plain else kernel)(
+            xr.reshape(-1, plan.n).contiguous(),
+            xi.reshape(-1, plan.n).contiguous(), *args)
+        return yr.reshape(xr.shape), yi.reshape(xi.shape)
+
+    return leaf_fn
 
 
 def _check_packed(d, layout: Layout = Layout.PACKED) -> None:
@@ -165,7 +306,9 @@ def _register_multidim(committed) -> dict:
             n2d = lengths[-2] * lengths[-1]
             head = ("md2", total // n2d, plan_a, plan_last, sign, head_scale)
         else:
-            head = _entry_1d(plan_last, total // lengths[-1], sign, head_scale)
+            head = _entry_1d(plan_last, total // lengths[-1], sign, head_scale,
+                             "multi-dimensional transforms have no plane path "
+                             "yet (ROADMAP Queue 1 item 10)")
         steps = [head] + [
             ("col", bpre, plan, rest, sign, scale if i == len(cols) - 1 else 1.0)
             for i, (plan, bpre, rest) in enumerate(cols)
@@ -205,7 +348,9 @@ def _register_real(committed) -> dict:
                               sign, scale)
         else:
             h = n // 2
-            sub = _entry_1d(committed.plans[h], batch, sign, 1.0)
+            sub = _entry_1d(committed.plans[h], batch, sign, 1.0,
+                            "the REAL transform has no plane path yet "
+                            "(ROADMAP Queue 1 item 9)")
             out[direction] = ("realf" if forward else "realb", sub, h, batch,
                               sign, scale)
     return out
@@ -241,12 +386,19 @@ def register(committed) -> dict:
             for direction, sign in _SIGNS.items()
         }
     _check_packed(d)
-    return {
-        direction: _entry_1d(
-            plan0, d.number_of_transforms, sign, float(d.get_scale(direction))
-        )
-        for direction, sign in _SIGNS.items()
-    }
+    batch = d.number_of_transforms
+    out = {}
+    for direction, sign in _SIGNS.items():
+        scale = float(d.get_scale(direction))
+        out[direction] = _raw_entry(plan0, batch, sign, scale)
+    if out[Direction.FORWARD] is None:
+        routes = plane_routes(plan0, committed.config)
+        out = {
+            direction: ("plane", plan0, batch, sign,
+                        float(d.get_scale(direction)), routes)
+            for direction, sign in _SIGNS.items()
+        }
+    return out
 
 
 def kernel_args(committed, entry):
@@ -297,11 +449,39 @@ def kernel_args(committed, entry):
     return kernel, (batch, cuda_fft.sub_tables(plan0, sign, keys, arrays), scale)
 
 
+def plane_fn(committed, entry, plain: bool = False):
+    """``fn(raw, out=None) -> tensor`` of a plane entry: K6 deinterleave,
+    the executor (``torch_exec.exec_plan``) with the route's K13 and K15
+    steps as its leaf hook, and K6 interleave with the direction's scale
+    into ``out`` (for IN_PLACE the caller's buffer, which the deinterleave
+    has already read).  ``plain`` chains the plain versions instead (the
+    CPU path, and ``chip_smoke.py``'s yardstick on the card)."""
+    _, plan0, batch, sign, scale, routes = entry
+    n = plan0.n
+    leaf = leaf_hook(plane_steps(committed, plan0, routes), plain)
+    keys, arrays = committed._bank_keys, committed._bank_arrays
+    de = cuda_io.deinterleave.plain if plain else cuda_io.deinterleave
+
+    def fn(raw, out=None):
+        xr, xi = de(raw)
+        yr, yi = torch_exec.exec_plan(xr.view(batch, n), xi.view(batch, n),
+                                      plan0, sign, keys, arrays, leaf)
+        yr, yi = yr.reshape(-1), yi.reshape(-1)
+        if not plain:
+            return cuda_io.interleave(yr, yi, scale, out=out)
+        y = cuda_io.interleave.plain(yr, yi, scale)
+        return y if out is None else out.copy_(y)
+
+    return fn
+
+
 def build_fn(committed, entry):
     """``fn(raw, out=None) -> tensor`` for an entry: ``raw`` is the flat
     float32 input buffer on the plan's device, of exactly the entry's input
     count; ``out`` (C2C only; may be ``raw``) receives the result."""
     kind = entry[0]
+    if kind == "plane":
+        return plane_fn(committed, entry)
     if kind == "multidim":
         (head, head_args), *rest = [kernel_args(committed, s) for s in entry[2]]
 

@@ -42,6 +42,18 @@ _SIGNATURES = {
     "pf_col_needs_scratch": ([_I], _I),
     "pf_col": ([_P, _P, _P] + _SUB + [_I64, _I64, _F, _P], _I),
     "pf_md2": ([_P, _P] + _SUB + _SUB + [_I64, _F, _P], _I),
+    "pf_deinterleave": ([_P, _P, _P, _I64, _P], _I),
+    "pf_interleave": ([_P, _P, _P, _I64, _F, _P], _I),
+    "pf_chain_needs_scratch": ([_I], _I),
+    "pf_chain_general_needs_scratch": ([_I], _I),
+    "pf_chain": ([_P] * 5 + _SUB + [_I64, _P], _I),
+    "pf_chain_general": (
+        [_P] * 5
+        + [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)]
+        + [_I64, _P],
+        _I,
+    ),
+    "pf_bluestein": ([_P] * 6 + [_I64] + _SUB * 4 + [_P] * 10 + [_I64, _F, _P], _I),
     "pf_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -6,7 +6,10 @@ strings (``portfft_tpu.ops.xla_fft.TwiddleBank``): ``W{f|b}{n}`` for DFT
 matrices, ``T{f|b}{f}x{m}`` for inter-factor twiddles stored transposed
 (m, f), ``U{f|b}{f}x{m}`` for the same twiddles in (f, m) orientation,
 ``R{f|b}{n}`` for the REAL untangle/retangle post-twiddle, each with an
-``r``/``i`` plane suffix.  The values are the JAX package's too
+``r``/``i`` plane suffix; for Bluestein ``B{f|b}{n}_{M}`` (chirp ``c`` and
+b̂), ``O{f|b}{n}_{g1}x{g2}`` (b̂ ``f`` and final chirp ``g`` in [k1, k2]),
+``C{f|b}{n}_{g2}x{nv}`` and ``D{f|b}{n}_{g2}x{g1}`` (the three-pass
+kernel's first and last chirps).  The values are the JAX package's too
 (``twiddle.py``), so a table carried over from it (``convert.py``) and one
 built here are interchangeable.  ``RM{f|b}{n}_{scale}m`` (the small-n REAL
 matrix, :meth:`TwiddleBank.real_small`) has no counterpart there: the JAX
@@ -22,7 +25,7 @@ import torch
 
 from .. import twiddle as tw
 from ..enums import Level
-from ..planner import Plan1D
+from ..planner import Plan1D, stage_shapes
 
 
 class TwiddleBank:
@@ -99,6 +102,85 @@ class TwiddleBank:
             self.host[key] = None
         return key
 
+    @staticmethod
+    def _bluestein_bhat(n: int, conv_n: int, sign: int):
+        """Chirp c (complex128, length n) and b̂ = DFT of the zero-padded
+        mirrored conjugate chirp, with the backward convolution's
+        1/conv_n folded in."""
+        cr, ci = tw.bluestein_chirp(n, sign, np.float64)
+        c = cr + 1j * ci
+        b = np.zeros(conv_n, dtype=np.complex128)
+        b[:n] = np.conj(c)
+        b[conv_n - n + 1 :] = np.conj(c)[1:][::-1]
+        return c, np.fft.fft(b) * (1.0 / conv_n)
+
+    def chirp(self, n: int, conv_n: int, sign: int) -> str:
+        """Bluestein chirp ``c`` (suffixes ``cr``/``ci``, length n) and b̂
+        (``br``/``bi``, length conv_n, 1/conv_n folded in)."""
+        key = f"B{'f' if sign < 0 else 'b'}{n}_{conv_n}"
+        if key not in self.host:
+            c, bf = self._bluestein_bhat(n, conv_n, sign)
+            self.host[key + "cr"] = c.real.astype(self.dtype)
+            self.host[key + "ci"] = c.imag.astype(self.dtype)
+            self.host[key + "br"] = bf.real.astype(self.dtype)
+            self.host[key + "bi"] = bf.imag.astype(self.dtype)
+            self.host[key] = None
+        return key
+
+    def bluestein_post(self, n: int, conv_n: int, g1: int, g2: int,
+                       sign: int) -> str:
+        """b̂ (suffix ``f``) and the final chirp zero-extended past n
+        (``g``), each arranged [k1, k2] (g1, g2) for a GLOBAL convolution
+        g1 × g2.  The three-pass kernel reads ``f`` in its middle pass."""
+        key = f"O{'f' if sign < 0 else 'b'}{n}_{g1}x{g2}"
+        if key not in self.host:
+            c, bf = self._bluestein_bhat(n, conv_n, sign)
+            cz = np.zeros(conv_n, dtype=np.complex128)
+            cz[:n] = c
+            for suf, arr in (("f", bf), ("g", cz)):
+                m = arr.reshape(g2, g1).T  # [k1, k2]
+                self.host[key + suf + "r"] = np.ascontiguousarray(
+                    m.real
+                ).astype(self.dtype)
+                self.host[key + suf + "i"] = np.ascontiguousarray(
+                    m.imag
+                ).astype(self.dtype)
+            self.host[key] = None
+        return key
+
+    def bluestein_pre(self, n: int, g2: int, nv: int, sign: int) -> str:
+        """Pass-1 chirp of the three-pass kernel: (nv, g2) [j1, j2] =
+        c[j1·g2 + j2], zero past n."""
+        key = f"C{'f' if sign < 0 else 'b'}{n}_{g2}x{nv}"
+        if key not in self.host:
+            cr, ci = tw.bluestein_chirp(n, sign, np.float64)
+            cz = np.zeros(nv * g2, dtype=np.complex128)
+            cz[:n] = cr + 1j * ci
+            m = cz.reshape(nv, g2)
+            self.host[key + "r"] = m.real.astype(self.dtype)
+            self.host[key + "i"] = m.imag.astype(self.dtype)
+            self.host[key] = None
+        return key
+
+    def bluestein_final(self, n: int, g1b: int, g2b: int, sign: int) -> str:
+        """Pass-3 chirp of the three-pass kernel on the swapped backward
+        factorization (g1b, g2b): [k1', k2'] = c[k1' + g1b·k2'], zero past
+        n."""
+        key = f"D{'f' if sign < 0 else 'b'}{n}_{g1b}x{g2b}"
+        if key not in self.host:
+            cr, ci = tw.bluestein_chirp(n, sign, np.float64)
+            cz = np.zeros(g1b * g2b, dtype=np.complex128)
+            cz[:n] = cr + 1j * ci
+            m = cz.reshape(g2b, g1b).T  # [k1', k2']
+            self.host[key + "r"] = np.ascontiguousarray(m.real).astype(
+                self.dtype
+            )
+            self.host[key + "i"] = np.ascontiguousarray(m.imag).astype(
+                self.dtype
+            )
+            self.host[key] = None
+        return key
+
     def device_arrays(self, device) -> dict[str, torch.Tensor]:
         """Every table as a tensor on ``device``."""
         return {
@@ -114,24 +196,53 @@ def is_two_stage(plan: Plan1D) -> bool:
     return plan.level == Level.FUSED and len(f) == 2 and f[1] == 128
 
 
+def valid_rows(n: int, g2: int) -> int:
+    """Rows of the (g1, g2) view of a Bluestein convolution that hold input
+    (or output) of the n-point transform, ceil(n / g2), rounded up to 8 as
+    the JAX package rounds it (``pallas_bluestein.valid_rows``)."""
+    return -(-(-(-n // g2)) // 8) * 8
+
+
 def collect_bank_keys(
     plan: Plan1D, sign: int, bank: TwiddleBank, keys: dict
 ) -> dict:
     """Materialize the tables the kernels of ``plan`` need and record their
     names in ``keys`` under the JAX package's tuple keys: ``("W", f, sign)``,
-    ``("U", a, 128, sign)``, ``("T", g1, g2, sign)``."""
+    ``("U", a, 128, sign)``, ``("T", f, m, sign)``; for a BLUESTEIN plan
+    ``("B", n, sign)`` and, when its convolution is GLOBAL g1 × g2,
+    ``("BPOST", n, sign)``, ``("BPRE", n, sign)``, ``("BFIN", n, sign)``
+    and ``("T", g2, g1, +1)`` (the three-pass kernel's), then the
+    convolution's own tables in both directions."""
     if plan.level == Level.DIRECT:
         keys[("W", plan.n, sign)] = bank.dft(plan.n, sign)
-    elif is_two_stage(plan):
+    elif is_two_stage(plan):  # K2, K13's two-stage mode: U, not T
         a = plan.factors[0]
         keys[("W", a, sign)] = bank.dft(a, sign)
         keys[("W", 128, sign)] = bank.dft(128, sign)
         keys[("U", a, 128, sign)] = bank.twiddle_fm(a, 128, sign)
+    elif plan.level == Level.FUSED:  # the chain's tables, as the JAX package's
+        for f, m in stage_shapes(plan.factors):
+            keys[("W", f, sign)] = bank.dft(f, sign)
+            if m > 1:
+                keys[("T", f, m, sign)] = bank.twiddle(f, m, sign)
     elif plan.level == Level.GLOBAL:
         g1, g2 = plan.sub
         keys[("T", g1.n, g2.n, sign)] = bank.twiddle(g1.n, g2.n, sign)
         collect_bank_keys(g1, sign, bank, keys)
         collect_bank_keys(g2, sign, bank, keys)
+    elif plan.level == Level.BLUESTEIN:
+        n, conv = plan.n, plan.conv
+        keys[("B", n, sign)] = bank.chirp(n, conv.n, sign)
+        if conv.level == Level.GLOBAL:
+            g1, g2 = conv.sub[0].n, conv.sub[1].n
+            keys[("BPOST", n, sign)] = bank.bluestein_post(n, conv.n, g1, g2, sign)
+            nv = valid_rows(n, g2)
+            if nv <= g1 and bank.dtype == np.float32:
+                keys[("BPRE", n, sign)] = bank.bluestein_pre(n, g2, nv, sign)
+                keys[("BFIN", n, sign)] = bank.bluestein_final(n, g2, g1, sign)
+                keys[("T", g2, g1, +1)] = bank.twiddle(g2, g1, +1)
+        collect_bank_keys(conv, -1, bank, keys)
+        collect_bank_keys(conv, +1, bank, keys)
     return keys
 
 

@@ -52,3 +52,14 @@ def twiddles(f: int, m: int, sign: int, dtype) -> tuple[np.ndarray, np.ndarray]:
     """Real/imag planes of the (f, m) inter-factor twiddle array."""
     re, im = _twiddles_f64(f, m, sign)
     return re.astype(dtype), im.astype(dtype)
+
+
+def bluestein_chirp(n: int, sign: int, dtype) -> tuple[np.ndarray, np.ndarray]:
+    """Chirp c[k] = exp(sign·πi·k²/n), k < n, of the Bluestein transform;
+    the argument is reduced to k² mod 2n before scaling."""
+    k = np.arange(n, dtype=np.float64)
+    theta = (np.pi / n) * np.mod(k * k, 2.0 * n)
+    return (
+        np.cos(theta).astype(dtype),
+        (np.array(sign, np.float64) * np.sin(theta)).astype(dtype),
+    )

@@ -279,3 +279,73 @@ def test_kernels_launch_on_the_tensor_card(cuda):
             assert got.device == x.device
             err = (got - want).abs().max().item()
             assert err <= KERNEL_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "n,batch,kind",
+    [(3, 9, "chain"), (100, 5, "chain"), (3072, 3, "chain"), (24576, 2, "chain"),
+     (600, 7, "chain"), (1000, 3, "chain"), (19683, 2, "chain"),
+     (16411, 2, "bluestein"), (20011, 3, "bluestein"), (65537, 2, "bluestein"),
+     (131101, 2, "bluestein")],
+)
+def test_plane_kernel_matches_plain(cuda, n, batch, kind):
+    """K13 (every mode) and K15 on planes against their plain versions."""
+    from chip_smoke import plane_case
+
+    rng = np.random.default_rng(n)
+    xr, xi = (torch.from_numpy(rng.uniform(-1, 1, (batch, n)).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    for sign in (-1, +1):
+        kernel, args = plane_case(pf, kind, n, sign)
+        before = kernel.launches
+        yr, yi = kernel(xr, xi, *args)
+        wr, wi = kernel.plain(xr, xi, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        peak = max(wr.abs().max().item(), wi.abs().max().item())
+        err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
+        assert err <= KERNEL_TOL * peak, (sign, err)
+
+
+@pytest.mark.parametrize("m", [1, 7, 1031 * 3, 1 << 16])
+def test_io_kernels_are_exact(cuda, m):
+    from portfft_tpu_torch.ops import cuda_io
+
+    x = torch.rand(2 * m, device=cuda) * 2 - 1
+    re, im = cuda_io.deinterleave(x)
+    assert torch.equal(re, x[0::2]) and torch.equal(im, x[1::2])
+    out = torch.empty_like(x)
+    assert cuda_io.interleave(re, im, 0.25, out=out) is out
+    assert torch.equal(out, x * 0.25)
+
+
+@pytest.mark.parametrize("n,batch", [(600, 5), (1000, 3), (1031, 4), (2062, 2),
+                                     (3000, 2), (10007, 2), (16411, 2),
+                                     (65537, 2), (2 * 65537, 1)])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_plane_main_path_matches_oracle(cuda, n, batch, inplace):
+    """The plane path, out of place on a complex64 tensor and in place on
+    a raw float32 tensor, with scales, against ``torch.fft``."""
+    placement = pf.Placement.IN_PLACE if inplace else pf.Placement.OUT_OF_PLACE
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         placement=placement, forward_scale=0.5,
+                         backward_scale=2.0 / n).commit()
+    assert plan._raw_fast[pf.Direction.FORWARD][0] == "plane"
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(batch, n, dtype=torch.complex64, generator=gen, device=cuda)
+    xd = x.to(torch.complex128)
+    for direction, compute, ref in (
+        (pf.Direction.FORWARD, plan.compute_forward, torch.fft.fft(xd) * 0.5),
+        (pf.Direction.BACKWARD, plan.compute_backward,
+         torch.fft.ifft(xd, norm="forward") * (2.0 / n)),
+    ):
+        if inplace:
+            raw = torch.view_as_real(x.clone()).reshape(-1)
+            assert compute(raw) is raw
+            y = torch.view_as_complex(raw.view(-1, 2))
+        else:
+            y = compute(x)
+            assert y.dtype == torch.complex64 and y.shape == (x.numel(),)
+        scale = 0.5 if direction == pf.Direction.FORWARD else 2.0 / n
+        diff = (y.reshape(x.shape).to(torch.complex128) - ref).abs().max().item()
+        assert diff <= oracle_tol(n) * scale, (direction, diff)

@@ -178,10 +178,13 @@ def test_commit_needs_cuda_unless_cpu_is_named(monkeypatch):
               forward_distance=1), "item 8"),  # BATCH_INTERLEAVED one way
         (dict(lengths=[16], forward_offset=2), "item 8"),
         (dict(lengths=[16], precision="fp64"), "item 12"),
-        (dict(lengths=[65537]), "item 11"),
-        (dict(lengths=[600]), "item 4"),
-        (dict(lengths=[2 * 65537]), "item 4"),
-        (dict(lengths=[1 << 27]), "item 4"),  # FUSED [128, 128] sub > 8192
+        # 1D C2C takes these lengths on its plane path; the multi-dim route
+        # does not take a last axis that needs it yet
+        (dict(lengths=[2, 65537]), "item 11"),  # BLUESTEIN last axis
+        (dict(lengths=[4, 600]), "item 4"),  # FUSED [120, 5] last axis
+        (dict(lengths=[4, 2 * 65537]), "item 4"),  # GLOBAL, BLUESTEIN sub
+        # GLOBAL FUSED [128, 128] x [64, 128]: the plane GLOBAL kernel K14
+        (dict(lengths=[1 << 27]), "K14"),
     ],
 )
 def test_outside_the_slice_raises_at_commit(kw, item):
