@@ -6,7 +6,10 @@ For each row of ``bench.py``'s ``CONFIGS``, ``backward_medium`` and
 ``LADDER_CONFIGS``, of its ``REAL_CONFIGS`` and real_large backward, and of
 its ``MULTIDIM_CONFIGS`` plus the BATCH_INTERLEAVED row bi_4096, and of
 the plane path's rows (``large_1d_prime`` both ways, n = 1031, 1000 and
-2062 at about 1 GiB; the executor's glue shows as torch's own kernels), it
+2062 at about 1 GiB; the executor's glue shows as torch's own kernels),
+and of ``chip_smoke.py``'s SPLIT_COMPLEX rows (planes in and out) and its
+further plane rows (a multi-dim shape with an outer FUSED [5, 128] axis,
+the nested GLOBAL length 12232320, the Bluestein length 50431897), it
 commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
@@ -15,7 +18,8 @@ kernel's device ms per launch in launch order.  The first line is the card's
 name and power limit as ``nvidia-smi`` gives them.  Needs one CUDA device;
 a row whose profile lost device events (some kernel's launches not a
 multiple of the calls) is profiled again, up to ``ATTEMPTS`` times, and the
-script exits non-zero when none is whole.
+script exits non-zero when none is whole.  Arguments, where given, are
+prefixes of the row names to profile (``python3 chip_profile.py split_``).
 """
 
 from __future__ import annotations
@@ -65,6 +69,20 @@ PLANE_ROWS = [
     ("chain_1000", 1000, 1 << 17, "forward"),
     ("global_2062", 2062, 1 << 16, "forward"),
 ]
+# chip_smoke.SPLIT_ROWS and chip_smoke.PLANE_MORE_ROWS: name, lengths,
+# batch, direction, SPLIT storage.
+SPLIT_ROWS = [
+    ("split_large_1d", [65536], 2048, "forward", True),
+    ("split_large_1d_backward", [65536], 2048, "backward", True),
+    ("split_2^20", [1 << 20], 128, "forward", True),
+    ("split_4096", [4096], 32768, "forward", True),
+    ("split_large_1d_prime", [65537], 2048, "forward", True),
+    ("split_md_1024x1024", [1024, 1024], 64, "forward", True),
+    ("split_md_128^3", [128, 128, 128], 32, "forward", True),
+    ("plane_md_128x640x128", [128, 640, 128], 12, "forward", False),
+    ("nested_global_12232320", [12232320], 8, "forward", False),
+    ("bluestein_50431897", [50431897], 1, "forward", False),
+]
 CALLS = 5
 #: Profiles of a row taken until every kernel shows a whole number of
 #: launches per call: the profiler has been seen to drop device events.
@@ -76,13 +94,13 @@ def kernel_name(name: str) -> str:
     return m.group(1) if m else name[:60]
 
 
-def profiled(compute, x) -> tuple[float, dict[str, list[float]]]:
+def profiled(compute, inputs) -> tuple[float, dict[str, list[float]]]:
     """Wall ms per call and each kernel's device ms per launch, in launch
     order, over ``CALLS`` calls under the profiler."""
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(CALLS):
-            compute(x)
+            compute(*inputs)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / CALLS
     per: dict[str, list[float]] = {}
@@ -117,7 +135,13 @@ def main() -> None:
                                          backward_strides=[b]) if is_bi else {})
              for name, lengths, b, dn, is_bi in MD_ROWS]
     rows += [(name, [n], b, dn, {}) for name, n, b, dn in PLANE_ROWS]
+    rows += [(name, lengths, b, dn, {"complex_storage":
+                                     pf.ComplexStorage.SPLIT_COMPLEX} if split else {})
+             for name, lengths, b, dn, split in SPLIT_ROWS]
+    prefixes = sys.argv[1:]
     for name, lengths, batch, direction, kw in rows:
+        if prefixes and not any(name.startswith(p) for p in prefixes):
+            continue
         plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
                              **kw).commit(device="cuda")
         n = lengths[0] if len(lengths) == 1 else lengths
@@ -128,13 +152,16 @@ def main() -> None:
             numel = size if direction == "forward" else size + 2 * batch
         gen = torch.Generator(device="cuda").manual_seed(0)
         x = torch.rand(numel, generator=gen, device="cuda") * 2 - 1
+        # SPLIT: the (re, im) planes
+        inputs = ((x[0::2].contiguous(), x[1::2].contiguous())
+                  if "complex_storage" in kw else (x,))
         compute = (plan.compute_forward if direction == "forward"
                    else plan.compute_backward)
         for _ in range(3):
-            compute(x)
+            compute(*inputs)
         torch.cuda.synchronize()
         for attempt in range(1, ATTEMPTS + 1):
-            wall, per = profiled(compute, x)
+            wall, per = profiled(compute, inputs)
             if per and all(len(v) % CALLS == 0 for v in per.values()):
                 break
         else:
@@ -148,7 +175,7 @@ def main() -> None:
             "wall_ms_per_call": wall, "device_busy_ms_per_call": busy,
             "device_ms_per_launch": {k: v[: len(v) // CALLS] for k, v in per.items()},
         }))
-        del x, plan
+        del x, inputs, plan
         torch.cuda.empty_cache()
 
 

@@ -43,7 +43,12 @@
    md_1024x1024 backward and the BATCH_INTERLEAVED row bi_4096, then for
    ``PLANE_ROWS`` (large_1d_prime 65537x2048 both ways through K6, K15,
    K6; n = 1031, 1000 and 2062 at about 1 GiB through K6, K13 and the
-   executor's glue, K6).  Each phase
+   executor's glue, K6), then for ``SPLIT_ROWS`` (SPLIT_COMPLEX planes in
+   and out: K14, K13, K15 and K12 under the per-axis walk) and
+   ``PLANE_MORE_ROWS`` (interleaved rows the raw kernels decline: a
+   multi-dim shape through K12, the nested GLOBAL 12232320 and the
+   Bluestein length 50431897 through K14), each with its peak device
+   memory.  Each phase
    resets the launch counts just before and reads them just after; each
    row's kernels (for a REAL row, its K8 or K9 and the C2C kernel under it;
    for a multi-dim row, every kernel of its route) must have launched.  A
@@ -51,7 +56,13 @@
    2·eps·N·log2(N) per element.  The kernel path, the plain path and one
    ``torch.fft`` call of the same function (the yardstick; the port never
    calls it) are timed with CUDA events (3 warm-up calls, median of 10).
-5. Prints the kernel table as one JSON line (each kernel's launches on the
+5. K14/K12 kernel phase, after the rows (its K14 post case at 16384 x 8192
+   reads the tables of bluestein_50431897's plan): K14 at
+   ``GLOBAL_PLANES_CASES`` and K12 at ``AXIS_CASES``, both directions,
+   against their plain versions and ``torch.fft`` (K14 with post: ``fft``
+   times the post table), with the two planted faults; K14 timed alone at
+   split_large_1d's shape, K12 at split_md_1024x1024's column pass.
+6. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms), then, as the last line, ``{"ok": true, "device":
    {...}}``.  Any failure exits non-zero before that line.
@@ -161,6 +172,51 @@ PLANE_ALONE = {"interleave": (65537 * 2048, 1), "chain": (3072, 1 << 17),
 # K13's general chain mode, timed alone beside the table's shape: the
 # [125, 8] chain of the chain_1000 row.
 CHAIN_MODE_ALONE = (1000, 1 << 17)
+# SPLIT_COMPLEX main path (bench.py large_1d, the top of the ladder,
+# medium_large_1d, large_1d_prime and two MULTIDIM_CONFIGS rows, about 1 GiB
+# of planes in): name, lengths, batch, direction.  K14 with DIRECT subs and
+# with a FUSED [16, 128] sub, K13 [32, 128], K15 on planes, K13 then K12
+# FUSED, K13 then K12 DIRECT twice.
+SPLIT_ROWS = [
+    ("split_large_1d", (65536,), 2048, "forward"),
+    ("split_large_1d_backward", (65536,), 2048, "backward"),
+    ("split_2^20", (1 << 20,), 128, "forward"),
+    ("split_4096", (4096,), 32768, "forward"),
+    ("split_large_1d_prime", (65537,), 2048, "forward"),
+    ("split_md_1024x1024", (1024, 1024), 64, "forward"),
+    ("split_md_128^3", (128, 128, 128), 32, "forward"),
+]
+# Interleaved plane rows the raw kernels decline, about 1 GiB in: a
+# multi-dim shape with an outer axis K10 does not take (K6, K13, movedim +
+# K13's chain [5, 128], K12, K6), the nested GLOBAL length (K6, K14 on its
+# inner 240 x 184, K13, K6) and a Bluestein length whose convolution has a
+# [128, 128] sub (K6, K14 with post both ways, K6).
+PLANE_MORE_ROWS = [
+    ("plane_md_128x640x128", (128, 640, 128), 12, "forward"),
+    ("nested_global_12232320", (12232320,), 8, "forward"),
+    ("bluestein_50431897", (50431897,), 1, "forward"),
+]
+# K14 kernel phase: (g1, g2, batch, post): DIRECT subs (65536 = 256 x 256,
+# split_large_1d), a FUSED sub (2^20 = [16, 128] x 512), the inner node of
+# nested_global_12232320 at its batch 8 x 277 (DIRECT subs, 184 no power of
+# two), the post tables of the 384 x 384 convolution of 65537 (b̂ forward,
+# the final chirp backward) and those of the 16384 x 8192 convolution of
+# bluestein_50431897 (a [128, 128] sub in two launches), on the tables of
+# that row's plan.
+GLOBAL_PLANES_CASES = [(256, 256, 2048, None), (2048, 512, 128, None),
+                       (240, 184, 8 * 277, None), (384, 384, 512, 65537),
+                       (16384, 8192, 1, 50431897)]
+# K12 kernel phase at (bpre, L, rest): DIRECT 128 (both column passes of
+# split_md_128^3, and the axis-0 pass of plane_md_128x640x128) and 256,
+# FUSED [8, 128] (split_md_1024x1024), [24, 128] (24 does not divide 128)
+# and [128, 128] in two launches.
+AXIS_CASES = [(32, 128, 16384), (4096, 128, 128), (12, 128, 640 * 128),
+              (64, 256, 4096), (64, 1024, 1024), (16, 3072, 1024),
+              (4, 16384, 1024)]
+# The shapes timed alone: K14 at split_large_1d, K12 at the column pass of
+# split_md_1024x1024.
+GLOBAL_PLANES_ALONE = (256, 256, 2048)
+AXIS_ALONE = (64, 1024, 1024)
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -184,12 +240,17 @@ SOURCES = {
               "portfft_tpu/ops/pallas_fft.py:189"),
     "bluestein": ("portfft_tpu_torch/csrc/fft_bluestein.cu",
                   "portfft_tpu/ops/pallas_bluestein.py:177"),
+    "global2_planes": ("portfft_tpu_torch/csrc/fft_global2_planes.cu",
+                       "portfft_tpu/ops/pallas_global.py:394"),
+    "axis_m2": ("portfft_tpu_torch/csrc/fft_axis.cu",
+                "portfft_tpu/ops/pallas_global.py:519"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
 MD_KINDS = ("col", "md2")
 # K6 is one kernel of the table with two wrappers (deinterleave, interleave).
 PLANE_KINDS = ("interleave", "chain", "bluestein")
+SPLIT_KINDS = ("global2_planes", "axis_m2")
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
 # fp32 outside the tensor cores, per millisecond.
 HBM_BYTES_PER_MS = 3.35e9
@@ -213,7 +274,7 @@ def work(kind: str, n: int, batch: int) -> tuple[int, float]:
     lg, h = max(math.log2(n), 1.0), n // 2
     if kind == "interleave":  # both K6 kernels, n the element count
         return 32 * batch * n, 2.0 * batch * n
-    if kind in C2C_KINDS or kind in MD_KINDS or kind in PLANE_KINDS:
+    if kind in C2C_KINDS + MD_KINDS + PLANE_KINDS + SPLIT_KINDS:
         return 16 * batch * n, 5 * n * lg * batch
     if kind in ("untangle", "retangle"):
         return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
@@ -356,6 +417,12 @@ def planted(kind: str, args: tuple) -> tuple:
     if kind == "bluestein":  # the pass-1 chirp
         (tabs,) = args
         return (dataclasses.replace(tabs, pre=(tabs.pre[0], -tabs.pre[1])),)
+    if kind == "global2_planes":  # the inter-pass twiddle, as K3
+        tabs, *rest = args
+        return (dataclasses.replace(tabs, tw=(tabs.tw[0], -tabs.tw[1])), *rest)
+    if kind == "axis_m2":
+        bpre, rest, sub, scale = args
+        return (bpre, rest, conjugated(sub), scale)
     batch, sub, scale = args
     return (batch, conjugated(sub), scale)
 
@@ -443,6 +510,8 @@ def plain_path(plan, entry):
 
     if entry[0] == "plane":
         return fastpath.plane_fn(plan, entry, plain=True)
+    if entry[0] == "core":  # SPLIT: fn(xr, xi) -> (yr, yi)
+        return fastpath.core_fn(plan, entry, plain=True)
     if entry[0] == "multidim":
         steps = [fastpath.kernel_args(plan, s) for s in entry[2]]
 
@@ -1006,9 +1075,258 @@ def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     return results, launches
 
 
+def planes_oracle_excess(yr, yi, xr, xi, shape, dims, sign: int,
+                         scale: float, post=None) -> float:
+    """``nd_oracle_excess`` on (re, im) planes, the transform times the
+    (g1, g2) [k1, k2] ``post`` pair where given (a 1D transform of
+    n = g1·g2, output k = k1 + g1·k2), the bound then times max|post|."""
+    rows = sample_rows(shape[0])
+
+    def pick(re, im):
+        return torch.complex(re.view(shape)[rows], im.view(shape)[rows]).to(
+            torch.complex128)
+
+    xs = pick(xr, xi)
+    ref = (torch.fft.fftn(xs, dim=dims) if sign < 0
+           else torch.fft.ifftn(xs, dim=dims, norm="forward")) * scale
+    mag = 1.0
+    if post is not None:
+        p = torch.complex(post[0], post[1]).to(torch.complex128).T.reshape(-1)
+        ref, mag = ref * p, p.abs().max().item()
+    n = math.prod(shape[d] for d in dims)
+    return ((pick(yr, yi) - ref).abs().max().item()
+            / (oracle_tol(n) * abs(scale) * mag))
+
+
+def global2_planes_case(pf, g1: int, g2: int, sign: int, post_n=None,
+                        device: str = "cuda", plans=None):
+    """``(kernel, args)`` of a K14 case of g1 x g2 at the direction's
+    scale: the subs' tables from 1D commits of g1 and g2 and the twiddle
+    from a bank; with ``post_n``, the tables of the length-``post_n``
+    Bluestein plan (whose convolution is g1 x g2; ``plans[post_n]`` where
+    given, else a new commit) and its post pair for the convolution's
+    direction ``sign`` (b̂ forward, the final chirp backward)."""
+    from portfft_tpu_torch.ops import cuda_global, torch_fft
+
+    n = g1 * g2
+    scale = 0.5 if sign < 0 else 2.0 / n
+    if post_n is None:
+        bank = torch_fft.TwiddleBank()
+        t = bank.twiddle(g1, g2, sign)
+        arrays = bank.device_arrays(device)
+        tabs = cuda_global.Global2Tables(
+            n, sub_tables_of(pf, g1, sign, device),
+            sub_tables_of(pf, g2, sign, device),
+            (arrays[t + "r"], arrays[t + "i"]))
+        return cuda_global.global2_planes, (tabs, scale, None)
+    plan = (plans or {}).get(post_n)
+    if plan is None:
+        plan = pf.Descriptor(lengths=[post_n]).commit(device=device)
+    keys, arrays = plan._bank_keys, plan._bank_arrays
+    conv = plan.plans[post_n].conv
+    if (conv.sub[0].n, conv.sub[1].n) != (g1, g2):
+        raise SmokeFailure(f"{post_n}: convolution {conv.describe()}")
+    p = keys[("BPOST", post_n, -1)] + ("f" if sign < 0 else "g")
+    return cuda_global.global2_planes, (
+        cuda_global.global2_tables(conv, sign, keys, arrays), scale,
+        (arrays[p + "r"], arrays[p + "i"]))
+
+
+def axis_case(pf, shape: tuple, sign: int, device: str = "cuda"):
+    """``(kernel, args)`` of a K12 case at (bpre, L, rest), at the
+    direction's scale."""
+    from portfft_tpu_torch.ops import cuda_axis
+
+    bpre, length, rest = shape
+    scale = 0.5 if sign < 0 else 2.0 / length
+    return cuda_axis.axis_m2, (bpre, rest, sub_tables_of(pf, length, sign, device),
+                               scale)
+
+
+def split_shape(kind: str, case: tuple) -> tuple:
+    """The complex view a K14 case (g1, g2, batch, post_n) or a K12 case
+    (bpre, L, rest) transforms over its axis 1."""
+    if kind == "global2_planes":
+        return (case[2], case[0] * case[1])
+    return case
+
+
+def split_case(pf, kind: str, case: tuple, sign: int, device: str = "cuda",
+               plans=None):
+    """``(kernel, args)`` of a K14 or K12 case."""
+    if kind == "global2_planes":
+        g1, g2, _, post_n = case
+        return global2_planes_case(pf, g1, g2, sign, post_n, device, plans)
+    return axis_case(pf, case, sign, device)
+
+
+def check_split(kind: str, kernel, args: tuple, x, shape: tuple,
+                sign: int) -> dict:
+    """``check_kernel`` for K14 (against ``fft`` times its post table where
+    it has one) or K12 on the raw buffer ``x`` of the complex ``shape``."""
+    scale, post = (args[1], args[2]) if kind == "global2_planes" else (args[-1], None)
+    return check_against(
+        f"{kind} {shape} sign={sign:+d}", kind, on_raw(kernel, math.prod(shape)),
+        args, x,
+        lambda y: planes_oracle_excess(
+            *y.view(-1, 2).unbind(-1), *x.view(-1, 2).unbind(-1), shape, (1,),
+            sign, scale, post))
+
+
+def split_kernel_phase(pf, max_err: dict, card: str, plans: dict) -> dict:
+    """Checks K14 at ``GLOBAL_PLANES_CASES`` and K12 at ``AXIS_CASES``, both
+    directions, against their plain versions and ``torch.fft`` (for K14
+    with post, ``fft`` times the post table), with the two planted faults
+    (K14: its inter-pass twiddle conjugated; K12: its roots or inner
+    twiddle); a post case takes its tables from ``plans[post_n]`` where the
+    plane rows left that plan.  Returns ``{kind: (ms, plain_ms,
+    library_ms)}`` of each timed alone forward at ``GLOBAL_PLANES_ALONE`` /
+    ``AXIS_ALONE``."""
+    alone = {}
+    cases = ([("global2_planes", c) for c in GLOBAL_PLANES_CASES]
+             + [("axis_m2", c) for c in AXIS_CASES])
+    for kind, case in cases:
+        shape = split_shape(kind, case)
+        numel, n = math.prod(shape), shape[1]
+        x = random_raw(2 * numel, seed=n)
+        for sign in (-1, +1):
+            kernel, args = split_case(pf, kind, case, sign, plans=plans)
+            before = kernel.launches
+            r = check_split(kind, kernel, args, x, shape, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"{kind} {case}: launch counter did not rise")
+            report(kind, f"{str(case):26s} sign={sign:+d}", r)
+            max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+            if sign < 0 and case[:3] in (GLOBAL_PLANES_ALONE, AXIS_ALONE):
+                xr, xi = (t.contiguous() for t in x.view(-1, 2).unbind(-1))
+                xc = torch.complex(xr, xi).view(shape)
+                ms = time_ms(lambda: kernel(xr, xi, *args))
+                plain_ms = time_ms(lambda: kernel.plain(xr, xi, *args))
+                library_ms = time_ms(lambda: torch.fft.fft(xc, dim=1))
+                bound, by = bound_of(kind, n, numel // n)
+                alone[kind] = (ms, plain_ms, library_ms)
+                print(f"alone  {kind:14s} {str(case):26s} kernel {ms:.3f} ms | "
+                      f"plain {plain_ms:.3f} ms | torch.fft {library_ms:.3f} ms "
+                      f"(complex input made outside) | bound {bound:.3f} ms "
+                      f"({by}) | {card}")
+                del xr, xi, xc
+            del kernel, args
+        del x
+        torch.cuda.empty_cache()
+    return alone
+
+
+def path_kinds(entry) -> list[str]:
+    """The kernels a plane-path entry (``"plane"``, or ``"core"``, SPLIT or
+    interleaved) launches: K6 around an interleaved walk, K13, K14 and K15
+    for the routes of its nodes, K12 for its column axes."""
+    values = set(entry[-1].values())
+    kinds = []
+    if entry[0] == "plane" or not entry[1]:
+        kinds += ["deinterleave", "interleave"]
+    if values & {"direct", "two_stage", "chain"}:
+        kinds.append("chain")
+    if "global2" in values:
+        kinds.append("global2_planes")
+    if "bluestein" in values:
+        kinds.append("bluestein")
+    if entry[0] == "core" and entry[5]:
+        kinds.append("axis_m2")
+    return kinds
+
+
+def plane_rows(pf, rows, split: bool, counters: dict, card: str,
+               must_launch, keep=()) -> tuple[list, dict, dict]:
+    """``rows`` (name, lengths, batch, direction) through the committed
+    plan, SPLIT planes or an interleaved buffer: every kernel of each
+    row's route must launch, a sample of transforms is held to
+    ``torch.fft`` at the absolute 2·eps·N·log2(N), and the path, its plain
+    chain and one ``torch.fft`` call are timed (for SPLIT the call's
+    ``torch.complex`` assembly of the planes is inside the timed call).
+    Prints the peak device memory of the row's first call.  Returns the
+    rows' numbers, the launches and ``{n: plan}`` of the 1D rows named in
+    ``keep`` (their plans stay alive for a later kernel check)."""
+    results, kept = [], {}
+    for c in counters.values():
+        c.launches = 0
+    storage = (pf.ComplexStorage.SPLIT_COMPLEX if split
+               else pf.ComplexStorage.INTERLEAVED_COMPLEX)
+    for name, lengths, batch, dname in rows:
+        direction = pf.Direction(dname)
+        forward = direction == pf.Direction.FORWARD
+        sign = -1 if forward else +1
+        plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                             complex_storage=storage).commit(device="cuda")
+        entry = plan._raw_fast[direction]
+        if entry[0] not in ("plane", "core"):
+            raise SmokeFailure(f"{name}: entry {entry[0]}, not the plane path")
+        kinds = path_kinds(entry)
+        n = math.prod(lengths)
+        shape, dims = (batch, *lengths), tuple(range(1, len(lengths) + 1))
+        x = random_raw(2 * batch * n, seed=0)
+        if split:
+            xr, xi = (t.contiguous() for t in x.view(-1, 2).unbind(-1))
+            inputs = (xr, xi)
+            del x
+        else:
+            inputs = (x,)
+        compute = plan.compute_forward if forward else plan.compute_backward
+        before = {k: counters[k].launches for k in kinds}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        y = compute(*inputs)
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        rose = {k: counters[k].launches - before[k] for k in kinds}
+        if min(rose.values()) <= 0:
+            raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
+        planes = y if split else y.view(-1, 2).unbind(-1)
+        if any(p.shape != (batch * n,) or not torch.isfinite(p).all()
+               for p in planes):
+            raise SmokeFailure(f"{name}: output of shape "
+                               f"{[tuple(p.shape) for p in planes]} or not finite")
+        src = inputs if split else inputs[0].view(-1, 2).unbind(-1)
+        excess = planes_oracle_excess(*planes, *src, shape, dims, sign, 1.0)
+        if not excess <= 1.0:
+            raise SmokeFailure(f"{name}: {excess:.3e} times the oracle bound "
+                               f"{oracle_tol(n):.3e}")
+        del y, planes, src
+        ms = time_ms(lambda: compute(*inputs))
+        plain = plain_path(plan, entry)
+        plain_ms = time_ms(lambda: plain(*inputs))
+        if split:
+            fft = torch.fft.fftn if forward else functools.partial(
+                torch.fft.ifftn, norm="forward")
+            library_ms = time_ms(lambda: fft(torch.complex(*inputs).view(shape),
+                                             dim=dims))
+        else:
+            library_ms = time_ms(fftn_call(inputs[0], shape, dims, forward))
+        nbytes, flops = work("chain", n, batch)
+        bound, by = bound_of("chain", n, batch)
+        print(f"row {name:24s} {'x'.join(map(str, lengths)):12s} batch={batch:<6d} "
+              f"{'+'.join(kinds):40s} launches {rose} route {entry[-1]} "
+              f"oracle max|diff|={excess * oracle_tol(n):.3e} "
+              f"tol={oracle_tol(n):.3e} | path {ms:.3f} ms "
+              f"{nbytes / ms / 1e6:.1f} GB/s | plain {plain_ms:.3f} ms | "
+              f"torch.fft {library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | "
+              f"peak {peak_gib:.2f} GiB | {card}")
+        results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
+        if name in keep:
+            kept[n] = plan
+        del plan, inputs, plain
+        torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"{'SPLIT' if split else 'plane rows'} main-path launches: {launches}")
+    for kind in must_launch:
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on this path")
+    return results, launches, kept
+
+
 def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                  alone, md_launches, md_alone, plane_launches,
-                 plane_alone) -> list[dict]:
+                 plane_alone, split_launches, split_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
@@ -1047,6 +1365,12 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                     if kind == "interleave" else plane_launches[kind])
         kernels.append(entry(kind, launches, *plane_alone[kind],
                              *PLANE_ALONE[kind]))
+    g1, g2, batch = GLOBAL_PLANES_ALONE
+    kernels.append(entry("global2_planes", split_launches["global2_planes"],
+                         *split_alone["global2_planes"], g1 * g2, batch))
+    bpre, length, rest = AXIS_ALONE
+    kernels.append(entry("axis_m2", split_launches["axis_m2"],
+                         *split_alone["axis_m2"], length, bpre * rest))
     return kernels
 
 
@@ -1068,6 +1392,7 @@ def run() -> None:
     import portfft_tpu_torch as pf
     from portfft_tpu_torch.ops import (
         _build,
+        cuda_axis,
         cuda_bluestein,
         cuda_chain,
         cuda_fft,
@@ -1088,7 +1413,9 @@ def run() -> None:
                 "col": cuda_multidim.col, "md2": cuda_multidim.md2,
                 "deinterleave": cuda_io.deinterleave,
                 "interleave": cuda_io.interleave, "chain": cuda_chain.chain,
-                "bluestein": cuda_bluestein.bluestein}
+                "bluestein": cuda_bluestein.bluestein,
+                "global2_planes": cuda_global.global2_planes,
+                "axis_m2": cuda_axis.axis_m2}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -1108,10 +1435,24 @@ def run() -> None:
     _, md_launches = phase("multi-dim main path", md_main_path, pf, counters, card)
     _, plane_launches = phase("plane main path", plane_main_path, pf, counters,
                               card)
+    _, split_launches, _ = phase(
+        "SPLIT main path", plane_rows, pf, SPLIT_ROWS, True, counters, card,
+        ("chain", "global2_planes", "bluestein", "axis_m2"))
+    _, more_launches, kept = phase(
+        "plane rows", plane_rows, pf, PLANE_MORE_ROWS, False, counters, card,
+        ("deinterleave", "interleave", "chain", "global2_planes", "axis_m2"),
+        ("bluestein_50431897",))
+    # After the rows: K14's post case at 16384 x 8192 reads the tables of
+    # bluestein_50431897's plan, whose host tables take minutes to build.
+    split_alone = phase("K14/K12 kernels", split_kernel_phase, pf, max_err,
+                        card, kept)
+    del kept
+    # K14 and K12 run on both paths of this slice
+    new_launches = {k: split_launches[k] + more_launches[k] for k in SPLIT_KINDS}
     print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
     kernels = kernel_table(max_err, c2c_rows, c2c_launches, real_rows,
                            real_launches, alone, md_launches, md_alone,
-                           plane_launches, plane_alone)
+                           plane_launches, plane_alone, new_launches, split_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

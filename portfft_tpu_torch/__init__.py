@@ -12,13 +12,16 @@ The describe → commit → execute API of the JAX package::
 This version runs C2C fp32 with INTERLEAVED storage and zero offsets,
 in-place or out-of-place: 1D PACKED of every length (the main path; the
 lengths no single kernel takes, such as primes past 512, run on the plane
-path: K6 deinterleave, the executor with K13 and K15, K6 interleave), 1D
-BATCH_INTERLEAVED
+path: K6 deinterleave, the executor with K13, K14 and K15, K6 interleave),
+1D BATCH_INTERLEAVED
 (``forward_strides=[batch]``, ``forward_distance=1`` and the same
 backward), and multi-dimensional PACKED of any rank
-(``Descriptor(lengths=[512, 512], number_of_transforms=256)``); and the 1D
-REAL fp32 path, R2C forward and C2R backward (``domain=Domain.REAL``),
-INTERLEAVED PACKED, out-of-place.  Other configurations raise
+(``Descriptor(lengths=[512, 512], number_of_transforms=256)``; shapes the
+raw kernels decline run the plane path's per-axis walk with K12); C2C fp32
+with SPLIT_COMPLEX storage (``complex_storage=ComplexStorage.SPLIT_COMPLEX``,
+``plan.compute_forward(re, im)`` returns ``(re, im)``), PACKED, zero
+offsets, any rank; and the 1D REAL fp32 path, R2C forward and C2R
+backward (``domain=Domain.REAL``), INTERLEAVED PACKED, out-of-place.  Other configurations raise
 :class:`UnsupportedConfiguration` at commit, naming the ROADMAP item that
 will port them.  ``commit(device="cpu")`` runs the kernels' plain PyTorch
 versions.  The package never imports JAX.

@@ -4,11 +4,14 @@ runs each direction.
 Counterpart of ``portfft_tpu.committed.CommittedDescriptor`` for the slices
 this package covers (``fastpath.py``): C2C fp32 INTERLEAVED with zero
 offsets, out-of-place or in-place, as 1D PACKED (K1, K2 or K3, or the
-plane path K6 → executor with K13/K15 → K6 for every other length), 1D
+plane path K6 → executor with K13/K14/K15 → K6 for every other length), 1D
 BATCH_INTERLEAVED (K10) and multi-dimensional PACKED of any rank (K11 and
-K10, or the last axis's 1D kernel and K10); and 1D REAL fp32 (R2C forward,
-C2R backward) INTERLEAVED PACKED with zero offsets, out-of-place; forward
-and backward each with its own scale.
+K10, or the last axis's 1D kernel and K10, or else the plane path's
+per-axis walk with K12 between K6); C2C fp32 SPLIT_COMPLEX PACKED of any
+rank with zero offsets, out-of-place or in-place, on the per-axis walk
+with no K6; and 1D REAL fp32 (R2C forward, C2R backward) INTERLEAVED
+PACKED with zero offsets, out-of-place; forward and backward each with its
+own scale.
 
 C2C I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
 
@@ -22,6 +25,12 @@ IN_PLACE writes the result into the caller's buffer (a tensor or a numpy
 array) and returns that buffer; the JAX package donates its device buffer
 instead.  Elements past the descriptor's input count are left as they
 are.  Out-of-place returns a new buffer of exactly the output count.
+
+SPLIT I/O follows the JAX package's ``_compute_split``: the (re, im)
+planes as two real buffers, numpy arrays or float tensors, and the result
+as a (re, im) pair of the same kinds (numpy float32, or float32 tensors on
+the plan's device); IN_PLACE writes the caller's two buffers and returns
+them.
 
 REAL I/O follows the JAX package's ``_compute_real``: forward takes a real
 buffer (numpy or float tensor; a complex one raises
@@ -38,7 +47,7 @@ import torch
 
 from . import fastpath
 from .config import resolve_device_config
-from .enums import Direction, Domain, Placement
+from .enums import ComplexStorage, Direction, Domain, Placement
 from .exceptions import InvalidConfiguration, UnsupportedConfiguration
 from .ops.torch_fft import TwiddleBank, collect_bank_keys
 from .planner import plan_1d
@@ -121,7 +130,8 @@ class CommittedDescriptor:
 
     def compute_forward(self, x, x_imag=None, *, out=None, out_imag=None):
         """Forward transform of one interleaved buffer (complex, or raw
-        float (re, im) pairs)."""
+        float (re, im) pairs), or for SPLIT_COMPLEX of the planes ``x``
+        and ``x_imag``."""
         return self._compute(Direction.FORWARD, x, x_imag, out, out_imag)
 
     def compute_backward(self, x, x_imag=None, *, out=None, out_imag=None):
@@ -146,6 +156,13 @@ class CommittedDescriptor:
             raise UnsupportedConfiguration(
                 "out= buffers are not ported yet (ROADMAP Queue 1 item 8)"
             )
+        if d.complex_storage == ComplexStorage.SPLIT_COMPLEX:
+            if x_imag is None:
+                raise InvalidConfiguration(
+                    "SPLIT_COMPLEX storage requires both real and imaginary "
+                    "buffers"
+                )
+            return self._compute_split(direction, x, x_imag)
         if x_imag is not None:
             raise InvalidConfiguration(
                 "INTERLEAVED_COMPLEX storage takes a single complex buffer"
@@ -229,6 +246,54 @@ class CommittedDescriptor:
             return x
         np.copyto(x, self._from_raw(raw, kind).reshape(np.shape(x)), casting="unsafe")
         return x
+
+    def _to_plane(self, x):
+        """A SPLIT buffer (real numpy array or tensor) -> (flat float32
+        tensor on the plan's device, whether ``x`` is a tensor, whether the
+        tensor shares memory with ``x``)."""
+        if isinstance(x, torch.Tensor):
+            self._check_device(x)
+            if x.is_complex():
+                raise InvalidConfiguration(
+                    "SPLIT_COMPLEX buffers must be real planes"
+                )
+            t = x.to(torch.float32).contiguous().reshape(-1)
+            return t, True, t.data_ptr() == x.data_ptr()
+        arr = np.asarray(x)
+        if np.iscomplexobj(arr):
+            raise InvalidConfiguration("SPLIT_COMPLEX buffers must be real planes")
+        host = np.ascontiguousarray(arr, dtype=np.float32).reshape(-1)
+        t = torch.from_numpy(host).to(self.device)
+        aliases = (isinstance(x, np.ndarray) and t.device.type == "cpu"
+                   and np.shares_memory(host, x))
+        return t, False, aliases
+
+    def _compute_split(self, direction, x_re, x_im):
+        """SPLIT_COMPLEX C2C (``portfft_tpu``'s ``_compute_split``): the
+        (re, im) planes in, the (re, im) planes out, each of the kind it
+        came as (numpy float32, or a float32 tensor on the plan's device).
+        IN_PLACE writes the caller's buffers and returns them."""
+        d = self.descriptor
+        planes = [self._to_plane(x) for x in (x_re, x_im)]
+        need = d.get_input_count(direction)  # == the output count here
+        if min(t.numel() for t, _, _ in planes) < need:
+            raise InvalidConfiguration(f"split input buffers need {need} elements")
+        ys = self._fns[direction](planes[0][0][:need], planes[1][0][:need])
+        if d.placement != Placement.IN_PLACE:
+            return tuple(y if is_tensor else y.cpu().numpy()
+                         for y, (_, is_tensor, _) in zip(ys, planes))
+        for x, y, (t, is_tensor, aliases) in zip((x_re, x_im), ys, planes):
+            t[:need].copy_(y)
+            if aliases:
+                continue
+            # x could not be viewed as a flat float32 buffer on this device:
+            # copy the result back into it
+            if is_tensor:
+                x.copy_(t.reshape(x.shape))
+            else:
+                np.copyto(x, t.cpu().numpy().reshape(np.shape(x)),
+                          casting="unsafe")
+        return x_re, x_im
 
     def _to_real(self, x):
         """A real buffer -> (flat float32 tensor on the plan's device,

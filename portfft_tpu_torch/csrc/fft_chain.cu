@@ -33,7 +33,6 @@
 namespace {
 
 constexpr int kMaxFactors = 12;
-constexpr int kSingleMax = 8192;   // [a, 128] in one tile (K2's limit)
 constexpr int kChainMax = 12288;   // a chain in one tile: 2 float2 tiles
                                    // of 12288 + roots < 227 KB
 
@@ -161,7 +160,7 @@ pfft::Pass row_pass(const pfft::Sub& s, int64_t batch) {
 // 1 when pf_chain of a FUSED [a, 128] transform (a > 0) needs a scratch of
 // 2*batch*a*128 floats.
 extern "C" int pf_chain_needs_scratch(int a) {
-  return a * 128 > kSingleMax ? 1 : 0;
+  return a * 128 > pfft::kTileMax ? 1 : 0;
 }
 
 // 1 when pf_chain_general of length n needs a scratch of 2*batch*n floats.
@@ -182,7 +181,7 @@ extern "C" int pf_chain(const float* xr, const float* xi, float* yr, float* yi,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const pfft::ConstPlanes x{xr, xi};
   const pfft::Planes y{yr, yi};
-  if (a == 0 || m <= kSingleMax)
+  if (a == 0 || m <= pfft::kTileMax)
     return launch_sub(row_pass(pfft::Sub{m, a, wr, wi, br, bi, ur, ui}, batch),
                       x, y, st);
   if (scratch == nullptr) return int(cudaErrorInvalidValue);

@@ -1,6 +1,6 @@
 // Shared device routines of the FFT kernels (fft_direct.cu, fft_fused2.cu,
 // fft_global2.cu, fft_col.cu, fft_md2.cu, and on (re, im) planes
-// fft_chain.cu and fft_bluestein.cu).
+// fft_chain.cu, fft_bluestein.cu, fft_global2_planes.cu and fft_axis.cu).
 //
 // Every kernel here is one "pass": for each batch b and each column c of an
 // (m x ncols) matrix view of the buffer, it takes the m-point transform down
@@ -226,6 +226,17 @@ __device__ __forceinline__ void st(const Planes& y, int64_t i, float2 v) {
   y.re[i] = v.x;
   y.im[i] = v.y;
 }
+// The buffer that starts o elements further on.
+__host__ __device__ inline const float2* shift(const float2* x, int64_t o) {
+  return x + o;
+}
+__host__ __device__ inline float2* shift(float2* x, int64_t o) { return x + o; }
+__host__ __device__ inline ConstPlanes shift(const ConstPlanes& x, int64_t o) {
+  return ConstPlanes{x.re + o, x.im + o};
+}
+__host__ __device__ inline Planes shift(const Planes& x, int64_t o) {
+  return Planes{x.re + o, x.im + o};
+}
 
 // Loads columns c0 .. c0+T-1 of batch b into the tile dst (element i of
 // column t at tile_pos(i)*es + t); ends with __syncthreads.  The walk goes
@@ -308,6 +319,36 @@ __device__ inline void run_pass(const Pass& p, X x, Y y) {
   }
 }
 
+// A pass repeated over n slices of each batch: slice s reads x from s*is
+// elements on, writes y from s*os on and reads the twiddle from s*ts on.
+// The long column transforms (m = a*128 > 8192) run as two such passes:
+// the a-point DFT in each of the 128 slices n2 (twiddle row offset n2),
+// then the 128-point DFT in each of the a slices k1.
+struct Slices {
+  int64_t n, is, os, ts;
+};
+
+template <class X, class Y>
+__device__ inline void run_sliced(const Pass& p, const Slices& sl, X x, Y y) {
+  extern __shared__ float2 smem[];
+  const TileSmem sm = tile_smem(p.sub, p.T, smem);
+  load_sub_roots(p.sub, sm);
+  const int64_t per = (p.ncols + p.T - 1) / p.T;
+  const int64_t ntiles = p.nbatch * sl.n * per;
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int64_t bs = tile / per;
+    const int64_t b = bs / sl.n;
+    const int64_t s = bs - b * sl.n;
+    Pass q = p;
+    if (p.twr) {
+      q.twr = p.twr + s * sl.ts;
+      q.twi = p.twi + s * sl.ts;
+    }
+    pass_tile(q, b, (tile - bs * per) * p.T, shift(x, s * sl.is),
+              shift(y, s * sl.os), sm);
+  }
+}
+
 // Launches `kernel(args...)` on `stream` with `smem` bytes of dynamic shared
 // memory and one block per tile (at most 2^30 blocks; the kernels stride
 // over the rest); returns the CUDA error code (0 = success).
@@ -336,5 +377,78 @@ inline int launch_pass(PassKernel kernel, const Pass& p, const float* x,
                       stream, p, reinterpret_cast<const float2*>(x),
                       reinterpret_cast<float2*>(y));
 }
+
+// Longest sub-transform one tile holds: one column in two ping-pong tiles
+// plus its roots fits the 227 KB (232,448 bytes) a block may use.
+constexpr int kTileMax = 8192;
+constexpr size_t kSmemMax = 232448;
+
+// The largest tile width up to T whose shared memory fits.
+inline int fit_tile(const Sub& s, int T) {
+  while (T > 1 && pass_smem_bytes(s, T) > kSmemMax) --T;
+  return T;
+}
+
+// Internal linkage: each .cu file that includes this header gets its own
+// copy of the kernel and of the functions that launch it.
+namespace {
+
+template <class X, class Y>
+__global__ void __launch_bounds__(kThreads)
+    sliced_kernel(Pass p, Slices sl, X x, Y y) {
+  run_sliced(p, sl, x, y);
+}
+
+template <class X, class Y>
+int launch_sliced(const Pass& p, const Slices& sl, X x, Y y,
+                  cudaStream_t stream) {
+  const int64_t tiles = p.nbatch * sl.n * ((p.ncols + p.T - 1) / p.T);
+  return launch_tiles(sliced_kernel<X, Y>, pass_smem_bytes(p.sub, p.T), tiles,
+                      stream, p, sl, x, y);
+}
+
+// Runs the pass p.  Up to kTileMax points that is one launch.  Past it
+// (FUSED m = a*128) it is two launches through the float2 scratch q of
+// nbatch*m*ncols elements, laid out q[b][n2][k1][c], with n = 128*n1 + n2:
+//   launch 1: per slice n2 < 128, the a-point DFT down n1 of column c,
+//             times the sub's inner twiddle U[k1, n2], to q[b][n2][k1][c];
+//   launch 2: per slice k1 < a, the 128-point DFT down n2 of q, stored as
+//             p stores output k = k1 + a*k2 (its twiddle and scale too).
+// That doubles the bytes the pass moves.  Returns a cudaError_t.
+template <class X, class Y>
+int launch_column(const Pass& p, X x, float2* q, Y y, cudaStream_t stream) {
+  const Sub& s = p.sub;
+  if (s.m <= kTileMax) return launch_sliced(p, Slices{1, 0, 0, 0}, x, y, stream);
+  if (s.a == 0 || q == nullptr) return int(cudaErrorInvalidValue);
+  const int a = s.a;
+  const int64_t nc = p.ncols;
+  Pass p1 = p;
+  p1.sub = Sub{a, 0, s.wr, s.wi, nullptr, nullptr, nullptr, nullptr};
+  p1.T = fit_tile(p1.sub, pick_tile(a, nc, 4096, 8));
+  p1.iis = 128 * p.iis;
+  p1.obs = int64_t(s.m) * nc;
+  p1.oks = nc;
+  p1.ocs = 1;
+  p1.twr = s.ur;
+  p1.twi = s.ui;
+  p1.tcs = 0;
+  p1.tks = 128;
+  p1.scale = 1.f;
+  int err = launch_sliced(p1, Slices{128, p.iis, int64_t(a) * nc, 1}, x, q,
+                          stream);
+  if (err) return err;
+  Pass p2 = p;
+  p2.sub = Sub{128, 0, s.br, s.bi, nullptr, nullptr, nullptr, nullptr};
+  p2.T = fit_tile(p2.sub, pick_tile(128, nc, 4096, 8));
+  p2.ibs = int64_t(s.m) * nc;
+  p2.iis = int64_t(a) * nc;
+  p2.ics = 1;
+  p2.oks = int64_t(a) * p.oks;
+  p2.tks = int64_t(a) * p.tks;
+  return launch_sliced(p2, Slices{a, nc, p.oks, p.tks},
+                       static_cast<const float2*>(q), y, stream);
+}
+
+}  // namespace
 
 }  // namespace pfft

@@ -30,8 +30,6 @@
 
 namespace {
 
-constexpr int kSingleMax = 8192;
-
 __global__ void __launch_bounds__(pfft::kThreads)
     fused2_kernel(pfft::Pass p, const float2* x, float2* y) {
   pfft::run_pass(p, x, y);
@@ -41,7 +39,7 @@ __global__ void __launch_bounds__(pfft::kThreads)
 
 // 1 when pf_fused2 needs a scratch buffer of 2*batch*a*128 floats.
 extern "C" int pf_fused2_needs_scratch(int a) {
-  return a * 128 > kSingleMax ? 1 : 0;
+  return a * 128 > pfft::kTileMax ? 1 : 0;
 }
 
 // x (2*batch*n floats) -> y; y may equal x.  war/wai: a x a DFT planes;
@@ -54,7 +52,7 @@ extern "C" int pf_fused2(const float* x, float* y, float* scratch,
   if (a < 1 || batch < 1) return int(cudaErrorInvalidValue);
   const int n = a * 128;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= kSingleMax) {
+  if (n <= pfft::kTileMax) {
     pfft::Pass p{};
     p.sub = pfft::Sub{n, a, war, wai, wbr, wbi, ur, ui};
     p.nbatch = 1;

@@ -29,8 +29,6 @@
 
 namespace {
 
-constexpr int kAxisMax = 8192;
-
 __global__ void __launch_bounds__(pfft::kThreads)
     md2_kernel(pfft::Pass pa, pfft::Pass pb, int64_t batch, const float2* x,
                float2* y) {
@@ -48,7 +46,7 @@ __global__ void __launch_bounds__(pfft::kThreads)
 }
 
 bool sub_ok(const pfft::Sub& s) {
-  return s.m >= 1 && s.m <= kAxisMax && (s.a == 0 || s.a * 128 == s.m);
+  return s.m >= 1 && s.m <= pfft::kTileMax && (s.a == 0 || s.a * 128 == s.m);
 }
 
 }  // namespace

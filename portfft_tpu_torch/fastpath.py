@@ -20,11 +20,26 @@ the direction's scale.  The route of every node is fixed at commit
 | node | kernel | JAX counterpart |
 |---|---|---|
 | DIRECT, FUSED [a >= 8, 128], any other FUSED chain | ``cuda_chain.chain`` (K13: its direct, two-stage and chain modes) | ``pallas_fft.fused_chain``, ``_generic_chain_call`` |
-| BLUESTEIN with a GLOBAL convolution (``cuda_bluestein.supported``) | ``cuda_bluestein.bluestein`` (K15) | ``pallas_bluestein.bluestein_call`` |
-| other BLUESTEIN, GLOBAL | the executor's glue around the kernels of its subs | ``xla_fft._exec_bluestein``, ``exec_plan`` |
+| GLOBAL with DIRECT or FUSED [a, 128] subs, a dividing 128 (``cuda_global.global2_supported``) | ``cuda_global.global2_planes`` (K14) | ``pallas_global.global2_call`` |
+| BLUESTEIN with a GLOBAL convolution (``cuda_bluestein.supported``) whose subs fit K15's tile | ``cuda_bluestein.bluestein`` (K15) | ``pallas_bluestein.bluestein_call`` |
+| other BLUESTEIN, other GLOBAL | the executor's glue around the kernels of its nodes; a Bluestein convolution on K14 takes b̂ and the final chirp as ``post`` tables | ``xla_fft._exec_bluestein``, ``exec_plan`` |
 
-A node the JAX package gives to its plane GLOBAL kernel (``global2_call``,
-K14) raises at commit.
+SPLIT_COMPLEX C2C (PACKED, zero offsets, any rank) and the multi-dim
+interleaved shapes the raw route below declines run the JAX package's
+per-axis walk (``_core_inner``, here ``torch_exec.core_inner``, the
+``("core", ...)`` entry of ``_register_core``): the last axis through the
+executor, each outer axis on K12 (``cuda_axis.axis_m2``) where the JAX
+package's gates take it, else ``movedim`` + executor + ``movedim``.
+SPLIT planes go in and out with no K6; the interleaved entry runs K6
+around the walk.  Where the scale goes:
+
+| route of the last axis that runs | scale |
+|---|---|
+| K12 | in K12 |
+| K14 (its node, or a Bluestein convolution with ``post``) | K14's pass 2 |
+| K15 | K15's pass 3 |
+| K13, generic GLOBAL or Bluestein | one torch multiply after it |
+| any, interleaved (``plane`` and ``core`` entries) | K6's interleave |
 
 The 1D REAL fp32 transform (R2C forward, C2R backward, INTERLEAVED PACKED,
 out-of-place) runs, for even n ≤ ``SMALL_REAL_MAX_N``, as one call of
@@ -50,7 +65,8 @@ rest in place on its result.  Route as the JAX package's
 
 Length-1 axes are skipped; the direction's scale goes into the last kernel
 that runs.  Every outer axis must be one K10 takes (DIRECT ≤ 512 or FUSED
-[a, 128] with a | 128, so up to 16384).  The 1D BATCH_INTERLEAVED
+[a, 128] with a | 128, so up to 16384) and the last axis one of K1–K3;
+other shapes run on the per-axis walk above.  The 1D BATCH_INTERLEAVED
 layout (stride = batch, distance 1, both domains) is one K10 call with
 bpre = 1: the ``bi_col`` entry.
 
@@ -68,6 +84,7 @@ from .enums import ComplexStorage, Direction, Domain, Layout, Level, Placement
 from .enums import inv as _inv
 from .exceptions import UnsupportedConfiguration
 from .ops import (
+    cuda_axis,
     cuda_bluestein,
     cuda_chain,
     cuda_fft,
@@ -127,16 +144,17 @@ def _plane_reason(plan0) -> str:
         return (f"GLOBAL plan {plan0.describe()} has a sub-transform that is "
                 f"neither DIRECT nor FUSED [a, 128] of length <= "
                 f"{GLOBAL_SUB_MAX}, so it runs on the plane path (the torch "
-                "executor, ROADMAP Queue 1 item 4)")
+                "executor around the plane GLOBAL kernel K14 or its subs' "
+                "kernels, ROADMAP Queue 1 item 4)")
     return (f"FUSED plan {plan0.describe()} is not the two-stage [a, 128] "
             "shape, so it runs on the plane path (the torch executor, "
             "ROADMAP Queue 1 item 4)")
 
 
 def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str):
-    """The raw entry of one 1D PACKED transform inside a REAL or
-    multi-dimensional route; raises where the plan needs the plane path,
-    which those routes do not take yet (``where`` names their item)."""
+    """The raw entry of one 1D PACKED transform inside the REAL route;
+    raises where the plan needs the plane path, which that route does not
+    take yet (``where`` names its item)."""
     entry = _raw_entry(plan0, batch, sign, scale)
     if entry is None:
         raise RawFastUnavailable(f"{_plane_reason(plan0)}; {where}")
@@ -149,18 +167,16 @@ def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str):
 def plane_routes(plan0, config) -> dict:
     """The plane path's route of ``plan0``, chosen at commit with the JAX
     package's gates (``pallas_fft.leaf_dispatch``): ``{n: kind}`` for every
-    node of the plan tree (a length has one plan, so one kind).  Kinds:
-    ``"direct"``, ``"two_stage"``, ``"chain"`` (K13's modes, as
-    ``fused_chain`` picks), ``"bluestein"`` (K15, where
-    ``bluestein_call`` takes the plan) and ``"generic"`` (a GLOBAL
-    four-step or Bluestein transform whose glue runs in the executor around
-    its nodes' kernels).  Raises :class:`RawFastUnavailable` where the JAX
-    package would run its plane GLOBAL kernel (``global2_call``, K14) or
-    where K13 or K15 do not take a node."""
+    node of the plan tree that runs (a length has one plan, so one kind).
+    Kinds: ``"direct"``, ``"two_stage"``, ``"chain"`` (K13's modes, as
+    ``fused_chain`` picks), ``"global2"`` (K14, a GLOBAL plan
+    ``global2_supported`` takes; its subs run inside it), ``"bluestein"``
+    (K15, where ``bluestein_call`` takes the plan) and ``"generic"`` (a
+    GLOBAL four-step or Bluestein transform whose glue runs in the
+    executor around its nodes' kernels; a Bluestein convolution on K14
+    takes b̂ and the final chirp as its ``post`` tables).  Raises
+    :class:`RawFastUnavailable` where K13 does not take a leaf."""
     routes: dict = {}
-    k14 = ("the JAX package runs it on its plane GLOBAL kernel "
-           "(pallas_global.global2_call, K14, ROADMAP Queue 2), which is not "
-           "ported yet: it comes with SPLIT storage (ROADMAP Queue 1 item 8)")
 
     def walk(p):
         if p.level in (Level.DIRECT, Level.FUSED):
@@ -174,24 +190,16 @@ def plane_routes(plan0, config) -> dict:
                     "factor)")
             routes[p.n] = mode
         elif p.level == Level.GLOBAL:
-            if cuda_bluestein.global2_supported(p, config.direct_threshold):
-                raise RawFastUnavailable(f"GLOBAL plan {p.describe()}: {k14}")
+            if cuda_global.global2_supported(p, config.direct_threshold):
+                routes[p.n] = "global2"
+                return
             routes[p.n] = "generic"
             walk(p.sub[0])
             walk(p.sub[1])
-        elif cuda_bluestein.supported(p, config):
-            if max(s.n for s in p.conv.sub) > GLOBAL_SUB_MAX:
-                raise RawFastUnavailable(
-                    f"BLUESTEIN plan {p.describe()} has a convolution sub "
-                    f"longer than {GLOBAL_SUB_MAX}, past the tile of "
-                    "the Bluestein kernel K15")
+        elif (cuda_bluestein.supported(p, config)
+              and max(s.n for s in p.conv.sub) <= GLOBAL_SUB_MAX):
             routes[p.n] = "bluestein"
-        else:
-            if p.conv.level == Level.GLOBAL and cuda_bluestein.global2_supported(
-                    p.conv, config.direct_threshold):
-                raise RawFastUnavailable(
-                    f"BLUESTEIN plan {p.describe()}: its convolution folds "
-                    f"b̂ into the plane GLOBAL kernel; {k14}")
+        else:  # K15's gate declines the plan, or its tile a sub past the max
             routes[p.n] = "generic"
             walk(p.conv)
 
@@ -199,12 +207,12 @@ def plane_routes(plan0, config) -> dict:
     return routes
 
 
-def plane_steps(committed, plan0, routes: dict) -> dict:
-    """``{(n, sign): (kernel, args)}``: the kernel of every node of
-    ``plan0``'s tree that runs one (K13 ``cuda_chain.chain`` or K15
-    ``cuda_bluestein.bluestein``), in both directions (a Bluestein
-    transform runs its convolution both ways), with the committed plan's
-    device tables."""
+def plane_steps(committed, plans, routes: dict) -> dict:
+    """``{(n, sign): (kind, kernel, args)}``: the kernel of every node of
+    the trees of ``plans`` that runs one (K13 ``cuda_chain.chain``, K14
+    ``cuda_global.global2_planes`` or K15 ``cuda_bluestein.bluestein``),
+    in both directions (a Bluestein transform runs its convolution both
+    ways), with the committed plan's device tables."""
     keys, arrays = committed._bank_keys, committed._bank_arrays
     steps = {}
 
@@ -212,35 +220,52 @@ def plane_steps(committed, plan0, routes: dict) -> dict:
         kind = routes.get(p.n, "generic")
         for sign in (-1, +1):
             if kind == "bluestein":
-                steps[(p.n, sign)] = (cuda_bluestein.bluestein, (
+                steps[(p.n, sign)] = (kind, cuda_bluestein.bluestein, (
                     cuda_bluestein.bluestein_tables(p, sign, keys, arrays),))
+            elif kind == "global2":
+                steps[(p.n, sign)] = (kind, cuda_global.global2_planes, (
+                    cuda_global.global2_tables(p, sign, keys, arrays),))
             elif kind != "generic":
-                steps[(p.n, sign)] = (cuda_chain.chain, (
+                steps[(p.n, sign)] = (kind, cuda_chain.chain, (
                     cuda_chain.chain_tables(p, sign, keys, arrays),))
         if kind == "generic":
             for q in p.sub or (p.conv,):
                 walk(q)
 
-    walk(plan0)
+    for p in plans:
+        walk(p)
     return steps
 
 
 def leaf_hook(steps: dict, plain: bool = False):
     """The executor's ``leaf_fn`` (``torch_exec.exec_plan``): the kernel of
     a node's step (its plain version if ``plain``), None for a generic
-    node.  A DIRECT or FUSED node without a step is a routing fault and
-    raises: no torch chain stands in for K13."""
+    node.  K14 and K15 fold the scale in (K14 also ``post``); after K13 it
+    is one torch multiply.  Only K14 takes ``post`` (as the JAX package's
+    ``leaf_dispatch``): other nodes given one return None.  A DIRECT or
+    FUSED node without a step is a routing fault and raises: no torch
+    chain stands in for K13."""
 
-    def leaf_fn(xr, xi, plan, sign, bank):
+    def leaf_fn(xr, xi, plan, sign, bank, post=None, scale=1.0):
         step = steps.get((plan.n, sign))
         if step is None:
             if plan.level in (Level.DIRECT, Level.FUSED):
                 raise AssertionError(f"no kernel step for {plan.describe()}")
             return None
-        kernel, args = step
-        yr, yi = (kernel.plain if plain else kernel)(
-            xr.reshape(-1, plan.n).contiguous(),
-            xi.reshape(-1, plan.n).contiguous(), *args)
+        kind, kernel, args = step
+        if post is not None and kind != "global2":
+            return None
+        fn = kernel.plain if plain else kernel
+        x2r = xr.reshape(-1, plan.n).contiguous()
+        x2i = xi.reshape(-1, plan.n).contiguous()
+        if kind == "global2":
+            yr, yi = fn(x2r, x2i, *args, scale=scale, post=post)
+        elif kind == "bluestein":
+            yr, yi = fn(x2r, x2i, *args, scale=scale)
+        else:
+            yr, yi = fn(x2r, x2i, *args)
+            if scale != 1.0:
+                yr, yi = yr * scale, yi * scale
         return yr.reshape(xr.shape), yi.reshape(xi.shape)
 
     return leaf_fn
@@ -261,15 +286,36 @@ def _check_packed(d, layout: Layout = Layout.PACKED) -> None:
             )
 
 
-def _check_col_axis(plan, config, what: str) -> None:
-    """Raise unless K10 takes a transform of ``plan`` over ``what``."""
-    if not cuda_multidim.col_axis_supported(plan, config.direct_threshold):
-        raise RawFastUnavailable(
-            f"{what} of plan {plan.describe()} is not one the column kernel "
-            "K10 takes (DIRECT <= 512 or FUSED [a, 128] with a | 128); it "
-            "needs the torch executor, ROADMAP Queue 1 item 4, with the "
-            "plane column kernel K12"
-        )
+def _register_core(committed, split: bool) -> dict:
+    """Entries of a transform on the plane path's per-axis walk
+    (``torch_exec.core_inner``): ``("core", split, batch, sign, scale,
+    k12, routes)``.  ``k12`` is ``((axis, mode), ...)`` for the outer axes
+    the column kernel K12 takes (``cuda_axis.axis_m2_mode`` of the axis
+    and the product of the axes after it); every other axis runs through
+    the executor, on ``routes`` (``plane_routes`` of its plan).  SPLIT
+    entries take and give (re, im) planes; interleaved ones run K6 around
+    the walk and fold the scale into the interleave."""
+    d = committed.descriptor
+    lengths, plans = list(d.lengths), committed.plans
+    k12, routes = [], {}
+    for axis, n in enumerate(lengths):
+        if n == 1:
+            continue
+        mode = None if axis == len(lengths) - 1 else cuda_axis.axis_m2_mode(
+            plans[n], math.prod(lengths[axis + 1:]))
+        if mode is None:
+            routes.update(plane_routes(plans[n], committed.config))
+        else:
+            k12.append((axis, mode))
+    return {
+        direction: ("core", split, d.number_of_transforms, sign,
+                    float(d.get_scale(direction)), tuple(k12), routes)
+        for direction, sign in _SIGNS.items()
+    }
+
+
+def _col_axis_ok(plan, config) -> bool:
+    return cuda_multidim.col_axis_supported(plan, config.direct_threshold)
 
 
 def _register_multidim(committed) -> dict:
@@ -277,13 +323,16 @@ def _register_multidim(committed) -> dict:
     steps)``, the steps in the order they run (see the module docstring).
     A column step is ``("col", bpre, plan, rest, sign, scale)``, the K11
     step ``("md2", batch, plan1, plan2, sign, scale)``, a row step a 1D
-    entry."""
+    entry.  Where K10 does not take an outer axis or the last axis needs
+    the plane path, the transform runs on the plane path's per-axis walk
+    (``_register_core``), as the JAX package's ``_traced_interleaved``."""
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
-    for ln in lengths[:-1]:
-        if ln > 1:
-            _check_col_axis(plans[ln], committed.config, "an outer axis")
     batch = d.number_of_transforms
+    if not all(_col_axis_ok(plans[ln], committed.config)
+               for ln in lengths[:-1] if ln > 1) or _raw_entry(
+                   plans[lengths[-1]], 1, -1, 1.0) is None:
+        return _register_core(committed, split=False)
     total = batch * math.prod(lengths)
     plan_last = plans[lengths[-1]]
     plan_a = plans[lengths[-2]] if lengths[-2] > 1 else None
@@ -306,9 +355,7 @@ def _register_multidim(committed) -> dict:
             n2d = lengths[-2] * lengths[-1]
             head = ("md2", total // n2d, plan_a, plan_last, sign, head_scale)
         else:
-            head = _entry_1d(plan_last, total // lengths[-1], sign, head_scale,
-                             "multi-dimensional transforms have no plane path "
-                             "yet (ROADMAP Queue 1 item 10)")
+            head = _raw_entry(plan_last, total // lengths[-1], sign, head_scale)
         steps = [head] + [
             ("col", bpre, plan, rest, sign, scale if i == len(cols) - 1 else 1.0)
             for i, (plan, bpre, rest) in enumerate(cols)
@@ -366,10 +413,11 @@ def register(committed) -> dict:
         )
     if d.domain == Domain.REAL:
         return _register_real(committed)
-    if d.complex_storage != ComplexStorage.INTERLEAVED_COMPLEX:
-        raise RawFastUnavailable(
-            "SPLIT_COMPLEX storage is not ported yet (ROADMAP Queue 1 item 8)"
-        )
+    if d.complex_storage == ComplexStorage.SPLIT_COMPLEX:
+        # the JAX package's raw registry never takes SPLIT: its planes go
+        # straight into the per-axis walk, with no K6
+        _check_packed(d)
+        return _register_core(committed, split=True)
     if len(d.lengths) >= 2:
         _check_packed(d)
         return _register_multidim(committed)
@@ -377,8 +425,13 @@ def register(committed) -> dict:
     if get_layout(d, Direction.FORWARD) == Layout.BATCH_INTERLEAVED:
         # the (n, batch) buffer is one column transform with bpre = 1
         _check_packed(d, Layout.BATCH_INTERLEAVED)
-        _check_col_axis(plan0, committed.config,
-                        "a BATCH_INTERLEAVED transform")
+        if not _col_axis_ok(plan0, committed.config):
+            raise RawFastUnavailable(
+                f"a BATCH_INTERLEAVED transform of plan {plan0.describe()} "
+                "is not one the column kernel K10 takes (DIRECT <= 512 or "
+                "FUSED [a, 128] with a | 128); the plane path (ROADMAP Queue "
+                "1 item 4, with the plane column kernel K12) takes only "
+                "PACKED buffers, and strided I/O is ROADMAP Queue 1 item 8")
         batch = d.number_of_transforms
         return {
             direction: ("bi_col", 1, plan0, batch, sign,
@@ -451,21 +504,31 @@ def kernel_args(committed, entry):
 
 def plane_fn(committed, entry, plain: bool = False):
     """``fn(raw, out=None) -> tensor`` of a plane entry: K6 deinterleave,
-    the executor (``torch_exec.exec_plan``) with the route's K13 and K15
-    steps as its leaf hook, and K6 interleave with the direction's scale
+    the executor (``torch_exec.exec_plan``) with the route's K13, K14 and
+    K15 steps as its leaf hook, and K6 interleave with the direction's scale
     into ``out`` (for IN_PLACE the caller's buffer, which the deinterleave
     has already read).  ``plain`` chains the plain versions instead (the
     CPU path, and ``chip_smoke.py``'s yardstick on the card)."""
     _, plan0, batch, sign, scale, routes = entry
     n = plan0.n
-    leaf = leaf_hook(plane_steps(committed, plan0, routes), plain)
+    leaf = leaf_hook(plane_steps(committed, [plan0], routes), plain)
     keys, arrays = committed._bank_keys, committed._bank_arrays
+
+    def walk(xr, xi):
+        return torch_exec.exec_plan(xr.view(batch, n), xi.view(batch, n),
+                                    plan0, sign, keys, arrays, leaf)
+
+    return _interleaved(walk, scale, plain)
+
+
+def _interleaved(walk, scale: float, plain: bool):
+    """``fn(raw, out=None)``: K6 deinterleave, ``walk`` on the planes, and
+    K6 interleave with the direction's scale into ``out`` (for IN_PLACE
+    the caller's buffer, which the deinterleave has already read)."""
     de = cuda_io.deinterleave.plain if plain else cuda_io.deinterleave
 
     def fn(raw, out=None):
-        xr, xi = de(raw)
-        yr, yi = torch_exec.exec_plan(xr.view(batch, n), xi.view(batch, n),
-                                      plan0, sign, keys, arrays, leaf)
+        yr, yi = walk(*de(raw))
         yr, yi = yr.reshape(-1), yi.reshape(-1)
         if not plain:
             return cuda_io.interleave(yr, yi, scale, out=out)
@@ -475,13 +538,63 @@ def plane_fn(committed, entry, plain: bool = False):
     return fn
 
 
+def core_fn(committed, entry, plain: bool = False):
+    """The function of a ``"core"`` entry (``_register_core``): the
+    per-axis walk ``torch_exec.core_inner`` on (batch, *lengths) planes,
+    with K12 (``cuda_axis.axis_m2``) on the outer axes it takes and the
+    route's K13, K14 and K15 steps as the executor's leaf hook.  SPLIT:
+    ``fn(xr, xi) -> (yr, yi)`` on flat planes, the scale in the last
+    kernel that takes one (K12, K14 pass 2, K15 pass 3) or else one torch
+    multiply; interleaved: ``fn(raw, out=None)`` with K6 around the walk
+    and the scale in the interleave.  ``plain`` chains the plain versions
+    instead."""
+    _, split, batch, sign, scale, k12, routes = entry
+    d = committed.descriptor
+    lengths, plans = list(d.lengths), committed.plans
+    keys, arrays = committed._bank_keys, committed._bank_arrays
+    walked = [plans[n] for n in set(lengths) if n in routes]
+    leaf = leaf_hook(plane_steps(committed, walked, routes), plain)
+    columns = {}
+    for axis, _ in k12:
+        plan = plans[lengths[axis]]
+        sub = cuda_fft.sub_tables(plan, sign, keys, arrays)
+        columns[axis] = (batch * math.prod(lengths[:axis]),
+                         math.prod(lengths[axis + 1:]), sub)
+    k = cuda_axis.axis_m2.plain if plain else cuda_axis.axis_m2
+
+    def axis_fn(axis, xr, xi, s):
+        if axis not in columns:
+            return None
+        return k(xr.contiguous(), xi.contiguous(), *columns[axis], s)
+
+    shape = (batch, *lengths)
+
+    def walk(xr, xi, s=1.0):
+        return torch_exec.core_inner(xr.view(shape), xi.view(shape), lengths,
+                                     plans, sign, keys, arrays, leaf, axis_fn,
+                                     s)
+
+    if not split:
+        return _interleaved(walk, scale, plain)
+
+    def fn(xr, xi):
+        yr, yi = walk(xr, xi, scale)
+        return yr.reshape(-1), yi.reshape(-1)
+
+    return fn
+
+
 def build_fn(committed, entry):
     """``fn(raw, out=None) -> tensor`` for an entry: ``raw`` is the flat
     float32 input buffer on the plan's device, of exactly the entry's input
-    count; ``out`` (C2C only; may be ``raw``) receives the result."""
+    count; ``out`` (C2C only; may be ``raw``) receives the result.  A SPLIT
+    entry's function takes and returns the (re, im) planes
+    (``core_fn``)."""
     kind = entry[0]
     if kind == "plane":
         return plane_fn(committed, entry)
+    if kind == "core":
+        return core_fn(committed, entry)
     if kind == "multidim":
         (head, head_args), *rest = [kernel_args(committed, s) for s in entry[2]]
 

@@ -25,7 +25,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, into the log
 ]
 
@@ -54,6 +54,10 @@ _SIGNATURES = {
         _I,
     ),
     "pf_bluestein": ([_P] * 6 + [_I64] + _SUB * 4 + [_P] * 10 + [_I64, _F, _P], _I),
+    "pf_global2_planes_needs_scratch": ([_I, _I], _I),
+    "pf_global2_planes": ([_P] * 6 + _SUB + _SUB + [_P] * 4 + [_I64, _F, _P], _I),
+    "pf_axis_m2_needs_scratch": ([_I], _I),
+    "pf_axis_m2": ([_P] * 5 + _SUB + [_I64, _I64, _F, _P], _I),
     "pf_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -92,7 +96,9 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this exact build exists; return the
-    library's path.  Raises :class:`BuildError` with the compiler's output."""
+    library's path.  Each ``.cu`` file is compiled by its own ``nvcc``, all
+    started together, and the objects are linked into one shared library.
+    Raises :class:`BuildError` with the compiler's output."""
     lib = library_path()
     if lib.exists():
         return lib
@@ -103,15 +109,36 @@ def build() -> Path:
             "kernels are built from portfft_tpu_torch/csrc at first use"
         )
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    output = proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + output)
-    if proc.returncode != 0:
+    stem = f"{lib.stem}.{os.getpid()}"
+    tmp = lib.with_name(f"{stem}.tmp.so")
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited with {proc.returncode}:\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited with {proc.returncode}:\n"
+                          f"{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc exited with {proc.returncode}:\n{output}")
+        raise BuildError("\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
     return lib
 

@@ -20,23 +20,9 @@ from ..enums import Level
 from ..planner import Plan1D
 from . import _build
 from .cuda_fft import SubTables, require_cuda, rows_plain, stream_of, sub_tables
+from .cuda_global import global2_supported
 from .cuda_io import check_plane
-from .cuda_multidim import _lane_dft_shape
 from .torch_fft import complex_mul, full_fp32_matmuls, valid_rows
-
-
-def global2_supported(plan: Plan1D, max_direct: int) -> bool:
-    """``pallas_global.global2_supported``: a GLOBAL plan whose subs are
-    DIRECT (≤ ``max_direct``, a multiple of 8) or FUSED [a, 128] with
-    a | 128 — the plans the JAX package's plane GLOBAL kernel (K14)
-    takes."""
-    if plan.level != Level.GLOBAL:
-        return False
-    return all(
-        (s.n <= max_direct and s.n % 8 == 0) if s.level == Level.DIRECT
-        else _lane_dft_shape(s)
-        for s in plan.sub
-    )
 
 
 def supported(plan: Plan1D, config) -> bool:

@@ -1,16 +1,24 @@
-"""K3 ``global2``: wrapper of the CUDA kernel (``csrc/fft_global2.cu``) and
-its plain PyTorch version.
+"""K3 ``global2`` and K14 ``global2_planes``: wrappers of the CUDA kernels
+(``csrc/fft_global2.cu``, ``csrc/fft_global2_planes.cu``), their plain
+PyTorch versions, and K14's gate.
 
-Counterpart of ``portfft_tpu/ops/pallas_global.py::global2_raw_call``: the
-GLOBAL four-step n = G1·G2 on the PACKED interleaved buffer, in two passes
-through a scratch buffer.  Same rule as ``cuda_fft``: CPU tensors go to the
-plain version, CUDA tensors to the kernel, and nothing falls back.
+Counterparts of ``portfft_tpu/ops/pallas_global.py``: ``global2_raw_call``
+(K3, the GLOBAL four-step n = G1·G2 on the PACKED interleaved buffer, in
+two passes through a scratch buffer) and ``global2_call`` (K14, the same
+two passes on (re, im) float32 planes, with an optional ``post`` table
+multiplied in pass 2; the plane path's GLOBAL nodes and its Bluestein
+convolutions).  Same rule as ``cuda_fft``: CPU tensors go to the plain
+version, CUDA tensors to the kernel, and nothing falls back.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from ..enums import Level
+from ..planner import Plan1D
 from . import _build
 from .cuda_fft import (
     SubTables,
@@ -20,8 +28,29 @@ from .cuda_fft import (
     require_cuda,
     rows_plain,
     stream_of,
+    sub_tables,
 )
+from .cuda_io import check_plane
+from .cuda_multidim import _lane_dft_shape
 from .torch_fft import complex_mul, full_fp32_matmuls
+
+
+def global2_supported(plan: Plan1D, max_direct: int) -> bool:
+    """``pallas_global.global2_supported``: a GLOBAL plan whose subs are
+    DIRECT (≤ ``max_direct``, a multiple of 8) or FUSED [a, 128] with
+    a | 128 — the plans the JAX package's plane GLOBAL kernel takes, and
+    K14 with them.  The reference's ``global2_call`` also declines where
+    no lane tile fits its planning VMEM (``_pick_tile``: every FUSED sub of
+    2048 points or more, and [8, 128] beside most other subs); that is a
+    budget of the TPU's VMEM, and K14's tiles take those subs (a [128, 128]
+    sub in two launches), so the port runs K14 there too."""
+    if plan.level != Level.GLOBAL:
+        return False
+    return all(
+        (s.n <= max_direct and s.n % 8 == 0) if s.level == Level.DIRECT
+        else _lane_dft_shape(s)
+        for s in plan.sub
+    )
 
 
 def global2_plain(
@@ -68,3 +97,89 @@ def global2(
 
 global2.launches = 0
 global2.plain = global2_plain
+
+
+# -- K14 global2_planes --------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Global2Tables:
+    """The device tables of one direction of a K14 plan: the two subs and
+    the (G2, G1) inter-pass twiddle ``tw`` (an (re, im) pair)."""
+
+    n: int
+    sub1: SubTables
+    sub2: SubTables
+    tw: tuple
+
+
+def global2_tables(plan: Plan1D, sign: int, keys: dict,
+                   arrays: dict) -> Global2Tables:
+    """Resolve one direction's tables from the bank
+    (``torch_fft.collect_bank_keys``)."""
+    g1, g2 = plan.sub
+    t = keys[("T", g1.n, g2.n, sign)]
+    return Global2Tables(plan.n, sub_tables(g1, sign, keys, arrays),
+                         sub_tables(g2, sign, keys, arrays),
+                         (arrays[t + "r"], arrays[t + "i"]))
+
+
+def global2_planes_plain(xr: torch.Tensor, xi: torch.Tensor, t: Global2Tables,
+                         scale: float = 1.0, post: tuple | None = None):
+    """Plain version of K14, the same two passes as ``global2_plain`` on
+    (b, n) planes, with ``post`` (a (G1, G2) [k1, k2] pair) multiplied in
+    pass 2 before the scale."""
+    g1, g2 = t.sub1.m, t.sub2.m
+    b = xr.numel() // t.n
+    with full_fp32_matmuls(xr):
+        sr, si = rows_plain(t.sub1, xr.reshape(b, g1, g2).transpose(1, 2),
+                            xi.reshape(b, g1, g2).transpose(1, 2))
+        sr, si = complex_mul(sr, si, *t.tw)  # (b, g2, g1) [n2, k1]
+        cr, ci = rows_plain(t.sub2, sr.transpose(1, 2), si.transpose(1, 2))
+    if post is not None:
+        cr, ci = complex_mul(cr, ci, *post)  # (b, g1, g2) [k1, k2]
+    yr = (cr * scale).transpose(1, 2).reshape(b, t.n)
+    yi = (ci * scale).transpose(1, 2).reshape(b, t.n)
+    return yr.contiguous(), yi.contiguous()
+
+
+def global2_planes(xr: torch.Tensor, xi: torch.Tensor, t: Global2Tables,
+                   scale: float = 1.0, post: tuple | None = None):
+    """K14: the ``t.n``-point GLOBAL transform of each row of the (re, im)
+    planes, with ``post`` (the (G1, G2) pair the Bluestein convolution
+    folds in, or None) and ``scale`` in pass 2; returns new (b, n) planes.
+    Two launches through a float2 scratch the size of the input, four when
+    a sub is longer than one tile (FUSED [128, 128]: a second scratch)."""
+    n = t.n
+    b = xr.numel() // n
+    check_plane(xr, b * n, "global2_planes")
+    check_plane(xi, b * n, "global2_planes")
+    if xr.device.type == "cpu":
+        return global2_planes_plain(xr, xi, t, scale, post)
+    require_cuda(xr, "global2_planes")
+    lib = _build.load()
+    yr = torch.empty((b, n), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    s = torch.empty(2 * b * n, dtype=torch.float32, device=xr.device)
+    q = (torch.empty_like(s)
+         if lib.pf_global2_planes_needs_scratch(t.sub1.m, t.sub2.m) else None)
+    if post is not None:
+        check_plane(post[0], n, "global2_planes post")
+        check_plane(post[1], n, "global2_planes post")
+    pr, pi = (None, None) if post is None else (post[0].data_ptr(),
+                                                post[1].data_ptr())
+    with torch.cuda.device(xr.device):
+        err = lib.pf_global2_planes(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            s.data_ptr(), None if q is None else q.data_ptr(),
+            t.sub1.m, t.sub1.a, *t.sub1.pointers(),
+            t.sub2.m, t.sub2.a, *t.sub2.pointers(),
+            t.tw[0].data_ptr(), t.tw[1].data_ptr(), pr, pi, b, scale,
+            stream_of(xr))
+    _build.check(lib, err, "global2_planes kernel")
+    global2_planes.launches += 1
+    return yr, yi
+
+
+global2_planes.launches = 0
+global2_planes.plain = global2_planes_plain

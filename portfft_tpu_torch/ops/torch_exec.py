@@ -1,24 +1,25 @@
 """The plan executor on (re, im) float32 planes: the torch port of the JAX
 package's ``ops/xla_fft.py`` ``exec_chain_xla``, ``exec_plan`` and
-``_exec_bluestein``.
+``_exec_bluestein``, and of ``committed._core_inner`` (the per-axis walk of
+a multi-dimensional transform).
 
-Every function takes planes whose last axis is the transform and returns
-new planes of the same shape.  ``leaf_fn(xr, xi, plan, sign, bank)`` is the
-hook of the JAX package's ``leaf_dispatch``: it returns the planes a kernel
-computed for the node ``plan``, or None where the node runs here.  With no
-hook every node runs here: a DIRECT or
+Every function takes planes whose last axis is the transform (``core_inner``:
+planes (batch, *lengths)) and returns new planes of the same shape.
+``leaf_fn(xr, xi, plan, sign, bank, post=None, scale=1.0)`` is the hook of
+the JAX package's ``leaf_dispatch``: it returns the planes a kernel
+computed for the node ``plan``, times ``scale`` (and for a GLOBAL node
+times ``post``, a (g1, g2) table multiplied in its second pass), or None
+where the node runs here.  With no hook every node runs here: a DIRECT or
 FUSED leaf as its Stockham chain of ``torch.matmul`` calls against the
 bank's DFT matrices, in full float32.  With the hook of a committed plan
 (``fastpath``) only the glue between kernels runs here, the glue that the
 JAX package computes in XLA outside its Pallas kernels: the GLOBAL
-four-step's reshapes, swaps and twiddle multiply, and the generic Bluestein
-transform's chirp multiply, zero pad, b̂ multiply and slice.  Nothing here
-calls ``torch.fft``.
-
-The JAX package's Bluestein executor has one more branch: a GLOBAL
-convolution folded into its plane GLOBAL kernel (``post=``, K14) when the
-three-pass kernel declines.  The port's route raises at commit for every
-plan that would reach it (``fastpath``), so the branch is not carried.
+four-step's reshapes, swaps and twiddle multiply, the generic Bluestein
+transform's chirp multiply, zero pad, b̂ multiply and slice, and a
+multi-dimensional transform's ``movedim`` around an axis no column kernel
+takes.  Where the hook runs no kernel for the node, the scale is one torch
+multiply at the end, as the JAX package's XLA multiply.  Nothing here calls
+``torch.fft``.
 """
 
 from __future__ import annotations
@@ -67,15 +68,21 @@ def exec_chain(xr, xi, factors: list[int], sign: int, keys: dict,
             ci.transpose(-2, -1).reshape(*lead, n))
 
 
+def _scaled(yr, yi, scale: float):
+    return (yr, yi) if scale == 1.0 else (yr * scale, yi * scale)
+
+
 def exec_plan(xr, xi, plan: Plan1D, sign: int, keys: dict, bank: dict,
-              leaf_fn: LeafFn = None):
-    """Execute the plan tree over the last axis of (xr, xi)."""
+              leaf_fn: LeafFn = None, scale: float = 1.0):
+    """Execute the plan tree over the last axis of (xr, xi), times
+    ``scale``."""
     if leaf_fn is not None:
-        res = leaf_fn(xr, xi, plan, sign, bank)
+        res = leaf_fn(xr, xi, plan, sign, bank, scale=scale)
         if res is not None:
             return res
     if plan.level in (Level.DIRECT, Level.FUSED):
-        return exec_chain(xr, xi, plan.factors, sign, keys, bank)
+        return _scaled(*exec_chain(xr, xi, plan.factors, sign, keys, bank),
+                       scale)
     if plan.level == Level.GLOBAL:
         g1, g2 = plan.sub
         f, m = g1.n, g2.n
@@ -87,27 +94,74 @@ def exec_plan(xr, xi, plan: Plan1D, sign: int, keys: dict, bank: dict,
         ar, ai = complex_mul(ar, ai, bank[t + "r"], bank[t + "i"])
         cr, ci = exec_plan(ar.transpose(-2, -1), ai.transpose(-2, -1), g2,
                            sign, keys, bank, leaf_fn)
-        return (cr.transpose(-2, -1).reshape(*lead, plan.n),
-                ci.transpose(-2, -1).reshape(*lead, plan.n))
+        return _scaled(cr.transpose(-2, -1).reshape(*lead, plan.n),
+                       ci.transpose(-2, -1).reshape(*lead, plan.n), scale)
     if plan.level == Level.BLUESTEIN:
-        return exec_bluestein(xr, xi, plan, sign, keys, bank, leaf_fn)
+        return exec_bluestein(xr, xi, plan, sign, keys, bank, leaf_fn, scale)
     raise AssertionError(f"unknown level {plan.level}")
 
 
 def exec_bluestein(xr, xi, plan: Plan1D, sign: int, keys: dict, bank: dict,
-                   leaf_fn: LeafFn = None):
+                   leaf_fn: LeafFn = None, scale: float = 1.0):
     """Chirp-z transform X[k] = c[k] · IDFT(DFT(x·c, M) · b̂)[k], c[j] =
-    exp(sign·πi·j²/n), M = conv_n.  The convolution's directions are fixed
-    (forward −1, backward +1) for either user direction; the user's sign
-    lives in the chirp and b̂, which also carries 1/M."""
+    exp(sign·πi·j²/n), M = conv_n, times ``scale``.  The convolution's
+    directions are fixed (forward −1, backward +1) for either user
+    direction; the user's sign lives in the chirp and b̂, which also
+    carries 1/M.  Where the convolution is GLOBAL and the hook runs it on
+    the plane GLOBAL kernel, b̂ and the final chirp (zero past n) go into
+    that kernel's second pass as ``post`` tables, the scale with the
+    chirp: two fewer sweeps over the convolution."""
     n, conv_n = plan.n, plan.conv.n
     b = keys[("B", n, sign)]
     cr, ci = bank[b + "cr"], bank[b + "ci"]
     ar, ai = complex_mul(xr, xi, cr, ci)
     ar = F.pad(ar, (0, conv_n - n))
     ai = F.pad(ai, (0, conv_n - n))
+    post = keys.get(("BPOST", n, sign))
+    if post is not None and leaf_fn is not None:
+        res = leaf_fn(ar, ai, plan.conv, -1, bank,
+                      post=(bank[post + "fr"], bank[post + "fi"]))
+        if res is not None:
+            yr, yi = leaf_fn(*res, plan.conv, +1, bank,
+                             post=(bank[post + "gr"], bank[post + "gi"]),
+                             scale=scale)
+            return yr[..., :n], yi[..., :n]
     fr, fi = exec_plan(ar, ai, plan.conv, -1, keys, bank, leaf_fn)
     fr, fi = complex_mul(fr, fi, bank[b + "br"], bank[b + "bi"])
     yr, yi = exec_plan(fr, fi, plan.conv, +1, keys, bank, leaf_fn)
-    return complex_mul(yr[..., :n], yi[..., :n], cr, ci)
+    return _scaled(*complex_mul(yr[..., :n], yi[..., :n], cr, ci), scale)
 
+
+def core_inner(xr, xi, lengths, plans: dict, sign: int, keys: dict,
+               bank: dict, leaf_fn: LeafFn = None, axis_fn: LeafFn = None,
+               scale: float = 1.0):
+    """The transform over every axis of (batch, *lengths) planes, the last
+    (contiguous) axis first, times ``scale`` (the port of
+    ``committed._core_inner``).  Length-1 axes are skipped.  An outer axis
+    goes to ``axis_fn(axis, xr3, xi3, scale)`` on the (b, L1, L2) view
+    (the column kernel K12; None where it does not take the axis), else
+    through the executor after a ``movedim`` to the last place.  The scale
+    is offered to the last axis that runs."""
+    ndims = len(lengths)
+    todo = [ax for ax in range(ndims - 1, -1, -1) if lengths[ax] > 1]
+    shape = xr.shape
+    for i, axis in enumerate(todo):
+        s = scale if i == len(todo) - 1 else 1.0
+        n, plan = lengths[axis], plans[lengths[axis]]
+        if axis == ndims - 1:
+            xr, xi = exec_plan(xr, xi, plan, sign, keys, bank, leaf_fn, s)
+            continue
+        if axis_fn is not None:
+            trailing = math.prod(shape[2 + axis:])
+            res = axis_fn(axis, xr.reshape(-1, n, trailing),
+                          xi.reshape(-1, n, trailing), s)
+            if res is not None:
+                xr, xi = res[0].reshape(shape), res[1].reshape(shape)
+                continue
+        xr, xi = exec_plan(xr.movedim(1 + axis, -1), xi.movedim(1 + axis, -1),
+                           plan, sign, keys, bank, leaf_fn, s)
+        xr = xr.movedim(-1, 1 + axis).contiguous()
+        xi = xi.movedim(-1, 1 + axis).contiguous()
+    if not todo and scale != 1.0:
+        xr, xi = xr * scale, xi * scale
+    return xr, xi

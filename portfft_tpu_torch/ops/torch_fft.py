@@ -220,6 +220,8 @@ def collect_bank_keys(
         keys[("W", a, sign)] = bank.dft(a, sign)
         keys[("W", 128, sign)] = bank.dft(128, sign)
         keys[("U", a, 128, sign)] = bank.twiddle_fm(a, 128, sign)
+        if a < 8:  # the plane path runs [a < 8, 128] in K13's chain mode
+            keys[("T", a, 128, sign)] = bank.twiddle(a, 128, sign)
     elif plan.level == Level.FUSED:  # the chain's tables, as the JAX package's
         for f, m in stage_shapes(plan.factors):
             keys[("W", f, sign)] = bank.dft(f, sign)

@@ -349,3 +349,105 @@ def test_plane_main_path_matches_oracle(cuda, n, batch, inplace):
         scale = 0.5 if direction == pf.Direction.FORWARD else 2.0 / n
         diff = (y.reshape(x.shape).to(torch.complex128) - ref).abs().max().item()
         assert diff <= oracle_tol(n) * scale, (direction, diff)
+
+
+@pytest.mark.parametrize(
+    "g1,g2,batch,post_n",
+    [(256, 256, 3, None), (512, 256, 2, None), (1024, 264, 2, None),
+     (2048, 512, 2, None), (16384, 16, 2, None), (16, 16384, 2, None),
+     (384, 384, 2, 65537)],
+)
+def test_global2_planes_matches_plain(cuda, g1, g2, batch, post_n):
+    """K14 with DIRECT subs, FUSED subs, a [128, 128] sub in either pass
+    (two launches) and a Bluestein convolution's post tables, against its
+    plain version."""
+    from chip_smoke import global2_planes_case
+
+    rng = np.random.default_rng(g1 + g2)
+    xr, xi = (torch.from_numpy(rng.uniform(-1, 1, (batch, g1 * g2)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    for sign in (-1, +1):
+        kernel, args = global2_planes_case(pf, g1, g2, sign, post_n)
+        before = kernel.launches
+        yr, yi = kernel(xr, xi, *args)
+        wr, wi = kernel.plain(xr, xi, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        peak = max(wr.abs().max().item(), wi.abs().max().item())
+        err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
+        assert err <= KERNEL_TOL * peak, (sign, err)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 5), (2, 128, 64), (2, 256, 100),
+                                   (1, 1024, 128), (2, 3072, 16),
+                                   (1, 16384, 8), (1, 32768, 4)])
+def test_axis_m2_matches_plain(cuda, shape):
+    """K12 DIRECT, FUSED [a, 128] with a | 128 and a not dividing 128, and
+    past 8192 points (two launches), against its plain version."""
+    from chip_smoke import axis_case
+
+    rng = np.random.default_rng(shape[1])
+    numel = int(np.prod(shape))
+    xr, xi = (torch.from_numpy(rng.uniform(-1, 1, numel).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    for sign in (-1, +1):
+        kernel, args = axis_case(pf, shape, sign)
+        before = kernel.launches
+        yr, yi = kernel(xr, xi, *args)
+        wr, wi = kernel.plain(xr, xi, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        peak = max(wr.abs().max().item(), wi.abs().max().item())
+        err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
+        assert err <= KERNEL_TOL * peak, (sign, err)
+
+
+@pytest.mark.parametrize(
+    "lengths,batch",
+    [([64], 3), ([2048], 2), ([1000], 2), ([65536], 2), ([270336], 1),
+     ([1031], 2), ([65537], 2), ([128, 256], 2), ([1024, 128], 1),
+     ([3072, 128], 1), ([16, 32, 128], 2), ([8, 1031], 2)],
+)
+@pytest.mark.parametrize("inplace", [False, True])
+def test_split_main_path_matches_oracle(cuda, lengths, batch, inplace):
+    """SPLIT_COMPLEX, out of place and in place on float32 planes on the
+    card, with scales, against ``torch.fft``."""
+    n = int(np.prod(lengths))
+    placement = pf.Placement.IN_PLACE if inplace else pf.Placement.OUT_OF_PLACE
+    plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
+                         complex_storage=pf.ComplexStorage.SPLIT_COMPLEX,
+                         placement=placement, forward_scale=0.5,
+                         backward_scale=2.0 / n).commit()
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(batch, *lengths, dtype=torch.complex64, generator=gen,
+                    device=cuda)
+    xd, dims = x.to(torch.complex128), tuple(range(1, len(lengths) + 1))
+    for direction, compute, scale in (
+        (pf.Direction.FORWARD, plan.compute_forward, 0.5),
+        (pf.Direction.BACKWARD, plan.compute_backward, 2.0 / n),
+    ):
+        re, im = x.real.contiguous().view(-1), x.imag.contiguous().view(-1)
+        yr, yi = compute(re, im)
+        if inplace:
+            assert yr is re and yi is im
+        assert yr.dtype == torch.float32 and yr.shape == (x.numel(),)
+        ref = (torch.fft.fftn(xd, dim=dims) if direction == pf.Direction.FORWARD
+               else torch.fft.ifftn(xd, dim=dims, norm="forward")) * scale
+        y = torch.complex(yr, yi).reshape(x.shape).to(torch.complex128)
+        diff = (y - ref).abs().max().item()
+        assert diff <= oracle_tol(n) * scale, (direction, diff)
+
+
+@pytest.mark.parametrize("lengths,batch", [([16, 640, 128], 1), ([8, 1031], 2),
+                                           ([640, 16], 2), ([65536, 2], 1)])
+def test_plane_multidim_main_path_matches_oracle(cuda, lengths, batch):
+    """Interleaved multi-dim shapes the raw kernels decline, on the plane
+    path's per-axis walk (K6, K13/K14/K15, K12, K6), against ``torch.fft``."""
+    plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch).commit()
+    assert plan._raw_fast[pf.Direction.FORWARD][0] == "core"
+    x = torch.randn(batch, *lengths, dtype=torch.complex64, device=cuda)
+    n, dims = int(np.prod(lengths)), tuple(range(1, len(lengths) + 1))
+    y = plan.compute_forward(x)
+    ref = torch.fft.fftn(x.to(torch.complex128), dim=dims)
+    diff = (y.reshape(x.shape).to(torch.complex128) - ref).abs().max().item()
+    assert diff <= oracle_tol(n), diff

@@ -290,15 +290,22 @@ def test_bench_rows_route_as_the_reference():
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(lengths=[8, 16], complex_storage="SPLIT_COMPLEX"), "item 8"),
+        (dict(lengths=[8, 16], complex_storage="SPLIT_COMPLEX",
+              forward_offset=3), "item 8"),
         (dict(lengths=[8, 16], forward_offset=3), "item 8"),
         (dict(lengths=[16], number_of_transforms=4, forward_strides=[4],
               forward_distance=1), "item 8"),  # BI forward, PACKED backward
         (dict(lengths=[16], number_of_transforms=4, forward_strides=[4],
               backward_strides=[4], forward_distance=1, backward_distance=1,
               backward_offset=2), "item 8"),
-        (dict(lengths=[640, 16]), "item 4.*K12"),  # FUSED [5, 128] outer axis
-        (dict(lengths=[65536, 2]), "item 4.*K12"),  # GLOBAL outer axis
+        # BATCH_INTERLEAVED over an axis K10 does not take: GLOBAL, the
+        # chain [125, 8] and FUSED [5, 128]
+        (dict(lengths=[65536], number_of_transforms=2, forward_strides=[2],
+              backward_strides=[2], forward_distance=1, backward_distance=1),
+         "item 4.*K12"),
+        (dict(lengths=[1000], number_of_transforms=2, forward_strides=[2],
+              backward_strides=[2], forward_distance=1, backward_distance=1),
+         "item 4.*K12"),
         (dict(lengths=[640], number_of_transforms=2, forward_strides=[2],
               backward_strides=[2], forward_distance=1, backward_distance=1),
          "item 4.*K12"),
@@ -308,6 +315,32 @@ def test_bench_rows_route_as_the_reference():
 def test_outside_the_slice_raises_at_commit(kw, match):
     with pytest.raises(pt.UnsupportedConfiguration, match=match):
         pt.Descriptor(**_kw(pt, kw)).commit(device="cpu")
+
+
+@pytest.mark.parametrize(
+    "lengths,routes",
+    [
+        ([640, 16], {640: "chain", 16: "direct"}),  # FUSED [5, 128] outer axis
+        ([65536, 2], {65536: "global2", 2: "direct"}),  # GLOBAL outer axis
+    ],
+)
+def test_plane_outer_axes_take_the_plane_route(lengths, routes):
+    """An outer axis K10 does not take sends the transform down the plane
+    path's per-axis walk, as the reference's raw registry sends it to
+    ``_traced_interleaved``: here no column kernel K12 either (a < 8, and
+    a GLOBAL axis), so each axis runs through the executor; the result
+    matches the reference."""
+    rdesc, pdesc = _descs(lengths, 1)
+    rplan = rdesc.commit(use_pallas=True)
+    plan = pdesc.commit(device="cpu")
+    assert ref.Direction.FORWARD not in rplan._raw_fast
+    entry = plan._raw_fast[pt.Direction.FORWARD]
+    assert entry[0] == "core" and entry[1] is False and entry[5] == ()
+    assert entry[-1] == routes
+    canon = oracle.gen_input(rdesc, seed=sum(lengths))
+    x = canon.reshape(-1)
+    _assert_close(plan.compute_forward(x), rplan.compute_forward(x), rdesc,
+                  canon, ref.Direction.FORWARD)
 
 
 def test_committed_plan_runs_on_carried_tables():

@@ -300,32 +300,20 @@ SPREAD = [513, 521, 600, 640 * 1031, 1000, 1031, 1152, 2062, 3000, 4099,
 def test_routes_follow_the_reference_gates(n):
     """``fastpath.plane_routes`` makes the reference's ``leaf_dispatch``
     choice at every node: K15 where ``pallas_bluestein.supported`` and its
-    tiles take the plan, K13's mode as ``fused_chain`` picks it, and a
-    commit-time raise (naming K14) where the reference would run its plane
-    GLOBAL kernel."""
+    tiles take the plan, K13's mode as ``fused_chain`` picks it, and the
+    plane GLOBAL kernel K14 where ``pallas_global.global2_supported`` takes
+    a GLOBAL node (the reference's own VMEM tile budget aside, see
+    ``test_torch_split.py``)."""
     plan, rplan = plan_1d(n, CFG, 4), ref_plan_1d(n, REF_CFG, 4)
     assert plan.describe() == rplan.describe()
 
     def k15(p):
         """The gate of ``bluestein_call`` the port copies (not its TPU
-        tile budget: see ``test_bluestein_past_the_tpu_tile_budget``)."""
-        return pallas_bluestein.supported(p, REF_CFG)
+        tile budget: see ``test_bluestein_past_the_tpu_tile_budget``), and
+        K15's own tile (convolution subs up to GLOBAL_SUB_MAX)."""
+        return (pallas_bluestein.supported(p, REF_CFG)
+                and max(s.n for s in p.conv.sub) <= fastpath.GLOBAL_SUB_MAX)
 
-    def k14(p):
-        if p.level == RefLevel.GLOBAL:
-            if pallas_global.global2_supported(p, REF_CFG.direct_threshold):
-                return True
-            return any(k14(s) for s in p.sub)
-        if p.level == RefLevel.BLUESTEIN and not k15(p):
-            return (p.conv.level == RefLevel.GLOBAL
-                    and pallas_global.global2_supported(
-                        p.conv, REF_CFG.direct_threshold)) or k14(p.conv)
-        return False
-
-    if k14(rplan):
-        with pytest.raises(fastpath.RawFastUnavailable, match="K14"):
-            fastpath.plane_routes(plan, CFG)
-        return
     routes = fastpath.plane_routes(plan, CFG)
 
     def walk(p):
@@ -335,9 +323,11 @@ def test_routes_follow_the_reference_gates(n):
             if kind != "bluestein":
                 walk(p.conv)
         elif p.level == RefLevel.GLOBAL:
-            assert kind == "generic"
-            walk(p.sub[0])
-            walk(p.sub[1])
+            k14 = pallas_global.global2_supported(p, REF_CFG.direct_threshold)
+            assert kind == ("global2" if k14 else "generic")
+            if not k14:
+                walk(p.sub[0])
+                walk(p.sub[1])
         else:
             f = p.factors
             two = len(f) == 2 and f[1] == 128 and f[0] >= 8

@@ -17,6 +17,8 @@ import torch
 import oracle
 import portfft_tpu as ref
 import portfft_tpu_torch as pt
+from portfft_tpu_torch import fastpath
+from portfft_tpu_torch.planner import plan_1d
 
 # (n, batch): one row per kernel and plan shape of the slice; batches where
 # the reference's raw kernel accepts the shape.
@@ -170,7 +172,9 @@ def test_commit_needs_cuda_unless_cpu_is_named(monkeypatch):
         (dict(lengths=[16], domain="REAL", complex_storage="SPLIT_COMPLEX"),
          "item 9"),
         (dict(lengths=[4, 4], domain="REAL"), "item 10"),  # multi-dim REAL
-        (dict(lengths=[16], complex_storage="SPLIT_COMPLEX"), "item 8"),
+        (dict(lengths=[16], complex_storage="SPLIT_COMPLEX", number_of_transforms=2,
+              forward_strides=[2], backward_strides=[2], forward_distance=32,
+              backward_distance=32), "item 8"),
         (dict(lengths=[16], number_of_transforms=2, forward_strides=[2],
               backward_strides=[2], forward_distance=32,
               backward_distance=32), "item 8"),
@@ -178,13 +182,13 @@ def test_commit_needs_cuda_unless_cpu_is_named(monkeypatch):
               forward_distance=1), "item 8"),  # BATCH_INTERLEAVED one way
         (dict(lengths=[16], forward_offset=2), "item 8"),
         (dict(lengths=[16], precision="fp64"), "item 12"),
-        # 1D C2C takes these lengths on its plane path; the multi-dim route
-        # does not take a last axis that needs it yet
-        (dict(lengths=[2, 65537]), "item 11"),  # BLUESTEIN last axis
-        (dict(lengths=[4, 600]), "item 4"),  # FUSED [120, 5] last axis
-        (dict(lengths=[4, 2 * 65537]), "item 4"),  # GLOBAL, BLUESTEIN sub
+        # C2C takes these half lengths on its plane path; the REAL route
+        # does not take one that needs it yet
+        (dict(lengths=[2 * 65537], domain="REAL"), "item 11"),  # BLUESTEIN
+        (dict(lengths=[1200], domain="REAL"), "item 4"),  # FUSED [120, 5]
+        (dict(lengths=[4 * 65537], domain="REAL"), "item 4"),  # GLOBAL 2 x 65537
         # GLOBAL FUSED [128, 128] x [64, 128]: the plane GLOBAL kernel K14
-        (dict(lengths=[1 << 27]), "K14"),
+        (dict(lengths=[1 << 28], domain="REAL"), "K14"),
     ],
 )
 def test_outside_the_slice_raises_at_commit(kw, item):
@@ -195,6 +199,34 @@ def test_outside_the_slice_raises_at_commit(kw, item):
             kw[field] = enum[kw[field]]
     with pytest.raises(pt.UnsupportedConfiguration, match=item):
         pt.Descriptor(**kw).commit(device="cpu")
+
+
+@pytest.mark.parametrize(
+    "lengths,routes",
+    [
+        ([2, 65537], {2: "direct", 65537: "bluestein"}),
+        ([4, 600], {4: "direct", 600: "chain"}),
+        ([4, 2 * 65537], {4: "direct", 2 * 65537: "generic", 2: "direct",
+                          65537: "bluestein"}),
+    ],
+)
+def test_plane_last_axes_commit_on_the_per_axis_walk(lengths, routes):
+    """Multi-dim shapes whose last axis the raw route declines run the
+    plane path's per-axis walk, every axis through the executor here (no
+    outer axis of 2 or 4 is one the column kernel K12 takes)."""
+    plan = pt.Descriptor(lengths=lengths).commit(device="cpu")
+    entry = plan._raw_fast[pt.Direction.FORWARD]
+    assert entry[0] == "core" and entry[1] is False and entry[5] == ()
+    assert entry[-1] == routes
+
+
+def test_global_with_a_16384_sub_routes_to_k14():
+    """GLOBAL FUSED [128, 128] x [64, 128] runs on the plane GLOBAL kernel
+    K14 (its [128, 128] pass as two launches); routes only, since the
+    committed bank of 2^27 points would hold a GiB-sized twiddle table."""
+    cfg = pt.DeviceConfig()
+    plan = plan_1d(1 << 27, cfg, 4)
+    assert fastpath.plane_routes(plan, cfg) == {1 << 27: "global2"}
 
 
 def test_distributed_commit_raises():
