@@ -7,9 +7,12 @@ For each row of ``bench.py``'s ``CONFIGS``, ``backward_medium`` and
 its ``MULTIDIM_CONFIGS`` plus the BATCH_INTERLEAVED row bi_4096, and of
 the plane path's rows (``large_1d_prime`` both ways, n = 1031, 1000 and
 2062 at about 1 GiB; the executor's glue shows as torch's own kernels),
-and of ``chip_smoke.py``'s SPLIT_COMPLEX rows (planes in and out) and its
+and of ``chip_smoke.py``'s SPLIT_COMPLEX rows (planes in and out), its
 further plane rows (a multi-dim shape with an outer FUSED [5, 128] axis,
-the nested GLOBAL length 12232320, the Bluestein length 50431897), it
+the nested GLOBAL length 12232320, the Bluestein length 50431897) and its
+layout rows (``chip_smoke.LAYOUT_ROWS``: strided, BATCH_INTERLEAVED in one
+or both domains, offsets with an out= tensor, SPLIT strided; K7 shows as
+``destride_*``/``restride_*`` kernels), it
 commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
@@ -25,7 +28,6 @@ prefixes of the row names to profile (``python3 chip_profile.py split_``).
 from __future__ import annotations
 
 import json
-import math
 import re
 import subprocess
 import sys
@@ -33,6 +35,8 @@ import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from chip_smoke import LAYOUT_ROWS
 
 ROWS = [
     ("small_1d", 16, 8 << 20, "forward"),
@@ -90,7 +94,7 @@ ATTEMPTS = 3
 
 
 def kernel_name(name: str) -> str:
-    m = re.search(r"(\w+_kernel)", name)
+    m = re.search(r"(\w+_kernel|(?:de|re)stride_\w+)", name)
     return m.group(1) if m else name[:60]
 
 
@@ -129,34 +133,46 @@ def main() -> None:
         torch.cuda.synchronize()
     bi = dict(forward_distance=1, backward_distance=1)
     rows = [(name, [n], b, dn, {}) for name, n, b, dn in ROWS]
+    split = {"complex_storage": pf.ComplexStorage.SPLIT_COMPLEX}
     rows += [(name, [n], b, dn, {"domain": pf.Domain.REAL})
              for name, n, b, dn in REAL_ROWS]
     rows += [(name, lengths, b, dn, dict(bi, forward_strides=[b],
                                          backward_strides=[b]) if is_bi else {})
              for name, lengths, b, dn, is_bi in MD_ROWS]
     rows += [(name, [n], b, dn, {}) for name, n, b, dn in PLANE_ROWS]
-    rows += [(name, lengths, b, dn, {"complex_storage":
-                                     pf.ComplexStorage.SPLIT_COMPLEX} if split else {})
-             for name, lengths, b, dn, split in SPLIT_ROWS]
+    rows += [(name, lengths, b, dn, split if is_split else {})
+             for name, lengths, b, dn, is_split in SPLIT_ROWS]
+    # layout rows: the descriptor's fields, and an out= tensor where given
+    rows += [(name, [n], b, "forward", dict(fields, **(split if is_split else {})),
+              give_out)
+             for name, n, b, is_split, fields, give_out in LAYOUT_ROWS]
     prefixes = sys.argv[1:]
-    for name, lengths, batch, direction, kw in rows:
+    for name, lengths, batch, direction, kw, *give_out in rows:
         if prefixes and not any(name.startswith(p) for p in prefixes):
             continue
-        plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
-                             **kw).commit(device="cuda")
+        desc = pf.Descriptor(lengths=lengths, number_of_transforms=batch, **kw)
+        plan = desc.commit(device="cuda")
         n = lengths[0] if len(lengths) == 1 else lengths
-        size = batch * math.prod(lengths)
-        if "domain" not in kw:
-            numel = 2 * size
-        else:  # reals forward, raw half spectra backward
-            numel = size if direction == "forward" else size + 2 * batch
+        # the input buffer: raw pairs (reals for a REAL forward transform)
+        count = desc.get_input_count(pf.Direction(direction))
+        numel = count if kw.get("domain") and direction == "forward" else 2 * count
         gen = torch.Generator(device="cuda").manual_seed(0)
         x = torch.rand(numel, generator=gen, device="cuda") * 2 - 1
         # SPLIT: the (re, im) planes
         inputs = ((x[0::2].contiguous(), x[1::2].contiguous())
                   if "complex_storage" in kw else (x,))
-        compute = (plan.compute_forward if direction == "forward"
+        out = None
+        if give_out and give_out[0]:
+            count_out = desc.get_output_count(pf.Direction(direction))
+            out = tuple(torch.full((count_out * 2 // len(inputs),), -5.0,
+                                   device="cuda") for _ in inputs)
+            out = out if len(out) == 2 else out[0]
+        forward = (plan.compute_forward if direction == "forward"
                    else plan.compute_backward)
+
+        def compute(*args):
+            return forward(*args, out=out)
+
         for _ in range(3):
             compute(*inputs)
         torch.cuda.synchronize()
@@ -175,7 +191,7 @@ def main() -> None:
             "wall_ms_per_call": wall, "device_busy_ms_per_call": busy,
             "device_ms_per_launch": {k: v[: len(v) // CALLS] for k, v in per.items()},
         }))
-        del x, inputs, plan
+        del x, inputs, plan, out
         torch.cuda.empty_cache()
 
 

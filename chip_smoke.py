@@ -34,7 +34,12 @@
    faults (K6: a conjugated result; K13: its roots or inner twiddle
    conjugated; K15: its pass-1 chirp conjugated).  K6 and K15 are timed
    alone at large_1d_prime, K13 at the [24, 128] convolution of n = 1031
-   and in its chain mode at n = 1000.
+   and in its chain mode at n = 1000.  Then K7 (destride, and restride
+   with fill_gaps on and off) at the layouts of ``STRIDE_CASES``, held to
+   its plain version exactly (max|kernel - plain| = 0), each check
+   rejecting a run at the offset plus one and an all-zero output; K7's
+   destride is timed alone at strided_large's input beside one
+   ``as_strided(...).contiguous()`` of the same view.
 4. Main-path phases, C2C, REAL, multi-dim, then the plane path:
    ``Descriptor(...).commit(device="cuda")`` and
    ``compute_forward``/``compute_backward`` on a float32 tensor on the
@@ -61,7 +66,15 @@
    ``GLOBAL_PLANES_CASES`` and K12 at ``AXIS_CASES``, both directions,
    against their plain versions and ``torch.fft`` (K14 with post: ``fft``
    times the post table), with the two planted faults; K14 timed alone at
-   split_large_1d's shape, K12 at split_md_1024x1024's column pass.
+   split_large_1d's shape, K12 at split_md_1024x1024's column pass.  Then
+   the layout main path, ``LAYOUT_ROWS``: strided input (K7 → K3), strided
+   output (K3 → K7 with fill_gaps), BATCH_INTERLEAVED input only (K7's
+   tile mapping → K2), BATCH_INTERLEAVED at 65536, which K10 declines
+   (K7 → K3 → K7), offsets with a sentinel-filled out= tensor (K3 on the
+   views) and SPLIT strided planes (K7 → K13 → K7), each held to
+   ``torch.fft`` on a sample of rows, with every element outside the
+   output layout 0 (no out=) or the sentinel (out=), its launches and its
+   peak device memory.
 6. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms), then, as the last line, ``{"ok": true, "device":
@@ -217,6 +230,43 @@ AXIS_CASES = [(32, 128, 16384), (4096, 128, 128), (12, 128, 640 * 128),
 # split_md_1024x1024.
 GLOBAL_PLANES_ALONE = (256, 256, 2048)
 AXIS_ALONE = (64, 1024, 1024)
+# K7 kernel phase: (name, (o, s, dist, n, batch), SPLIT planes).
+# strided_large's input layout (s = 2, dist = 2n; strided_out_large's
+# output), the minimal span dist = (n-1)·s + 1, s = 3 with an offset, the
+# BATCH_INTERLEAVED sides of bi_in_4096 and bi_65536 (dist = 1, s = batch:
+# the tile mapping) and split_strided_4096's planes.
+STRIDE_CASES = [
+    ("strided_large", (0, 2, 2 * 65536, 65536, 512), False),
+    ("minimal_span", (0, 2, 2 * 65535 + 1, 65536, 512), False),
+    ("odd_stride_offset", (7, 3, 3 * 4096 + 5, 4096, 4096), False),
+    ("bi_in_4096", (0, 32768, 1, 4096, 32768), False),
+    ("bi_65536", (0, 2048, 1, 65536, 2048), False),
+    ("split_strided_4096", (0, 2, 8192, 4096, 32768), True),
+]
+# K7 is timed alone at strided_large's input.
+STRIDE_ALONE = "strided_large"
+# Layout rows, forward, about 1 GiB in (bench.py strided_large and its
+# output-side twin at 65536 x 512; the bench's medium_large_1d and large_1d
+# shapes in the other layouts): name, n, batch, SPLIT, descriptor fields,
+# whether an out= buffer (sentinel-filled, on the card) is given.
+LAYOUT_ROWS = [
+    ("strided_large", 65536, 512, False,
+     dict(forward_strides=[2], forward_distance=2 * 65536), False),
+    ("strided_out_large", 65536, 512, False,
+     dict(backward_strides=[2], backward_distance=2 * 65536), False),
+    ("bi_in_4096", 4096, 32768, False,
+     dict(forward_strides=[32768], forward_distance=1), False),
+    ("bi_65536", 65536, 2048, False,
+     dict(forward_strides=[2048], forward_distance=1, backward_strides=[2048],
+          backward_distance=1), False),
+    ("offset_out_large_1d", 65536, 2048, False,
+     dict(forward_offset=1000, backward_offset=3), True),
+    ("split_strided_4096", 4096, 32768, True,
+     dict(forward_strides=[2], backward_strides=[2], forward_distance=8192,
+          backward_distance=8192), False),
+]
+#: The value of every element of an out= buffer the layout does not address.
+SENTINEL = -5.0
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -244,6 +294,8 @@ SOURCES = {
                        "portfft_tpu/ops/pallas_global.py:394"),
     "axis_m2": ("portfft_tpu_torch/csrc/fft_axis.cu",
                 "portfft_tpu/ops/pallas_global.py:519"),
+    "destride": ("portfft_tpu_torch/csrc/fft_stride.cu",
+                 "portfft_tpu/ops/pallas_io.py:173"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
@@ -251,6 +303,8 @@ MD_KINDS = ("col", "md2")
 # K6 is one kernel of the table with two wrappers (deinterleave, interleave).
 PLANE_KINDS = ("interleave", "chain", "bluestein")
 SPLIT_KINDS = ("global2_planes", "axis_m2")
+# K7 is one kernel of the table with two wrappers (destride, restride).
+STRIDE_KINDS = ("destride", "restride")
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
 # fp32 outside the tensor cores, per millisecond.
 HBM_BYTES_PER_MS = 3.35e9
@@ -505,22 +559,12 @@ def check_against(what: str, kind: str, kernel, args: tuple, x, oracle) -> dict:
 
 def plain_path(plan, entry):
     """The plain versions of an entry's kernels, chained as the path chains
-    the kernels: ``fn(x) -> y``."""
+    the kernels: ``fn(x) -> y`` (a C2C entry's ``fn(x, out=None)`` of
+    ``fastpath.build_fn``; SPLIT ``x`` an (re, im) pair)."""
     from portfft_tpu_torch import fastpath
 
-    if entry[0] == "plane":
-        return fastpath.plane_fn(plan, entry, plain=True)
-    if entry[0] == "core":  # SPLIT: fn(xr, xi) -> (yr, yi)
-        return fastpath.core_fn(plan, entry, plain=True)
-    if entry[0] == "multidim":
-        steps = [fastpath.kernel_args(plan, s) for s in entry[2]]
-
-        def chain(x):
-            for kernel, args in steps:
-                x = kernel.plain(x, *args)
-            return x
-
-        return chain
+    if entry[0] not in ("realf", "realb", "realsf", "realsb"):
+        return fastpath.build_fn(plan, entry, plain=True)
     kernel, args = fastpath.kernel_args(plan, entry)
     if entry[0] in ("realf", "realb"):
         c2c, c2c_args = fastpath.kernel_args(plan, entry[1])
@@ -1294,7 +1338,7 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
         del y, planes, src
         ms = time_ms(lambda: compute(*inputs))
         plain = plain_path(plan, entry)
-        plain_ms = time_ms(lambda: plain(*inputs))
+        plain_ms = time_ms(lambda: plain(inputs if split else inputs[0]))
         if split:
             fft = torch.fft.fftn if forward else functools.partial(
                 torch.fft.ifftn, norm="forward")
@@ -1324,17 +1368,278 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
     return results, launches, kept
 
 
+def side_bytes(rows, elem: int, planes: int = 1) -> int:
+    """Bytes one side of a layout moves, in 32-byte sectors: each element
+    of a run whose elements lie closer than a sector costs its stride (a
+    packed side its size), farther apart a whole sector.  ``rows`` is a
+    ``utils.layout.Rows``; ``elem`` the bytes of one element of a plane."""
+    step = rows.stride if rows.batch == 1 else min(rows.stride, rows.distance)
+    return planes * rows.batch * rows.n * min(32, step * elem)
+
+
+def stride_bound(m: tuple, split: bool) -> tuple[float, str]:
+    """``(bound_ms, "bytes")`` of one K7 call on the layout ``m`` = (o, s,
+    dist, n, batch): the strided side in sectors, the packed side once."""
+    from portfft_tpu_torch.utils.layout import Rows
+
+    rows, planes = Rows(*m), 2 if split else 1
+    elem = 4 if split else 8
+    nbytes = side_bytes(rows, elem, planes) + planes * rows.batch * rows.n * elem
+    return nbytes / HBM_BYTES_PER_MS, "bytes"
+
+
+def stride_buffer(count: int, split: bool, seed: int, device: str,
+                  fill: float | None = None):
+    """A raw interleaved buffer of ``count`` elements, or an (re, im) pair
+    of planes: random in [-1, 1), or all ``fill``."""
+    width = 1 if split else 2
+
+    def one(k):
+        if fill is None:
+            return random_raw(width * count, seed + k, device)
+        return torch.full((width * count,), fill, device=device)
+
+    return (one(0), one(1)) if split else one(0)
+
+
+def planes_of(buf) -> tuple:
+    return buf if isinstance(buf, tuple) else (buf,)
+
+
+def exact_err(got, want) -> float:
+    """max|got - want| over every plane (0.0 for an exact copy)."""
+    return max((g - w).abs().max().item()
+               for g, w in zip(planes_of(got), planes_of(want)))
+
+
+def check_stride(name: str, m: tuple, split: bool, device: str = "cuda") -> dict:
+    """K7 at the layout ``m`` = (o, s, dist, n, batch): destride, and
+    restride with fill_gaps on and off (off on a sentinel-filled ``out``),
+    each against its plain version on the same inputs.  They are exact
+    copies: max|kernel - plain| must be 0.  Each check must reject two
+    planted faults, the kernel run at offset o + 1 and an all-zero
+    output.  Returns ``{"err", "caught"}``; raises :class:`SmokeFailure`."""
+    from portfft_tpu_torch.ops import cuda_stride
+
+    o, s, dist, n, batch = m
+    count = o + (batch - 1) * dist + (n - 1) * s + 2  # room for offset o + 1
+    shifted = (o + 1, s, dist, n, batch)
+    x = stride_buffer(count, split, 1, device)
+    y = stride_buffer(batch * n, split, 2, device)
+
+    def sentinel():
+        return stride_buffer(count, split, 0, device, SENTINEL)
+
+    calls = {"destride": (lambda k, mm: k(x, *mm), cuda_stride.destride)}
+    for fill in (True, False):
+        calls[f"restride fill_gaps={fill}"] = (
+            lambda k, mm, fill=fill: k(y, *mm, sentinel(), fill),
+            cuda_stride.restride)
+    r = {"err": 0.0, "caught": {}}
+    for what, (call, kernel) in calls.items():
+        got, want = call(kernel, m), call(kernel.plain, m)
+        err = exact_err(got, want)
+        if not err == 0.0:
+            raise SmokeFailure(f"{what} {name} {m}: max|kernel - plain| = {err:.3e}, "
+                               "not an exact copy")
+        zeros = tuple(torch.zeros_like(g) for g in planes_of(got))
+        for fault, bad in (("shifted offset", call(kernel, shifted)),
+                           ("zeros", zeros)):
+            f_err = exact_err(bad, want)
+            if not f_err > 0.0:
+                raise SmokeFailure(f"{what} {name}: planted fault ({fault}) passed")
+            r["caught"][f"{what} {fault}"] = f_err
+        del got, want, zeros
+    return r
+
+
+def stride_kernel_phase(pf, max_err: dict, card: str) -> tuple:
+    """Checks K7 at ``STRIDE_CASES``; returns ``(ms, plain_ms, library_ms)``
+    of the destride timed alone at ``STRIDE_ALONE``, the library call one
+    ``as_strided(...).contiguous()`` of the same view."""
+    from portfft_tpu_torch.ops import cuda_stride
+
+    alone = None
+    for name, m, split in STRIDE_CASES:
+        before = cuda_stride.destride.launches + cuda_stride.restride.launches
+        r = check_stride(name, m, split)
+        torch.cuda.synchronize()
+        # destride, two restrides, each with its shifted-offset fault
+        if cuda_stride.destride.launches + cuda_stride.restride.launches != before + 6:
+            raise SmokeFailure(f"K7 {name}: launch counters did not rise by 6")
+        print(f"kernel destride/restride {name:20s} {m} "
+              f"{'planes' if split else 'interleaved'} max|k-plain|={r['err']:.1e} "
+              f"(exact) | planted faults rejected: "
+              + " ".join(f"{k}: {v:.2e};" for k, v in r["caught"].items()))
+        max_err["destride"] = max(max_err.get("destride", 0.0), r["err"])
+        if name == STRIDE_ALONE:
+            o, s, dist, n, batch = m
+            x = random_raw(2 * (o + (batch - 1) * dist + (n - 1) * s + 1), 3)
+            y = random_raw(2 * batch * n, 4)
+            out = torch.empty_like(x)
+            view = torch.view_as_complex(x.view(-1, 2)).as_strided(
+                (batch, n), (dist, s), o)
+            ms = time_ms(lambda: cuda_stride.destride(x, *m))
+            plain_ms = time_ms(lambda: cuda_stride.destride.plain(x, *m))
+            library_ms = time_ms(lambda: view.contiguous())
+            re_ms = time_ms(lambda: cuda_stride.restride(y, *m, out, True))
+            re_plain = time_ms(lambda: cuda_stride.restride.plain(y, *m, out, True))
+            bound, by = stride_bound(m, split)
+            alone = (ms, plain_ms, library_ms)
+            print(f"alone  destride {name} kernel {ms:.3f} ms | plain "
+                  f"{plain_ms:.3f} ms | as_strided().contiguous() {library_ms:.3f} ms "
+                  f"| bound {bound:.3f} ms ({by}) | restride fill_gaps kernel "
+                  f"{re_ms:.3f} ms, plain {re_plain:.3f} ms | {card}")
+            del x, y, out, view
+        torch.cuda.empty_cache()
+    return alone
+
+
+def layout_kinds(entry) -> list[str]:
+    """The kernels a C2C entry launches: K7 destride where its input side
+    is strided, the inner entry's kernels, K7 restride where its output
+    side is strided."""
+    from portfft_tpu_torch.utils.layout import Rows
+
+    inner, src, dst = (entry[1:] if entry[0] == "layout" else (entry, 0, 0))
+    kinds = ["destride"] if isinstance(src, Rows) else []
+    if inner[0] in ("plane", "core"):
+        kinds += path_kinds(inner)
+    elif inner[0] == "multidim":
+        kinds += [step[0] for step in inner[2]]
+    else:
+        kinds.append("col" if inner[0] == "bi_col" else inner[0])
+    return kinds + (["restride"] if isinstance(dst, Rows) else [])
+
+
+def elements(buf, rows):
+    """The (batch, n) complex view (interleaved) or (re, im) views (SPLIT)
+    of the elements a layout's ``rows`` address in ``buf``."""
+    if isinstance(buf, tuple):
+        return tuple(p.as_strided((rows.batch, rows.n), (rows.distance, rows.stride),
+                                  rows.offset) for p in buf)
+    c = torch.view_as_complex(buf.view(-1, 2))
+    return c.as_strided((rows.batch, rows.n), (rows.distance, rows.stride),
+                        rows.offset)
+
+
+def sampled(buf, rows, sample: list[int]) -> torch.Tensor:
+    """The rows ``sample`` of a layout in ``buf`` as complex128."""
+    v = elements(buf, rows)
+    if isinstance(v, tuple):
+        return torch.complex(v[0][sample], v[1][sample]).to(torch.complex128)
+    return v[sample].to(torch.complex128)
+
+
+def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
+                     device: str = "cuda") -> tuple[list, dict]:
+    """``LAYOUT_ROWS`` through the committed plan, forward: every kernel of
+    each row's route (``layout_kinds``) must launch; a sample of rows is
+    held to ``torch.fft`` at the absolute 2·eps·n·log2(n); every element
+    the output layout does not address must be 0 (no out=) or keep the
+    sentinel (out=); the path, its plain chain and one ``torch.fft`` call
+    on the strided view are timed; the peak device memory of the first
+    call is printed."""
+    from portfft_tpu_torch.utils.layout import rows_1d
+
+    results = []
+    for c in counters.values():
+        c.launches = 0
+    fwd = pf.Direction.FORWARD
+    for name, n, batch, split, fields, give_out in rows:
+        storage = (pf.ComplexStorage.SPLIT_COMPLEX if split
+                   else pf.ComplexStorage.INTERLEAVED_COMPLEX)
+        desc = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             complex_storage=storage, **fields)
+        plan = desc.commit(device=device)
+        entry = plan._raw_fast[fwd]
+        kinds = layout_kinds(entry)
+        src, dst = rows_1d(desc, fwd), rows_1d(desc, pf.Direction.BACKWARD)
+        x = stride_buffer(desc.get_input_count(fwd), split, 0, device)
+        count_out = desc.get_output_count(fwd)
+        out = (stride_buffer(count_out + 16, split, 0, device, SENTINEL)
+               if give_out else None)
+        args = (x if split else (x,))
+
+        def compute():
+            return plan.compute_forward(*args, out=out)
+
+        before = {k: counters[k].launches for k in kinds}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        y = compute()
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        rose = {k: counters[k].launches - before[k] for k in kinds}
+        if min(rose.values()) <= 0:
+            raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
+        width = 1 if split else 2
+        want_len = width * (count_out + 16 if give_out else count_out)
+        if any(p.shape != (want_len,) or not torch.isfinite(p).all()
+               for p in planes_of(y)):
+            raise SmokeFailure(f"{name}: output of shape "
+                               f"{[tuple(p.shape) for p in planes_of(y)]} "
+                               f"(expected ({want_len},)) or not finite")
+        sample = sample_rows(batch)
+        ref = torch.fft.fft(sampled(x, src, sample))
+        excess = (sampled(y, dst, sample) - ref).abs().max().item() / oracle_tol(n)
+        if not excess <= 1.0:
+            raise SmokeFailure(f"{name}: {excess:.3e} times the oracle bound "
+                               f"{oracle_tol(n):.3e}")
+        # everything the output layout does not address: 0, or the sentinel
+        rest = tuple(p.clone() for p in planes_of(y))
+        v = elements(rest if split else rest[0], dst)
+        gap = SENTINEL if give_out else 0.0
+        for p in planes_of(v):
+            p.fill_(gap if split else complex(gap, gap))
+        if any((p != gap).any().item() for p in rest):
+            raise SmokeFailure(f"{name}: an element outside the output layout "
+                               f"is not {gap}")
+        del y, rest, v
+        ms = time_ms(compute)
+        plain = plain_path(plan, entry)
+        plain_ms = time_ms(lambda: plain(x, out))
+        if split:
+            re_v, im_v = elements(x, src)
+            library_ms = time_ms(lambda: torch.fft.fft(torch.complex(re_v, im_v)))
+        else:
+            view = elements(x, src)
+            library_ms = time_ms(lambda: torch.fft.fft(view))
+        elem = 4 if split else 8
+        planes = 2 if split else 1
+        nbytes = side_bytes(src, elem, planes) + side_bytes(dst, elem, planes)
+        flops = 5 * n * math.log2(n) * batch
+        bound = max(nbytes / HBM_BYTES_PER_MS, flops / FP32_FLOPS_PER_MS)
+        by = "bytes" if nbytes / HBM_BYTES_PER_MS >= flops / FP32_FLOPS_PER_MS else "operations"
+        print(f"row {name:20s} n={n:<6d} batch={batch:<6d} {'+'.join(kinds):28s} "
+              f"launches {rose} oracle max|diff|={excess * oracle_tol(n):.3e} "
+              f"tol={oracle_tol(n):.3e} gaps {gap} | path {ms:.3f} ms "
+              f"{nbytes / ms / 1e6:.1f} GB/s | plain {plain_ms:.3f} ms | torch.fft "
+              f"(strided view) {library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | "
+              f"peak {peak_gib:.2f} GiB | {card}")
+        results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
+        del plan, x, out, args, plain
+        torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"layout main-path launches: {launches}")
+    for kind in STRIDE_KINDS:
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on the layout path")
+    return results, launches
+
+
 def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                  alone, md_launches, md_alone, plane_launches,
-                 plane_alone, split_launches, split_alone) -> list[dict]:
+                 plane_alone, split_launches, split_alone, layout_launches,
+                 stride_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
     call computes the same function; K10 and K11 from their timing alone at
     ``MD_ALONE``, with the launches of the multi-dim main path."""
-    def entry(kind, launches, ms, plain_ms, library_ms, n, batch):
+    def entry(kind, launches, ms, plain_ms, library_ms, n, batch, bound=None):
         source, replaces = SOURCES[kind]
-        bound, by = bound_of(kind, n, batch)
+        bound, by = bound or bound_of(kind, n, batch)
         return {"name": kind, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_err[kind], "ms": ms, "plain_ms": plain_ms,
@@ -1371,6 +1676,10 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
     bpre, length, rest = AXIS_ALONE
     kernels.append(entry("axis_m2", split_launches["axis_m2"],
                          *split_alone["axis_m2"], length, bpre * rest))
+    m, split = next((m, sp) for name, m, sp in STRIDE_CASES if name == STRIDE_ALONE)
+    kernels.append(entry("destride", layout_launches["destride"]
+                         + layout_launches["restride"], *stride_alone, m[3], m[4],
+                         stride_bound(m, split)))
     return kernels
 
 
@@ -1400,6 +1709,7 @@ def run() -> None:
         cuda_io,
         cuda_multidim,
         cuda_real,
+        cuda_stride,
     )
 
     t0 = time.perf_counter()
@@ -1415,7 +1725,9 @@ def run() -> None:
                 "interleave": cuda_io.interleave, "chain": cuda_chain.chain,
                 "bluestein": cuda_bluestein.bluestein,
                 "global2_planes": cuda_global.global2_planes,
-                "axis_m2": cuda_axis.axis_m2}
+                "axis_m2": cuda_axis.axis_m2,
+                "destride": cuda_stride.destride,
+                "restride": cuda_stride.restride}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -1429,6 +1741,7 @@ def run() -> None:
     alone = phase("REAL kernels", real_kernel_phase, pf, max_err, card)
     md_alone = phase("multi-dim kernels", md_kernel_phase, pf, max_err, card)
     plane_alone = phase("plane kernels", plane_kernel_phase, pf, max_err, card)
+    stride_alone = phase("K7 kernels", stride_kernel_phase, pf, max_err, card)
     c2c_rows, c2c_launches = phase("C2C main path", c2c_main_path, pf, counters, card)
     real_rows, real_launches = phase("REAL main path", real_main_path, pf,
                                      counters, card)
@@ -1447,12 +1760,15 @@ def run() -> None:
     split_alone = phase("K14/K12 kernels", split_kernel_phase, pf, max_err,
                         card, kept)
     del kept
+    _, layout_launches = phase("layout main path", layout_main_path, pf,
+                               counters, card)
     # K14 and K12 run on both paths of this slice
     new_launches = {k: split_launches[k] + more_launches[k] for k in SPLIT_KINDS}
     print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
     kernels = kernel_table(max_err, c2c_rows, c2c_launches, real_rows,
                            real_launches, alone, md_launches, md_alone,
-                           plane_launches, plane_alone, new_launches, split_alone)
+                           plane_launches, plane_alone, new_launches, split_alone,
+                           layout_launches, stride_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,19 +9,22 @@ The describe → commit → execute API of the JAX package::
     y = plan.compute_forward(x)      # x: complex64 tensor on the card
     x2 = plan.compute_backward(y)    # unnormalized inverse
 
-This version runs C2C fp32 with INTERLEAVED storage and zero offsets,
-in-place or out-of-place: 1D PACKED of every length (the main path; the
-lengths no single kernel takes, such as primes past 512, run on the plane
-path: K6 deinterleave, the executor with K13, K14 and K15, K6 interleave),
-1D BATCH_INTERLEAVED
-(``forward_strides=[batch]``, ``forward_distance=1`` and the same
-backward), and multi-dimensional PACKED of any rank
+This version runs C2C fp32 with INTERLEAVED storage, in-place or
+out-of-place: 1D PACKED of every length (the main path; the lengths no
+single kernel takes, such as primes past 512, run on the plane path: K6
+deinterleave, the executor with K13, K14 and K15, K6 interleave), 1D
+BATCH_INTERLEAVED (``forward_strides=[batch]``, ``forward_distance=1``
+and the same backward), and multi-dimensional PACKED of any rank
 (``Descriptor(lengths=[512, 512], number_of_transforms=256)``; shapes the
 raw kernels decline run the plane path's per-axis walk with K12); C2C fp32
 with SPLIT_COMPLEX storage (``complex_storage=ComplexStorage.SPLIT_COMPLEX``,
-``plan.compute_forward(re, im)`` returns ``(re, im)``), PACKED, zero
-offsets, any rank; and the 1D REAL fp32 path, R2C forward and C2R
-backward (``domain=Domain.REAL``), INTERLEAVED PACKED, out-of-place.  Other configurations raise
+``plan.compute_forward(re, im)`` returns ``(re, im)``), any rank; every
+C2C buffer layout the JAX package takes: offsets at any rank, any 1D
+strides and distances (the strided copy kernel K7 around the packed
+route), ``out=`` buffers (``plan.compute_forward(x, out=y)`` writes the
+results into ``y`` and keeps its other elements); and the 1D REAL fp32
+path, R2C forward and C2R backward (``domain=Domain.REAL``), INTERLEAVED
+PACKED with zero offsets, out-of-place.  Other configurations raise
 :class:`UnsupportedConfiguration` at commit, naming the ROADMAP item that
 will port them.  ``commit(device="cpu")`` runs the kernels' plain PyTorch
 versions.  The package never imports JAX.

@@ -2,16 +2,19 @@
 runs each direction.
 
 Counterpart of ``portfft_tpu.committed.CommittedDescriptor`` for the slices
-this package covers (``fastpath.py``): C2C fp32 INTERLEAVED with zero
-offsets, out-of-place or in-place, as 1D PACKED (K1, K2 or K3, or the
-plane path K6 → executor with K13/K14/K15 → K6 for every other length), 1D
-BATCH_INTERLEAVED (K10) and multi-dimensional PACKED of any rank (K11 and
-K10, or the last axis's 1D kernel and K10, or else the plane path's
-per-axis walk with K12 between K6); C2C fp32 SPLIT_COMPLEX PACKED of any
-rank with zero offsets, out-of-place or in-place, on the per-axis walk
-with no K6; and 1D REAL fp32 (R2C forward, C2R backward) INTERLEAVED
-PACKED with zero offsets, out-of-place; forward and backward each with its
-own scale.
+this package covers (``fastpath.py``): C2C fp32, INTERLEAVED or
+SPLIT_COMPLEX, out-of-place or in-place, in every buffer layout the JAX
+package accepts: offsets at any rank, strides and distances in 1D
+(multi-dim is PACKED, as validation requires).  The 1D PACKED transform
+runs K1, K2 or K3, or the plane path K6 → executor with K13/K14/K15 → K6
+for every other length; 1D BATCH_INTERLEAVED in both domains runs K10
+where it takes the length; multi-dimensional PACKED of any rank runs K11
+and K10, or the last axis's 1D kernel and K10, or else the plane path's
+per-axis walk with K12 between K6; SPLIT runs the per-axis walk with no
+K6.  Any other 1D layout runs the strided copy kernel K7 around the packed
+route.  And 1D REAL fp32 (R2C forward, C2R backward) INTERLEAVED PACKED
+with zero offsets, out-of-place.  Forward and backward each have their own
+scale.
 
 C2C I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
 
@@ -21,16 +24,23 @@ C2C I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
   kind on the same device.  A tensor on another device than the plan's
   raises :class:`InvalidConfiguration`.
 
-IN_PLACE writes the result into the caller's buffer (a tensor or a numpy
-array) and returns that buffer; the JAX package donates its device buffer
-instead.  Elements past the descriptor's input count are left as they
-are.  Out-of-place returns a new buffer of exactly the output count.
+Buffers, as the JAX package's ``_compute_interleaved`` and
+``_compute_split``: the input is at least ``get_input_count(direction)``
+elements long (more are ignored).  With no ``out=``, out-of-place returns
+a new buffer of exactly ``get_output_count(direction)`` elements, zero
+wherever the output layout puts no result (gaps, the leading offset).  An
+``out=`` buffer, at least the output count long, gets the results at the
+output layout's addresses and keeps every other element; a tensor or a
+writable numpy ``out`` is written in place and returned (the JAX package
+returns a new array holding the same values).  IN_PLACE treats the input
+buffer as ``out``: all input is read before any output is written, so the
+forward and backward offsets may differ.  The JAX package donates its
+device buffer instead.
 
-SPLIT I/O follows the JAX package's ``_compute_split``: the (re, im)
-planes as two real buffers, numpy arrays or float tensors, and the result
-as a (re, im) pair of the same kinds (numpy float32, or float32 tensors on
-the plan's device); IN_PLACE writes the caller's two buffers and returns
-them.
+SPLIT I/O: the (re, im) planes as two real buffers, numpy arrays or float
+tensors, and the result as a (re, im) pair of the same kinds (numpy
+float32, or float32 tensors on the plan's device); ``out=`` is a (re, im)
+pair, or ``out`` and ``out_imag``.
 
 REAL I/O follows the JAX package's ``_compute_real``: forward takes a real
 buffer (numpy or float tensor; a complex one raises
@@ -152,24 +162,25 @@ class CommittedDescriptor:
             raise InvalidConfiguration(
                 "out= must not be given for an IN_PLACE committed descriptor"
             )
-        if out is not None or out_imag is not None:
-            raise UnsupportedConfiguration(
-                "out= buffers are not ported yet (ROADMAP Queue 1 item 8)"
-            )
         if d.complex_storage == ComplexStorage.SPLIT_COMPLEX:
             if x_imag is None:
                 raise InvalidConfiguration(
                     "SPLIT_COMPLEX storage requires both real and imaginary "
                     "buffers"
                 )
-            return self._compute_split(direction, x, x_imag)
-        if x_imag is not None:
+            return self._compute_split(direction, x, x_imag, out, out_imag)
+        if x_imag is not None or out_imag is not None:
             raise InvalidConfiguration(
                 "INTERLEAVED_COMPLEX storage takes a single complex buffer"
             )
         if d.domain == Domain.REAL:
+            if out is not None:
+                raise UnsupportedConfiguration(
+                    "out= buffers of REAL transforms are not ported yet: they "
+                    "come with the REAL plane path (ROADMAP Queue 1 item 9)"
+                )
             return self._compute_real(direction, x)
-        return self._compute_interleaved(direction, x)
+        return self._compute_interleaved(direction, x, out)
 
     def _check_device(self, x: torch.Tensor) -> None:
         if x.device != self.device:
@@ -223,29 +234,53 @@ class CommittedDescriptor:
             return torch.view_as_complex(raw.view(-1, 2))
         return raw
 
-    def _compute_interleaved(self, direction, x):
-        d = self.descriptor
-        raw, kind, aliases = self._to_raw(x)
-        need = 2 * d.get_input_count(direction)  # == the output count here
-        if raw.numel() < need:
-            raise InvalidConfiguration(
-                f"input buffer has {raw.numel() // 2} complex elements, "
-                f"needs {need // 2}"
-            )
-        fn = self._fns[direction]
-        if d.placement != Placement.IN_PLACE:
-            return self._from_raw(fn(raw[:need]), kind)
-        fn(raw[:need], out=raw[:need])
+    @staticmethod
+    def _give_back(x, t: torch.Tensor, value, aliases: bool):
+        """The caller's buffer ``x`` holding ``value`` (``t``, the flat
+        tensor it was converted to, as ``x``'s kind): ``x`` itself where
+        ``t`` is its memory or it can be written (a tensor, a writable numpy
+        array), else ``value``."""
         if aliases:
             return x
-        # x could not be viewed as a flat float32 buffer on this device:
-        # copy the result back into it
         if isinstance(x, torch.Tensor):
-            src = self._from_raw(raw, kind).reshape(x.shape)
-            x.copy_(src)
+            x.copy_(value.reshape(x.shape))
             return x
-        np.copyto(x, self._from_raw(raw, kind).reshape(np.shape(x)), casting="unsafe")
-        return x
+        if isinstance(x, np.ndarray) and x.flags.writeable:
+            np.copyto(x, value.reshape(x.shape), casting="unsafe")
+            return x
+        return value
+
+    def _compute_interleaved(self, direction, x, out):
+        """Interleaved C2C (``portfft_tpu``'s ``_compute_interleaved``): an
+        input buffer at least the input count long; ``out=None`` returns a
+        new buffer of exactly the output count, zero where no result lands;
+        an ``out`` buffer, at least the output count long, gets the results
+        at the output layout's addresses and keeps its other elements, and
+        a tensor or writable numpy ``out`` is written in place and
+        returned; IN_PLACE does the same to the input buffer."""
+        d = self.descriptor
+        raw, kind, aliases = self._to_raw(x)
+        need = d.get_input_count(direction)
+        if raw.numel() < 2 * need:
+            raise InvalidConfiguration(
+                f"input buffer has {raw.numel() // 2} complex elements, "
+                f"needs {need}"
+            )
+        fn = self._fns[direction]
+        need_out = d.get_output_count(direction)
+        if d.placement == Placement.IN_PLACE:
+            dest, okind, oaliases, out = raw, kind, aliases, x
+        elif out is None:
+            return self._from_raw(fn(raw), kind)
+        else:
+            dest, okind, oaliases = self._to_raw(out)
+        if dest.numel() < 2 * need_out:
+            raise InvalidConfiguration(
+                f"output buffer has {dest.numel() // 2} complex elements, "
+                f"needs {need_out}"
+            )
+        fn(raw, dest)
+        return self._give_back(out, dest, self._from_raw(dest, okind), oaliases)
 
     def _to_plane(self, x):
         """A SPLIT buffer (real numpy array or tensor) -> (flat float32
@@ -268,32 +303,42 @@ class CommittedDescriptor:
                    and np.shares_memory(host, x))
         return t, False, aliases
 
-    def _compute_split(self, direction, x_re, x_im):
+    def _compute_split(self, direction, x_re, x_im, out, out_imag):
         """SPLIT_COMPLEX C2C (``portfft_tpu``'s ``_compute_split``): the
         (re, im) planes in, the (re, im) planes out, each of the kind it
-        came as (numpy float32, or a float32 tensor on the plan's device).
-        IN_PLACE writes the caller's buffers and returns them."""
+        came as (numpy float32, or a float32 tensor on the plan's device),
+        with the buffer rules of ``_compute_interleaved``.  ``out`` is a
+        (re, im) pair, or ``out`` and ``out_imag``."""
         d = self.descriptor
         planes = [self._to_plane(x) for x in (x_re, x_im)]
-        need = d.get_input_count(direction)  # == the output count here
+        need = d.get_input_count(direction)
         if min(t.numel() for t, _, _ in planes) < need:
             raise InvalidConfiguration(f"split input buffers need {need} elements")
-        ys = self._fns[direction](planes[0][0][:need], planes[1][0][:need])
-        if d.placement != Placement.IN_PLACE:
+        xs = (planes[0][0], planes[1][0])
+        fn = self._fns[direction]
+        if isinstance(out, tuple) and out_imag is None:
+            out, out_imag = out
+        if d.placement == Placement.IN_PLACE:
+            outs, dests = (x_re, x_im), planes
+        elif out is None and out_imag is None:
             return tuple(y if is_tensor else y.cpu().numpy()
-                         for y, (_, is_tensor, _) in zip(ys, planes))
-        for x, y, (t, is_tensor, aliases) in zip((x_re, x_im), ys, planes):
-            t[:need].copy_(y)
-            if aliases:
-                continue
-            # x could not be viewed as a flat float32 buffer on this device:
-            # copy the result back into it
-            if is_tensor:
-                x.copy_(t.reshape(x.shape))
-            else:
-                np.copyto(x, t.cpu().numpy().reshape(np.shape(x)),
-                          casting="unsafe")
-        return x_re, x_im
+                         for y, (_, is_tensor, _) in zip(fn(xs), planes))
+        elif out is None or out_imag is None:
+            raise InvalidConfiguration(
+                "SPLIT_COMPLEX out= takes both the real and the imaginary "
+                "buffer"
+            )
+        else:
+            outs, dests = (out, out_imag), [self._to_plane(o) for o in (out, out_imag)]
+        need_out = d.get_output_count(direction)
+        if min(t.numel() for t, _, _ in dests) < need_out:
+            raise InvalidConfiguration(
+                f"split output buffers need {need_out} elements"
+            )
+        fn(xs, tuple(t for t, _, _ in dests))
+        return tuple(
+            self._give_back(o, t, t if is_tensor else t.cpu().numpy(), aliases)
+            for o, (t, is_tensor, aliases) in zip(outs, dests))
 
     def _to_real(self, x):
         """A real buffer -> (flat float32 tensor on the plan's device,

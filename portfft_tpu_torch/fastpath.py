@@ -68,7 +68,27 @@ that runs.  Every outer axis must be one K10 takes (DIRECT ≤ 512 or FUSED
 [a, 128] with a | 128, so up to 16384) and the last axis one of K1–K3;
 other shapes run on the per-axis walk above.  The 1D BATCH_INTERLEAVED
 layout (stride = batch, distance 1, both domains) is one K10 call with
-bpre = 1: the ``bi_col`` entry.
+bpre = 1: the ``bi_col`` entry, where K10 takes the length.
+
+Buffer layouts (the JAX package's ``strided1d`` entry, without its TPU
+tile gates).  Every entry above runs on its own blocks at offset 0: PACKED
+rows, or ``bi_col``'s BATCH_INTERLEAVED block.  A descriptor whose buffers
+are laid out otherwise gets ``("layout", inner, src, dst)`` around the
+inner entry, ``src`` for the input domain and ``dst`` for the output
+domain (``_with_layout``):
+
+| a domain's buffer | side | how the inner entry reaches it |
+|---|---|---|
+| the inner entry's block at an offset (any rank; PACKED, or BI for ``bi_col``) | the offset, an int | a contiguous view at the offset; the inner kernels read it, and write it where they can |
+| any other 1D layout: strides, distances, BATCH_INTERLEAVED in one domain or over a length K10 declines | its ``utils.layout.Rows`` | ``cuda_stride.destride`` (K7) into packed rows; ``cuda_stride.restride`` (K7) back |
+
+The direction's scale stays in the inner entry, so K7 is a pure copy.  A
+new output buffer is zero wherever no result lands (K7's ``fill_gaps``, or
+the zeroed leading offset of a view); a caller's buffer keeps those
+elements.  IN_PLACE reads all input before writing any output: the inner
+entry runs in place only on the view it reads or on K7's scratch, else
+into a new buffer that is then restrided or copied into the caller's
+(``layout_fn``).  The REAL route takes only PACKED buffers at offset 0.
 
 Registration happens at commit.  Anything outside this slice raises
 :class:`RawFastUnavailable` (an :class:`UnsupportedConfiguration`) naming
@@ -78,7 +98,10 @@ sent down another path.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+
+import torch
 
 from .enums import ComplexStorage, Direction, Domain, Layout, Level, Placement
 from .enums import inv as _inv
@@ -92,10 +115,11 @@ from .ops import (
     cuda_io,
     cuda_multidim,
     cuda_real,
+    cuda_stride,
     torch_exec,
 )
 from .ops.torch_fft import is_two_stage
-from .utils.layout import get_layout
+from .utils.layout import Rows, get_layout, rows_1d
 
 
 class RawFastUnavailable(UnsupportedConfiguration):
@@ -136,19 +160,17 @@ def _raw_entry(plan0, batch: int, sign: int, scale: float):
 
 
 def _plane_reason(plan0) -> str:
-    """Why ``plan0`` needs the plane path, naming its ROADMAP item."""
+    """Why ``plan0`` needs the plane path."""
     if plan0.level == Level.BLUESTEIN:
-        return (f"BLUESTEIN plan {plan0.describe()} runs on the plane path "
-                "(Bluestein, ROADMAP Queue 1 item 11)")
+        return f"BLUESTEIN plan {plan0.describe()} runs on the plane path"
     if plan0.level == Level.GLOBAL:
         return (f"GLOBAL plan {plan0.describe()} has a sub-transform that is "
                 f"neither DIRECT nor FUSED [a, 128] of length <= "
                 f"{GLOBAL_SUB_MAX}, so it runs on the plane path (the torch "
                 "executor around the plane GLOBAL kernel K14 or its subs' "
-                "kernels, ROADMAP Queue 1 item 4)")
+                "kernels)")
     return (f"FUSED plan {plan0.describe()} is not the two-stage [a, 128] "
-            "shape, so it runs on the plane path (the torch executor, "
-            "ROADMAP Queue 1 item 4)")
+            "shape, so it runs on the plane path (the torch executor)")
 
 
 def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str):
@@ -177,8 +199,12 @@ def plane_routes(plan0, config) -> dict:
     takes b̂ and the final chirp as its ``post`` tables).  Raises
     :class:`RawFastUnavailable` where K13 does not take a leaf."""
     routes: dict = {}
-
-    def walk(p):
+    # a loop, not a recursive closure: a closure that calls itself is a
+    # reference cycle, which would keep what it holds alive until the
+    # cyclic garbage collector runs
+    todo = [plan0]
+    while todo:
+        p = todo.pop()
         if p.level in (Level.DIRECT, Level.FUSED):
             mode = cuda_chain.leaf_mode(p)
             if mode == "chain" and not cuda_chain.chain_fits(p):
@@ -192,18 +218,15 @@ def plane_routes(plan0, config) -> dict:
         elif p.level == Level.GLOBAL:
             if cuda_global.global2_supported(p, config.direct_threshold):
                 routes[p.n] = "global2"
-                return
-            routes[p.n] = "generic"
-            walk(p.sub[0])
-            walk(p.sub[1])
+            else:
+                routes[p.n] = "generic"
+                todo += [p.sub[1], p.sub[0]]
         elif (cuda_bluestein.supported(p, config)
               and max(s.n for s in p.conv.sub) <= GLOBAL_SUB_MAX):
             routes[p.n] = "bluestein"
         else:  # K15's gate declines the plan, or its tile a sub past the max
             routes[p.n] = "generic"
-            walk(p.conv)
-
-    walk(plan0)
+            todo.append(p.conv)
     return routes
 
 
@@ -215,8 +238,9 @@ def plane_steps(committed, plans, routes: dict) -> dict:
     ways), with the committed plan's device tables."""
     keys, arrays = committed._bank_keys, committed._bank_arrays
     steps = {}
-
-    def walk(p):
+    todo = list(plans)  # a loop, for the reason given in plane_routes
+    while todo:
+        p = todo.pop()
         kind = routes.get(p.n, "generic")
         for sign in (-1, +1):
             if kind == "bluestein":
@@ -229,11 +253,7 @@ def plane_steps(committed, plans, routes: dict) -> dict:
                 steps[(p.n, sign)] = (kind, cuda_chain.chain, (
                     cuda_chain.chain_tables(p, sign, keys, arrays),))
         if kind == "generic":
-            for q in p.sub or (p.conv,):
-                walk(q)
-
-    for p in plans:
-        walk(p)
+            todo += p.sub or (p.conv,)
     return steps
 
 
@@ -271,19 +291,28 @@ def leaf_hook(steps: dict, plain: bool = False):
     return leaf_fn
 
 
-def _check_packed(d, layout: Layout = Layout.PACKED) -> None:
-    """Zero offsets, and ``layout`` in both domains."""
-    for direction in _SIGNS:
-        out_dir = _inv(direction)
-        if d.get_offset(direction) or d.get_offset(out_dir):
-            raise RawFastUnavailable(
-                "buffer offsets are not ported yet (ROADMAP Queue 1 item 8)"
-            )
-        if get_layout(d, direction) != layout or get_layout(d, out_dir) != layout:
-            raise RawFastUnavailable(
-                "strided layouts, and BATCH_INTERLEAVED in one domain only, "
-                "are not ported yet (ROADMAP Queue 1 item 8)"
-            )
+def _side(d, direction, block: Layout):
+    """How an entry reaches one domain's buffer: the offset of the block
+    its inner kernels read or write as it is (the domain is in the
+    ``block`` layout, or its :class:`Rows` are contiguous), or the
+    domain's :class:`Rows`, which K7 de/restrides."""
+    if len(d.lengths) > 1 or get_layout(d, direction) == block:
+        return d.get_offset(direction)
+    rows = rows_1d(d, direction)
+    return rows.offset if rows.contiguous else rows
+
+
+def _with_layout(d, entries: dict, block: Layout = Layout.PACKED) -> dict:
+    """``entries`` (inner entries on ``block`` buffers at offset 0) as the
+    descriptor's layouts need them: an inner entry as it is where both of
+    its buffers are such blocks at offset 0, else ``("layout", inner, src,
+    dst)`` with ``_side`` of the input and the output domain."""
+    out = {}
+    for direction, inner in entries.items():
+        src, dst = _side(d, direction, block), _side(d, _inv(direction), block)
+        out[direction] = inner if src == 0 and dst == 0 else (
+            "layout", inner, src, dst)
+    return out
 
 
 def _register_core(committed, split: bool) -> dict:
@@ -372,7 +401,7 @@ def _register_real(committed) -> dict:
     if len(d.lengths) >= 2:
         raise RawFastUnavailable(
             "multi-dimensional REAL transforms are not ported yet "
-            "(ROADMAP Queue 1 item 9, with multi-dim item 10)"
+            "(ROADMAP Queue 1 item 9)"
         )
     if d.placement == Placement.IN_PLACE:
         raise RawFastUnavailable(
@@ -384,7 +413,14 @@ def _register_real(committed) -> dict:
             "SPLIT_COMPLEX REAL transforms are not ported yet "
             "(ROADMAP Queue 1 item 9)"
         )
-    _check_packed(d)
+    for direction in _SIGNS:
+        if d.get_offset(direction) or get_layout(d, direction) != Layout.PACKED:
+            raise RawFastUnavailable(
+                "REAL transforms with buffer offsets or strided layouts are "
+                "not ported yet: they come with the REAL plane path (ROADMAP "
+                "Queue 1 item 9), which drops Im X[0] and Im X[n/2] on C2R "
+                "as the JAX package's does, where the packed K8b route "
+                "uses them")
     n, batch = d.lengths[0], d.number_of_transforms
     out: dict = {}
     for direction, sign in _SIGNS.items():
@@ -416,30 +452,20 @@ def register(committed) -> dict:
     if d.complex_storage == ComplexStorage.SPLIT_COMPLEX:
         # the JAX package's raw registry never takes SPLIT: its planes go
         # straight into the per-axis walk, with no K6
-        _check_packed(d)
-        return _register_core(committed, split=True)
+        return _with_layout(d, _register_core(committed, split=True))
     if len(d.lengths) >= 2:
-        _check_packed(d)
-        return _register_multidim(committed)
+        return _with_layout(d, _register_multidim(committed))
     plan0 = committed.plans[d.lengths[0]]
-    if get_layout(d, Direction.FORWARD) == Layout.BATCH_INTERLEAVED:
+    batch = d.number_of_transforms
+    bi = Layout.BATCH_INTERLEAVED
+    if (get_layout(d, Direction.FORWARD) == bi == get_layout(d, Direction.BACKWARD)
+            and _col_axis_ok(plan0, committed.config)):
         # the (n, batch) buffer is one column transform with bpre = 1
-        _check_packed(d, Layout.BATCH_INTERLEAVED)
-        if not _col_axis_ok(plan0, committed.config):
-            raise RawFastUnavailable(
-                f"a BATCH_INTERLEAVED transform of plan {plan0.describe()} "
-                "is not one the column kernel K10 takes (DIRECT <= 512 or "
-                "FUSED [a, 128] with a | 128); the plane path (ROADMAP Queue "
-                "1 item 4, with the plane column kernel K12) takes only "
-                "PACKED buffers, and strided I/O is ROADMAP Queue 1 item 8")
-        batch = d.number_of_transforms
-        return {
+        return _with_layout(d, {
             direction: ("bi_col", 1, plan0, batch, sign,
                         float(d.get_scale(direction)))
             for direction, sign in _SIGNS.items()
-        }
-    _check_packed(d)
-    batch = d.number_of_transforms
+        }, bi)
     out = {}
     for direction, sign in _SIGNS.items():
         scale = float(d.get_scale(direction))
@@ -451,7 +477,7 @@ def register(committed) -> dict:
                         float(d.get_scale(direction)), routes)
             for direction, sign in _SIGNS.items()
         }
-    return out
+    return _with_layout(d, out)
 
 
 def kernel_args(committed, entry):
@@ -584,27 +610,115 @@ def core_fn(committed, entry, plain: bool = False):
     return fn
 
 
-def build_fn(committed, entry):
-    """``fn(raw, out=None) -> tensor`` for an entry: ``raw`` is the flat
-    float32 input buffer on the plan's device, of exactly the entry's input
-    count; ``out`` (C2C only; may be ``raw``) receives the result.  A SPLIT
-    entry's function takes and returns the (re, im) planes
-    (``core_fn``)."""
+def packed_fn(committed, entry, plain: bool = False):
+    """``fn(x, out=None)`` of a C2C entry on its own buffers at offset 0
+    (PACKED, or the BATCH_INTERLEAVED block of ``bi_col``): interleaved,
+    ``x`` is the raw input of exactly the input count and ``out`` (may be
+    ``x``) receives the result, else a new tensor; SPLIT (``"core"``),
+    ``x`` is the (re, im) pair and the result new planes.  A multi-dim
+    entry runs its first step into ``out`` and the rest in place on its
+    result.  ``plain`` chains the plain versions instead (the CPU path,
+    and ``chip_smoke.py``'s yardstick on the card)."""
     kind = entry[0]
     if kind == "plane":
-        return plane_fn(committed, entry)
+        return plane_fn(committed, entry, plain)
     if kind == "core":
-        return core_fn(committed, entry)
-    if kind == "multidim":
-        (head, head_args), *rest = [kernel_args(committed, s) for s in entry[2]]
+        walk = core_fn(committed, entry, plain)
+        return walk if not entry[1] else lambda x, out=None: walk(*x)
+    steps = [kernel_args(committed, s)
+             for s in (entry[2] if kind == "multidim" else (entry,))]
 
-        def fn(raw, out=None):
-            x = head(raw, *head_args, out=out)
-            for kernel, args in rest:
-                x = kernel(x, *args, out=x)
-            return x
+    def fn(raw, out=None):
+        x = raw
+        for i, (kernel, args) in enumerate(steps):
+            target = out if i == 0 else x
+            if plain:
+                x = cuda_fft.into(target, kernel.plain(x, *args))
+            else:
+                x = kernel(x, *args, out=target)
+        return x
 
-        return fn
+    return fn
+
+
+def layout_fn(committed, entry, plain: bool = False):
+    """``fn(x, out=None)`` of a ``("layout", inner, src, dst)`` entry (see
+    ``build_fn``): the input side as a view of ``x`` at its offset (``src``
+    an int) or K7 ``destride`` of its :class:`Rows`, the inner entry on
+    packed buffers, and the output side likewise: the inner entry writes
+    straight into the view of ``out`` at ``dst`` where it can, else K7
+    ``restride`` (zeroing every other element of a buffer it allocates)
+    or a copy into that view.  IN_PLACE reads all input before writing any
+    output: the inner entry runs in place only on the very view it reads
+    or on K7's scratch, and otherwise into a new buffer that is then
+    copied or restrided into the caller's."""
+    _, inner, src, dst = entry
+    d = committed.descriptor
+    split = d.complex_storage == ComplexStorage.SPLIT_COMPLEX
+    in_place = d.placement == Placement.IN_PLACE
+    total = d.number_of_transforms * math.prod(d.lengths)
+    width = 1 if split else 2
+    run = packed_fn(committed, inner, plain)
+    de, re = cuda_stride.destride, cuda_stride.restride
+    if plain:
+        de, re = de.plain, re.plain
+    strided_in, strided_out = isinstance(src, Rows), isinstance(dst, Rows)
+    count = dst.index_bound() + 1 if strided_out else dst + total
+    # the inner entry writes the caller's view itself (interleaved only:
+    # the SPLIT walk returns new planes)
+    direct = not split and not strided_out and not (in_place and src != dst)
+
+    def view(buf, offset):
+        if split:
+            return tuple(p[offset:offset + total] for p in buf)
+        return buf[width * offset:width * (offset + total)]
+
+    def fn(x, out=None):
+        xin = de(x, *dataclasses.astuple(src)) if strided_in else view(x, src)
+        new = out is None
+        if new:
+            if split and dst == 0:
+                return run(xin)
+            dev = (x[0] if split else x).device
+            bufs = [torch.empty(width * count, dtype=torch.float32, device=dev)
+                    for _ in range(2 if split else 1)]
+            if not strided_out:  # restride with fill_gaps zeroes its own
+                for b in bufs:
+                    b[:width * dst].zero_()
+            out = tuple(bufs) if split else bufs[0]
+        if direct:
+            run(xin, out=view(out, dst))
+            return out
+        # K7's scratch is the inner entry's to overwrite
+        y = run(xin, out=xin if strided_in and not split else None)
+        if strided_out:
+            return re(y, *dataclasses.astuple(dst), out, fill_gaps=new)
+        for o, p in zip(_planes(view(out, dst)), _planes(y)):
+            o.copy_(p)
+        return out
+
+    return fn
+
+
+def _planes(buf) -> tuple:
+    return buf if isinstance(buf, tuple) else (buf,)
+
+
+def build_fn(committed, entry, plain: bool = False):
+    """The function of an entry.  C2C: ``fn(x, out=None)``, where ``x`` is
+    the caller's whole input buffer on the plan's device (a flat float32
+    tensor of raw (re, im) pairs, or for SPLIT_COMPLEX a (re, im) pair of
+    flat float32 planes), at least the input count long; ``out``, of the
+    same kind, is the output buffer (``x`` itself for IN_PLACE), at least
+    the output count long, whose elements outside the output layout are
+    left as they are, or None for a new buffer of exactly the output count
+    that is zero wherever no result lands.  Returns the output buffer.
+    ``plain`` chains the plain versions (C2C only).  REAL: ``fn(raw)`` on
+    exactly the input count, returning a new buffer."""
+    kind = entry[0]
+    if kind not in ("realf", "realb", "realsf", "realsb"):
+        return layout_fn(committed, entry if kind == "layout"
+                         else ("layout", entry, 0, 0), plain)
     kernel, args = kernel_args(committed, entry)
     if kind in ("realf", "realb"):
         c2c, c2c_args = kernel_args(committed, entry[1])
@@ -622,14 +736,8 @@ def build_fn(committed, entry):
                 return c2c(z, *c2c_args, out=z)
 
         return fn
-    if kind in ("realsf", "realsb"):
 
-        def fn(raw):
-            return kernel(raw, *args)
-
-        return fn
-
-    def fn(raw, out=None):
-        return kernel(raw, *args, out=out)
+    def fn(raw):
+        return kernel(raw, *args)
 
     return fn

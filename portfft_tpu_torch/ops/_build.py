@@ -58,6 +58,8 @@ _SIGNATURES = {
     "pf_global2_planes": ([_P] * 6 + _SUB + _SUB + [_P] * 4 + [_I64, _F, _P], _I),
     "pf_axis_m2_needs_scratch": ([_I], _I),
     "pf_axis_m2": ([_P] * 5 + _SUB + [_I64, _I64, _F, _P], _I),
+    "pf_destride": ([_P] * 4 + [_I] + [_I64] * 5 + [_P], _I),
+    "pf_restride": ([_P] * 4 + [_I] + [_I64] * 6 + [_I, _P], _I),
     "pf_error_string": ([_I], ctypes.c_char_p),
 }
 

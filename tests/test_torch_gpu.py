@@ -451,3 +451,144 @@ def test_plane_multidim_main_path_matches_oracle(cuda, lengths, batch):
     ref = torch.fft.fftn(x.to(torch.complex128), dim=dims)
     diff = (y.reshape(x.shape).to(torch.complex128) - ref).abs().max().item()
     assert diff <= oracle_tol(n), diff
+
+
+# K7 layouts (o, s, dist, n, batch): row-major (s <= dist) with and without
+# gaps, the minimal span, overlapping read rows, batch-innermost (dist < s:
+# the tile mapping) dense and with gaps, one row, tiles past the edges.
+K7_GPU_MAPS = [(0, 2, 2 * 1000, 1000, 7), (3, 3, 3 * 999 + 1, 1000, 5),
+               (0, 1, 1000, 1000, 3), (5, 2, 3, 300, 9), (0, 33, 1, 100, 33),
+               (2, 70, 2, 45, 33), (1, 2, 1, 1, 1), (7, 5, 11, 4099, 1),
+               (0, 1, 100, 64, 70000)]
+
+
+@pytest.mark.parametrize("m", K7_GPU_MAPS)
+@pytest.mark.parametrize("split", [False, True], ids=["interleaved", "planes"])
+def test_k7_matches_plain_exactly(cuda, m, split):
+    """K7 destride, and restride with fill_gaps on and off, equal their
+    plain versions bit for bit (exact copies), one launch each."""
+    from portfft_tpu_torch.ops import cuda_stride
+
+    o, s, dist, n, batch = m
+    count = o + (batch - 1) * dist + (n - 1) * s + 1 + 5
+    width = 1 if split else 2
+    gen = torch.Generator(device="cuda").manual_seed(count)
+
+    def buf(numel, fill=None):
+        def one():
+            if fill is not None:
+                return torch.full((width * numel,), fill, device=cuda)
+            return torch.rand(width * numel, generator=gen, device=cuda)
+        return (one(), one()) if split else one()
+
+    def planes(b):
+        return b if split else (b,)
+
+    x, y = buf(count), buf(batch * n)
+    before = cuda_stride.destride.launches
+    got = cuda_stride.destride(x, *m)
+    want = cuda_stride.destride.plain(x, *m)
+    torch.cuda.synchronize()
+    assert cuda_stride.destride.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(planes(got), planes(want)))
+    overlapping = batch > 1 and s <= dist < (n - 1) * s + 1
+    for fill in (True, False):
+        if overlapping:
+            break  # rows that overlap are read-only layouts
+        out, ref = buf(count, -5.0), buf(count, -5.0)
+        before = cuda_stride.restride.launches
+        assert cuda_stride.restride(y, *m, out, fill) is out
+        cuda_stride.restride.plain(y, *m, ref, fill)
+        torch.cuda.synchronize()
+        assert cuda_stride.restride.launches == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(planes(out), planes(ref)))
+
+
+def _launch_counters():
+    from portfft_tpu_torch.ops import (
+        cuda_chain, cuda_fft, cuda_global, cuda_multidim, cuda_stride)
+
+    return {"direct": cuda_fft.direct, "fused2": cuda_fft.fused2,
+            "global2": cuda_global.global2, "col": cuda_multidim.col,
+            "chain": cuda_chain.chain, "destride": cuda_stride.destride,
+            "restride": cuda_stride.restride}
+
+
+# One layout per route: (n, batch, SPLIT, descriptor fields, out= given,
+# in place, the kernels in order)
+LAYOUT_ROUTES = [
+    (65536, 3, False, dict(forward_strides=[2], forward_distance=2 * 65536),
+     False, False, ("destride", "global2")),
+    (512, 40, False, dict(backward_strides=[2], backward_distance=1100),
+     False, False, ("direct", "restride")),
+    (4096, 70, False, dict(forward_strides=[70], forward_distance=1),
+     False, False, ("destride", "fused2")),
+    (65536, 3, False, dict(forward_strides=[3], forward_distance=1,
+                           backward_strides=[3], backward_distance=1),
+     False, False, ("destride", "global2", "restride")),
+    (65536, 2, False, dict(forward_offset=1000, backward_offset=3), True, False,
+     ("global2",)),
+    (4096, 9, True, dict(forward_strides=[2], backward_strides=[2],
+                         forward_distance=8192, backward_distance=8192),
+     False, False, ("destride", "chain", "restride")),
+    (4096, 9, False, dict(forward_strides=[3], backward_strides=[3],
+                          forward_distance=3 * 4096, backward_distance=3 * 4096,
+                          forward_offset=2, backward_offset=5),
+     False, True, ("destride", "fused2", "restride")),
+    (4096, 5, False, dict(forward_offset=7, backward_offset=4200), False, True,
+     ("fused2",)),
+]
+
+
+@pytest.mark.parametrize("n,batch,split,fields,give_out,in_place,kinds",
+                         LAYOUT_ROUTES)
+def test_layout_route_matches_oracle(cuda, n, batch, split, fields, give_out,
+                                     in_place, kinds):
+    """Each layout route on the card, forward: its kernels launch, every
+    transform is within the oracle bound of ``torch.fft``, and every
+    element outside the output layout is 0 (a new buffer), the sentinel
+    (out=) or the input's own value (in place)."""
+    from chip_smoke import SENTINEL, elements, layout_kinds, sampled, stride_buffer
+    from portfft_tpu_torch.utils.layout import rows_1d
+
+    fwd = pf.Direction.FORWARD
+    desc = pf.Descriptor(
+        lengths=[n], number_of_transforms=batch, **fields,
+        complex_storage=(pf.ComplexStorage.SPLIT_COMPLEX if split
+                         else pf.ComplexStorage.INTERLEAVED_COMPLEX),
+        placement=pf.Placement.IN_PLACE if in_place else pf.Placement.OUT_OF_PLACE)
+    plan = desc.commit()
+    assert tuple(layout_kinds(plan._raw_fast[fwd])) == kinds
+    src, dst = rows_1d(desc, fwd), rows_1d(desc, pf.Direction.BACKWARD)
+    count = max(desc.get_input_count(fwd), desc.get_output_count(fwd))
+    x = stride_buffer(count, split, n, "cuda")
+    planes = x if split else (x,)
+    before_x = tuple(p.clone() for p in planes)
+    out = stride_buffer(count + 3, split, 0, "cuda", SENTINEL) if give_out else None
+    rows = list(range(batch))
+    ref = torch.fft.fft(sampled(x, src, rows))
+    counters = _launch_counters()
+    before = {k: counters[k].launches for k in kinds}
+    y = plan.compute_forward(*planes, out=out)
+    torch.cuda.synchronize()
+    assert all(counters[k].launches > before[k] for k in kinds)
+    if in_place or give_out:
+        assert all(a is b for a, b in zip(planes if in_place else
+                                          (out if split else (out,)),
+                                          y if split else (y,)))
+    diff = (sampled(y, dst, rows) - ref).abs().max().item()
+    assert diff <= oracle_tol(n), diff
+    rest = tuple(p.clone() for p in (y if split else (y,)))
+    for p in (elements(rest, dst) if split else (elements(rest[0], dst),)):
+        p.fill_(0.0)
+    if in_place:  # the input's own values, where the output lands nowhere
+        keep = tuple(p.clone() for p in before_x)
+        for p in (elements(keep, dst) if split else (elements(keep[0], dst),)):
+            p.fill_(0.0)
+        assert all(torch.equal(r, k) for r, k in zip(rest, keep))
+    else:
+        gap = SENTINEL if give_out else 0.0
+        mask = tuple(torch.full_like(r, gap) for r in rest)
+        for p in (elements(mask, dst) if split else (elements(mask[0], dst),)):
+            p.fill_(0.0)
+        assert all(torch.equal(r, k) for r, k in zip(rest, mask))

@@ -290,26 +290,11 @@ def test_bench_rows_route_as_the_reference():
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(lengths=[8, 16], complex_storage="SPLIT_COMPLEX",
-              forward_offset=3), "item 8"),
-        (dict(lengths=[8, 16], forward_offset=3), "item 8"),
-        (dict(lengths=[16], number_of_transforms=4, forward_strides=[4],
-              forward_distance=1), "item 8"),  # BI forward, PACKED backward
-        (dict(lengths=[16], number_of_transforms=4, forward_strides=[4],
-              backward_strides=[4], forward_distance=1, backward_distance=1,
-              backward_offset=2), "item 8"),
-        # BATCH_INTERLEAVED over an axis K10 does not take: GLOBAL, the
-        # chain [125, 8] and FUSED [5, 128]
-        (dict(lengths=[65536], number_of_transforms=2, forward_strides=[2],
-              backward_strides=[2], forward_distance=1, backward_distance=1),
-         "item 4.*K12"),
-        (dict(lengths=[1000], number_of_transforms=2, forward_strides=[2],
-              backward_strides=[2], forward_distance=1, backward_distance=1),
-         "item 4.*K12"),
-        (dict(lengths=[640], number_of_transforms=2, forward_strides=[2],
-              backward_strides=[2], forward_distance=1, backward_distance=1),
-         "item 4.*K12"),
-        (dict(lengths=[8, 16], domain="REAL"), "item 9.*item 10"),
+        # the offset, one-sided BATCH_INTERLEAVED and BATCH_INTERLEAVED
+        # 65536, 1000 and 640 cases that raised here are parity cases of
+        # tests/test_torch_layout.py (K7 and views at offsets)
+        (dict(lengths=[8, 16], domain="REAL", forward_offset=3), "item 9"),
+        (dict(lengths=[8, 16], domain="REAL"), "multi-dim.*item 9"),
     ],
 )
 def test_outside_the_slice_raises_at_commit(kw, match):

@@ -281,7 +281,7 @@ def test_real_buffer_errors():
         plan.compute_backward(np.zeros(33, np.complex64))
     with pytest.raises(pt.InvalidConfiguration, match="single complex"):
         plan.compute_forward(np.zeros(64, np.float32), np.zeros(64, np.float32))
-    with pytest.raises(pt.UnsupportedConfiguration, match="item 8"):
+    with pytest.raises(pt.UnsupportedConfiguration, match="item 9"):
         plan.compute_forward(np.zeros(64, np.float32),
                              out=np.zeros(34, np.complex64))
     with pytest.raises(pt.InvalidConfiguration, match="given to a plan"):
@@ -295,11 +295,11 @@ def test_real_buffer_errors():
         (dict(complex_storage="SPLIT_COMPLEX"), "item 9"),
         (dict(lengths=[8, 16]), "item 9"),
         (dict(precision="fp64"), "item 12"),
-        (dict(forward_offset=4), "item 8"),
+        (dict(forward_offset=4), "item 9"),
         (dict(number_of_transforms=2, forward_strides=[2], backward_strides=[2],
-              forward_distance=64, backward_distance=34), "item 8"),
-        (dict(lengths=[2 * 65537]), "item 11"),  # BLUESTEIN h
-        (dict(lengths=[1 << 28]), "item 4"),  # h whose GLOBAL sub exceeds 8192
+              forward_distance=64, backward_distance=34), "item 9"),
+        (dict(lengths=[2 * 65537]), "BLUESTEIN.*item 9"),  # BLUESTEIN h
+        (dict(lengths=[1 << 28]), "GLOBAL.*item 9"),  # h whose GLOBAL sub exceeds 8192
     ],
 )
 def test_real_outside_the_slice_raises_at_commit(kw, item):

@@ -263,9 +263,17 @@ def test_split_buffer_errors():
         plan.compute_forward(np.zeros(63, np.float32), np.zeros(64, np.float32))
     with pytest.raises(pt.InvalidConfiguration, match="real planes"):
         plan.compute_forward(np.zeros(64, np.complex64), np.zeros(64, np.float32))
-    with pytest.raises(pt.UnsupportedConfiguration, match="item 8"):
-        plan.compute_forward(np.zeros(64, np.float32), np.zeros(64, np.float32),
-                             out=np.zeros(64, np.float32))
+    # an out= pair gets the result in place (tests/test_torch_layout.py
+    # holds out= layouts to the JAX package)
+    xr, xi = _planes(64, 5)
+    out = (np.zeros(64, np.float32), np.zeros(64, np.float32))
+    res = plan.compute_forward(xr, xi, out=out)
+    assert res[0] is out[0] and res[1] is out[1]
+    for got, want in zip(out, plan.compute_forward(xr, xi)):
+        assert np.array_equal(got, want)
+    with pytest.raises(pt.InvalidConfiguration, match="output buffers need 64"):
+        plan.compute_forward(xr, xi, out=np.zeros(63, np.float32),
+                             out_imag=np.zeros(64, np.float32))
 
 
 def _port_tables(n, sign, rbank):
