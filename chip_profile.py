@@ -12,7 +12,10 @@ further plane rows (a multi-dim shape with an outer FUSED [5, 128] axis,
 the nested GLOBAL length 12232320, the Bluestein length 50431897) and its
 layout rows (``chip_smoke.LAYOUT_ROWS``: strided, BATCH_INTERLEAVED in one
 or both domains, offsets with an out= tensor, SPLIT strided; K7 shows as
-``destride_*``/``restride_*`` kernels), it
+``destride_*``/``restride_*`` kernels), and of the tuned GLOBAL rows
+(``TUNED_ROWS``: large_1d and the 2^17 row through K4, the ladder through
+K5 and K5-ov, each engine selected by a recorded tuning entry in a cache
+of the run's own; every other row runs its static route), it
 commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
@@ -28,9 +31,12 @@ prefixes of the row names to profile (``python3 chip_profile.py split_``).
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -87,6 +93,14 @@ SPLIT_ROWS = [
     ("nested_global_12232320", [12232320], 8, "forward", False),
     ("bluestein_50431897", [50431897], 1, "forward", False),
 ]
+# The tuned GLOBAL rows: name, n, batch, the engine's tuning parameters.
+TUNED_ROWS = [
+    ("tuned_large_1d_k4", 65536, 2048, {"eng": 5}),
+    ("tuned_2^17_k4", 1 << 17, 1024, {"eng": 5}),
+    *((f"tuned_2^{e}_{tag}", 1 << e, 1 << (27 - e), params)
+      for e in (17, 18, 19, 20)
+      for tag, params in (("k5", {"eng": 7}), ("k5ov", {"eng": 7, "ov": 1}))),
+]
 CALLS = 5
 #: Profiles of a row taken until every kernel shows a whole number of
 #: launches per call: the profiler has been seen to drop device events.
@@ -125,7 +139,33 @@ def main() -> None:
         capture_output=True, text=True, timeout=60,
     )
     print(smi.stdout.strip())
+    tune_dir = tempfile.mkdtemp(prefix="portfft_tuning_")
+    os.environ["PORTFFT_NO_TUNING"] = "1"  # static routes but for TUNED_ROWS
+    os.environ["PORTFFT_TUNING_CACHE"] = os.path.join(tune_dir, "tuning.json")
+    try:
+        profile_rows()
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
 
+
+def commit(pf, desc, params):
+    """``desc`` committed on the card; with ``params``, the GLOBAL engine
+    they select recorded in the run's tuning cache first."""
+    if params is None:
+        return desc.commit(device="cuda")
+    from portfft_tpu_torch import tuning
+
+    os.environ.pop("PORTFFT_NO_TUNING")
+    try:
+        probe = desc.commit(device="cuda")
+        tuning.record(probe.config.name, "global2",
+                      tuning._entry_key(probe, "global2"), params)
+        return desc.commit(device="cuda")
+    finally:
+        os.environ["PORTFFT_NO_TUNING"] = "1"
+
+
+def profile_rows() -> None:
     import portfft_tpu_torch as pf
 
     with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's start-up
@@ -146,12 +186,15 @@ def main() -> None:
     rows += [(name, [n], b, "forward", dict(fields, **(split if is_split else {})),
               give_out)
              for name, n, b, is_split, fields, give_out in LAYOUT_ROWS]
+    rows = [(*r, None) if len(r) == 6 else (*r, False, None) for r in rows]
+    rows += [(name, [n], b, "forward", {}, False, params)
+             for name, n, b, params in TUNED_ROWS]
     prefixes = sys.argv[1:]
-    for name, lengths, batch, direction, kw, *give_out in rows:
+    for name, lengths, batch, direction, kw, give_out, params in rows:
         if prefixes and not any(name.startswith(p) for p in prefixes):
             continue
         desc = pf.Descriptor(lengths=lengths, number_of_transforms=batch, **kw)
-        plan = desc.commit(device="cuda")
+        plan = commit(pf, desc, params)
         n = lengths[0] if len(lengths) == 1 else lengths
         # the input buffer: raw pairs (reals for a REAL forward transform)
         count = desc.get_input_count(pf.Direction(direction))
@@ -162,7 +205,7 @@ def main() -> None:
         inputs = ((x[0::2].contiguous(), x[1::2].contiguous())
                   if "complex_storage" in kw else (x,))
         out = None
-        if give_out and give_out[0]:
+        if give_out:
             count_out = desc.get_output_count(pf.Direction(direction))
             out = tuple(torch.full((count_out * 2 // len(inputs),), -5.0,
                                    device="cuda") for _ in inputs)

@@ -75,7 +75,27 @@
    ``torch.fft`` on a sample of rows, with every element outside the
    output layout 0 (no out=) or the sentinel (out=), its launches and its
    peak device memory.
-6. Prints the kernel table as one JSON line (each kernel's launches on the
+6. The tuned GLOBAL engines.  Every phase above runs with
+   ``PORTFFT_NO_TUNING=1`` (the static routes: K3 for GLOBAL plans), and
+   ``PORTFFT_TUNING_CACHE`` points at a temporary file removed at the end.
+   Kernel phase: K4 ``global_sq``, K5 ``global_bf`` and K5-ov
+   ``global_bf_ov`` at every (G1, G2) the tuned rows give them
+   (``tuned_cases``), both directions with a folded scale, against their
+   plain versions and ``torch.fft`` with two planted faults (K5: its low
+   twiddle factor GB conjugated); each timed alone at ``TUNED_ALONE``
+   (2^27 points).  Tuned layout rows, ``TUNED_LAYOUT``: the layout rows
+   at 65536 with tuning on and only the shipped table, each held to the
+   engine that table names for its plan (K5-ov) and then run as on the
+   layout main path (launches, oracle, gaps, times).  Main path,
+   ``TUNED_ROWS`` (large_1d and the ladder
+   2^17–2^20 at about 1 GiB), with tuning on: each engine whose gate takes
+   the row's plan is forced by a recorded tuning entry and the committed
+   plan held to ``torch.fft`` and timed, with its peak device memory; then
+   ``plan.autotune()`` races the engines, every variant's ms and the
+   winner are printed, and the tuned plan is held and timed again.  The
+   last of these lines gives every row's winner as the JSON that
+   ``portfft_tpu_torch/tuning_defaults.json`` holds.
+7. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms), then, as the last line, ``{"ok": true, "device":
    {...}}``.  Any failure exits non-zero before that line.
@@ -87,9 +107,12 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -267,6 +290,24 @@ LAYOUT_ROWS = [
 ]
 #: The value of every element of an out= buffer the layout does not address.
 SENTINEL = -5.0
+# The layout rows whose GLOBAL plan (65536 = 256 x 256) the shipped tuning
+# table reroutes: run again with tuning on, through the shipped engine.
+TUNED_LAYOUT = ("strided_large", "strided_out_large", "bi_65536",
+                "offset_out_large_1d")
+# Tuned main path (bench.py large_1d and LADDER_CONFIGS at about 1 GiB in):
+# name, n, batch.  Each row runs every tuned engine its plan takes, forced
+# by a recorded tuning entry, then autotune.  The kernel phase checks K4,
+# K5 and K5-ov at the same shapes (tuned_cases): K4 at 256 x 256 and
+# 512 x 256, K5 and K5-ov at 256 x 256, 512 x 256, 512 x 512, 2048 x 256
+# and 2048 x 512.
+TUNED_ROWS = [
+    ("large_1d", 65536, 2048), ("ladder_2^17", 1 << 17, 1024),
+    ("ladder_2^18", 1 << 18, 512), ("ladder_2^19", 1 << 19, 256),
+    ("ladder_2^20", 1 << 20, 128),
+]
+# Timed alone at 2^27 points: K4 at large_1d, K5 and K5-ov at the 2^17 row.
+TUNED_ALONE = {"global_sq": (65536, 2048), "global_bf": (1 << 17, 1024),
+               "global_bf_ov": (1 << 17, 1024)}
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -296,6 +337,12 @@ SOURCES = {
                 "portfft_tpu/ops/pallas_global.py:519"),
     "destride": ("portfft_tpu_torch/csrc/fft_stride.cu",
                  "portfft_tpu/ops/pallas_io.py:173"),
+    "global_sq": ("portfft_tpu_torch/csrc/fft_global_sq.cu",
+                  "portfft_tpu/ops/pallas_global.py:770"),
+    "global_bf": ("portfft_tpu_torch/csrc/fft_global_bf.cu",
+                  "portfft_tpu/ops/pallas_global_bf.py:770"),
+    "global_bf_ov": ("portfft_tpu_torch/csrc/fft_global_bf.cu",
+                     "portfft_tpu/ops/pallas_global_bf.py:595"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
@@ -305,6 +352,8 @@ PLANE_KINDS = ("interleave", "chain", "bluestein")
 SPLIT_KINDS = ("global2_planes", "axis_m2")
 # K7 is one kernel of the table with two wrappers (destride, restride).
 STRIDE_KINDS = ("destride", "restride")
+# The tuned GLOBAL engines K4, K5 and K5-ov (K3 is "global2").
+TUNED_KINDS = ("global_sq", "global_bf", "global_bf_ov")
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
 # fp32 outside the tensor cores, per millisecond.
 HBM_BYTES_PER_MS = 3.35e9
@@ -328,7 +377,7 @@ def work(kind: str, n: int, batch: int) -> tuple[int, float]:
     lg, h = max(math.log2(n), 1.0), n // 2
     if kind == "interleave":  # both K6 kernels, n the element count
         return 32 * batch * n, 2.0 * batch * n
-    if kind in C2C_KINDS + MD_KINDS + PLANE_KINDS + SPLIT_KINDS:
+    if kind in C2C_KINDS + MD_KINDS + PLANE_KINDS + SPLIT_KINDS + TUNED_KINDS:
         return 16 * batch * n, 5 * n * lg * batch
     if kind in ("untangle", "retangle"):
         return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
@@ -441,8 +490,9 @@ def conjugated(sub):
 def planted(kind: str, args: tuple) -> tuple:
     """A kernel's arguments with one table conjugated: the roots (K1, K9,
     a DIRECT K10 or K11 axis), the inner twiddle (K2, a FUSED K10 or K11
-    axis; K11's second axis), the inter-pass twiddle (K3) or the REAL
-    post-twiddle (K8).  K9's plain version reads the matrix, whose
+    axis; K11's second axis), the inter-pass twiddle (K3, K4), the low
+    factor GB of K5's twiddle or the REAL post-twiddle (K8).  K9's plain
+    version reads the matrix, whose
     conjugate negates the imaginary outputs (forward) or inputs
     (backward)."""
     if kind in ("untangle", "retangle"):
@@ -453,9 +503,13 @@ def planted(kind: str, args: tuple) -> tuple:
         mat = tabs.mat.clone()
         (mat[:, 1::2] if tabs.sign < 0 else mat[1::2]).neg_()
         return (batch, dataclasses.replace(tabs, wi=-tabs.wi, mat=mat))
-    if kind == "global2":
+    if kind in ("global2", "global_sq"):
         batch, sub1, sub2, tr, ti, scale = args
         return (batch, sub1, sub2, tr, -ti, scale)
+    if kind in ("global_bf", "global_bf_ov"):  # the low factor of the twiddle
+        batch, tabs, scale = args
+        return (batch, dataclasses.replace(tabs, gb=(tabs.gb[0], -tabs.gb[1])),
+                scale)
     if kind == "col":
         bpre, rest, sub, scale = args
         return (bpre, rest, conjugated(sub), scale)
@@ -1497,8 +1551,8 @@ def stride_kernel_phase(pf, max_err: dict, card: str) -> tuple:
 
 def layout_kinds(entry) -> list[str]:
     """The kernels a C2C entry launches: K7 destride where its input side
-    is strided, the inner entry's kernels, K7 restride where its output
-    side is strided."""
+    is strided, the inner entry's kernels (a ``global2`` entry's engine),
+    K7 restride where its output side is strided."""
     from portfft_tpu_torch.utils.layout import Rows
 
     inner, src, dst = (entry[1:] if entry[0] == "layout" else (entry, 0, 0))
@@ -1507,6 +1561,8 @@ def layout_kinds(entry) -> list[str]:
         kinds += path_kinds(inner)
     elif inner[0] == "multidim":
         kinds += [step[0] for step in inner[2]]
+    elif inner[0] == "global2":
+        kinds.append(inner[-1])
     else:
         kinds.append("col" if inner[0] == "bi_col" else inner[0])
     return kinds + (["restride"] if isinstance(dst, Rows) else [])
@@ -1628,10 +1684,181 @@ def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
     return results, launches
 
 
+def tuned_cases(pf) -> list[tuple]:
+    """``(kind, n, batch)`` of each tuned engine (K4, K5, K5-ov) at every
+    ``TUNED_ROWS`` shape its gate takes: the shapes the tuned main path
+    gives it."""
+    from portfft_tpu_torch import fastpath
+    from portfft_tpu_torch.planner import plan_1d
+
+    cfg = pf.DeviceConfig()  # the planning geometry is the same on the card
+    return [(kind, n, batch) for kind in TUNED_KINDS for _, n, batch in TUNED_ROWS
+            if fastpath.engine_supported(kind, plan_1d(n, cfg, 4))]
+
+
+def tuned_kernel(plan, kind: str, direction):
+    """``(kernel, args)`` of ``plan``'s GLOBAL entry for ``direction`` with
+    the engine ``kind`` selected."""
+    from portfft_tpu_torch import fastpath
+
+    entry = fastpath.with_engine(plan, plan._raw_fast[direction],
+                                 fastpath.ENGINE_PARAMS[kind])
+    return fastpath.kernel_args(plan, entry)
+
+
+def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K4, K5 and K5-ov at ``tuned_cases``, forward (scale 0.5) and
+    backward (scale 2/n), against their plain versions and ``torch.fft``
+    with the two planted faults (K4: the inter-pass twiddle conjugated, as
+    K3; K5: the low twiddle factor GB).  Returns ``{kind: (ms, plain_ms,
+    library_ms)}`` of each timed alone forward at ``TUNED_ALONE``."""
+    alone = {}
+    for kind, n, batch in tuned_cases(pf):
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             forward_scale=0.5, backward_scale=2.0 / n
+                             ).commit(device="cuda")
+        g1, g2 = (s.n for s in plan.plans[n].sub)
+        x = random_raw(2 * batch * n, seed=n)
+        for direction, sign in ((pf.Direction.FORWARD, -1),
+                                (pf.Direction.BACKWARD, +1)):
+            kernel, args = tuned_kernel(plan, kind, direction)
+            before = kernel.launches
+            r = check_kernel(kind, kernel, args, x, n, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
+            report(kind, f"{g1}x{g2} batch={batch:<6d} {direction.value:8s}", r)
+            max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+            if sign < 0 and (n, batch) == TUNED_ALONE[kind]:
+                ms = time_ms(lambda: kernel(x, *args))
+                plain_ms = time_ms(lambda: kernel.plain(x, *args))
+                library_ms = time_ms(library_call(x, n, batch, False, True))
+                bound, by = bound_of(kind, n, batch)
+                alone[kind] = (ms, plain_ms, library_ms)
+                print(f"alone  {kind:12s} n={n:<8d} batch={batch:<6d} kernel "
+                      f"{ms:.3f} ms | plain {plain_ms:.3f} ms | torch.fft "
+                      f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
+            del kernel, args
+        del plan, x
+        torch.cuda.empty_cache()
+    return alone
+
+
+def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
+    """``TUNED_ROWS`` through ``Descriptor(...).commit(device="cuda")`` with
+    tuning on, in the run's own tuning cache: per row, a recorded entry
+    forces each engine whose gate takes the plan (K4, K5, K5-ov) and the
+    row is held to ``torch.fft`` and timed; then, with the entry forgotten,
+    ``plan.autotune()`` races the engines (each variant's time and the
+    winner printed) and the tuned plan is held and timed again.  Peak
+    device memory of each forced row's first call is printed.  Returns the
+    launches and ``{key: winner}``."""
+    from portfft_tpu_torch import fastpath, tuning
+
+    os.environ.pop("PORTFFT_NO_TUNING", None)
+    winners = {}
+    for c in counters.values():
+        c.launches = 0
+    fwd = pf.Direction.FORWARD
+    try:
+        for name, n, batch in TUNED_ROWS:
+            desc = pf.Descriptor(lengths=[n], number_of_transforms=batch)
+            x = random_raw(2 * batch * n, seed=0)
+            plan = desc.commit(device="cuda")
+            device, key = plan.config.name, tuning._entry_key(plan, "global2")
+            shipped = plan._raw_fast[fwd][-1]
+            del plan
+            for kind in (k for k, m, _ in tuned_cases(pf) if m == n):
+                tuning.record(device, "global2", key, fastpath.ENGINE_PARAMS[kind])
+                plan = desc.commit(device="cuda")
+                if plan._raw_fast[fwd][-1] != kind:
+                    raise SmokeFailure(f"{name}: the recorded {kind} did not route")
+                before = counters[kind].launches
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                y = plan.compute_forward(x)
+                torch.cuda.synchronize()
+                peak_gib = torch.cuda.max_memory_allocated() / 2**30
+                if counters[kind].launches != before + 1:
+                    raise SmokeFailure(f"{name}: {kind} was not launched once")
+                if y.shape != x.shape or not torch.isfinite(y).all():
+                    raise SmokeFailure(f"{name} {kind}: output not finite")
+                excess = oracle_excess(y, x, n, batch, -1, 1.0)
+                if not excess <= 1.0:
+                    raise SmokeFailure(f"{name} {kind}: {excess:.3e} times the "
+                                       f"oracle bound {oracle_tol(n):.3e}")
+                del y
+                ms = time_ms(lambda: plan.compute_forward(x))
+                print(f"row {name:12s} n={n:<8d} batch={batch:<6d} forced "
+                      f"{kind:12s} oracle max|diff|={excess * oracle_tol(n):.3e} "
+                      f"| path {ms:.3f} ms {16 * batch * n / ms / 1e6:.1f} GB/s "
+                      f"| peak {peak_gib:.2f} GiB | {card}")
+                del plan
+                torch.cuda.empty_cache()
+            tuning.forget(device, "global2", key)
+            plan = desc.commit(device="cuda")
+            times = {}
+            won = plan.autotune(times=times)
+            engine = plan._raw_fast[fwd][-1]
+            y = plan.compute_forward(x)
+            torch.cuda.synchronize()
+            excess = oracle_excess(y, x, n, batch, -1, 1.0)
+            if not excess <= 1.0:
+                raise SmokeFailure(f"{name} tuned: {excess:.3e} times the bound")
+            del y
+            ms = time_ms(lambda: plan.compute_forward(x))
+            library_ms = time_ms(library_call(x, n, batch, False, True))
+            bound, by = bound_of("global2", n, batch)
+            print(f"row {name:12s} n={n:<8d} batch={batch:<6d} autotune ms "
+                  f"{json.dumps(times)} -> {won} ({engine}; shipped route "
+                  f"{shipped}) | tuned path {ms:.3f} ms | torch.fft "
+                  f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
+            winners[key] = won
+            del plan, x
+            torch.cuda.empty_cache()
+    finally:
+        os.environ["PORTFFT_NO_TUNING"] = "1"
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"tuned main-path launches: {launches}")
+    print("autotune winners (global2, "
+          f"{card}): {json.dumps(winners, sort_keys=True)}")
+    for kind in TUNED_KINDS:
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on the tuned path")
+    return launches, winners
+
+
+def tuned_layout_path(pf, counters: dict, card: str) -> tuple[list, dict]:
+    """The ``TUNED_LAYOUT`` rows with tuning on and the shipped table only
+    (the run's own cache is empty until the tuned main path): each row's
+    GLOBAL entry must take the engine the shipped table names for its key,
+    not K3, and the row then runs as on the layout main path
+    (``layout_main_path``: that engine and K7 launch, oracle, gaps, times)."""
+    from portfft_tpu_torch import fastpath, tuning
+
+    rows = [r for r in LAYOUT_ROWS if r[0] in TUNED_LAYOUT]
+    os.environ.pop("PORTFFT_NO_TUNING", None)
+    try:
+        for name, n, batch, split, fields, _ in rows:
+            plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                                 **fields).commit(device="cuda")
+            key = tuning._entry_key(plan, "global2")
+            shipped = tuning.lookup(plan.config.name, "global2", key)
+            engine = fastpath.global_entry(plan._raw_fast[pf.Direction.FORWARD])[-1]
+            if shipped is None or engine != fastpath._engine_of(shipped):
+                raise SmokeFailure(f"{name}: route {engine}, but the shipped table "
+                                   f"holds {shipped} for global2/{key}")
+            print(f"row {name:20s} shipped global2/{key} {shipped} -> {engine}")
+            del plan
+        return layout_main_path(pf, counters, card, rows)
+    finally:
+        os.environ["PORTFFT_NO_TUNING"] = "1"
+
+
 def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                  alone, md_launches, md_alone, plane_launches,
                  plane_alone, split_launches, split_alone, layout_launches,
-                 stride_alone) -> list[dict]:
+                 stride_alone, tuned_launches, tuned_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
@@ -1680,6 +1907,9 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
     kernels.append(entry("destride", layout_launches["destride"]
                          + layout_launches["restride"], *stride_alone, m[3], m[4],
                          stride_bound(m, split)))
+    for kind in TUNED_KINDS:
+        kernels.append(entry(kind, tuned_launches[kind], *tuned_alone[kind],
+                             *TUNED_ALONE[kind]))
     return kernels
 
 
@@ -1698,6 +1928,18 @@ def run() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    # The phases before the tuned ones run the static routes (K3 for GLOBAL
+    # plans); the tuned phase writes its own cache, removed at the end.
+    tune_dir = tempfile.mkdtemp(prefix="portfft_tuning_")
+    os.environ["PORTFFT_NO_TUNING"] = "1"
+    os.environ["PORTFFT_TUNING_CACHE"] = os.path.join(tune_dir, "tuning.json")
+    try:
+        phases_run(t_start, card)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def phases_run(t_start: float, card: str) -> None:
     import portfft_tpu_torch as pf
     from portfft_tpu_torch.ops import (
         _build,
@@ -1706,6 +1948,7 @@ def run() -> None:
         cuda_chain,
         cuda_fft,
         cuda_global,
+        cuda_global_bf,
         cuda_io,
         cuda_multidim,
         cuda_real,
@@ -1727,7 +1970,10 @@ def run() -> None:
                 "global2_planes": cuda_global.global2_planes,
                 "axis_m2": cuda_axis.axis_m2,
                 "destride": cuda_stride.destride,
-                "restride": cuda_stride.restride}
+                "restride": cuda_stride.restride,
+                "global_sq": cuda_global.global_sq,
+                "global_bf": cuda_global_bf.global_bf,
+                "global_bf_ov": cuda_global_bf.global_bf_ov}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -1762,13 +2008,19 @@ def run() -> None:
     del kept
     _, layout_launches = phase("layout main path", layout_main_path, pf,
                                counters, card)
+    tuned_alone = phase("tuned GLOBAL kernels", tuned_kernel_phase, pf, max_err,
+                        card)
+    phase("tuned layout rows", tuned_layout_path, pf, counters, card)
+    tuned_launches, _ = phase("tuned main path", tuned_main_path, pf, counters,
+                              card)
     # K14 and K12 run on both paths of this slice
     new_launches = {k: split_launches[k] + more_launches[k] for k in SPLIT_KINDS}
     print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
     kernels = kernel_table(max_err, c2c_rows, c2c_launches, real_rows,
                            real_launches, alone, md_launches, md_alone,
                            plane_launches, plane_alone, new_launches, split_alone,
-                           layout_launches, stride_alone)
+                           layout_launches, stride_alone, tuned_launches,
+                           tuned_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,7 @@ will port them.  ``commit(device="cpu")`` runs the kernels' plain PyTorch
 versions.  The package never imports JAX.
 """
 
+from . import tuning
 from .committed import CommittedDescriptor
 from .config import DeviceConfig, resolve_device_config
 from .descriptor import Descriptor
@@ -67,6 +68,7 @@ __all__ = [
     "UnsupportedConfiguration",
     "inv",
     "resolve_device_config",
+    "tuning",
 ]
 
 __version__ = "0.1.0"

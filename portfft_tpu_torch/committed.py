@@ -125,6 +125,16 @@ class CommittedDescriptor:
                 for n in set(descriptor.lengths):
                     collect_bank_keys(self.plans[n], sign, self._bank, keys)
         self._bank_arrays = self._bank.device_arrays(self.device)
+        self._build_fns()
+
+    def _register(self) -> None:
+        """Choose the entries again (after ``autotune`` recorded a winner)
+        and rebuild their functions; the banked tables cover every
+        engine."""
+        self._raw_fast = fastpath.register(self)
+        self._build_fns()
+
+    def _build_fns(self) -> None:
         self._fns = {
             direction: fastpath.build_fn(self, entry)
             for direction, entry in self._raw_fast.items()
@@ -151,6 +161,18 @@ class CommittedDescriptor:
     def plan_description(self) -> dict:
         """Human-readable plan summary (one entry per dimension length)."""
         return {n: p.describe() for n, p in self.plans.items()}
+
+    def autotune(self, iters: int = 5, times=None):
+        """Race the kernels that can run this plan's GLOBAL transform (K3,
+        and K4, K5, K5-ov where their gates take it) on the plan's device,
+        record the fastest in the tuning cache, switch both directions to
+        it and return its parameters (``{}``: K3; ``{"eng": 5}``: K4;
+        ``{"eng": 7}``: K5; ``{"eng": 7, "ov": 1}``: K5-ov).  None where the
+        plan has nothing to race.  ``times`` (a dict), where given,
+        receives each variant's ms per call.  See ``tuning.autotune``."""
+        from . import tuning
+
+        return tuning.autotune(self, iters, times)
 
     # -- internals -----------------------------------------------------------
 

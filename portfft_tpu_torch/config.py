@@ -11,7 +11,15 @@
   is ROADMAP Queue 1 item 3.
 * the **card's properties** — streaming multiprocessors, shared memory per
   block and L2 size, read from ``torch.cuda.get_device_properties``.  They
-  describe the device; the plan does not read them yet.
+  describe the device; the plan does not read them.
+
+The module's ``H100_*`` constants are the **Hopper planning geometry**: an
+H100's opt-in shared memory per block, its portable thread-block cluster
+size and its L2 cache, from NVIDIA's data sheet.  The gates of the
+single-sweep GLOBAL kernels K4 and K5 (``ops/cuda_global.sq_cluster``,
+``ops/cuda_global_bf.global_bf_supported``) and K5's batch chunk read them.
+They are constants, not card properties, so a plan committed on the CPU
+takes the route it takes on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +27,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+H100_SMEM_PER_BLOCK = 227 * 2**10
+H100_CLUSTER = 8
+H100_L2_BYTES = 50 * 10**6
 
 
 @dataclasses.dataclass(frozen=True)

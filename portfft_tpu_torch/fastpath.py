@@ -8,8 +8,16 @@ interleaved buffer, chosen by plan level:
 |---|---|---|
 | DIRECT | ``cuda_fft.direct`` (K1) | ``pallas_fft.direct_raw_call`` |
 | FUSED [a, 128] | ``cuda_fft.fused2`` (K2) | ``pallas_fft.fused2_raw_mm_call`` |
-| GLOBAL, DIRECT or FUSED [a, 128] subs | ``cuda_global.global2`` (K3) | ``pallas_global.global2_raw_call`` |
+| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5) or ``global_bf_ov`` (K5-ov) | ``pallas_global.global2_raw_call``, ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call`` |
 | anything else (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | the plane path, ``("plane", ...)`` below | ``committed._traced_interleaved`` |
+
+The engine of a GLOBAL entry, ``("global2", plan, batch, sign, scale,
+engine)``, is fixed at commit from the tuning table (``tuning.lookup`` of
+the plan's ``global2`` key, written by ``CommittedDescriptor.autotune``),
+else K3 (``_global_engine``).  The 1D entry, and the half-length entry
+under a REAL transform, take it; a multi-dimensional row step runs K3.  A
+tuned engine whose gate declines the plan is marked stale and K3 runs; an
+engine with no kernel here raises.
 
 The plane path (``plane_fn``) runs ``cuda_io.deinterleave`` (K6), then the
 executor ``ops/torch_exec.exec_plan`` on the (re, im) planes with a leaf
@@ -103,6 +111,7 @@ import math
 
 import torch
 
+from . import tuning
 from .enums import ComplexStorage, Direction, Domain, Layout, Level, Placement
 from .enums import inv as _inv
 from .exceptions import UnsupportedConfiguration
@@ -112,6 +121,7 @@ from .ops import (
     cuda_chain,
     cuda_fft,
     cuda_global,
+    cuda_global_bf,
     cuda_io,
     cuda_multidim,
     cuda_real,
@@ -119,6 +129,7 @@ from .ops import (
     torch_exec,
 )
 from .ops.torch_fft import is_two_stage
+from .utils import logging as plog
 from .utils.layout import Rows, get_layout, rows_1d
 
 
@@ -145,18 +156,111 @@ def _leaf_ok(plan) -> bool:
     return plan.level == Level.DIRECT or is_two_stage(plan)
 
 
-def _raw_entry(plan0, batch: int, sign: int, scale: float):
+def _raw_entry(plan0, batch: int, sign: int, scale: float,
+               engine: str = "global2"):
     """The raw entry of one 1D PACKED transform, ``(kind, plan, batch,
-    sign, scale)``, or None where the plan needs the plane path."""
+    sign, scale)``, for a GLOBAL plan with its ``engine`` after them, or
+    None where the plan needs the plane path."""
     if plan0.level == Level.DIRECT:
         return ("direct", plan0, batch, sign, scale)
     if is_two_stage(plan0):
         return ("fused2", plan0, batch, sign, scale)
-    if plan0.level == Level.GLOBAL:
-        g1, g2 = plan0.sub
-        if _leaf_ok(g1) and _leaf_ok(g2) and max(g1.n, g2.n) <= GLOBAL_SUB_MAX:
-            return ("global2", plan0, batch, sign, scale)
+    if _global_raw(plan0):
+        return ("global2", plan0, batch, sign, scale, engine)
     return None
+
+
+def _global_raw(plan0) -> bool:
+    """A GLOBAL plan whose subs K3 takes (the ``global2`` entry)."""
+    if plan0.level != Level.GLOBAL:
+        return False
+    g1, g2 = plan0.sub
+    return _leaf_ok(g1) and _leaf_ok(g2) and max(g1.n, g2.n) <= GLOBAL_SUB_MAX
+
+
+# -- engines of the global2 entry ---------------------------------------------
+
+#: The kernels of a ``global2`` entry and the tuning parameters (the JAX
+#: package's engine numbers) that select them.
+ENGINE_PARAMS = {
+    "global2": {},                         # K3, two passes (engine 2)
+    "global_sq": {"eng": 5},               # K4, one pass in a cluster
+    "global_bf": {"eng": 7},               # K5, butterfly-factored sweep
+    "global_bf_ov": {"eng": 7, "ov": 1},   # K5-ov, its phase overlay
+}
+
+
+def _engine_of(params: dict) -> str:
+    """The kernel that tuning parameters select.  The JAX package's engine
+    2 is K3 (its tile knobs have no counterpart here); engines 3, 6 and 8
+    and the ``bf2`` variant have no kernel here yet and raise."""
+    eng = params.get("eng", 2)
+    if eng == 2:
+        return "global2"
+    if eng == 5:
+        return "global_sq"
+    if eng == 7 and not params.get("bf2"):
+        return "global_bf_ov" if params.get("ov") else "global_bf"
+    raise RawFastUnavailable(
+        f"the GLOBAL engine {params} has no kernel in this package yet (ROADMAP "
+        "Queue 2: global3 build_call (3), global_fused_raw_call (6), "
+        "global_ilv_raw_call (8), global_bf2_raw_call (bf2))")
+
+
+def engine_supported(engine: str, plan0) -> bool:
+    """Whether ``engine``'s gate takes the GLOBAL plan (K3 takes every plan
+    a ``global2`` entry holds)."""
+    if engine == "global_sq":
+        return cuda_global.global_sq_supported(plan0)
+    if engine in ("global_bf", "global_bf_ov"):
+        return cuda_global_bf.global_bf_supported(plan0)
+    return _global_raw(plan0)
+
+
+def _global_engine(committed, plan0) -> str:
+    """The engine of the ``global2`` entry of ``plan0``, fixed at commit:
+    the tuned table's (``tuning.lookup``), else K3.  A tuned engine whose
+    gate declines the plan is marked stale in the tuning cache, with a
+    warning, and K3 runs; one that has no kernel here raises."""
+    key = tuning._entry_key(committed, "global2", plan0.n)
+    params = tuning.lookup(committed.config.name, "global2", key)
+    if params is None:
+        return "global2"
+    engine = _engine_of(params)
+    if engine_supported(engine, plan0):
+        return engine
+    reason = f"the gate of {engine} declines {plan0.describe()}"
+    tuning.mark_stale_if_tuned(committed, "global2", reason, plan0.n)
+    plog.warn(f"stale tuned entry global2/{key} {params}: {reason}; K3 runs")
+    return "global2"
+
+
+#: Entries that wrap an inner entry at ``entry[1]`` (which may be ``global2``).
+_WRAPPERS = ("layout", "realf", "realb")
+
+
+def global_entry(entry):
+    """The ``global2`` entry an entry runs (itself, or inside a REAL or
+    layout entry), or None."""
+    while entry[0] in _WRAPPERS:
+        entry = entry[1]
+    return entry if entry[0] == "global2" else None
+
+
+def with_engine(committed, entry, params: dict):
+    """``entry`` with the engine of its ``global2`` entry
+    (:func:`global_entry`) set by ``params``; raises where that engine has
+    no kernel here or its gate declines the plan."""
+    kind = entry[0]
+    if kind in _WRAPPERS:
+        return (kind, with_engine(committed, entry[1], params), *entry[2:])
+    if kind != "global2":
+        raise RawFastUnavailable(f"a {kind} entry has no GLOBAL engine")
+    engine = _engine_of(params)
+    if not engine_supported(engine, entry[1]):
+        raise RawFastUnavailable(
+            f"the gate of {engine} declines {entry[1].describe()}")
+    return (*entry[:5], engine)
 
 
 def _plane_reason(plan0) -> str:
@@ -173,11 +277,12 @@ def _plane_reason(plan0) -> str:
             "shape, so it runs on the plane path (the torch executor)")
 
 
-def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str):
+def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str,
+              engine: str = "global2"):
     """The raw entry of one 1D PACKED transform inside the REAL route;
     raises where the plan needs the plane path, which that route does not
     take yet (``where`` names its item)."""
-    entry = _raw_entry(plan0, batch, sign, scale)
+    entry = _raw_entry(plan0, batch, sign, scale, engine)
     if entry is None:
         raise RawFastUnavailable(f"{_plane_reason(plan0)}; {where}")
     return entry
@@ -422,6 +527,11 @@ def _register_real(committed) -> dict:
                 "as the JAX package's does, where the packed K8b route "
                 "uses them")
     n, batch = d.lengths[0], d.number_of_transforms
+    h = n // 2
+    # the half-length transform takes the tuned engine of its own length
+    engine = (_global_engine(committed, committed.plans[h])
+              if n > SMALL_REAL_MAX_N and _global_raw(committed.plans[h])
+              else "global2")
     out: dict = {}
     for direction, sign in _SIGNS.items():
         scale = float(d.get_scale(direction))
@@ -430,10 +540,9 @@ def _register_real(committed) -> dict:
             out[direction] = ("realsf" if forward else "realsb", n, batch,
                               sign, scale)
         else:
-            h = n // 2
             sub = _entry_1d(committed.plans[h], batch, sign, 1.0,
                             "the REAL transform has no plane path yet "
-                            "(ROADMAP Queue 1 item 9)")
+                            "(ROADMAP Queue 1 item 9)", engine)
             out[direction] = ("realf" if forward else "realb", sub, h, batch,
                               sign, scale)
     return out
@@ -466,10 +575,11 @@ def register(committed) -> dict:
                         float(d.get_scale(direction)))
             for direction, sign in _SIGNS.items()
         }, bi)
+    engine = _global_engine(committed, plan0) if _global_raw(plan0) else "global2"
     out = {}
     for direction, sign in _SIGNS.items():
         scale = float(d.get_scale(direction))
-        out[direction] = _raw_entry(plan0, batch, sign, scale)
+        out[direction] = _raw_entry(plan0, batch, sign, scale, engine)
     if out[Direction.FORWARD] is None:
         routes = plane_routes(plan0, committed.config)
         out = {
@@ -514,16 +624,20 @@ def kernel_args(committed, entry):
         r = keys[("R", 2 * h, sign)]
         kernel = cuda_real.untangle if kind == "realf" else cuda_real.retangle
         return kernel, (batch, h, arrays[r + "r"], arrays[r + "i"], scale)
-    _, plan0, batch, sign, scale = entry
     if kind == "global2":
+        _, plan0, batch, sign, scale, engine = entry
+        if engine in ("global_bf", "global_bf_ov"):
+            return getattr(cuda_global_bf, engine), (batch, cuda_global_bf.bf_tables(
+                plan0, sign, keys, arrays, batch), scale)
         g1, g2 = plan0.sub
         t = keys[("T", g1.n, g2.n, sign)]
-        return cuda_global.global2, (
+        return getattr(cuda_global, engine), (
             batch,
             cuda_fft.sub_tables(g1, sign, keys, arrays),
             cuda_fft.sub_tables(g2, sign, keys, arrays),
             arrays[t + "r"], arrays[t + "i"], scale,
         )
+    _, plan0, batch, sign, scale = entry
     kernel = cuda_fft.direct if kind == "direct" else cuda_fft.fused2
     return kernel, (batch, cuda_fft.sub_tables(plan0, sign, keys, arrays), scale)
 

@@ -58,6 +58,9 @@ _SIGNATURES = {
     "pf_global2_planes": ([_P] * 6 + _SUB + _SUB + [_P] * 4 + [_I64, _F, _P], _I),
     "pf_axis_m2_needs_scratch": ([_I], _I),
     "pf_axis_m2": ([_P] * 5 + _SUB + [_I64, _I64, _F, _P], _I),
+    "pf_global_sq": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I64, _F, _P], _I),
+    "pf_global_bf": ([_P] * 3 + [_I] * 5 + [_P] * 10 + [_I64, _I64, _F, _P], _I),
+    "pf_global_bf_ov": ([_P] * 3 + [_I] * 5 + [_P] * 10 + [_I64, _I64, _F, _P], _I),
     "pf_destride": ([_P] * 4 + [_I] + [_I64] * 5 + [_P], _I),
     "pf_restride": ([_P] * 4 + [_I] + [_I64] * 6 + [_I, _P], _I),
     "pf_error_string": ([_I], ctypes.c_char_p),

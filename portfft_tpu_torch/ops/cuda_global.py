@@ -1,14 +1,17 @@
-"""K3 ``global2`` and K14 ``global2_planes``: wrappers of the CUDA kernels
-(``csrc/fft_global2.cu``, ``csrc/fft_global2_planes.cu``), their plain
-PyTorch versions, and K14's gate.
+"""K3 ``global2``, K4 ``global_sq`` and K14 ``global2_planes``: wrappers of
+the CUDA kernels (``csrc/fft_global2.cu``, ``csrc/fft_global_sq.cu``,
+``csrc/fft_global2_planes.cu``), their plain PyTorch versions, and the
+gates of K4 and K14.
 
 Counterparts of ``portfft_tpu/ops/pallas_global.py``: ``global2_raw_call``
 (K3, the GLOBAL four-step n = G1·G2 on the PACKED interleaved buffer, in
-two passes through a scratch buffer) and ``global2_call`` (K14, the same
-two passes on (re, im) float32 planes, with an optional ``post`` table
-multiplied in pass 2; the plane path's GLOBAL nodes and its Bluestein
-convolutions).  Same rule as ``cuda_fft``: CPU tensors go to the plain
-version, CUDA tensors to the kernel, and nothing falls back.
+two passes through a scratch buffer), ``global_sq_raw_call`` (K4, the same
+function in one pass, the transform held on chip between its stages; the
+tuned engine ``{"eng": 5}``) and ``global2_call`` (K14, K3's two passes on
+(re, im) float32 planes, with an optional ``post`` table multiplied in
+pass 2; the plane path's GLOBAL nodes and its Bluestein convolutions).
+Same rule as ``cuda_fft``: CPU tensors go to the plain version, CUDA
+tensors to the kernel, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import dataclasses
 
 import torch
 
+from ..config import H100_CLUSTER, H100_SMEM_PER_BLOCK
 from ..enums import Level
+from ..exceptions import InvalidConfiguration
 from ..planner import Plan1D
 from . import _build
 from .cuda_fft import (
@@ -97,6 +102,81 @@ def global2(
 
 global2.launches = 0
 global2.plain = global2_plain
+
+
+# -- K4 global_sq ----------------------------------------------------------------
+
+#: K4's block: 512 threads, each holding up to 32 points of stage A's result
+#: in registers, so one block of a cluster holds at most 16384 points.
+SQ_THREADS = 512
+SQ_BLOCK_POINTS = 16384
+
+
+def sq_cluster(plan: Plan1D) -> int:
+    """The cluster size K4 runs ``plan`` with, or 0 where its gate declines.
+    The whole transform stays in the shared memory of one thread-block
+    cluster: C blocks (the least power of two with C·16384 ≥ n), each
+    holding n/C points, its rows' tail and both root tables.  Declined: a
+    plan that is not GLOBAL with two DIRECT subs; C past the portable
+    cluster size (``config.H100_CLUSTER``, 8, so n ≤ 2^17); a block's
+    share past ``config.H100_SMEM_PER_BLOCK``; shapes whose per-thread
+    groups of four outputs do not share their input (512 not a multiple
+    of G1/C or G2/C, n/C not a multiple of 2048).  Counterpart of
+    ``pallas_global.global_sq_supported``, whose own budget is the TPU's
+    VMEM and which also takes FUSED [a, 128] subs."""
+    if plan.level != Level.GLOBAL:
+        return 0
+    g1p, g2p = plan.sub
+    if g1p.level != Level.DIRECT or g2p.level != Level.DIRECT:
+        return 0
+    g1, g2 = g1p.n, g2p.n
+    c = 1
+    while c * SQ_BLOCK_POINTS < plan.n:
+        c *= 2
+    if c > H100_CLUSTER or g1 % c or g2 % c:
+        return 0
+    e, rows, cols = plan.n // c, g1 // c, g2 // c
+    if e % (4 * SQ_THREADS) or SQ_THREADS % rows or SQ_THREADS % cols:
+        return 0
+    return c if 8 * (g1 + g2 + e + rows) <= H100_SMEM_PER_BLOCK else 0
+
+
+def global_sq_supported(plan: Plan1D) -> bool:
+    """K4's gate (``sq_cluster``)."""
+    return sq_cluster(plan) > 0
+
+
+def global_sq(
+    raw, batch: int, sub1: SubTables, sub2: SubTables, tr, ti, scale: float,
+    out=None,
+):
+    """K4: ``batch`` GLOBAL transforms of length ``sub1.m · sub2.m`` in one
+    launch, each held whole in one thread-block cluster between its two
+    sub-transform stages (``csrc/fft_global_sq.cu``).  The same function
+    and arguments as K3 (``global2``), so its plain version is K3's.  The
+    subs must be DIRECT; the kernel checks its cluster shape and returns an
+    error where the plan is outside ``sq_cluster``'s gate."""
+    check_buffer(raw, 2 * batch * sub1.m * sub2.m, "global_sq")
+    if raw.device.type == "cpu":
+        return into(out, global2_plain(raw, batch, sub1, sub2, tr, ti, scale))
+    require_cuda(raw, "global_sq")
+    if sub1.a or sub2.a:
+        raise InvalidConfiguration("global_sq: the subs must be DIRECT")
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    with torch.cuda.device(raw.device):
+        err = lib.pf_global_sq(
+            raw.data_ptr(), y.data_ptr(), sub1.m, sub1.wr.data_ptr(),
+            sub1.wi.data_ptr(), sub2.m, sub2.wr.data_ptr(), sub2.wi.data_ptr(),
+            tr.data_ptr(), ti.data_ptr(), batch, scale, stream_of(raw),
+        )
+    _build.check(lib, err, "global_sq kernel")
+    global_sq.launches += 1
+    return y
+
+
+global_sq.launches = 0
+global_sq.plain = global2_plain
 
 
 # -- K14 global2_planes --------------------------------------------------------

@@ -181,6 +181,28 @@ class TwiddleBank:
             self.host[key] = None
         return key
 
+    def bf_twiddle_hi(self, a: int, g2: int, n: int, sign: int) -> str:
+        """K5's high-digit factor of the inter-factor twiddle, (A1, g2)
+        [kA1, n2] = w_n^(kA1·n2)."""
+        key = f"GA{'f' if sign < 0 else 'b'}{a}x{g2}N{n}"
+        if key not in self.host:
+            re, im = tw.twiddles_n(a, g2, n, sign, self.dtype)
+            self.host[key + "r"] = re
+            self.host[key + "i"] = im
+            self.host[key] = None
+        return key
+
+    def bf_twiddle_lo(self, g2: int, n_lo: int, sign: int) -> str:
+        """K5's low-digit factor, (128, g2) [kB1, n2] = w_{n/A1}^(kB1·n2):
+        with the high factor, w_n^(k1·n2) for k1 = kA1 + A1·kB1."""
+        key = f"GB{'f' if sign < 0 else 'b'}128x{g2}N{n_lo}"
+        if key not in self.host:
+            re, im = tw.twiddles_n(128, g2, n_lo, sign, self.dtype)
+            self.host[key + "r"] = re
+            self.host[key + "i"] = im
+            self.host[key] = None
+        return key
+
     def device_arrays(self, device) -> dict[str, torch.Tensor]:
         """Every table as a tensor on ``device``."""
         return {
@@ -194,6 +216,25 @@ def is_two_stage(plan: Plan1D) -> bool:
     """True for the FUSED shape [a, 128] the two-stage kernel runs."""
     f = plan.factors
     return plan.level == Level.FUSED and len(f) == 2 and f[1] == 128
+
+
+def bf_factor(g: int) -> int:
+    """The butterfly factor A of g = A·128 for K5: a power of two in
+    [1, 16], else 0 (``pallas_global_bf.bf_factor``)."""
+    if g % 128:
+        return 0
+    a = g // 128
+    return a if 1 <= a <= 16 and not a & (a - 1) else 0
+
+
+def _snap(v: float) -> float:
+    """A host-computed root of unity's part snapped to exact 0 or ±1, so
+    the butterfly multiplies by exact constants
+    (``pallas_global_bf._snap``)."""
+    for t in (0.0, 1.0, -1.0):
+        if abs(v - t) < 1e-12:
+            return t
+    return v
 
 
 def valid_rows(n: int, g2: int) -> int:
@@ -212,7 +253,11 @@ def collect_bank_keys(
     ``("B", n, sign)`` and, when its convolution is GLOBAL g1 × g2,
     ``("BPOST", n, sign)``, ``("BPRE", n, sign)``, ``("BFIN", n, sign)``
     and ``("T", g2, g1, +1)`` (the three-pass kernel's), then the
-    convolution's own tables in both directions."""
+    convolution's own tables in both directions.  A GLOBAL plan whose
+    subs are both A·128 (``bf_factor``) also gets K5's ``("U", A1, 128,
+    sign)``, ``("U", A2, 128, sign)``, ``("GA", g1, g2, sign)``, ``("GB",
+    g1, g2, sign)`` and ``("W", 128, sign)``, as the JAX package banks its
+    butterfly engine's tables."""
     if plan.level == Level.DIRECT:
         keys[("W", plan.n, sign)] = bank.dft(plan.n, sign)
     elif is_two_stage(plan):  # K2, K13's two-stage mode: U, not T
@@ -230,6 +275,15 @@ def collect_bank_keys(
     elif plan.level == Level.GLOBAL:
         g1, g2 = plan.sub
         keys[("T", g1.n, g2.n, sign)] = bank.twiddle(g1.n, g2.n, sign)
+        a1, a2 = bf_factor(g1.n), bf_factor(g2.n)
+        if a1 and a2:  # K5: digit twiddles, factored twiddle, 128-point roots
+            keys[("U", a1, 128, sign)] = bank.twiddle_fm(a1, 128, sign)
+            keys[("U", a2, 128, sign)] = bank.twiddle_fm(a2, 128, sign)
+            keys[("GA", g1.n, g2.n, sign)] = bank.bf_twiddle_hi(
+                a1, g2.n, plan.n, sign)
+            keys[("GB", g1.n, g2.n, sign)] = bank.bf_twiddle_lo(
+                g2.n, plan.n // a1, sign)
+            keys[("W", 128, sign)] = bank.dft(128, sign)
         collect_bank_keys(g1, sign, bank, keys)
         collect_bank_keys(g2, sign, bank, keys)
     elif plan.level == Level.BLUESTEIN:

@@ -12,8 +12,10 @@ receives.  Levels:
 * BLUESTEIN — n has a prime factor > ``max_factor``: chirp-z through a
               padded convolution.
 
-The JAX package also consults its tuned split table (``portfft_tpu.tuning``)
-and a native C++ core; this package does neither.
+A GLOBAL split recorded in the tuning table (``tuning.lookup(cfg.name,
+"global_split", f"n{n}")``) replaces the rule's split where it factors n,
+as in the JAX package.  The JAX package also has a native C++ core of the
+same rules; this package does not.
 """
 
 from __future__ import annotations
@@ -266,6 +268,13 @@ def plan_1d(n: int, cfg: DeviceConfig, itemsize: int) -> Plan1D:
         return Plan1D(n=n, level=Level.FUSED, factors=chain)
 
     g1, g2 = _global_split(n, cfg, itemsize)
+    # a measured split (tuning.record(device, "global_split", f"n{n}", ...)),
+    # ignored where it does not factor n
+    from . import tuning
+
+    tuned = tuning.lookup(cfg.name, "global_split", f"n{n}")
+    if tuned and tuned.get("g1", 0) * tuned.get("g2", 0) == n:
+        g1, g2 = tuned["g1"], tuned["g2"]
     return Plan1D(
         n=n,
         level=Level.GLOBAL,

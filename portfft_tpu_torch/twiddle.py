@@ -54,6 +54,25 @@ def twiddles(f: int, m: int, sign: int, dtype) -> tuple[np.ndarray, np.ndarray]:
     return re.astype(dtype), im.astype(dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _twiddles_n_f64(f: int, m: int, n: int, sign: int) -> tuple:
+    """T[j, t] = exp(sign·2πi·j·t/n), shape (f, m), for a root order ``n``
+    that need not be f·m (the butterfly-factored GLOBAL engine's factored
+    inter-factor twiddle)."""
+    j = np.arange(f, dtype=np.float64)[:, None]
+    t = np.arange(m, dtype=np.float64)[None, :]
+    jt = np.mod(j * t, n)
+    theta = (2.0 * np.pi / n) * jt
+    return np.cos(theta), np.array(sign, np.float64) * np.sin(theta)
+
+
+def twiddles_n(f: int, m: int, n: int, sign: int,
+               dtype) -> tuple[np.ndarray, np.ndarray]:
+    """Real/imag planes of the (f, m) twiddle block of root order ``n``."""
+    re, im = _twiddles_n_f64(f, m, n, sign)
+    return re.astype(dtype), im.astype(dtype)
+
+
 def bluestein_chirp(n: int, sign: int, dtype) -> tuple[np.ndarray, np.ndarray]:
     """Chirp c[k] = exp(sign·πi·k²/n), k < n, of the Bluestein transform;
     the argument is reduced to k² mod 2n before scaling."""

@@ -506,12 +506,14 @@ def test_k7_matches_plain_exactly(cuda, m, split):
 
 def _launch_counters():
     from portfft_tpu_torch.ops import (
-        cuda_chain, cuda_fft, cuda_global, cuda_multidim, cuda_stride)
+        cuda_chain, cuda_fft, cuda_global, cuda_global_bf, cuda_multidim,
+        cuda_stride)
 
     return {"direct": cuda_fft.direct, "fused2": cuda_fft.fused2,
             "global2": cuda_global.global2, "col": cuda_multidim.col,
             "chain": cuda_chain.chain, "destride": cuda_stride.destride,
-            "restride": cuda_stride.restride}
+            "restride": cuda_stride.restride,
+            "global_bf_ov": cuda_global_bf.global_bf_ov}
 
 
 # One layout per route: (n, batch, SPLIT, descriptor fields, out= given,
@@ -548,6 +550,10 @@ def test_layout_route_matches_oracle(cuda, n, batch, split, fields, give_out,
     transform is within the oracle bound of ``torch.fft``, and every
     element outside the output layout is 0 (a new buffer), the sentinel
     (out=) or the input's own value (in place)."""
+    _check_layout_route(n, batch, split, fields, give_out, in_place, kinds)
+
+
+def _check_layout_route(n, batch, split, fields, give_out, in_place, kinds):
     from chip_smoke import SENTINEL, elements, layout_kinds, sampled, stride_buffer
     from portfft_tpu_torch.utils.layout import rows_1d
 
@@ -592,3 +598,130 @@ def test_layout_route_matches_oracle(cuda, n, batch, split, fields, give_out,
         for p in (elements(mask, dst) if split else (elements(mask[0], dst),)):
             p.fill_(0.0)
         assert all(torch.equal(r, k) for r, k in zip(rest, mask))
+
+
+# -- the tuned GLOBAL engines: K4 global_sq, K5 global_bf, K5-ov global_bf_ov --
+
+# Layouts at 65536, whose plan (256 x 256) the shipped table sends to K5-ov.
+SHIPPED_LAYOUTS = [
+    (65536, 3, False, dict(forward_strides=[2], forward_distance=2 * 65536),
+     False, False, ("destride", "global_bf_ov")),
+    (65536, 2, False, dict(forward_offset=1000, backward_offset=3), True, False,
+     ("global_bf_ov",)),
+]
+
+ENGINE_CASES = [
+    ("global_sq", {"eng": 5}, 65536, 3), ("global_sq", {"eng": 5}, 1 << 17, 2),
+    ("global_bf", {"eng": 7}, 65536, 3), ("global_bf", {"eng": 7}, 1 << 17, 25),
+    ("global_bf", {"eng": 7}, 1 << 18, 2), ("global_bf", {"eng": 7}, 1 << 19, 2),
+    ("global_bf", {"eng": 7}, 1 << 20, 3),
+    ("global_bf_ov", {"eng": 7, "ov": 1}, 65536, 3),
+    ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 17, 25),
+    ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 18, 2),
+    ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 19, 2),
+    ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 20, 3),
+]
+
+
+@pytest.fixture(autouse=True)
+def _static_routes(monkeypatch):
+    """The tests above hold the static routes (K3 for GLOBAL plans): the
+    shipped tuning table stays out of them.  The tuned engines are tested
+    below, each selected explicitly."""
+    monkeypatch.setenv("PORTFFT_NO_TUNING", "1")
+
+
+@pytest.mark.parametrize("n,batch,split,fields,give_out,in_place,kinds",
+                         SHIPPED_LAYOUTS)
+def test_layout_on_the_shipped_route(cuda, tmp_path, monkeypatch, n, batch, split,
+                                     fields, give_out, in_place, kinds):
+    """With tuning on and only the shipped table, a layout descriptor's
+    GLOBAL entry takes the shipped engine (K5-ov at 65536), which launches
+    with K7, and the result holds as on the static route."""
+    from portfft_tpu_torch import tuning
+
+    monkeypatch.delenv("PORTFFT_NO_TUNING")
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "tune.json"))
+    tuning._reset_for_tests()
+    try:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             **fields).commit()
+        shipped = tuning.lookup(plan.config.name, "global2",
+                                tuning._entry_key(plan, "global2"))
+        assert fastpath._engine_of(shipped) == "global_bf_ov"
+        _check_layout_route(n, batch, split, fields, give_out, in_place, kinds)
+    finally:
+        tuning._reset_for_tests()
+
+
+@pytest.mark.parametrize("engine,params,n,batch", ENGINE_CASES)
+@pytest.mark.parametrize("inplace", [False, True])
+def test_tuned_engine_matches_plain_and_oracle(cuda, engine, params, n, batch,
+                                               inplace):
+    """K4, K5 and K5-ov against their plain versions (1e-5·max|plain|) and
+    ``torch.fft`` (the absolute 2·eps·N·log2N·|scale|), both directions
+    with a folded scale, out of place and in place; 2^17 × 25 and 2^20 × 3
+    run K5 in several chunks, the last one short."""
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         forward_scale=0.5, backward_scale=3.0 / n).commit()
+    x = torch.rand(2 * batch * n, device=cuda) * 2 - 1
+    xc = torch.view_as_complex(x.view(batch, n, 2)).to(torch.complex128)
+    for direction, scale in ((pf.Direction.FORWARD, 0.5),
+                             (pf.Direction.BACKWARD, 3.0 / n)):
+        entry = fastpath.with_engine(plan, plan._raw_fast[direction], params)
+        kernel, args = fastpath.kernel_args(plan, entry)
+        assert kernel.__name__ == engine
+        before = kernel.launches
+        want = kernel.plain(x, *args)
+        if inplace:
+            got = x.clone()
+            assert kernel(got, *args, out=got) is got
+        else:
+            got = kernel(x, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
+        ref = (torch.fft.fft(xc) if direction == pf.Direction.FORWARD
+               else torch.fft.ifft(xc, norm="forward")) * scale
+        diff = (torch.view_as_complex(got.view(batch, n, 2)) - ref).abs().max()
+        assert diff.item() <= oracle_tol(n) * scale, (direction, diff.item())
+
+
+@pytest.mark.parametrize("engine,params,n,batch", [
+    ("global_sq", {"eng": 5}, 65536, 2), ("global_bf", {"eng": 7}, 1 << 18, 2),
+    ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 17, 13)])
+def test_tuned_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatch,
+                                                      engine, params, n, batch):
+    """A recorded winner routes ``compute_forward`` through its kernel, and
+    ``autotune`` on the card records one of the raced engines."""
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.ops import cuda_global, cuda_global_bf
+
+    monkeypatch.delenv("PORTFFT_NO_TUNING")
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "tune.json"))
+    tuning._reset_for_tests()
+    try:
+        desc = pf.Descriptor(lengths=[n], number_of_transforms=batch)
+        probe = desc.commit()
+        key = tuning._entry_key(probe, "global2")
+        tuning.record(probe.config.name, "global2", key, params)
+        plan = desc.commit()
+        kernel = getattr(cuda_global if engine == "global_sq" else cuda_global_bf,
+                         engine)
+        x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
+        before = kernel.launches
+        y = plan.compute_forward(x)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        ref = torch.fft.fft(x.to(torch.complex128))
+        diff = (y.reshape(batch, n).to(torch.complex128) - ref).abs().max()
+        assert diff.item() <= oracle_tol(n)
+        times = {}
+        won = plan.autotune(iters=1, times=times)
+        assert won in [fastpath.ENGINE_PARAMS[e] for e in fastpath.ENGINE_PARAMS]
+        assert len(times) >= 3 and tuning.lookup(plan.config.name, "global2", key) == won
+        y = plan.compute_forward(x).reshape(batch, n)
+        assert (y.to(torch.complex128) - ref).abs().max().item() <= oracle_tol(n)
+    finally:
+        tuning._reset_for_tests()

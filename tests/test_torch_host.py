@@ -200,6 +200,12 @@ def _ref_table(bank, key):
     if kind == "T":
         f, m, sign = rest
         return bank.twiddle(f, m, sign)
+    if kind in ("GA", "GB"):  # K5's factored twiddle of the split g1 x g2
+        g1, g2, sign = rest
+        a1 = torch_fft.bf_factor(g1)
+        if kind == "GA":
+            return bank.bf_twiddle_hi(a1, g2, g1 * g2, sign)
+        return bank.bf_twiddle_lo(g2, g1 * g2 // a1, sign)
     f, m, sign = rest
     return bank.twiddle_fm(f, m, sign)
 

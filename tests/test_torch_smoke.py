@@ -8,6 +8,7 @@ version on a conjugated table (``chip_smoke.planted``) or returns zeros.
 The batch is cut to 1 or 2 rows.
 """
 
+import json
 import math
 
 import pytest
@@ -513,6 +514,32 @@ def test_layout_rows_route_through_k7():
             assert rows.contiguous or (tuple(vars(rows).values()), split) in cases
 
 
+def test_tuned_layout_rows_take_the_shipped_engine():
+    """Each tuned layout row is a layout row whose GLOBAL plan the shipped
+    ``cuda_h100`` table names an engine for, and with that engine its route
+    is K7 around K5-ov."""
+    from portfft_tpu_torch import fastpath, tuning
+
+    with open(tuning._DEFAULTS_PATH) as f:
+        table = json.load(f)["cuda_h100"]["global2"]
+    want = {
+        "strided_large": ["destride", "global_bf_ov"],
+        "strided_out_large": ["global_bf_ov", "restride"],
+        "bi_65536": ["destride", "global_bf_ov", "restride"],
+        "offset_out_large_1d": ["global_bf_ov"],
+    }
+    assert set(chip_smoke.TUNED_LAYOUT) == set(want)
+    for name, n, batch, split, fields, _ in chip_smoke.LAYOUT_ROWS:
+        if name not in want:
+            continue
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             **fields).commit(device="cpu")
+        params = table[tuning._entry_key(plan, "global2")]
+        entry = fastpath.with_engine(plan, plan._raw_fast[pf.Direction.FORWARD],
+                                     params)
+        assert chip_smoke.layout_kinds(entry) == want[name]
+
+
 def test_bounds_of_k7_and_the_layout_rows():
     """K7 at strided_large reads 512 rows of a stride-2 span (16 bytes a
     used element, in sectors) and writes 256 MiB: 805 MB, 0.240 ms at
@@ -528,3 +555,66 @@ def test_bounds_of_k7_and_the_layout_rows():
     assert chip_smoke.side_bytes(Rows(5, 3, 400, 64, 4), 8) == 24 * 64 * 4
     assert chip_smoke.side_bytes(Rows(0, 5, 400, 64, 4), 8) == 32 * 64 * 4
     assert chip_smoke.side_bytes(Rows(0, 2, 400, 64, 4), 4, 2) == 2 * 8 * 64 * 4
+
+
+def test_tuned_cases_hold_the_tuned_rows():
+    """The tuned-GLOBAL kernel phase checks K4, K5 and K5-ov at every
+    (G1, G2) the tuned rows give them: K4 at 256 x 256 and 512 x 256, K5
+    and K5-ov at the five splits of large_1d and the ladder, at the rows'
+    batches; each alone timing is one of those cases."""
+    from portfft_tpu_torch.planner import plan_1d
+
+    cfg = pf.DeviceConfig()
+    cases = chip_smoke.tuned_cases(pf)
+    splits = {}
+    for kind, n, batch in cases:
+        assert (n, batch) in {(m, b) for _, m, b in chip_smoke.TUNED_ROWS}
+        g1, g2 = (s.n for s in plan_1d(n, cfg, 4).sub)
+        splits.setdefault(kind, set()).add((g1, g2))
+    assert splits["global_sq"] == {(256, 256), (512, 256)}
+    bf = {(256, 256), (512, 256), (512, 512), (2048, 256), (2048, 512)}
+    assert splits["global_bf"] == splits["global_bf_ov"] == bf
+    for kind, shape in chip_smoke.TUNED_ALONE.items():
+        assert (kind, *shape) in cases
+
+
+TUNED_CPU = sorted({(kind, n) for kind, n, _ in chip_smoke.tuned_cases(pf)})
+
+
+def _tuned_case(kind, n, direction):
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=1, forward_scale=0.5,
+                         backward_scale=2.0 / n).commit(device="cpu")
+    kernel, args = chip_smoke.tuned_kernel(plan, kind, direction)
+    x = chip_smoke.random_raw(2 * n, seed=n, device="cpu")
+    return kernel, args, x
+
+
+@pytest.mark.parametrize("kind,n", TUNED_CPU)
+def test_tuned_checks_pass_and_reject_faults(kind, n):
+    """At one transform: the check passes the plain version with both
+    planted faults rejected by both checks, and fails a kernel run on the
+    planted table or returning zeros."""
+    for direction, sign in DIRECTIONS:
+        kernel, args, x = _tuned_case(kind, n, direction)
+        r = chip_smoke.check_kernel(kind, kernel, args, x, n, sign)
+        assert r["rel"] == 0.0 and r["excess"] <= 1.0
+        for rel, excess in r["caught"].values():
+            assert rel > 100 * chip_smoke.KERNEL_TOL and excess > 100.0
+    kernel, args, x = _tuned_case(kind, n, pf.Direction.FORWARD)
+    for fault in ("conjugated table", "zeros"):
+        def faulty(raw, *a, fault=fault):
+            if fault == "zeros":
+                return torch.zeros_like(raw)
+            return kernel.plain(raw, *chip_smoke.planted(kind, a))
+
+        faulty.plain = kernel.plain
+        with pytest.raises(chip_smoke.SmokeFailure, match=r"max\|kernel - plain\|"):
+            chip_smoke.check_kernel(kind, faulty, args, x, n, -1)
+
+
+def test_bounds_of_the_tuned_kernels():
+    """K4, K5 and K5-ov timed alone move 2^31 bytes: 0.641 ms at 3.35 TB/s."""
+    for kind, (n, batch) in chip_smoke.TUNED_ALONE.items():
+        bound, by = chip_smoke.bound_of(kind, n, batch)
+        assert by == "bytes" and bound == pytest.approx(2**31 / 3.35e9)
+        assert bound == pytest.approx(0.641, abs=1e-3)
