@@ -14,8 +14,11 @@ layout rows (``chip_smoke.LAYOUT_ROWS``: strided, BATCH_INTERLEAVED in one
 or both domains, offsets with an out= tensor, SPLIT strided; K7 shows as
 ``destride_*``/``restride_*`` kernels), and of the tuned GLOBAL rows
 (``TUNED_ROWS``: large_1d and the 2^17 row through K4, the ladder through
-K5 and K5-ov, each engine selected by a recorded tuning entry in a cache
-of the run's own; every other row runs its static route), it
+K5 and K5-ov) and of the tuned FUSED rows (``chip_smoke.TUNED_FUSED_ROWS``
+through K2 and every engine their entry reaches: K2-v2 and K2-v3, or
+K2-v1 where a has no fold), each engine selected by a recorded tuning
+entry in a cache of the run's own; every other row runs its static
+route), it
 commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
@@ -42,7 +45,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import LAYOUT_ROWS
+from chip_smoke import LAYOUT_ROWS, TUNED_FUSED_ROWS, fused_engines_reached
 
 ROWS = [
     ("small_1d", 16, 8 << 20, "forward"),
@@ -101,6 +104,32 @@ TUNED_ROWS = [
       for e in (17, 18, 19, 20)
       for tag, params in (("k5", {"eng": 7}), ("k5ov", {"eng": 7, "ov": 1}))),
 ]
+
+
+def _tuned_fused_rows() -> list[tuple]:
+    """The tuned FUSED rows (``chip_smoke.TUNED_FUSED_ROWS``): each through
+    K2 (``{}``) and every engine its ``fused2`` entry can reach, at the
+    shipped table's tile where that table names the engine, else at the
+    tile the kernel picks."""
+    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch.config import DeviceConfig
+    from portfft_tpu_torch.planner import plan_1d
+
+    shipped = tuning._read(tuning._DEFAULTS_PATH).get("cuda_h100", {}).get(
+        "fused2", {})
+    rows = []
+    for _, n, batch in TUNED_FUSED_ROWS:
+        plan0 = plan_1d(n, DeviceConfig(), 4)
+        rows.append((f"tuned_fused_{n}_k2", n, batch, {}))
+        for kind in fused_engines_reached(plan0, batch):
+            params = shipped.get(f"n{n}", {})
+            if fastpath._engine_of(params, plan0) != kind:
+                params = fastpath.FUSED_ENGINE_PARAMS[kind]
+            rows.append((f"tuned_fused_{n}_{kind[-2:]}", n, batch, params))
+    return rows
+
+
+TUNED_ROWS += _tuned_fused_rows()
 CALLS = 5
 #: Profiles of a row taken until every kernel shows a whole number of
 #: launches per call: the profiler has been seen to drop device events.
@@ -149,17 +178,18 @@ def main() -> None:
 
 
 def commit(pf, desc, params):
-    """``desc`` committed on the card; with ``params``, the GLOBAL engine
-    they select recorded in the run's tuning cache first."""
+    """``desc`` committed on the card; with ``params``, the GLOBAL or FUSED
+    engine they select recorded in the run's tuning cache first."""
     if params is None:
         return desc.commit(device="cuda")
-    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch import fastpath, tuning
 
     os.environ.pop("PORTFFT_NO_TUNING")
     try:
         probe = desc.commit(device="cuda")
-        tuning.record(probe.config.name, "global2",
-                      tuning._entry_key(probe, "global2"), params)
+        kind = fastpath._tuned_kind(probe.plans[desc.lengths[0]])
+        tuning.record(probe.config.name, kind, tuning._entry_key(probe, kind),
+                      params)
         return desc.commit(device="cuda")
     finally:
         os.environ["PORTFFT_NO_TUNING"] = "1"

@@ -95,10 +95,27 @@
    winner are printed, and the tuned plan is held and timed again.  The
    last of these lines gives every row's winner as the JSON that
    ``portfft_tpu_torch/tuning_defaults.json`` holds.
-7. Prints the kernel table as one JSON line (each kernel's launches on the
+7. The FUSED engines.  Kernel phase: K2-v1 ``fused2_v1``, K2-v2
+   ``fused2_v2`` and K2-v3 ``fused2_v3`` at ``FUSED_KERNEL_CASES`` (K2-v2
+   and K2-v3 at a = 8, 32, 64, 128; K2-v1 at a = 5, 24, 96 and 32), both
+   directions with a scale, each at the tile it picks, against its plain
+   version and ``torch.fft`` with the two planted faults (its inner twiddle
+   conjugated, zeros); each timed alone at ``FUSED_ALONE`` (K2-v2 and
+   K2-v3 at 4096 x 32Ki, K2-v1 at 3072 x 32768).  Shipped rows,
+   ``FUSED_SHIPPED``: real_large and bi_in_4096 with tuning on and only
+   the shipped table, each held to the engine that table names for n4096,
+   then to ``torch.fft``.  Tuned FUSED main path, ``TUNED_FUSED_ROWS``
+   (a = 8 … 256 and the no-fold 3072, 12288 at 0.75–1 GiB): each engine
+   the row's ``fused2`` entry can reach is forced by a recorded entry,
+   held and timed; ``plan.autotune()`` races K2 and every engine at every
+   tile its gate takes (a variant its parity gate drops fails the run)
+   and prints each variant's ms and the winner; the line "autotune winners
+   (fused2, ...)" is the JSON of ``tuning_defaults.json``'s
+   ``cuda_h100.fused2`` (rows K2 won are left out).
+8. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
-   ms and library ms), then, as the last line, ``{"ok": true, "device":
-   {...}}``.  Any failure exits non-zero before that line.
+   ms and library ms; twenty kernels), then, as the last line, ``{"ok":
+   true, "device": {...}}``.  Any failure exits non-zero before that line.
 """
 
 from __future__ import annotations
@@ -308,6 +325,35 @@ TUNED_ROWS = [
 # Timed alone at 2^27 points: K4 at large_1d, K5 and K5-ov at the 2^17 row.
 TUNED_ALONE = {"global_sq": (65536, 2048), "global_bf": (1 << 17, 1024),
                "global_bf_ov": (1 << 17, 1024)}
+# The FUSED engines K2-v1, K2-v2 and K2-v3 (K2 is "fused2").
+FUSED_KINDS = ("fused2_v1", "fused2_v2", "fused2_v3")
+# Tuned FUSED main path (about 1 GiB in): name, n, batch.  medium_large_1d is
+# bench.py's row (run both ways); the others span a = 8 … 256 and two a with
+# no fold (3072, 12288), where engines 2 and 3 reach K2-v1.  Each row forces
+# every engine its plan's tuned entry can reach, then races them.
+TUNED_FUSED_ROWS = [
+    ("fused_1024", 1024, 131072), ("medium_large_1d", 4096, 32768),
+    ("fused_8192", 8192, 16384), ("fused_16384", 16384, 8192),
+    ("fused_32768", 32768, 4096), ("fused_3072", 3072, 32768),
+    ("fused_12288", 12288, 8192),
+]
+# FUSED kernel phase: (kind, n, batch).  K2-v2 and K2-v3 at a = 8, 32, 64 and
+# 128 (at a = 256 no transform fits a block of either), K2-v1 at the no-fold
+# a = 5, 24 and 96 and at a = 32, which has a fold; the tuned rows' shapes,
+# and 640 at about 1 GiB.
+FUSED_KERNEL_CASES = [
+    ("fused2_v1", 640, 204800), ("fused2_v1", 3072, 32768),
+    ("fused2_v1", 12288, 8192), ("fused2_v1", 4096, 32768),
+    *[(kind, n, batch) for kind in ("fused2_v2", "fused2_v3")
+      for n, batch in ((1024, 131072), (4096, 32768), (8192, 16384),
+                       (16384, 8192))],
+]
+# Timed alone: K2-v2 and K2-v3 at medium_large_1d, K2-v1 at fused_3072.
+FUSED_ALONE = {"fused2_v1": (3072, 32768), "fused2_v2": (4096, 32768),
+               "fused2_v3": (4096, 32768)}
+# Rows run with tuning on and only the shipped table: their FUSED entry
+# (n = 4096) must take the engine that table names for n4096.
+FUSED_SHIPPED = ("real_large", "bi_in_4096")
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -343,6 +389,12 @@ SOURCES = {
                   "portfft_tpu/ops/pallas_global_bf.py:770"),
     "global_bf_ov": ("portfft_tpu_torch/csrc/fft_global_bf.cu",
                      "portfft_tpu/ops/pallas_global_bf.py:595"),
+    "fused2_v1": ("portfft_tpu_torch/csrc/fft_fused2_v1.cu",
+                  "portfft_tpu/ops/pallas_fft.py:473"),
+    "fused2_v2": ("portfft_tpu_torch/csrc/fft_fused2_v2.cu",
+                  "portfft_tpu/ops/pallas_fft.py:607"),
+    "fused2_v3": ("portfft_tpu_torch/csrc/fft_fused2_v3.cu",
+                  "portfft_tpu/ops/pallas_fft.py:910"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
@@ -377,7 +429,8 @@ def work(kind: str, n: int, batch: int) -> tuple[int, float]:
     lg, h = max(math.log2(n), 1.0), n // 2
     if kind == "interleave":  # both K6 kernels, n the element count
         return 32 * batch * n, 2.0 * batch * n
-    if kind in C2C_KINDS + MD_KINDS + PLANE_KINDS + SPLIT_KINDS + TUNED_KINDS:
+    if kind in (C2C_KINDS + MD_KINDS + PLANE_KINDS + SPLIT_KINDS + TUNED_KINDS
+                + FUSED_KINDS):
         return 16 * batch * n, 5 * n * lg * batch
     if kind in ("untangle", "retangle"):
         return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
@@ -491,7 +544,8 @@ def planted(kind: str, args: tuple) -> tuple:
     """A kernel's arguments with one table conjugated: the roots (K1, K9,
     a DIRECT K10 or K11 axis), the inner twiddle (K2, a FUSED K10 or K11
     axis; K11's second axis), the inter-pass twiddle (K3, K4), the low
-    factor GB of K5's twiddle or the REAL post-twiddle (K8).  K9's plain
+    factor GB of K5's twiddle or the REAL post-twiddle (K8); K2-v1, K2-v2
+    and K2-v3 the inner twiddle, as K2.  K9's plain
     version reads the matrix, whose
     conjugate negates the imaginary outputs (forward) or inputs
     (backward)."""
@@ -531,6 +585,9 @@ def planted(kind: str, args: tuple) -> tuple:
     if kind == "axis_m2":
         bpre, rest, sub, scale = args
         return (bpre, rest, conjugated(sub), scale)
+    if kind in ("fused2_v2", "fused2_v3"):
+        batch, sub, bt, scale = args
+        return (batch, conjugated(sub), bt, scale)
     batch, sub, scale = args
     return (batch, conjugated(sub), scale)
 
@@ -1551,7 +1608,8 @@ def stride_kernel_phase(pf, max_err: dict, card: str) -> tuple:
 
 def layout_kinds(entry) -> list[str]:
     """The kernels a C2C entry launches: K7 destride where its input side
-    is strided, the inner entry's kernels (a ``global2`` entry's engine),
+    is strided, the inner entry's kernels (a ``global2`` or ``fused2``
+    entry's engine),
     K7 restride where its output side is strided."""
     from portfft_tpu_torch.utils.layout import Rows
 
@@ -1561,8 +1619,8 @@ def layout_kinds(entry) -> list[str]:
         kinds += path_kinds(inner)
     elif inner[0] == "multidim":
         kinds += [step[0] for step in inner[2]]
-    elif inner[0] == "global2":
-        kinds.append(inner[-1])
+    elif inner[0] in ("global2", "fused2"):
+        kinds.append(inner[5])  # the entry's engine
     else:
         kinds.append("col" if inner[0] == "bi_col" else inner[0])
     return kinds + (["restride"] if isinstance(dst, Rows) else [])
@@ -1588,7 +1646,8 @@ def sampled(buf, rows, sample: list[int]) -> torch.Tensor:
 
 
 def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
-                     device: str = "cuda") -> tuple[list, dict]:
+                     device: str = "cuda",
+                     required=STRIDE_KINDS) -> tuple[list, dict]:
     """``LAYOUT_ROWS`` through the committed plan, forward: every kernel of
     each row's route (``layout_kinds``) must launch; a sample of rows is
     held to ``torch.fft`` at the absolute 2·eps·n·log2(n); every element
@@ -1678,7 +1737,7 @@ def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
         torch.cuda.empty_cache()
     launches = {k: c.launches for k, c in counters.items()}
     print(f"layout main-path launches: {launches}")
-    for kind in STRIDE_KINDS:
+    for kind in required:
         if launches[kind] == 0:
             raise SmokeFailure(f"kernel {kind} was never launched on the layout path")
     return results, launches
@@ -1844,7 +1903,7 @@ def tuned_layout_path(pf, counters: dict, card: str) -> tuple[list, dict]:
                                  **fields).commit(device="cuda")
             key = tuning._entry_key(plan, "global2")
             shipped = tuning.lookup(plan.config.name, "global2", key)
-            engine = fastpath.global_entry(plan._raw_fast[pf.Direction.FORWARD])[-1]
+            engine = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])[-1]
             if shipped is None or engine != fastpath._engine_of(shipped):
                 raise SmokeFailure(f"{name}: route {engine}, but the shipped table "
                                    f"holds {shipped} for global2/{key}")
@@ -1855,10 +1914,234 @@ def tuned_layout_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         os.environ["PORTFFT_NO_TUNING"] = "1"
 
 
+def fused_kernel(plan, kind: str, direction):
+    """``(kernel, args)`` of ``plan``'s FUSED entry for ``direction`` run by
+    the engine ``kind`` (K2-v1 too on a plan with a fold, which no tuned
+    entry reaches), the kernel picking its tile."""
+    from portfft_tpu_torch import fastpath
+
+    entry = plan._raw_fast[direction]
+    return fastpath.kernel_args(plan, (*entry[:5], kind, 0))
+
+
+def fused_kernel_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K2-v1, K2-v2 and K2-v3 at ``FUSED_KERNEL_CASES``, forward
+    (scale 0.5) and backward (scale 2/n), against their plain versions and
+    ``torch.fft`` with the two planted faults (the inner twiddle
+    conjugated, as K2; and zeros).  Returns ``{kind: (ms, plain_ms,
+    library_ms)}`` of each timed alone forward at ``FUSED_ALONE``."""
+    alone = {}
+    for kind, n, batch in FUSED_KERNEL_CASES:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             forward_scale=0.5, backward_scale=2.0 / n
+                             ).commit(device="cuda")
+        x = random_raw(2 * batch * n, seed=n)
+        for direction, sign in ((pf.Direction.FORWARD, -1),
+                                (pf.Direction.BACKWARD, +1)):
+            kernel, args = fused_kernel(plan, kind, direction)
+            before = kernel.launches
+            r = check_kernel(kind, kernel, args, x, n, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
+            tile = f" bt={args[2]}" if len(args) == 4 else ""
+            report(kind, f"n={n:<6d} batch={batch:<7d}{tile} {direction.value:8s}", r)
+            max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+            if sign < 0 and (n, batch) == FUSED_ALONE[kind]:
+                ms = time_ms(lambda: kernel(x, *args))
+                plain_ms = time_ms(lambda: kernel.plain(x, *args))
+                library_ms = time_ms(library_call(x, n, batch, False, True))
+                bound, by = bound_of(kind, n, batch)
+                alone[kind] = (ms, plain_ms, library_ms)
+                print(f"alone  {kind:12s} n={n:<8d} batch={batch:<6d}{tile} kernel "
+                      f"{ms:.3f} ms | plain {plain_ms:.3f} ms | torch.fft "
+                      f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
+            del kernel, args
+        del plan, x
+        torch.cuda.empty_cache()
+    return alone
+
+
+def fused_engines_reached(plan0, batch: int) -> list[str]:
+    """The FUSED engines a recorded ``fused2`` entry of ``plan0`` can
+    select at ``batch``: engines 2 and 3 reach K2-v2 and K2-v3 on a plan
+    with a fold, K2-v1 on one without, where the gate takes the plan."""
+    from portfft_tpu_torch import fastpath
+
+    return [k for k in FUSED_KINDS
+            if fastpath._engine_of(fastpath.FUSED_ENGINE_PARAMS[k], plan0) == k
+            and fastpath.engine_supported(k, plan0, batch)]
+
+
+def shipped_engine(plan, n: int) -> tuple[str, dict | None]:
+    """The engine the tuning table names for the ``fused2`` key of the
+    length-``n`` plan (K2 where it names none), and its entry."""
+    from portfft_tpu_torch import fastpath, tuning
+
+    params = tuning.lookup(plan.config.name, "fused2", f"n{n}")
+    engine = "fused2" if params is None else fastpath._engine_of(params, plan.plans[n])
+    return engine, params
+
+
+def fused_shipped_path(pf, counters: dict, card: str) -> list:
+    """``FUSED_SHIPPED`` with tuning on and only the shipped table (the
+    run's cache holds no ``fused2`` entry yet): real_large (REAL 8192 x
+    16Ki, K2's engine at h = 4096 and K8a) and bi_in_4096 (K7 and the 4096
+    engine).  Each row's FUSED entry must take the engine the shipped table
+    names for n4096; the row is then held to ``torch.fft``, its kernels
+    must launch, and it is timed."""
+    from portfft_tpu_torch import fastpath
+
+    os.environ.pop("PORTFFT_NO_TUNING", None)
+    try:
+        _, n, batch, _ = next(r for r in REAL_ROWS if r[0] == "real_large")
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             domain=pf.Domain.REAL).commit(device="cuda")
+        engine, params = shipped_engine(plan, n // 2)
+        inner = plan._raw_fast[pf.Direction.FORWARD][1]
+        if inner[5] != engine:
+            raise SmokeFailure(f"real_large: route {inner[5]}, but the shipped "
+                               f"table holds {params} for fused2/n{n // 2}")
+        x = random_raw(batch * n, seed=0)
+        before = {k: counters[k].launches for k in ("untangle", engine)}
+        y = plan.compute_forward(x)
+        torch.cuda.synchronize()
+        rose = {k: counters[k].launches - before[k] for k in before}
+        if min(rose.values()) <= 0:
+            raise SmokeFailure(f"real_large: a kernel was not launched: {rose}")
+        excess = real_oracle_excess(y, x, n, batch, -1, 1.0)
+        if not torch.isfinite(y).all() or not excess <= 1.0:
+            raise SmokeFailure(f"real_large shipped: {excess:.3e} times the bound")
+        del y
+        ms = time_ms(lambda: plan.compute_forward(x))
+        print(f"row real_large (shipped fused2/n{n // 2} {params} -> {engine}) "
+              f"launches {rose} oracle {excess:.2e}×bound | path {ms:.3f} ms | {card}")
+        del plan, x
+        torch.cuda.empty_cache()
+        rows = [r for r in LAYOUT_ROWS if r[0] in FUSED_SHIPPED]
+        for name, n, batch, split, fields, _ in rows:
+            plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                                 **fields).commit(device="cuda")
+            engine, params = shipped_engine(plan, n)
+            got = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])[5]
+            if got != engine:
+                raise SmokeFailure(f"{name}: route {got}, but the shipped table "
+                                   f"holds {params} for fused2/n{n}")
+            print(f"row {name:20s} shipped fused2/n{n} {params} -> {engine}")
+            del plan
+        results, _ = layout_main_path(pf, counters, card, rows,
+                                      required=("destride",))
+        return results
+    finally:
+        os.environ["PORTFFT_NO_TUNING"] = "1"
+
+
+def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
+    """``TUNED_FUSED_ROWS`` through ``Descriptor(...).commit(device="cuda")``
+    with tuning on, in the run's own tuning cache: per row, a recorded
+    ``fused2`` entry forces each engine the plan's entry can reach
+    (``fused_engines_reached``, the kernel picking its tile) and the row is
+    held to ``torch.fft`` and timed, with its peak device memory; then,
+    with the entry forgotten, ``plan.autotune()`` races K2 and every
+    engine at every tile its gate takes (a variant the 1e-3 parity gate
+    drops fails the run), each variant's time and the winner are printed,
+    and the tuned plan is held and timed again (medium_large_1d both
+    ways).  Returns the launches and ``{key: winner}`` of the rows a
+    variant other than K2 won."""
+    from portfft_tpu_torch import fastpath, tuning
+
+    os.environ.pop("PORTFFT_NO_TUNING", None)
+    winners = {}
+    for c in counters.values():
+        c.launches = 0
+    fwd = pf.Direction.FORWARD
+    try:
+        for name, n, batch in TUNED_FUSED_ROWS:
+            desc = pf.Descriptor(lengths=[n], number_of_transforms=batch)
+            x = random_raw(2 * batch * n, seed=0)
+            plan = desc.commit(device="cuda")
+            device, key = plan.config.name, tuning._entry_key(plan, "fused2")
+            shipped = plan._raw_fast[fwd][5]
+            reached = fused_engines_reached(plan.plans[n], batch)
+            del plan
+            for kind in reached:
+                tuning.record(device, "fused2", key,
+                              fastpath.FUSED_ENGINE_PARAMS[kind])
+                plan = desc.commit(device="cuda")
+                if plan._raw_fast[fwd][5] != kind:
+                    raise SmokeFailure(f"{name}: the recorded {kind} did not route")
+                before = counters[kind].launches
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                y = plan.compute_forward(x)
+                torch.cuda.synchronize()
+                peak_gib = torch.cuda.max_memory_allocated() / 2**30
+                if counters[kind].launches != before + 1:
+                    raise SmokeFailure(f"{name}: {kind} was not launched once")
+                if y.shape != x.shape or not torch.isfinite(y).all():
+                    raise SmokeFailure(f"{name} {kind}: output not finite")
+                excess = oracle_excess(y, x, n, batch, -1, 1.0)
+                if not excess <= 1.0:
+                    raise SmokeFailure(f"{name} {kind}: {excess:.3e} times the "
+                                       f"oracle bound {oracle_tol(n):.3e}")
+                del y
+                ms = time_ms(lambda: plan.compute_forward(x))
+                print(f"row {name:16s} n={n:<6d} batch={batch:<7d} forced "
+                      f"{kind:10s} oracle max|diff|={excess * oracle_tol(n):.3e} "
+                      f"| path {ms:.3f} ms {16 * batch * n / ms / 1e6:.1f} GB/s "
+                      f"| peak {peak_gib:.2f} GiB | {card}")
+                del plan
+                torch.cuda.empty_cache()
+            tuning.forget(device, "fused2", key)
+            plan = desc.commit(device="cuda")
+            variants = tuning._variants_for_entry(plan, plan._raw_fast[fwd])
+            times = {}
+            won = plan.autotune(times=times)
+            if won is not None and len(times) != len(variants):
+                raise SmokeFailure(f"{name}: autotune dropped a variant at its "
+                                   f"parity gate: raced {sorted(times)} of {variants}")
+            engine = plan._raw_fast[fwd][5]
+            checks = [(plan.compute_forward, -1)]
+            if name == "medium_large_1d":
+                checks.append((plan.compute_backward, +1))
+            tuned_ms = []
+            for compute, sign in checks:
+                y = compute(x)
+                torch.cuda.synchronize()
+                excess = oracle_excess(y, x, n, batch, sign, 1.0)
+                if not excess <= 1.0:
+                    raise SmokeFailure(f"{name} tuned sign {sign:+d}: "
+                                       f"{excess:.3e} times the bound")
+                del y
+                tuned_ms.append(time_ms(lambda: compute(x)))
+            library_ms = time_ms(library_call(x, n, batch, False, True))
+            bound, by = bound_of("fused2", n, batch)
+            print(f"row {name:16s} n={n:<6d} batch={batch:<7d} autotune ms "
+                  f"{json.dumps(times)} -> {won} ({engine}; shipped route "
+                  f"{shipped}) | tuned path {' / '.join(f'{t:.3f}' for t in tuned_ms)} "
+                  f"ms | torch.fft {library_ms:.3f} ms | bound {bound:.3f} ms "
+                  f"({by}) | {card}")
+            if won:
+                winners[key] = won
+            del plan, x
+            torch.cuda.empty_cache()
+    finally:
+        os.environ["PORTFFT_NO_TUNING"] = "1"
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"tuned FUSED main-path launches: {launches}")
+    print(f"autotune winners (fused2, {card}): {json.dumps(winners, sort_keys=True)}")
+    for kind in FUSED_KINDS:
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on the tuned "
+                               "FUSED path")
+    return launches, winners
+
+
 def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                  alone, md_launches, md_alone, plane_launches,
                  plane_alone, split_launches, split_alone, layout_launches,
-                 stride_alone, tuned_launches, tuned_alone) -> list[dict]:
+                 stride_alone, tuned_launches, tuned_alone, fused_launches,
+                 fused_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
@@ -1910,6 +2193,9 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
     for kind in TUNED_KINDS:
         kernels.append(entry(kind, tuned_launches[kind], *tuned_alone[kind],
                              *TUNED_ALONE[kind]))
+    for kind in FUSED_KINDS:
+        kernels.append(entry(kind, fused_launches[kind], *fused_alone[kind],
+                             *FUSED_ALONE[kind]))
     return kernels
 
 
@@ -1973,7 +2259,9 @@ def phases_run(t_start: float, card: str) -> None:
                 "restride": cuda_stride.restride,
                 "global_sq": cuda_global.global_sq,
                 "global_bf": cuda_global_bf.global_bf,
-                "global_bf_ov": cuda_global_bf.global_bf_ov}
+                "global_bf_ov": cuda_global_bf.global_bf_ov,
+                "fused2_v1": cuda_fft.fused2_v1, "fused2_v2": cuda_fft.fused2_v2,
+                "fused2_v3": cuda_fft.fused2_v3}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -2013,6 +2301,10 @@ def phases_run(t_start: float, card: str) -> None:
     phase("tuned layout rows", tuned_layout_path, pf, counters, card)
     tuned_launches, _ = phase("tuned main path", tuned_main_path, pf, counters,
                               card)
+    fused_alone = phase("FUSED kernels", fused_kernel_phase, pf, max_err, card)
+    phase("FUSED shipped rows", fused_shipped_path, pf, counters, card)
+    fused_launches, _ = phase("tuned FUSED main path", tuned_fused_path, pf,
+                              counters, card)
     # K14 and K12 run on both paths of this slice
     new_launches = {k: split_launches[k] + more_launches[k] for k in SPLIT_KINDS}
     print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
@@ -2020,7 +2312,7 @@ def phases_run(t_start: float, card: str) -> None:
                            real_launches, alone, md_launches, md_alone,
                            plane_launches, plane_alone, new_launches, split_alone,
                            layout_launches, stride_alone, tuned_launches,
-                           tuned_alone)
+                           tuned_alone, fused_launches, fused_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

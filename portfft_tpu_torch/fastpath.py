@@ -7,17 +7,28 @@ interleaved buffer, chosen by plan level:
 | plan level | kernel (``ops``) | JAX counterpart |
 |---|---|---|
 | DIRECT | ``cuda_fft.direct`` (K1) | ``pallas_fft.direct_raw_call`` |
-| FUSED [a, 128] | ``cuda_fft.fused2`` (K2) | ``pallas_fft.fused2_raw_mm_call`` |
+| FUSED [a, 128] | the entry's engine: ``cuda_fft.fused2`` (K2, the static route), ``fused2_v1`` (K2-v1), ``fused2_v2`` (K2-v2) or ``fused2_v3`` (K2-v3) | ``pallas_fft.fused2_raw_mm_call``, ``fused2_raw_call``, ``fused2_raw_v2_call``, ``fused2_raw_v3_call`` |
 | GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5) or ``global_bf_ov`` (K5-ov) | ``pallas_global.global2_raw_call``, ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call`` |
 | anything else (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | the plane path, ``("plane", ...)`` below | ``committed._traced_interleaved`` |
 
 The engine of a GLOBAL entry, ``("global2", plan, batch, sign, scale,
-engine)``, is fixed at commit from the tuning table (``tuning.lookup`` of
-the plan's ``global2`` key, written by ``CommittedDescriptor.autotune``),
-else K3 (``_global_engine``).  The 1D entry, and the half-length entry
-under a REAL transform, take it; a multi-dimensional row step runs K3.  A
-tuned engine whose gate declines the plan is marked stale and K3 runs; an
-engine with no kernel here raises.
+engine)``, and of a FUSED entry, ``("fused2", plan, batch, sign, scale,
+engine, bt)``, is fixed at commit from the tuning table (``tuning.lookup``
+of the plan's ``global2`` or ``fused2`` key, written by
+``CommittedDescriptor.autotune``), else the static route, K3 or K2
+(``_tuned_engine``).  FUSED follows the JAX package's chain: engine 4 or
+none is K2, engine 2 K2-v2 and engine 3 K2-v3, each K2-v1 on a plan whose
+a has no fold; ``bt`` is the tuned batch tile of K2-v2 and K2-v3 (0: the
+kernel picks; a tuned tile this batch cannot take is dropped).  The 1D
+entry, the half-length entry under a REAL transform and the inner entry of
+a layout take it; a multi-dimensional row step runs K3 or K2.  A tuned
+engine whose gate declines the plan is marked stale and the static route
+runs; an engine with no kernel here raises.
+
+The static FUSED route is K2 for every [a, 128] plan and batch.  The JAX
+package's static route differs there (ROADMAP Queue 3): it runs v1 on the
+plans whose a has no fold, and at batches its tiles decline it falls back
+to its plane path.
 
 The plane path (``plane_fn``) runs ``cuda_io.deinterleave`` (K6), then the
 executor ``ops/torch_exec.exec_plan`` on the (re, im) planes with a leaf
@@ -128,7 +139,7 @@ from .ops import (
     cuda_stride,
     torch_exec,
 )
-from .ops.torch_fft import is_two_stage
+from .ops.torch_fft import fold_factor, is_two_stage
 from .utils import logging as plog
 from .utils.layout import Rows, get_layout, rows_1d
 
@@ -157,16 +168,18 @@ def _leaf_ok(plan) -> bool:
 
 
 def _raw_entry(plan0, batch: int, sign: int, scale: float,
-               engine: str = "global2"):
+               engine: str | None = None, bt: int = 0):
     """The raw entry of one 1D PACKED transform, ``(kind, plan, batch,
-    sign, scale)``, for a GLOBAL plan with its ``engine`` after them, or
-    None where the plan needs the plane path."""
+    sign, scale)``, for a FUSED [a, 128] plan with its ``engine`` and batch
+    tile ``bt`` after them, for a GLOBAL plan with its ``engine``; None
+    where the plan needs the plane path.  ``engine`` None is the static
+    route (K2, K3)."""
     if plan0.level == Level.DIRECT:
         return ("direct", plan0, batch, sign, scale)
     if is_two_stage(plan0):
-        return ("fused2", plan0, batch, sign, scale)
+        return ("fused2", plan0, batch, sign, scale, engine or "fused2", bt)
     if _global_raw(plan0):
-        return ("global2", plan0, batch, sign, scale, engine)
+        return ("global2", plan0, batch, sign, scale, engine or "global2")
     return None
 
 
@@ -178,7 +191,7 @@ def _global_raw(plan0) -> bool:
     return _leaf_ok(g1) and _leaf_ok(g2) and max(g1.n, g2.n) <= GLOBAL_SUB_MAX
 
 
-# -- engines of the global2 entry ---------------------------------------------
+# -- engines of the global2 and fused2 entries ----------------------------------
 
 #: The kernels of a ``global2`` entry and the tuning parameters (the JAX
 #: package's engine numbers) that select them.
@@ -189,12 +202,36 @@ ENGINE_PARAMS = {
     "global_bf_ov": {"eng": 7, "ov": 1},   # K5-ov, its phase overlay
 }
 
+#: The kernels of a ``fused2`` entry and the JAX package's engine numbers
+#: that select them (with a batch tile ``bt`` for engines 2 and 3).  On a
+#: plan whose a has no fold, engines 2 and 3 select K2-v1, as the
+#: reference's chain (v3 or v2, then v1) reaches it there.
+FUSED_ENGINE_PARAMS = {
+    "fused2": {},             # K2 (engine 4, the mm kernel)
+    "fused2_v1": {"eng": 2},  # K2-v1, on a plan with no fold
+    "fused2_v2": {"eng": 2},  # K2-v2
+    "fused2_v3": {"eng": 3},  # K2-v3
+}
 
-def _engine_of(params: dict) -> str:
-    """The kernel that tuning parameters select.  The JAX package's engine
-    2 is K3 (its tile knobs have no counterpart here); engines 3, 6 and 8
-    and the ``bf2`` variant have no kernel here yet and raise."""
-    eng = params.get("eng", 2)
+def _engine_of(params: dict, plan0=None) -> str:
+    """The kernel that tuning parameters select: for a GLOBAL plan (or
+    ``plan0`` None) the JAX package's engine 2 is K3 (its tile knobs have
+    no counterpart here), 5 K4, 7 K5 or K5-ov; engines 3, 6 and 8 and the
+    ``bf2`` variant have no kernel here yet and raise.  For a FUSED [a,
+    128] plan, engine 4 (or none) is K2 (its ``flat``, ``ds`` and ``bt``
+    knobs have no counterpart), 2 K2-v2 and 3 K2-v3, each K2-v1 where a
+    has no fold; any other engine raises."""
+    eng = params.get("eng")
+    if plan0 is not None and is_two_stage(plan0):
+        if eng in (None, 4):
+            return "fused2"
+        if eng in (2, 3):
+            if fold_factor(plan0.factors[0]) == 0:
+                return "fused2_v1"
+            return "fused2_v2" if eng == 2 else "fused2_v3"
+        raise RawFastUnavailable(
+            f"the FUSED engine {params} has no kernel in this package")
+    eng = 2 if eng is None else eng
     if eng == 2:
         return "global2"
     if eng == 5:
@@ -207,60 +244,99 @@ def _engine_of(params: dict) -> str:
         "global_ilv_raw_call (8), global_bf2_raw_call (bf2))")
 
 
-def engine_supported(engine: str, plan0) -> bool:
-    """Whether ``engine``'s gate takes the GLOBAL plan (K3 takes every plan
-    a ``global2`` entry holds)."""
+def engine_supported(engine: str, plan0, batch: int = 1, bt: int = 0) -> bool:
+    """Whether ``engine``'s gate takes the plan (K3 and K2 take every plan
+    their entries hold); K2-v2 and K2-v3 at the batch tile ``bt`` (0: at
+    any tile)."""
     if engine == "global_sq":
         return cuda_global.global_sq_supported(plan0)
     if engine in ("global_bf", "global_bf_ov"):
         return cuda_global_bf.global_bf_supported(plan0)
+    if engine == "fused2_v1":
+        return cuda_fft.fused2_v1_supported(plan0)
+    if engine == "fused2_v2":
+        return cuda_fft.fused2_v2_supported(plan0, batch, bt)
+    if engine == "fused2_v3":
+        return cuda_fft.fused2_v3_supported(plan0, batch, bt)
+    if engine == "fused2":
+        return is_two_stage(plan0)
     return _global_raw(plan0)
 
 
-def _global_engine(committed, plan0) -> str:
-    """The engine of the ``global2`` entry of ``plan0``, fixed at commit:
-    the tuned table's (``tuning.lookup``), else K3.  A tuned engine whose
-    gate declines the plan is marked stale in the tuning cache, with a
-    warning, and K3 runs; one that has no kernel here raises."""
-    key = tuning._entry_key(committed, "global2", plan0.n)
-    params = tuning.lookup(committed.config.name, "global2", key)
+def _tile_of(engine: str, params: dict) -> int:
+    """The batch tile tuning parameters give ``engine`` (0: none, the
+    kernel picks)."""
+    return params.get("bt", 0) if engine in ("fused2_v2", "fused2_v3") else 0
+
+
+def _tuned_engine(committed, plan0, batch: int) -> tuple[str | None, int]:
+    """``(engine, bt)`` of the ``global2`` or ``fused2`` entry of
+    ``plan0`` (:func:`_tuned_kind`), fixed at commit: the tuned table's
+    (``tuning.lookup``), else the static route, whose engine has the
+    kind's name (K3, K2); ``(None, 0)`` for a plan of no tuned kind.  The key holds no
+    batch, so a tuned batch tile that does not divide this batch, or does
+    not fit, is dropped with a trace and the kernel picks its own (the JAX
+    package's "stale tuning (different batch): let the kernel pick").  A
+    tuned engine whose gate declines the plan at every tile is marked stale
+    in the tuning cache, with a warning, and the static route runs; one
+    that has no kernel here raises."""
+    kind = _tuned_kind(plan0)
+    if kind is None:
+        return None, 0
+    key = tuning._entry_key(committed, kind, plan0.n)
+    params = tuning.lookup(committed.config.name, kind, key)
     if params is None:
-        return "global2"
-    engine = _engine_of(params)
-    if engine_supported(engine, plan0):
-        return engine
+        return kind, 0
+    engine = _engine_of(params, plan0)
+    bt = _tile_of(engine, params)
+    if bt and not engine_supported(engine, plan0, batch, bt):
+        plog.trace(f"tuned {kind}/{key} {params}: batch tile {bt} does not suit "
+                   f"batch {batch}; the kernel picks its tile")
+        bt = 0
+    if engine_supported(engine, plan0, batch, bt):
+        return engine, bt
     reason = f"the gate of {engine} declines {plan0.describe()}"
-    tuning.mark_stale_if_tuned(committed, "global2", reason, plan0.n)
-    plog.warn(f"stale tuned entry global2/{key} {params}: {reason}; K3 runs")
-    return "global2"
+    tuning.mark_stale_if_tuned(committed, kind, reason, plan0.n)
+    plog.warn(f"stale tuned entry {kind}/{key} {params}: {reason}; "
+              f"{'K3' if kind == 'global2' else 'K2'} runs")
+    return kind, 0
 
 
-#: Entries that wrap an inner entry at ``entry[1]`` (which may be ``global2``).
+def _tuned_kind(plan0) -> str | None:
+    """The tuned kind of a plan's raw entry, or None (DIRECT, plane)."""
+    if is_two_stage(plan0):
+        return "fused2"
+    return "global2" if _global_raw(plan0) else None
+
+
+#: Entries that wrap an inner entry at ``entry[1]``.
 _WRAPPERS = ("layout", "realf", "realb")
 
 
-def global_entry(entry):
-    """The ``global2`` entry an entry runs (itself, or inside a REAL or
-    layout entry), or None."""
+def inner_entry(entry):
+    """The entry a REAL or layout entry runs (unwrapped), or ``entry``."""
     while entry[0] in _WRAPPERS:
         entry = entry[1]
-    return entry if entry[0] == "global2" else None
+    return entry
 
 
 def with_engine(committed, entry, params: dict):
-    """``entry`` with the engine of its ``global2`` entry
-    (:func:`global_entry`) set by ``params``; raises where that engine has
-    no kernel here or its gate declines the plan."""
+    """``entry`` with the engine of its ``global2`` or ``fused2`` entry
+    (:func:`inner_entry`) set by ``params``; raises where that engine has
+    no kernel here or its gate declines the plan at the given tile."""
     kind = entry[0]
     if kind in _WRAPPERS:
         return (kind, with_engine(committed, entry[1], params), *entry[2:])
-    if kind != "global2":
-        raise RawFastUnavailable(f"a {kind} entry has no GLOBAL engine")
-    engine = _engine_of(params)
-    if not engine_supported(engine, entry[1]):
+    if kind not in ("global2", "fused2"):
+        raise RawFastUnavailable(f"a {kind} entry has no tuned engine")
+    plan0, batch = entry[1], entry[2]
+    engine = _engine_of(params, plan0)
+    bt = _tile_of(engine, params)
+    if not engine_supported(engine, plan0, batch, bt):
         raise RawFastUnavailable(
-            f"the gate of {engine} declines {entry[1].describe()}")
-    return (*entry[:5], engine)
+            f"the gate of {engine} declines {plan0.describe()} at batch "
+            f"{batch}" + (f", tile {bt}" if bt else ""))
+    return (*entry[:5], engine, bt) if kind == "fused2" else (*entry[:5], engine)
 
 
 def _plane_reason(plan0) -> str:
@@ -278,11 +354,11 @@ def _plane_reason(plan0) -> str:
 
 
 def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str,
-              engine: str = "global2"):
+              engine: str | None = None, bt: int = 0):
     """The raw entry of one 1D PACKED transform inside the REAL route;
     raises where the plan needs the plane path, which that route does not
     take yet (``where`` names its item)."""
-    entry = _raw_entry(plan0, batch, sign, scale, engine)
+    entry = _raw_entry(plan0, batch, sign, scale, engine, bt)
     if entry is None:
         raise RawFastUnavailable(f"{_plane_reason(plan0)}; {where}")
     return entry
@@ -529,9 +605,8 @@ def _register_real(committed) -> dict:
     n, batch = d.lengths[0], d.number_of_transforms
     h = n // 2
     # the half-length transform takes the tuned engine of its own length
-    engine = (_global_engine(committed, committed.plans[h])
-              if n > SMALL_REAL_MAX_N and _global_raw(committed.plans[h])
-              else "global2")
+    engine, bt = (_tuned_engine(committed, committed.plans[h], batch)
+                  if n > SMALL_REAL_MAX_N else (None, 0))
     out: dict = {}
     for direction, sign in _SIGNS.items():
         scale = float(d.get_scale(direction))
@@ -542,7 +617,7 @@ def _register_real(committed) -> dict:
         else:
             sub = _entry_1d(committed.plans[h], batch, sign, 1.0,
                             "the REAL transform has no plane path yet "
-                            "(ROADMAP Queue 1 item 9)", engine)
+                            "(ROADMAP Queue 1 item 9)", engine, bt)
             out[direction] = ("realf" if forward else "realb", sub, h, batch,
                               sign, scale)
     return out
@@ -575,11 +650,11 @@ def register(committed) -> dict:
                         float(d.get_scale(direction)))
             for direction, sign in _SIGNS.items()
         }, bi)
-    engine = _global_engine(committed, plan0) if _global_raw(plan0) else "global2"
+    engine, bt = _tuned_engine(committed, plan0, batch)
     out = {}
     for direction, sign in _SIGNS.items():
         scale = float(d.get_scale(direction))
-        out[direction] = _raw_entry(plan0, batch, sign, scale, engine)
+        out[direction] = _raw_entry(plan0, batch, sign, scale, engine, bt)
     if out[Direction.FORWARD] is None:
         routes = plane_routes(plan0, committed.config)
         out = {
@@ -592,7 +667,8 @@ def register(committed) -> dict:
 
 def kernel_args(committed, entry):
     """``(kernel, args)`` of an entry: the wrapper (``cuda_fft.direct``,
-    ``cuda_fft.fused2``, ``cuda_global.global2``, ``cuda_real.small_real``,
+    the ``fused2`` entry's engine ``cuda_fft.fused2``/``fused2_v1``/
+    ``fused2_v2``/``fused2_v3``, the ``global2`` entry's, ``cuda_real.small_real``,
     ``cuda_multidim.col`` for ``bi_col`` and a column step,
     ``cuda_multidim.md2`` for a K11 step, or for the half-length REAL
     entries ``cuda_real.untangle``/``retangle``) and the arguments that
@@ -637,9 +713,17 @@ def kernel_args(committed, entry):
             cuda_fft.sub_tables(g2, sign, keys, arrays),
             arrays[t + "r"], arrays[t + "i"], scale,
         )
+    if kind == "fused2":
+        _, plan0, batch, sign, scale, engine, bt = entry
+        sub = cuda_fft.sub_tables(plan0, sign, keys, arrays)
+        if engine in ("fused2_v2", "fused2_v3"):
+            # the tile is fixed here, so the plain version tiles as the kernel
+            bt = bt or cuda_fft.pick_tile(engine, plan0.factors[0], batch)
+            return getattr(cuda_fft, engine), (batch, sub, bt, scale)
+        return getattr(cuda_fft, engine), (batch, sub, scale)
     _, plan0, batch, sign, scale = entry
-    kernel = cuda_fft.direct if kind == "direct" else cuda_fft.fused2
-    return kernel, (batch, cuda_fft.sub_tables(plan0, sign, keys, arrays), scale)
+    return cuda_fft.direct, (batch, cuda_fft.sub_tables(plan0, sign, keys, arrays),
+                             scale)
 
 
 def plane_fn(committed, entry, plain: bool = False):

@@ -35,6 +35,9 @@ _SIGNATURES = {
     "pf_direct": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
     "pf_fused2_needs_scratch": ([_I], _I),
     "pf_fused2": ([_P] * 9 + [_I64, _I, _F, _P], _I),
+    "pf_fused2_v1": ([_P] * 8 + [_I64, _I, _F, _P], _I),
+    "pf_fused2_v2": ([_P] * 8 + [_I64, _I, _I, _F, _P], _I),
+    "pf_fused2_v3": ([_P] * 8 + [_I64, _I, _I, _F, _P], _I),
     "pf_global2": ([_P, _P, _P] + _SUB + _SUB + [_P, _P, _I64, _F, _P], _I),
     "pf_untangle": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
     "pf_retangle": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),

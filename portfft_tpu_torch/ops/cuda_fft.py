@@ -1,10 +1,17 @@
-"""K1 ``direct`` and K2 ``fused2``: wrappers of the CUDA kernels
-(``csrc/fft_direct.cu``, ``csrc/fft_fused2.cu``) and their plain PyTorch
+"""K1 ``direct``, K2 ``fused2`` and the FUSED engines K2-v1 ``fused2_v1``,
+K2-v2 ``fused2_v2`` and K2-v3 ``fused2_v3``: wrappers of the CUDA kernels
+(``csrc/fft_direct.cu``, ``csrc/fft_fused2.cu``,
+``csrc/fft_fused2_v{1,2,3}.cu``), their gates and their plain PyTorch
 versions.
 
 Counterparts of ``portfft_tpu/ops/pallas_fft.py``: ``direct_raw_call``
-(K1) and ``fused2_raw_mm_call`` (K2).  Every function takes and returns the
-PACKED interleaved buffer as a flat float32 tensor of ``2·batch·n`` scalars.
+(K1), ``fused2_raw_mm_call`` (K2, the FUSED static route, the reference's
+engine 4), ``fused2_raw_call`` (K2-v1), ``fused2_raw_v2_call`` (K2-v2,
+engine 2) and ``fused2_raw_v3_call`` (K2-v3, engine 3).  The four FUSED
+kernels compute the same function; which one a plan runs is fixed at
+commit from the tuning table (``fastpath``).  Every function takes and
+returns the PACKED interleaved buffer as a flat float32 tensor of
+``2·batch·n`` scalars.
 
 The rule of every wrapper: a tensor on the CPU goes to the plain version; a
 tensor on a CUDA device goes to the kernel, and a failed build or launch
@@ -19,10 +26,20 @@ import dataclasses
 
 import torch
 
+from ..config import H100_SMEM_PER_BLOCK
 from ..exceptions import InvalidConfiguration
-from ..planner import Plan1D
+from ..planner import Plan1D, two_stage_smem_bytes
 from . import _build
-from .torch_fft import complex_matmul, complex_mul, full_fp32_matmuls, is_two_stage
+from .torch_fft import (
+    complex_matmul,
+    complex_mul,
+    fold_factor,
+    full_fp32_matmuls,
+    fused2_v1_plain,
+    fused2_v2_plain,
+    fused2_v3_plain,
+    is_two_stage,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,3 +196,133 @@ def fused2(raw, batch: int, sub: SubTables, scale: float, out=None):
 
 fused2.launches = 0
 fused2.plain = rows_plain_raw
+
+
+# -- the FUSED engines K2-v1, K2-v2, K2-v3 -------------------------------------
+
+#: Batch tiles K2-v2 takes: a lane's register tile holds 4·bt (stage 2) and
+#: ceil(a/32)·bt (stage 1) complex sums, at most 32 (csrc/fft_fused2_v2.cu).
+V2_TILES = (1, 2, 4, 8)
+#: Batch tiles K2-v3 takes (no register tile: shared memory alone limits it).
+V3_TILES = (1, 2, 4, 8, 16, 32)
+
+
+def _fits(a: int, bt: int, engine: str) -> bool:
+    return two_stage_smem_bytes(a, bt, engine) <= H100_SMEM_PER_BLOCK
+
+
+def fused2_v1_supported(plan: Plan1D) -> bool:
+    """K2-v1 takes every [a, 128] plan whose one transform fits a block's
+    shared memory (a ≤ 96 of the planned a; it picks its own tile)."""
+    return is_two_stage(plan) and _fits(plan.factors[0], 1, "fused2_v1")
+
+
+def _tile_ok(engine: str, a: int, batch: int, bt: int) -> bool:
+    tiles = V2_TILES if engine == "fused2_v2" else V3_TILES
+    if bt not in tiles or batch % bt or not _fits(a, bt, engine):
+        return False
+    return engine == "fused2_v3" or (1 if a < 32 else a // 32) * bt <= 32
+
+
+def _folded_supported(engine: str, plan: Plan1D, batch: int, bt: int) -> bool:
+    """The gate of K2-v2 and K2-v3: a two-stage plan whose a has the JAX
+    package's fold (``fold_factor(a) > 0``), at the batch tile ``bt`` (0:
+    at any tile the kernel takes, which bt = 1 is wherever one is)."""
+    if not is_two_stage(plan) or fold_factor(plan.factors[0]) == 0:
+        return False
+    return _tile_ok(engine, plan.factors[0], batch, bt or 1)
+
+
+def fused2_v2_supported(plan: Plan1D, batch: int, bt: int = 0) -> bool:
+    return _folded_supported("fused2_v2", plan, batch, bt)
+
+
+def fused2_v3_supported(plan: Plan1D, batch: int, bt: int = 0) -> bool:
+    return _folded_supported("fused2_v3", plan, batch, bt)
+
+
+def pick_tile(engine: str, a: int, batch: int) -> int:
+    """The batch tile K2-v2 or K2-v3 takes where none is given: the largest
+    of 8, 4, 2, 1 the gate takes (0 where none is)."""
+    return next((bt for bt in (8, 4, 2, 1) if _tile_ok(engine, a, batch, bt)), 0)
+
+
+def _launch_fused(name: str, raw, batch: int, sub: SubTables, tail: tuple,
+                  out):
+    """Launch ``pf_<name>`` on ``raw`` (CUDA) into ``out`` or a new tensor;
+    ``tail`` is what follows ``batch`` and ``a`` in the C signature."""
+    require_cuda(raw, name)
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    with torch.cuda.device(raw.device):
+        err = getattr(lib, f"pf_{name}")(
+            raw.data_ptr(), y.data_ptr(), *sub.pointers(), batch, sub.a,
+            *tail, stream_of(raw))
+    _build.check(lib, err, f"{name} kernel")
+    return y
+
+
+def fused2_v1(raw, batch: int, sub: SubTables, scale: float, out=None):
+    """K2-v1: ``batch`` FUSED [a, 128] transforms of length ``sub.m``, any
+    a whose transform fits a block (``fused2_v1_supported``), in one
+    launch.  ``out`` (may be ``raw``) receives the result; otherwise a new
+    tensor."""
+    check_buffer(raw, 2 * batch * sub.m, "fused2_v1")
+    if not _fits(sub.a, 1, "fused2_v1"):
+        raise InvalidConfiguration(
+            f"fused2_v1: a = {sub.a} does not fit a block's shared memory")
+    if raw.device.type == "cpu":
+        return into(out, fused2_v1_plain(raw, batch, sub, scale))
+    y = _launch_fused("fused2_v1", raw, batch, sub, (scale,), out)
+    fused2_v1.launches += 1
+    return y
+
+
+fused2_v1.launches = 0
+fused2_v1.plain = fused2_v1_plain
+
+
+def _folded(engine: str, raw, batch: int, sub: SubTables, bt: int) -> int:
+    """The batch tile of a K2-v2 or K2-v3 call (``pick_tile`` where ``bt``
+    is 0); raises where the gate declines."""
+    check_buffer(raw, 2 * batch * sub.m, engine)
+    if fold_factor(sub.a) == 0:
+        raise InvalidConfiguration(f"{engine}: a = {sub.a} has no fold")
+    bt = bt or pick_tile(engine, sub.a, batch)
+    if not _tile_ok(engine, sub.a, batch, bt):
+        raise InvalidConfiguration(
+            f"{engine}: batch tile {bt} does not suit a = {sub.a}, batch {batch}")
+    return bt
+
+
+def fused2_v2(raw, batch: int, sub: SubTables, bt: int, scale: float,
+              out=None):
+    """K2-v2: ``batch`` FUSED [a, 128] transforms (a with a fold), ``bt``
+    of them a block (0: ``pick_tile``)."""
+    bt = _folded("fused2_v2", raw, batch, sub, bt)
+    if raw.device.type == "cpu":
+        return into(out, fused2_v2_plain(raw, batch, sub, bt, scale))
+    y = _launch_fused("fused2_v2", raw, batch, sub, (bt, scale), out)
+    fused2_v2.launches += 1
+    return y
+
+
+fused2_v2.launches = 0
+fused2_v2.plain = fused2_v2_plain
+
+
+def fused2_v3(raw, batch: int, sub: SubTables, bt: int, scale: float,
+              out=None):
+    """K2-v3: ``batch`` FUSED [a, 128] transforms (a with a fold), ``bt``
+    of them a block (0: ``pick_tile``); the scale rides in the stage-B
+    roots."""
+    bt = _folded("fused2_v3", raw, batch, sub, bt)
+    if raw.device.type == "cpu":
+        return into(out, fused2_v3_plain(raw, batch, sub, bt, scale))
+    y = _launch_fused("fused2_v3", raw, batch, sub, (bt, scale), out)
+    fused2_v3.launches += 1
+    return y
+
+
+fused2_v3.launches = 0
+fused2_v3.plain = fused2_v3_plain

@@ -218,6 +218,101 @@ def is_two_stage(plan: Plan1D) -> bool:
     return plan.level == Level.FUSED and len(f) == 2 and f[1] == 128
 
 
+def fold_factor(a: int) -> int:
+    """The JAX package's k2-fold count g of a FUSED [a, 128] plan
+    (``pallas_fft.fold_factor``): 1 where 2a is a multiple of 128, 128/(2a)
+    where 2a divides 128, else 0.  Its engine-2 and engine-3 kernels take
+    only g > 0; the Hopper kernels K2-v2 and K2-v3 keep that condition (they
+    fold nothing: they write natural order directly)."""
+    if (2 * a) % 128 == 0:
+        return 1
+    if 128 % (2 * a) == 0:
+        return 128 // (2 * a)
+    return 0
+
+
+def _planes(raw: torch.Tensor, batch: int, a: int):
+    """The (re, im) planes of the raw buffer as (batch, a, 128) = [n1, n2]."""
+    x = raw.view(batch, a, 128, 2)
+    return x[..., 0], x[..., 1]
+
+
+def _natural(cr: torch.Tensor, ci: torch.Tensor, scale: float) -> torch.Tensor:
+    """C (..., k1, k2) planes -> the raw buffer in natural order
+    out[k1 + a·k2], scaled."""
+    y = torch.stack((cr, ci), dim=-1).transpose(-2, -3)  # [k2, k1, p]
+    return (y * scale).reshape(-1)
+
+
+def fused2_v1_plain(raw: torch.Tensor, batch: int, sub, scale: float) -> torch.Tensor:
+    """Plain version of K2-v1 (``fused2_raw_call``'s decomposition): the
+    planes transposed to [n2, n1], stage A as a right matmul by W_a, the
+    inner twiddle in [n2, k1] orientation, the transpose back, stage B by
+    W_128, and the digit-reversed store out[k1 + a·k2] as one transpose.
+    ``sub``: ``cuda_fft.SubTables`` of the plan (W_a, W_128, U)."""
+    xr, xi = _planes(raw, batch, sub.a)
+    with full_fp32_matmuls(raw):
+        ar, ai = complex_matmul(xr.transpose(-1, -2), xi.transpose(-1, -2),
+                                sub.wr, sub.wi)  # [n2, k1]
+        ar, ai = complex_mul(ar, ai, sub.ur.T, sub.ui.T)
+        cr, ci = complex_matmul(ar.transpose(-1, -2), ai.transpose(-1, -2),
+                                sub.br, sub.bi)  # [k1, k2]
+        return _natural(cr, ci, scale)
+
+
+def fused2_v2_plain(raw: torch.Tensor, batch: int, sub, bt: int,
+                    scale: float) -> torch.Tensor:
+    """Plain version of K2-v2 (``fused2_raw_v2_call``'s decomposition):
+    de-interleaved planes, per tile of ``bt`` transforms stage A as one left
+    matmul W_a @ X over the (a, bt·128) view, the inner twiddle broadcast
+    over the tile, stage B by W_128 over the (a, bt, 128) view, then
+    re-interleaved in natural order with the scale."""
+    a = sub.a
+    xr, xi = _planes(raw, batch, a)
+
+    def tiled(p):  # (batch, a, 128) -> (tiles, a, bt·128) = [n1, (b, n2)]
+        return p.reshape(batch // bt, bt, a, 128).transpose(1, 2).reshape(
+            batch // bt, a, bt * 128)
+
+    with full_fp32_matmuls(raw):
+        ar, ai = complex_matmul(sub.wr, sub.wi, tiled(xr), tiled(xi))
+        shape = (batch // bt, a, bt, 128)
+        ar, ai = complex_mul(ar.view(shape), ai.view(shape),
+                             sub.ur[:, None], sub.ui[:, None])
+        cr, ci = complex_matmul(ar, ai, sub.br, sub.bi)  # [k1, b, k2]
+        return _natural(cr.transpose(1, 2), ci.transpose(1, 2), scale)
+
+
+def _pairswap(x: torch.Tensor) -> torch.Tensor:
+    """Interleaved (re, im) pairs -> (-im, re): i·z on the pairs."""
+    p = x.unflatten(-1, (-1, 2))
+    return torch.stack((-p[..., 1], p[..., 0]), dim=-1).flatten(-2)
+
+
+def fused2_v3_plain(raw: torch.Tensor, batch: int, sub, bt: int,
+                    scale: float) -> torch.Tensor:
+    """Plain version of K2-v3 (``fused2_raw_v3_call``'s decomposition):
+    the pairs stay interleaved.  Stage A is the left complex matmul on
+    interleaved rows, W_r @ x + W_i @ pairswap(x); the inner twiddle is
+    y·U_r + pairswap(y)·U_i with U pair-expanded; stage B is one real
+    matmul by the (256, 256) interleaved table of scale·W_128 (the scale
+    folded into the stage-B table, as the reference's ``vmat_split``).
+    ``bt`` tiles nothing here: the transforms are independent."""
+    del bt
+    a = sub.a
+    x = raw.view(batch, a, 256)  # [n1, 2·n2 + p]
+    with full_fp32_matmuls(raw):
+        y = torch.matmul(sub.wr, x) + torch.matmul(sub.wi, _pairswap(x))
+        y = (y * sub.ur.repeat_interleave(2, -1)
+             + _pairswap(y) * sub.ui.repeat_interleave(2, -1))
+        br, bi = sub.br * scale, sub.bi * scale
+        v = torch.empty(256, 256, dtype=raw.dtype, device=raw.device)
+        v[0::2, 0::2], v[1::2, 0::2] = br, -bi
+        v[0::2, 1::2], v[1::2, 1::2] = bi, br
+        c = torch.matmul(y, v).view(batch, a, 128, 2)  # [k1, k2, p]
+        return c.transpose(1, 2).reshape(-1)
+
+
 def bf_factor(g: int) -> int:
     """The butterfly factor A of g = A·128 for K5: a power of two in
     [1, 16], else 0 (``pallas_global_bf.bf_factor``)."""

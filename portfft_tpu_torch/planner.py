@@ -154,6 +154,19 @@ def two_stage_vmem_bytes(a: int, bt: int, itemsize: int = 4) -> int:
     )
 
 
+def two_stage_smem_bytes(a: int, bt: int, engine: str) -> int:
+    """Shared memory a block of the FUSED [a, 128] kernel ``engine``
+    (``"fused2_v1"``, ``"fused2_v2"`` or ``"fused2_v3"``) takes to hold
+    ``bt`` transforms, as the kernels in ``csrc/fft_fused2_v*.cu`` lay it
+    out: the a-point and 128-point root tables (float2), then per
+    transform K2-v1's two tiles of 128 rows of a + 1 float2, or K2-v2's
+    (re, im) planes and K2-v3's float2 tile of a rows of 129 elements.
+    Judged against ``config.H100_SMEM_PER_BLOCK``; beside the JAX package's
+    ``two_stage_vmem_bytes``, which it does not replace."""
+    per = 2 * 128 * (a + 1) if engine == "fused2_v1" else a * 129
+    return 8 * (a + 128 + bt * per)
+
+
 def _two_stage_vmem_ok(a: int, cfg: DeviceConfig, itemsize: int) -> bool:
     """True when the two-stage estimate at the smallest batch tile
     128/gcd(a, 128) fits the budget."""

@@ -1,11 +1,14 @@
-"""Measured engine choice for GLOBAL plans, and ``autotune``.
+"""Measured engine choice for GLOBAL and FUSED plans, and ``autotune``.
 
 Counterpart of ``portfft_tpu.tuning``.  A GLOBAL plan n = G1·G2 has up to
 four kernels that compute the same function (``fastpath``'s ``global2``
 entry): the two-pass K3 (``{}``, the static route), the single-pass K4
 (``{"eng": 5}``), the butterfly-factored single-sweep K5 (``{"eng": 7}``)
-and its phase-overlay schedule K5-ov (``{"eng": 7, "ov": 1}``).  Which is
-fastest is measured once per (device, plan) and the winner persisted:
+and its phase-overlay schedule K5-ov (``{"eng": 7, "ov": 1}``).  A FUSED
+plan [a, 128] (the ``fused2`` entry) has K2 (``{}``, the static route),
+K2-v2 (``{"eng": 2, "bt": bt}``) and K2-v3 (``{"eng": 3, "bt": bt}``) with
+a batch tile bt, or, where a has no fold, K2-v1 (``{"eng": 2}``).  Which
+is fastest is measured once per (device, plan) and the winner persisted:
 
 * ``tuning_defaults.json`` (shipped, read-only): winners measured on an
   H100 (key ``cuda_h100``) by :meth:`CommittedDescriptor.autotune`
@@ -15,8 +18,10 @@ fastest is measured once per (device, plan) and the winner persisted:
   own card; it overrides the shipped table.
 
 Lookups are by device name (``config.DeviceConfig.name``: ``cuda_h100``,
-``cpu``), kind (``"global2"``, or ``"global_split"`` for the planner's
-split) and a shape key (:func:`_entry_key`).  ``PORTFFT_NO_TUNING`` turns
+``cpu``), kind (``"global2"``, ``"fused2"``, or ``"global_split"`` for the
+planner's split) and a shape key (:func:`_entry_key`; it holds no batch,
+so a tuned batch tile the batch cannot take is dropped at commit, not
+marked stale).  ``PORTFFT_NO_TUNING`` turns
 every lookup off.  A miss keeps the static route, so the table only ever
 adds.  The engine is fixed at commit: ``fastpath`` marks a tuned engine
 whose gate declines the plan stale (:func:`mark_stale_if_tuned`) and takes
@@ -171,26 +176,42 @@ def _entry_key(committed, kind: str, n: Optional[int] = None) -> str:
 
 def _variants_for_entry(committed, entry) -> list[dict]:
     """The engines an entry can race, ``{}`` (the static route) first:
-    those of its ``global2`` entry, which REAL and layout entries wrap."""
-    from .fastpath import global_entry
+    those of its ``global2`` or ``fused2`` entry, which REAL and layout
+    entries wrap."""
+    from .fastpath import inner_entry
 
-    inner = global_entry(entry)
-    if inner is None:
+    inner = inner_entry(entry)
+    if inner[0] not in ("global2", "fused2"):
         return []
-    return _variants_1d(committed, "global2", inner[1].n)
+    return _variants_1d(committed, inner[0], inner[1].n, inner[2])
 
 
-def _variants_1d(committed, kind: str, n: int) -> list[dict]:
-    """``{}`` (K3) and each engine whose gate takes the length-``n`` plan:
-    ``{"eng": 5}`` (K4), ``{"eng": 7}`` (K5), ``{"eng": 7, "ov": 1}``
-    (K5-ov).  No kernel of this package has a tile knob worth racing."""
-    from .fastpath import ENGINE_PARAMS, engine_supported
+def _variants_1d(committed, kind: str, n: int, batch: int) -> list[dict]:
+    """``{}`` (the static route) and each engine whose gate takes the
+    length-``n`` plan at ``batch``.  ``global2``: ``{"eng": 5}`` (K4),
+    ``{"eng": 7}`` (K5), ``{"eng": 7, "ov": 1}`` (K5-ov); no tile knob
+    worth racing.  ``fused2``: ``{"eng": 2, "bt": bt}`` (K2-v2) and
+    ``{"eng": 3, "bt": bt}`` (K2-v3) for each bt in 1 … 32 that divides the
+    batch and that the gate takes; where a has no fold, ``{"eng": 2}``
+    (K2-v1) once, since engines 2 and 3 both reach it there."""
+    from .fastpath import ENGINE_PARAMS, _engine_of, engine_supported
 
-    if kind != "global2":
-        return []
     plan = committed.plans[n]
-    return [params for engine, params in ENGINE_PARAMS.items()
-            if engine_supported(engine, plan)]
+    if kind == "global2":
+        return [params for engine, params in ENGINE_PARAMS.items()
+                if engine_supported(engine, plan)]
+    if kind != "fused2":
+        return []
+    out = [{}]
+    if _engine_of({"eng": 2}, plan) == "fused2_v1":
+        if engine_supported("fused2_v1", plan):
+            out.append({"eng": 2})
+        return out
+    for bt in (1, 2, 4, 8, 16, 32):
+        for eng in (2, 3):
+            if engine_supported(_engine_of({"eng": eng}, plan), plan, batch, bt):
+                out.append({"eng": eng, "bt": bt})
+    return out
 
 
 def _time_bursts(fns: dict, x, iters: int, rounds: int = 3) -> dict:
@@ -223,10 +244,11 @@ def _time_bursts(fns: dict, x, iters: int, rounds: int = 3) -> dict:
 def autotune(committed, iters: int = 5,
              times: Optional[dict] = None) -> Optional[dict]:
     """Race the engines of ``committed``'s forward entry on its device,
-    persist the winner under the ``global2`` kind and key of the GLOBAL
-    plan it runs (a REAL or layout entry's inner one), re-register both
-    directions, and return the winning parameters; None where the plan has
-    nothing to race.  A variant whose output is more than 1e-3 (relative
+    persist the winner under the kind (``global2`` or ``fused2``) and key
+    of the GLOBAL or FUSED plan it runs (a REAL or layout entry's inner
+    one, so a REAL transform records under its half length), re-register
+    both directions, and return the winning parameters; None where the
+    plan has nothing to race.  A variant whose output is more than 1e-3 (relative
     2-norm) from the ``{}`` baseline's is dropped with a trace.  ``times``,
     where given, receives ``{json of the parameters: ms per call}`` of each
     variant raced."""
@@ -241,8 +263,9 @@ def autotune(committed, iters: int = 5,
     if len(variants) <= 1:
         return None
     d = committed.descriptor
-    inner = fastpath.global_entry(entry)
-    key = _entry_key(committed, "global2", inner[1].n)
+    inner = fastpath.inner_entry(entry)
+    kind = inner[0]
+    key = _entry_key(committed, kind, inner[1].n)
     count = d.get_input_count(Direction.FORWARD)
     real_in = d.domain == Domain.REAL
     rng = np.random.default_rng(0)
@@ -258,18 +281,18 @@ def autotune(committed, iters: int = 5,
         else:
             rel = float(torch.linalg.vector_norm(y - ref)) / ref_norm
             if not rel <= 1e-3:
-                plog.trace(f"autotune global2/{key} {params}: output mismatch "
+                plog.trace(f"autotune {kind}/{key} {params}: output mismatch "
                            f"(rel {rel:.1e}) - dropped")
                 continue
         fns[i] = fn
     del ref
     best = None
     for i, t in _time_bursts(fns, x, iters).items():
-        plog.trace(f"autotune global2/{key} {variants[i]}: {t * 1e3:.3f} ms")
+        plog.trace(f"autotune {kind}/{key} {variants[i]}: {t * 1e3:.3f} ms")
         if times is not None:
             times[json.dumps(variants[i], sort_keys=True)] = t * 1e3
         if best is None or t < best[0]:
             best = (t, variants[i])
-    record(committed.config.name, "global2", key, best[1])
+    record(committed.config.name, kind, key, best[1])
     committed._register()
     return best[1]

@@ -725,3 +725,115 @@ def test_tuned_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatc
         assert (y.to(torch.complex128) - ref).abs().max().item() <= oracle_tol(n)
     finally:
         tuning._reset_for_tests()
+
+
+# -- the FUSED engines: K2-v1 fused2_v1, K2-v2 fused2_v2, K2-v3 fused2_v3 -------
+
+# (kernel, n, batch, bt): K2-v1 at the no-fold a = 5, 7, 24, 96 and one a
+# with a fold, with a batch that leaves a short last tile; K2-v2 and K2-v3
+# at a = 8 … 192 and every register tile, bt 0 letting the wrapper pick.
+FUSED_ENGINE_CASES = [
+    ("fused2_v1", 640, 13, None), ("fused2_v1", 896, 5, None),
+    ("fused2_v1", 3072, 7, None), ("fused2_v1", 12288, 3, None),
+    ("fused2_v1", 4096, 4, None),
+    ("fused2_v2", 1024, 16, 8), ("fused2_v2", 1024, 6, 2), ("fused2_v2", 4096, 8, 4),
+    ("fused2_v2", 4096, 3, 1), ("fused2_v2", 8192, 4, 2), ("fused2_v2", 16384, 3, 1),
+    ("fused2_v2", 24576, 4, 1), ("fused2_v2", 2048, 12, 0),
+    ("fused2_v3", 1024, 32, 16), ("fused2_v3", 1024, 5, 1), ("fused2_v3", 4096, 8, 4),
+    ("fused2_v3", 8192, 4, 2), ("fused2_v3", 16384, 3, 1), ("fused2_v3", 24576, 2, 1),
+    ("fused2_v3", 2048, 12, 0),
+]
+
+
+@pytest.mark.parametrize("engine,n,batch,bt", FUSED_ENGINE_CASES)
+@pytest.mark.parametrize("inplace", [False, True])
+def test_fused2_engine_matches_plain_and_oracle(cuda, engine, n, batch, bt, inplace):
+    """K2-v1, K2-v2 and K2-v3 against their plain versions
+    (1e-5·max|plain|) and ``torch.fft`` (the absolute 2·eps·N·log2N·|scale|),
+    both directions with a scale, out of place and in place."""
+    from portfft_tpu_torch.ops import cuda_fft
+
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         forward_scale=0.5, backward_scale=3.0 / n).commit()
+    x = torch.rand(2 * batch * n, device=cuda) * 2 - 1
+    xc = torch.view_as_complex(x.view(batch, n, 2)).to(torch.complex128)
+    kernel = getattr(cuda_fft, engine)
+    for direction, scale in ((pf.Direction.FORWARD, 0.5),
+                             (pf.Direction.BACKWARD, 3.0 / n)):
+        entry = plan._raw_fast[direction]
+        _, args = fastpath.kernel_args(plan, entry)
+        batch_, sub, scale_ = args
+        assert scale_ == scale
+        args = (batch_, sub, scale) if bt is None else (batch_, sub, bt, scale)
+        before = kernel.launches
+        plain_args = args if bt != 0 else (batch_, sub, cuda_fft.pick_tile(
+            engine, sub.a, batch), scale)
+        want = kernel.plain(x, *plain_args)
+        if inplace:
+            got = x.clone()
+            assert kernel(got, *args, out=got) is got
+        else:
+            got = kernel(x, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
+        ref = (torch.fft.fft(xc) if direction == pf.Direction.FORWARD
+               else torch.fft.ifft(xc, norm="forward")) * scale
+        diff = (torch.view_as_complex(got.view(batch, n, 2)) - ref).abs().max()
+        assert diff.item() <= oracle_tol(n) * scale, (direction, diff.item())
+
+
+# (descriptor fields, tuned parameters, the kernel that must launch): a 1D,
+# a REAL (the half length's entry) and a layout descriptor.
+TUNED_FUSED_ROUTES = [
+    (dict(lengths=[4096], number_of_transforms=8), {"eng": 2, "bt": 4}, "fused2_v2"),
+    (dict(lengths=[3072], number_of_transforms=6), {"eng": 3, "bt": 2}, "fused2_v1"),
+    (dict(lengths=[8192], number_of_transforms=4, domain=pf.Domain.REAL),
+     {"eng": 3, "bt": 2}, "fused2_v3"),
+    (dict(lengths=[4096], number_of_transforms=5, forward_strides=[2],
+          forward_distance=2 * 4096), {"eng": 2, "bt": 1}, "fused2_v2"),
+]
+
+
+@pytest.mark.parametrize("fields,params,engine", TUNED_FUSED_ROUTES)
+def test_tuned_fused2_route_runs_its_kernel(cuda, tmp_path, monkeypatch, fields,
+                                            params, engine):
+    """A recorded ``fused2`` winner routes ``compute_forward`` through its
+    kernel (once), the result holds against ``torch.fft``, and ``autotune``
+    on the card records one of the raced variants."""
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.ops import cuda_fft
+
+    monkeypatch.delenv("PORTFFT_NO_TUNING")
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "tune.json"))
+    tuning._reset_for_tests()
+    try:
+        desc = pf.Descriptor(**fields)
+        real = desc.domain == pf.Domain.REAL
+        n, batch = desc.lengths[0], desc.number_of_transforms
+        h = n // 2 if real else n
+        probe = desc.commit()
+        key = tuning._entry_key(probe, "fused2", h)
+        tuning.record(probe.config.name, "fused2", key, params)
+        plan = desc.commit()
+        kernel = getattr(cuda_fft, engine)
+        stride = fields.get("forward_strides", [1])[0]
+        x = torch.rand(batch * n * stride * (1 if real else 2), device=cuda) * 2 - 1
+        before = kernel.launches
+        y = plan.compute_forward(x)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        if real:
+            ref = torch.fft.rfft(x.view(batch, n).double())
+            got = torch.view_as_complex(y.view(batch, n // 2 + 1, 2))
+        else:
+            xc = torch.view_as_complex(x.view(batch, n * stride, 2))[:, ::stride]
+            ref = torch.fft.fft(xc.to(torch.complex128))
+            got = torch.view_as_complex(y.view(batch, n, 2))
+        assert (got.to(torch.complex128) - ref).abs().max().item() <= oracle_tol(n)
+        times = {}
+        won = plan.autotune(iters=1, times=times)
+        assert len(times) >= 2 and tuning.lookup(plan.config.name, "fused2", key) == won
+    finally:
+        tuning._reset_for_tests()

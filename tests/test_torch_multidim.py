@@ -47,6 +47,7 @@ REF_KERNELS = {
     (pallas_fft, "direct_raw_call"): "direct",
     (pallas_fft, "fused2_raw_mm_call"): "fused2",
     (pallas_fft, "fused2_raw_v2_call"): "fused2",
+    (pallas_fft, "fused2_raw_call"): "fused2_v1",
     (pallas_global, "global2_raw_call"): "global2",
     (pallas_multidim, "col_raw_call"): "col",
     (pallas_multidim, "col_raw_mm_call"): "col",

@@ -238,8 +238,9 @@ def test_distributed_commit_raises():
 
 
 def test_port_never_imports_jax():
-    """``import portfft_tpu_torch`` and a CPU transform succeed with JAX
-    and the JAX package made unimportable; no source file imports them."""
+    """``import portfft_tpu_torch`` and CPU transforms (C2C, REAL, and the
+    FUSED engines K2-v1, K2-v2, K2-v3) succeed with JAX and the JAX package
+    made unimportable; no source file imports them."""
     code = r"""
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
@@ -257,6 +258,13 @@ real = pt.Descriptor(lengths=[1000], number_of_transforms=2,
                      domain=pt.Domain.REAL).commit(device="cpu")
 r = real.compute_forward(np.ones(2000, np.float32))
 assert abs(r[0] - 1000) < 1e-2 and abs(r[1:501]).max() < 1e-2
+import torch
+from portfft_tpu_torch import fastpath
+for n, params in ((4096, {"eng": 2, "bt": 2}), (4096, {"eng": 3}), (640, {"eng": 2})):
+    f = pt.Descriptor(lengths=[n], number_of_transforms=2).commit(device="cpu")
+    e = fastpath.with_engine(f, f._raw_fast[pt.Direction.FORWARD], params)
+    z = fastpath.build_fn(f, e)(torch.ones(4 * n))
+    assert abs(z[0] - n) < 1e-2 and abs(z[2:2 * n]).max() < 1e-2
 assert not any(m.split(".")[0] in ("jax", "portfft_tpu") for m in sys.modules)
 print("ok")
 """

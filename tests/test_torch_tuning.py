@@ -1,11 +1,12 @@
 """The tuning table and ``autotune`` of portfft_tpu_torch against the JAX
 package's (``portfft_tpu.tuning``), on the CPU, each package with its own
 temporary cache file: the same record/lookup/stale/forget semantics, the
-same tuned GLOBAL split, the engine variants where the port's gates take
-the plan, ``autotune`` recording its winner under the GLOBAL kind and key
-(a REAL plan's under its half-length sub), the parity gate, and at commit
-a tuned engine whose gate declines the plan (marked stale, with a warning,
-and the static route computes) or that has no kernel here (raises).
+same tuned GLOBAL split, the GLOBAL and FUSED engine variants where the
+port's gates take the plan, ``autotune`` recording its winner under the
+GLOBAL kind and key (a REAL plan's under its half-length sub), the parity
+gate, and at commit a tuned engine whose gate declines the plan (marked
+stale, with a warning, and the static route computes) or that has no
+kernel here (raises).
 Values are held to ``np.fft`` at ``oracle.tolerance`` (2·eps·N·log2N).
 """
 
@@ -129,14 +130,23 @@ def test_tuned_global_split_plans_alike(tmp_caches):
 
 def test_shipped_table_is_consistent():
     """The port ships H100 winners only: every entry names an engine with a
-    kernel here, splits factor their length, and no TPU key is present."""
+    kernel here (a ``fused2`` entry one of K2-v1, K2-v2, K2-v3 whose gate
+    takes its plan at its tile: a row K2 won has no entry), splits factor
+    their length, and no TPU key is present."""
     path = os.path.join(os.path.dirname(tuning.__file__), "tuning_defaults.json")
     with open(path) as f:
         ship = json.load(f)
     assert list(ship) == ["cuda_h100"]
     assert not any(dev.startswith("tpu") for dev in ship)
     table = ship["cuda_h100"]
-    assert set(table) <= {"global2", "global_split"}
+    assert set(table) <= {"global2", "global_split", "fused2"}
+    assert table.get("fused2")
+    for key, params in table["fused2"].items():
+        plan = plan_1d(int(key[1:]), DeviceConfig(), 4)
+        engine = fastpath._engine_of(params, plan)
+        assert engine in fastpath.FUSED_ENGINE_PARAMS and engine != "fused2", key
+        bt = params.get("bt", 0)
+        assert fastpath.engine_supported(engine, plan, bt or 1, bt), (key, params)
     for key, params in table.get("global2", {}).items():
         assert params in fastpath.ENGINE_PARAMS.values(), (key, params)
         n, split = key[1:].split("_g")
@@ -147,6 +157,10 @@ def test_shipped_table_is_consistent():
 
 
 ENGINES = ({"eng": 5}, {"eng": 7}, {"eng": 7, "ov": 1})
+# FUSED at batch 2: K2-v2 and K2-v3 at bt 1 and 2 (a = 32); K2-v1 where a
+# has no fold (a = 5).  The reference's tile rules ((bt·a) % 128 for its
+# engine 2, % 8 for engine 3) take only engine 3 at 4096 × 2, nothing at 640.
+FUSED_ENGINES = tuple({"eng": e, "bt": b} for b in (1, 2) for e in (2, 3))
 
 
 @pytest.mark.parametrize("n,expect,ref_expect", [
@@ -157,6 +171,8 @@ ENGINES = ({"eng": 5}, {"eng": 7}, {"eng": 7, "ov": 1})
     # the reference's VMEM estimate at its default 16 MiB declines eng 7 at
     # 2048 x 512 (its TPU table, with more VMEM, runs it)
     (1 << 20, ENGINES[1:], ()),
+    (4096, FUSED_ENGINES, FUSED_ENGINES[1::2]),
+    (640, ({"eng": 2},), ()),
 ])
 def test_variants_where_the_gates_take_the_plan(tmp_caches, n, expect, ref_expect):
     plan = pf.Descriptor(lengths=[n], number_of_transforms=2).commit(device="cpu")
@@ -167,12 +183,19 @@ def test_variants_where_the_gates_take_the_plan(tmp_caches, n, expect, ref_expec
     for v in ref_expect:  # the reference races the same engines
         assert any(r.get("eng") == v["eng"] and bool(r.get("ov")) == bool(v.get("ov"))
                    for r in rvar), v
-    assert tuning._entry_key(plan, "global2") == ref_tuning._entry_key(rplan, "global2")
+    kind = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])[0]
+    assert tuning._entry_key(plan, kind) == ref_tuning._entry_key(rplan, kind)
 
 
 def test_no_variants_outside_global(tmp_caches):
-    plan = pf.Descriptor(lengths=[4096], number_of_transforms=2).commit(device="cpu")
+    """Nothing to race outside the GLOBAL and FUSED entries (a DIRECT plan),
+    nor on a FUSED plan only K2 takes (32768 = [256, 128]: one transform
+    does not fit a block of K2-v1, K2-v2 or K2-v3)."""
+    plan = pf.Descriptor(lengths=[256], number_of_transforms=2).commit(device="cpu")
     assert tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD]) == []
+    assert plan.autotune(iters=1) is None
+    plan = pf.Descriptor(lengths=[32768], number_of_transforms=2).commit(device="cpu")
+    assert tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD]) == [{}]
     assert plan.autotune(iters=1) is None
 
 
@@ -210,16 +233,17 @@ def test_autotune_takes_iters_first_as_the_reference(tmp_caches):
 
 
 def test_global_entry_unwraps_real_and_layout_entries(tmp_caches):
-    """``fastpath.global_entry`` finds the GLOBAL entry inside a REAL or
-    layout entry, and None where a plan runs no GLOBAL transform."""
+    """``fastpath.inner_entry`` finds the GLOBAL entry inside a REAL or
+    layout entry, and returns an unwrapped entry (a FUSED one) as it is."""
     for fields in (dict(domain=pf.Domain.REAL, lengths=[1 << 17]),
                    dict(lengths=[65536], forward_strides=[2],
                         forward_distance=2 * 65536)):
         plan = pf.Descriptor(number_of_transforms=2, **fields).commit(device="cpu")
-        inner = fastpath.global_entry(plan._raw_fast[pf.Direction.FORWARD])
+        inner = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])
         assert inner[0] == "global2" and inner[1].n == 65536
     plan = pf.Descriptor(lengths=[4096]).commit(device="cpu")
-    assert fastpath.global_entry(plan._raw_fast[pf.Direction.FORWARD]) is None
+    entry = plan._raw_fast[pf.Direction.FORWARD]
+    assert fastpath.inner_entry(entry) is entry and entry[0] == "fused2"
 
 
 def test_autotune_real_records_under_its_sub(tmp_caches):
