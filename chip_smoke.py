@@ -85,7 +85,7 @@
    twiddle factor GB conjugated); each timed alone at ``TUNED_ALONE``
    (2^27 points).  Tuned layout rows, ``TUNED_LAYOUT``: the layout rows
    at 65536 with tuning on and only the shipped table, each held to the
-   engine that table names for its plan (K5-ov) and then run as on the
+   engine that table names for its plan (K16) and then run as on the
    layout main path (launches, oracle, gaps, times).  Main path,
    ``TUNED_ROWS`` (large_1d and the ladder
    2^17–2^20 at about 1 GiB), with tuning on: each engine whose gate takes
@@ -112,9 +112,27 @@
    and prints each variant's ms and the winner; the line "autotune winners
    (fused2, ...)" is the JSON of ``tuning_defaults.json``'s
    ``cuda_h100.fused2`` (rows K2 won are left out).
-8. Prints the kernel table as one JSON line (each kernel's launches on the
+8. The tensor-core kernels.  Kernel phase: K10-mm ``col_mm`` at the
+   (bpre, L, rest) views of ``MMA_COL_CASES`` and K16 ``global3`` at the
+   (n, batch) of ``MMA_GLOBAL_CASES``, both directions with a scale,
+   against their plain versions (which emulate the TF32 hi/lo rounding) and
+   ``torch.fft`` with the two planted faults (K10-mm: its roots or inner
+   twiddle conjugated; K16: its high twiddle factor B2); the lengths
+   K10-mm's gate declines among K10's are printed.  K10-mm is timed beside
+   K10 at every case, and each kernel alone at ``MMA_ALONE`` beside the
+   kernel it stands in for (K10; K3 and K5-ov).  Their bound is every C2C
+   kernel's: the function's bytes and 5·N·log2 N flops at fp32.  Tuned
+   multi-dim main path, ``MD_ROWS`` with tuning on: each variant of the
+   row's ``multidim`` or ``bi_col`` entry (``{}``, ``{"cm": 1}``,
+   ``{"m2": 0}``, ``{"m2": 0, "cm": 1}`` where they change a kernel) is
+   forced by a recorded entry, must launch its kernels, is held to
+   ``torch.fft`` and timed; then ``plan.autotune()`` races them and the
+   line "autotune winners (multidim/bi_col, ...)" gives the winners.  The
+   tuned GLOBAL main path (6.) forces and races K16 (``{"eng": 3}``) beside
+   K3, K4, K5 and K5-ov.
+9. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
-   ms and library ms; twenty kernels), then, as the last line, ``{"ok":
+   ms and library ms; twenty-two kernels), then, as the last line, ``{"ok":
    true, "device": {...}}``.  Any failure exits non-zero before that line.
 """
 
@@ -197,7 +215,7 @@ MD2_CASES = [(256, 512, 512), (4096, 128, 128), (64, 1024, 128),
 # The cases timed alone: md_1024x1024's column pass and md_512x512.
 MD_ALONE = {"col": (64, 1024, 1024), "md2": (256, 512, 512)}
 # The transformed axes of each kernel's complex (b, ., .) view.
-MD_DIMS = {"col": (1,), "md2": (1, 2)}
+MD_DIMS = {"col": (1,), "col_mm": (1,), "md2": (1, 2)}
 # Plane path rows (bench.py EXTRA_CONFIGS large_1d_prime, both directions,
 # and one row per other route at about 1 GiB of input): name, n, batch,
 # direction.  1031: generic Bluestein over K13 [24, 128]; 1000: K13's
@@ -354,6 +372,19 @@ FUSED_ALONE = {"fused2_v1": (3072, 32768), "fused2_v2": (4096, 32768),
 # Rows run with tuning on and only the shipped table: their FUSED entry
 # (n = 4096) must take the engine that table names for n4096.
 FUSED_SHIPPED = ("real_large", "bi_in_4096")
+# The tensor-core kernels.  K10-mm at (bpre, L, rest): every column step a
+# variant of an ``MD_ROWS`` row gives it, md_1024x1024's (FUSED [8, 128]),
+# md_128^3's two (DIRECT 128; the axis-1 step where K11 is off), bi_4096's
+# (FUSED [32, 128]) and md_512x512's per-axis route (DIRECT 512).  K16 at
+# (n, batch): every ``TUNED_ROWS`` shape, where the tuned GLOBAL path forces
+# and races it (256 x 256 … FUSED [16, 128] x 512).
+MMA_COL_CASES = [(64, 1024, 1024), (32, 128, 16384), (4096, 128, 128),
+                 (1, 4096, 32768), (256, 512, 512)]
+MMA_GLOBAL_CASES = [(n, batch) for _, n, batch in TUNED_ROWS]
+MMA_KINDS = ("col_mm", "global3")
+# Timed alone: K10-mm at md_1024x1024's column pass (beside K10), K16 at
+# large_1d (beside K3 and K5-ov).
+MMA_ALONE = {"col_mm": (64, 1024, 1024), "global3": (65536, 2048)}
 SOURCES = {
     "direct": ("portfft_tpu_torch/csrc/fft_direct.cu",
                "portfft_tpu/ops/pallas_fft.py:386"),
@@ -395,6 +426,10 @@ SOURCES = {
                   "portfft_tpu/ops/pallas_fft.py:607"),
     "fused2_v3": ("portfft_tpu_torch/csrc/fft_fused2_v3.cu",
                   "portfft_tpu/ops/pallas_fft.py:910"),
+    "col_mm": ("portfft_tpu_torch/csrc/fft_col_mm.cu",
+               "portfft_tpu/ops/pallas_multidim.py:240"),
+    "global3": ("portfft_tpu_torch/csrc/fft_global3.cu",
+                "portfft_tpu/ops/pallas_global3.py:294"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
@@ -407,7 +442,7 @@ STRIDE_KINDS = ("destride", "restride")
 # The tuned GLOBAL engines K4, K5 and K5-ov (K3 is "global2").
 TUNED_KINDS = ("global_sq", "global_bf", "global_bf_ov")
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
-# fp32 outside the tensor cores, per millisecond.
+# fp32, per millisecond.
 HBM_BYTES_PER_MS = 3.35e9
 FP32_FLOPS_PER_MS = 67e9
 
@@ -430,7 +465,7 @@ def work(kind: str, n: int, batch: int) -> tuple[int, float]:
     if kind == "interleave":  # both K6 kernels, n the element count
         return 32 * batch * n, 2.0 * batch * n
     if kind in (C2C_KINDS + MD_KINDS + PLANE_KINDS + SPLIT_KINDS + TUNED_KINDS
-                + FUSED_KINDS):
+                + FUSED_KINDS + MMA_KINDS):
         return 16 * batch * n, 5 * n * lg * batch
     if kind in ("untangle", "retangle"):
         return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
@@ -564,9 +599,13 @@ def planted(kind: str, args: tuple) -> tuple:
         batch, tabs, scale = args
         return (batch, dataclasses.replace(tabs, gb=(tabs.gb[0], -tabs.gb[1])),
                 scale)
-    if kind == "col":
+    if kind in ("col", "col_mm"):
         bpre, rest, sub, scale = args
         return (bpre, rest, conjugated(sub), scale)
+    if kind == "global3":  # the high factor of the twiddle
+        batch, tabs, scale = args
+        return (batch, dataclasses.replace(tabs, b2=(tabs.b2[0], -tabs.b2[1])),
+                scale)
     if kind == "md2":
         batch, sub1, sub2, scale = args
         return (batch, sub1, conjugated(sub2), scale)
@@ -890,14 +929,14 @@ def sub_tables_of(pf, n: int, sign: int, device: str = "cuda"):
 
 def md_kernel_case(pf, kind: str, shape: tuple, sign: int, scale: float,
                    device: str = "cuda") -> tuple:
-    """``(kernel, args)`` of a K10 case, ``shape`` = (bpre, L, rest), or a
-    K11 case, (batch, n1, n2)."""
+    """``(kernel, args)`` of a K10 or K10-mm case, ``shape`` = (bpre, L,
+    rest), or a K11 case, (batch, n1, n2)."""
     from portfft_tpu_torch.ops import cuda_multidim
 
-    if kind == "col":
+    if kind in ("col", "col_mm"):
         bpre, length, rest = shape
         sub = sub_tables_of(pf, length, sign, device)
-        return cuda_multidim.col, (bpre, rest, sub, scale)
+        return getattr(cuda_multidim, kind), (bpre, rest, sub, scale)
     batch, n1, n2 = shape
     return cuda_multidim.md2, (batch, sub_tables_of(pf, n1, sign, device),
                                sub_tables_of(pf, n2, sign, device), scale)
@@ -955,6 +994,14 @@ def md_kernel_phase(pf, max_err: dict, card: str) -> dict:
     return alone
 
 
+def md_kinds(entry) -> list[str]:
+    """The kernels of a multi-dim or ``bi_col`` entry, in the order they
+    run."""
+    if entry[0] == "bi_col":
+        return [entry[6]]
+    return [s[0] for s in entry[2]]
+
+
 def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     """The multi-dim and BATCH_INTERLEAVED rows through the committed
     plan; every kernel of each row's route must launch."""
@@ -970,8 +1017,7 @@ def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
                              **kw).commit(device="cuda")
         entry = plan._raw_fast[direction]
-        steps = entry[2] if entry[0] == "multidim" else (entry,)
-        kinds = ["col" if s[0] in ("col", "bi_col") else s[0] for s in steps]
+        kinds = md_kinds(entry)
         n = math.prod(lengths)
         x = random_raw(2 * batch * n, seed=0)
         compute = plan.compute_forward if forward else plan.compute_backward
@@ -1622,7 +1668,7 @@ def layout_kinds(entry) -> list[str]:
     elif inner[0] in ("global2", "fused2"):
         kinds.append(inner[5])  # the entry's engine
     else:
-        kinds.append("col" if inner[0] == "bi_col" else inner[0])
+        kinds.append(inner[6] if inner[0] == "bi_col" else inner[0])
     return kinds + (["restride"] if isinstance(dst, Rows) else [])
 
 
@@ -1743,15 +1789,15 @@ def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
     return results, launches
 
 
-def tuned_cases(pf) -> list[tuple]:
-    """``(kind, n, batch)`` of each tuned engine (K4, K5, K5-ov) at every
-    ``TUNED_ROWS`` shape its gate takes: the shapes the tuned main path
-    gives it."""
+def tuned_cases(pf, kinds=TUNED_KINDS) -> list[tuple]:
+    """``(kind, n, batch)`` of each tuned engine (K4, K5, K5-ov, or
+    ``kinds``) at every ``TUNED_ROWS`` shape its gate takes: the shapes the
+    tuned main path gives it."""
     from portfft_tpu_torch import fastpath
     from portfft_tpu_torch.planner import plan_1d
 
     cfg = pf.DeviceConfig()  # the planning geometry is the same on the card
-    return [(kind, n, batch) for kind in TUNED_KINDS for _, n, batch in TUNED_ROWS
+    return [(kind, n, batch) for kind in kinds for _, n, batch in TUNED_ROWS
             if fastpath.engine_supported(kind, plan_1d(n, cfg, 4))]
 
 
@@ -1806,7 +1852,7 @@ def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
 def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     """``TUNED_ROWS`` through ``Descriptor(...).commit(device="cuda")`` with
     tuning on, in the run's own tuning cache: per row, a recorded entry
-    forces each engine whose gate takes the plan (K4, K5, K5-ov) and the
+    forces each engine whose gate takes the plan (K4, K5, K5-ov, K16) and the
     row is held to ``torch.fft`` and timed; then, with the entry forgotten,
     ``plan.autotune()`` races the engines (each variant's time and the
     winner printed) and the tuned plan is held and timed again.  Peak
@@ -1827,7 +1873,8 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             device, key = plan.config.name, tuning._entry_key(plan, "global2")
             shipped = plan._raw_fast[fwd][-1]
             del plan
-            for kind in (k for k, m, _ in tuned_cases(pf) if m == n):
+            for kind in (k for k, m, _ in tuned_cases(pf, TUNED_KINDS + ("global3",))
+                         if m == n):
                 tuning.record(device, "global2", key, fastpath.ENGINE_PARAMS[kind])
                 plan = desc.commit(device="cuda")
                 if plan._raw_fast[fwd][-1] != kind:
@@ -1881,7 +1928,7 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     print(f"tuned main-path launches: {launches}")
     print("autotune winners (global2, "
           f"{card}): {json.dumps(winners, sort_keys=True)}")
-    for kind in TUNED_KINDS:
+    for kind in TUNED_KINDS + ("global3",):
         if launches[kind] == 0:
             raise SmokeFailure(f"kernel {kind} was never launched on the tuned path")
     return launches, winners
@@ -2137,11 +2184,206 @@ def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     return launches, winners
 
 
+def col_mm_declines(pf) -> list[int]:
+    """The lengths K10 takes (up to 16384) that K10-mm's gate declines: K10
+    runs them under ``{"cm": 1}``."""
+    from portfft_tpu_torch.ops import cuda_multidim
+    from portfft_tpu_torch.planner import plan_1d
+
+    cfg = pf.DeviceConfig()
+    plans = (plan_1d(n, cfg, 4) for n in range(2, 16385))
+    return [p.n for p in plans
+            if cuda_multidim.col_axis_supported(p, cfg.direct_threshold)
+            and not cuda_multidim.col_mm_supported(p)]
+
+
+def mma_kernel_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K10-mm at ``MMA_COL_CASES`` and K16 at ``MMA_GLOBAL_CASES``,
+    forward (scale 0.5) and backward (scale 2/N), against their plain
+    versions and ``torch.fft`` with the two planted faults.  Returns
+    ``{kind: (ms, plain_ms, library_ms)}`` of each timed alone forward at
+    ``MMA_ALONE``, where the kernel it stands in for is timed beside it."""
+    from portfft_tpu_torch.ops import cuda_multidim
+
+    declined = col_mm_declines(pf)
+    print(f"col_mm declines {len(declined)} lengths K10 takes (K10 runs them; "
+          f"every DIRECT length off 128ℤ): {declined[:6]} … {declined[-3:]}")
+    alone = {}
+    for shape in MMA_COL_CASES:
+        x = random_raw(2 * math.prod(shape), seed=sum(shape))
+        n = shape[1]
+        for sign in (-1, +1):
+            scale = 0.5 if sign < 0 else 2.0 / n
+            kernel, args = md_kernel_case(pf, "col_mm", shape, sign, scale)
+            before = kernel.launches
+            r = check_md("col_mm", kernel, args, x, shape, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"col_mm {shape}: launch counter did not rise")
+            report("col_mm", f"{str(shape):18s} sign={sign:+d}", r)
+            max_err["col_mm"] = max(max_err.get("col_mm", 0.0), r["err"])
+            if sign < 0:  # every case timed beside K10; the table's in full
+                ms = time_ms(lambda: kernel(x, *args))
+                k10_ms = time_ms(lambda: cuda_multidim.col(x, *args))
+                bound, by = bound_of("col_mm", n, math.prod(shape) // n)
+                line = (f"col_mm     {str(shape):18s} kernel {ms:.3f} ms | K10 "
+                        f"{k10_ms:.3f} ms | bound {bound:.3f} ms ({by})")
+                if shape != MMA_ALONE["col_mm"]:
+                    print(f"time   {line} | {card}")
+                else:
+                    plain_ms = time_ms(lambda: kernel.plain(x, *args))
+                    library_ms = time_ms(fftn_call(x, shape, (1,), True))
+                    alone["col_mm"] = (ms, plain_ms, library_ms)
+                    print(f"alone  {line} | plain {plain_ms:.3f} ms | torch.fft "
+                          f"{library_ms:.3f} ms | {card}")
+            del kernel, args
+        del x
+        torch.cuda.empty_cache()
+    for n, batch in MMA_GLOBAL_CASES:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             forward_scale=0.5, backward_scale=2.0 / n
+                             ).commit(device="cuda")
+        g1, g2 = (s.n for s in plan.plans[n].sub)
+        x = random_raw(2 * batch * n, seed=n)
+        for direction, sign in ((pf.Direction.FORWARD, -1),
+                                (pf.Direction.BACKWARD, +1)):
+            kernel, args = tuned_kernel(plan, "global3", direction)
+            before = kernel.launches
+            r = check_kernel("global3", kernel, args, x, n, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:  # the call and the planted fault
+                raise SmokeFailure(f"global3 n={n}: launch counter did not rise")
+            report("global3", f"{g1}x{g2} batch={batch:<6d} {direction.value:8s}", r)
+            max_err["global3"] = max(max_err.get("global3", 0.0), r["err"])
+            if sign < 0 and (n, batch) == MMA_ALONE["global3"]:
+                ms = time_ms(lambda: kernel(x, *args))
+                k3, k3_args = tuned_kernel(plan, "global2", direction)
+                k3_ms = time_ms(lambda: k3(x, *k3_args))
+                ov, ov_args = tuned_kernel(plan, "global_bf_ov", direction)
+                ov_ms = time_ms(lambda: ov(x, *ov_args))
+                plain_ms = time_ms(lambda: kernel.plain(x, *args))
+                library_ms = time_ms(library_call(x, n, batch, False, True))
+                bound, by = bound_of("global3", n, batch)
+                alone["global3"] = (ms, plain_ms, library_ms)
+                print(f"alone  global3    n={n:<8d} batch={batch:<6d} kernel {ms:.3f} "
+                      f"ms | K3 {k3_ms:.3f} ms | K5-ov {ov_ms:.3f} ms | plain "
+                      f"{plain_ms:.3f} ms | torch.fft {library_ms:.3f} ms | bound "
+                      f"{bound:.3f} ms ({by}) | {card}")
+                del k3_args, ov_args
+            del kernel, args
+        del plan, x
+        torch.cuda.empty_cache()
+    return alone
+
+
+def tuned_md_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
+    """``MD_ROWS`` with tuning on, in the run's own tuning cache: per row,
+    each variant of its ``multidim`` or ``bi_col`` entry
+    (``tuning._variants_for_entry``) is forced by a recorded entry, must
+    route and launch its kernels (K10-mm under ``cm``, no K11 under
+    ``{"m2": 0}``), is held to ``torch.fft`` and timed; then, with the
+    entry forgotten, ``plan.autotune()`` races the variants (each one's ms
+    and the winner printed) and the tuned plan is held and timed.  Returns
+    the launches and ``{kind/key: winner}``."""
+    from portfft_tpu_torch import fastpath, tuning
+
+    os.environ.pop("PORTFFT_NO_TUNING", None)
+    winners = {}
+    for c in counters.values():
+        c.launches = 0
+    try:
+        for name, lengths, batch, dname, bi in MD_ROWS:
+            direction = pf.Direction(dname)
+            forward = direction == pf.Direction.FORWARD
+            sign = -1 if forward else +1
+            kw = dict(forward_strides=[batch], backward_strides=[batch],
+                      forward_distance=1, backward_distance=1) if bi else {}
+            desc = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                                 **kw)
+            n = math.prod(lengths)
+            shape = (1, n, batch) if bi else (batch, *lengths)
+            dims = (1,) if bi else tuple(range(1, len(shape)))
+            x = random_raw(2 * batch * n, seed=0)
+            plan = desc.commit(device="cuda")
+            inner = fastpath.inner_entry(plan._raw_fast[direction])
+            kind, key = inner[0], tuning._key_of(plan, inner)
+            device = plan.config.name
+            # the static route: no entry of an earlier row or the shipped table
+            tuning.record(device, kind, key, {})
+            plan = desc.commit(device="cuda")
+            entry = plan._raw_fast[direction]
+            static = md_kinds(fastpath.inner_entry(entry))
+            variants = tuning._variants_for_entry(plan, entry)
+            del plan
+            for params in variants:
+                tuning.record(device, kind, key, params)
+                plan = desc.commit(device="cuda")
+                kinds = md_kinds(fastpath.inner_entry(plan._raw_fast[direction]))
+                if ("col_mm" in kinds) != bool(params.get("cm")) or ("md2" in kinds) != (
+                        "md2" in static and bool(params.get("m2", 1))):
+                    raise SmokeFailure(f"{name}: {params} routed {kinds}")
+                compute = plan.compute_forward if forward else plan.compute_backward
+                before = {k: counters[k].launches for k in kinds}
+                y = compute(x)
+                torch.cuda.synchronize()
+                rose = {k: counters[k].launches - before[k] for k in kinds}
+                if min(rose.values()) <= 0:
+                    raise SmokeFailure(f"{name} {params}: a kernel of the path was "
+                                       f"not launched: {rose}")
+                if y.shape != x.shape or not torch.isfinite(y).all():
+                    raise SmokeFailure(f"{name} {params}: output not finite")
+                excess = nd_oracle_excess(y, x, shape, dims, sign, 1.0)
+                if not excess <= 1.0:
+                    raise SmokeFailure(f"{name} {params}: {excess:.3e} times the "
+                                       f"oracle bound {oracle_tol(n):.3e}")
+                del y
+                ms = time_ms(lambda: compute(x))
+                print(f"row {name:22s} forced {json.dumps(params):22s} "
+                      f"{'+'.join(kinds):16s} launches {rose} oracle max|diff|="
+                      f"{excess * oracle_tol(n):.3e} | path {ms:.3f} ms "
+                      f"{16 * batch * n / ms / 1e6:.1f} GB/s | {card}")
+                del plan
+                torch.cuda.empty_cache()
+            tuning.forget(device, kind, key)
+            plan = desc.commit(device="cuda")
+            times = {}
+            won = plan.autotune(times=times)
+            compute = plan.compute_forward if forward else plan.compute_backward
+            kinds = md_kinds(fastpath.inner_entry(plan._raw_fast[direction]))
+            if won is None or kinds != md_kinds(fastpath.inner_entry(
+                    fastpath.with_engine(plan, entry, won))):
+                raise SmokeFailure(f"{name}: autotune won {won}, routed {kinds}")
+            y = compute(x)
+            torch.cuda.synchronize()
+            excess = nd_oracle_excess(y, x, shape, dims, sign, 1.0)
+            if not excess <= 1.0:
+                raise SmokeFailure(f"{name} tuned: {excess:.3e} times the bound")
+            del y
+            ms = time_ms(lambda: compute(x))
+            library_ms = time_ms(fftn_call(x, shape, dims, forward))
+            print(f"row {name:22s} autotune ms {json.dumps(times)} -> {won} "
+                  f"({'+'.join(kinds)}; static {'+'.join(static)}) | tuned path "
+                  f"{ms:.3f} ms | torch.fft {library_ms:.3f} ms | {card}")
+            winners[f"{kind}/{key}"] = won
+            del plan, x
+            torch.cuda.empty_cache()
+    finally:
+        os.environ["PORTFFT_NO_TUNING"] = "1"
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"tuned multi-dim main-path launches: {launches}")
+    print(f"autotune winners (multidim/bi_col, {card}): "
+          f"{json.dumps(winners, sort_keys=True)}")
+    if launches["col_mm"] == 0:
+        raise SmokeFailure("kernel col_mm was never launched on the tuned "
+                           "multi-dim path")
+    return launches, winners
+
+
 def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                  alone, md_launches, md_alone, plane_launches,
                  plane_alone, split_launches, split_alone, layout_launches,
                  stride_alone, tuned_launches, tuned_alone, fused_launches,
-                 fused_alone) -> list[dict]:
+                 fused_alone, mma_launches, mma_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
@@ -2196,6 +2438,11 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
     for kind in FUSED_KINDS:
         kernels.append(entry(kind, fused_launches[kind], *fused_alone[kind],
                              *FUSED_ALONE[kind]))
+    bpre, length, rest = MMA_ALONE["col_mm"]
+    kernels.append(entry("col_mm", mma_launches["col_mm"], *mma_alone["col_mm"],
+                         length, bpre * rest))
+    kernels.append(entry("global3", mma_launches["global3"],
+                         *mma_alone["global3"], *MMA_ALONE["global3"]))
     return kernels
 
 
@@ -2261,7 +2508,8 @@ def phases_run(t_start: float, card: str) -> None:
                 "global_bf": cuda_global_bf.global_bf,
                 "global_bf_ov": cuda_global_bf.global_bf_ov,
                 "fused2_v1": cuda_fft.fused2_v1, "fused2_v2": cuda_fft.fused2_v2,
-                "fused2_v3": cuda_fft.fused2_v3}
+                "fused2_v3": cuda_fft.fused2_v3, "col_mm": cuda_multidim.col_mm,
+                "global3": cuda_global.global3}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -2305,6 +2553,12 @@ def phases_run(t_start: float, card: str) -> None:
     phase("FUSED shipped rows", fused_shipped_path, pf, counters, card)
     fused_launches, _ = phase("tuned FUSED main path", tuned_fused_path, pf,
                               counters, card)
+    mma_alone = phase("tensor-core kernels", mma_kernel_phase, pf, max_err, card)
+    md_tuned_launches, _ = phase("tuned multi-dim main path", tuned_md_path, pf,
+                                 counters, card)
+    # K10-mm runs on the tuned multi-dim path, K16 on the tuned GLOBAL one
+    mma_launches = {"col_mm": md_tuned_launches["col_mm"],
+                    "global3": tuned_launches["global3"]}
     # K14 and K12 run on both paths of this slice
     new_launches = {k: split_launches[k] + more_launches[k] for k in SPLIT_KINDS}
     print(f"phases: {'; '.join(phases)}; total {time.perf_counter() - t_start:.1f} s")
@@ -2312,7 +2566,8 @@ def phases_run(t_start: float, card: str) -> None:
                            real_launches, alone, md_launches, md_alone,
                            plane_launches, plane_alone, new_launches, split_alone,
                            layout_launches, stride_alone, tuned_launches,
-                           tuned_alone, fused_launches, fused_alone)
+                           tuned_alone, fused_launches, fused_alone,
+                           mma_launches, mma_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

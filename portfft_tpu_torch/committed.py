@@ -163,16 +163,21 @@ class CommittedDescriptor:
         return {n: p.describe() for n, p in self.plans.items()}
 
     def autotune(self, iters: int = 5, times=None):
-        """Race the kernels that can run this plan's GLOBAL or FUSED
-        transform on the plan's device, record the fastest in the tuning
-        cache, switch both directions to it and return its parameters.
-        GLOBAL: ``{}`` K3, ``{"eng": 5}`` K4, ``{"eng": 7}`` K5,
-        ``{"eng": 7, "ov": 1}`` K5-ov, where their gates take the plan.
-        FUSED [a, 128]: ``{}`` K2, ``{"eng": 2, "bt": bt}`` K2-v2 and
-        ``{"eng": 3, "bt": bt}`` K2-v3 at each batch tile their gates take,
-        or where a has no fold ``{"eng": 2}`` K2-v1.  A REAL transform races
-        its half-length transform's and records under that length.  None
-        where the plan has nothing to race.  ``times`` (a dict), where given,
+        """Race the kernels that can run this plan's GLOBAL, FUSED,
+        multi-dim or BATCH_INTERLEAVED transform on the plan's device,
+        record the fastest in the tuning cache, switch both directions to it
+        and return its parameters.  GLOBAL: ``{}`` K3, ``{"eng": 5}`` K4,
+        ``{"eng": 7}`` K5, ``{"eng": 7, "ov": 1}`` K5-ov, ``{"eng": 3}``
+        K16, where their gates take the plan.  FUSED [a, 128]: ``{}`` K2,
+        ``{"eng": 2, "bt": bt}`` K2-v2 and ``{"eng": 3, "bt": bt}`` K2-v3
+        at each batch tile their gates take, or where a has no fold
+        ``{"eng": 2}`` K2-v1.  Multi-dim (kind ``multidim``, key
+        ``n{L0}x{L1}…``): ``{}``, ``{"cm": 1}`` (K10-mm for the column
+        steps it takes) and, where K11 runs, ``{"m2": 0}`` and ``{"m2": 0,
+        "cm": 1}``; BATCH_INTERLEAVED 1D (kind ``bi_col``, key ``n{n}``):
+        ``{}`` K10 and ``{"cm": 1}`` K10-mm.  A REAL transform races its
+        half-length transform's and records under that length.  None where
+        the plan has nothing to race.  ``times`` (a dict), where given,
         receives each variant's ms per call.  See ``tuning.autotune``."""
         from . import tuning
 

@@ -8,7 +8,7 @@ interleaved buffer, chosen by plan level:
 |---|---|---|
 | DIRECT | ``cuda_fft.direct`` (K1) | ``pallas_fft.direct_raw_call`` |
 | FUSED [a, 128] | the entry's engine: ``cuda_fft.fused2`` (K2, the static route), ``fused2_v1`` (K2-v1), ``fused2_v2`` (K2-v2) or ``fused2_v3`` (K2-v3) | ``pallas_fft.fused2_raw_mm_call``, ``fused2_raw_call``, ``fused2_raw_v2_call``, ``fused2_raw_v3_call`` |
-| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5) or ``global_bf_ov`` (K5-ov) | ``pallas_global.global2_raw_call``, ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call`` |
+| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5), ``global_bf_ov`` (K5-ov) or ``cuda_global.global3`` (K16) | ``pallas_global.global2_raw_call``, ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call``, ``pallas_global3.build_call`` |
 | anything else (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | the plane path, ``("plane", ...)`` below | ``committed._traced_interleaved`` |
 
 The engine of a GLOBAL entry, ``("global2", plan, batch, sign, scale,
@@ -88,6 +88,14 @@ that runs.  Every outer axis must be one K10 takes (DIRECT ≤ 512 or FUSED
 other shapes run on the per-axis walk above.  The 1D BATCH_INTERLEAVED
 layout (stride = batch, distance 1, both domains) is one K10 call with
 bpre = 1: the ``bi_col`` entry, where K10 takes the length.
+
+Both entries take the JAX package's ``multidim`` (key ``n{L0}x{L1}…``) and
+``bi_col`` (key ``n{n}``) tuning kinds at commit: ``{"m2": 0}`` turns K11
+off (the per-axis route), and ``{"cm": 1}`` runs each column step on
+K10-mm (``cuda_multidim.col_mm``, the tensor cores) where its gate takes
+the axis, K10 elsewhere.  The reference's TPU tile knobs ``ct``, ``ds``,
+``mt1`` and ``mt2`` are read and ignored: Hopper tiles are the kernels'
+own.
 
 Buffer layouts (the JAX package's ``strided1d`` entry, without its TPU
 tile gates).  Every entry above runs on its own blocks at offset 0: PACKED
@@ -200,6 +208,7 @@ ENGINE_PARAMS = {
     "global_sq": {"eng": 5},               # K4, one pass in a cluster
     "global_bf": {"eng": 7},               # K5, butterfly-factored sweep
     "global_bf_ov": {"eng": 7, "ov": 1},   # K5-ov, its phase overlay
+    "global3": {"eng": 3},                 # K16, two passes on tensor cores
 }
 
 #: The kernels of a ``fused2`` entry and the JAX package's engine numbers
@@ -215,9 +224,10 @@ FUSED_ENGINE_PARAMS = {
 
 def _engine_of(params: dict, plan0=None) -> str:
     """The kernel that tuning parameters select: for a GLOBAL plan (or
-    ``plan0`` None) the JAX package's engine 2 is K3 (its tile knobs have
-    no counterpart here), 5 K4, 7 K5 or K5-ov; engines 3, 6 and 8 and the
-    ``bf2`` variant have no kernel here yet and raise.  For a FUSED [a,
+    ``plan0`` None) the JAX package's engine 2 is K3, 3 K16 (the tile
+    knobs ``t1``/``t2`` of both have no counterpart here), 5 K4, 7 K5 or
+    K5-ov; engines 6 and 8 and the ``bf2`` variant have no kernel here yet
+    and raise.  For a FUSED [a,
     128] plan, engine 4 (or none) is K2 (its ``flat``, ``ds`` and ``bt``
     knobs have no counterpart), 2 K2-v2 and 3 K2-v3, each K2-v1 where a
     has no fold; any other engine raises."""
@@ -234,14 +244,16 @@ def _engine_of(params: dict, plan0=None) -> str:
     eng = 2 if eng is None else eng
     if eng == 2:
         return "global2"
+    if eng == 3:
+        return "global3"
     if eng == 5:
         return "global_sq"
     if eng == 7 and not params.get("bf2"):
         return "global_bf_ov" if params.get("ov") else "global_bf"
     raise RawFastUnavailable(
         f"the GLOBAL engine {params} has no kernel in this package yet (ROADMAP "
-        "Queue 2: global3 build_call (3), global_fused_raw_call (6), "
-        "global_ilv_raw_call (8), global_bf2_raw_call (bf2))")
+        "Queue 2: global_fused_raw_call (6), global_ilv_raw_call (8), "
+        "global_bf2_raw_call (bf2))")
 
 
 def engine_supported(engine: str, plan0, batch: int = 1, bt: int = 0) -> bool:
@@ -252,6 +264,8 @@ def engine_supported(engine: str, plan0, batch: int = 1, bt: int = 0) -> bool:
         return cuda_global.global_sq_supported(plan0)
     if engine in ("global_bf", "global_bf_ov"):
         return cuda_global_bf.global_bf_supported(plan0)
+    if engine == "global3":
+        return cuda_global.global3_supported(plan0)
     if engine == "fused2_v1":
         return cuda_fft.fused2_v1_supported(plan0)
     if engine == "fused2_v2":
@@ -322,11 +336,19 @@ def inner_entry(entry):
 
 def with_engine(committed, entry, params: dict):
     """``entry`` with the engine of its ``global2`` or ``fused2`` entry
-    (:func:`inner_entry`) set by ``params``; raises where that engine has
-    no kernel here or its gate declines the plan at the given tile."""
+    (:func:`inner_entry`) set by ``params``, or its ``multidim`` or
+    ``bi_col`` entry rebuilt with the tuning parameters ``params``; raises
+    where that engine has no kernel here or its gate declines the plan at
+    the given tile."""
     kind = entry[0]
     if kind in _WRAPPERS:
         return (kind, with_engine(committed, entry[1], params), *entry[2:])
+    if kind == "bi_col":
+        return (*entry[:6], _col_kernel(entry[2], params))
+    if kind == "multidim":
+        sign = _step_sign(entry[2][0])
+        return _register_multidim(committed, params)[
+            next(dn for dn, s in _SIGNS.items() if s == sign)]
     if kind not in ("global2", "fused2"):
         raise RawFastUnavailable(f"a {kind} entry has no tuned engine")
     plan0, batch = entry[1], entry[2]
@@ -528,13 +550,31 @@ def _col_axis_ok(plan, config) -> bool:
     return cuda_multidim.col_axis_supported(plan, config.direct_threshold)
 
 
-def _register_multidim(committed) -> dict:
+def _col_kernel(plan, params: dict) -> str:
+    """The column kernel of an axis under tuning parameters: K10-mm
+    (``"col_mm"``) for ``{"cm": 1}`` where its gate takes the plan, else
+    K10 (``"col"``)."""
+    if params.get("cm") and cuda_multidim.col_mm_supported(plan):
+        return "col_mm"
+    return "col"
+
+
+def _step_sign(step) -> int:
+    """The sign of a multi-dim step: a K10, K10-mm or K11 step, or a 1D
+    entry."""
+    return step[4] if step[0] in ("col", "col_mm", "md2") else step[3]
+
+
+def _register_multidim(committed, params: dict | None = None) -> dict:
     """Entries of a multi-dimensional C2C transform: ``("multidim", md2,
     steps)``, the steps in the order they run (see the module docstring).
-    A column step is ``("col", bpre, plan, rest, sign, scale)``, the K11
-    step ``("md2", batch, plan1, plan2, sign, scale)``, a row step a 1D
-    entry.  Where K10 does not take an outer axis or the last axis needs
-    the plane path, the transform runs on the plane path's per-axis walk
+    A column step is ``("col", bpre, plan, rest, sign, scale)`` (K10) or
+    ``("col_mm", ...)`` (K10-mm), the K11 step ``("md2", batch, plan1,
+    plan2, sign, scale)``, a row step a 1D entry.  ``params`` are the
+    ``multidim`` tuning parameters (default: the tuning table's for the
+    shape): ``{"m2": 0}`` turns K11 off, ``{"cm": 1}`` takes K10-mm.
+    Where K10 does not take an outer axis or the last axis needs the plane
+    path, the transform runs on the plane path's per-axis walk
     (``_register_core``), as the JAX package's ``_traced_interleaved``."""
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
@@ -543,12 +583,14 @@ def _register_multidim(committed) -> dict:
                for ln in lengths[:-1] if ln > 1) or _raw_entry(
                    plans[lengths[-1]], 1, -1, 1.0) is None:
         return _register_core(committed, split=False)
+    if params is None:
+        params = tuning.lookup(committed.config.name, "multidim",
+                               tuning._entry_key(committed, "multidim")) or {}
     total = batch * math.prod(lengths)
     plan_last = plans[lengths[-1]]
     plan_a = plans[lengths[-2]] if lengths[-2] > 1 else None
-    md2 = plan_a is not None and cuda_multidim.md2_supported(
-        plan_a, plan_last, committed.config
-    )
+    md2 = plan_a is not None and params.get("m2", 1) != 0 and (
+        cuda_multidim.md2_supported(plan_a, plan_last, committed.config))
     first = len(lengths) - (3 if md2 else 2)
     cols = [
         (plans[lengths[ax]], batch * math.prod(lengths[:ax]),
@@ -567,7 +609,8 @@ def _register_multidim(committed) -> dict:
         else:
             head = _raw_entry(plan_last, total // lengths[-1], sign, head_scale)
         steps = [head] + [
-            ("col", bpre, plan, rest, sign, scale if i == len(cols) - 1 else 1.0)
+            (_col_kernel(plan, params), bpre, plan, rest, sign,
+             scale if i == len(cols) - 1 else 1.0)
             for i, (plan, bpre, rest) in enumerate(cols)
         ]
         out[direction] = ("multidim", md2, tuple(steps))
@@ -644,10 +687,14 @@ def register(committed) -> dict:
     bi = Layout.BATCH_INTERLEAVED
     if (get_layout(d, Direction.FORWARD) == bi == get_layout(d, Direction.BACKWARD)
             and _col_axis_ok(plan0, committed.config)):
-        # the (n, batch) buffer is one column transform with bpre = 1
+        # the (n, batch) buffer is one column transform with bpre = 1, on
+        # the column kernel of the bi_col tuning kind
+        params = tuning.lookup(committed.config.name, "bi_col",
+                               tuning._entry_key(committed, "bi_col")) or {}
+        kernel = _col_kernel(plan0, params)
         return _with_layout(d, {
             direction: ("bi_col", 1, plan0, batch, sign,
-                        float(d.get_scale(direction)))
+                        float(d.get_scale(direction)), kernel)
             for direction, sign in _SIGNS.items()
         }, bi)
     engine, bt = _tuned_engine(committed, plan0, batch)
@@ -669,7 +716,7 @@ def kernel_args(committed, entry):
     """``(kernel, args)`` of an entry: the wrapper (``cuda_fft.direct``,
     the ``fused2`` entry's engine ``cuda_fft.fused2``/``fused2_v1``/
     ``fused2_v2``/``fused2_v3``, the ``global2`` entry's, ``cuda_real.small_real``,
-    ``cuda_multidim.col`` for ``bi_col`` and a column step,
+    ``cuda_multidim.col`` or ``col_mm`` for ``bi_col`` and a column step,
     ``cuda_multidim.md2`` for a K11 step, or for the half-length REAL
     entries ``cuda_real.untangle``/``retangle``) and the arguments that
     follow the buffer, with the committed plan's device tables.  A
@@ -678,9 +725,10 @@ def kernel_args(committed, entry):
     ``entry[2]``."""
     kind = entry[0]
     keys, arrays = committed._bank_keys, committed._bank_arrays
-    if kind in ("col", "bi_col"):
-        _, bpre, plan, rest, sign, scale = entry
-        return cuda_multidim.col, (
+    if kind in ("col", "col_mm", "bi_col"):
+        _, bpre, plan, rest, sign, scale = entry[:6]
+        kernel = getattr(cuda_multidim, entry[6] if kind == "bi_col" else kind)
+        return kernel, (
             bpre, rest, cuda_fft.sub_tables(plan, sign, keys, arrays), scale
         )
     if kind == "md2":
@@ -705,6 +753,9 @@ def kernel_args(committed, entry):
         if engine in ("global_bf", "global_bf_ov"):
             return getattr(cuda_global_bf, engine), (batch, cuda_global_bf.bf_tables(
                 plan0, sign, keys, arrays, batch), scale)
+        if engine == "global3":
+            return cuda_global.global3, (batch, cuda_global.global3_tables(
+                plan0, sign, keys, arrays), scale)
         g1, g2 = plan0.sub
         t = keys[("T", g1.n, g2.n, sign)]
         return getattr(cuda_global, engine), (

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "pf_col_needs_scratch": ([_I], _I),
     "pf_col": ([_P, _P, _P] + _SUB + [_I64, _I64, _F, _P], _I),
     "pf_md2": ([_P, _P] + _SUB + _SUB + [_I64, _F, _P], _I),
+    "pf_col_mm": ([_P, _P] + _SUB + [_I64, _I64, _F, _P], _I),
+    "pf_global3": ([_P] * 3 + [_I, _I] + [_P] * 6 + [_I] + [_P] * 6
+                   + [_I] * 3 + [_I64, _F, _P], _I),
     "pf_deinterleave": ([_P, _P, _P, _I64, _P], _I),
     "pf_interleave": ([_P, _P, _P, _I64, _F, _P], _I),
     "pf_chain_needs_scratch": ([_I], _I),

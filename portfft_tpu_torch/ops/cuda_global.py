@@ -1,13 +1,16 @@
-"""K3 ``global2``, K4 ``global_sq`` and K14 ``global2_planes``: wrappers of
-the CUDA kernels (``csrc/fft_global2.cu``, ``csrc/fft_global_sq.cu``,
+"""K3 ``global2``, K4 ``global_sq``, K16 ``global3`` and K14
+``global2_planes``: wrappers of the CUDA kernels (``csrc/fft_global2.cu``,
+``csrc/fft_global_sq.cu``, ``csrc/fft_global3.cu``,
 ``csrc/fft_global2_planes.cu``), their plain PyTorch versions, and the
-gates of K4 and K14.
+gates of K4, K16 and K14.
 
 Counterparts of ``portfft_tpu/ops/pallas_global.py``: ``global2_raw_call``
 (K3, the GLOBAL four-step n = G1·G2 on the PACKED interleaved buffer, in
 two passes through a scratch buffer), ``global_sq_raw_call`` (K4, the same
 function in one pass, the transform held on chip between its stages; the
-tuned engine ``{"eng": 5}``) and ``global2_call`` (K14, K3's two passes on
+tuned engine ``{"eng": 5}``), ``pallas_global3.build_call`` (K16, the same
+function in two passes on the tensor cores, its twiddle from resident
+factored tables; the tuned engine ``{"eng": 3}``) and ``global2_call`` (K14, K3's two passes on
 (re, im) float32 planes, with an optional ``post`` table multiplied in
 pass 2; the plane path's GLOBAL nodes and its Bluestein convolutions).
 Same rule as ``cuda_fft``: CPU tensors go to the plain version, CUDA
@@ -36,8 +39,14 @@ from .cuda_fft import (
     sub_tables,
 )
 from .cuda_io import check_plane
-from .cuda_multidim import _lane_dft_shape
-from .torch_fft import complex_mul, full_fp32_matmuls
+from .cuda_multidim import _lane_dft_shape, column_dft_x3
+from .torch_fft import (
+    GLOBAL3_T1,
+    complex_mul,
+    dft_x3,
+    full_fp32_matmuls,
+    global3_digits,
+)
 
 
 def global2_supported(plan: Plan1D, max_direct: int) -> bool:
@@ -177,6 +186,120 @@ def global_sq(
 
 global_sq.launches = 0
 global_sq.plain = global2_plain
+
+
+# -- K16 global3 ------------------------------------------------------------------
+
+def global3_supported(plan: Plan1D) -> bool:
+    """K16's gate: the JAX package's ``global3_supported`` (G1 DIRECT ≤ 512
+    or FUSED [a, 128]; G2 DIRECT ≤ 512; 128 | G1 and 128 | G2).  Both
+    passes of every such plan fit the H100's shared memory a block (the
+    largest, pass 1 of a FUSED [16, 128] G1, about 141 KiB; the launch
+    refuses a block past it)."""
+    return global3_digits(plan) is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class Global3Tables:
+    """The device tables of one direction of a K16 plan: the subs, the
+    twiddle digits (ga, gb), and the bank's pair-expanded factors B1
+    (ga, 2·64) and B2 (gb, 2·64), each an (re, im) pair."""
+
+    n: int
+    sign: int
+    sub1: SubTables
+    sub2: SubTables
+    ga: int
+    gb: int
+    b1: tuple
+    b2: tuple
+
+
+def global3_tables(plan: Plan1D, sign: int, keys: dict,
+                   arrays: dict) -> Global3Tables:
+    """Resolve one direction's K16 tables from the bank
+    (``torch_fft.collect_bank_keys``)."""
+    g1, g2 = plan.sub
+    k = keys[("G3", g1.n, g2.n, sign)]
+    return Global3Tables(
+        plan.n, sign, sub_tables(g1, sign, keys, arrays),
+        sub_tables(g2, sign, keys, arrays), *global3_digits(plan),
+        (arrays[k + "1r"], arrays[k + "1i"]), (arrays[k + "2r"], arrays[k + "2i"]))
+
+
+def global3_twiddle(t: Global3Tables) -> tuple[torch.Tensor, torch.Tensor]:
+    """K16's pass-1 twiddle w_n^(k1·n2) as the kernel forms it, (G1, G2)
+    [k1, n2]: with n2 = m2 + n2b (n2b < 64) and k1 = k1_lo + ga·k1_hi,
+    (A_lo·B1[k1_lo, n2b]) and (A_hi·B2[k1_hi, n2b]) in float32, A_lo =
+    w_n^(k1_lo·m2) and A_hi = w_(n/ga)^(k1_hi·m2) from float64 angles of
+    the exponents reduced mod the root order (the kernel's per-tile
+    factors)."""
+    g2 = t.sub2.m
+    dev = t.b1[0].device
+    n2 = torch.arange(g2, dtype=torch.int64, device=dev)
+    m2, n2b = n2 - n2 % GLOBAL3_T1, n2 % GLOBAL3_T1
+
+    def factor(count, root, b):
+        k = torch.arange(count, dtype=torch.int64, device=dev)[:, None]
+        theta = (2.0 * torch.pi / root) * ((k * m2) % root).to(torch.float64)
+        ar = torch.cos(theta).float()
+        ai = (t.sign * torch.sin(theta)).float()
+        return complex_mul(ar, ai, b[0][:, 0::2][:, n2b], b[1][:, 0::2][:, n2b])
+
+    c1r, c1i = factor(t.ga, t.n, t.b1)  # (ga, G2)
+    c2r, c2i = factor(t.gb, t.n // t.ga, t.b2)  # (gb, G2)
+    lo = torch.arange(t.sub1.m, device=dev) % t.ga
+    hi = torch.arange(t.sub1.m, device=dev) // t.ga
+    return (c1r[lo], c1i[lo]), (c2r[hi], c2i[hi])
+
+
+def global3_plain(raw: torch.Tensor, batch: int, t: Global3Tables,
+                  scale: float) -> torch.Tensor:
+    """Plain version of K16, its two passes with the TF32 hi/lo rounding
+    emulated: pass 1 ``S[b, k1, n2] = (G1-point column transform of
+    x[b, :, n2])[k1] · C1 · C2`` (``global3_twiddle``'s factors in turn);
+    pass 2 ``out[b, k1 + G1·k2] = scale · (G2-point transform of
+    S[b, k1, :])[k2]``."""
+    g1, g2 = t.sub1.m, t.sub2.m
+    x = raw.view(batch, g1, g2, 2)
+    (c1r, c1i), (c2r, c2i) = global3_twiddle(t)
+    with full_fp32_matmuls(raw):
+        sr, si = column_dft_x3(t.sub1, x[..., 0], x[..., 1])  # [k1, n2]
+        sr, si = complex_mul(sr, si, c1r, c1i)
+        sr, si = complex_mul(sr, si, c2r, c2i)
+        cr, ci = dft_x3(t.sub2.wr, t.sub2.wi, sr.transpose(1, 2),
+                        si.transpose(1, 2))  # [k2, k1]
+    return interleave(cr, ci, scale)
+
+
+def global3(raw, batch: int, t: Global3Tables, scale: float, out=None):
+    """K16: ``batch`` GLOBAL transforms of length ``t.n`` in two launches on
+    the tensor cores (``csrc/fft_global3.cu``).  The wrapper allocates the
+    scratch buffer S (the size of the input); ``out`` may be ``raw``."""
+    check_buffer(raw, 2 * batch * t.n, "global3")
+    if raw.device.type == "cpu":
+        return into(out, global3_plain(raw, batch, t, scale))
+    require_cuda(raw, "global3")
+    if t.sub2.a:
+        raise InvalidConfiguration("global3: the second sub must be DIRECT")
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    scratch = torch.empty_like(raw)
+    s1 = t.sub1
+    with torch.cuda.device(raw.device):
+        err = lib.pf_global3(
+            raw.data_ptr(), y.data_ptr(), scratch.data_ptr(), s1.m, s1.a,
+            *s1.pointers(), t.sub2.m, t.sub2.wr.data_ptr(),
+            t.sub2.wi.data_ptr(), t.b1[0].data_ptr(), t.b1[1].data_ptr(),
+            t.b2[0].data_ptr(), t.b2[1].data_ptr(), t.ga, t.gb, t.sign, batch,
+            scale, stream_of(raw))
+    _build.check(lib, err, "global3 kernel")
+    global3.launches += 1
+    return y
+
+
+global3.launches = 0
+global3.plain = global3_plain
 
 
 # -- K14 global2_planes --------------------------------------------------------

@@ -1,14 +1,16 @@
-"""K10 ``col`` and K11 ``md2``: wrappers of the CUDA kernels
-(``csrc/fft_col.cu``, ``csrc/fft_md2.cu``), their plain PyTorch versions,
-and the multi-dimensional registry's gates.
+"""K10 ``col``, K10-mm ``col_mm`` and K11 ``md2``: wrappers of the CUDA
+kernels (``csrc/fft_col.cu``, ``csrc/fft_col_mm.cu``, ``csrc/fft_md2.cu``),
+their plain PyTorch versions, and the multi-dimensional registry's gates.
 
 Counterparts of ``portfft_tpu/ops/pallas_multidim.py``: ``col_raw_call``
 (K10, the FFT over a non-contiguous axis of the PACKED interleaved buffer
 viewed as ``(bpre, L, rest)`` complex elements; also the whole
-BATCH_INTERLEAVED 1D transform) and ``md2_fused_raw_call`` (K11, both
-trailing axes of ``(batch, n1, n2)`` in one launch).  Same rule as
-``cuda_fft``: CPU tensors go to the plain version, CUDA tensors to the
-kernel, and nothing falls back.
+BATCH_INTERLEAVED 1D transform), ``col_raw_mm_call`` (K10-mm, the same
+function on the tensor cores at a three-term TF32 grade; the tuned
+``{"cm": 1}``) and ``md2_fused_raw_call`` (K11, both trailing axes of
+``(batch, n1, n2)`` in one launch).  Same rule as ``cuda_fft``: CPU tensors
+go to the plain version, CUDA tensors to the kernel, and nothing falls
+back.
 
 The gates (``col_axis_supported``, ``md2_supported`` and the tile
 estimates under them) are the JAX package's own, copied here so that the
@@ -35,7 +37,7 @@ from .cuda_fft import (
     rows_plain,
     stream_of,
 )
-from .torch_fft import full_fp32_matmuls
+from .torch_fft import complex_mul, dft_x3, full_fp32_matmuls
 
 # -- gates (pallas_multidim.py, pallas_global.py) -----------------------------
 
@@ -157,6 +159,78 @@ def col(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
 
 col.launches = 0
 col.plain = col_plain
+
+
+# -- K10-mm col_mm --------------------------------------------------------------
+
+
+def col_mm_supported(plan: Plan1D) -> bool:
+    """K10-mm's gate: the JAX package's ``col_raw_mm_call`` and
+    ``col_mm_table_names`` shapes (128 | L; DIRECT up to 512, or FUSED
+    [a, 128] with a | 128).  Every such length fits the H100's shared
+    memory a block, a 16384-point column in one tile (the launch refuses a
+    block past it).  The reference also declines where its VMEM estimate
+    finds no lane tile (L >= 3072 at its planning 16 MiB) or the trailing
+    extent is no multiple of 64; K10-mm takes those (ROADMAP Queue 3)."""
+    if plan.n % 128 or not _lane_dft_shape(plan):
+        return False
+    return plan.level != Level.DIRECT or plan.n <= 512
+
+
+def column_dft_x3(sub: SubTables, xr: torch.Tensor, xi: torch.Tensor):
+    """The tensor-core column pass on (..., L, N) planes, as the kernels run
+    it (``pfft_mma::column_pass``): DIRECT one ``dft_x3`` product with the
+    L-point DFT matrix; FUSED stage A over the a-digit, the inner twiddle,
+    stage B over the 128-digit and the output k1 + a·k2.  Returns (..., L,
+    N) planes in natural order."""
+    if sub.a == 0:
+        return dft_x3(sub.wr, sub.wi, xr, xi)
+    a, lead, n = sub.a, xr.shape[:-2], xr.shape[-1]
+    ar, ai = dft_x3(sub.wr, sub.wi, xr.reshape(*lead, a, 128 * n),
+                    xi.reshape(*lead, a, 128 * n))  # [k1, (n2, c)]
+    ar, ai = complex_mul(ar.view(*lead, a, 128, n), ai.view(*lead, a, 128, n),
+                         sub.ur[..., None], sub.ui[..., None])
+
+    def by_n2(p):  # [k1, n2, c] -> [n2, (k1, c)]
+        return p.transpose(-3, -2).reshape(*lead, 128, a * n)
+
+    cr, ci = dft_x3(sub.br, sub.bi, by_n2(ar), by_n2(ai))  # [k2, (k1, c)]
+    return cr.reshape(*lead, 128 * a, n), ci.reshape(*lead, 128 * a, n)
+
+
+def col_mm_plain(raw: torch.Tensor, bpre: int, rest: int, sub: SubTables,
+                 scale: float):
+    """Plain version of K10-mm: ``column_dft_x3`` down axis 1 of the
+    ``(bpre, L, rest)`` view (the TF32 hi/lo rounding emulated), scaled and
+    interleaved."""
+    x = raw.view(bpre, sub.m, rest, 2)
+    with full_fp32_matmuls(raw):
+        yr, yi = column_dft_x3(sub, x[..., 0], x[..., 1])
+    return interleave(yr, yi, scale)
+
+
+def col_mm(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
+    """K10-mm: K10's function (the ``sub.m``-point transform over axis 1 of
+    the ``(bpre, sub.m, rest)`` complex view of ``raw``) on the tensor
+    cores, in one launch at every length ``col_mm_supported`` takes.
+    ``out`` (may be ``raw`` itself) receives the result; otherwise a new
+    tensor."""
+    check_buffer(raw, 2 * bpre * sub.m * rest, "col_mm")
+    if raw.device.type == "cpu":
+        return into(out, col_mm_plain(raw, bpre, rest, sub, scale))
+    require_cuda(raw, "col_mm")
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    with torch.cuda.device(raw.device):
+        err = lib.pf_col_mm(raw.data_ptr(), y.data_ptr(), sub.m, sub.a,
+                            *sub.pointers(), bpre, rest, scale, stream_of(raw))
+    _build.check(lib, err, "col_mm kernel")
+    col_mm.launches += 1
+    return y
+
+
+col_mm.launches = 0
+col_mm.plain = col_mm_plain
 
 
 # -- K11 md2 -------------------------------------------------------------------

@@ -9,11 +9,17 @@ matrices, ``T{f|b}{f}x{m}`` for inter-factor twiddles stored transposed
 ``r``/``i`` plane suffix; for Bluestein ``B{f|b}{n}_{M}`` (chirp ``c`` and
 b̂), ``O{f|b}{n}_{g1}x{g2}`` (b̂ ``f`` and final chirp ``g`` in [k1, k2]),
 ``C{f|b}{n}_{g2}x{nv}`` and ``D{f|b}{n}_{g2}x{g1}`` (the three-pass
-kernel's first and last chirps).  The values are the JAX package's too
+kernel's first and last chirps); for K16 ``G{f|b}{ga}x{gb}N{n}t{t1}``
+(its factored twiddle, suffixes ``1r``/``1i``/``2r``/``2i``).  The values
+are the JAX package's too
 (``twiddle.py``), so a table carried over from it (``convert.py``) and one
 built here are interchangeable.  ``RM{f|b}{n}_{scale}m`` (the small-n REAL
 matrix, :meth:`TwiddleBank.real_small`) has no counterpart there: the JAX
-package keeps the same matrix only as a bf16 stack.
+package keeps the same matrix only as a bf16 stack.  Neither has the port
+a counterpart of its bf16 presplit matrices (``mat_kara``, ``dft_kstack``)
+or its split-output tables (``vmat_split``): the tensor-core kernels
+K10-mm and K16 split the bank's float32 roots into TF32 hi/lo parts in
+registers, and their plain versions do the same with :func:`tf32_split`.
 """
 
 from __future__ import annotations
@@ -203,6 +209,24 @@ class TwiddleBank:
             self.host[key] = None
         return key
 
+    def global3_btw(self, ga: int, gb: int, n: int, t1: int, sign: int) -> str:
+        """K16's resident factors of its pass-1 twiddle w_n^(k1·n2b), k1 =
+        k1_lo + ga·k1_hi, n2b < t1 (the JAX package's
+        ``TwiddleBank.global3_btw``, the same key and arrays): ``1`` =
+        B1[k1_lo, 2·n2b + q] = w_n^(k1_lo·n2b), (ga, 2·t1), and ``2`` =
+        B2[k1_hi, 2·n2b + q] = w_(n/ga)^(k1_hi·n2b), (gb, 2·t1), each value
+        twice (the reference's lanes hold re/im pairs; K16 reads every
+        second column)."""
+        key = f"G{'f' if sign < 0 else 'b'}{ga}x{gb}N{n}t{t1}"
+        if key not in self.host:
+            b1r, b1i = tw.twiddles_n(ga, t1, n, sign, np.float64)
+            b2r, b2i = tw.twiddles_n(gb, t1, n // ga, sign, np.float64)
+            for suf, arr in (("1r", b1r), ("1i", b1i), ("2r", b2r), ("2i", b2i)):
+                self.host[key + suf] = np.ascontiguousarray(
+                    np.repeat(arr, 2, 1)).astype(self.dtype)
+            self.host[key] = None
+        return key
+
     def device_arrays(self, device) -> dict[str, torch.Tensor]:
         """Every table as a tensor on ``device``."""
         return {
@@ -332,6 +356,39 @@ def _snap(v: float) -> float:
     return v
 
 
+#: The width of K16's twiddle tables (``TwiddleBank.global3_btw``): one of
+#: the JAX package's ``pallas_global3.T1_CANDIDATES``, dividing every G2 K16
+#: takes, so that the reference banks the same key.
+GLOBAL3_T1 = 64
+
+
+def digit_split(g: int) -> tuple[int, int]:
+    """g = ga·gb, ga the largest power-of-two divisor of g with ga² ≤ g
+    (``pallas_global3.digit_split``)."""
+    ga, d = 1, 2
+    while g % d == 0 and d * d <= g:
+        ga, d = d, 2 * d
+    return ga, g // ga
+
+
+def global3_digits(plan: Plan1D) -> tuple[int, int] | None:
+    """The digits (ga, gb) of K16's twiddle for a GLOBAL plan the JAX
+    package's ``global3_supported`` takes (G1 DIRECT ≤ 512 or FUSED [a, 128],
+    G2 DIRECT ≤ 512, both multiples of 128): ``digit_split(G1)``, or (a, 128)
+    for a FUSED G1; None for any other plan."""
+    if plan.level != Level.GLOBAL:
+        return None
+    g1, g2 = plan.sub
+    if g1.level == Level.DIRECT:
+        ok1 = g1.n <= 512
+    else:
+        ok1 = is_two_stage(g1) and g1.factors[0] >= 2
+    if not (ok1 and g2.level == Level.DIRECT and g2.n <= 512
+            and g2.n % 128 == 0 and g1.n % 128 == 0):
+        return None
+    return digit_split(g1.n) if g1.level == Level.DIRECT else (g1.factors[0], 128)
+
+
 def valid_rows(n: int, g2: int) -> int:
     """Rows of the (g1, g2) view of a Bluestein convolution that hold input
     (or output) of the n-point transform, ceil(n / g2), rounded up to 8 as
@@ -352,7 +409,9 @@ def collect_bank_keys(
     subs are both A·128 (``bf_factor``) also gets K5's ``("U", A1, 128,
     sign)``, ``("U", A2, 128, sign)``, ``("GA", g1, g2, sign)``, ``("GB",
     g1, g2, sign)`` and ``("W", 128, sign)``, as the JAX package banks its
-    butterfly engine's tables."""
+    butterfly engine's tables.  A GLOBAL plan K16 takes
+    (``global3_digits``) gets ``("G3", g1, g2, sign)``, K16's factored
+    twiddle at width ``GLOBAL3_T1``."""
     if plan.level == Level.DIRECT:
         keys[("W", plan.n, sign)] = bank.dft(plan.n, sign)
     elif is_two_stage(plan):  # K2, K13's two-stage mode: U, not T
@@ -370,6 +429,10 @@ def collect_bank_keys(
     elif plan.level == Level.GLOBAL:
         g1, g2 = plan.sub
         keys[("T", g1.n, g2.n, sign)] = bank.twiddle(g1.n, g2.n, sign)
+        digits = global3_digits(plan)
+        if digits:  # K16's factored twiddle
+            keys[("G3", g1.n, g2.n, sign)] = bank.global3_btw(
+                *digits, plan.n, GLOBAL3_T1, sign)
         a1, a2 = bf_factor(g1.n), bf_factor(g2.n)
         if a1 and a2:  # K5: digit twiddles, factored twiddle, 128-point roots
             keys[("U", a1, 128, sign)] = bank.twiddle_fm(a1, 128, sign)
@@ -403,6 +466,36 @@ def complex_matmul(xr, xi, wr, wi):
         torch.matmul(xr, wr) - torch.matmul(xi, wi),
         torch.matmul(xr, wi) + torch.matmul(xi, wr),
     )
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 ``x`` rounded to 10 mantissa bits, ties
+    away from zero (adding half of the 13 dropped bits to the magnitude
+    field, then clearing them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi); hi + lo is x to about
+    2^-22 of x."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _mm_x3(a: tuple, b: tuple) -> torch.Tensor:
+    """a @ b from their TF32 splits, lo·lo dropped: the tensor-core DFT
+    tile's three mma per real product (``csrc/fft_mma.cuh``)."""
+    (ah, al), (bh, bl) = a, b
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+def dft_x3(wr, wi, xr, xi):
+    """The complex product W @ X of the tensor-core DFT tile, each real
+    product at its three-term TF32 grade: the plain versions of K10-mm and
+    K16.  W (len, len) broadcasts over the leading axes of X (..., len, N)."""
+    wr, wi, xr, xi = (tf32_split(t) for t in (wr, wi, xr, xi))
+    return _mm_x3(wr, xr) - _mm_x3(wi, xi), _mm_x3(wr, xi) + _mm_x3(wi, xr)
 
 
 def complex_mul(ar, ai, br, bi):

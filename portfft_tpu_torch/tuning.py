@@ -1,14 +1,21 @@
-"""Measured engine choice for GLOBAL and FUSED plans, and ``autotune``.
+"""Measured engine choice for GLOBAL, FUSED, multi-dim and
+BATCH_INTERLEAVED plans, and ``autotune``.
 
 Counterpart of ``portfft_tpu.tuning``.  A GLOBAL plan n = G1·G2 has up to
-four kernels that compute the same function (``fastpath``'s ``global2``
+five kernels that compute the same function (``fastpath``'s ``global2``
 entry): the two-pass K3 (``{}``, the static route), the single-pass K4
-(``{"eng": 5}``), the butterfly-factored single-sweep K5 (``{"eng": 7}``)
-and its phase-overlay schedule K5-ov (``{"eng": 7, "ov": 1}``).  A FUSED
-plan [a, 128] (the ``fused2`` entry) has K2 (``{}``, the static route),
-K2-v2 (``{"eng": 2, "bt": bt}``) and K2-v3 (``{"eng": 3, "bt": bt}``) with
-a batch tile bt, or, where a has no fold, K2-v1 (``{"eng": 2}``).  Which
-is fastest is measured once per (device, plan) and the winner persisted:
+(``{"eng": 5}``), the butterfly-factored single-sweep K5 (``{"eng": 7}``),
+its phase-overlay schedule K5-ov (``{"eng": 7, "ov": 1}``) and the
+tensor-core two-pass K16 (``{"eng": 3}``).  A FUSED plan [a, 128] (the
+``fused2`` entry) has K2 (``{}``, the static route), K2-v2 (``{"eng": 2,
+"bt": bt}``) and K2-v3 (``{"eng": 3, "bt": bt}``) with a batch tile bt, or,
+where a has no fold, K2-v1 (``{"eng": 2}``).  A multi-dim transform (the
+``multidim`` kind) races its column kernel, K10 (``{}``) or the
+tensor-core K10-mm (``{"cm": 1}``), and where K11 runs by default the
+per-axis route without it (``{"m2": 0}``, ``{"m2": 0, "cm": 1}``); a
+BATCH_INTERLEAVED 1D transform (the ``bi_col`` kind) K10 against K10-mm.
+Which is fastest is measured once per (device, plan) and the winner
+persisted:
 
 * ``tuning_defaults.json`` (shipped, read-only): winners measured on an
   H100 (key ``cuda_h100``) by :meth:`CommittedDescriptor.autotune`
@@ -18,8 +25,9 @@ is fastest is measured once per (device, plan) and the winner persisted:
   own card; it overrides the shipped table.
 
 Lookups are by device name (``config.DeviceConfig.name``: ``cuda_h100``,
-``cpu``), kind (``"global2"``, ``"fused2"``, or ``"global_split"`` for the
-planner's split) and a shape key (:func:`_entry_key`; it holds no batch,
+``cpu``), kind (``"global2"``, ``"fused2"``, ``"multidim"``, ``"bi_col"``,
+or ``"global_split"`` for the planner's split) and a shape key
+(:func:`_entry_key`; it holds no batch,
 so a tuned batch tile the batch cannot take is dropped at commit, not
 marked stale).  ``PORTFFT_NO_TUNING`` turns
 every lookup off.  A miss keeps the static route, so the table only ever
@@ -166,7 +174,10 @@ def _reset_for_tests() -> None:
 def _entry_key(committed, kind: str, n: Optional[int] = None) -> str:
     """The shape key of ``kind`` for the transform length ``n`` (default:
     the descriptor's first length): ``n{n}_g{G1}x{G2}`` for ``global2``,
-    ``n{n}`` otherwise, as the JAX package keys them."""
+    ``n{L0}x{L1}…`` (the descriptor's lengths) for ``multidim``, ``n{n}``
+    otherwise, as the JAX package keys them."""
+    if kind == "multidim":
+        return "n" + "x".join(map(str, committed.descriptor.lengths))
     n = n or committed.descriptor.lengths[0]
     if kind == "global2":
         g1, g2 = committed.plans[n].sub
@@ -174,23 +185,59 @@ def _entry_key(committed, kind: str, n: Optional[int] = None) -> str:
     return f"n{n}"
 
 
+def _key_of(committed, inner) -> str:
+    """The shape key of an unwrapped entry of a tuned kind."""
+    kind = inner[0]
+    if kind == "multidim":
+        return _entry_key(committed, kind)
+    return _entry_key(committed, kind, (inner[2] if kind == "bi_col" else inner[1]).n)
+
+
 def _variants_for_entry(committed, entry) -> list[dict]:
     """The engines an entry can race, ``{}`` (the static route) first:
-    those of its ``global2`` or ``fused2`` entry, which REAL and layout
-    entries wrap."""
+    those of its ``global2``, ``fused2``, ``multidim`` or ``bi_col`` entry,
+    which REAL and layout entries wrap."""
     from .fastpath import inner_entry
 
     inner = inner_entry(entry)
+    if inner[0] in ("multidim", "bi_col"):
+        return _variants_md(committed, inner)
     if inner[0] not in ("global2", "fused2"):
         return []
     return _variants_1d(committed, inner[0], inner[1].n, inner[2])
 
 
+def _variants_md(committed, inner) -> list[dict]:
+    """``{}`` (the static route: K11 where it takes the shape, K10 for the
+    column steps) and the variants that change a kernel: ``{"cm": 1}``
+    where some column step takes K10-mm; where K11 runs, ``{"m2": 0}`` and
+    ``{"m2": 0, "cm": 1}`` (the latter where the per-axis route has a
+    column step K10-mm takes).  ``bi_col``: ``{"cm": 1}`` where K10-mm takes
+    the length.  The JAX package's TPU tile knobs (``ct``, ``ds``, ``mt1``,
+    ``mt2``) are not raced: they have no counterpart here."""
+    from .fastpath import with_engine
+
+    def takes_mm(params):
+        e = with_engine(committed, inner, params)
+        steps = e[2] if e[0] == "multidim" else (e,)
+        return any("col_mm" in (s[0], s[-1]) for s in steps)
+
+    out = [{}]
+    if takes_mm({"cm": 1}):
+        out.append({"cm": 1})
+    # whether K11 runs on the static route, whatever the tuned entry chose
+    if inner[0] == "multidim" and with_engine(committed, inner, {})[1]:
+        out.append({"m2": 0})
+        if takes_mm({"m2": 0, "cm": 1}):
+            out.append({"m2": 0, "cm": 1})
+    return out
+
+
 def _variants_1d(committed, kind: str, n: int, batch: int) -> list[dict]:
     """``{}`` (the static route) and each engine whose gate takes the
     length-``n`` plan at ``batch``.  ``global2``: ``{"eng": 5}`` (K4),
-    ``{"eng": 7}`` (K5), ``{"eng": 7, "ov": 1}`` (K5-ov); no tile knob
-    worth racing.  ``fused2``: ``{"eng": 2, "bt": bt}`` (K2-v2) and
+    ``{"eng": 7}`` (K5), ``{"eng": 7, "ov": 1}`` (K5-ov), ``{"eng": 3}``
+    (K16); no tile knob worth racing.  ``fused2``: ``{"eng": 2, "bt": bt}`` (K2-v2) and
     ``{"eng": 3, "bt": bt}`` (K2-v3) for each bt in 1 … 32 that divides the
     batch and that the gate takes; where a has no fold, ``{"eng": 2}``
     (K2-v1) once, since engines 2 and 3 both reach it there."""
@@ -244,9 +291,10 @@ def _time_bursts(fns: dict, x, iters: int, rounds: int = 3) -> dict:
 def autotune(committed, iters: int = 5,
              times: Optional[dict] = None) -> Optional[dict]:
     """Race the engines of ``committed``'s forward entry on its device,
-    persist the winner under the kind (``global2`` or ``fused2``) and key
-    of the GLOBAL or FUSED plan it runs (a REAL or layout entry's inner
-    one, so a REAL transform records under its half length), re-register
+    persist the winner under the kind (``global2``, ``fused2``,
+    ``multidim`` or ``bi_col``) and key of the entry it runs (a REAL or
+    layout entry's inner one, so a REAL transform records under its half
+    length and a BATCH_INTERLEAVED layout under ``bi_col``), re-register
     both directions, and return the winning parameters; None where the
     plan has nothing to race.  A variant whose output is more than 1e-3 (relative
     2-norm) from the ``{}`` baseline's is dropped with a trace.  ``times``,
@@ -265,7 +313,7 @@ def autotune(committed, iters: int = 5,
     d = committed.descriptor
     inner = fastpath.inner_entry(entry)
     kind = inner[0]
-    key = _entry_key(committed, kind, inner[1].n)
+    key = _key_of(committed, inner)
     count = d.get_input_count(Direction.FORWARD)
     real_in = d.domain == Domain.REAL
     rng = np.random.default_rng(0)

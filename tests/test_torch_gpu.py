@@ -11,12 +11,22 @@ and every element within the absolute 2·eps·N·log2(N)·|scale| of the
 oracle.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
 import portfft_tpu_torch as pf
-from chip_smoke import KERNEL_TOL, oracle_tol, real_case
+from chip_smoke import (
+    KERNEL_TOL,
+    MMA_COL_CASES,
+    MMA_GLOBAL_CASES,
+    md_kernel_case,
+    md_kinds,
+    oracle_tol,
+    real_case,
+)
 from portfft_tpu_torch import fastpath
 
 pytestmark = pytest.mark.gpu
@@ -513,7 +523,8 @@ def _launch_counters():
             "global2": cuda_global.global2, "col": cuda_multidim.col,
             "chain": cuda_chain.chain, "destride": cuda_stride.destride,
             "restride": cuda_stride.restride,
-            "global_bf_ov": cuda_global_bf.global_bf_ov}
+            "global_bf_ov": cuda_global_bf.global_bf_ov,
+            "global3": cuda_global.global3}
 
 
 # One layout per route: (n, batch, SPLIT, descriptor fields, out= given,
@@ -602,12 +613,12 @@ def _check_layout_route(n, batch, split, fields, give_out, in_place, kinds):
 
 # -- the tuned GLOBAL engines: K4 global_sq, K5 global_bf, K5-ov global_bf_ov --
 
-# Layouts at 65536, whose plan (256 x 256) the shipped table sends to K5-ov.
+# Layouts at 65536, whose plan (256 x 256) the shipped table sends to K16.
 SHIPPED_LAYOUTS = [
     (65536, 3, False, dict(forward_strides=[2], forward_distance=2 * 65536),
-     False, False, ("destride", "global_bf_ov")),
+     False, False, ("destride", "global3")),
     (65536, 2, False, dict(forward_offset=1000, backward_offset=3), True, False,
-     ("global_bf_ov",)),
+     ("global3",)),
 ]
 
 ENGINE_CASES = [
@@ -620,6 +631,12 @@ ENGINE_CASES = [
     ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 18, 2),
     ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 19, 2),
     ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 20, 3),
+    # K16: DIRECT G1 256 and 512 beside G2 256, 384 and 512; FUSED [16, 128]
+    ("global3", {"eng": 3}, 65536, 3), ("global3", {"eng": 3}, 1 << 17, 2),
+    ("global3", {"eng": 3}, 1 << 18, 1), ("global3", {"eng": 3}, 196608, 2),
+    ("global3", {"eng": 3}, 1 << 19, 2), ("global3", {"eng": 3}, 1 << 20, 1),
+    # and at chip_smoke's kernel-phase shapes, 2^27 points each
+    *(("global3", {"eng": 3}, n, b) for n, b in MMA_GLOBAL_CASES),
 ]
 
 
@@ -636,7 +653,7 @@ def _static_routes(monkeypatch):
 def test_layout_on_the_shipped_route(cuda, tmp_path, monkeypatch, n, batch, split,
                                      fields, give_out, in_place, kinds):
     """With tuning on and only the shipped table, a layout descriptor's
-    GLOBAL entry takes the shipped engine (K5-ov at 65536), which launches
+    GLOBAL entry takes the shipped engine (K16 at 65536), which launches
     with K7, and the result holds as on the static route."""
     from portfft_tpu_torch import tuning
 
@@ -648,7 +665,7 @@ def test_layout_on_the_shipped_route(cuda, tmp_path, monkeypatch, n, batch, spli
                              **fields).commit()
         shipped = tuning.lookup(plan.config.name, "global2",
                                 tuning._entry_key(plan, "global2"))
-        assert fastpath._engine_of(shipped) == "global_bf_ov"
+        assert fastpath._engine_of(shipped) == "global3"
         _check_layout_route(n, batch, split, fields, give_out, in_place, kinds)
     finally:
         tuning._reset_for_tests()
@@ -658,7 +675,7 @@ def test_layout_on_the_shipped_route(cuda, tmp_path, monkeypatch, n, batch, spli
 @pytest.mark.parametrize("inplace", [False, True])
 def test_tuned_engine_matches_plain_and_oracle(cuda, engine, params, n, batch,
                                                inplace):
-    """K4, K5 and K5-ov against their plain versions (1e-5·max|plain|) and
+    """K4, K5, K5-ov and K16 against their plain versions (1e-5·max|plain|) and
     ``torch.fft`` (the absolute 2·eps·N·log2N·|scale|), both directions
     with a folded scale, out of place and in place; 2^17 × 25 and 2^20 × 3
     run K5 in several chunks, the last one short."""
@@ -690,7 +707,8 @@ def test_tuned_engine_matches_plain_and_oracle(cuda, engine, params, n, batch,
 
 @pytest.mark.parametrize("engine,params,n,batch", [
     ("global_sq", {"eng": 5}, 65536, 2), ("global_bf", {"eng": 7}, 1 << 18, 2),
-    ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 17, 13)])
+    ("global_bf_ov", {"eng": 7, "ov": 1}, 1 << 17, 13),
+    ("global3", {"eng": 3}, 1 << 20, 2)])
 def test_tuned_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatch,
                                                       engine, params, n, batch):
     """A recorded winner routes ``compute_forward`` through its kernel, and
@@ -707,8 +725,8 @@ def test_tuned_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatc
         key = tuning._entry_key(probe, "global2")
         tuning.record(probe.config.name, "global2", key, params)
         plan = desc.commit()
-        kernel = getattr(cuda_global if engine == "global_sq" else cuda_global_bf,
-                         engine)
+        kernel = getattr(cuda_global if engine in ("global_sq", "global3")
+                         else cuda_global_bf, engine)
         x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
         before = kernel.launches
         y = plan.compute_forward(x)
@@ -835,5 +853,133 @@ def test_tuned_fused2_route_runs_its_kernel(cuda, tmp_path, monkeypatch, fields,
         times = {}
         won = plan.autotune(iters=1, times=times)
         assert len(times) >= 2 and tuning.lookup(plan.config.name, "fused2", key) == won
+    finally:
+        tuning._reset_for_tests()
+
+
+# -- the tensor-core kernels: K10-mm col_mm, K16 global3 (above) -------------
+
+# K10-mm at (bpre, L, rest): every DIRECT length its gate takes and FUSED
+# a = 8 … 128, with short last tiles (rest no multiple of the tile) and a
+# single column, then chip_smoke's kernel-phase shapes.
+COL_MM_CASES = [(3, 128, 5), (2, 256, 17), (2, 384, 16), (2, 512, 33),
+                (3, 1024, 9), (2, 2048, 5), (1, 4096, 7), (2, 8192, 3),
+                (1, 16384, 2), (4, 1024, 1), *MMA_COL_CASES]
+
+
+@pytest.mark.parametrize("shape", COL_MM_CASES)
+@pytest.mark.parametrize("inplace", [False, True])
+def test_col_mm_matches_plain_and_oracle(cuda, shape, inplace):
+    """K10-mm against its plain version (1e-5·max|plain|) and ``torch.fft``
+    along L (the absolute 2·eps·L·log2L·|scale|), both directions with a
+    scale, out of place and in place."""
+    bpre, n, rest = shape
+    x = torch.rand(2 * bpre * n * rest, device=cuda) * 2 - 1
+    xc = torch.view_as_complex(x.view(bpre, n, rest, 2)).to(torch.complex128)
+    for sign, scale in ((-1, 0.5), (+1, 3.0 / n)):
+        kernel, args = md_kernel_case(pf, "col_mm", shape, sign, scale)
+        before = kernel.launches
+        want = kernel.plain(x, *args)
+        if inplace:
+            got = x.clone()
+            assert kernel(got, *args, out=got) is got
+        else:
+            got = kernel(x, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (sign, err)
+        ref = (torch.fft.fft(xc, dim=1) if sign < 0
+               else torch.fft.ifft(xc, dim=1, norm="forward")) * scale
+        diff = (torch.view_as_complex(got.view(bpre, n, rest, 2)) - ref).abs().max()
+        assert diff.item() <= oracle_tol(n) * scale, (sign, diff.item())
+        del want, got
+
+
+@pytest.mark.parametrize("lengths,batch,bi,params,kinds", [
+    ([1024, 1024], 1, False, {"cm": 1}, ("fused2", "col_mm")),
+    ([128, 128, 128], 2, False, {"cm": 1}, ("md2", "col_mm")),
+    ([128, 128, 128], 2, False, {"m2": 0, "cm": 1}, ("direct", "col_mm", "col_mm")),
+    ([512, 512], 2, False, {"m2": 0}, ("direct", "col")),
+    ([100, 256], 2, False, {"cm": 1}, ("direct", "col")),
+    ([4096], 16, True, {"cm": 1}, ("col_mm",)),
+])
+def test_tuned_md_route_runs_its_kernels(cuda, tmp_path, monkeypatch, lengths,
+                                         batch, bi, params, kinds):
+    """A recorded ``multidim`` or ``bi_col`` entry routes both directions
+    through its kernels (K10-mm where its gate takes the axis, K10 at
+    L = 100), each launched, the results within the oracle bound of
+    ``torch.fft``; ``autotune`` on the card records one of the raced
+    variants under the same kind and key."""
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.ops import cuda_multidim
+
+    monkeypatch.delenv("PORTFFT_NO_TUNING")
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "tune.json"))
+    tuning._reset_for_tests()
+    try:
+        kw = dict(forward_strides=[batch], backward_strides=[batch],
+                  forward_distance=1, backward_distance=1) if bi else {}
+        desc = pf.Descriptor(lengths=lengths, number_of_transforms=batch, **kw)
+        probe = desc.commit()
+        kind = "bi_col" if bi else "multidim"
+        key = tuning._entry_key(probe, kind)
+        tuning.record(probe.config.name, kind, key, params)
+        plan = desc.commit()
+        n = int(np.prod(lengths))
+        shape = (n, batch) if bi else (batch, *lengths)
+        dims = (0,) if bi else tuple(range(1, len(shape)))
+        x = torch.rand(2 * batch * n, device=cuda) * 2 - 1
+        xc = torch.view_as_complex(x.view(*shape, 2)).to(torch.complex128)
+        for direction, compute in ((pf.Direction.FORWARD, plan.compute_forward),
+                                   (pf.Direction.BACKWARD, plan.compute_backward)):
+            assert tuple(md_kinds(plan._raw_fast[direction])) == kinds
+            before = cuda_multidim.col_mm.launches
+            y = compute(x)
+            torch.cuda.synchronize()
+            assert cuda_multidim.col_mm.launches - before == kinds.count("col_mm")
+            ref = (torch.fft.fftn(xc, dim=dims) if direction == pf.Direction.FORWARD
+                   else torch.fft.ifftn(xc, dim=dims, norm="forward"))
+            diff = (torch.view_as_complex(y.view(*shape, 2)) - ref).abs().max()
+            assert diff.item() <= oracle_tol(n), (direction, diff.item())
+        variants = tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
+        times = {}
+        won = plan.autotune(iters=1, times=times)
+        if len(variants) > 1:
+            assert json.dumps(won, sort_keys=True) in times
+            assert tuning.lookup(plan.config.name, kind, key) == won
+        else:  # K10-mm declines L = 100: nothing to race
+            assert won is None and variants == [{}]
+    finally:
+        tuning._reset_for_tests()
+
+
+def test_real_half_length_takes_the_shipped_k16(cuda, tmp_path, monkeypatch):
+    """With tuning on and only the shipped table, a REAL 131072 plan's
+    half-length GLOBAL entry (65536 = 256 x 256) runs K16, launched once
+    per direction, and both directions hold against ``rfft``/``irfft``."""
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.ops import cuda_global
+
+    monkeypatch.delenv("PORTFFT_NO_TUNING")
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "tune.json"))
+    tuning._reset_for_tests()
+    try:
+        n, batch = 131072, 3
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             domain=pf.Domain.REAL).commit()
+        for direction in pf.Direction:
+            assert plan._raw_fast[direction][1][-1] == "global3"
+        x = torch.rand(batch, n, device=cuda) * 2 - 1
+        before = cuda_global.global3.launches
+        spec = plan.compute_forward(x.reshape(-1))
+        back = plan.compute_backward(spec)
+        torch.cuda.synchronize()
+        assert cuda_global.global3.launches == before + 2
+        ref = torch.fft.rfft(x.double())
+        got = torch.view_as_complex(spec.view(batch, n // 2 + 1, 2))
+        assert (got.to(torch.complex128) - ref).abs().max().item() <= oracle_tol(n)
+        want = torch.fft.irfft(ref, n, norm="forward")
+        assert (back.view(batch, n).double() - want).abs().max().item() <= oracle_tol(n)
     finally:
         tuning._reset_for_tests()

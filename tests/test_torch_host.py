@@ -206,6 +206,10 @@ def _ref_table(bank, key):
         if kind == "GA":
             return bank.bf_twiddle_hi(a1, g2, g1 * g2, sign)
         return bank.bf_twiddle_lo(g2, g1 * g2 // a1, sign)
+    if kind == "G3":  # K16's factored twiddle of the split g1 x g2
+        g1, g2, sign = rest
+        digits = torch_fft.global3_digits(planner.plan_1d(g1 * g2, CFG, 4))
+        return bank.global3_btw(*digits, g1 * g2, torch_fft.GLOBAL3_T1, sign)
     f, m, sign = rest
     return bank.twiddle_fm(f, m, sign)
 
@@ -225,7 +229,7 @@ def test_bank_tables_bit_equal(n):
         assert _ref_table(ref_bank, key) == name
         if key in ref_keys:
             assert ref_keys[key] == name
-        for part in ("r", "i"):
+        for part in ("1r", "1i", "2r", "2i") if key[0] == "G3" else ("r", "i"):
             got, want = bank.host[name + part], ref_bank.host[name + part]
             assert got.dtype == want.dtype == np.float32
             assert got.shape == want.shape

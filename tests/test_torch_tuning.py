@@ -131,15 +131,16 @@ def test_tuned_global_split_plans_alike(tmp_caches):
 def test_shipped_table_is_consistent():
     """The port ships H100 winners only: every entry names an engine with a
     kernel here (a ``fused2`` entry one of K2-v1, K2-v2, K2-v3 whose gate
-    takes its plan at its tile: a row K2 won has no entry), splits factor
-    their length, and no TPU key is present."""
+    takes its plan at its tile: a row K2 won has no entry; a ``multidim``
+    or ``bi_col`` entry a variant that changes a kernel of its shape),
+    splits factor their length, and no TPU key is present."""
     path = os.path.join(os.path.dirname(tuning.__file__), "tuning_defaults.json")
     with open(path) as f:
         ship = json.load(f)
     assert list(ship) == ["cuda_h100"]
     assert not any(dev.startswith("tpu") for dev in ship)
     table = ship["cuda_h100"]
-    assert set(table) <= {"global2", "global_split", "fused2"}
+    assert set(table) <= {"global2", "global_split", "fused2", "multidim", "bi_col"}
     assert table.get("fused2")
     for key, params in table["fused2"].items():
         plan = plan_1d(int(key[1:]), DeviceConfig(), 4)
@@ -154,9 +155,16 @@ def test_shipped_table_is_consistent():
         assert g1 * g2 == int(n)
     for key, params in table.get("global_split", {}).items():
         assert params["g1"] * params["g2"] == int(key[1:])
+    for kind in ("multidim", "bi_col"):
+        for key, params in table.get(kind, {}).items():
+            lengths = [int(v) for v in key[1:].split("x")]
+            plan = _md_desc(lengths, 4, kind == "bi_col").commit(device="cpu")
+            variants = tuning._variants_for_entry(
+                plan, plan._raw_fast[pf.Direction.FORWARD])
+            assert params in variants[1:], (kind, key, params)
 
 
-ENGINES = ({"eng": 5}, {"eng": 7}, {"eng": 7, "ov": 1})
+ENGINES = ({"eng": 5}, {"eng": 7}, {"eng": 7, "ov": 1}, {"eng": 3})
 # FUSED at batch 2: K2-v2 and K2-v3 at bt 1 and 2 (a = 32); K2-v1 where a
 # has no fold (a = 5).  The reference's tile rules ((bt·a) % 128 for its
 # engine 2, % 8 for engine 3) take only engine 3 at 4096 × 2, nothing at 640.
@@ -169,8 +177,8 @@ FUSED_ENGINES = tuple({"eng": e, "bt": b} for b in (1, 2) for e in (2, 3))
     # its VMEM estimate (and its compiler rejects it there)
     (1 << 18, ENGINES[1:], ENGINES[1:]),
     # the reference's VMEM estimate at its default 16 MiB declines eng 7 at
-    # 2048 x 512 (its TPU table, with more VMEM, runs it)
-    (1 << 20, ENGINES[1:], ()),
+    # 2048 x 512 (its TPU table, with more VMEM, runs it), not eng 3
+    (1 << 20, ENGINES[1:], ENGINES[3:]),
     (4096, FUSED_ENGINES, FUSED_ENGINES[1::2]),
     (640, ({"eng": 2},), ()),
 ])
@@ -206,7 +214,7 @@ def test_autotune_records_under_the_global_key(tmp_caches):
     times = {}
     won = plan.autotune(iters=1, times=times)
     assert won in [{}, *ENGINES]
-    assert len(times) == 4
+    assert len(times) == 5
     key = tuning._entry_key(plan, "global2")
     assert key == "n65536_g256x256"
     assert tuning.lookup("cpu", "global2", key) == won
@@ -304,7 +312,7 @@ def test_autotune_drops_a_mismatching_variant(tmp_caches, monkeypatch):
     times = {}
     won = plan.autotune(iters=1, times=times)
     assert won != bad and json.dumps(bad, sort_keys=True) not in times
-    assert len(times) == 3
+    assert len(times) == 4
     assert any("output mismatch" in m for m in msgs), msgs
 
 
@@ -330,8 +338,8 @@ def test_declined_tuned_engine_is_marked_stale_at_commit(tmp_caches, monkeypatch
     _fft_ok(plan.compute_forward(x), x, n, batch)
 
 
-@pytest.mark.parametrize("params", [{"eng": 3, "t1": 128, "t2": 256}, {"eng": 6},
-                                    {"eng": 8, "t1": 128}, {"eng": 7, "bf2": 1}])
+@pytest.mark.parametrize("params", [{"eng": 6}, {"eng": 8, "t1": 128},
+                                    {"eng": 7, "bf2": 1}])
 def test_engine_without_a_kernel_raises(tmp_caches, params):
     desc = pf.Descriptor(lengths=[65536], number_of_transforms=2)
     plan = desc.commit(device="cpu")
@@ -340,6 +348,168 @@ def test_engine_without_a_kernel_raises(tmp_caches, params):
     tuning.record("cpu", "global2", tuning._entry_key(plan, "global2"), params)
     with pytest.raises(pf.UnsupportedConfiguration, match="ROADMAP Queue 2"):
         desc.commit(device="cpu")
+
+
+def test_reference_engine_3_is_k16(tmp_caches):
+    """The reference's engine 3 with its TPU tile knobs (its own shipped
+    winner at 2^17) is K16 here, the knobs ignored; the tuned plan computes
+    the transform."""
+    n, batch = 1 << 17, 1
+    desc = pf.Descriptor(lengths=[n], number_of_transforms=batch)
+    plan = desc.commit(device="cpu")
+    params = {"eng": 3, "t1": 128, "t2": 256}
+    assert fastpath._engine_of(params) == "global3"
+    assert fastpath.with_engine(plan, plan._raw_fast[pf.Direction.FORWARD],
+                                params)[-1] == "global3"
+    tuning.record("cpu", "global2", tuning._entry_key(plan, "global2"), params)
+    plan = desc.commit(device="cpu")
+    assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global3"
+    x = _input(batch, n, 3)
+    _fft_ok(plan.compute_forward(x), x, n, batch)
+
+
+def test_declined_engine_3_is_marked_stale_at_commit(tmp_caches, monkeypatch):
+    """A tuned K16 for 2^21 ([16, 128] x [8, 128]: a FUSED G2, which
+    ``global3_supported`` declines) is marked stale at commit with a
+    warning, and K3 computes."""
+    from portfft_tpu_torch.utils import logging as plog
+
+    n = 1 << 21
+    desc = pf.Descriptor(lengths=[n])
+    key = tuning._entry_key(desc.commit(device="cpu"), "global2")
+    assert key == "n2097152_g2048x1024"
+    tuning.record("cpu", "global2", key, {"eng": 3})
+    warns = []
+    monkeypatch.setattr(plog, "warn", lambda *m: warns.append(" ".join(map(str, m))))
+    plan = desc.commit(device="cpu")
+    assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global2"
+    assert any("stale tuned entry" in w and "global3" in w for w in warns), warns
+    assert tuning.lookup("cpu", "global2", key) is None
+    x = _input(1, n, 4)
+    _fft_ok(plan.compute_forward(x), x, n, 1)
+
+
+# Multi-dim and BATCH_INTERLEAVED: (lengths, batch, BI, kind, key, variants,
+# the kernels of each variant in order).
+MD_TUNED = [
+    ([512, 512], 2, False, "multidim", "n512x512",
+     [{}, {"m2": 0}, {"m2": 0, "cm": 1}],
+     [("md2",), ("direct", "col"), ("direct", "col_mm")]),
+    ([1024, 1024], 1, False, "multidim", "n1024x1024", [{}, {"cm": 1}],
+     [("fused2", "col"), ("fused2", "col_mm")]),
+    ([128, 128, 128], 1, False, "multidim", "n128x128x128",
+     [{}, {"cm": 1}, {"m2": 0}, {"m2": 0, "cm": 1}],
+     [("md2", "col"), ("md2", "col_mm"), ("direct", "col", "col"),
+      ("direct", "col_mm", "col_mm")]),
+    ([100, 256], 2, False, "multidim", "n100x256", [{}], [("direct", "col")]),
+    ([4096], 4, True, "bi_col", "n4096", [{}, {"cm": 1}], [("col",), ("col_mm",)]),
+]
+
+
+def _md_desc(lengths, batch, bi, **kw):
+    if bi:
+        kw.update(forward_strides=[batch], backward_strides=[batch],
+                  forward_distance=1, backward_distance=1)
+    return pf.Descriptor(lengths=lengths, number_of_transforms=batch, **kw)
+
+
+def _md_kinds(entry):
+    inner = fastpath.inner_entry(entry)
+    return (inner[6],) if inner[0] == "bi_col" else tuple(s[0] for s in inner[2])
+
+
+@pytest.mark.parametrize("lengths,batch,bi,kind,key,variants,routes", MD_TUNED)
+def test_md_keys_variants_and_routes(tmp_caches, lengths, batch, bi, kind, key,
+                                     variants, routes):
+    """The ``multidim`` and ``bi_col`` kinds key as the reference's
+    (``n{L0}x{L1}…``, ``n{n}``); the variants are ``{}`` and those that
+    change a kernel (``{"cm": 1}`` where a column step takes K10-mm, the
+    per-axis route where K11 runs); each recorded variant routes both
+    directions at commit."""
+    desc = _md_desc(lengths, batch, bi)
+    plan = desc.commit(device="cpu")
+    entry = plan._raw_fast[pf.Direction.FORWARD]
+    assert fastpath.inner_entry(entry)[0] == kind
+    assert tuning._key_of(plan, fastpath.inner_entry(entry)) == key
+    rkw = dict(lengths=lengths, number_of_transforms=batch)
+    if bi:
+        rkw.update(forward_strides=[batch], backward_strides=[batch],
+                   forward_distance=1, backward_distance=1)
+    rplan = ref.Descriptor(**rkw).commit(use_pallas=True)
+    assert ref_tuning._entry_key(rplan, kind) == key
+    assert tuning._variants_for_entry(plan, entry) == variants
+    for params, kinds in zip(variants, routes):
+        tuning.record("cpu", kind, key, params)
+        plan = desc.commit(device="cpu")
+        for direction in pf.Direction:
+            assert _md_kinds(plan._raw_fast[direction]) == kinds
+
+
+@pytest.mark.parametrize("lengths,won", [([512, 512], {"m2": 0, "cm": 1}),
+                                         ([128, 128, 128], {"m2": 0}),
+                                         ([1024, 1024], {"cm": 1})])
+def test_md_variants_do_not_depend_on_the_tuned_entry(tmp_caches, lengths, won):
+    """A plan committed on a tuned entry (here one that turned K11 off)
+    races the same variants as on the static route: ``autotune`` on a card
+    whose shipped table holds a winner races them all again."""
+    desc = pf.Descriptor(lengths=lengths)
+    static = desc.commit(device="cpu")
+    want = tuning._variants_for_entry(static, static._raw_fast[pf.Direction.FORWARD])
+    tuning.record("cpu", "multidim", tuning._entry_key(static, "multidim"), won)
+    plan = desc.commit(device="cpu")
+    entry = plan._raw_fast[pf.Direction.FORWARD]
+    assert _md_kinds(entry) != _md_kinds(static._raw_fast[pf.Direction.FORWARD])
+    assert tuning._variants_for_entry(plan, entry) == want
+
+
+@pytest.mark.parametrize("knobs", [{"ct": 128, "ds": 1}, {"mt1": 64, "mt2": 64},
+                                   {"cm": 1, "ct": 256}])
+def test_md_tpu_knobs_are_ignored(tmp_caches, knobs):
+    """The reference's TPU tile knobs (``ct``, ``ds``, ``mt1``, ``mt2``) are
+    read and ignored: only ``cm`` and ``m2`` change a route."""
+    desc = pf.Descriptor(lengths=[1024, 1024])
+    tuning.record("cpu", "multidim", "n1024x1024", knobs)
+    kinds = _md_kinds(desc.commit(device="cpu")._raw_fast[pf.Direction.FORWARD])
+    assert kinds == (("fused2", "col_mm") if knobs.get("cm") else ("fused2", "col"))
+
+
+@pytest.mark.parametrize("lengths,batch,bi,fields,kind,key", [
+    ([128, 128, 128], 1, False, {}, "multidim", "n128x128x128"),
+    ([256], 8, True, {}, "bi_col", "n256"),
+    # a layout entry around bi_col (offsets on the BI blocks) records there too
+    ([256], 8, True, dict(forward_offset=3, backward_offset=5), "bi_col", "n256"),
+])
+def test_autotune_md_records_and_reregisters(tmp_caches, lengths, batch, bi,
+                                             fields, kind, key):
+    """``autotune`` on the CPU races the variants, records the winner under
+    the ``multidim`` or ``bi_col`` kind and key, re-registers both
+    directions on it, and the tuned plan computes the transform."""
+    desc = _md_desc(lengths, batch, bi, **fields)
+    plan = desc.commit(device="cpu")
+    static = plan._raw_fast[pf.Direction.BACKWARD]
+    assert static[0] == ("layout" if fields else kind)
+    variants = tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
+    times = {}
+    won = plan.autotune(iters=1, times=times)
+    assert won in variants and len(times) == len(variants) > 1
+    assert tuning.lookup("cpu", kind, key) == won
+    want = _md_kinds(fastpath.with_engine(plan, static, won))
+    assert _md_kinds(plan._raw_fast[pf.Direction.BACKWARD]) == want
+    assert _md_kinds(desc.commit(device="cpu")._raw_fast[pf.Direction.BACKWARD]) == want
+    n = int(np.prod(lengths))
+    count = desc.get_input_count(pf.Direction.FORWARD)
+    x = np.random.default_rng(5).uniform(-1, 1, 2 * count).astype(np.float32)
+    y = np.asarray(plan.compute_forward(x)).view(np.complex64)
+    off_in, off_out = fields.get("forward_offset", 0), fields.get("backward_offset", 0)
+    xc = x.view(np.complex64)[off_in:off_in + batch * n]
+    xc = xc.reshape(n, batch).T if bi else xc.reshape(batch, *lengths)
+    axes = (1,) if bi else tuple(range(1, len(lengths) + 1))
+    exact = np.fft.fftn(xc.astype(np.complex128), axes=axes)
+    got = y[off_out:off_out + batch * n]
+    got = got.reshape(n, batch).T if bi else got.reshape(batch, *lengths)
+    tol = oracle.tolerance(ref.Descriptor(lengths=lengths))
+    diff = np.abs(got - exact)
+    assert np.all((diff <= tol) | (diff <= tol * np.abs(exact))), diff.max()
 
 
 def test_reference_two_pass_engine_is_k3(tmp_caches):
