@@ -14,11 +14,14 @@ layout rows (``chip_smoke.LAYOUT_ROWS``: strided, BATCH_INTERLEAVED in one
 or both domains, offsets with an out= tensor, SPLIT strided; K7 shows as
 ``destride_*``/``restride_*`` kernels), and of the tuned GLOBAL rows
 (``TUNED_ROWS``: large_1d and the 2^17 row through K4, the ladder through
-K5 and K5-ov) and of the tuned FUSED rows (``chip_smoke.TUNED_FUSED_ROWS``
-through K2 and every engine their entry reaches: K2-v2 and K2-v3, or
-K2-v1 where a has no fold), each engine selected by a recorded tuning
-entry in a cache of the run's own; every other row runs its static
-route), it
+K5 and K5-ov; large_1d and the mixed-radix rows 147456 = 384 x 384 and
+196608 = 512 x 384 through K3, K16, K17 in both twiddle modes and K18,
+large_1d through K19) and of the tuned FUSED rows
+(``chip_smoke.TUNED_FUSED_ROWS`` through K2 and every engine their entry
+reaches: K2-v2 and K2-v3, or K2-v1 where a has no fold) and of the tuned
+multi-dim rows (md_1024x1024 and bi_4096 through K10-mm, ``{"cm": 1}``),
+each engine selected by a recorded tuning entry in a cache of the run's
+own; every other row runs its static route), it
 commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
@@ -103,6 +106,18 @@ TUNED_ROWS = [
     *((f"tuned_2^{e}_{tag}", 1 << e, 1 << (27 - e), params)
       for e in (17, 18, 19, 20)
       for tag, params in (("k5", {"eng": 7}), ("k5ov", {"eng": 7, "ov": 1}))),
+    *((f"tuned_{row}_{tag}", n, batch, params)
+      for row, n, batch in (("large_1d", 65536, 2048), ("mixed_147456", 147456, 1024),
+                            ("mixed_196608", 196608, 512))
+      for tag, params in (("k3", {}), ("k16", {"eng": 3}), ("k17", {"eng": 6}),
+                          ("k17ftw", {"eng": 6, "ftw": 1}), ("k18", {"eng": 8}))),
+    ("tuned_large_1d_k19", 65536, 2048, {"eng": 7, "bf2": 1}),
+]
+# The tuned multi-dim rows through K10-mm: name, lengths, batch,
+# batch-interleaved, the column kind's tuning parameters.
+TUNED_MD_ROWS = [
+    ("tuned_md_1024x1024_k10mm", [1024, 1024], 64, False, {"cm": 1}),
+    ("tuned_bi_4096_k10mm", [4096], 32768, True, {"cm": 1}),
 ]
 
 
@@ -178,8 +193,9 @@ def main() -> None:
 
 
 def commit(pf, desc, params):
-    """``desc`` committed on the card; with ``params``, the GLOBAL or FUSED
-    engine they select recorded in the run's tuning cache first."""
+    """``desc`` committed on the card; with ``params``, the GLOBAL, FUSED,
+    multi-dim or BATCH_INTERLEAVED variant they select recorded in the run's
+    tuning cache first."""
     if params is None:
         return desc.commit(device="cuda")
     from portfft_tpu_torch import fastpath, tuning
@@ -187,7 +203,9 @@ def commit(pf, desc, params):
     os.environ.pop("PORTFFT_NO_TUNING")
     try:
         probe = desc.commit(device="cuda")
-        kind = fastpath._tuned_kind(probe.plans[desc.lengths[0]])
+        inner = fastpath.inner_entry(probe._raw_fast[pf.Direction.FORWARD])
+        kind = (inner[0] if inner[0] in ("multidim", "bi_col")
+                else fastpath._tuned_kind(probe.plans[desc.lengths[0]]))
         tuning.record(probe.config.name, kind, tuning._entry_key(probe, kind),
                       params)
         return desc.commit(device="cuda")
@@ -219,6 +237,10 @@ def profile_rows() -> None:
     rows = [(*r, None) if len(r) == 6 else (*r, False, None) for r in rows]
     rows += [(name, [n], b, "forward", {}, False, params)
              for name, n, b, params in TUNED_ROWS]
+    rows += [(name, lengths, b, "forward",
+              dict(bi, forward_strides=[b], backward_strides=[b]) if is_bi else {},
+              False, params)
+             for name, lengths, b, is_bi, params in TUNED_MD_ROWS]
     prefixes = sys.argv[1:]
     for name, lengths, batch, direction, kw, give_out, params in rows:
         if prefixes and not any(name.startswith(p) for p in prefixes):

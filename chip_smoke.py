@@ -130,9 +130,24 @@
    line "autotune winners (multidim/bi_col, ...)" gives the winners.  The
    tuned GLOBAL main path (6.) forces and races K16 (``{"eng": 3}``) beside
    K3, K4, K5 and K5-ov.
-9. Prints the kernel table as one JSON line (each kernel's launches on the
+9. The last GLOBAL engines, K17 ``global_fused`` (dense twiddle, and
+   factored: ``{"eng": 6, "ftw": 1}``), K18 ``global_ilv`` (mixed radix)
+   and K19 ``global_bf2``, run in the phases of 6.: the kernel phase holds
+   each at every (G1, G2) of ``TUNED_ROWS`` its gate takes, both
+   directions, against its plain version and ``torch.fft`` with the two
+   planted faults (K17: its twiddle, or the factored mode's per-tile
+   factors, conjugated; K18: GB; K19: its factor B1ᵀ), and times each
+   alone at 2^17 x 1024 beside K3, K5-ov and K16; the tuned main path
+   forces each (K17 in both modes) on every row its gate takes and races
+   them, ``TUNED_ROWS`` now with the mixed-radix rows mixed_147456
+   (384 x 384) and mixed_196608 (512 x 384), where K3, K16, K17 and K18
+   race.  Then the wrappers, ``WRAPPER_ROWS``: real_131072 and
+   strided_large with each of K17, K18 and K19 forced on their 65536
+   entry, run as on the REAL and layout main paths (the engine launched
+   under K8a and K7).
+10. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
-   ms and library ms; twenty-two kernels), then, as the last line, ``{"ok":
+   ms and library ms; twenty-five kernels), then, as the last line, ``{"ok":
    true, "device": {...}}``.  Any failure exits non-zero before that line.
 """
 
@@ -329,20 +344,30 @@ SENTINEL = -5.0
 # table reroutes: run again with tuning on, through the shipped engine.
 TUNED_LAYOUT = ("strided_large", "strided_out_large", "bi_65536",
                 "offset_out_large_1d")
-# Tuned main path (bench.py large_1d and LADDER_CONFIGS at about 1 GiB in):
-# name, n, batch.  Each row runs every tuned engine its plan takes, forced
-# by a recorded tuning entry, then autotune.  The kernel phase checks K4,
-# K5 and K5-ov at the same shapes (tuned_cases): K4 at 256 x 256 and
-# 512 x 256, K5 and K5-ov at 256 x 256, 512 x 256, 512 x 512, 2048 x 256
-# and 2048 x 512.
+# Tuned main path (bench.py large_1d and LADDER_CONFIGS at about 1 GiB in,
+# and two lengths whose subs are 3·2^k, 147456 = 384 x 384 and 196608 =
+# 512 x 384, at 1.21 and 0.81 GB in): name, n, batch.  Each row runs every
+# tuned engine its plan takes, forced by a recorded tuning entry, then
+# autotune.  The kernel phase checks the tuned engines at the same shapes
+# (tuned_cases): K4 at 256 x 256 and 512 x 256; K5, K5-ov and K19 at the
+# five power-of-two splits; K17 (both twiddle modes) and K18 at all seven.
 TUNED_ROWS = [
     ("large_1d", 65536, 2048), ("ladder_2^17", 1 << 17, 1024),
     ("ladder_2^18", 1 << 18, 512), ("ladder_2^19", 1 << 19, 256),
-    ("ladder_2^20", 1 << 20, 128),
+    ("ladder_2^20", 1 << 20, 128), ("mixed_147456", 147456, 1024),
+    ("mixed_196608", 196608, 512),
 ]
-# Timed alone at 2^27 points: K4 at large_1d, K5 and K5-ov at the 2^17 row.
+# Timed alone at 2^27 points: K4 at large_1d, the others at the 2^17 row
+# (K17, K18 and K19 beside K3, K5-ov and K16 there).
 TUNED_ALONE = {"global_sq": (65536, 2048), "global_bf": (1 << 17, 1024),
-               "global_bf_ov": (1 << 17, 1024)}
+               "global_bf_ov": (1 << 17, 1024), "global_fused": (1 << 17, 1024),
+               "global_fused_ftw": (1 << 17, 1024), "global_ilv": (1 << 17, 1024),
+               "global_bf2": (1 << 17, 1024)}
+# The wrappers carry a tuned engine: real_131072 (its h = 65536 is a global2
+# entry) and strided_large (K7 around the 65536 entry) on each of K17, K18
+# and K19, forced by a recorded entry.
+WRAPPER_ROWS = ("real_131072", "strided_large")
+WRAPPER_ENGINES = ("global_fused", "global_ilv", "global_bf2")
 # The FUSED engines K2-v1, K2-v2 and K2-v3 (K2 is "fused2").
 FUSED_KINDS = ("fused2_v1", "fused2_v2", "fused2_v3")
 # Tuned FUSED main path (about 1 GiB in): name, n, batch.  medium_large_1d is
@@ -430,6 +455,12 @@ SOURCES = {
                "portfft_tpu/ops/pallas_multidim.py:240"),
     "global3": ("portfft_tpu_torch/csrc/fft_global3.cu",
                 "portfft_tpu/ops/pallas_global3.py:294"),
+    "global_fused": ("portfft_tpu_torch/csrc/fft_global_fused.cu",
+                     "portfft_tpu/ops/pallas_global.py:1004"),
+    "global_ilv": ("portfft_tpu_torch/csrc/fft_global_ilv.cu",
+                   "portfft_tpu/ops/pallas_global_ilv.py:371"),
+    "global_bf2": ("portfft_tpu_torch/csrc/fft_global_bf.cu",
+                   "portfft_tpu/ops/pallas_global_bf.py:390"),
 }
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
@@ -439,8 +470,13 @@ PLANE_KINDS = ("interleave", "chain", "bluestein")
 SPLIT_KINDS = ("global2_planes", "axis_m2")
 # K7 is one kernel of the table with two wrappers (destride, restride).
 STRIDE_KINDS = ("destride", "restride")
-# The tuned GLOBAL engines K4, K5 and K5-ov (K3 is "global2").
-TUNED_KINDS = ("global_sq", "global_bf", "global_bf_ov")
+# The tuned GLOBAL kernels K4, K5, K5-ov, K17, K18 and K19 (K3 is
+# "global2", K16 "global3"), and their engines: K17 runs in two twiddle
+# modes, "global_fused_ftw" its factored one.
+TUNED_KINDS = ("global_sq", "global_bf", "global_bf_ov", "global_fused",
+               "global_ilv", "global_bf2")
+TUNED_ENGINES = TUNED_KINDS + ("global_fused_ftw",)
+KERNEL_OF = {"global_fused_ftw": "global_fused"}
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
 # fp32, per millisecond.
 HBM_BYTES_PER_MS = 3.35e9
@@ -578,8 +614,9 @@ def conjugated(sub):
 def planted(kind: str, args: tuple) -> tuple:
     """A kernel's arguments with one table conjugated: the roots (K1, K9,
     a DIRECT K10 or K11 axis), the inner twiddle (K2, a FUSED K10 or K11
-    axis; K11's second axis), the inter-pass twiddle (K3, K4), the low
-    factor GB of K5's twiddle or the REAL post-twiddle (K8); K2-v1, K2-v2
+    axis; K11's second axis), the inter-pass twiddle (K3, K4, K17; in K17's
+    factored mode its table B1), the low factor GB of K5's and K18's
+    twiddle (K19: its factor B1ᵀ) or the REAL post-twiddle (K8); K2-v1, K2-v2
     and K2-v3 the inner twiddle, as K2.  K9's plain
     version reads the matrix, whose
     conjugate negates the imaginary outputs (forward) or inputs
@@ -595,9 +632,21 @@ def planted(kind: str, args: tuple) -> tuple:
     if kind in ("global2", "global_sq"):
         batch, sub1, sub2, tr, ti, scale = args
         return (batch, sub1, sub2, tr, -ti, scale)
-    if kind in ("global_bf", "global_bf_ov"):  # the low factor of the twiddle
+    if kind in ("global_bf", "global_bf_ov", "global_ilv"):  # the low twiddle factor
         batch, tabs, scale = args
         return (batch, dataclasses.replace(tabs, gb=(tabs.gb[0], -tabs.gb[1])),
+                scale)
+    if kind == "global_bf2":  # B1ᵀ, the first factor of the low twiddle
+        batch, tabs, scale = args
+        (b1r, b1i), b2 = tabs.lo
+        return (batch, dataclasses.replace(tabs, lo=((b1r, -b1i), b2)), scale)
+    if kind in ("global_fused", "global_fused_ftw"):  # the twiddle, or A1, A2
+        batch, tabs, scale = args
+        if tabs.tw:
+            return (batch, dataclasses.replace(tabs, tw=(tabs.tw[0], -tabs.tw[1])),
+                    scale)
+        b1, b2, (a1r, a1i), (a2r, a2i) = tabs.q
+        return (batch, dataclasses.replace(tabs, q=(b1, b2, (a1r, -a1i), (a2r, -a2i))),
                 scale)
     if kind in ("col", "col_mm"):
         bpre, rest, sub, scale = args
@@ -864,11 +913,18 @@ REAL_KIND_OF = {"realsf": "small_real", "realsb": "small_real",
                 "realf": "untangle", "realb": "retangle"}
 
 
-def real_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
+def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
+                   required=REAL_KINDS) -> tuple[list, dict]:
+    """``rows`` (``REAL_ROWS``) through the committed plan: each row's REAL
+    kernel and the C2C kernel under it (the engine of its ``global2`` or
+    ``fused2`` entry) must launch, a sample of transforms is held to
+    ``rfft``/``irfft``, and the path, its plain version and one
+    ``torch.fft`` call are timed; every kernel of ``required`` must have
+    launched."""
     results = []
     for c in counters.values():
         c.launches = 0
-    for name, n, batch, dname in REAL_ROWS:
+    for name, n, batch, dname in rows:
         direction = pf.Direction(dname)
         forward = direction == pf.Direction.FORWARD
         sign = -1 if forward else +1
@@ -876,8 +932,9 @@ def real_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
                              domain=pf.Domain.REAL).commit(device="cuda")
         entry = plan._raw_fast[direction]
         kinds = [REAL_KIND_OF[entry[0]]]
-        if entry[0] in ("realf", "realb"):
-            kinds.append(entry[1][0])  # the C2C kernel under it
+        if entry[0] in ("realf", "realb"):  # the C2C kernel under it
+            inner = entry[1]
+            kinds.append(inner[5] if inner[0] in ("global2", "fused2") else inner[0])
         x = random_raw(batch * n, seed=0) if forward else half_spectra(batch, n, 0)
         compute = plan.compute_forward if forward else plan.compute_backward
         before = {k: counters[k].launches for k in kinds}
@@ -911,7 +968,7 @@ def real_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         torch.cuda.empty_cache()
     launches = {k: c.launches for k, c in counters.items()}
     print(f"REAL main-path launches: {launches}")
-    for kind in REAL_KINDS:
+    for kind in required:
         if launches[kind] == 0:
             raise SmokeFailure(f"kernel {kind} was never launched on the REAL path")
     return results, launches
@@ -1789,8 +1846,8 @@ def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
     return results, launches
 
 
-def tuned_cases(pf, kinds=TUNED_KINDS) -> list[tuple]:
-    """``(kind, n, batch)`` of each tuned engine (K4, K5, K5-ov, or
+def tuned_cases(pf, kinds=TUNED_ENGINES) -> list[tuple]:
+    """``(kind, n, batch)`` of each tuned engine (``TUNED_ENGINES``, or
     ``kinds``) at every ``TUNED_ROWS`` shape its gate takes: the shapes the
     tuned main path gives it."""
     from portfft_tpu_torch import fastpath
@@ -1812,12 +1869,16 @@ def tuned_kernel(plan, kind: str, direction):
 
 
 def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
-    """Checks K4, K5 and K5-ov at ``tuned_cases``, forward (scale 0.5) and
-    backward (scale 2/n), against their plain versions and ``torch.fft``
-    with the two planted faults (K4: the inter-pass twiddle conjugated, as
-    K3; K5: the low twiddle factor GB).  Returns ``{kind: (ms, plain_ms,
-    library_ms)}`` of each timed alone forward at ``TUNED_ALONE``."""
-    alone = {}
+    """Checks K4, K5, K5-ov, K17 (both twiddle modes), K18 and K19 at
+    ``tuned_cases``, forward (scale 0.5) and backward (scale 2/n), against
+    their plain versions and ``torch.fft`` with the two planted faults (K4,
+    K17: the inter-pass twiddle conjugated, as K3, or in K17's factored
+    mode its per-tile factors A1 and A2; K5, K18: the low twiddle factor
+    GB; K19: its factor B1ᵀ).  Returns
+    ``{engine: (ms, plain_ms, library_ms)}`` of each timed alone forward at
+    ``TUNED_ALONE``; K17, K18 and K19 are timed there beside K3, K5-ov and
+    K16."""
+    alone, beside = {}, {}
     for kind, n, batch in tuned_cases(pf):
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                              forward_scale=0.5, backward_scale=2.0 / n
@@ -1833,15 +1894,25 @@ def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
             if kernel.launches != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
             report(kind, f"{g1}x{g2} batch={batch:<6d} {direction.value:8s}", r)
-            max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+            name = KERNEL_OF.get(kind, kind)
+            max_err[name] = max(max_err.get(name, 0.0), r["err"])
             if sign < 0 and (n, batch) == TUNED_ALONE[kind]:
                 ms = time_ms(lambda: kernel(x, *args))
                 plain_ms = time_ms(lambda: kernel.plain(x, *args))
                 library_ms = time_ms(library_call(x, n, batch, False, True))
-                bound, by = bound_of(kind, n, batch)
+                bound, by = bound_of(name, n, batch)
                 alone[kind] = (ms, plain_ms, library_ms)
-                print(f"alone  {kind:12s} n={n:<8d} batch={batch:<6d} kernel "
-                      f"{ms:.3f} ms | plain {plain_ms:.3f} ms | torch.fft "
+                others = ""
+                if name in WRAPPER_ENGINES:  # K17, K18, K19 beside K3, K5-ov, K16
+                    if (n, batch) not in beside:
+                        beside[(n, batch)] = {
+                            k: time_ms(functools.partial(k3, x, *a3)) for k, (k3, a3)
+                            in ((k, tuned_kernel(plan, k, direction)) for k in
+                                ("global2", "global_bf_ov", "global3"))}
+                    others = "".join(f" | {k} {t:.3f} ms"
+                                     for k, t in beside[(n, batch)].items())
+                print(f"alone  {kind:16s} n={n:<8d} batch={batch:<6d} kernel "
+                      f"{ms:.3f} ms{others} | plain {plain_ms:.3f} ms | torch.fft "
                       f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
             del kernel, args
         del plan, x
@@ -1852,8 +1923,9 @@ def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
 def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     """``TUNED_ROWS`` through ``Descriptor(...).commit(device="cuda")`` with
     tuning on, in the run's own tuning cache: per row, a recorded entry
-    forces each engine whose gate takes the plan (K4, K5, K5-ov, K16) and the
-    row is held to ``torch.fft`` and timed; then, with the entry forgotten,
+    forces each engine whose gate takes the plan (K4, K5, K5-ov, K16, K17 in
+    both twiddle modes, K18, K19) and the row is held to ``torch.fft`` and
+    timed; then, with the entry forgotten,
     ``plan.autotune()`` races the engines (each variant's time and the
     winner printed) and the tuned plan is held and timed again.  Peak
     device memory of each forced row's first call is printed.  Returns the
@@ -1873,19 +1945,20 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             device, key = plan.config.name, tuning._entry_key(plan, "global2")
             shipped = plan._raw_fast[fwd][-1]
             del plan
-            for kind in (k for k, m, _ in tuned_cases(pf, TUNED_KINDS + ("global3",))
+            for kind in (k for k, m, _ in tuned_cases(pf, TUNED_ENGINES + ("global3",))
                          if m == n):
                 tuning.record(device, "global2", key, fastpath.ENGINE_PARAMS[kind])
                 plan = desc.commit(device="cuda")
                 if plan._raw_fast[fwd][-1] != kind:
                     raise SmokeFailure(f"{name}: the recorded {kind} did not route")
-                before = counters[kind].launches
+                counter = counters[KERNEL_OF.get(kind, kind)]
+                before = counter.launches
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 y = plan.compute_forward(x)
                 torch.cuda.synchronize()
                 peak_gib = torch.cuda.max_memory_allocated() / 2**30
-                if counters[kind].launches != before + 1:
+                if counter.launches != before + 1:
                     raise SmokeFailure(f"{name}: {kind} was not launched once")
                 if y.shape != x.shape or not torch.isfinite(y).all():
                     raise SmokeFailure(f"{name} {kind}: output not finite")
@@ -1896,7 +1969,7 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
                 del y
                 ms = time_ms(lambda: plan.compute_forward(x))
                 print(f"row {name:12s} n={n:<8d} batch={batch:<6d} forced "
-                      f"{kind:12s} oracle max|diff|={excess * oracle_tol(n):.3e} "
+                      f"{kind:16s} oracle max|diff|={excess * oracle_tol(n):.3e} "
                       f"| path {ms:.3f} ms {16 * batch * n / ms / 1e6:.1f} GB/s "
                       f"| peak {peak_gib:.2f} GiB | {card}")
                 del plan
@@ -1957,6 +2030,32 @@ def tuned_layout_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             print(f"row {name:20s} shipped global2/{key} {shipped} -> {engine}")
             del plan
         return layout_main_path(pf, counters, card, rows)
+    finally:
+        os.environ["PORTFFT_NO_TUNING"] = "1"
+
+
+def tuned_wrapper_path(pf, counters: dict, card: str) -> None:
+    """``WRAPPER_ROWS`` with tuning on, in the run's own tuning cache: for
+    each of K17, K18 and K19 a recorded entry for the 65536 = 256 x 256
+    plan forces it, and real_131072 (K8a over its half length) and
+    strided_large (K7 around it) run as on the REAL and layout main paths,
+    that engine launched under each wrapper."""
+    from portfft_tpu_torch import fastpath, tuning
+
+    real = [r for r in REAL_ROWS if r[0] in WRAPPER_ROWS]
+    layout = [r for r in LAYOUT_ROWS if r[0] in WRAPPER_ROWS]
+    os.environ.pop("PORTFFT_NO_TUNING", None)
+    try:
+        probe = pf.Descriptor(lengths=[65536]).commit(device="cuda")
+        device, key = probe.config.name, tuning._entry_key(probe, "global2")
+        del probe
+        for kind in WRAPPER_ENGINES:
+            tuning.record(device, "global2", key, fastpath.ENGINE_PARAMS[kind])
+            print(f"wrappers on a recorded global2/{key} "
+                  f"{fastpath.ENGINE_PARAMS[kind]}")
+            real_main_path(pf, counters, card, real, ("untangle", kind))
+            layout_main_path(pf, counters, card, layout, required=("destride", kind))
+        tuning.forget(device, "global2", key)
     finally:
         os.environ["PORTFFT_NO_TUNING"] = "1"
 
@@ -2482,6 +2581,7 @@ def phases_run(t_start: float, card: str) -> None:
         cuda_fft,
         cuda_global,
         cuda_global_bf,
+        cuda_global_ilv,
         cuda_io,
         cuda_multidim,
         cuda_real,
@@ -2509,7 +2609,10 @@ def phases_run(t_start: float, card: str) -> None:
                 "global_bf_ov": cuda_global_bf.global_bf_ov,
                 "fused2_v1": cuda_fft.fused2_v1, "fused2_v2": cuda_fft.fused2_v2,
                 "fused2_v3": cuda_fft.fused2_v3, "col_mm": cuda_multidim.col_mm,
-                "global3": cuda_global.global3}
+                "global3": cuda_global.global3,
+                "global_fused": cuda_global.global_fused,
+                "global_ilv": cuda_global_ilv.global_ilv,
+                "global_bf2": cuda_global_bf.global_bf2}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -2549,6 +2652,7 @@ def phases_run(t_start: float, card: str) -> None:
     phase("tuned layout rows", tuned_layout_path, pf, counters, card)
     tuned_launches, _ = phase("tuned main path", tuned_main_path, pf, counters,
                               card)
+    phase("tuned wrappers", tuned_wrapper_path, pf, counters, card)
     fused_alone = phase("FUSED kernels", fused_kernel_phase, pf, max_err, card)
     phase("FUSED shipped rows", fused_shipped_path, pf, counters, card)
     fused_launches, _ = phase("tuned FUSED main path", tuned_fused_path, pf,

@@ -168,7 +168,9 @@ class CommittedDescriptor:
         record the fastest in the tuning cache, switch both directions to it
         and return its parameters.  GLOBAL: ``{}`` K3, ``{"eng": 5}`` K4,
         ``{"eng": 7}`` K5, ``{"eng": 7, "ov": 1}`` K5-ov, ``{"eng": 3}``
-        K16, where their gates take the plan.  FUSED [a, 128]: ``{}`` K2,
+        K16, ``{"eng": 6}`` K17 and ``{"eng": 6, "ftw": 1}`` (its factored
+        twiddle), ``{"eng": 8}`` K18, ``{"eng": 7, "bf2": 1}`` K19, where
+        their gates take the plan.  FUSED [a, 128]: ``{}`` K2,
         ``{"eng": 2, "bt": bt}`` K2-v2 and ``{"eng": 3, "bt": bt}`` K2-v3
         at each batch tile their gates take, or where a has no fold
         ``{"eng": 2}`` K2-v1.  Multi-dim (kind ``multidim``, key

@@ -28,7 +28,10 @@ def bank_from_reference(
 
     Key strings are shared, so the result can stand in for
     ``TwiddleBank.device_arrays(device)`` of a plan built here; that
-    includes the REAL post-twiddles ``R{f|b}{n}``.  Only float32 tables
+    includes the REAL post-twiddles ``R{f|b}{n}`` and the tables of the
+    tuned GLOBAL engines: K5's and K18's ``GA``/``GB``/``U``, K16's ``G``,
+    K17's factored ``Q`` and ``Y`` (the reference's ``ZQ``) and K19's
+    ``G2…L`` (of its orientations, the two K19 reads).  Only float32 tables
     are carried: the JAX package's bf16 tables (its matrix-unit precision
     scheme, among them the small-n REAL stacks ``RS…k``) have no reader in
     this package, whose small-n REAL matrix is its own float32

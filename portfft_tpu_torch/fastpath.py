@@ -8,7 +8,7 @@ interleaved buffer, chosen by plan level:
 |---|---|---|
 | DIRECT | ``cuda_fft.direct`` (K1) | ``pallas_fft.direct_raw_call`` |
 | FUSED [a, 128] | the entry's engine: ``cuda_fft.fused2`` (K2, the static route), ``fused2_v1`` (K2-v1), ``fused2_v2`` (K2-v2) or ``fused2_v3`` (K2-v3) | ``pallas_fft.fused2_raw_mm_call``, ``fused2_raw_call``, ``fused2_raw_v2_call``, ``fused2_raw_v3_call`` |
-| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5), ``global_bf_ov`` (K5-ov) or ``cuda_global.global3`` (K16) | ``pallas_global.global2_raw_call``, ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call``, ``pallas_global3.build_call`` |
+| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5), ``global_bf_ov`` (K5-ov), ``global_bf2`` (K19), ``cuda_global.global3`` (K16), ``cuda_global.global_fused`` (K17, dense or factored twiddle) or ``cuda_global_ilv.global_ilv`` (K18) | ``pallas_global.global2_raw_call``, ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call``, ``global_bf2_raw_call``, ``pallas_global3.build_call``, ``pallas_global.global_fused_raw_call``, ``pallas_global_ilv.global_ilv_raw_call`` |
 | anything else (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | the plane path, ``("plane", ...)`` below | ``committed._traced_interleaved`` |
 
 The engine of a GLOBAL entry, ``("global2", plan, batch, sign, scale,
@@ -141,6 +141,7 @@ from .ops import (
     cuda_fft,
     cuda_global,
     cuda_global_bf,
+    cuda_global_ilv,
     cuda_io,
     cuda_multidim,
     cuda_real,
@@ -209,6 +210,10 @@ ENGINE_PARAMS = {
     "global_bf": {"eng": 7},               # K5, butterfly-factored sweep
     "global_bf_ov": {"eng": 7, "ov": 1},   # K5-ov, its phase overlay
     "global3": {"eng": 3},                 # K16, two passes on tensor cores
+    "global_fused": {"eng": 6},            # K17, K3's passes in one launch
+    "global_fused_ftw": {"eng": 6, "ftw": 1},  # K17, factored twiddle
+    "global_ilv": {"eng": 8},              # K18, mixed-radix sweep
+    "global_bf2": {"eng": 7, "bf2": 1},    # K19, K5 with GB resident
 }
 
 #: The kernels of a ``fused2`` entry and the JAX package's engine numbers
@@ -224,13 +229,15 @@ FUSED_ENGINE_PARAMS = {
 
 def _engine_of(params: dict, plan0=None) -> str:
     """The kernel that tuning parameters select: for a GLOBAL plan (or
-    ``plan0`` None) the JAX package's engine 2 is K3, 3 K16 (the tile
-    knobs ``t1``/``t2`` of both have no counterpart here), 5 K4, 7 K5 or
-    K5-ov; engines 6 and 8 and the ``bf2`` variant have no kernel here yet
-    and raise.  For a FUSED [a,
-    128] plan, engine 4 (or none) is K2 (its ``flat``, ``ds`` and ``bt``
-    knobs have no counterpart), 2 K2-v2 and 3 K2-v3, each K2-v1 where a
-    has no fold; any other engine raises."""
+    ``plan0`` None) the JAX package's engine 2 is K3, 3 K16, 5 K4, 6 K17
+    (``"ftw": 1`` its factored twiddle), 7 K5, K5-ov (``"ov": 1``) or K19
+    (``"bf2": 1``), 8 K18.  The reference's TPU knobs have no counterpart
+    here and are read and ignored: the tiles ``t1``/``t2`` (engines 2, 3,
+    6, 7, 8), ``bt`` (5), ``st3``/``ta`` (bf2), and ``ftw``, ``mm`` and
+    ``ds`` on engine 2.  For a FUSED [a, 128] plan, engine 4 (or none) is
+    K2 (its ``flat``, ``ds`` and ``bt`` knobs have no counterpart), 2 K2-v2
+    and 3 K2-v3, each K2-v1 where a has no fold; any other engine
+    raises."""
     eng = params.get("eng")
     if plan0 is not None and is_two_stage(plan0):
         if eng in (None, 4):
@@ -248,12 +255,16 @@ def _engine_of(params: dict, plan0=None) -> str:
         return "global3"
     if eng == 5:
         return "global_sq"
-    if eng == 7 and not params.get("bf2"):
+    if eng == 6:
+        return "global_fused_ftw" if params.get("ftw") else "global_fused"
+    if eng == 7:
+        if params.get("bf2"):
+            return "global_bf2"
         return "global_bf_ov" if params.get("ov") else "global_bf"
+    if eng == 8:
+        return "global_ilv"
     raise RawFastUnavailable(
-        f"the GLOBAL engine {params} has no kernel in this package yet (ROADMAP "
-        "Queue 2: global_fused_raw_call (6), global_ilv_raw_call (8), "
-        "global_bf2_raw_call (bf2))")
+        f"the GLOBAL engine {params} has no kernel in this package")
 
 
 def engine_supported(engine: str, plan0, batch: int = 1, bt: int = 0) -> bool:
@@ -264,8 +275,15 @@ def engine_supported(engine: str, plan0, batch: int = 1, bt: int = 0) -> bool:
         return cuda_global.global_sq_supported(plan0)
     if engine in ("global_bf", "global_bf_ov"):
         return cuda_global_bf.global_bf_supported(plan0)
+    if engine == "global_bf2":
+        return cuda_global_bf.global_bf2_supported(plan0)
     if engine == "global3":
         return cuda_global.global3_supported(plan0)
+    if engine in ("global_fused", "global_fused_ftw"):
+        return cuda_global.global_fused_supported(
+            plan0, ftw=engine == "global_fused_ftw")
+    if engine == "global_ilv":
+        return cuda_global_ilv.global_ilv_supported(plan0)
     if engine == "fused2_v1":
         return cuda_fft.fused2_v1_supported(plan0)
     if engine == "fused2_v2":
@@ -750,9 +768,16 @@ def kernel_args(committed, entry):
         return kernel, (batch, h, arrays[r + "r"], arrays[r + "i"], scale)
     if kind == "global2":
         _, plan0, batch, sign, scale, engine = entry
-        if engine in ("global_bf", "global_bf_ov"):
-            return getattr(cuda_global_bf, engine), (batch, cuda_global_bf.bf_tables(
-                plan0, sign, keys, arrays, batch), scale)
+        if engine in ("global_bf", "global_bf_ov", "global_bf2", "global_ilv"):
+            kernel = (cuda_global_ilv.global_ilv if engine == "global_ilv"
+                      else getattr(cuda_global_bf, engine))
+            return kernel, (batch, cuda_global_bf.bf_tables(
+                plan0, sign, keys, arrays, batch,
+                resident=engine == "global_bf2"), scale)
+        if engine in ("global_fused", "global_fused_ftw"):
+            return cuda_global.global_fused, (batch, cuda_global.global_fused_tables(
+                plan0, sign, keys, arrays, batch,
+                ftw=engine == "global_fused_ftw"), scale)
         if engine == "global3":
             return cuda_global.global3, (batch, cuda_global.global3_tables(
                 plan0, sign, keys, arrays), scale)

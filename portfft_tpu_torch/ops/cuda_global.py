@@ -1,8 +1,9 @@
-"""K3 ``global2``, K4 ``global_sq``, K16 ``global3`` and K14
-``global2_planes``: wrappers of the CUDA kernels (``csrc/fft_global2.cu``,
-``csrc/fft_global_sq.cu``, ``csrc/fft_global3.cu``,
+"""K3 ``global2``, K4 ``global_sq``, K16 ``global3``, K17
+``global_fused`` and K14 ``global2_planes``: wrappers of the CUDA kernels
+(``csrc/fft_global2.cu``, ``csrc/fft_global_sq.cu``,
+``csrc/fft_global3.cu``, ``csrc/fft_global_fused.cu``,
 ``csrc/fft_global2_planes.cu``), their plain PyTorch versions, and the
-gates of K4, K16 and K14.
+gates of K4, K16, K17 and K14.
 
 Counterparts of ``portfft_tpu/ops/pallas_global.py``: ``global2_raw_call``
 (K3, the GLOBAL four-step n = G1·G2 on the PACKED interleaved buffer, in
@@ -10,7 +11,10 @@ two passes through a scratch buffer), ``global_sq_raw_call`` (K4, the same
 function in one pass, the transform held on chip between its stages; the
 tuned engine ``{"eng": 5}``), ``pallas_global3.build_call`` (K16, the same
 function in two passes on the tensor cores, its twiddle from resident
-factored tables; the tuned engine ``{"eng": 3}``) and ``global2_call`` (K14, K3's two passes on
+factored tables; the tuned engine ``{"eng": 3}``), ``global_fused_raw_call``
+(K17, K3's two passes in one cooperative launch whose intermediate stays
+in L2, its twiddle dense or factored; ``{"eng": 6}`` and ``{"eng": 6,
+"ftw": 1}``) and ``global2_call`` (K14, K3's two passes on
 (re, im) float32 planes, with an optional ``post`` table multiplied in
 pass 2; the plane path's GLOBAL nodes and its Bluestein convolutions).
 Same rule as ``cuda_fft``: CPU tensors go to the plain version, CUDA
@@ -38,14 +42,18 @@ from .cuda_fft import (
     stream_of,
     sub_tables,
 )
+from .cuda_global_bf import bf_chunk
 from .cuda_io import check_plane
 from .cuda_multidim import _lane_dft_shape, column_dft_x3
 from .torch_fft import (
+    FTW_T1,
     GLOBAL3_T1,
     complex_mul,
     dft_x3,
+    ftw_factors,
     full_fp32_matmuls,
     global3_digits,
+    is_two_stage,
 )
 
 
@@ -300,6 +308,178 @@ def global3(raw, batch: int, t: Global3Tables, scale: float, out=None):
 
 global3.launches = 0
 global3.plain = global3_plain
+
+
+# -- K17 global_fused ------------------------------------------------------------
+
+def fused_tile(m: int, ncols: int) -> int:
+    """Columns per tile of a K17 pass of m-point columns over ``ncols``
+    columns: K3's width (``pick_tile`` in ``csrc/fft_common.cuh``: about
+    4096 elements, at most 8 columns) rounded down to a power of two, so
+    that it divides ``FTW_T1``."""
+    t = max(1, min(4096 // m, 8, ncols))
+    return 1 << (t.bit_length() - 1)
+
+
+def _pass_elems(sub: Plan1D, t: int) -> tuple[int, int]:
+    """(roots, tile elements) of one pass's shared memory, in float2
+    (``pass_smem_bytes`` in ``csrc/fft_common.cuh``)."""
+    fused = is_two_stage(sub)
+    roots = sub.factors[0] + 128 if fused else sub.n
+    rows = sub.n + sub.n // 128 if fused else sub.n
+    return roots, rows * (t + 1 if t > 1 else 1)
+
+
+def global_fused_smem(plan: Plan1D, ftw: bool = False) -> int:
+    """K17's dynamic shared memory in bytes: the larger root table of the
+    two passes, two tiles of the larger pass (each pass at its own width,
+    ``fused_tile``), and in the factored mode the per-tile factors C1 and
+    C2, (L + H)·T1 float2 (``ftw_factors``)."""
+    g1, g2 = plan.sub
+    r1, e1 = _pass_elems(g1, fused_tile(g1.n, g2.n))
+    r2, e2 = _pass_elems(g2, fused_tile(g2.n, g1.n))
+    extra = sum(ftw_factors(plan)) * fused_tile(g1.n, g2.n) if ftw else 0
+    return 8 * (max(r1, r2) + 2 * max(e1, e2) + extra)
+
+
+def global_fused_supported(plan: Plan1D, ftw: bool = False) -> bool:
+    """K17's gate: a GLOBAL plan whose subs are DIRECT or FUSED [a, 128]
+    (K3's subs) with both passes' tiles in ``config.H100_SMEM_PER_BLOCK``
+    (``global_fused_smem``); the factored mode (``ftw``) also needs the
+    factored tables (``torch_fft.ftw_factors``: a DIRECT G1 with 128 | G1
+    or a FUSED [a, 128] G1 with a | 128, and 64 | G2).  The JAX package's
+    ``global_fused_supported`` asks 128 | G1 and 128 | G2, subs its lane
+    DFT solves and its VMEM estimate for the whole (G2, G1) intermediate;
+    here the intermediate lives in L2, so none of those applies."""
+    if plan.level != Level.GLOBAL:
+        return False
+    if not all(s.level == Level.DIRECT or is_two_stage(s) for s in plan.sub):
+        return False
+    if ftw and not ftw_factors(plan):
+        return False
+    return global_fused_smem(plan, ftw) <= H100_SMEM_PER_BLOCK
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalFusedTables:
+    """One direction's K17 tables and launch shape: the subs, the tile
+    widths of the two passes, the chunk, and the pass-1 twiddle: ``tw``,
+    the dense (G2, G1) [n2, k1] pair (``{"eng": 6}``), or ``q``, the four
+    (re, im) pairs of the factored tables "1" … "4" (the JAX package's
+    ``Q`` for a DIRECT G1, ``ZQ`` for a FUSED one, at ``FTW_T1`` columns;
+    ``{"eng": 6, "ftw": 1}``)."""
+
+    n: int
+    sub1: SubTables
+    sub2: SubTables
+    t1: int
+    t2: int
+    chunk: int
+    tw: tuple = ()
+    q: tuple = ()
+    factors: tuple = ()  # (L, H) of ``q``, ``torch_fft.ftw_factors``
+
+
+def global_fused_tables(plan: Plan1D, sign: int, keys: dict, arrays: dict,
+                        batch: int, ftw: bool = False) -> GlobalFusedTables:
+    """Resolve one direction's K17 tables from the bank
+    (``torch_fft.collect_bank_keys``) and the launch shape."""
+    g1, g2 = plan.sub
+    subs = (sub_tables(g1, sign, keys, arrays), sub_tables(g2, sign, keys, arrays))
+    shape = (fused_tile(g1.n, g2.n), fused_tile(g2.n, g1.n),
+             bf_chunk(plan.n, batch))
+    if not ftw:
+        t = keys[("T", g1.n, g2.n, sign)]
+        return GlobalFusedTables(plan.n, *subs, *shape,
+                                 tw=(arrays[t + "r"], arrays[t + "i"]))
+    key = (("Q", g1.n, plan.n, sign, FTW_T1) if g1.level == Level.DIRECT
+           else ("ZQ", g1.n, g2.n, sign, FTW_T1))
+    q = keys[key]
+    return GlobalFusedTables(plan.n, *subs, *shape, q=tuple(
+        (arrays[f"{q}{j}r"], arrays[f"{q}{j}i"]) for j in "1234"),
+        factors=ftw_factors(plan))
+
+
+def fused_twiddle(t: GlobalFusedTables) -> list[tuple]:
+    """K17's pass-1 twiddle as the kernel applies it, a list of (G2, G1)
+    [n2, k1] (re, im) factors multiplied in turn: the dense table, or with
+    n2 = FTW_T1·ti + n2b and k1 = lo + L·hi the factors C1[n2, lo] =
+    A1[ti, lo]·B1[n2b, lo] and C2[n2, hi] = A2[ti, c]·B2[n2b, c], each a
+    float32 product (A = tables "3", "4"; B = "1", "2"), where c = hi for a
+    DIRECT G1 and c = σ⁻¹(hi) = (hi mod g)·a + hi div g, g = 128/a, for a
+    FUSED [a, 128] G1 (the reference's fold order)."""
+    if t.tw:
+        return [t.tw]
+    g1, g2 = t.sub1.m, t.sub2.m
+    (b1, b2, a1, a2), (lo_n, hi_n) = t.q, t.factors
+    dev = b1[0].device
+    n2 = torch.arange(g2, device=dev)
+    ti, n2b = n2 // FTW_T1, n2 % FTW_T1
+    hi = torch.arange(hi_n, device=dev)
+    if t.sub1.a:
+        g = 128 // t.sub1.a
+        hi = (hi % g) * t.sub1.a + hi // g
+    k1 = torch.arange(g1, device=dev)
+
+    def factor(a, b, cols, idx):
+        cr, ci = complex_mul(a[0][ti][:, cols], a[1][ti][:, cols],
+                             b[0][n2b][:, cols], b[1][n2b][:, cols])
+        return cr[:, idx], ci[:, idx]
+
+    lo = torch.arange(lo_n, device=dev)
+    return [factor(a1, b1, lo, k1 % lo_n), factor(a2, b2, hi, k1 // lo_n)]
+
+
+def global_fused_plain(raw: torch.Tensor, batch: int, t: GlobalFusedTables,
+                       scale: float) -> torch.Tensor:
+    """Plain version of K17, its two passes chunk by chunk: pass 1
+    ``S[b, n2, k1] = (G1-point transform of x[b, :, n2])[k1]`` times the
+    twiddle factors of ``fused_twiddle`` in turn; pass 2 ``out[b, k1 +
+    G1·k2] = scale · (G2-point transform of S[b, :, k1])[k2]``."""
+    g1, g2 = t.sub1.m, t.sub2.m
+    x = raw.view(batch, g1, g2, 2).transpose(1, 2)  # [b, n2, n1]
+    factors = fused_twiddle(t)
+    out = []
+    with full_fp32_matmuls(raw):
+        for b0 in range(0, batch, t.chunk):
+            xc = x[b0:b0 + t.chunk]
+            sr, si = rows_plain(t.sub1, xc[..., 0], xc[..., 1])
+            for wr, wi in factors:
+                sr, si = complex_mul(sr, si, wr, wi)
+            cr, ci = rows_plain(t.sub2, sr.transpose(1, 2), si.transpose(1, 2))
+            out.append(interleave(cr.transpose(1, 2), ci.transpose(1, 2), scale))
+    return torch.cat(out)
+
+
+def global_fused(raw, batch: int, t: GlobalFusedTables, scale: float, out=None):
+    """K17: ``batch`` GLOBAL transforms of length ``t.n`` in one cooperative
+    launch (``csrc/fft_global_fused.cu``): per chunk of ``t.chunk``
+    transforms, K3's pass 1 into a scratch sized to stay in L2, a grid-wide
+    barrier, K3's pass 2 into ``out`` (may be ``raw``), a barrier.  The
+    wrapper allocates the scratch."""
+    check_buffer(raw, 2 * batch * t.n, "global_fused")
+    if raw.device.type == "cpu":
+        return into(out, global_fused_plain(raw, batch, t, scale))
+    require_cuda(raw, "global_fused")
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    scratch = torch.empty(2 * t.chunk * t.n, dtype=torch.float32,
+                          device=raw.device)
+    tw = [p.data_ptr() for p in t.tw] if t.tw else [None, None]
+    q = ([p.data_ptr() for pair in t.q for p in pair] if t.q else [None] * 8)
+    with torch.cuda.device(raw.device):
+        err = lib.pf_global_fused(
+            raw.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+            t.sub1.m, t.sub1.a, *t.sub1.pointers(),
+            t.sub2.m, t.sub2.a, *t.sub2.pointers(), t.t1, t.t2, *tw, *q,
+            batch, t.chunk, scale, stream_of(raw))
+    _build.check(lib, err, "global_fused kernel")
+    global_fused.launches += 1
+    return y
+
+
+global_fused.launches = 0
+global_fused.plain = global_fused_plain
 
 
 # -- K14 global2_planes --------------------------------------------------------

@@ -10,8 +10,13 @@ matrices, ``T{f|b}{f}x{m}`` for inter-factor twiddles stored transposed
 b̂), ``O{f|b}{n}_{g1}x{g2}`` (b̂ ``f`` and final chirp ``g`` in [k1, k2]),
 ``C{f|b}{n}_{g2}x{nv}`` and ``D{f|b}{n}_{g2}x{g1}`` (the three-pass
 kernel's first and last chirps); for K16 ``G{f|b}{ga}x{gb}N{n}t{t1}``
-(its factored twiddle, suffixes ``1r``/``1i``/``2r``/``2i``).  The values
-are the JAX package's too
+(its factored twiddle, suffixes ``1r``/``1i``/``2r``/``2i``); for K5,
+K18 and K19 ``GA{f|b}{A1}x{g2}N{n}`` and ``GB{f|b}128x{g2}N{n/A1}`` (the
+factored inter-factor twiddle) and for K19 ``G2{f|b}L{n/A1}t{t1}`` (GB
+itself factored, suffixes ``1tr``/``1ti``/``2r``/``2i``); for K17's
+factored mode ``Q{f|b}{g1}N{n}t{t1}`` (a DIRECT G1) and
+``Y{f|b}{a}x{g2}N{n}t{t1}`` (a FUSED [a, 128] G1), suffixes ``1r`` …
+``4i``.  The values are the JAX package's too
 (``twiddle.py``), so a table carried over from it (``convert.py``) and one
 built here are interchangeable.  ``RM{f|b}{n}_{scale}m`` (the small-n REAL
 matrix, :meth:`TwiddleBank.real_small`) has no counterpart there: the JAX
@@ -20,11 +25,16 @@ a counterpart of its bf16 presplit matrices (``mat_kara``, ``dft_kstack``)
 or its split-output tables (``vmat_split``): the tensor-core kernels
 K10-mm and K16 split the bank's float32 roots into TF32 hi/lo parts in
 registers, and their plain versions do the same with :func:`tf32_split`.
+Nor has it the TPU layouts of engine 8's tables (the pair-duplicated
+``UI``/``GAI``/``GBI``, the stacked bf16 ``ILL``/``ILR``, ``UT``) or the
+duplicate orientations of the bf2 and Z tables: K18 reads K5's ``U``,
+``GA`` and ``GB``, and each kernel reads one orientation.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -227,6 +237,80 @@ class TwiddleBank:
             self.host[key] = None
         return key
 
+    def btw_planes(self, g1: int, g2: int, n: int, t1: int, sign: int) -> str:
+        """K17's factored pass-1 twiddle for a DIRECT G1 (128 | G1; the
+        JAX package's ``TwiddleBank.btw_planes``, the same key and arrays):
+        with k1 = k1_lo + 128·k1_hi and n2 = t1·ti + n2b, w_n^(k1·n2) is
+        the product of ``1`` = B1[n2b, k1_lo] = w_n^(n2b·k1_lo) (t1, 128),
+        ``2`` = B2[n2b, k1_hi] = w_(n/128)^(n2b·k1_hi) (t1, G1/128), ``3``
+        = A1[ti, k1_lo] = w_n^(ti·t1·k1_lo) (G2/t1, 128) and ``4`` =
+        A2[ti, k1_hi] = w_(n/128)^(ti·t1·k1_hi) (G2/t1, G1/128)."""
+        gb = g1 // 128
+        key = f"Q{'f' if sign < 0 else 'b'}{g1}N{n}t{t1}"
+        if key not in self.host:
+            rows = np.arange(t1, dtype=np.float64)
+            tiles = np.arange(g2 // t1, dtype=np.float64) * t1
+            for suf, (r, cols, root) in (("1", (rows, 128, n)),
+                                         ("2", (rows, gb, n // 128)),
+                                         ("3", (tiles, 128, n)),
+                                         ("4", (tiles, gb, n // 128))):
+                self._roots(key + suf, r, np.arange(cols, dtype=np.float64),
+                            root, sign)
+            self.host[key] = None
+        return key
+
+    def global_fused_twiddles_factored(self, a: int, g2: int, n: int, t1: int,
+                                       sign: int) -> str:
+        """K17's factored pass-1 twiddle for a FUSED [a, 128] G1 (a | 128;
+        the JAX package's ``TwiddleBank.global_fused_twiddles_factored``,
+        the same key and arrays): with k1 = k1a + a·k2a and n2 = t1·ti +
+        n2b, w_n^(k1·n2) = w_n^(k1a·n2)·w_(n/a)^(k2a·n2), each factor split
+        over n2.  Columns q hold exponent q mod a (``1``, ``3``) and σ(q) =
+        (q mod a)·(128/a) + q div a (``2``, ``4``, the reference's fold
+        order): ``1`` = w_n^(n2b·(q mod a)) (t1, 128), ``2`` =
+        w_(n/a)^(n2b·σ(q)) (t1, 128), ``3`` and ``4`` the same at ti·t1
+        (G2/t1, 128).  K17 reads column k1a of ``1``/``3`` and column
+        σ⁻¹(k2a) of ``2``/``4``."""
+        key = f"Y{'f' if sign < 0 else 'b'}{a}x{g2}N{n}t{t1}"
+        if key not in self.host:
+            q = np.arange(128)
+            e1 = np.mod(q, a).astype(np.float64)
+            sigma = ((q % a) * (128 // a) + q // a).astype(np.float64)
+            rows = np.arange(t1, dtype=np.float64)
+            tiles = np.arange(g2 // t1, dtype=np.float64) * t1
+            for suf, (r, cols, root) in (("1", (rows, e1, n)),
+                                         ("2", (rows, sigma, n // a)),
+                                         ("3", (tiles, e1, n)),
+                                         ("4", (tiles, sigma, n // a))):
+                self._roots(key + suf, r, cols, root, sign)
+            self.host[key] = None
+        return key
+
+    def bf_lo_factored(self, n_lo: int, t1: int, n_tiles: int, sign: int) -> str:
+        """K19's resident factors of K5's low twiddle GB[kB1, n2] =
+        w_(n_lo)^(kB1·n2), n_lo = n/A1, with n2 = c + t1·s (the JAX
+        package's ``TwiddleBank.bf_lo_factored``, the same key; of its
+        orientations the two K19 reads): ``1t`` = B1ᵀ[kB1, c] =
+        w_(n_lo)^(c·kB1) (128, t1) and ``2`` = B2[s, kB1] =
+        w_(n_lo)^(s·t1·kB1) (n_tiles, 128)."""
+        key = f"G2{'f' if sign < 0 else 'b'}L{n_lo}t{t1}"
+        if key not in self.host:
+            kb = np.arange(128, dtype=np.float64)
+            self._roots(key + "1t", kb, np.arange(t1, dtype=np.float64), n_lo,
+                        sign)
+            self._roots(key + "2", np.arange(n_tiles, dtype=np.float64) * t1,
+                        kb, n_lo, sign)
+            self.host[key] = None
+        return key
+
+    def _roots(self, name: str, rows, cols, root: int, sign: int) -> None:
+        """``name`` r/i = w_root^(rows[i]·cols[j]), the exponent reduced mod
+        the root order in float64 before scaling, as ``twiddle.py``."""
+        theta = (2.0 * np.pi / root) * np.mod(rows[:, None] * cols[None, :], root)
+        self.host[name + "r"] = np.cos(theta).astype(self.dtype)
+        self.host[name + "i"] = (np.float64(sign) * np.sin(theta)).astype(
+            self.dtype)
+
     def device_arrays(self, device) -> dict[str, torch.Tensor]:
         """Every table as a tensor on ``device``."""
         return {
@@ -346,6 +430,19 @@ def bf_factor(g: int) -> int:
     return a if 1 <= a <= 16 and not a & (a - 1) else 0
 
 
+def ilv_factor(g: int) -> int:
+    """The slab factor A of g = A·128 for K18: any A = 2^a·3^b in [1, 16]
+    (mixed radix, so 3·2^k and 9·2^k subs such as 384 and 1152 qualify),
+    else 0 (``pallas_global_ilv.ilv_factor``)."""
+    if g % 128 or not 1 <= g // 128 <= 16:
+        return 0
+    a = r = g // 128
+    for p in (2, 3):
+        while r % p == 0:
+            r //= p
+    return a if r == 1 else 0
+
+
 def _snap(v: float) -> float:
     """A host-computed root of unity's part snapped to exact 0 or ±1, so
     the butterfly multiplies by exact constants
@@ -354,6 +451,77 @@ def _snap(v: float) -> float:
         if abs(v - t) < 1e-12:
             return t
     return v
+
+
+def unit_root(e: int, s: int, sign: int) -> tuple[float, float]:
+    """exp(sign·2πi·e/s) with its parts snapped (:func:`_snap`)."""
+    ang = sign * 2.0 * math.pi * (e % s) / s
+    return _snap(math.cos(ang)), _snap(math.sin(ang))
+
+
+def _cmul_const(xr, xi, wr: float, wi: float):
+    """(xr + i·xi)·(wr + i·wi) with the exact shortcuts for ±1 and ±i."""
+    if wi == 0.0:
+        return (xr, xi) if wr == 1.0 else (-xr, -xi) if wr == -1.0 else (
+            xr * wr, xi * wr)
+    if wr == 0.0:
+        return (-xi, xr) if wi == 1.0 else (xi, -xr) if wi == -1.0 else (
+            -xi * wi, xr * wi)
+    return xr * wr - xi * wi, xr * wi + xi * wr
+
+
+def mixed_radix_dft(slabs: list, sign: int) -> list:
+    """The A-point DFT across the A = ``len(slabs)`` (re, im) slabs, A =
+    2^a·3^b: decimation in time, radix 2 while A is even, then radix 3
+    (``pallas_global_ilv._bf_slabs_ilv``), natural order in and out: input
+    slab j is the high digit iA of i = 128·iA + iB, output slab k the low
+    frequency digit kA of k = kA + A·kB.  With r the radix and m = A/r,
+    out[q + t·m] = Σ_i (sub_i[q]·w_A^(i·q))·w_r^(i·t), sub_i the m-point
+    DFT of slabs i, i + r, …; every constant snapped (:func:`unit_root`).
+    Powers of two are K5's radix-2 butterfly.  ``csrc/fft_global_bf.cuh``'s
+    ``slab_dft`` runs the same steps."""
+    a = len(slabs)
+    if a == 1:
+        return slabs
+    r = 2 if a % 2 == 0 else 3
+    m = a // r
+    subs = [mixed_radix_dft(slabs[i::r], sign) for i in range(r)]
+    out = [None] * a
+    for q in range(m):
+        parts = [subs[0][q]] + [_cmul_const(*subs[i][q], *unit_root(i * q, a, sign))
+                                for i in range(1, r)]
+        for t in range(r):
+            acc = parts[0]
+            for i in range(1, r):
+                pr, pi = _cmul_const(*parts[i], *unit_root(i * t, r, sign))
+                acc = (acc[0] + pr, acc[1] + pi)
+            out[q + t * m] = acc
+    return out
+
+
+#: The widths the port picks for the factored twiddle tables of K17
+#: (``Q``/``ZQ``, one of the JAX package's ``FTW_T1_CANDIDATES``, and a
+#: multiple of every K17 tile width) and of K19 (``G2L``, the least of its
+#: ``BF2_T1_CANDIDATES``, which leaves K5's tiles the most shared memory).
+FTW_T1 = 64
+BF2_T1 = 128
+
+
+def ftw_factors(plan: Plan1D) -> tuple[int, int] | None:
+    """(L, H) of K17's factored twiddle, k1 = k1_lo + L·k1_hi: (128,
+    G1/128) for a DIRECT G1 with 128 | G1 (the ``Q`` tables), (a, 128)
+    for a FUSED [a, 128] G1 with a | 128 (``ZQ``); None where no such
+    table exists or ``FTW_T1`` does not divide G2."""
+    if plan.level != Level.GLOBAL:
+        return None
+    g1, g2 = plan.sub
+    if g2.n % FTW_T1:
+        return None
+    if g1.level == Level.DIRECT:
+        return (128, g1.n // 128) if g1.n % 128 == 0 else None
+    if is_two_stage(g1) and 128 % g1.factors[0] == 0:
+        return g1.factors[0], 128
+    return None
 
 
 #: The width of K16's twiddle tables (``TwiddleBank.global3_btw``): one of
@@ -409,9 +577,13 @@ def collect_bank_keys(
     subs are both A·128 (``bf_factor``) also gets K5's ``("U", A1, 128,
     sign)``, ``("U", A2, 128, sign)``, ``("GA", g1, g2, sign)``, ``("GB",
     g1, g2, sign)`` and ``("W", 128, sign)``, as the JAX package banks its
-    butterfly engine's tables.  A GLOBAL plan K16 takes
+    butterfly engine's tables; the same for subs whose factors are
+    2^a·3^b (``ilv_factor``, K18's).  Where both are powers of two it also
+    gets K19's ``("G2L", g2, BF2_T1, sign)``.  A GLOBAL plan K16 takes
     (``global3_digits``) gets ``("G3", g1, g2, sign)``, K16's factored
-    twiddle at width ``GLOBAL3_T1``."""
+    twiddle at width ``GLOBAL3_T1``; one whose G1 K17's factored mode
+    takes (``ftw_factors``) its ``("Q", g1, n, sign, FTW_T1)`` (DIRECT
+    G1) or ``("ZQ", g1, g2, sign, FTW_T1)`` (FUSED G1)."""
     if plan.level == Level.DIRECT:
         keys[("W", plan.n, sign)] = bank.dft(plan.n, sign)
     elif is_two_stage(plan):  # K2, K13's two-stage mode: U, not T
@@ -433,8 +605,16 @@ def collect_bank_keys(
         if digits:  # K16's factored twiddle
             keys[("G3", g1.n, g2.n, sign)] = bank.global3_btw(
                 *digits, plan.n, GLOBAL3_T1, sign)
-        a1, a2 = bf_factor(g1.n), bf_factor(g2.n)
-        if a1 and a2:  # K5: digit twiddles, factored twiddle, 128-point roots
+        if ftw_factors(plan):  # K17's factored twiddle
+            if g1.level == Level.DIRECT:
+                keys[("Q", g1.n, plan.n, sign, FTW_T1)] = bank.btw_planes(
+                    g1.n, g2.n, plan.n, FTW_T1, sign)
+            else:
+                keys[("ZQ", g1.n, g2.n, sign, FTW_T1)] = (
+                    bank.global_fused_twiddles_factored(
+                        g1.factors[0], g2.n, plan.n, FTW_T1, sign))
+        a1, a2 = ilv_factor(g1.n), ilv_factor(g2.n)
+        if a1 and a2:  # K5, K18: digit twiddles, factored twiddle, 128-point roots
             keys[("U", a1, 128, sign)] = bank.twiddle_fm(a1, 128, sign)
             keys[("U", a2, 128, sign)] = bank.twiddle_fm(a2, 128, sign)
             keys[("GA", g1.n, g2.n, sign)] = bank.bf_twiddle_hi(
@@ -442,6 +622,9 @@ def collect_bank_keys(
             keys[("GB", g1.n, g2.n, sign)] = bank.bf_twiddle_lo(
                 g2.n, plan.n // a1, sign)
             keys[("W", 128, sign)] = bank.dft(128, sign)
+            if bf_factor(g1.n) and bf_factor(g2.n):  # K19: GB factored
+                keys[("G2L", g2.n, BF2_T1, sign)] = bank.bf_lo_factored(
+                    plan.n // a1, BF2_T1, g2.n // BF2_T1, sign)
         collect_bank_keys(g1, sign, bank, keys)
         collect_bank_keys(g2, sign, bank, keys)
     elif plan.level == Level.BLUESTEIN:

@@ -2,11 +2,14 @@
 BATCH_INTERLEAVED plans, and ``autotune``.
 
 Counterpart of ``portfft_tpu.tuning``.  A GLOBAL plan n = G1·G2 has up to
-five kernels that compute the same function (``fastpath``'s ``global2``
+nine engines that compute the same function (``fastpath``'s ``global2``
 entry): the two-pass K3 (``{}``, the static route), the single-pass K4
 (``{"eng": 5}``), the butterfly-factored single-sweep K5 (``{"eng": 7}``),
-its phase-overlay schedule K5-ov (``{"eng": 7, "ov": 1}``) and the
-tensor-core two-pass K16 (``{"eng": 3}``).  A FUSED plan [a, 128] (the
+its phase-overlay schedule K5-ov (``{"eng": 7, "ov": 1}``), K5 with its low
+twiddle factor resident K19 (``{"eng": 7, "bf2": 1}``), the mixed-radix
+single sweep K18 (``{"eng": 8}``, subs A·128 with A = 2^a·3^b), K3's two
+passes in one launch K17 (``{"eng": 6}``, and ``{"eng": 6, "ftw": 1}`` with
+its factored twiddle) and the tensor-core two-pass K16 (``{"eng": 3}``).  A FUSED plan [a, 128] (the
 ``fused2`` entry) has K2 (``{}``, the static route), K2-v2 (``{"eng": 2,
 "bt": bt}``) and K2-v3 (``{"eng": 3, "bt": bt}``) with a batch tile bt, or,
 where a has no fold, K2-v1 (``{"eng": 2}``).  A multi-dim transform (the
@@ -235,9 +238,11 @@ def _variants_md(committed, inner) -> list[dict]:
 
 def _variants_1d(committed, kind: str, n: int, batch: int) -> list[dict]:
     """``{}`` (the static route) and each engine whose gate takes the
-    length-``n`` plan at ``batch``.  ``global2``: ``{"eng": 5}`` (K4),
-    ``{"eng": 7}`` (K5), ``{"eng": 7, "ov": 1}`` (K5-ov), ``{"eng": 3}``
-    (K16); no tile knob worth racing.  ``fused2``: ``{"eng": 2, "bt": bt}`` (K2-v2) and
+    length-``n`` plan at ``batch``.  ``global2``: the engines of
+    ``fastpath.ENGINE_PARAMS`` in its order, ``{"eng": 5}`` (K4), ``{"eng":
+    7}`` (K5), ``{"eng": 7, "ov": 1}`` (K5-ov), ``{"eng": 3}`` (K16),
+    ``{"eng": 6}`` and ``{"eng": 6, "ftw": 1}`` (K17), ``{"eng": 8}``
+    (K18), ``{"eng": 7, "bf2": 1}`` (K19); no tile knob worth racing.  ``fused2``: ``{"eng": 2, "bt": bt}`` (K2-v2) and
     ``{"eng": 3, "bt": bt}`` (K2-v3) for each bt in 1 … 32 that divides the
     batch and that the gate takes; where a has no fold, ``{"eng": 2}``
     (K2-v1) once, since engines 2 and 3 both reach it there."""

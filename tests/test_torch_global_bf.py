@@ -194,15 +194,16 @@ def test_k5_ov_plain_matches_global_bf_ov_raw_call(g1, g2, sign, scale, t1):
 
 
 def test_butterfly_is_the_a_point_dft():
-    """The radix-2 butterfly (natural order in and out, snapped constants)
-    is the A-point DFT of its slabs, A = 1 … 16, both signs."""
+    """The radix-2 butterfly (natural order in and out, snapped constants;
+    the mixed-radix slab DFT ``torch_fft.mixed_radix_dft`` at A = 2^k) is
+    the A-point DFT of its slabs, A = 1 … 16, both signs."""
     rng = np.random.default_rng(3)
     for a in (1, 2, 4, 8, 16):
         x = rng.uniform(-1, 1, (a, 5)) + 1j * rng.uniform(-1, 1, (a, 5))
         for sign in (-1, +1):
             slabs = [(torch.from_numpy(r.real.copy()), torch.from_numpy(r.imag.copy()))
                      for r in x]
-            out = cuda_global_bf.butterfly(slabs, sign)
+            out = torch_fft.mixed_radix_dft(slabs, sign)
             got = np.stack([r.numpy() + 1j * i.numpy() for r, i in out])
             w = np.exp(sign * 2j * np.pi * np.outer(np.arange(a), np.arange(a)) / a)
             assert np.allclose(got, w @ x, atol=1e-12)

@@ -983,3 +983,123 @@ def test_real_half_length_takes_the_shipped_k16(cuda, tmp_path, monkeypatch):
         assert (back.view(batch, n).double() - want).abs().max().item() <= oracle_tol(n)
     finally:
         tuning._reset_for_tests()
+
+
+# -- the last GLOBAL engines: K17 global_fused, K18 global_ilv, K19 global_bf2 --
+
+# (engine, G1, G2, batch) at the splits of the parity tests
+# (test_torch_global_engines.py) and of chip_smoke's tuned rows; batches that
+# leave several chunks, the last one short, at 2^19 and 2^20.
+SWEEP_CASES = [
+    *((e, g1, g2, b) for e in ("global_fused", "global_fused_ftw")
+      for g1, g2, b in ((256, 256, 3), (1024, 128, 2), (512, 256, 2),
+                        (384, 384, 2), (512, 384, 2), (2048, 256, 3),
+                        (2048, 512, 3), (512, 512, 2))),
+    ("global_fused", 200, 384, 2),  # K3's DIRECT subs off 128ℤ, dense only
+    *(("global_ilv", g1, g2, b) for g1, g2, b in (
+        (256, 256, 3), (512, 256, 2), (256, 512, 2), (128, 256, 2),
+        (384, 384, 2), (384, 768, 2), (256, 1536, 2), (1536, 384, 2),
+        (512, 384, 2), (1152, 256, 2), (2048, 512, 3), (768, 1024, 1))),
+    *(("global_bf2", g1, g2, b) for g1, g2, b in (
+        (256, 256, 3), (512, 256, 2), (256, 512, 2), (128, 256, 2),
+        (512, 512, 2), (256, 1024, 2), (2048, 256, 3), (2048, 512, 3),
+        (1024, 2048, 1))),
+]
+
+
+def _sweep_case(engine, g1, g2, batch, sign, scale):
+    """``(kernel, args)`` of ``engine`` on the split g1 x g2 (subs planned
+    as the planner plans them), through ``fastpath.kernel_args`` on a bank
+    built for the split."""
+    from types import SimpleNamespace
+
+    from portfft_tpu_torch.config import DeviceConfig
+    from portfft_tpu_torch.enums import Level
+    from portfft_tpu_torch.ops import torch_fft
+    from portfft_tpu_torch.planner import Plan1D, plan_1d
+
+    cfg = DeviceConfig()
+    plan = Plan1D(n=g1 * g2, level=Level.GLOBAL, factors=[],
+                  sub=(plan_1d(g1, cfg, 4), plan_1d(g2, cfg, 4)))
+    assert fastpath.engine_supported(engine, plan)
+    bank, keys = torch_fft.TwiddleBank(), {}
+    torch_fft.collect_bank_keys(plan, sign, bank, keys)
+    committed = SimpleNamespace(_bank_keys=keys,
+                                _bank_arrays=bank.device_arrays("cuda"))
+    return fastpath.kernel_args(
+        committed, ("global2", plan, batch, sign, scale, engine))
+
+
+@pytest.mark.parametrize("engine,g1,g2,batch", SWEEP_CASES)
+def test_sweep_engine_matches_plain_and_oracle(cuda, engine, g1, g2, batch):
+    """K17 (both twiddle modes), K18 and K19 against their plain versions
+    (1e-5·max|plain|) and ``torch.fft`` (the absolute 2·eps·N·log2N·|scale|),
+    both directions with a folded scale, out of place and in place."""
+    n = g1 * g2
+    x = torch.rand(2 * batch * n, device=cuda) * 2 - 1
+    xc = torch.view_as_complex(x.view(batch, n, 2)).to(torch.complex128)
+    for sign, scale, inplace in ((-1, 0.5, False), (+1, 3.0 / n, True)):
+        kernel, args = _sweep_case(engine, g1, g2, batch, sign, scale)
+        assert kernel.__name__ == engine.removesuffix("_ftw")
+        before = kernel.launches
+        want = kernel.plain(x, *args)
+        if inplace:
+            got = x.clone()
+            assert kernel(got, *args, out=got) is got
+        else:
+            got = kernel(x, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (sign, err)
+        ref = (torch.fft.fft(xc) if sign < 0
+               else torch.fft.ifft(xc, norm="forward")) * scale
+        diff = (torch.view_as_complex(got.view(batch, n, 2)) - ref).abs().max()
+        assert diff.item() <= oracle_tol(n) * scale, (sign, diff.item())
+
+
+@pytest.mark.parametrize("engine,params,n,batch", [
+    ("global_fused", {"eng": 6, "t1": 64, "t2": 128}, 1 << 17, 3),
+    ("global_fused", {"eng": 6, "ftw": 1, "t1": 64, "t2": 256}, 1 << 20, 2),
+    ("global_ilv", {"eng": 8, "t1": 128}, 147456, 2),
+    ("global_ilv", {"eng": 8}, 196608, 2),
+    ("global_bf2", {"eng": 7, "bf2": 1, "t1": 128, "st3": 0}, 1 << 18, 2)])
+def test_sweep_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatch,
+                                                      engine, params, n, batch):
+    """A recorded ``{"eng": 6}``, ``{"eng": 8}`` or ``{"eng": 7, "bf2": 1}``
+    (with the reference's TPU knobs, which are ignored) routes both
+    directions through its kernel; ``autotune`` on the card races it and
+    records a winner."""
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.ops import cuda_global, cuda_global_bf, cuda_global_ilv
+
+    monkeypatch.delenv("PORTFFT_NO_TUNING")
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "tune.json"))
+    tuning._reset_for_tests()
+    try:
+        desc = pf.Descriptor(lengths=[n], number_of_transforms=batch)
+        probe = desc.commit()
+        key = tuning._entry_key(probe, "global2")
+        tuning.record(probe.config.name, "global2", key, params)
+        plan = desc.commit()
+        kernel = {"global_fused": cuda_global.global_fused,
+                  "global_ilv": cuda_global_ilv.global_ilv,
+                  "global_bf2": cuda_global_bf.global_bf2}[engine]
+        x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
+        before = kernel.launches
+        y = plan.compute_forward(x)
+        back = plan.compute_backward(x)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        xd = x.to(torch.complex128)
+        for got, ref in ((y, torch.fft.fft(xd)),
+                         (back, torch.fft.ifft(xd, norm="forward"))):
+            diff = (got.reshape(batch, n).to(torch.complex128) - ref).abs().max()
+            assert diff.item() <= oracle_tol(n)
+        times = {}
+        won = plan.autotune(iters=1, times=times)
+        assert json.dumps(fastpath.ENGINE_PARAMS[fastpath._engine_of(params)],
+                          sort_keys=True) in times
+        assert tuning.lookup(plan.config.name, "global2", key) == won
+    finally:
+        tuning._reset_for_tests()

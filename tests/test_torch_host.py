@@ -191,8 +191,9 @@ def test_global_split_matches_reference():
         )
 
 
-def _ref_table(bank, key):
-    """The reference bank's table name for one of the port's key tuples."""
+def _ref_table(bank, key, n):
+    """The reference bank's table name for one of the port's key tuples of
+    a length-``n`` plan."""
     kind, *rest = key
     if kind == "W":
         f, sign = rest
@@ -200,9 +201,9 @@ def _ref_table(bank, key):
     if kind == "T":
         f, m, sign = rest
         return bank.twiddle(f, m, sign)
-    if kind in ("GA", "GB"):  # K5's factored twiddle of the split g1 x g2
+    if kind in ("GA", "GB"):  # K5's and K18's factored twiddle of g1 x g2
         g1, g2, sign = rest
-        a1 = torch_fft.bf_factor(g1)
+        a1 = torch_fft.ilv_factor(g1)
         if kind == "GA":
             return bank.bf_twiddle_hi(a1, g2, g1 * g2, sign)
         return bank.bf_twiddle_lo(g2, g1 * g2 // a1, sign)
@@ -210,11 +211,21 @@ def _ref_table(bank, key):
         g1, g2, sign = rest
         digits = torch_fft.global3_digits(planner.plan_1d(g1 * g2, CFG, 4))
         return bank.global3_btw(*digits, g1 * g2, torch_fft.GLOBAL3_T1, sign)
+    if kind == "Q":  # K17's factored twiddle, DIRECT G1
+        g1, n_, sign, t1 = rest
+        return bank.btw_planes(g1, n_ // g1, n_, t1, sign)
+    if kind == "ZQ":  # K17's factored twiddle, FUSED [a, 128] G1
+        g1, g2, sign, t1 = rest
+        return bank.global_fused_twiddles_factored(g1 // 128, g2, g1 * g2, t1, sign)
+    if kind == "G2L":  # K19's factors of GB
+        g2, t1, sign = rest
+        n_lo = n // torch_fft.bf_factor(n // g2)
+        return bank.bf_lo_factored(n_lo, t1, g2 // t1, sign)
     f, m, sign = rest
     return bank.twiddle_fm(f, m, sign)
 
 
-@pytest.mark.parametrize("n", [16, 100, 512, 640, 4096, 32768, 65536, 1 << 19])
+@pytest.mark.parametrize("n", [16, 100, 512, 640, 4096, 32768, 65536, 147456, 1 << 19])
 def test_bank_tables_bit_equal(n):
     plan = planner.plan_1d(n, CFG, 4)
     bank, keys = torch_fft.TwiddleBank(np.float32), {}
@@ -225,11 +236,15 @@ def test_bank_tables_bit_equal(n):
             ref_planner.plan_1d(n, REF_CFG, 4), sign, ref_bank, ref_keys
         )
     assert keys
+    parts_of = {"G3": ("1r", "1i", "2r", "2i"),
+                "Q": tuple(f"{j}{p}" for j in "1234" for p in "ri"),
+                "ZQ": tuple(f"{j}{p}" for j in "1234" for p in "ri"),
+                "G2L": ("1tr", "1ti", "2r", "2i")}
     for key, name in keys.items():
-        assert _ref_table(ref_bank, key) == name
+        assert _ref_table(ref_bank, key, n) == name
         if key in ref_keys:
             assert ref_keys[key] == name
-        for part in ("1r", "1i", "2r", "2i") if key[0] == "G3" else ("r", "i"):
+        for part in parts_of.get(key[0], ("r", "i")):
             got, want = bank.host[name + part], ref_bank.host[name + part]
             assert got.dtype == want.dtype == np.float32
             assert got.shape == want.shape

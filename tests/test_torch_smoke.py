@@ -558,10 +558,12 @@ def test_bounds_of_k7_and_the_layout_rows():
 
 
 def test_tuned_cases_hold_the_tuned_rows():
-    """The tuned-GLOBAL kernel phase checks K4, K5 and K5-ov at every
-    (G1, G2) the tuned rows give them: K4 at 256 x 256 and 512 x 256, K5
-    and K5-ov at the five splits of large_1d and the ladder, at the rows'
-    batches; each alone timing is one of those cases."""
+    """The tuned-GLOBAL kernel phase checks K4, K5, K5-ov, K17 (both twiddle
+    modes), K18 and K19 at every (G1, G2) the tuned rows give them: K4 at
+    256 x 256 and 512 x 256, K5, K5-ov and K19 at the five splits of
+    large_1d and the ladder, K17 and K18 at those and the mixed 384 x 384
+    and 512 x 384, at the rows' batches; each alone timing is one of those
+    cases."""
     from portfft_tpu_torch.planner import plan_1d
 
     cfg = pf.DeviceConfig()
@@ -573,7 +575,10 @@ def test_tuned_cases_hold_the_tuned_rows():
         splits.setdefault(kind, set()).add((g1, g2))
     assert splits["global_sq"] == {(256, 256), (512, 256)}
     bf = {(256, 256), (512, 256), (512, 512), (2048, 256), (2048, 512)}
-    assert splits["global_bf"] == splits["global_bf_ov"] == bf
+    assert splits["global_bf"] == splits["global_bf_ov"] == splits["global_bf2"] == bf
+    every = bf | {(384, 384), (512, 384)}
+    assert splits["global_fused"] == splits["global_fused_ftw"] == every
+    assert splits["global_ilv"] == every
     for kind, shape in chip_smoke.TUNED_ALONE.items():
         assert (kind, *shape) in cases
 
@@ -613,9 +618,10 @@ def test_tuned_checks_pass_and_reject_faults(kind, n):
 
 
 def test_bounds_of_the_tuned_kernels():
-    """K4, K5 and K5-ov timed alone move 2^31 bytes: 0.641 ms at 3.35 TB/s."""
+    """The tuned engines timed alone (K4, K5, K5-ov, K17 in both twiddle
+    modes, K18, K19) move 2^31 bytes: 0.641 ms at 3.35 TB/s."""
     for kind, (n, batch) in chip_smoke.TUNED_ALONE.items():
-        bound, by = chip_smoke.bound_of(kind, n, batch)
+        bound, by = chip_smoke.bound_of(chip_smoke.KERNEL_OF.get(kind, kind), n, batch)
         assert by == "bytes" and bound == pytest.approx(2**31 / 3.35e9)
         assert bound == pytest.approx(0.641, abs=1e-3)
 

@@ -164,7 +164,8 @@ def test_shipped_table_is_consistent():
             assert params in variants[1:], (kind, key, params)
 
 
-ENGINES = ({"eng": 5}, {"eng": 7}, {"eng": 7, "ov": 1}, {"eng": 3})
+ENGINES = ({"eng": 5}, {"eng": 7}, {"eng": 7, "ov": 1}, {"eng": 3}, {"eng": 6},
+           {"eng": 6, "ftw": 1}, {"eng": 8}, {"eng": 7, "bf2": 1})
 # FUSED at batch 2: K2-v2 and K2-v3 at bt 1 and 2 (a = 32); K2-v1 where a
 # has no fold (a = 5).  The reference's tile rules ((bt·a) % 128 for its
 # engine 2, % 8 for engine 3) take only engine 3 at 4096 × 2, nothing at 640.
@@ -176,9 +177,10 @@ FUSED_ENGINES = tuple({"eng": e, "bt": b} for b in (1, 2) for e in (2, 3))
     # K4's cluster holds at most 2^17 points; the reference lists eng 5 on
     # its VMEM estimate (and its compiler rejects it there)
     (1 << 18, ENGINES[1:], ENGINES[1:]),
-    # the reference's VMEM estimate at its default 16 MiB declines eng 7 at
-    # 2048 x 512 (its TPU table, with more VMEM, runs it), not eng 3
-    (1 << 20, ENGINES[1:], ENGINES[3:]),
+    # the reference's VMEM estimates at its default 16 MiB decline eng 7 (bf2
+    # with it) and eng 8 at 2048 x 512 (its TPU table, with more VMEM, runs
+    # eng 7), not eng 3 or eng 6
+    (1 << 20, ENGINES[1:], ENGINES[3:6]),
     (4096, FUSED_ENGINES, FUSED_ENGINES[1::2]),
     (640, ({"eng": 2},), ()),
 ])
@@ -189,8 +191,9 @@ def test_variants_where_the_gates_take_the_plan(tmp_caches, n, expect, ref_expec
     rplan = ref.Descriptor(lengths=[n], number_of_transforms=2).commit(use_pallas=True)
     rvar = ref_tuning._variants_for_entry(rplan, rplan._raw_fast[RefDirection.FORWARD])
     for v in ref_expect:  # the reference races the same engines
-        assert any(r.get("eng") == v["eng"] and bool(r.get("ov")) == bool(v.get("ov"))
-                   for r in rvar), v
+        assert any(r.get("eng") == v["eng"] and all(
+            bool(r.get(k)) == bool(v.get(k)) for k in ("ov", "ftw", "bf2"))
+            for r in rvar), v
     kind = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])[0]
     assert tuning._entry_key(plan, kind) == ref_tuning._entry_key(rplan, kind)
 
@@ -214,7 +217,7 @@ def test_autotune_records_under_the_global_key(tmp_caches):
     times = {}
     won = plan.autotune(iters=1, times=times)
     assert won in [{}, *ENGINES]
-    assert len(times) == 5
+    assert len(times) == 9
     key = tuning._entry_key(plan, "global2")
     assert key == "n65536_g256x256"
     assert tuning.lookup("cpu", "global2", key) == won
@@ -312,7 +315,7 @@ def test_autotune_drops_a_mismatching_variant(tmp_caches, monkeypatch):
     times = {}
     won = plan.autotune(iters=1, times=times)
     assert won != bad and json.dumps(bad, sort_keys=True) not in times
-    assert len(times) == 4
+    assert len(times) == 8
     assert any("output mismatch" in m for m in msgs), msgs
 
 
@@ -338,15 +341,18 @@ def test_declined_tuned_engine_is_marked_stale_at_commit(tmp_caches, monkeypatch
     _fft_ok(plan.compute_forward(x), x, n, batch)
 
 
-@pytest.mark.parametrize("params", [{"eng": 6}, {"eng": 8, "t1": 128},
-                                    {"eng": 7, "bf2": 1}])
+@pytest.mark.parametrize("params", [{"eng": 1}, {"eng": 4, "t1": 128},
+                                    {"eng": 9, "bf2": 1}])
 def test_engine_without_a_kernel_raises(tmp_caches, params):
+    """A GLOBAL engine number the reference never emits for ``global2``
+    (every one it emits has a kernel here since engines 6, 8 and bf2
+    landed) raises at commit and in ``with_engine``."""
     desc = pf.Descriptor(lengths=[65536], number_of_transforms=2)
     plan = desc.commit(device="cpu")
-    with pytest.raises(pf.UnsupportedConfiguration, match="ROADMAP Queue 2"):
+    with pytest.raises(pf.UnsupportedConfiguration, match="has no kernel"):
         fastpath.with_engine(plan, plan._raw_fast[pf.Direction.FORWARD], params)
     tuning.record("cpu", "global2", tuning._entry_key(plan, "global2"), params)
-    with pytest.raises(pf.UnsupportedConfiguration, match="ROADMAP Queue 2"):
+    with pytest.raises(pf.UnsupportedConfiguration, match="has no kernel"):
         desc.commit(device="cpu")
 
 
