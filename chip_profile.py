@@ -21,7 +21,10 @@ large_1d through K19) and of the tuned FUSED rows
 reaches: K2-v2 and K2-v3, or K2-v1 where a has no fold) and of the tuned
 multi-dim rows (md_1024x1024 and bi_4096 through K10-mm, ``{"cm": 1}``),
 each engine selected by a recorded tuning entry in a cache of the run's
-own; every other row runs its static route), it
+own; every other row runs its static route), and of the REAL plane rows
+(``chip_smoke.REAL_PLANE_ROWS`` in each direction they run, the
+``_bf`` row with ``PORTFFT_BLUESTEIN_BF`` set at commit; large_1d and
+2^20 also through K3-ftw, ``{"eng": 2, "ftw": 1}``), it
 commits the plan on the card, makes 3 warm-up calls,
 then profiles 5 calls with ``torch.profiler`` and prints one JSON line: the
 plan, the wall ms per call on the host clock around those 5 calls, the
@@ -48,7 +51,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import LAYOUT_ROWS, TUNED_FUSED_ROWS, fused_engines_reached
+from chip_smoke import (
+    LAYOUT_ROWS,
+    REAL_PLANE_ROWS,
+    TUNED_FUSED_ROWS,
+    fused_engines_reached,
+)
 
 ROWS = [
     ("small_1d", 16, 8 << 20, "forward"),
@@ -112,7 +120,14 @@ TUNED_ROWS = [
       for tag, params in (("k3", {}), ("k16", {"eng": 3}), ("k17", {"eng": 6}),
                           ("k17ftw", {"eng": 6, "ftw": 1}), ("k18", {"eng": 8}))),
     ("tuned_large_1d_k19", 65536, 2048, {"eng": 7, "bf2": 1}),
+    ("tuned_large_1d_k3ftw", 65536, 2048, {"eng": 2, "ftw": 1}),
+    ("tuned_2^20_k3ftw", 1 << 20, 128, {"eng": 2, "ftw": 1}),
 ]
+# The REAL plane rows (chip_smoke.REAL_PLANE_ROWS), each direction it runs:
+# name, n, batch, direction, PORTFFT_BLUESTEIN_BF set at commit.
+REAL_PLANE_PROFILE_ROWS = [
+    (name if d == "forward" else f"{name}_backward", n, batch, d, bf)
+    for name, n, batch, dnames, bf in REAL_PLANE_ROWS for d in dnames]
 # The tuned multi-dim rows through K10-mm: name, lengths, batch,
 # batch-interleaved, the column kind's tuning parameters.
 TUNED_MD_ROWS = [
@@ -195,9 +210,16 @@ def main() -> None:
 def commit(pf, desc, params):
     """``desc`` committed on the card; with ``params``, the GLOBAL, FUSED,
     multi-dim or BATCH_INTERLEAVED variant they select recorded in the run's
-    tuning cache first."""
+    tuning cache first, or with ``{"bf": 1}`` ``PORTFFT_BLUESTEIN_BF`` set
+    at commit."""
     if params is None:
         return desc.commit(device="cuda")
+    if params == {"bf": 1}:
+        os.environ["PORTFFT_BLUESTEIN_BF"] = "1"
+        try:
+            return desc.commit(device="cuda")
+        finally:
+            del os.environ["PORTFFT_BLUESTEIN_BF"]
     from portfft_tpu_torch import fastpath, tuning
 
     os.environ.pop("PORTFFT_NO_TUNING")
@@ -235,6 +257,9 @@ def profile_rows() -> None:
               give_out)
              for name, n, b, is_split, fields, give_out in LAYOUT_ROWS]
     rows = [(*r, None) if len(r) == 6 else (*r, False, None) for r in rows]
+    rows += [(name, [n], b, dn, {"domain": pf.Domain.REAL}, False,
+              {"bf": 1} if bf else None)
+             for name, n, b, dn, bf in REAL_PLANE_PROFILE_ROWS]
     rows += [(name, [n], b, "forward", {}, False, params)
              for name, n, b, params in TUNED_ROWS]
     rows += [(name, lengths, b, "forward",
@@ -277,7 +302,7 @@ def profile_rows() -> None:
                 break
         else:
             sys.exit(f"{name}: the profiler lost device events in {ATTEMPTS} "
-                     f"attempts: {{k: len(v) for k, v in per.items()}}")
+                     f"attempts: { {k: len(v) for k, v in per.items()} }")
         busy = sum(sum(v) for v in per.values()) / CALLS
         print(json.dumps({
             "row": name, "n": n, "batch": batch, "direction": direction,

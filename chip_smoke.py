@@ -145,9 +145,28 @@
    strided_large with each of K17, K18 and K19 forced on their 65536
    entry, run as on the REAL and layout main paths (the engine launched
    under K8a and K7).
-10. Prints the kernel table as one JSON line (each kernel's launches on the
+10. The REAL plane path (the REAL lengths whose half length h needs the
+   plane path) and the last three Pallas pieces.  K3-ftw ``global2_ftw``
+   (K3 with its twiddle formed from the factored tables, ``{"eng": 2,
+   "ftw": 1}``) runs in the phases of 6.: checked at every ``TUNED_ROWS``
+   split, timed alone at 2^17 x 1024 beside K3, forced and raced on the
+   tuned main path.  After the layout rows, the REAL plane kernel phase:
+   K8a-w ``untangle_wide`` at ``WIDE_CASES``, K8b with its flag at
+   ``DROP_CASES`` (spectra whose Im X[0] and Im X[n/2] are not 0: dropped
+   below n = 1024, kept from there on, ``c2r_reference``) and K15-bf
+   ``bluestein_bf`` at ``BLUESTEIN_BF_CASES`` (slab factors 3·3, 2·2,
+   16·2, 16·16), each against its plain version and the oracle with the two
+   planted faults (K8a-w: the post-twiddle; K15-bf: its pass-1 chirp),
+   K8a-w timed alone beside K8a and K15-bf beside K15.  Then the REAL plane
+   main path, ``REAL_PLANE_ROWS`` at about 1 GiB in (h = 600 on K13's chain
+   mode both ways; 2·65537 both ways on K15 and, with
+   ``PORTFFT_BLUESTEIN_BF`` set at commit, on K15-bf; 4·65537 on the
+   generic glue around K15; 2^28 on K14; 4222976 x 64 with K8a-w), backward
+   on spectra whose two bins are not 0, with its peak memory and its host
+   commit time.
+11. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
-   ms and library ms; twenty-five kernels), then, as the last line, ``{"ok":
+   ms and library ms; twenty-eight kernels), then, as the last line, ``{"ok":
    true, "device": {...}}``.  Any failure exits non-zero before that line.
 """
 
@@ -358,8 +377,9 @@ TUNED_ROWS = [
     ("mixed_196608", 196608, 512),
 ]
 # Timed alone at 2^27 points: K4 at large_1d, the others at the 2^17 row
-# (K17, K18 and K19 beside K3, K5-ov and K16 there).
+# (K17, K18, K19 and K3-ftw beside K3, K5-ov and K16 there).
 TUNED_ALONE = {"global_sq": (65536, 2048), "global_bf": (1 << 17, 1024),
+               "global2_ftw": (1 << 17, 1024),
                "global_bf_ov": (1 << 17, 1024), "global_fused": (1 << 17, 1024),
                "global_fused_ftw": (1 << 17, 1024), "global_ilv": (1 << 17, 1024),
                "global_bf2": (1 << 17, 1024)}
@@ -461,20 +481,54 @@ SOURCES = {
                    "portfft_tpu/ops/pallas_global_ilv.py:371"),
     "global_bf2": ("portfft_tpu_torch/csrc/fft_global_bf.cu",
                    "portfft_tpu/ops/pallas_global_bf.py:390"),
+    "untangle_wide": ("portfft_tpu_torch/csrc/fft_real.cu",
+                      "portfft_tpu/ops/pallas_real.py:243"),
+    "global2_ftw": ("portfft_tpu_torch/csrc/fft_global2.cu",
+                    "portfft_tpu/ops/pallas_global.py:1085"),
+    "bluestein_bf": ("portfft_tpu_torch/csrc/fft_bluestein.cu",
+                     "portfft_tpu/ops/pallas_bluestein.py:201"),
 }
+# REAL plane path rows (the REAL lengths whose half length h needs the plane
+# path), about 1 GiB in: name, n, batch, directions, PORTFFT_BLUESTEIN_BF.
+# h = 600 FUSED [120, 5] on K13's chain mode; h = 65537 on K15, and with
+# the flag on K15-bf (a 384 x 384 convolution); h = 2 x 65537, the generic
+# GLOBAL glue around K15; h = 2^27 on K14; h = [16, 128] x Bluestein 1031,
+# whose width K8a-w's gate takes at batch 64.
+REAL_PLANE_ROWS = [
+    ("real_plane_1200", 1200, 262144, ("forward", "backward"), False),
+    ("real_plane_131074", 2 * 65537, 2048, ("forward", "backward"), False),
+    ("real_plane_131074_bf", 2 * 65537, 2048, ("forward", "backward"), True),
+    ("real_plane_262148", 4 * 65537, 1024, ("forward",), False),
+    ("real_plane_2^28", 1 << 28, 1, ("forward",), False),
+    ("real_plane_4222976", 4222976, 64, ("forward",), False),
+]
+# REAL plane kernel phase: K8a-w at (n, batch): real_plane_4222976's shape,
+# the reference's test shape, and a batch its gate declines (the kernel
+# takes it); K8b with its flag on spectra whose Im X[0] and Im X[n/2] are
+# not 0, below (dropped) and from n = 1024 on (kept); K15-bf at (n, batch)
+# over the convolutions 384 x 384 (A = 3, 3), 256 x 256, [16, 128] x 256
+# (A = 16, 2) and [16, 128] x [16, 128].
+WIDE_CASES = [(4222976, 64), (16384, 64), (1 << 17, 17)]
+DROP_CASES = [(1000, 1 << 12), (1200, 1 << 12)]
+BLUESTEIN_BF_CASES = [(65537, 256), (24977, 512), (200191, 32), (1586939, 2)]
+# Timed alone: K8a-w at real_plane_4222976's untangle (beside K8a), K15-bf
+# at real_plane_131074's convolution (beside K15).
+REAL_PLANE_ALONE = {"untangle_wide": (4222976, 64), "bluestein_bf": (65537, 2048)}
 C2C_KINDS = ("direct", "fused2", "global2")
 REAL_KINDS = ("untangle", "retangle", "small_real")
 MD_KINDS = ("col", "md2")
 # K6 is one kernel of the table with two wrappers (deinterleave, interleave).
 PLANE_KINDS = ("interleave", "chain", "bluestein")
+# The REAL plane path's own kernels: K8a-w and K15-bf.
+REAL_PLANE_KINDS = ("untangle_wide", "bluestein_bf")
 SPLIT_KINDS = ("global2_planes", "axis_m2")
 # K7 is one kernel of the table with two wrappers (destride, restride).
 STRIDE_KINDS = ("destride", "restride")
-# The tuned GLOBAL kernels K4, K5, K5-ov, K17, K18 and K19 (K3 is
+# The tuned GLOBAL kernels K4, K5, K5-ov, K17, K18, K19 and K3-ftw (K3 is
 # "global2", K16 "global3"), and their engines: K17 runs in two twiddle
 # modes, "global_fused_ftw" its factored one.
 TUNED_KINDS = ("global_sq", "global_bf", "global_bf_ov", "global_fused",
-               "global_ilv", "global_bf2")
+               "global_ilv", "global_bf2", "global2_ftw")
 TUNED_ENGINES = TUNED_KINDS + ("global_fused_ftw",)
 KERNEL_OF = {"global_fused_ftw": "global_fused"}
 # The bound's rates: NVIDIA H100 SXM data sheet (700 W), device memory and
@@ -501,9 +555,9 @@ def work(kind: str, n: int, batch: int) -> tuple[int, float]:
     if kind == "interleave":  # both K6 kernels, n the element count
         return 32 * batch * n, 2.0 * batch * n
     if kind in (C2C_KINDS + MD_KINDS + PLANE_KINDS + SPLIT_KINDS + TUNED_KINDS
-                + FUSED_KINDS + MMA_KINDS):
+                + FUSED_KINDS + MMA_KINDS + ("bluestein_bf",)):
         return 16 * batch * n, 5 * n * lg * batch
-    if kind in ("untangle", "retangle"):
+    if kind in ("untangle", "untangle_wide", "retangle"):
         return 8 * batch * h + 8 * batch * (h + 1), 18.0 * batch * h
     return 4 * batch * n + 8 * batch * (h + 1), 2.5 * n * lg * batch
 
@@ -589,9 +643,26 @@ def real_oracle_excess(y, src, n: int, batch: int, sign: int,
         got = torch.view_as_complex(y.view(batch, h + 1, 2)[rows])
     else:
         spec = torch.view_as_complex(src.view(batch, h + 1, 2)[rows])
-        ref = torch.fft.irfft(spec.to(torch.complex128), n, norm="forward") * scale
+        ref = c2r_reference(spec.to(torch.complex128), n) * scale
         got = y.view(batch, n)[rows]
     return (got.to(ref.dtype) - ref).abs().max().item() / (oracle_tol(n) * abs(scale))
+
+
+def c2r_reference(spec, n: int):
+    """The port's unnormalized C2R of the (rows, n/2+1) half spectra
+    ``spec`` (complex128): ``torch.fft.irfft`` (the oracle only), which
+    drops Im X[0] and Im X[n/2], plus from ``REAL_KEEP_MIN_N`` on the two
+    bins' known contribution where the retangle keeps them: Z[0] gains
+    −(a + c) + i·(a − c) (a = Im X[0], c = Im X[n/2]), and the h-point
+    backward transform adds that constant to every z[j] = x[2j] + i·x[2j+1]."""
+    from portfft_tpu_torch.fastpath import REAL_KEEP_MIN_N
+
+    ref = torch.fft.irfft(spec, n, norm="forward")
+    if n >= REAL_KEEP_MIN_N:
+        a, c = spec[:, :1].imag, spec[:, -1:].imag
+        ref[:, 0::2] -= a + c
+        ref[:, 1::2] += a - c
+    return ref
 
 
 def half_spectra(batch: int, n: int, seed: int, device: str = "cuda") -> torch.Tensor:
@@ -621,9 +692,9 @@ def planted(kind: str, args: tuple) -> tuple:
     version reads the matrix, whose
     conjugate negates the imaginary outputs (forward) or inputs
     (backward)."""
-    if kind in ("untangle", "retangle"):
-        batch, h, wr, wi, scale = args
-        return (batch, h, wr, -wi, scale)
+    if kind in ("untangle", "untangle_wide", "retangle"):  # K8b: and its flag
+        batch, h, wr, wi, scale, *flag = args
+        return (batch, h, wr, -wi, scale, *flag)
     if kind == "small_real":
         batch, tabs = args
         mat = tabs.mat.clone()
@@ -640,7 +711,7 @@ def planted(kind: str, args: tuple) -> tuple:
         batch, tabs, scale = args
         (b1r, b1i), b2 = tabs.lo
         return (batch, dataclasses.replace(tabs, lo=((b1r, -b1i), b2)), scale)
-    if kind in ("global_fused", "global_fused_ftw"):  # the twiddle, or A1, A2
+    if kind in ("global_fused", "global_fused_ftw", "global2_ftw"):  # twiddle, A1, A2
         batch, tabs, scale = args
         if tabs.tw:
             return (batch, dataclasses.replace(tabs, tw=(tabs.tw[0], -tabs.tw[1])),
@@ -664,7 +735,7 @@ def planted(kind: str, args: tuple) -> tuple:
             return (dataclasses.replace(tabs, sub=conjugated(tabs.sub)),)
         (wr, wi, tr, ti), *rest = tabs.stages
         return (dataclasses.replace(tabs, stages=((wr, -wi, tr, ti), *rest)),)
-    if kind == "bluestein":  # the pass-1 chirp
+    if kind in ("bluestein", "bluestein_bf"):  # the pass-1 chirp
         (tabs,) = args
         return (dataclasses.replace(tabs, pre=(tabs.pre[0], -tabs.pre[1])),)
     if kind == "global2_planes":  # the inter-pass twiddle, as K3
@@ -694,20 +765,22 @@ def check_kernel(kind: str, kernel, args: tuple, x, n: int, sign: int) -> dict:
 def real_case(plan, direction, x, spec) -> tuple:
     """``(kind, kernel, args, input, finish)`` of the REAL kernel of one
     direction of ``plan``, given the reals ``x`` and the half spectra
-    ``spec``: K9 takes them as they are; K8a takes the spectrum the C2C
-    kernel makes of ``x``; K8b's output goes through the backward C2C
-    kernel (``finish``) to become the reals."""
+    ``spec``: K9 takes them as they are; K8a or K8a-w takes the spectrum
+    the C2C transform of h (its kernel, or the plane path) makes of ``x``;
+    K8b's output goes through the backward C2C transform (``finish``) to
+    become the reals."""
     from portfft_tpu_torch import fastpath
 
     entry = plan._raw_fast[direction]
     kernel, args = fastpath.kernel_args(plan, entry)
-    forward = entry[0] in ("realf", "realsf")
+    forward = entry[0] in ("realf", "realsf") or (
+        entry[0] == "realplane" and entry[6] != "retangle")
     if entry[0] in ("realsf", "realsb"):
         return "small_real", kernel, args, x if forward else spec, None
-    c2c, c2c_args = fastpath.kernel_args(plan, entry[1])
+    c2c = fastpath.half_c2c_fn(plan, entry[1])  # a raw or a plane entry
     if forward:
-        return "untangle", kernel, args, c2c(x, *c2c_args), None
-    return "retangle", kernel, args, spec, lambda z: c2c(z, *c2c_args)
+        return kernel.__name__, kernel, args, c2c(x), None
+    return "retangle", kernel, args, spec, c2c
 
 
 def check_real(kind: str, kernel, args: tuple, inp, finish, src, n: int,
@@ -762,15 +835,7 @@ def plain_path(plan, entry):
     ``fastpath.build_fn``; SPLIT ``x`` an (re, im) pair)."""
     from portfft_tpu_torch import fastpath
 
-    if entry[0] not in ("realf", "realb", "realsf", "realsb"):
-        return fastpath.build_fn(plan, entry, plain=True)
-    kernel, args = fastpath.kernel_args(plan, entry)
-    if entry[0] in ("realf", "realb"):
-        c2c, c2c_args = fastpath.kernel_args(plan, entry[1])
-        if entry[0] == "realf":
-            return lambda x: kernel.plain(c2c.plain(x, *c2c_args), *args)
-        return lambda x: c2c.plain(kernel.plain(x, *args), *c2c_args)
-    return lambda x: kernel.plain(x, *args)
+    return fastpath.build_fn(plan, entry, plain=True)
 
 
 def library_call(x, n: int, batch: int, real: bool, forward: bool):
@@ -974,6 +1039,164 @@ def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
     return results, launches
 
 
+def real_plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K8a-w at ``WIDE_CASES`` (its input the C2C spectrum of reals
+    through the REAL plane path of h, or for a shape its gate declines the
+    kernel called alone), K8b with its flag at ``DROP_CASES`` (spectra with
+    nonzero Im X[0] and Im X[n/2]; the oracle ``c2r_reference``) and
+    K15-bf at ``BLUESTEIN_BF_CASES`` (both directions), each against its
+    plain version and the oracle with the two planted faults.  Returns
+    ``{kind: (ms, plain_ms, library_ms)}`` of K8a-w and K15-bf timed alone
+    at ``REAL_PLANE_ALONE``, printed beside K8a and K15 on the same
+    input."""
+    from portfft_tpu_torch.ops import cuda_real
+
+    alone = {}
+    for n, batch in WIDE_CASES + DROP_CASES:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             domain=pf.Domain.REAL, forward_scale=0.5,
+                             backward_scale=2.0 / n).commit(device="cuda")
+        x = random_raw(batch * n, seed=n)
+        spec = random_raw(batch * (n + 2), seed=n + 1)  # the bins not 0
+        wide = (n, batch) in WIDE_CASES
+        direction = pf.Direction.FORWARD if wide else pf.Direction.BACKWARD
+        kind, kernel, args, inp, finish = real_case(plan, direction, x, spec)
+        if wide and kind != "untangle_wide":  # a shape the gate declines
+            kind, kernel = "untangle_wide", cuda_real.untangle_wide
+        sign, scale = (-1, 0.5) if wide else (+1, 2.0 / n)
+        before = kernel.launches
+        r = check_real(kind, kernel, args, inp, finish, x if wide else spec, n,
+                       sign, scale)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 2:  # the call and the planted fault
+            raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
+        flag = f"drop={args[-1]}" if not wide else "forward"
+        report(kind, f"n={n:<8d} batch={batch:<8d} {flag:8s}", r)
+        max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
+        if wide and (n, batch) == REAL_PLANE_ALONE["untangle_wide"]:
+            ms = time_ms(lambda: kernel(inp, *args))
+            plain_ms = time_ms(lambda: kernel.plain(inp, *args))
+            narrow_ms = time_ms(lambda: cuda_real.untangle(inp, *args))
+            bound, by = bound_of(kind, n, batch)
+            alone[kind] = (ms, plain_ms, None)
+            print(f"alone  {kind:13s} n={n:<8d} batch={batch:<6d} kernel {ms:.3f} "
+                  f"ms | untangle {narrow_ms:.3f} ms | plain {plain_ms:.3f} ms | "
+                  f"bound {bound:.3f} ms ({by}) | {card}")
+        del plan, x, spec, inp, finish, args
+        torch.cuda.empty_cache()
+    for n, batch in BLUESTEIN_BF_CASES:
+        x = random_raw(2 * batch * n, seed=n)
+        for sign in (-1, +1):
+            kernel, args = plane_case(pf, "bluestein_bf", n, sign)
+            before = kernel.launches
+            r = check_plane("bluestein_bf", kernel, args, x, n, batch, sign)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 2:
+                raise SmokeFailure(f"bluestein_bf n={n}: launch counter did not rise")
+            t = args[0]
+            report("bluestein_bf", f"n={n:<8d} batch={batch:<8d} "
+                   f"{t.g1}x{t.g2} A={t.f1.a},{t.f2.a} sign={sign:+d}", r)
+            max_err["bluestein_bf"] = max(max_err.get("bluestein_bf", 0.0), r["err"])
+        del x
+        torch.cuda.empty_cache()
+    n, batch = REAL_PLANE_ALONE["bluestein_bf"]
+    (kernel, args), (dense, dargs) = (plane_case(pf, k, n, -1)
+                                      for k in ("bluestein_bf", "bluestein"))
+    xr, xi = random_raw(2 * batch * n, seed=1).view(batch, n, 2).unbind(-1)
+    xr, xi = xr.contiguous(), xi.contiguous()
+    xc = torch.complex(xr, xi)
+    ms = time_ms(lambda: kernel(xr, xi, *args))
+    dense_ms = time_ms(lambda: dense(xr, xi, *dargs))
+    plain_ms = time_ms(lambda: kernel.plain(xr, xi, *args))
+    library_ms = time_ms(lambda: torch.fft.fft(xc))
+    bound, by = bound_of("bluestein_bf", n, batch)
+    alone["bluestein_bf"] = (ms, plain_ms, library_ms)
+    print(f"alone  bluestein_bf  n={n:<8d} batch={batch:<6d} kernel {ms:.3f} ms | "
+          f"bluestein {dense_ms:.3f} ms | plain {plain_ms:.3f} ms | torch.fft "
+          f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
+    return alone
+
+
+def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
+    """``REAL_PLANE_ROWS`` through the committed plan (``PORTFFT_BLUESTEIN_BF``
+    set at commit where the row asks): each row's entry must be the REAL
+    plane path and every kernel of it (its un/retangle, K6, and K13, K14,
+    K15 or K15-bf for the routes of h) must launch; a sample of transforms
+    is held to ``rfft`` forward and to ``c2r_reference`` backward, on
+    spectra whose Im X[0] and Im X[n/2] are not 0; the path, its plain
+    chain and one ``torch.fft`` call are timed; the peak device memory of
+    the first call is printed.  Every kernel of the path must launch."""
+    from portfft_tpu_torch import fastpath
+
+    results = []
+    for c in counters.values():
+        c.launches = 0
+    for name, n, batch, dnames, bf in REAL_PLANE_ROWS:
+        if bf:
+            os.environ["PORTFFT_BLUESTEIN_BF"] = "1"
+        try:
+            t0 = time.perf_counter()
+            plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                                 domain=pf.Domain.REAL).commit(device="cuda")
+            commit_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PORTFFT_BLUESTEIN_BF", None)
+        for dname in dnames:
+            direction = pf.Direction(dname)
+            forward = direction == pf.Direction.FORWARD
+            sign = -1 if forward else +1
+            entry = plan._raw_fast[direction]
+            if entry[0] != "realplane":
+                raise SmokeFailure(f"{name}: entry {entry[0]}, not the REAL plane path")
+            kinds = [entry[6]] + path_kinds(entry[1])
+            x = random_raw(batch * (n if forward else n + 2), seed=n)
+            compute = plan.compute_forward if forward else plan.compute_backward
+            before = {k: counters[k].launches for k in kinds}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            y = compute(x)
+            torch.cuda.synchronize()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            rose = {k: counters[k].launches - before[k] for k in kinds}
+            if min(rose.values()) <= 0:
+                raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
+            numel = batch * (n + 2) if forward else batch * n
+            if y.shape != (numel,) or not torch.isfinite(y).all():
+                raise SmokeFailure(f"{name}: output of shape {tuple(y.shape)} "
+                                   f"(expected ({numel},)) or not finite")
+            excess = real_oracle_excess(y, x, n, batch, sign, 1.0)
+            if not excess <= 1.0:
+                raise SmokeFailure(f"{name} {dname}: {excess:.3e} times the oracle "
+                                   f"bound {oracle_tol(n):.3e}")
+            del y
+            ms = time_ms(lambda: compute(x))
+            plain = fastpath.build_fn(plan, entry, plain=True)
+            plain_ms = time_ms(lambda: plain(x))
+            library_ms = time_ms(library_call(x, n, batch, True, forward))
+            nbytes, _ = work("small_real", n, batch)
+            bound, by = bound_of("small_real", n, batch)
+            print(f"row {name:21s} n={n:<9d} batch={batch:<6d} {dname:8s} "
+                  f"{'+'.join(kinds):45s} launches {rose} route {entry[1][5]} "
+                  f"oracle max|diff|={excess * oracle_tol(n):.3e} "
+                  f"tol={oracle_tol(n):.3e} | path {ms:.3f} ms "
+                  f"{nbytes / ms / 1e6:.1f} GB/s | plain {plain_ms:.3f} ms | "
+                  f"torch.fft {library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | "
+                  f"peak {peak_gib:.2f} GiB | commit {commit_s:.1f} s (host) | {card}")
+            results.append((name, dname, kinds, n, batch, ms, plain_ms, library_ms))
+            del x, plain
+        del plan
+        torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"REAL plane main-path launches: {launches}")
+    for kind in ("untangle", "untangle_wide", "retangle", "deinterleave",
+                 "interleave", "chain", "global2_planes", "bluestein",
+                 "bluestein_bf"):
+        if launches[kind] == 0:
+            raise SmokeFailure(f"kernel {kind} was never launched on the REAL "
+                               "plane path")
+    return results, launches
+
+
 def sub_tables_of(pf, n: int, sign: int, device: str = "cuda"):
     """The device tables of the length-``n`` plan for one direction, from a
     1D commit of that length."""
@@ -1135,8 +1358,9 @@ def on_raw(kernel, n: int):
 
 
 def plane_case(pf, kind: str, n: int, sign: int, device: str = "cuda"):
-    """``(kernel, args)`` of a K13 (``kind`` "chain") or K15 case: the
-    length-n plan's tables for one direction, from a 1D commit."""
+    """``(kernel, args)`` of a K13 (``kind`` "chain"), K15 ("bluestein") or
+    K15-bf ("bluestein_bf") case: the length-n plan's tables for one
+    direction, from a 1D commit."""
     from portfft_tpu_torch.ops import cuda_bluestein, cuda_chain
 
     plan = pf.Descriptor(lengths=[n]).commit(device=device)
@@ -1144,8 +1368,8 @@ def plane_case(pf, kind: str, n: int, sign: int, device: str = "cuda"):
     if kind == "chain":
         return cuda_chain.chain, (
             cuda_chain.chain_tables(plan.plans[n], sign, keys, arrays),)
-    return cuda_bluestein.bluestein, (
-        cuda_bluestein.bluestein_tables(plan.plans[n], sign, keys, arrays),)
+    return getattr(cuda_bluestein, kind), (cuda_bluestein.bluestein_tables(
+        plan.plans[n], sign, keys, arrays, bf=kind == "bluestein_bf"),)
 
 
 def check_plane(kind: str, kernel, args: tuple, x, n: int, batch: int,
@@ -1489,6 +1713,8 @@ def path_kinds(entry) -> list[str]:
         kinds.append("global2_planes")
     if "bluestein" in values:
         kinds.append("bluestein")
+    if "bluestein_bf" in values:
+        kinds.append("bluestein_bf")
     if entry[0] == "core" and entry[5]:
         kinds.append("axis_m2")
     return kinds
@@ -1869,15 +2095,15 @@ def tuned_kernel(plan, kind: str, direction):
 
 
 def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
-    """Checks K4, K5, K5-ov, K17 (both twiddle modes), K18 and K19 at
-    ``tuned_cases``, forward (scale 0.5) and backward (scale 2/n), against
-    their plain versions and ``torch.fft`` with the two planted faults (K4,
-    K17: the inter-pass twiddle conjugated, as K3, or in K17's factored
-    mode its per-tile factors A1 and A2; K5, K18: the low twiddle factor
-    GB; K19: its factor B1ᵀ).  Returns
+    """Checks K4, K5, K5-ov, K17 (both twiddle modes), K18, K19 and K3-ftw
+    at ``tuned_cases``, forward (scale 0.5) and backward (scale 2/n),
+    against their plain versions and ``torch.fft`` with the two planted
+    faults (K4, K17: the inter-pass twiddle conjugated, as K3, or in the
+    factored modes of K17 and K3-ftw the factors A1 and A2; K5, K18: the
+    low twiddle factor GB; K19: its factor B1ᵀ).  Returns
     ``{engine: (ms, plain_ms, library_ms)}`` of each timed alone forward at
-    ``TUNED_ALONE``; K17, K18 and K19 are timed there beside K3, K5-ov and
-    K16."""
+    ``TUNED_ALONE``; K17, K18, K19 and K3-ftw are timed there beside K3,
+    K5-ov and K16."""
     alone, beside = {}, {}
     for kind, n, batch in tuned_cases(pf):
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
@@ -1903,7 +2129,7 @@ def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
                 bound, by = bound_of(name, n, batch)
                 alone[kind] = (ms, plain_ms, library_ms)
                 others = ""
-                if name in WRAPPER_ENGINES:  # K17, K18, K19 beside K3, K5-ov, K16
+                if name in WRAPPER_ENGINES + ("global2_ftw",):  # beside K3, K5-ov, K16
                     if (n, batch) not in beside:
                         beside[(n, batch)] = {
                             k: time_ms(functools.partial(k3, x, *a3)) for k, (k3, a3)
@@ -1924,7 +2150,7 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     """``TUNED_ROWS`` through ``Descriptor(...).commit(device="cuda")`` with
     tuning on, in the run's own tuning cache: per row, a recorded entry
     forces each engine whose gate takes the plan (K4, K5, K5-ov, K16, K17 in
-    both twiddle modes, K18, K19) and the row is held to ``torch.fft`` and
+    both twiddle modes, K18, K19, K3-ftw) and the row is held to ``torch.fft`` and
     timed; then, with the entry forgotten,
     ``plan.autotune()`` races the engines (each variant's time and the
     winner printed) and the tuned plan is held and timed again.  Peak
@@ -2482,12 +2708,15 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                  alone, md_launches, md_alone, plane_launches,
                  plane_alone, split_launches, split_alone, layout_launches,
                  stride_alone, tuned_launches, tuned_alone, fused_launches,
-                 fused_alone, mma_launches, mma_alone) -> list[dict]:
+                 fused_alone, mma_launches, mma_alone, real_plane_launches,
+                 real_plane_alone) -> list[dict]:
     """One entry per kernel.  K1-K3 and K9 take their numbers from the first
     main-path row that runs them (the path is that one kernel); K8a and K8b
     from their timing alone at real_large, where no single ``torch.fft``
     call computes the same function; K10 and K11 from their timing alone at
-    ``MD_ALONE``, with the launches of the multi-dim main path."""
+    ``MD_ALONE``, with the launches of the multi-dim main path; K8a-w and
+    K15-bf from their timing alone at ``REAL_PLANE_ALONE``, with the
+    launches of the REAL plane path (K8a-w has no library call, as K8a)."""
     def entry(kind, launches, ms, plain_ms, library_ms, n, batch, bound=None):
         source, replaces = SOURCES[kind]
         bound, by = bound or bound_of(kind, n, batch)
@@ -2542,6 +2771,9 @@ def kernel_table(max_err, c2c_rows, c2c_launches, real_rows, real_launches,
                          length, bpre * rest))
     kernels.append(entry("global3", mma_launches["global3"],
                          *mma_alone["global3"], *MMA_ALONE["global3"]))
+    for kind in REAL_PLANE_KINDS:
+        kernels.append(entry(kind, real_plane_launches[kind],
+                             *real_plane_alone[kind], *REAL_PLANE_ALONE[kind]))
     return kernels
 
 
@@ -2612,7 +2844,10 @@ def phases_run(t_start: float, card: str) -> None:
                 "global3": cuda_global.global3,
                 "global_fused": cuda_global.global_fused,
                 "global_ilv": cuda_global_ilv.global_ilv,
-                "global_bf2": cuda_global_bf.global_bf2}
+                "global_bf2": cuda_global_bf.global_bf2,
+                "global2_ftw": cuda_global.global2_ftw,
+                "untangle_wide": cuda_real.untangle_wide,
+                "bluestein_bf": cuda_bluestein.bluestein_bf}
     max_err: dict[str, float] = {}
     phases = []
 
@@ -2647,6 +2882,10 @@ def phases_run(t_start: float, card: str) -> None:
     del kept
     _, layout_launches = phase("layout main path", layout_main_path, pf,
                                counters, card)
+    real_plane_alone = phase("REAL plane kernels", real_plane_kernel_phase, pf,
+                             max_err, card)
+    _, real_plane_launches = phase("REAL plane main path", real_plane_path, pf,
+                                   counters, card)
     tuned_alone = phase("tuned GLOBAL kernels", tuned_kernel_phase, pf, max_err,
                         card)
     phase("tuned layout rows", tuned_layout_path, pf, counters, card)
@@ -2671,7 +2910,8 @@ def phases_run(t_start: float, card: str) -> None:
                            plane_launches, plane_alone, new_launches, split_alone,
                            layout_launches, stride_alone, tuned_launches,
                            tuned_alone, fused_launches, fused_alone,
-                           mma_launches, mma_alone)
+                           mma_launches, mma_alone, real_plane_launches,
+                           real_plane_alone)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,9 @@ and K10, or the last axis's 1D kernel and K10, or else the plane path's
 per-axis walk with K12 between K6; SPLIT runs the per-axis walk with no
 K6.  Any other 1D layout runs the strided copy kernel K7 around the packed
 route.  And 1D REAL fp32 (R2C forward, C2R backward) INTERLEAVED PACKED
-with zero offsets, out-of-place.  Forward and backward each have their own
-scale.
+with zero offsets, out-of-place: K9 up to n = 512, else the C2C transform
+of h = n/2 (a raw kernel or the plane path) with K8a/K8a-w or K8b.
+Forward and backward each have their own scale.
 
 C2C I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
 
@@ -166,7 +167,8 @@ class CommittedDescriptor:
         """Race the kernels that can run this plan's GLOBAL, FUSED,
         multi-dim or BATCH_INTERLEAVED transform on the plan's device,
         record the fastest in the tuning cache, switch both directions to it
-        and return its parameters.  GLOBAL: ``{}`` K3, ``{"eng": 5}`` K4,
+        and return its parameters.  GLOBAL: ``{}`` K3, ``{"eng": 2, "ftw":
+        1}`` K3-ftw, ``{"eng": 5}`` K4,
         ``{"eng": 7}`` K5, ``{"eng": 7, "ov": 1}`` K5-ov, ``{"eng": 3}``
         K16, ``{"eng": 6}`` K17 and ``{"eng": 6, "ftw": 1}`` (its factored
         twiddle), ``{"eng": 8}`` K18, ``{"eng": 7, "bf2": 1}`` K19, where

@@ -30,8 +30,10 @@ def bank_from_reference(
     ``TwiddleBank.device_arrays(device)`` of a plan built here; that
     includes the REAL post-twiddles ``R{f|b}{n}`` and the tables of the
     tuned GLOBAL engines: K5's and K18's ``GA``/``GB``/``U``, K16's ``G``,
-    K17's factored ``Q`` and ``Y`` (the reference's ``ZQ``) and K19's
-    ``G2…L`` (of its orientations, the two K19 reads).  Only float32 tables
+    the factored ``Q`` and ``Y`` (the reference's ``ZQ``) that K17 and K3-ftw
+    read, K19's ``G2…L`` (of its orientations, the two K19 reads), and
+    K15-bf's digit-permuted ``…_bl…`` tables (the reference's ``BLT``,
+    ``BLP``, ``BLB``).  Only float32 tables
     are carried: the JAX package's bf16 tables (its matrix-unit precision
     scheme, among them the small-n REAL stacks ``RS…k``) have no reader in
     this package, whose small-n REAL matrix is its own float32

@@ -3,7 +3,8 @@
 // (b, n), in three launches through two float2 buffers S1, S2 of b*M
 // elements.
 //
-// Replaces portfft_tpu/ops/pallas_bluestein.py::bluestein_call.  With the
+// Replaces portfft_tpu/ops/pallas_bluestein.py::bluestein_call, and with
+// pf_bluestein_bf its butterfly mode (K15-bf, below).  With the
 // chirp c[j] = exp(sign*pi*i*j^2/n), X = c * IDFT_M(DFT_M(x*c) * b^), and
 // the convolution's directions fixed (forward -1, backward +1) whatever the
 // user's sign, which lives in the tables:
@@ -35,6 +36,7 @@
 // 384), so the kernel is bound by arithmetic (in this first version, as
 // K1-K3, by shared-memory operand reads).
 #include "fft_common.cuh"
+#include "fft_global_bf.cuh"
 
 namespace pfft {
 
@@ -157,6 +159,227 @@ __global__ void __launch_bounds__(pfft::kThreads)
   }
 }
 
+// K15-bf: the butterfly mode (pallas_bluestein.py bluestein_call with
+// PORTFFT_BLUESTEIN_BF, its blane_dif/blane_dit).  The same three passes,
+// each sub-transform of length g = A*128 (A = 2^a*3^b <= 16) factored: the
+// forward stages (passes 1 and 2) run the A-point slab DFT over the high
+// digit iA of i = 128*iA + iB (pfft_bf::slab_dft, radix 2 and 3, snapped
+// constants), the digit twiddle U[kA][iB] = w_g^(kA*iB) and the 128-point
+// DFT over iB, and leave frequency kA + A*kB at position 128*kA + kB
+// (digit-major, torch_fft.lane_perm); the backward stages (passes 2 and 3)
+// take that order, run the 128-point DFT over each slab, the twiddle
+// U[a][jB] and the A-point slab DFT across slabs, and give natural order.
+// The permutations cancel inside the convolution; the tables between the
+// stages (the forward twiddle BLT, b^ BLP, the backward twiddle BLB) are
+// the bank's, stored permuted, so no index is ever reversed.  About
+// A + 128 multiply-adds a point and stage where the dense mode sums g.
+// A sub here is {g, A, -, -, br, bi = the 128-point DFT planes, ur, ui =
+// U}; its tile keeps the FUSED layout (element i at i + i/128).
+
+// The forward stage: natural tile in `in` -> digit-major tile in `out`
+// (`in` is overwritten).
+template <int A>
+__device__ float2* bf_dif(const pfft::Sub& s, const float2* rb, float2* in,
+                          float2* out, int T, int sign) {
+  const int es = pfft::tile_pitch(T);
+  for (int u = threadIdx.x; u < 128 * T; u += blockDim.x) {
+    const int iB = u / T, t = u - iB * T;
+    float2 v[A];
+#pragma unroll
+    for (int i = 0; i < A; ++i) v[i] = in[(129 * i + iB) * es + t];
+    pfft_bf::slab_dft<A>(v, sign);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
+      const int w = k * 128 + iB;
+      in[(129 * k + iB) * es + t] =
+          pfft::cmul(v[k], make_float2(__ldg(s.ur + w), __ldg(s.ui + w)));
+    }
+  }
+  __syncthreads();
+  pfft::dft_stage(
+      in, out, 128, T * A, es, rb,
+      [=](int u) {
+        const int ka = u / T;
+        return 129 * ka * es + (u - ka * T);
+      },
+      [=](int u, int kb) {
+        const int ka = u / T;
+        return (129 * ka + kb) * es + (u - ka * T);
+      },
+      [](int, int, float2 y) { return y; });
+  __syncthreads();
+  return out;
+}
+
+// The backward stage: digit-major tile in `in` -> natural tile in `out`.
+template <int A>
+__device__ float2* bf_dit(const pfft::Sub& s, const float2* rb, float2* in,
+                          float2* out, int T, int sign) {
+  const int es = pfft::tile_pitch(T);
+  pfft::dft_stage(
+      in, out, 128, T * A, es, rb,
+      [=](int u) {
+        const int a = u / T;
+        return 129 * a * es + (u - a * T);
+      },
+      [=](int u, int jb) {
+        const int a = u / T;
+        return (129 * a + jb) * es + (u - a * T);
+      },
+      [](int, int, float2 y) { return y; });
+  __syncthreads();
+  for (int u = threadIdx.x; u < 128 * T; u += blockDim.x) {
+    const int jB = u / T, t = u - jB * T;
+    float2 v[A];
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const int w = a * 128 + jB;
+      v[a] = pfft::cmul(out[(129 * a + jB) * es + t],
+                        make_float2(__ldg(s.ur + w), __ldg(s.ui + w)));
+    }
+    pfft_bf::slab_dft<A>(v, sign);
+#pragma unroll
+    for (int j = 0; j < A; ++j) out[(129 * j + jB) * es + t] = v[j];
+  }
+  __syncthreads();
+  return out;
+}
+
+// Passes 1 (forward stage, Dif) and 3 (backward stage): blue_tiles with the
+// factored sub-transform.
+template <int A, bool Dif, class In, class Out>
+__device__ void bf_tiles(const pfft::Pass& p, int sign, In in, Out out) {
+  extern __shared__ float2 smem[];
+  float2* rb = smem;
+  float2* b0 = smem + 128;
+  const int es = pfft::tile_pitch(p.T);
+  float2* b1 = b0 + pfft::tile_rows(p.sub) * es;
+  pfft::load_roots(rb, p.sub.br, p.sub.bi, 128);
+  const int64_t per = (p.ncols + p.T - 1) / p.T;
+  const int64_t ntiles = p.nbatch * per;
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int64_t b = tile / per;
+    const int64_t c0 = (tile - b * per) * p.T;
+    pfft::tile_load(p, 0, c0, in(b), b0);
+    const float2* res = Dif ? bf_dif<A>(p.sub, rb, b0, b1, p.T, sign)
+                            : bf_dit<A>(p.sub, rb, b0, b1, p.T, sign);
+    pfft::tile_store(p, 0, c0, res, out(b));
+  }
+}
+
+template <int A>
+__global__ void __launch_bounds__(pfft::kThreads)
+    bf_pass1(pfft::Pass p, pfft::ConstPlanes x, const float* cr,
+             const float* ci, int64_t n, float2* s1) {
+  const int64_t conv = int64_t(p.sub.m) * p.ncols;
+  bf_tiles<A, true>(
+      p, -1,
+      [=](int64_t b) {
+        return pfft::ChirpIn{{x.re + b * n, x.im + b * n}, cr, ci, n};
+      },
+      [=](int64_t b) { return s1 + b * conv; });
+}
+
+template <int A>
+__global__ void __launch_bounds__(pfft::kThreads)
+    bf_pass3(pfft::Pass p, const float2* s2, pfft::Planes y, int64_t n) {
+  const int64_t conv = int64_t(p.sub.m) * p.ncols;
+  bf_tiles<A, false>(
+      p, +1, [=](int64_t b) { return s2 + b * conv; },
+      [=](int64_t b) {
+        return pfft::HeadPlanes{{y.re + b * n, y.im + b * n}, n};
+      });
+}
+
+// Pass 2: forward stage over g2, times b^ (BLP), backward stage, stored with
+// BLB by tile_store; sb is the backward g2 sub (its 128-point roots and U).
+template <int A>
+__global__ void __launch_bounds__(pfft::kThreads)
+    bf_pass2(pfft::Pass p, pfft::Sub sb, const float* hr, const float* hi,
+             const float2* s1, float2* s2) {
+  extern __shared__ float2 smem[];
+  const pfft::Sub& sf = p.sub;
+  float2* rf = smem;
+  float2* rb = smem + 128;
+  float2* b0 = smem + 256;
+  const int T = p.T, es = pfft::tile_pitch(T);
+  float2* b1 = b0 + pfft::tile_rows(sf) * es;
+  pfft::load_roots(rf, sf.br, sf.bi, 128);
+  pfft::load_roots(rb, sb.br, sb.bi, 128);
+  const int g2 = sf.m;
+  const int64_t conv = int64_t(g2) * p.ncols;
+  const int64_t per = (p.ncols + T - 1) / T;
+  const int64_t ntiles = p.nbatch * per;
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int64_t b = tile / per;
+    const int64_t c0 = (tile - b * per) * T;
+    pfft::tile_load(p, 0, c0, s1 + b * conv, b0);
+    float2* r = bf_dif<A>(sf, rf, b0, b1, T, -1);
+    const int64_t left = p.ncols - c0;
+    const int tv = left < T ? int(left) : T;
+    for (int e = threadIdx.x; e < g2 * T; e += blockDim.x) {
+      const int q = e / T;
+      const int t = e - q * T;
+      if (t >= tv) continue;
+      const int pos = pfft::tile_pos(sf, q) * es + t;
+      const int64_t h = (c0 + t) * g2 + q;  // BLP[p1, q]
+      r[pos] = pfft::cmul(r[pos], make_float2(__ldg(hr + h), __ldg(hi + h)));
+    }
+    __syncthreads();
+    r = bf_dit<A>(sb, rb, r, b0, T, +1);
+    pfft::tile_store(p, 0, c0, r, s2 + b * conv);
+  }
+}
+
+template <int A>
+int launch_bf(const pfft::Pass& p1, const pfft::Pass& p2,
+              const pfft::Pass& p3, const pfft::Sub& b2,
+              pfft::ConstPlanes x, const float* prer, const float* prei,
+              const float* hatr, const float* hati, float2* S1, float2* S2,
+              pfft::Planes y, int64_t n, cudaStream_t st, int pass) {
+  const size_t tile =
+      sizeof(float2) * 2 * size_t(pfft::tile_rows(pass == 2 ? p2.sub : p1.sub)) *
+      pfft::tile_pitch(pass == 2 ? p2.T : p1.T);
+  if (pass == 1)
+    return pfft::launch_tiles(bf_pass1<A>, sizeof(float2) * 128 + tile,
+                              pfft::pass_tiles(p1), st, p1, x, prer, prei, n,
+                              S1);
+  if (pass == 2)
+    return pfft::launch_tiles(bf_pass2<A>, sizeof(float2) * 256 + tile,
+                              pfft::pass_tiles(p2), st, p2, b2, hatr, hati,
+                              static_cast<const float2*>(S1), S2);
+  return pfft::launch_tiles(bf_pass3<A>, sizeof(float2) * 128 + tile,
+                            pfft::pass_tiles(p3), st, p3,
+                            static_cast<const float2*>(S2), y, n);
+}
+
+// Launches pass `pass` with the slab factor A of its sub.
+int launch_bf_pass(int A, const pfft::Pass& p1, const pfft::Pass& p2,
+                   const pfft::Pass& p3, const pfft::Sub& b2,
+                   pfft::ConstPlanes x, const float* prer, const float* prei,
+                   const float* hatr, const float* hati, float2* S1,
+                   float2* S2, pfft::Planes y, int64_t n, cudaStream_t st,
+                   int pass) {
+#define PFFT_BF_CASE(a)                                                      \
+  case a:                                                                    \
+    return launch_bf<a>(p1, p2, p3, b2, x, prer, prei, hatr, hati, S1, S2,  \
+                        y, n, st, pass);
+  switch (A) {
+    PFFT_BF_CASE(1)
+    PFFT_BF_CASE(2)
+    PFFT_BF_CASE(3)
+    PFFT_BF_CASE(4)
+    PFFT_BF_CASE(6)
+    PFFT_BF_CASE(8)
+    PFFT_BF_CASE(9)
+    PFFT_BF_CASE(12)
+    PFFT_BF_CASE(16)
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+#undef PFFT_BF_CASE
+}
+
 bool sub_ok(const pfft::Sub& s) {
   return s.m >= 1 && (s.a == 0 || s.a * 128 == s.m);
 }
@@ -253,4 +476,92 @@ extern "C" int pf_bluestein(
                             pfft::pass_tiles(p3), st, p3,
                             static_cast<const float2*>(S2),
                             pfft::Planes{yr, yi}, n);
+}
+
+// K15-bf: pf_bluestein's function in the butterfly mode.  The same
+// arguments, but each sub is {g, A, unused, unused, the 128-point DFT
+// planes of its direction (row 1 read), U(A, 128) of its direction}, with
+// g = A*128, A = 2^a*3^b <= 16; twf, hat and twb are the bank's permuted
+// BLT, BLP ("f") and BLB.  Returns a cudaError_t.
+extern "C" int pf_bluestein_bf(
+    const float* xr, const float* xi, float* yr, float* yi, float* s1,
+    float* s2, int64_t n, int g1, int a1, const float* f1wr,
+    const float* f1wi, const float* f1br, const float* f1bi,
+    const float* f1ur, const float* f1ui, int g1b, int a1b,
+    const float* b1wr, const float* b1wi, const float* b1br,
+    const float* b1bi, const float* b1ur, const float* b1ui, int g2, int a2,
+    const float* f2wr, const float* f2wi, const float* f2br,
+    const float* f2bi, const float* f2ur, const float* f2ui, int g2b,
+    int a2b, const float* b2wr, const float* b2wi, const float* b2br,
+    const float* b2bi, const float* b2ur, const float* b2ui,
+    const float* prer, const float* prei, const float* twfr,
+    const float* twfi, const float* hatr, const float* hati,
+    const float* twbr, const float* twbi, const float* finr,
+    const float* fini, int64_t batch, float scale, void* stream) {
+  const pfft::Sub f1{g1, a1, f1wr, f1wi, f1br, f1bi, f1ur, f1ui};
+  const pfft::Sub b1{g1b, a1b, b1wr, b1wi, b1br, b1bi, b1ur, b1ui};
+  const pfft::Sub f2{g2, a2, f2wr, f2wi, f2br, f2bi, f2ur, f2ui};
+  const pfft::Sub b2{g2b, a2b, b2wr, b2wi, b2br, b2bi, b2ur, b2ui};
+  if (a1 < 1 || a2 < 1 || g1 != 128 * a1 || g2 != 128 * a2 || g1b != g1 ||
+      a1b != a1 || g2b != g2 || a2b != a2 || batch < 1 || n < 1 ||
+      n > int64_t(g1) * g2 || s1 == nullptr || s2 == nullptr ||
+      f1br == nullptr || f1ur == nullptr || b1br == nullptr ||
+      b1ur == nullptr || f2br == nullptr || f2ur == nullptr ||
+      b2br == nullptr || b2ur == nullptr)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float2* S1 = reinterpret_cast<float2*>(s1);
+  float2* S2 = reinterpret_cast<float2*>(s2);
+
+  pfft::Pass p1{};
+  p1.sub = f1;
+  p1.nbatch = batch;
+  p1.ncols = g2;
+  p1.T = pfft::pick_tile(g1, g2, 4096, 8);
+  p1.iis = g2;
+  p1.ics = 1;
+  p1.oks = 1;
+  p1.ocs = g1;
+  p1.twr = twfr;
+  p1.twi = twfi;
+  p1.tcs = g1;
+  p1.tks = 1;
+  p1.scale = 1.f;
+  pfft::Pass p2{};
+  p2.sub = f2;
+  p2.nbatch = batch;
+  p2.ncols = g1;
+  p2.T = pfft::pick_tile(g2, g1, 4096, 8);
+  p2.iis = g1;
+  p2.ics = 1;
+  p2.oks = 1;
+  p2.ocs = g2;
+  p2.twr = twbr;
+  p2.twi = twbi;
+  p2.tcs = g2;
+  p2.tks = 1;
+  p2.scale = 1.f;
+  pfft::Pass p3{};
+  p3.sub = b1;
+  p3.nbatch = batch;
+  p3.ncols = g2;
+  p3.T = pfft::pick_tile(g1, g2, 4096, 8);
+  p3.iis = g2;
+  p3.ics = 1;
+  p3.oks = g2;
+  p3.ocs = 1;
+  p3.twr = finr;
+  p3.twi = fini;
+  p3.tcs = g1;
+  p3.tks = 1;
+  p3.scale = scale;
+  const pfft::ConstPlanes x{xr, xi};
+  const pfft::Planes y{yr, yi};
+  for (int pass = 1; pass <= 3; ++pass) {
+    const int err = launch_bf_pass(pass == 2 ? a2 : a1, p1, p2, p3, b2, x,
+                                   prer, prei, hatr, hati, S1, S2, y, n, st,
+                                   pass);
+    if (err) return err;
+  }
+  return 0;
 }

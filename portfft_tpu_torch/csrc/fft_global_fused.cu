@@ -21,14 +21,9 @@
 // rounded down to a power of two) and loads its own roots after the barrier.
 //
 // The twiddle: the bank's dense (G2, G1) table ("T", {"eng": 6}), or, in
-// the factored mode, with n2 = 64*ti + n2b and k1 = lo + L*hi,
-//   w_n^(k1*n2) = [A1[ti][lo] * B1[n2b][lo]] * [A2[ti][c] * B2[n2b][c]]
-// from the JAX package's tables: "Q" for a DIRECT G1 (L = 128, c = hi) and
-// "ZQ" for a FUSED [a, 128] G1 (L = a, c = (hi % g)*a + hi/g with g =
-// 128/a, the reference's fold order), 64 columns wide.  A tile's columns
-// share ti (its width divides 64), so the block forms C1 (L x T) and C2
-// (H x T) in shared memory before each pass-1 tile and no dense twiddle is
-// streamed.
+// the factored mode, the per-tile factors of fft_ftw.cuh (the JAX
+// package's "Q" or "ZQ" tables at 64 columns), formed in shared memory
+// before each pass-1 tile, so that no dense twiddle is streamed.
 //
 // Bound on the H100, per complex element: 16 bytes in and out of device
 // memory (+ 8 bytes of dense twiddle), the scratch round trip in L2, against
@@ -37,13 +32,11 @@
 #include <cooperative_groups.h>
 
 #include "fft_common.cuh"
+#include "fft_ftw.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-
-// The factored tables' width (torch_fft.FTW_T1).
-constexpr int kFtwT1 = 64;
 
 // Scratch reads: through L2 only (the scratch is rewritten between barriers).
 struct FromL2 {
@@ -61,18 +54,10 @@ struct Fused {
   int t1, t2;
   const float* twr;  // dense (g2, g1) [n2, k1]; nullptr in the factored mode
   const float* twi;
-  const float* q[8];  // factored: tables 1r, 1i, 2r, 2i, 3r, 3i, 4r, 4i
+  pfft_ftw::Tables q;  // factored: tables 1r, 1i, 2r, 2i, 3r, 3i, 4r, 4i
   int64_t batch, chunk;
   float scale;
 };
-
-// (L, H) of the factored twiddle: k1 = lo + L*hi.
-__host__ __device__ inline int lo_count(const Fused& p) {
-  return p.s1.a ? p.s1.a : 128;
-}
-__host__ __device__ inline int hi_count(const Fused& p) {
-  return p.s1.a ? 128 : p.s1.m / 128;
-}
 
 __host__ __device__ inline int roots_of(const pfft::Sub& s) {
   return s.a ? s.a + 128 : s.m;
@@ -91,8 +76,7 @@ __host__ __device__ inline int extra_offset(const Fused& p) {
   return (r1 > r2 ? r1 : r2) + 2 * (e1 > e2 ? e1 : e2);
 }
 __host__ __device__ inline int smem_elems(const Fused& p) {
-  return extra_offset(p) +
-         (p.twr ? 0 : (lo_count(p) + hi_count(p)) * p.t1);
+  return extra_offset(p) + (p.twr ? 0 : pfft_ftw::factor_elems(p.s1, p.t1));
 }
 
 __device__ inline pfft::TileSmem pass_smem(const Fused& p, const pfft::Sub& s,
@@ -106,34 +90,12 @@ __device__ inline pfft::TileSmem pass_smem(const Fused& p, const pfft::Sub& s,
   return t;
 }
 
-// The factored mode: C1[t][lo] = A1[ti][lo] * B1[n2b][lo] and C2[t][hi] =
-// A2[ti][c] * B2[n2b][c] of the tile's columns c0 .. c0+T-1 into `extra`.
-__device__ void prepare(const Fused& p, int64_t c0, float2* extra) {
-  const int L = lo_count(p), H = hi_count(p), T = p.t1;
-  const int ti = int(c0 / kFtwT1), n2b0 = int(c0 % kFtwT1);
-  const int a = p.s1.a, g = a ? 128 / a : 1;
-  for (int e = threadIdx.x; e < T * (L + H); e += blockDim.x) {
-    const bool lo = e < T * L;
-    const int r = lo ? e : e - T * L;
-    const int w = lo ? L : H;
-    const int t = r / w, k = r - t * w;
-    const int c = lo || a == 0 ? k : (k % g) * a + k / g;
-    const int cols = lo ? 128 : H;
-    const int ia = ti * cols + c, ib = (n2b0 + t) * cols + c;
-    const float *ar = p.q[lo ? 4 : 6], *ai = p.q[lo ? 5 : 7];
-    const float *br = p.q[lo ? 0 : 2], *bi = p.q[lo ? 1 : 3];
-    extra[e] = pfft::cmul(make_float2(__ldg(ar + ia), __ldg(ai + ia)),
-                          make_float2(__ldg(br + ib), __ldg(bi + ib)));
-  }
-}
-
 // Pass 1's store: S[b][n2][k1] = res[k1 of column t] * twiddle, elements
 // fastest (the scratch rows are k1-contiguous); ends with __syncthreads.
 __device__ void store1(const Fused& p, const pfft::Pass& ps, int64_t b,
                        int64_t c0, const float2* res, const float2* extra) {
   const pfft::Sub& s = ps.sub;
   const int m = s.m, T = ps.T, es = pfft::tile_pitch(T);
-  const int L = lo_count(p), H = hi_count(p);
   const int64_t left = ps.ncols - c0;
   const int tv = left < T ? int(left) : T;
   for (int e = threadIdx.x; e < m * T; e += blockDim.x) {
@@ -144,9 +106,7 @@ __device__ void store1(const Fused& p, const pfft::Pass& ps, int64_t b,
       const int64_t i = (c0 + t) * m + k;
       v = pfft::cmul(v, make_float2(__ldg(p.twr + i), __ldg(p.twi + i)));
     } else {
-      const int hi = k / L;
-      v = pfft::cmul(v, extra[t * L + (k - hi * L)]);
-      v = pfft::cmul(v, extra[T * L + t * H + hi]);
+      v = pfft_ftw::apply(v, extra, p.s1, T, t, k);
     }
     p.s[b * ps.obs + (c0 + t) * ps.ocs + k] = v;
   }
@@ -197,7 +157,7 @@ __global__ void __launch_bounds__(pfft::kThreads) fused_kernel(Fused p) {
     pfft::load_sub_roots(p.s1, sm1);
     for (int64_t i = blockIdx.x; i < nb * tiles1; i += gridDim.x) {
       const int64_t b = i / tiles1, c0 = (i - b * tiles1) * p.t1;
-      if (!p.twr) prepare(p, c0, extra);
+      if (!p.twr) pfft_ftw::prepare(p.q, p.s1, p.t1, c0, extra);
       pfft::tile_load(p1, b, c0, x, sm1.b0);
       const float2* res = pfft::sub_dft(p.s1, sm1.ra, sm1.rb, sm1.b0, sm1.b1,
                                         p.t1, pfft::tile_pitch(p.t1));
@@ -218,13 +178,6 @@ bool sub_ok(const pfft::Sub& s) {
 }
 
 bool tile_ok(int t) { return t == 1 || t == 2 || t == 4 || t == 8; }
-
-// The factored mode's tables exist for the plan: 64 | G2, and a DIRECT G1
-// with 128 | G1 or a FUSED [a, 128] G1 with a | 128.
-bool ftw_ok(const Fused& p) {
-  if (p.s2.m % kFtwT1) return false;
-  return p.s1.a ? 128 % p.s1.a == 0 : p.s1.m % 128 == 0;
-}
 
 }  // namespace
 
@@ -251,12 +204,12 @@ extern "C" int pf_global_fused(
           pfft::Sub{g1, a1, w1r, w1i, b1r, b1i, u1r, u1i},
           pfft::Sub{g2, a2, w2r, w2i, b2r, b2i, u2r, u2i},
           t1, t2, tr, ti,
-          {q1r, q1i, q2r, q2i, q3r, q3i, q4r, q4i},
+          {{q1r, q1i, q2r, q2i, q3r, q3i, q4r, q4i}},
           batch, chunk, scale};
   const bool dense = tr != nullptr && ti != nullptr;
   if (!sub_ok(p.s1) || !sub_ok(p.s2) || !tile_ok(t1) || !tile_ok(t2) ||
       batch < 1 || chunk < 1 || s == nullptr ||
-      (!dense && (q1r == nullptr || !ftw_ok(p))))
+      (!dense && (q1r == nullptr || !pfft_ftw::tables_ok(p.s1, g2))))
     return int(cudaErrorInvalidValue);
   const size_t smem = sizeof(float2) * size_t(smem_elems(p));
   cudaError_t err = cudaFuncSetAttribute(

@@ -2,7 +2,8 @@
 // `small_real`, on PACKED buffers of fp32.
 //
 // Replace portfft_tpu/ops/pallas_real.py: untangle_raw_call (K8a),
-// retangle_raw_call (K8b) and small_real_raw_call (K9).
+// retangle_raw_call (K8b) and small_real_raw_call (K9); and the REAL plane
+// path's untangle, untangle_wide_raw_call (K8a-w, below).
 //
 // Half-length path (even n > 512, h = n/2).  The b*n real buffer is the
 // interleaved buffer of z = x_even + i*x_odd, so K1/K2/K3 take its h-point
@@ -13,6 +14,10 @@
 //   K8b  Z[k] = scale * (E2 + i * W^k * N2),  k < h,   W = exp(+2*pi*i/n)
 //        E2 = X[k] + conj X[h-k],  N2 = X[k] - conj X[h-k]   (k = 0 reads X[h])
 //        after which the h-point backward C2C gives the b*n reals directly.
+//        With `drop` set, Im X[0] and Im X[h] are read as 0: the JAX
+//        package's own route below n = 1024 (a C2C of the Hermitian
+//        extension, real part kept) drops them, its retangle from n = 1024
+//        on uses them, and the REAL entry sets the flag to match.
 // The TPU kernels reverse the spectrum with anti-identity matmuls, because
 // Mosaic cannot lower a reversal; here it is an index, (h-k) mod h.  One
 // thread takes the bin pair (k, h-k): it reads both bins and both twiddles
@@ -100,7 +105,7 @@ __global__ void __launch_bounds__(pfft::kThreads)
 __global__ void __launch_bounds__(pfft::kThreads)
     retangle_kernel(const float2* __restrict__ x, float2* __restrict__ z,
                     const float* __restrict__ wr, const float* __restrict__ wi,
-                    int64_t batch, int h, float scale) {
+                    int64_t batch, int h, float scale, int drop) {
   const int64_t pairs = h / 2 + 1;
   const int64_t total = batch * pairs;
   const int64_t step = int64_t(gridDim.x) * blockDim.x;
@@ -111,11 +116,80 @@ __global__ void __launch_bounds__(pfft::kThreads)
     const int k2 = h - k;  // k = 0 pairs with the Nyquist bin X[h]
     const float2* xb = x + b * (h + 1);
     float2* zb = z + b * h;
-    const float2 a = xb[k];
-    const float2 c = xb[k2];
+    float2 a = xb[k];
+    float2 c = xb[k2];
+    if (drop && k == 0) a.y = c.y = 0.f;
     zb[k] = retangle_bin(a, c, twiddle(wr, wi, k), scale);
     if (k != 0 && k2 != k)
       zb[k2] = retangle_bin(c, a, twiddle(wr, wi, k2), scale);
+  }
+}
+
+// K8a-w `untangle_wide`: K8a's function, column-chunked for wide spectra
+// (replaces pallas_real.py::untangle_wide_raw_call and its gate wide_bt_ct).
+// The TPU kernel keeps a tile's Z planes persistent in VMEM and walks the
+// spectrum in column chunks, flipping each chunk's mirror with matmuls.
+// Here a block takes the bin pairs k = p0 .. p0+W-1 (k <= h/2) of a tile
+// of R rows: it loads the run Z[p0 .. p0+W-1] and the mirror run
+// Z[h-p0-W+1 .. h-p0] (index h is Z[0]: the mirror of k = 0 is k itself,
+// which is why pairing chunk c with chunk nc-1-c would be one column off)
+// with ascending, coalesced loads, stages both in shared memory, forms
+// X[k] and X[h-k] of every pair with its two roots (loaded once per block
+// and used for all R rows), and stores both runs ascending again.  Each Z
+// element is read once (Z[0] and Z[h/2] twice) and each X element written
+// once; the block with p0 = 0 also writes X[h].  Bound: bytes, as K8a.
+constexpr int kWideW = 256;  // bin pairs per block
+constexpr int kWideR = 8;    // rows per block: the reference's bt
+
+__global__ void __launch_bounds__(pfft::kThreads)
+    untangle_wide_kernel(const float2* __restrict__ z, float2* __restrict__ x,
+                         const float* __restrict__ wr,
+                         const float* __restrict__ wi, int64_t batch, int h,
+                         float scale) {
+  __shared__ float2 lo[kWideR][kWideW];  // Z[p0 + i], then X[p0 + i]
+  __shared__ float2 hi[kWideR][kWideW];  // Z[h - p0 - i], then X[h - p0 - i]
+  __shared__ float2 wlo[kWideW], whi[kWideW];
+  const int p0 = blockIdx.x * kWideW;
+  const int pairs = h / 2 + 1;
+  const int cnt = pairs - p0 < kWideW ? pairs - p0 : kWideW;
+  const int base = h - p0 - cnt + 1;  // first index of the mirror run
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    const int j = base + i, m = j == h ? 0 : j;  // position cnt-1-i
+    wlo[i] = make_float2(__ldg(wr + p0 + i), __ldg(wi + p0 + i));
+    whi[cnt - 1 - i] = make_float2(__ldg(wr + m), __ldg(wi + m));
+  }
+  const int64_t tiles = (batch + kWideR - 1) / kWideR;
+  for (int64_t tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int64_t r0 = tile * kWideR;
+    const int rows = batch - r0 < kWideR ? int(batch - r0) : kWideR;
+    for (int e = threadIdx.x; e < rows * cnt; e += blockDim.x) {
+      const int r = e / cnt, i = e - r * cnt;
+      const float2* zb = z + (r0 + r) * h;
+      const int j = base + i;
+      lo[r][i] = zb[p0 + i];
+      hi[r][cnt - 1 - i] = zb[j == h ? 0 : j];
+    }
+    __syncthreads();  // also makes the roots visible
+    for (int e = threadIdx.x; e < rows * cnt; e += blockDim.x) {
+      const int r = e / cnt, i = e - r * cnt;
+      const float2 a = lo[r][i], b = hi[r][i];  // Z[k], Z[(h - k) mod h]
+      lo[r][i] = untangle_bin(a, b, wlo[i], scale);
+      hi[r][i] = untangle_bin(b, a, whi[i], scale);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < rows * cnt; e += blockDim.x) {
+      const int r = e / cnt, i = e - r * cnt;
+      float2* xb = x + (r0 + r) * (h + 1);
+      xb[p0 + i] = lo[r][i];
+      const int j = base + i;  // X[j] from position cnt-1-i; X[h-k] = X[k]
+      if (j != h && j != p0 + cnt - 1 - i) xb[j] = hi[r][cnt - 1 - i];
+    }
+    if (p0 == 0)
+      for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+        const float2 z0 = z[(r0 + r) * h];
+        x[(r0 + r) * (h + 1) + h] = make_float2((z0.x - z0.y) * scale, 0.f);
+      }
+    __syncthreads();  // the tiles are read before the next rows land
   }
 }
 
@@ -252,15 +326,32 @@ extern "C" int pf_untangle(const float* z, float* x, const float* wr,
 }
 
 // x (batch*(2h+2) floats) -> z (2*batch*h floats).  wr/wi: the bank's
-// ("R", 2h, +1) planes.  Returns a cudaError_t.
+// ("R", 2h, +1) planes; drop != 0 reads Im X[0] and Im X[h] as 0.  Returns
+// a cudaError_t.
 extern "C" int pf_retangle(const float* x, float* z, const float* wr,
                            const float* wi, int64_t batch, int h, float scale,
-                           void* stream) {
+                           int drop, void* stream) {
   if (h < 1 || batch < 1) return int(cudaErrorInvalidValue);
   const int64_t total = batch * (h / 2 + 1);
   retangle_kernel<<<grid_of((total + pfft::kThreads - 1) / pfft::kThreads),
                     pfft::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(z), wr,
+      wi, batch, h, scale, drop);
+  return int(cudaGetLastError());
+}
+
+// K8a-w: z (2*batch*h floats) -> x (batch*(2h+2) floats), the function of
+// pf_untangle in column chunks.  Returns a cudaError_t.
+extern "C" int pf_untangle_wide(const float* z, float* x, const float* wr,
+                                const float* wi, int64_t batch, int h,
+                                float scale, void* stream) {
+  if (h < 2 || batch < 1) return int(cudaErrorInvalidValue);
+  const int64_t tiles = (batch + kWideR - 1) / kWideR;
+  const dim3 grid(unsigned((h / 2 + kWideW) / kWideW),
+                  unsigned(tiles < 65535 ? tiles : 65535));
+  untangle_wide_kernel<<<grid, pfft::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(z), reinterpret_cast<float2*>(x), wr,
       wi, batch, h, scale);
   return int(cudaGetLastError());
 }

@@ -8,7 +8,7 @@ interleaved buffer, chosen by plan level:
 |---|---|---|
 | DIRECT | ``cuda_fft.direct`` (K1) | ``pallas_fft.direct_raw_call`` |
 | FUSED [a, 128] | the entry's engine: ``cuda_fft.fused2`` (K2, the static route), ``fused2_v1`` (K2-v1), ``fused2_v2`` (K2-v2) or ``fused2_v3`` (K2-v3) | ``pallas_fft.fused2_raw_mm_call``, ``fused2_raw_call``, ``fused2_raw_v2_call``, ``fused2_raw_v3_call`` |
-| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5), ``global_bf_ov`` (K5-ov), ``global_bf2`` (K19), ``cuda_global.global3`` (K16), ``cuda_global.global_fused`` (K17, dense or factored twiddle) or ``cuda_global_ilv.global_ilv`` (K18) | ``pallas_global.global2_raw_call``, ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call``, ``global_bf2_raw_call``, ``pallas_global3.build_call``, ``pallas_global.global_fused_raw_call``, ``pallas_global_ilv.global_ilv_raw_call`` |
+| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global2_ftw`` (K3-ftw, its factored twiddle), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5), ``global_bf_ov`` (K5-ov), ``global_bf2`` (K19), ``cuda_global.global3`` (K16), ``cuda_global.global_fused`` (K17, dense or factored twiddle) or ``cuda_global_ilv.global_ilv`` (K18) | ``pallas_global.global2_raw_call`` (``use_ftw`` for K3-ftw), ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call``, ``global_bf2_raw_call``, ``pallas_global3.build_call``, ``pallas_global.global_fused_raw_call``, ``pallas_global_ilv.global_ilv_raw_call`` |
 | anything else (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | the plane path, ``("plane", ...)`` below | ``committed._traced_interleaved`` |
 
 The engine of a GLOBAL entry, ``("global2", plan, batch, sign, scale,
@@ -40,7 +40,7 @@ the direction's scale.  The route of every node is fixed at commit
 |---|---|---|
 | DIRECT, FUSED [a >= 8, 128], any other FUSED chain | ``cuda_chain.chain`` (K13: its direct, two-stage and chain modes) | ``pallas_fft.fused_chain``, ``_generic_chain_call`` |
 | GLOBAL with DIRECT or FUSED [a, 128] subs, a dividing 128 (``cuda_global.global2_supported``) | ``cuda_global.global2_planes`` (K14) | ``pallas_global.global2_call`` |
-| BLUESTEIN with a GLOBAL convolution (``cuda_bluestein.supported``) whose subs fit K15's tile | ``cuda_bluestein.bluestein`` (K15) | ``pallas_bluestein.bluestein_call`` |
+| BLUESTEIN with a GLOBAL convolution (``cuda_bluestein.supported``) whose subs fit K15's tile | ``cuda_bluestein.bluestein`` (K15), or with ``PORTFFT_BLUESTEIN_BF`` set at commit and both subs A·128, A = 2^a·3^b ≤ 16, ``cuda_bluestein.bluestein_bf`` (K15-bf, its butterfly mode) | ``pallas_bluestein.bluestein_call`` (its butterfly mode under the same flag) |
 | other BLUESTEIN, other GLOBAL | the executor's glue around the kernels of its nodes; a Bluestein convolution on K14 takes b̂ and the final chirp as ``post`` tables | ``xla_fft._exec_bluestein``, ``exec_plan`` |
 
 SPLIT_COMPLEX C2C (PACKED, zero offsets, any rank) and the multi-dim
@@ -63,13 +63,20 @@ around the walk.  Where the scale goes:
 The 1D REAL fp32 transform (R2C forward, C2R backward, INTERLEAVED PACKED,
 out-of-place) runs, for even n ≤ ``SMALL_REAL_MAX_N``, as one call of
 ``cuda_real.small_real`` (K9, entries ``realsf``/``realsb``); for longer
-even n as the C2C kernel of the h = n/2 plan at scale 1 on the real buffer
-viewed as h complex pairs, followed (forward, ``realf``) by
-``cuda_real.untangle`` (K8a) or preceded (backward, ``realb``) by
-``cuda_real.retangle`` (K8b), which apply the direction's scale.  The JAX
-package declines some of these shapes to its plane path (h not a multiple
-of 128, h ≥ 2^15, 512 < n < 1024, batches that do not group); the kernels
-here take them all.
+even n as the C2C transform of the h = n/2 plan at scale 1 on the real
+buffer viewed as h complex pairs, followed (forward) by
+``cuda_real.untangle`` (K8a) or preceded (backward) by
+``cuda_real.retangle`` (K8b), which apply the direction's scale.  Where h
+has a raw entry (K1, K2, K3 or a tuned engine) that entry runs
+(``realf``/``realb``); where h needs the plane path, the plane entry of h
+runs (``realplane``: K6, the executor with K13–K15, K6), and the forward
+untangle is K8a-w (``cuda_real.untangle_wide``) where its gate takes the
+shape (the JAX package's ``_core_real_forward``/``_core_real_backward``).
+C2R reads Im X[0] and Im X[n/2] as the JAX package does: dropped below
+n = 1024, where it has no retangle table, used from there on (K8b's
+``drop`` flag, set at commit).  The JAX package declines some raw shapes
+to its plane path (h not a multiple of 128, h ≥ 2^15, 512 < n < 1024,
+batches that do not group); the kernels here take them all.
 
 Multi-dimensional C2C fp32 (rank >= 2, INTERLEAVED PACKED, zero offsets)
 runs as an ``("multidim", md2, steps)`` entry: the kernels in the order they
@@ -206,6 +213,7 @@ def _global_raw(plan0) -> bool:
 #: package's engine numbers) that select them.
 ENGINE_PARAMS = {
     "global2": {},                         # K3, two passes (engine 2)
+    "global2_ftw": {"eng": 2, "ftw": 1},   # K3-ftw, its factored twiddle
     "global_sq": {"eng": 5},               # K4, one pass in a cluster
     "global_bf": {"eng": 7},               # K5, butterfly-factored sweep
     "global_bf_ov": {"eng": 7, "ov": 1},   # K5-ov, its phase overlay
@@ -229,15 +237,16 @@ FUSED_ENGINE_PARAMS = {
 
 def _engine_of(params: dict, plan0=None) -> str:
     """The kernel that tuning parameters select: for a GLOBAL plan (or
-    ``plan0`` None) the JAX package's engine 2 is K3, 3 K16, 5 K4, 6 K17
-    (``"ftw": 1`` its factored twiddle), 7 K5, K5-ov (``"ov": 1``) or K19
-    (``"bf2": 1``), 8 K18.  The reference's TPU knobs have no counterpart
-    here and are read and ignored: the tiles ``t1``/``t2`` (engines 2, 3,
-    6, 7, 8), ``bt`` (5), ``st3``/``ta`` (bf2), and ``ftw``, ``mm`` and
-    ``ds`` on engine 2.  For a FUSED [a, 128] plan, engine 4 (or none) is
-    K2 (its ``flat``, ``ds`` and ``bt`` knobs have no counterpart), 2 K2-v2
-    and 3 K2-v3, each K2-v1 where a has no fold; any other engine
-    raises."""
+    ``plan0`` None) the JAX package's engine 2 is K3 (``"ftw": 1`` K3-ftw,
+    its factored twiddle), 3 K16, 5 K4, 6 K17 (``"ftw": 1`` its factored
+    twiddle), 7 K5, K5-ov (``"ov": 1``) or K19 (``"bf2": 1``), 8 K18.  The
+    reference's TPU knobs have no counterpart here and are read and
+    ignored: the tiles ``t1``/``t2`` (engines 2, 3, 6, 7, 8; the factored
+    tables are read at ``torch_fft.FTW_T1`` columns whatever ``t1``),
+    ``bt`` (5), ``st3``/``ta`` (bf2), and ``mm`` and ``ds`` on engine 2.
+    For a FUSED [a, 128] plan, engine 4 (or none) is K2 (its ``flat``,
+    ``ds`` and ``bt`` knobs have no counterpart), 2 K2-v2 and 3 K2-v3, each
+    K2-v1 where a has no fold; any other engine raises."""
     eng = params.get("eng")
     if plan0 is not None and is_two_stage(plan0):
         if eng in (None, 4):
@@ -250,7 +259,7 @@ def _engine_of(params: dict, plan0=None) -> str:
             f"the FUSED engine {params} has no kernel in this package")
     eng = 2 if eng is None else eng
     if eng == 2:
-        return "global2"
+        return "global2_ftw" if params.get("ftw") else "global2"
     if eng == 3:
         return "global3"
     if eng == 5:
@@ -273,6 +282,8 @@ def engine_supported(engine: str, plan0, batch: int = 1, bt: int = 0) -> bool:
     any tile)."""
     if engine == "global_sq":
         return cuda_global.global_sq_supported(plan0)
+    if engine == "global2_ftw":
+        return _global_raw(plan0) and cuda_global.global2_ftw_supported(plan0)
     if engine in ("global_bf", "global_bf_ov"):
         return cuda_global_bf.global_bf_supported(plan0)
     if engine == "global_bf2":
@@ -342,7 +353,10 @@ def _tuned_kind(plan0) -> str | None:
 
 
 #: Entries that wrap an inner entry at ``entry[1]``.
-_WRAPPERS = ("layout", "realf", "realb")
+_WRAPPERS = ("layout", "realf", "realb", "realplane")
+#: The REAL entries: small path, half-length path, half length on the plane
+#: path.
+_REAL = ("realsf", "realsb", "realf", "realb", "realplane")
 
 
 def inner_entry(entry):
@@ -379,31 +393,6 @@ def with_engine(committed, entry, params: dict):
     return (*entry[:5], engine, bt) if kind == "fused2" else (*entry[:5], engine)
 
 
-def _plane_reason(plan0) -> str:
-    """Why ``plan0`` needs the plane path."""
-    if plan0.level == Level.BLUESTEIN:
-        return f"BLUESTEIN plan {plan0.describe()} runs on the plane path"
-    if plan0.level == Level.GLOBAL:
-        return (f"GLOBAL plan {plan0.describe()} has a sub-transform that is "
-                f"neither DIRECT nor FUSED [a, 128] of length <= "
-                f"{GLOBAL_SUB_MAX}, so it runs on the plane path (the torch "
-                "executor around the plane GLOBAL kernel K14 or its subs' "
-                "kernels)")
-    return (f"FUSED plan {plan0.describe()} is not the two-stage [a, 128] "
-            "shape, so it runs on the plane path (the torch executor)")
-
-
-def _entry_1d(plan0, batch: int, sign: int, scale: float, where: str,
-              engine: str | None = None, bt: int = 0):
-    """The raw entry of one 1D PACKED transform inside the REAL route;
-    raises where the plan needs the plane path, which that route does not
-    take yet (``where`` names its item)."""
-    entry = _raw_entry(plan0, batch, sign, scale, engine, bt)
-    if entry is None:
-        raise RawFastUnavailable(f"{_plane_reason(plan0)}; {where}")
-    return entry
-
-
 # -- the plane path -----------------------------------------------------------
 
 
@@ -414,7 +403,9 @@ def plane_routes(plan0, config) -> dict:
     Kinds: ``"direct"``, ``"two_stage"``, ``"chain"`` (K13's modes, as
     ``fused_chain`` picks), ``"global2"`` (K14, a GLOBAL plan
     ``global2_supported`` takes; its subs run inside it), ``"bluestein"``
-    (K15, where ``bluestein_call`` takes the plan) and ``"generic"`` (a
+    (K15, where ``bluestein_call`` takes the plan), ``"bluestein_bf"``
+    (K15-bf, its butterfly mode, where ``cuda_bluestein.bf_mode`` takes
+    it) and ``"generic"`` (a
     GLOBAL four-step or Bluestein transform whose glue runs in the
     executor around its nodes' kernels; a Bluestein convolution on K14
     takes b̂ and the final chirp as its ``post`` tables).  Raises
@@ -444,7 +435,8 @@ def plane_routes(plan0, config) -> dict:
                 todo += [p.sub[1], p.sub[0]]
         elif (cuda_bluestein.supported(p, config)
               and max(s.n for s in p.conv.sub) <= GLOBAL_SUB_MAX):
-            routes[p.n] = "bluestein"
+            routes[p.n] = ("bluestein_bf" if cuda_bluestein.bf_mode(p)
+                           else "bluestein")
         else:  # K15's gate declines the plan, or its tile a sub past the max
             routes[p.n] = "generic"
             todo.append(p.conv)
@@ -454,7 +446,8 @@ def plane_routes(plan0, config) -> dict:
 def plane_steps(committed, plans, routes: dict) -> dict:
     """``{(n, sign): (kind, kernel, args)}``: the kernel of every node of
     the trees of ``plans`` that runs one (K13 ``cuda_chain.chain``, K14
-    ``cuda_global.global2_planes`` or K15 ``cuda_bluestein.bluestein``),
+    ``cuda_global.global2_planes``, K15 ``cuda_bluestein.bluestein`` or
+    K15-bf ``cuda_bluestein.bluestein_bf``),
     in both directions (a Bluestein transform runs its convolution both
     ways), with the committed plan's device tables."""
     keys, arrays = committed._bank_keys, committed._bank_arrays
@@ -464,9 +457,10 @@ def plane_steps(committed, plans, routes: dict) -> dict:
         p = todo.pop()
         kind = routes.get(p.n, "generic")
         for sign in (-1, +1):
-            if kind == "bluestein":
-                steps[(p.n, sign)] = (kind, cuda_bluestein.bluestein, (
-                    cuda_bluestein.bluestein_tables(p, sign, keys, arrays),))
+            if kind in ("bluestein", "bluestein_bf"):
+                steps[(p.n, sign)] = (kind, getattr(cuda_bluestein, kind), (
+                    cuda_bluestein.bluestein_tables(
+                        p, sign, keys, arrays, bf=kind == "bluestein_bf"),))
             elif kind == "global2":
                 steps[(p.n, sign)] = (kind, cuda_global.global2_planes, (
                     cuda_global.global2_tables(p, sign, keys, arrays),))
@@ -501,7 +495,7 @@ def leaf_hook(steps: dict, plain: bool = False):
         x2i = xi.reshape(-1, plan.n).contiguous()
         if kind == "global2":
             yr, yi = fn(x2r, x2i, *args, scale=scale, post=post)
-        elif kind == "bluestein":
+        elif kind in ("bluestein", "bluestein_bf"):
             yr, yi = fn(x2r, x2i, *args, scale=scale)
         else:
             yr, yi = fn(x2r, x2i, *args)
@@ -635,10 +629,23 @@ def _register_multidim(committed, params: dict | None = None) -> dict:
     return out
 
 
+#: Shortest REAL length whose C2R keeps Im X[0] and Im X[n/2]: the JAX
+#: package banks its retangle table (``R``) from n = 1024 on and uses both
+#: parts there; below it runs a C2C of the Hermitian extension and keeps the
+#: real part, which drops them (``committed._core_real_backward``).
+REAL_KEEP_MIN_N = 1024
+
+
 def _register_real(committed) -> dict:
     """Entries of a 1D REAL transform: ``(kind, n, batch, sign, scale)``
-    for the small path, ``(kind, c2c_entry, h, batch, sign, scale)`` for
-    the half-length path, whose C2C entry runs at scale 1."""
+    for the small path; for the half-length path ``("realf", c2c_entry, h,
+    batch, sign, scale)`` and ``("realb", c2c_entry, h, batch, sign, scale,
+    drop)``, whose C2C entry runs at scale 1; where the half length needs
+    the plane path, ``("realplane", plane_entry, h, batch, sign, scale,
+    kernel, drop)``: ``kernel`` the un/retangle that runs (``"untangle"``
+    K8a, ``"untangle_wide"`` K8a-w where ``cuda_real.wide_tile`` takes the
+    shape, ``"retangle"`` K8b).  ``drop`` (backward) is K8b's flag: Im X[0]
+    and Im X[n/2] read as 0 below ``REAL_KEEP_MIN_N``, as the JAX package."""
     d = committed.descriptor
     if len(d.lengths) >= 2:
         raise RawFastUnavailable(
@@ -659,28 +666,41 @@ def _register_real(committed) -> dict:
         if d.get_offset(direction) or get_layout(d, direction) != Layout.PACKED:
             raise RawFastUnavailable(
                 "REAL transforms with buffer offsets or strided layouts are "
-                "not ported yet: they come with the REAL plane path (ROADMAP "
-                "Queue 1 item 9), which drops Im X[0] and Im X[n/2] on C2R "
-                "as the JAX package's does, where the packed K8b route "
-                "uses them")
+                "not ported yet (ROADMAP Queue 1 item 9): the JAX package "
+                "runs them through its REAL plane path, which on C2R drops "
+                f"Im X[0] and Im X[n/2] below n = {REAL_KEEP_MIN_N} and "
+                "uses them from there on, as the packed route here does")
     n, batch = d.lengths[0], d.number_of_transforms
     h = n // 2
+    plan_h = committed.plans[h] if n > SMALL_REAL_MAX_N else None
     # the half-length transform takes the tuned engine of its own length
-    engine, bt = (_tuned_engine(committed, committed.plans[h], batch)
-                  if n > SMALL_REAL_MAX_N else (None, 0))
+    engine, bt = (_tuned_engine(committed, plan_h, batch)
+                  if plan_h is not None else (None, 0))
+    routes = (plane_routes(plan_h, committed.config)
+              if plan_h is not None and _raw_entry(plan_h, 1, -1, 1.0) is None
+              else None)
+    drop = n < REAL_KEEP_MIN_N
     out: dict = {}
     for direction, sign in _SIGNS.items():
         scale = float(d.get_scale(direction))
         forward = direction == Direction.FORWARD
-        if n <= SMALL_REAL_MAX_N:
+        if plan_h is None:
             out[direction] = ("realsf" if forward else "realsb", n, batch,
                               sign, scale)
+        elif routes is not None:
+            inner = ("plane", plan_h, batch, sign, 1.0, routes)
+            kernel = ("retangle" if not forward else "untangle_wide"
+                      if cuda_real.wide_tile(n, batch) else "untangle")
+            out[direction] = ("realplane", inner, h, batch, sign, scale,
+                              kernel, drop)
+        elif forward:
+            out[direction] = ("realf", _raw_entry(plan_h, batch, sign, 1.0,
+                                                  engine, bt),
+                              h, batch, sign, scale)
         else:
-            sub = _entry_1d(committed.plans[h], batch, sign, 1.0,
-                            "the REAL transform has no plane path yet "
-                            "(ROADMAP Queue 1 item 9)", engine, bt)
-            out[direction] = ("realf" if forward else "realb", sub, h, batch,
-                              sign, scale)
+            out[direction] = ("realb", _raw_entry(plan_h, batch, sign, 1.0,
+                                                  engine, bt),
+                              h, batch, sign, scale, drop)
     return out
 
 
@@ -761,11 +781,14 @@ def kernel_args(committed, entry):
         return cuda_real.small_real, (batch, cuda_real.SmallRealTables(
             n, sign, scale, arrays[w + "r"], arrays[w + "i"], arrays[m + "m"]
         ))
-    if kind in ("realf", "realb"):
-        _, _, h, batch, sign, scale = entry
+    if kind in ("realf", "realb", "realplane"):
+        _, _, h, batch, sign, scale = entry[:6]
         r = keys[("R", 2 * h, sign)]
-        kernel = cuda_real.untangle if kind == "realf" else cuda_real.retangle
-        return kernel, (batch, h, arrays[r + "r"], arrays[r + "i"], scale)
+        args = (batch, h, arrays[r + "r"], arrays[r + "i"], scale)
+        if sign > 0:  # K8b, with its flag
+            return cuda_real.retangle, (*args, entry[-1])
+        name = entry[6] if kind == "realplane" else "untangle"
+        return getattr(cuda_real, name), args
     if kind == "global2":
         _, plan0, batch, sign, scale, engine = entry
         if engine in ("global_bf", "global_bf_ov", "global_bf2", "global_ilv"):
@@ -780,6 +803,9 @@ def kernel_args(committed, entry):
                 ftw=engine == "global_fused_ftw"), scale)
         if engine == "global3":
             return cuda_global.global3, (batch, cuda_global.global3_tables(
+                plan0, sign, keys, arrays), scale)
+        if engine == "global2_ftw":
+            return cuda_global.global2_ftw, (batch, cuda_global.global2_ftw_tables(
                 plan0, sign, keys, arrays), scale)
         g1, g2 = plan0.sub
         t = keys[("T", g1.n, g2.n, sign)]
@@ -978,6 +1004,18 @@ def _planes(buf) -> tuple:
     return buf if isinstance(buf, tuple) else (buf,)
 
 
+def half_c2c_fn(committed, sub, plain: bool = False):
+    """``fn(raw, out=None)`` of the C2C entry under a half-length REAL
+    entry (``entry[1]``): a raw kernel entry, or a plane entry
+    (``plane_fn``); ``plain`` runs the plain versions."""
+    if sub[0] == "plane":
+        return plane_fn(committed, sub, plain)
+    kernel, args = kernel_args(committed, sub)
+    if plain:
+        return lambda x, out=None: cuda_fft.into(out, kernel.plain(x, *args))
+    return lambda x, out=None: kernel(x, *args, out=out)
+
+
 def build_fn(committed, entry, plain: bool = False):
     """The function of an entry.  C2C: ``fn(x, out=None)``, where ``x`` is
     the caller's whole input buffer on the plan's device (a flat float32
@@ -987,31 +1025,30 @@ def build_fn(committed, entry, plain: bool = False):
     the output count long, whose elements outside the output layout are
     left as they are, or None for a new buffer of exactly the output count
     that is zero wherever no result lands.  Returns the output buffer.
-    ``plain`` chains the plain versions (C2C only).  REAL: ``fn(raw)`` on
-    exactly the input count, returning a new buffer."""
+    REAL: ``fn(raw)`` on exactly the input count, returning a new buffer.
+    ``plain`` chains the plain versions (the CPU path, and
+    ``chip_smoke.py``'s yardstick on the card)."""
     kind = entry[0]
-    if kind not in ("realf", "realb", "realsf", "realsb"):
+    if kind not in _REAL:
         return layout_fn(committed, entry if kind == "layout"
                          else ("layout", entry, 0, 0), plain)
     kernel, args = kernel_args(committed, entry)
-    if kind in ("realf", "realb"):
-        c2c, c2c_args = kernel_args(committed, entry[1])
-        if kind == "realf":
+    if plain:
+        kernel = kernel.plain
+    if kind in ("realsf", "realsb"):
+        return lambda raw: kernel(raw, *args)
+    c2c = half_c2c_fn(committed, entry[1], plain)
+    if entry[4] < 0:
 
-            def fn(raw):
-                # the real rows are the h-point input z = x_even + i·x_odd
-                return kernel(c2c(raw, *c2c_args), *args)
+        def fn(raw):
+            # the real rows are the h-point input z = x_even + i·x_odd
+            return kernel(c2c(raw), *args)
 
-        else:
+    else:
 
-            def fn(raw):
-                z = kernel(raw, *args)
-                # the h-point transform of Z, in place, is the real rows
-                return c2c(z, *c2c_args, out=z)
-
-        return fn
-
-    def fn(raw):
-        return kernel(raw, *args)
+        def fn(raw):
+            z = kernel(raw, *args)
+            # the h-point transform of Z, in place, is the real rows
+            return c2c(z, out=z)
 
     return fn

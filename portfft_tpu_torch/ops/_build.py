@@ -39,8 +39,10 @@ _SIGNATURES = {
     "pf_fused2_v2": ([_P] * 8 + [_I64, _I, _I, _F, _P], _I),
     "pf_fused2_v3": ([_P] * 8 + [_I64, _I, _I, _F, _P], _I),
     "pf_global2": ([_P, _P, _P] + _SUB + _SUB + [_P, _P, _I64, _F, _P], _I),
+    "pf_global2_ftw": ([_P, _P, _P] + _SUB + _SUB + [_P] * 8 + [_I64, _F, _P], _I),
     "pf_untangle": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
-    "pf_retangle": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
+    "pf_untangle_wide": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
+    "pf_retangle": ([_P, _P, _P, _P, _I64, _I, _F, _I, _P], _I),
     "pf_small_real": ([_P, _P, _P, _P, _I64, _I, _I, _F, _P], _I),
     "pf_col_needs_scratch": ([_I], _I),
     "pf_col": ([_P, _P, _P] + _SUB + [_I64, _I64, _F, _P], _I),
@@ -60,6 +62,8 @@ _SIGNATURES = {
         _I,
     ),
     "pf_bluestein": ([_P] * 6 + [_I64] + _SUB * 4 + [_P] * 10 + [_I64, _F, _P], _I),
+    "pf_bluestein_bf": ([_P] * 6 + [_I64] + _SUB * 4 + [_P] * 10 + [_I64, _F, _P],
+                        _I),
     "pf_global2_planes_needs_scratch": ([_I, _I], _I),
     "pf_global2_planes": ([_P] * 6 + _SUB + _SUB + [_P] * 4 + [_I64, _F, _P], _I),
     "pf_axis_m2_needs_scratch": ([_I], _I),

@@ -1,5 +1,6 @@
-"""K3 ``global2``, K4 ``global_sq``, K16 ``global3``, K17
-``global_fused`` and K14 ``global2_planes``: wrappers of the CUDA kernels
+"""K3 ``global2`` (and its factored-twiddle mode K3-ftw ``global2_ftw``), K4
+``global_sq``, K16 ``global3``, K17 ``global_fused`` and K14
+``global2_planes``: wrappers of the CUDA kernels
 (``csrc/fft_global2.cu``, ``csrc/fft_global_sq.cu``,
 ``csrc/fft_global3.cu``, ``csrc/fft_global_fused.cu``,
 ``csrc/fft_global2_planes.cu``), their plain PyTorch versions, and the
@@ -7,7 +8,9 @@ gates of K4, K16, K17 and K14.
 
 Counterparts of ``portfft_tpu/ops/pallas_global.py``: ``global2_raw_call``
 (K3, the GLOBAL four-step n = G1·G2 on the PACKED interleaved buffer, in
-two passes through a scratch buffer), ``global_sq_raw_call`` (K4, the same
+two passes through a scratch buffer; with ``use_ftw``, K3-ftw, pass 1
+forming its twiddle from the resident factored tables ``Q``/``ZQ``, the
+tuned engine ``{"eng": 2, "ftw": 1}``), ``global_sq_raw_call`` (K4, the same
 function in one pass, the transform held on chip between its stages; the
 tuned engine ``{"eng": 5}``), ``pallas_global3.build_call`` (K16, the same
 function in two passes on the tensor cores, its twiddle from resident
@@ -119,6 +122,91 @@ def global2(
 
 global2.launches = 0
 global2.plain = global2_plain
+
+
+# -- K3-ftw global2_ftw ------------------------------------------------------------
+
+
+def global2_ftw_supported(plan: Plan1D) -> bool:
+    """K3-ftw's gate: a plan K3 takes whose factored tables exist
+    (``torch_fft.ftw_factors``: a DIRECT G1 with 128 | G1 or a FUSED
+    [a, 128] G1 with a | 128, and 64 | G2).  Pass 1's tile then has a
+    power-of-two width that divides the tables' 64 columns.  The JAX
+    package's ``global2_raw_call`` takes the same plans, falling back to
+    its dense twiddle (silently) where the tables are missing."""
+    return ftw_factors(plan) is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class Global2FtwTables:
+    """One direction's K3-ftw tables: the subs and ``q``, the four (re, im)
+    pairs of the factored tables "1" … "4" (the JAX package's ``Q`` for a
+    DIRECT G1, ``ZQ`` for a FUSED one, at ``FTW_T1`` columns), with their
+    (L, H) ``factors``; no dense twiddle (``tw``), as K17's factored mode."""
+
+    n: int
+    sub1: SubTables
+    sub2: SubTables
+    q: tuple
+    factors: tuple
+    tw: tuple = ()
+
+
+def global2_ftw_tables(plan: Plan1D, sign: int, keys: dict,
+                       arrays: dict) -> Global2FtwTables:
+    """Resolve one direction's K3-ftw tables from the bank
+    (``torch_fft.collect_bank_keys``)."""
+    g1, g2 = plan.sub
+    key = (("Q", g1.n, plan.n, sign, FTW_T1) if g1.level == Level.DIRECT
+           else ("ZQ", g1.n, g2.n, sign, FTW_T1))
+    q = keys[key]
+    return Global2FtwTables(
+        plan.n, sub_tables(g1, sign, keys, arrays), sub_tables(g2, sign, keys, arrays),
+        tuple((arrays[f"{q}{j}r"], arrays[f"{q}{j}i"]) for j in "1234"),
+        ftw_factors(plan))
+
+
+def global2_ftw_plain(raw: torch.Tensor, batch: int, t: Global2FtwTables,
+                      scale: float) -> torch.Tensor:
+    """Plain version of K3-ftw: K3's two passes, pass 1's twiddle the
+    factors of ``fused_twiddle`` (C1 then C2, each a float32 product of an
+    A and a B table) multiplied in turn."""
+    g1, g2 = t.sub1.m, t.sub2.m
+    x = raw.view(batch, g1, g2, 2).transpose(1, 2)  # [b, n2, n1]
+    with full_fp32_matmuls(raw):
+        sr, si = rows_plain(t.sub1, x[..., 0], x[..., 1])
+        for wr, wi in fused_twiddle(t):
+            sr, si = complex_mul(sr, si, wr, wi)
+        cr, ci = rows_plain(t.sub2, sr.transpose(1, 2), si.transpose(1, 2))
+    return interleave(cr.transpose(1, 2), ci.transpose(1, 2), scale)
+
+
+def global2_ftw(raw, batch: int, t: Global2FtwTables, scale: float, out=None):
+    """K3-ftw: K3 (``global2``) with pass 1's twiddle formed in the kernel
+    from the factored tables ``t.q`` (``csrc/fft_ftw.cuh``, shared with
+    K17's factored mode); no dense twiddle is read.  The wrapper allocates
+    the scratch buffer (the size of the input)."""
+    check_buffer(raw, 2 * batch * t.n, "global2_ftw")
+    if raw.device.type == "cpu":
+        return into(out, global2_ftw_plain(raw, batch, t, scale))
+    require_cuda(raw, "global2_ftw")
+    lib = _build.load()
+    y = torch.empty_like(raw) if out is None else out
+    scratch = torch.empty_like(raw)
+    with torch.cuda.device(raw.device):
+        err = lib.pf_global2_ftw(
+            raw.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+            t.sub1.m, t.sub1.a, *t.sub1.pointers(),
+            t.sub2.m, t.sub2.a, *t.sub2.pointers(),
+            *[p.data_ptr() for pair in t.q for p in pair],
+            batch, scale, stream_of(raw))
+    _build.check(lib, err, "global2_ftw kernel")
+    global2_ftw.launches += 1
+    return y
+
+
+global2_ftw.launches = 0
+global2_ftw.plain = global2_ftw_plain
 
 
 # -- K4 global_sq ----------------------------------------------------------------
@@ -400,8 +488,9 @@ def global_fused_tables(plan: Plan1D, sign: int, keys: dict, arrays: dict,
         factors=ftw_factors(plan))
 
 
-def fused_twiddle(t: GlobalFusedTables) -> list[tuple]:
-    """K17's pass-1 twiddle as the kernel applies it, a list of (G2, G1)
+def fused_twiddle(t) -> list[tuple]:
+    """K17's (``GlobalFusedTables``) or K3-ftw's (``Global2FtwTables``)
+    pass-1 twiddle as the kernel applies it, a list of (G2, G1)
     [n2, k1] (re, im) factors multiplied in turn: the dense table, or with
     n2 = FTW_T1·ti + n2b and k1 = lo + L·hi the factors C1[n2, lo] =
     A1[ti, lo]·B1[n2b, lo] and C2[n2, hi] = A2[ti, c]·B2[n2b, c], each a

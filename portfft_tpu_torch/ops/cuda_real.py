@@ -1,11 +1,14 @@
-"""K8a ``untangle``, K8b ``retangle`` and K9 ``small_real``: wrappers of the
-CUDA kernels (``csrc/fft_real.cu``) and their plain PyTorch versions.
+"""K8a ``untangle``, K8a-w ``untangle_wide``, K8b ``retangle`` and K9
+``small_real``: wrappers of the CUDA kernels (``csrc/fft_real.cu``) and
+their plain PyTorch versions.
 
 Counterparts of ``portfft_tpu/ops/pallas_real.py``: ``untangle_raw_call``
-(K8a), ``retangle_raw_call`` (K8b) and ``small_real_raw_call`` (K9).  The
-plain versions of K8 follow the JAX package's plane path
-(``committed._core_real_forward``/``_core_real_backward``); K9's multiplies
-the rows by the bank's small-n REAL matrix (``TwiddleBank.real_small``).
+(K8a), ``untangle_wide_raw_call`` with its gate ``wide_bt_ct`` (K8a-w, the
+same function in column chunks), ``retangle_raw_call`` (K8b) and
+``small_real_raw_call`` (K9).  The plain versions of K8 follow the JAX
+package's plane path (``committed._core_real_forward``/
+``_core_real_backward``); K9's multiplies the rows by the bank's small-n
+REAL matrix (``TwiddleBank.real_small``).
 
 Buffers are flat float32 tensors: the raw Z spectrum of ``2·batch·h``
 scalars, the interleaved half spectrum of ``batch·(2h+2)`` and the real rows
@@ -66,10 +69,56 @@ def untangle_plain(z, batch: int, h: int, wr, wi, scale: float):
     return interleave(xr, xi, scale)
 
 
-def retangle_plain(x, batch: int, h: int, wr, wi, scale: float):
+def wide_tile(n: int, batch: int) -> tuple[int, int] | None:
+    """K8a-w's gate, ``(bt, ct)`` or None: the JAX package's shape rule
+    (``pallas_real.wide_bt_ct``: 128 | h, h ≥ 256, batch a multiple of
+    bt = 8, ct ∈ {32, 16} tiles of 128 dividing h/128) without its TPU
+    VMEM term (ROADMAP Queue 3).  The kernel's own chunk is 256 bin pairs
+    of 8 rows whatever ``ct``."""
+    h = n // 2
+    if n % 2 or h % 128 or h < 256 or batch % 8:
+        return None
+    ct = next((c for c in (32, 16) if (h // 128) % c == 0), None)
+    return None if ct is None else (8, ct)
+
+
+def untangle_wide_plain(z, batch: int, h: int, wr, wi, scale: float):
+    """Plain version of K8a-w, in its decomposition: the bin pairs (k,
+    m = (h − k) mod h), k ≤ h/2, each giving X[k] from (Z[k], Z[m]) and
+    X[m] from (Z[m], Z[k]) (X[m] written only where m is not k itself),
+    and X[h] = Re Z[0] − Im Z[0], all times scale."""
+    zc = z.view(batch, h, 2)
+    x = torch.empty(batch, h + 1, 2, dtype=z.dtype, device=z.device)
+    k = torch.arange(h // 2 + 1, device=z.device)
+    m = (h - k) % h
+    a, b = zc[:, k], zc[:, m]
+
+    def bins(u, v, idx):
+        er = 0.5 * (u[..., 0] + v[..., 0])
+        ei = 0.5 * (u[..., 1] - v[..., 1])
+        our = 0.5 * (u[..., 1] + v[..., 1])
+        oui = -0.5 * (u[..., 0] - v[..., 0])
+        tr, ti = complex_mul(our, oui, wr[idx], wi[idx])
+        return torch.stack([(er + tr) * scale, (ei + ti) * scale], -1)
+
+    x[:, k] = bins(a, b, k)
+    keep = m != k
+    x[:, m[keep]] = bins(b, a, m)[:, keep]
+    x[:, h, 0] = (zc[:, 0, 0] - zc[:, 0, 1]) * scale
+    x[:, h, 1] = 0.0
+    return x.reshape(-1)
+
+
+def retangle_plain(x, batch: int, h: int, wr, wi, scale: float,
+                   drop: bool = False):
     """Plain version of K8b: Z = E2 + i·W^k·N2 with E2 = X[k] + conj X[h−k]
-    and N2 = X[k] − conj X[h−k] (k = 0 reads X[h]), times scale."""
+    and N2 = X[k] − conj X[h−k] (k = 0 reads X[h]), times scale; ``drop``
+    reads Im X[0] and Im X[h] as 0."""
     xc = x.view(batch, h + 1, 2)
+    if drop:
+        xc = xc.clone()
+        xc[:, 0, 1] = 0.0
+        xc[:, h, 1] = 0.0
     xr, xi = xc[..., 0], xc[..., 1]
     rev_r = torch.flip(xr[:, 1:], [-1])
     rev_i = torch.flip(xi[:, 1:], [-1])
@@ -88,13 +137,14 @@ def small_real_plain(raw, batch: int, tabs: SmallRealTables):
         return torch.matmul(rows, tabs.mat).reshape(-1)
 
 
-def _half_length(kernel_name: str, src, batch, h, wr, wi, scale, out_numel):
+def _half_length(kernel_name: str, src, batch, h, wr, wi, scale, out_numel,
+                 *flags):
     lib = _build.load()
     out = torch.empty(out_numel, dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):
         err = getattr(lib, "pf_" + kernel_name)(
             src.data_ptr(), out.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            batch, h, scale, stream_of(src),
+            batch, h, scale, *flags, stream_of(src),
         )
     _build.check(lib, err, kernel_name + " kernel")
     return out
@@ -118,16 +168,38 @@ untangle.launches = 0
 untangle.plain = untangle_plain
 
 
-def retangle(x, batch: int, h: int, wr, wi, scale: float):
+def untangle_wide(z, batch: int, h: int, wr, wi, scale: float):
+    """K8a-w: K8a's function (``untangle``) in column chunks, for the
+    shapes :func:`wide_tile` takes (the kernel itself takes any h ≥ 2 and
+    batch)."""
+    check_buffer(z, 2 * batch * h, "untangle_wide")
+    if z.device.type == "cpu":
+        return untangle_wide_plain(z, batch, h, wr, wi, scale)
+    require_cuda(z, "untangle_wide")
+    _check_tables(z, h, "untangle_wide", wr, wi)
+    x = _half_length("untangle_wide", z, batch, h, wr, wi, scale,
+                     batch * (2 * h + 2))
+    untangle_wide.launches += 1
+    return x
+
+
+untangle_wide.launches = 0
+untangle_wide.plain = untangle_wide_plain
+
+
+def retangle(x, batch: int, h: int, wr, wi, scale: float, drop: bool = False):
     """K8b: ``batch`` interleaved half spectra of length n = 2h -> the raw
     Z spectrum that the h-point backward transform turns into the reals.
-    ``wr``/``wi``: the bank's ("R", n, +1) planes."""
+    ``wr``/``wi``: the bank's ("R", n, +1) planes.  ``drop`` reads Im X[0]
+    and Im X[h] as 0 (irfft semantics), as the JAX package's route does
+    below n = 1024; from n = 1024 on its retangle uses them."""
     check_buffer(x, batch * (2 * h + 2), "retangle")
     if x.device.type == "cpu":
-        return retangle_plain(x, batch, h, wr, wi, scale)
+        return retangle_plain(x, batch, h, wr, wi, scale, drop)
     require_cuda(x, "retangle")
     _check_tables(x, h, "retangle", wr, wi)
-    z = _half_length("retangle", x, batch, h, wr, wi, scale, 2 * batch * h)
+    z = _half_length("retangle", x, batch, h, wr, wi, scale, 2 * batch * h,
+                     int(drop))
     retangle.launches += 1
     return z
 

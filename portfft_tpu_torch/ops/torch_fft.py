@@ -164,6 +164,27 @@ class TwiddleBank:
             self.host[key] = None
         return key
 
+    def blane_permuted(self, base_key: str, row_f, col_f,
+                       suffixes=("r", "i")) -> str:
+        """A banked table with its rows (``row_f``) and/or columns
+        (``col_f``) in the butterfly lane DFT's slab-digit-major order
+        (:func:`lane_perm`): position p holds frequency p // 128 + A·(p %
+        128), f = A·128.  K15's butterfly mode reads the tables that sit
+        between its forward stages, which leave their outputs in that
+        order, and its backward stages, which take them so
+        (``xla_fft.TwiddleBank.blane_permuted``)."""
+        key = base_key + f"_bl{row_f or 0}x{col_f or 0}"
+        if key not in self.host:
+            for suf in suffixes:
+                m = np.asarray(self.host[base_key + suf])
+                if row_f:
+                    m = m[lane_perm(row_f), :]
+                if col_f:
+                    m = m[:, lane_perm(col_f)]
+                self.host[key + suf] = np.ascontiguousarray(m)
+            self.host[key] = None
+        return key
+
     def bluestein_pre(self, n: int, g2: int, nv: int, sign: int) -> str:
         """Pass-1 chirp of the three-pass kernel: (nv, g2) [j1, j2] =
         c[j1·g2 + j2], zero past n."""
@@ -430,6 +451,15 @@ def bf_factor(g: int) -> int:
     return a if 1 <= a <= 16 and not a & (a - 1) else 0
 
 
+def lane_perm(f: int) -> list[int]:
+    """The frequency at each position of the butterfly lane DFT's output,
+    f = A·128: position p holds p // 128 + A·(p % 128) (slab kA = k mod A
+    at positions [128·kA, 128·kA + 128), kB = k // A within it;
+    ``pallas_bluestein.lane_perm``)."""
+    a = f // 128
+    return [(p // 128) + a * (p % 128) for p in range(f)]
+
+
 def ilv_factor(g: int) -> int:
     """The slab factor A of g = A·128 for K18: any A = 2^a·3^b in [1, 16]
     (mixed radix, so 3·2^k and 9·2^k subs such as 384 and 1152 qualify),
@@ -572,8 +602,12 @@ def collect_bank_keys(
     ``("U", a, 128, sign)``, ``("T", f, m, sign)``; for a BLUESTEIN plan
     ``("B", n, sign)`` and, when its convolution is GLOBAL g1 × g2,
     ``("BPOST", n, sign)``, ``("BPRE", n, sign)``, ``("BFIN", n, sign)``
-    and ``("T", g2, g1, +1)`` (the three-pass kernel's), then the
-    convolution's own tables in both directions.  A GLOBAL plan whose
+    and ``("T", g2, g1, +1)`` (the three-pass kernel's), and where both
+    convolution subs are A·128 with A = 2^a·3^b ≤ 16 (``ilv_factor``) the
+    butterfly mode's ``("BLT", n, sign)``, ``("BLP", n, sign)`` and
+    ``("BLB", n, sign)`` (:meth:`TwiddleBank.blane_permuted`) with ``("U",
+    A, 128, ±1)`` and ``("W", 128, ±1)``, then the convolution's own tables
+    in both directions.  A GLOBAL plan whose
     subs are both A·128 (``bf_factor``) also gets K5's ``("U", A1, 128,
     sign)``, ``("U", A2, 128, sign)``, ``("GA", g1, g2, sign)``, ``("GB",
     g1, g2, sign)`` and ``("W", 128, sign)``, as the JAX package banks its
@@ -638,6 +672,19 @@ def collect_bank_keys(
                 keys[("BPRE", n, sign)] = bank.bluestein_pre(n, g2, nv, sign)
                 keys[("BFIN", n, sign)] = bank.bluestein_final(n, g2, g1, sign)
                 keys[("T", g2, g1, +1)] = bank.twiddle(g2, g1, +1)
+                a1, a2 = ilv_factor(g1), ilv_factor(g2)
+                if a1 and a2:  # K15's butterfly mode: the permuted tables
+                    twf = bank.twiddle(g1, g2, -1)
+                    keys[("T", g1, g2, -1)] = twf
+                    keys[("BLT", n, sign)] = bank.blane_permuted(twf, None, g1)
+                    keys[("BLP", n, sign)] = bank.blane_permuted(
+                        keys[("BPOST", n, sign)], g1, g2, suffixes=("fr", "fi"))
+                    keys[("BLB", n, sign)] = bank.blane_permuted(
+                        keys[("T", g2, g1, +1)], g1, None)
+                    for s2 in (-1, +1):
+                        keys[("U", a1, 128, s2)] = bank.twiddle_fm(a1, 128, s2)
+                        keys[("U", a2, 128, s2)] = bank.twiddle_fm(a2, 128, s2)
+                        keys[("W", 128, s2)] = bank.dft(128, s2)
         collect_bank_keys(conv, -1, bank, keys)
         collect_bank_keys(conv, +1, bank, keys)
     return keys

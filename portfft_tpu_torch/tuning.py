@@ -2,8 +2,9 @@
 BATCH_INTERLEAVED plans, and ``autotune``.
 
 Counterpart of ``portfft_tpu.tuning``.  A GLOBAL plan n = G1·G2 has up to
-nine engines that compute the same function (``fastpath``'s ``global2``
-entry): the two-pass K3 (``{}``, the static route), the single-pass K4
+ten engines that compute the same function (``fastpath``'s ``global2``
+entry): the two-pass K3 (``{}``, the static route) and its factored-twiddle
+mode K3-ftw (``{"eng": 2, "ftw": 1}``), the single-pass K4
 (``{"eng": 5}``), the butterfly-factored single-sweep K5 (``{"eng": 7}``),
 its phase-overlay schedule K5-ov (``{"eng": 7, "ov": 1}``), K5 with its low
 twiddle factor resident K19 (``{"eng": 7, "bf2": 1}``), the mixed-radix
@@ -239,7 +240,8 @@ def _variants_md(committed, inner) -> list[dict]:
 def _variants_1d(committed, kind: str, n: int, batch: int) -> list[dict]:
     """``{}`` (the static route) and each engine whose gate takes the
     length-``n`` plan at ``batch``.  ``global2``: the engines of
-    ``fastpath.ENGINE_PARAMS`` in its order, ``{"eng": 5}`` (K4), ``{"eng":
+    ``fastpath.ENGINE_PARAMS`` in its order, ``{"eng": 2, "ftw": 1}``
+    (K3-ftw), ``{"eng": 5}`` (K4), ``{"eng":
     7}`` (K5), ``{"eng": 7, "ov": 1}`` (K5-ov), ``{"eng": 3}`` (K16),
     ``{"eng": 6}`` and ``{"eng": 6, "ftw": 1}`` (K17), ``{"eng": 8}``
     (K18), ``{"eng": 7, "bf2": 1}`` (K19); no tile knob worth racing.  ``fused2``: ``{"eng": 2, "bt": bt}`` (K2-v2) and

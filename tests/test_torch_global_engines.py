@@ -370,7 +370,7 @@ def test_variants_and_engines_of_the_references(n):
     """``_variants_1d`` lists each new engine exactly where its gate takes
     the plan, and ``_engine_of`` maps every parameter set the reference's
     ``_variants_1d`` emits for ``global2`` to a kernel here (engine 2's
-    ``ftw`` on K3, which reads and ignores it)."""
+    ``ftw`` on K3-ftw)."""
     plan = pf.Descriptor(lengths=[n], number_of_transforms=2).commit(device="cpu")
     variants = tuning._variants_1d(plan, "global2", n, 2)
     p0 = plan.plans[n]
@@ -383,10 +383,13 @@ def test_variants_and_engines_of_the_references(n):
     emitted = ref_tuning._variants_1d(rplan, "global2", n)
     engines = {fastpath._engine_of(p, p0) for p in emitted}
     assert {"global2", "global3"} <= engines
-    assert fastpath._engine_of({"eng": 2, "t1": 64, "t2": 256, "ftw": 1}, p0) == "global2"
+    assert fastpath._engine_of({"eng": 2, "t1": 64, "t2": 256, "ftw": 1}, p0) \
+        == "global2_ftw"
     for p in emitted:
         want = {2: "global2", 3: "global3", 5: "global_sq", 8: "global_ilv"}.get(
             p["eng"] if p else 2)
+        if p.get("eng") == 2 and p.get("ftw"):
+            want = "global2_ftw"
         if p.get("eng") == 6:
             want = "global_fused_ftw" if p.get("ftw") else "global_fused"
         if p.get("eng") == 7:

@@ -1103,3 +1103,210 @@ def test_sweep_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatc
         assert tuning.lookup(plan.config.name, "global2", key) == won
     finally:
         tuning._reset_for_tests()
+
+
+# -- the REAL plane path, K8a-w, K8b's drop flag, K3-ftw and K15-bf -----------
+
+
+@pytest.mark.parametrize("n,batch", [(1024, 8), (16384, 8), (16384, 3),
+                                     (4222976, 8), (1 << 17, 17)])
+def test_untangle_wide_matches_plain_and_oracle(cuda, n, batch):
+    """K8a-w against its plain version and K8a (the same function), and the
+    untangled C2C spectrum of reals against ``rfft``; odd batches and a
+    short last chunk included (the kernel takes any shape)."""
+    from chip_smoke import real_oracle_excess
+    from portfft_tpu_torch.ops import cuda_real
+
+    h = n // 2
+    x = torch.rand(batch * n, device=cuda) * 2 - 1
+    z = torch.view_as_real(torch.fft.fft(torch.view_as_complex(
+        x.view(batch, h, 2)))).reshape(-1).contiguous()
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         domain=pf.Domain.REAL).commit()
+    r = plan._bank_keys[("R", n, -1)]
+    tabs = (plan._bank_arrays[r + "r"], plan._bank_arrays[r + "i"])
+    before = cuda_real.untangle_wide.launches
+    got = cuda_real.untangle_wide(z, batch, h, *tabs, 0.5)
+    want = cuda_real.untangle_wide.plain(z, batch, h, *tabs, 0.5)
+    narrow = cuda_real.untangle(z, batch, h, *tabs, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_real.untangle_wide.launches == before + 1
+    peak = want.abs().max().item()
+    assert (got - want).abs().max().item() <= KERNEL_TOL * peak
+    assert (got - narrow).abs().max().item() <= KERNEL_TOL * peak
+    assert real_oracle_excess(got, x, n, batch, -1, 0.5) <= 1.0
+
+
+@pytest.mark.parametrize("n,batch", [(768, 3), (1000, 2), (1024, 2), (4096, 3)])
+def test_retangle_drop_flag_matches_plain_and_oracle(cuda, n, batch):
+    """K8b with and without its flag against its plain version, and the
+    committed C2R on spectra with nonzero Im X[0] and Im X[n/2] against
+    ``irfft`` plus the two bins' contribution from n = 1024 on."""
+    from chip_smoke import c2r_reference, random_raw
+    from portfft_tpu_torch.ops import cuda_real
+
+    h = n // 2
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         domain=pf.Domain.REAL, backward_scale=2.0 / n).commit()
+    entry = plan._raw_fast[pf.Direction.BACKWARD]
+    assert entry[0] == "realb" and entry[-1] == (n < 1024)
+    spec = random_raw(batch * (n + 2), seed=n)
+    r = plan._bank_keys[("R", n, +1)]
+    tabs = (plan._bank_arrays[r + "r"], plan._bank_arrays[r + "i"])
+    for drop in (False, True):
+        got = cuda_real.retangle(spec, batch, h, *tabs, 0.5, drop)
+        want = cuda_real.retangle.plain(spec, batch, h, *tabs, 0.5, drop)
+        assert (got - want).abs().max().item() <= KERNEL_TOL * want.abs().max().item()
+    back = plan.compute_backward(spec)
+    ref = c2r_reference(torch.view_as_complex(spec.view(batch, h + 1, 2)).to(
+        torch.complex128), n) * (2.0 / n)
+    diff = (back.view(batch, n).double() - ref).abs().max().item()
+    assert diff <= oracle_tol(n) * 2.0 / n, diff
+
+
+def _ftw_case(g1, g2, batch, sign, scale):
+    """``(kernel, args)`` of K3-ftw on the split g1 x g2."""
+    return _sweep_case("global2_ftw", g1, g2, batch, sign, scale)
+
+
+@pytest.mark.parametrize("g1,g2,batch", [(256, 256, 3), (512, 128, 2), (384, 384, 2),
+                                         (1024, 128, 2), (2048, 512, 2),
+                                         (4096, 256, 1), (128, 8192, 1)])
+def test_global2_ftw_matches_plain_and_oracle(cuda, g1, g2, batch):
+    """K3-ftw against its plain version and K3 and ``torch.fft``, both
+    directions with a folded scale, out of place and in place: DIRECT G1
+    (the Q tables) and FUSED G1 [8, 128], [16, 128], [32, 128] (ZQ)."""
+    n = g1 * g2
+    x = torch.rand(2 * batch * n, device=cuda) * 2 - 1
+    xc = torch.view_as_complex(x.view(batch, n, 2)).to(torch.complex128)
+    for sign, scale, inplace in ((-1, 0.5, False), (+1, 3.0 / n, True)):
+        kernel, args = _ftw_case(g1, g2, batch, sign, scale)
+        assert kernel.__name__ == "global2_ftw"
+        before = kernel.launches
+        want = kernel.plain(x, *args)
+        if inplace:
+            got = x.clone()
+            assert kernel(got, *args, out=got) is got
+        else:
+            got = kernel(x, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (sign, err)
+        ref = (torch.fft.fft(xc) if sign < 0
+               else torch.fft.ifft(xc, norm="forward")) * scale
+        diff = (torch.view_as_complex(got.view(batch, n, 2)) - ref).abs().max()
+        assert diff.item() <= oracle_tol(n) * scale, (sign, diff.item())
+
+
+def test_global2_ftw_entry_runs_on_the_main_path(cuda, tmp_path, monkeypatch):
+    """A recorded ``{"eng": 2, "ftw": 1}`` (with the reference's tile knobs)
+    routes both directions through K3-ftw; ``autotune`` races it."""
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.ops import cuda_global
+
+    monkeypatch.delenv("PORTFFT_NO_TUNING")
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "tune.json"))
+    tuning._reset_for_tests()
+    try:
+        n, batch = 65536, 2
+        desc = pf.Descriptor(lengths=[n], number_of_transforms=batch)
+        probe = desc.commit()
+        key = tuning._entry_key(probe, "global2")
+        tuning.record(probe.config.name, "global2", key,
+                      {"eng": 2, "t1": 64, "t2": 256, "ftw": 1})
+        plan = desc.commit()
+        assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global2_ftw"
+        x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
+        before = cuda_global.global2_ftw.launches
+        y, back = plan.compute_forward(x), plan.compute_backward(x)
+        torch.cuda.synchronize()
+        assert cuda_global.global2_ftw.launches == before + 2
+        xd = x.to(torch.complex128)
+        for got, ref in ((y, torch.fft.fft(xd)),
+                         (back, torch.fft.ifft(xd, norm="forward"))):
+            diff = (got.reshape(batch, n).to(torch.complex128) - ref).abs().max()
+            assert diff.item() <= oracle_tol(n)
+        times = {}
+        plan.autotune(iters=1, times=times)
+        assert json.dumps({"eng": 2, "ftw": 1}, sort_keys=True) in times
+    finally:
+        tuning._reset_for_tests()
+
+
+#: Bluestein lengths whose convolution's subs are both A·128 (slab factors
+#: (A1, A2)): (2, 2), (3, 2), (4, 2), (3, 3), (4, 3), (4, 4), (16, 2),
+#: (16, 3), (16, 8), (16, 16).
+BF_LENGTHS = [(24977, 2), (37951, 2), (49597, 2), (66821, 2), (75277, 2),
+              (101267, 1), (200191, 1), (302891, 1), (803893, 1), (1586939, 1)]
+
+
+@pytest.mark.parametrize("n,batch", BF_LENGTHS)
+def test_bluestein_bf_matches_plain_and_oracle(cuda, monkeypatch, n, batch):
+    """K15-bf against its plain version, K15 and ``torch.fft``, both
+    directions with a scale."""
+    from chip_smoke import plane_case
+
+    monkeypatch.setenv("PORTFFT_BLUESTEIN_BF", "1")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(batch, n, dtype=torch.complex64, generator=gen, device=cuda)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, 0.5), (+1, 2.0 / n)):
+        kernel, args = plane_case(pf, "bluestein_bf", n, sign)
+        dense, dargs = plane_case(pf, "bluestein", n, sign)
+        before = kernel.launches
+        yr, yi = kernel(xr, xi, *args, scale=scale)
+        wr, wi = kernel.plain(xr, xi, *args, scale=scale)
+        dr, di = dense(xr, xi, *dargs, scale=scale)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        peak = max(wr.abs().max().item(), wi.abs().max().item())
+        for ar, ai in ((wr, wi), (dr, di)):
+            err = max((yr - ar).abs().max().item(), (yi - ai).abs().max().item())
+            assert err <= KERNEL_TOL * peak, (sign, err)
+        xd = x.to(torch.complex128)
+        ref = (torch.fft.fft(xd) if sign < 0
+               else torch.fft.ifft(xd, norm="forward")) * scale
+        diff = (torch.complex(yr, yi).to(torch.complex128) - ref).abs().max().item()
+        assert diff <= oracle_tol(n) * scale, (sign, diff)
+
+
+@pytest.mark.parametrize("n,batch,bf", [(1200, 5, False), (2062, 2, False),
+                                        (4124, 2, False), (2 * 65537, 1, False),
+                                        (2 * 65537, 2, True), (4 * 65537, 1, True),
+                                        (4222976, 8, False), (4222976, 3, False)])
+def test_real_plane_main_path_matches_oracle(cuda, monkeypatch, n, batch, bf):
+    """The REAL plane path both ways against ``rfft`` and the port's C2R
+    (``c2r_reference``: backward spectra with nonzero Im X[0] and
+    Im X[n/2]), with scales; its kernels launch (K8a-w where its gate takes
+    the shape, K15-bf with the flag)."""
+    from chip_smoke import c2r_reference, real_oracle_excess, random_raw
+    from portfft_tpu_torch.ops import cuda_bluestein, cuda_real
+
+    if bf:
+        monkeypatch.setenv("PORTFFT_BLUESTEIN_BF", "1")
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         domain=pf.Domain.REAL, forward_scale=0.5,
+                         backward_scale=2.0 / n).commit()
+    fwd, bwd = (plan._raw_fast[d] for d in pf.Direction)
+    assert fwd[0] == bwd[0] == "realplane"
+    wide = cuda_real.wide_tile(n, batch) is not None
+    assert fwd[6] == ("untangle_wide" if wide else "untangle")
+    counters = [cuda_real.untangle_wide if wide else cuda_real.untangle,
+                cuda_real.retangle]
+    if bf:
+        assert "bluestein_bf" in fwd[1][5].values()
+        counters.append(cuda_bluestein.bluestein_bf)
+    before = [c.launches for c in counters]
+    x = random_raw(batch * n, seed=n)
+    y = plan.compute_forward(x)
+    spec = random_raw(batch * (n + 2), seed=n + 1)
+    back = plan.compute_backward(spec)
+    torch.cuda.synchronize()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert y.shape == (batch * (n + 2),) and back.shape == (batch * n,)
+    assert real_oracle_excess(y, x, n, batch, -1, 0.5) <= 1.0
+    ref = c2r_reference(torch.view_as_complex(spec.view(batch, -1, 2)).to(
+        torch.complex128), n) * (2.0 / n)
+    diff = (back.view(batch, n).double() - ref).abs().max().item()
+    assert diff <= oracle_tol(n) * 2.0 / n, diff

@@ -185,13 +185,8 @@ def test_commit_needs_cuda_unless_cpu_is_named(monkeypatch):
               backward_distance=18), "item 9"),
         (dict(lengths=[16], domain="REAL", backward_offset=2), "item 9"),
         (dict(lengths=[16], precision="fp64"), "item 12"),
-        # C2C takes these half lengths on its plane path; the REAL route
-        # does not take one that needs it yet
-        (dict(lengths=[2 * 65537], domain="REAL"), "BLUESTEIN.*item 9"),  # BLUESTEIN
-        (dict(lengths=[1200], domain="REAL"), "FUSED.*item 9"),  # FUSED [120, 5]
-        (dict(lengths=[4 * 65537], domain="REAL"), "GLOBAL.*item 9"),  # GLOBAL 2 x 65537
-        # GLOBAL FUSED [128, 128] x [64, 128]: the plane GLOBAL kernel K14
-        (dict(lengths=[1 << 28], domain="REAL"), "K14.*item 9"),
+        # the REAL lengths whose half length needs the plane path commit on
+        # the REAL plane path: tests/test_torch_real_plane.py
     ],
 )
 def test_outside_the_slice_raises_at_commit(kw, item):

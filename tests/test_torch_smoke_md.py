@@ -1,0 +1,98 @@
+"""The checks of ``chip_smoke.py`` for the multi-dimensional kernel phase
+(K10, K11) and rows, run on the CPU at every shape of its phase: they pass a
+correct result, and they reject a faulty kernel and the faults the smoke run
+plants itself.
+
+On the CPU a wrapper runs its plain version, so the correct "kernel" here
+is the plain path.  A faulty kernel is a wrapper that runs the plain
+version on a conjugated table (``chip_smoke.planted``) or returns zeros.
+The batch is cut to 1 or 2 rows.
+"""
+
+import math
+
+import pytest
+import torch
+
+import chip_smoke
+import portfft_tpu_torch as pf
+
+DIRECTIONS = [(pf.Direction.FORWARD, -1), (pf.Direction.BACKWARD, +1)]
+
+
+# Multi-dim kernel phase, cut on the CPU: K10 to bpre <= 2 and rest <= 8,
+# K11 to one transform; L, n1 and n2 as on the card.
+MD_CASES = ([("col", (min(b, 2), L, min(r, 8))) for b, L, r in chip_smoke.MD_COL_CASES]
+            + [("md2", (1, n1, n2)) for _, n1, n2 in chip_smoke.MD2_CASES])
+
+
+def _md_case(kind, shape, sign):
+    n = math.prod(shape[d] for d in chip_smoke.MD_DIMS[kind])
+    scale = 0.5 if sign < 0 else 2.0 / n
+    kernel, args = chip_smoke.md_kernel_case(pf, kind, shape, sign, scale, "cpu")
+    x = chip_smoke.random_raw(2 * math.prod(shape), seed=sum(shape), device="cpu")
+    return kernel, args, x
+
+
+@pytest.mark.parametrize("kind,shape", MD_CASES)
+def test_md_checks_pass_a_correct_result(kind, shape):
+    for _, sign in DIRECTIONS:
+        kernel, args, x = _md_case(kind, shape, sign)
+        r = chip_smoke.check_md(kind, kernel, args, x, shape, sign)
+        assert r["rel"] == 0.0 and r["excess"] <= 1.0
+        for rel, excess in r["caught"].values():
+            assert rel > 100 * chip_smoke.KERNEL_TOL and excess > 100.0
+
+
+@pytest.mark.parametrize("fault", ["conjugated table", "zeros"])
+@pytest.mark.parametrize("kind,shape", MD_CASES)
+def test_md_checks_reject_a_faulty_kernel(kind, shape, fault):
+    for _, sign in DIRECTIONS:
+        kernel, args, x = _md_case(kind, shape, sign)
+
+        def faulty(raw, *a):
+            if fault == "zeros":
+                return torch.zeros_like(raw)
+            return kernel.plain(raw, *chip_smoke.planted(kind, a))
+
+        faulty.plain = kernel.plain
+        with pytest.raises(chip_smoke.SmokeFailure, match=r"max\|kernel - plain\|"):
+            chip_smoke.check_md(kind, faulty, args, x, shape, sign)
+        excess = chip_smoke.nd_oracle_excess(faulty(x, *args), x, shape,
+                                             chip_smoke.MD_DIMS[kind], sign,
+                                             args[-1])
+        assert excess > 100.0
+
+
+def test_bounds_of_the_multidim_rows():
+    """Each multi-dim row moves 2^30 bytes (0.321 ms at 3.35 TB/s) and
+    bi_4096 2^31 (0.641 ms), bound by bytes at the nominal flops; K10 and
+    K11 alone move 2^30."""
+    for name, lengths, batch, _, _ in chip_smoke.MD_ROWS:
+        bound, by = chip_smoke.bound_of("md2", math.prod(lengths), batch)
+        nbytes = 2**31 if name == "bi_4096" else 2**30
+        assert by == "bytes" and bound == pytest.approx(nbytes / 3.35e9)
+    for kind, shape in chip_smoke.MD_ALONE.items():
+        n = math.prod(shape[d] for d in chip_smoke.MD_DIMS[kind])
+        bound, by = chip_smoke.bound_of(kind, n, math.prod(shape) // n)
+        assert by == "bytes" and bound == pytest.approx(2**30 / 3.35e9)
+
+
+@pytest.mark.parametrize("lengths,batch,bi", [((16, 64), 2, False),
+                                              ((4, 8, 32), 1, False),
+                                              ((1024,), 4, True)])
+def test_fftn_call_computes_the_multidim_path_function(lengths, batch, bi):
+    """The ``torch.fft`` yardstick of a multi-dim or BATCH_INTERLEAVED row
+    computes what the row's plain path computes, both directions."""
+    kw = dict(forward_strides=[batch], backward_strides=[batch],
+              forward_distance=1, backward_distance=1) if bi else {}
+    plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                         **kw).commit(device="cpu")
+    n = math.prod(lengths)
+    shape = (1, n, batch) if bi else (batch, *lengths)
+    dims = (1,) if bi else tuple(range(1, len(shape)))
+    x = chip_smoke.random_raw(2 * batch * n, 7, device="cpu")
+    for direction, sign in DIRECTIONS:
+        want = chip_smoke.plain_path(plan, plan._raw_fast[direction])(x)
+        got = torch.view_as_real(chip_smoke.fftn_call(x, shape, dims, sign < 0)())
+        assert torch.allclose(got.reshape(-1), want, atol=1e-3 * want.abs().max().item())
