@@ -1047,8 +1047,8 @@ def real_plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
     K15-bf at ``BLUESTEIN_BF_CASES`` (both directions), each against its
     plain version and the oracle with the two planted faults.  Returns
     ``{kind: (ms, plain_ms, library_ms)}`` of K8a-w and K15-bf timed alone
-    at ``REAL_PLANE_ALONE``, printed beside K8a and K15 on the same
-    input."""
+    at ``REAL_PLANE_ALONE``, printed beside K8a and K15 on the same input;
+    there K15-bf and K15 are also held to their plain versions."""
     from portfft_tpu_torch.ops import cuda_real
 
     alone = {}
@@ -1105,6 +1105,15 @@ def real_plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
     xr, xi = random_raw(2 * batch * n, seed=1).view(batch, n, 2).unbind(-1)
     xr, xi = xr.contiguous(), xi.contiguous()
     xc = torch.complex(xr, xi)
+    rel = {}  # both kernels held to their plain versions at the row's shape
+    for kind, k, a in (("bluestein_bf", kernel, args), ("bluestein", dense, dargs)):
+        got, want = k(xr, xi, *a), k.plain(xr, xi, *a)
+        rel[kind] = max(((g - w).abs().max() / w.abs().max()).item()
+                        for g, w in zip(got, want))
+        if not rel[kind] <= KERNEL_TOL:
+            raise SmokeFailure(f"{kind} n={n} batch={batch}: max|kernel - plain| = "
+                               f"{rel[kind]:.3e}·max|plain| > {KERNEL_TOL:g}·max|plain|")
+        del got, want
     ms = time_ms(lambda: kernel(xr, xi, *args))
     dense_ms = time_ms(lambda: dense(xr, xi, *dargs))
     plain_ms = time_ms(lambda: kernel.plain(xr, xi, *args))
@@ -1113,7 +1122,8 @@ def real_plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
     alone["bluestein_bf"] = (ms, plain_ms, library_ms)
     print(f"alone  bluestein_bf  n={n:<8d} batch={batch:<6d} kernel {ms:.3f} ms | "
           f"bluestein {dense_ms:.3f} ms | plain {plain_ms:.3f} ms | torch.fft "
-          f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | {card}")
+          f"{library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | max|kernel - plain| "
+          f"{rel['bluestein_bf']:.2e} (K15 {rel['bluestein']:.2e})·max|plain| | {card}")
     return alone
 
 
@@ -1123,8 +1133,10 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     plane path and every kernel of it (its un/retangle, K6, and K13, K14,
     K15 or K15-bf for the routes of h) must launch; a sample of transforms
     is held to ``rfft`` forward and to ``c2r_reference`` backward, on
-    spectra whose Im X[0] and Im X[n/2] are not 0; the path, its plain
-    chain and one ``torch.fft`` call are timed; the peak device memory of
+    spectra whose Im X[0] and Im X[n/2] are not 0, and the whole output to
+    the plain chain's within ``KERNEL_TOL``·max|plain| (every kernel of the
+    row at the row's shape); the path, its plain chain and one
+    ``torch.fft`` call are timed; the peak device memory of
     the first call is printed.  Every kernel of the path must launch."""
     from portfft_tpu_torch import fastpath
 
@@ -1168,9 +1180,14 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             if not excess <= 1.0:
                 raise SmokeFailure(f"{name} {dname}: {excess:.3e} times the oracle "
                                    f"bound {oracle_tol(n):.3e}")
-            del y
-            ms = time_ms(lambda: compute(x))
             plain = fastpath.build_fn(plan, entry, plain=True)
+            want = plain(x)
+            rel = ((y - want).abs().max() / want.abs().max()).item()
+            if not rel <= KERNEL_TOL:
+                raise SmokeFailure(f"{name} {dname}: max|path - plain| = {rel:.3e}"
+                                   f"·max|plain| > {KERNEL_TOL:g}·max|plain|")
+            del y, want
+            ms = time_ms(lambda: compute(x))
             plain_ms = time_ms(lambda: plain(x))
             library_ms = time_ms(library_call(x, n, batch, True, forward))
             nbytes, _ = work("small_real", n, batch)
@@ -1178,7 +1195,8 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             print(f"row {name:21s} n={n:<9d} batch={batch:<6d} {dname:8s} "
                   f"{'+'.join(kinds):45s} launches {rose} route {entry[1][5]} "
                   f"oracle max|diff|={excess * oracle_tol(n):.3e} "
-                  f"tol={oracle_tol(n):.3e} | path {ms:.3f} ms "
+                  f"tol={oracle_tol(n):.3e} | max|path - plain|={rel:.2e}·max|plain| "
+                  f"(tol {KERNEL_TOL:g}) | path {ms:.3f} ms "
                   f"{nbytes / ms / 1e6:.1f} GB/s | plain {plain_ms:.3f} ms | "
                   f"torch.fft {library_ms:.3f} ms | bound {bound:.3f} ms ({by}) | "
                   f"peak {peak_gib:.2f} GiB | commit {commit_s:.1f} s (host) | {card}")

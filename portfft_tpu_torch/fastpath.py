@@ -643,7 +643,7 @@ def _register_real(committed) -> dict:
     drop)``, whose C2C entry runs at scale 1; where the half length needs
     the plane path, ``("realplane", plane_entry, h, batch, sign, scale,
     kernel, drop)``: ``kernel`` the un/retangle that runs (``"untangle"``
-    K8a, ``"untangle_wide"`` K8a-w where ``cuda_real.wide_tile`` takes the
+    K8a, ``"untangle_wide"`` K8a-w where ``cuda_real.wide_supported`` takes the
     shape, ``"retangle"`` K8b).  ``drop`` (backward) is K8b's flag: Im X[0]
     and Im X[n/2] read as 0 below ``REAL_KEEP_MIN_N``, as the JAX package."""
     d = committed.descriptor
@@ -690,7 +690,7 @@ def _register_real(committed) -> dict:
         elif routes is not None:
             inner = ("plane", plan_h, batch, sign, 1.0, routes)
             kernel = ("retangle" if not forward else "untangle_wide"
-                      if cuda_real.wide_tile(n, batch) else "untangle")
+                      if cuda_real.wide_supported(n, batch) else "untangle")
             out[direction] = ("realplane", inner, h, batch, sign, scale,
                               kernel, drop)
         elif forward:

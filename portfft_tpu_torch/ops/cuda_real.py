@@ -69,17 +69,16 @@ def untangle_plain(z, batch: int, h: int, wr, wi, scale: float):
     return interleave(xr, xi, scale)
 
 
-def wide_tile(n: int, batch: int) -> tuple[int, int] | None:
-    """K8a-w's gate, ``(bt, ct)`` or None: the JAX package's shape rule
-    (``pallas_real.wide_bt_ct``: 128 | h, h ≥ 256, batch a multiple of
-    bt = 8, ct ∈ {32, 16} tiles of 128 dividing h/128) without its TPU
-    VMEM term (ROADMAP Queue 3).  The kernel's own chunk is 256 bin pairs
-    of 8 rows whatever ``ct``."""
+def wide_supported(n: int, batch: int) -> bool:
+    """K8a-w's gate: the JAX package's shape rule (``pallas_real.wide_bt_ct``:
+    128 | h, h ≥ 256, batch a multiple of bt = 8, a ct ∈ {32, 16} tiles of
+    128 dividing h/128) without its TPU VMEM term (ROADMAP Queue 3).  The
+    kernel's own chunk is 256 bin pairs of 8 rows whatever the TPU's ct;
+    the ct rule stays for parity with the reference's routes."""
     h = n // 2
     if n % 2 or h % 128 or h < 256 or batch % 8:
-        return None
-    ct = next((c for c in (32, 16) if (h // 128) % c == 0), None)
-    return None if ct is None else (8, ct)
+        return False
+    return any((h // 128) % c == 0 for c in (32, 16))
 
 
 def untangle_wide_plain(z, batch: int, h: int, wr, wi, scale: float):
@@ -170,7 +169,7 @@ untangle.plain = untangle_plain
 
 def untangle_wide(z, batch: int, h: int, wr, wi, scale: float):
     """K8a-w: K8a's function (``untangle``) in column chunks, for the
-    shapes :func:`wide_tile` takes (the kernel itself takes any h ≥ 2 and
+    shapes :func:`wide_supported` takes (the kernel itself takes any h ≥ 2 and
     batch)."""
     check_buffer(z, 2 * batch * h, "untangle_wide")
     if z.device.type == "cpu":

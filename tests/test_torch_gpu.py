@@ -1290,7 +1290,7 @@ def test_real_plane_main_path_matches_oracle(cuda, monkeypatch, n, batch, bf):
                          backward_scale=2.0 / n).commit()
     fwd, bwd = (plan._raw_fast[d] for d in pf.Direction)
     assert fwd[0] == bwd[0] == "realplane"
-    wide = cuda_real.wide_tile(n, batch) is not None
+    wide = cuda_real.wide_supported(n, batch)
     assert fwd[6] == ("untangle_wide" if wide else "untangle")
     counters = [cuda_real.untangle_wide if wide else cuda_real.untangle,
                 cuda_real.retangle]
