@@ -45,7 +45,9 @@
    ``compute_forward``/``compute_backward`` on a float32 tensor on the
    card, for the C2C bench rows, then for the four REAL bench rows and
    real_large backward, then for the three ``MULTIDIM_CONFIGS`` rows,
-   md_1024x1024 backward and the BATCH_INTERLEAVED row bi_4096, then for
+   md_1024x1024 backward, the BATCH_INTERLEAVED row bi_4096 and, with
+   tuning on, md_256x256 (``MD_SHIPPED``: the shipped table leaves it on
+   K11, which must launch), then for
    ``PLANE_ROWS`` (large_1d_prime 65537x2048 both ways through K6, K15,
    K6; n = 1031, 1000 and 2062 at about 1 GiB through K6, K13 and the
    executor's glue, K6), then for ``SPLIT_ROWS`` (SPLIT_COMPLEX planes in
@@ -85,7 +87,7 @@
    twiddle factor GB conjugated); each timed alone at ``TUNED_ALONE``
    (2^27 points).  Tuned layout rows, ``TUNED_LAYOUT``: the layout rows
    at 65536 with tuning on and only the shipped table, each held to the
-   engine that table names for its plan (K16) and then run as on the
+   engine that table names for its plan (K17) and then run as on the
    layout main path (launches, oracle, gaps, times).  Main path,
    ``TUNED_ROWS`` (large_1d and the ladder
    2^17–2^20 at about 1 GiB), with tuning on: each engine whose gate takes
@@ -241,11 +243,16 @@ MD_ROWS = [
 # md_1024x1024 (FUSED [8, 128]) and md_128^3 (DIRECT), bi_4096, an odd
 # DIRECT length, the longest one-tile FUSED length and the two-launch
 # [128, 128].  K11 at (batch, n1,
-# n2): md_512x512, the trailing pair of md_128^3, and FUSED phases A and B.
+# n2): md_512x512, the trailing pair of md_128^3 (the whole transform in
+# shared memory), FUSED phases A and B, and md_256x256 of ``MD_SHIPPED``.
 MD_COL_CASES = [(64, 1024, 1024), (32, 128, 16384), (1, 4096, 32768),
                 (4, 100, 4096), (1, 8192, 2048), (2, 16384, 512)]
 MD2_CASES = [(256, 512, 512), (4096, 128, 128), (64, 1024, 128),
-             (64, 128, 1024)]
+             (64, 128, 1024), (1024, 256, 256)]
+# Multi-dim rows run with tuning on and only the shipped table, which names
+# no entry for their shape, so they keep the static route: md_256x256 (2^26
+# points, 0.5 GiB in) on K11, checked at its shape in ``MD2_CASES``.
+MD_SHIPPED = [("md_256x256", (256, 256), 1024, "forward", False)]
 # The cases timed alone: md_1024x1024's column pass and md_512x512.
 MD_ALONE = {"col": (64, 1024, 1024), "md2": (256, 512, 512)}
 # The transformed axes of each kernel's complex (b, ., .) view.
@@ -1302,20 +1309,31 @@ def md_kinds(entry) -> list[str]:
 
 def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     """The multi-dim and BATCH_INTERLEAVED rows through the committed
-    plan; every kernel of each row's route must launch."""
+    plan, then ``MD_SHIPPED`` committed with tuning on (the run's cache is
+    still empty, so only the shipped table applies), each of which must
+    take K11; every kernel of each row's route must launch."""
     results = []
     for c in counters.values():
         c.launches = 0
-    for name, lengths, batch, dname, bi in MD_ROWS:
+    rows = [(r, False) for r in MD_ROWS] + [(r, True) for r in MD_SHIPPED]
+    for (name, lengths, batch, dname, bi), shipped in rows:
         direction = pf.Direction(dname)
         forward = direction == pf.Direction.FORWARD
         sign = -1 if forward else +1
         kw = dict(forward_strides=[batch], backward_strides=[batch],
                   forward_distance=1, backward_distance=1) if bi else {}
-        plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
-                             **kw).commit(device="cuda")
+        desc = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                             **kw)
+        if shipped:
+            os.environ.pop("PORTFFT_NO_TUNING", None)
+        try:
+            plan = desc.commit(device="cuda")
+        finally:
+            os.environ["PORTFFT_NO_TUNING"] = "1"
         entry = plan._raw_fast[direction]
         kinds = md_kinds(entry)
+        if shipped and "md2" not in kinds:
+            raise SmokeFailure(f"{name}: the shipped route is {kinds}, not K11")
         n = math.prod(lengths)
         x = random_raw(2 * batch * n, seed=0)
         compute = plan.compute_forward if forward else plan.compute_backward

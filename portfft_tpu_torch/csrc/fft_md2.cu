@@ -8,40 +8,68 @@
 // each way.  Blocks on Hopper run in no order and hold at most 227 KB of
 // shared memory, so here one block owns whole 2D transforms:
 //   phase A: n1-point passes down the columns, tiles of T1 adjacent columns
-//            read from x and written to y;
-//   __syncthreads (it ends every tile): the block's writes to y are visible
-//            to all its threads;
-//   phase B: n2-point passes along the rows, tiles of T2 rows, in place on
-//            y, times scale.
-// Each sub-transform is DIRECT or FUSED [a, 128] (pfft::pass_tile, shared
-// with K1-K3 and K10).  The intermediate goes through device memory: at
-// 128 x 128 it is 128 KiB per transform and the resident blocks' share
-// stays in the 50 MB L2; at 512 x 512 (2 MiB) it spills to HBM, so the
-// kernel moves up to twice the bytes of its bound there.  A transform
-// belongs to one block and each tile is read before it is written, so y
-// may equal x.
+//            read from x;
+//   phase B: n2-point passes along the rows, tiles of T2 rows, times scale,
+//            written to y.
+// Each sub-transform is DIRECT or FUSED [a, 128] and runs on the radix
+// stages of fft_radix.cuh in the tiles of fft_common.cuh.  Phase A stores
+// to y and phase B works in place on y, so the intermediate goes through
+// device memory: at 128 x 128 (128 KiB a transform) the resident blocks'
+// share of it stays in the 50 MB L2 and each element crosses HBM once each
+// way, as on the TPU; at 512 x 512 (2 MiB) it spills to HBM and the kernel
+// moves twice the bytes of its bound.  Keeping a 128 x 128 transform in
+// shared memory instead (128 KiB beside the tiles) leaves one block an SM,
+// and measured slower on the H100 than this route, whose L2 already holds
+// the intermediate.  Phase A's tiles are at least 4 columns (32 bytes) wide,
+// so each warp's loads and stores fill whole sectors.  Each tile's loads
+// start before the previous tile's stages (pfft_radix::Prefetch), so
+// they fly while the block works: the next column tile during a column
+// tile, the next row tile during a row tile, the block's next transform
+// during its last row tile; they never touch what the tile in work stores.
+// Every tile ends with __syncthreads, so the block's writes to y are
+// visible to all its threads before phase B reads them.  A transform
+// belongs to one block and each tile is read before it is written, so y may
+// equal x.
 //
-// Bound on the H100, per complex element: 8*(n1' + n2') flops against 16
-// bytes (n' = n for DIRECT, a + 128 for FUSED); 512 flops/byte at 512 x 512,
-// so the kernel is bound by arithmetic (in this first version by
-// shared-memory operand reads).
-#include "fft_common.cuh"
+// Bound on the H100, per complex element: 16 bytes of device memory (32
+// where the intermediate leaves L2) against about 5*log2(n1*n2) flops of
+// the radix stages: bound by bytes.
+#include "fft_radix.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(pfft::kThreads)
+// Threads a block; two blocks an SM.
+constexpr int kBlock = 256;
+
+__global__ void __launch_bounds__(kBlock, 2)
     md2_kernel(pfft::Pass pa, pfft::Pass pb, int64_t batch, const float2* x,
                float2* y) {
   extern __shared__ float2 smem[];
   const pfft::TileSmem sa = pfft::tile_smem(pa.sub, pa.T, smem);
   const pfft::TileSmem sb = pfft::tile_smem(pb.sub, pb.T, smem);
+  const int ea = pfft::tile_pitch(pa.T), eb = pfft::tile_pitch(pb.T);
+  pfft_radix::Prefetch f;
+  if (blockIdx.x < batch) pfft_radix::fetch(f, pa, blockIdx.x, 0, x);
   for (int64_t b = blockIdx.x; b < batch; b += gridDim.x) {
     pfft::load_sub_roots(pa.sub, sa);
-    for (int64_t c0 = 0; c0 < pa.ncols; c0 += pa.T)
-      pfft::pass_tile(pa, b, c0, x, y, sa);
+    for (int64_t c0 = 0; c0 < pa.ncols; c0 += pa.T) {
+      pfft_radix::land(f, pa, b, c0, x, sa.b0);
+      if (c0 + pa.T < pa.ncols) pfft_radix::fetch(f, pa, b, c0 + pa.T, x);
+      const float2* res = pfft_radix::sub_fft(pa.sub, sa.ra, sa.rb, sa.b0,
+                                              sa.b1, pa.T, ea);
+      pfft::tile_store(pa, b, c0, res, y);
+    }
     pfft::load_sub_roots(pb.sub, sb);
-    for (int64_t r0 = 0; r0 < pb.ncols; r0 += pb.T)
-      pfft::pass_tile(pb, b, r0, y, y, sb);
+    pfft_radix::fetch(f, pb, b, 0, y);
+    for (int64_t r0 = 0; r0 < pb.ncols; r0 += pb.T) {
+      pfft_radix::land(f, pb, b, r0, y, sb.b0);
+      if (r0 + pb.T < pb.ncols) pfft_radix::fetch(f, pb, b, r0 + pb.T, y);
+      else if (b + gridDim.x < batch)
+        pfft_radix::fetch(f, pa, b + gridDim.x, 0, x);
+      const float2* res = pfft_radix::sub_fft(pb.sub, sb.ra, sb.rb, sb.b0,
+                                              sb.b1, pb.T, eb);
+      pfft::tile_store(pb, b, r0, res, y);
+    }
   }
 }
 
@@ -71,7 +99,9 @@ extern "C" int pf_md2(const float* x, float* y, int m1, int a1,
   pfft::Pass pa{};
   pa.sub = s1;
   pa.ncols = m2;
-  pa.T = pfft::pick_tile(m1, m2, 4096, 32);
+  const int wide = m2 < 4 ? m2 : 4;
+  const int ta = pfft::pick_tile(m1, m2, 4096, 32);
+  pa.T = pfft::fit_tile(s1, ta > wide ? ta : wide);
   pa.ibs = n;
   pa.iis = m2;
   pa.ics = 1;
@@ -100,7 +130,7 @@ extern "C" int pf_md2(const float* x, float* y, int m1, int a1,
   const int64_t cap = int64_t(1) << 30;
   const unsigned grid = unsigned(batch < cap ? batch : cap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  md2_kernel<<<grid, pfft::kThreads, smem, st>>>(
+  md2_kernel<<<grid, kBlock, smem, st>>>(
       pa, pb, batch, reinterpret_cast<const float2*>(x),
       reinterpret_cast<float2*>(y));
   return int(cudaGetLastError());

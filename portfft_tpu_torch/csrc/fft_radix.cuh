@@ -1,0 +1,390 @@
+// Block-level mixed-radix Stockham FFT of the T columns of a tile in shared
+// memory: the sub-transform of K11 (fft_md2.cu) and K17
+// (fft_global_fused.cu), in place of fft_common.cuh's O(len) sums.
+//
+// It takes fft_common.cuh's tile and Sub as they are (element i of column t
+// at tile_pos(i)*es + t, pitch es = T+1, FUSED rows padded by i/128), so a
+// kernel keeps pfft::tile_store and tile_load's walk (here with each
+// thread's loads in flight together, Prefetch), and it computes what
+// pfft::sub_dft computes:
+//   DIRECT  the m-point DFT of each column;
+//   FUSED   m = a*128: stage A, the a-point DFT over n1 of element
+//           128*n1 + n2, times the inner twiddle U[k1, n2]; stage B, the
+//           128-point DFT over n2, output k1 + a*k2 in natural order.
+//
+// Each len-point DFT runs as Stockham stages (decimation in time, natural
+// order in and out) that ping-pong between the tiles b0 and b1.  A stage of
+// radix R after stages whose radices multiply to ns takes butterfly j of
+// every vector, with k = j mod ns and tw = len/(ns*R):
+//   v[r] = src[j + r*len/R] * root[r*k*tw]             (r < R)
+//   dst[(j - k)*R + k + q*ns] = sum_r v[r] * w_R^(r*q)  (q < R)
+// The radices, in stage order (stages()): each prime factor above 3, then
+// the 3s, then the power of two as 8s with one 4, two 4s or one 2
+// (128 = 8*4*4, 384 = 3*8*4*4, 508 = 127*4, 512 = 8*8*8).  Radix 2, 3, 4
+// and 8 run in registers with exact constants (+-1, +-i) and cos(pi/4),
+// sin(pi/3), as fft_global_bf.cuh's Dit snaps them; a prime p > 3 is one
+// generic stage, a p-term sum per output whose root index folds in the
+// stage twiddle, so a prime length costs what the plain sum costs.
+// torch_fft.radix_plain runs the same stages, twiddle indices and orders.
+//
+// The roots come from the sub's root table in shared memory (row 1 of the
+// bank's DFT matrix, w_len^e = root[e]; load_sub_roots); the direction is
+// the sign of Im root[1].  The device evaluates no sin or cos.  fp32 FMA
+// throughout, no TF32: the error grows as log2 len.
+//
+// What bounds it: a stage reads and writes each element of the tile once in
+// shared memory and does about log2 R complex multiply-adds an element, so
+// a 512-point column costs 3 stages where the plain sum costs 512
+// multiply-adds an element.  The kernels that run on it are then bound by
+// their device-memory bytes rather than by the sums.
+#pragma once
+
+#include "fft_common.cuh"
+
+namespace pfft_radix {
+
+// Enough for every length up to pfft::kTileMax (3^8 = 6561: 8 stages).
+constexpr int kMaxStages = 12;
+
+struct Stages {
+  int n;
+  int r[kMaxStages];
+};
+
+// The radices of a len-point FFT in stage order (see the header comment).
+__host__ __device__ inline Stages stages(int len) {
+  Stages s{};
+  int twos = 0, threes = 0;
+  while (len % 2 == 0) len /= 2, ++twos;
+  while (len % 3 == 0) len /= 3, ++threes;
+  for (int p = 5; len > 1; p += 2) {
+    if (p * p > len) p = len;
+    while (len % p == 0) s.r[s.n++] = p, len /= p;
+  }
+  for (int i = 0; i < threes; ++i) s.r[s.n++] = 3;
+  for (int i = 0; i < (twos - (twos % 3 == 1 && twos > 1 ? 3 : 0)) / 3; ++i)
+    s.r[s.n++] = 8;
+  if (twos % 3 == 2) s.r[s.n++] = 4;
+  if (twos % 3 == 1) {
+    if (twos > 1) s.r[s.n++] = 4, s.r[s.n++] = 4;
+    else s.r[s.n++] = 2;
+  }
+  return s;
+}
+
+__device__ __forceinline__ float2 add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 sub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+// a * (sg * i)
+__device__ __forceinline__ float2 rot(float2 a, float sg) {
+  return make_float2(-sg * a.y, sg * a.x);
+}
+
+// v <- the R-point DFT of v, w_R = exp(sg*2*pi*i/R), natural order.
+template <int R>
+struct Bfly;
+
+template <>
+struct Bfly<2> {
+  static __device__ __forceinline__ void run(float2 (&v)[2], float) {
+    const float2 a = v[0];
+    v[0] = add(a, v[1]);
+    v[1] = sub(a, v[1]);
+  }
+};
+
+template <>
+struct Bfly<3> {
+  static __device__ __forceinline__ void run(float2 (&v)[3], float sg) {
+    const float s = sg * 0.86602540378443865f;  // Im w_3
+    const float2 t1 = add(v[1], v[2]), t2 = sub(v[1], v[2]);
+    const float2 m = make_float2(fmaf(-0.5f, t1.x, v[0].x),
+                                 fmaf(-0.5f, t1.y, v[0].y));
+    const float2 r = make_float2(-s * t2.y, s * t2.x);
+    v[0] = add(v[0], t1);
+    v[1] = add(m, r);
+    v[2] = sub(m, r);
+  }
+};
+
+template <>
+struct Bfly<4> {
+  static __device__ __forceinline__ void run(float2 (&v)[4], float sg) {
+    const float2 a = add(v[0], v[2]), b = sub(v[0], v[2]);
+    const float2 c = add(v[1], v[3]), d = rot(sub(v[1], v[3]), sg);
+    v[0] = add(a, c);
+    v[1] = add(b, d);
+    v[2] = sub(a, c);
+    v[3] = sub(b, d);
+  }
+};
+
+// Radix 2 over two 4-point DFTs: y[q] = E[q] + w_8^q O[q], y[q+4] = E[q] -
+// w_8^q O[q].
+template <>
+struct Bfly<8> {
+  static __device__ __forceinline__ void run(float2 (&v)[8], float sg) {
+    float2 e[4] = {v[0], v[2], v[4], v[6]};
+    float2 o[4] = {v[1], v[3], v[5], v[7]};
+    Bfly<4>::run(e, sg);
+    Bfly<4>::run(o, sg);
+    const float c = 0.70710678118654752f;  // cos(pi/4)
+    o[1] = make_float2(c * (o[1].x - sg * o[1].y), c * (o[1].y + sg * o[1].x));
+    o[2] = rot(o[2], sg);
+    o[3] = make_float2(-c * (o[3].x + sg * o[3].y), c * (sg * o[3].x - o[3].y));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[q] = add(e[q], o[q]);
+      v[q + 4] = sub(e[q], o[q]);
+    }
+  }
+};
+
+// Element i of vector u at base(u) + i*step.
+template <class Base>
+struct Strided {
+  Base base;
+  int step;
+  __device__ __forceinline__ int operator()(int u, int i) const {
+    return base(u) + i * step;
+  }
+};
+
+struct Keep {
+  __device__ __forceinline__ float2 operator()(int, int, float2 v) const {
+    return v;
+  }
+};
+
+// One radix-R stage of nvec len-point vectors, element i of vector u at
+// base(u) + i*step in src; output k of vector u to dst[out(u, k)] as
+// post(u, k, y).  Consecutive threads take consecutive vectors.
+template <int R, class Base, class Out, class Post>
+__device__ inline void stage(const float2* src, float2* dst, int len, int ns,
+                             int nvec, int step, const float2* root, float sg,
+                             Base base, Out out, Post post) {
+  const int m = len / R;
+  const int tw = len / (ns * R);
+  const int total = m * nvec;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int j = e / nvec;
+    const int u = e - j * nvec;
+    const int k = j % ns;
+    const float2* x = src + base(u);
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = x[(j + r * m) * step];
+    if (ns > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = pfft::cmul(v[r], root[r * k * tw]);
+    }
+    Bfly<R>::run(v, sg);
+    const int d = (j - k) * R + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      dst[out(u, d + q * ns)] = post(u, d + q * ns, v[q]);
+  }
+}
+
+// A generic stage of prime radix p: output o = (jj*p + q)*ns + k of each
+// vector is sum_r src[j + r*len/p] * root[(r*(k + q*ns)*tw) mod len], j =
+// jj*ns + k, tw = len/(ns*p): the stage twiddle and the p-point DFT in one
+// root index.  One output a thread.
+template <class Base, class Out, class Post>
+__device__ inline void stage_p(const float2* src, float2* dst, int len, int ns,
+                               int nvec, int step, const float2* root, int p,
+                               Base base, Out out, Post post) {
+  const int m = len / p;
+  const int tw = len / (ns * p);
+  const int total = len * nvec;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int o = e / nvec;
+    const int u = e - o * nvec;
+    const int k = o % ns;
+    const int jq = o / ns;
+    const int q = jq % p;
+    const int j = (jq / p) * ns + k;
+    const int de = (k + q * ns) * tw;
+    const float2* x = src + base(u) + j * step;
+    float re = 0.f, im = 0.f;
+    int ri = 0;
+    for (int r = 0; r < p; ++r) {
+      const float2 v = x[r * m * step];
+      const float2 w = root[ri];
+      re = fmaf(v.x, w.x, re);
+      re = fmaf(-v.y, w.y, re);
+      im = fmaf(v.x, w.y, im);
+      im = fmaf(v.y, w.x, im);
+      ri += de;
+      if (ri >= len) ri -= len;
+    }
+    dst[out(u, o)] = post(u, o, make_float2(re, im));
+  }
+}
+
+template <class Base, class Out, class Post>
+__device__ inline void run_stage(int r, const float2* src, float2* dst,
+                                 int len, int ns, int nvec, int step,
+                                 const float2* root, float sg, Base base,
+                                 Out out, Post post) {
+  switch (r) {
+    case 2:
+      stage<2>(src, dst, len, ns, nvec, step, root, sg, base, out, post);
+      break;
+    case 3:
+      stage<3>(src, dst, len, ns, nvec, step, root, sg, base, out, post);
+      break;
+    case 4:
+      stage<4>(src, dst, len, ns, nvec, step, root, sg, base, out, post);
+      break;
+    case 8:
+      stage<8>(src, dst, len, ns, nvec, step, root, sg, base, out, post);
+      break;
+    default:
+      stage_p(src, dst, len, ns, nvec, step, root, r, base, out, post);
+  }
+}
+
+// The len-point DFT of nvec vectors (element i of vector u at base(u) +
+// i*step) held in cur, stage by stage between cur and other; the last
+// stage writes output k of vector u to out(u, k) as post(u, k, y).  Every
+// stage ends with __syncthreads.  Returns the buffer that holds the result.
+template <class Base, class Out, class Post>
+__device__ inline float2* dft(float2* cur, float2* other, int len, int nvec,
+                              int step, const float2* root, Base base, Out out,
+                              Post post) {
+  const Stages st = stages(len);
+  const float sg = len > 2 && root[1].y < 0.f ? -1.f : 1.f;
+  const Strided<Base> mid{base, step};
+  int ns = 1;
+  for (int s = 0; s < st.n; ++s) {
+    const int r = st.r[s];
+    if (s + 1 < st.n)
+      run_stage(r, cur, other, len, ns, nvec, step, root, sg, base, mid, Keep{});
+    else
+      run_stage(r, cur, other, len, ns, nvec, step, root, sg, base, out, post);
+    __syncthreads();
+    float2* t = cur;
+    cur = other;
+    other = t;
+    ns *= r;
+  }
+  return cur;
+}
+
+// pfft::sub_dft's function on the radix stages: transforms the T columns
+// held in b0; returns the buffer (b0 or b1) that holds the result in
+// natural order at the same tile positions.  ra: roots of the m-point
+// (DIRECT) or a-point (FUSED) DFT; rb: 128-point.
+__device__ inline float2* sub_fft(const pfft::Sub& s, const float2* ra,
+                                  const float2* rb, float2* b0, float2* b1,
+                                  int T, int es) {
+  if (s.a == 0) {
+    const auto col = [](int t) { return t; };
+    return dft(b0, b1, s.m, T, es, ra, col, Strided<decltype(col)>{col, es},
+               Keep{});
+  }
+  const int a = s.a;
+  const float* ur = s.ur;
+  const float* ui = s.ui;
+  // Stage A: vector u = (n2, t) over n1, element 128*n1 + n2 at
+  // (129*n1 + n2)*es + t; the inner twiddle on the last stage's store.
+  const auto base_a = [=](int u) {
+    const int n2 = u / T;
+    return n2 * es + (u - n2 * T);
+  };
+  float2* c = dft(b0, b1, a, 128 * T, 129 * es, ra, base_a,
+                  Strided<decltype(base_a)>{base_a, 129 * es},
+                  [=](int u, int k1, float2 y) {
+                    const int i = k1 * 128 + u / T;
+                    return pfft::cmul(y, make_float2(__ldg(ur + i), __ldg(ui + i)));
+                  });
+  // Stage B: vector u = (k1, t) over n2; output k2 lands at natural index
+  // k1 + a*k2.
+  const auto base_b = [=](int u) {
+    const int k1 = u / T;
+    return 129 * k1 * es + (u - k1 * T);
+  };
+  return dft(c, c == b0 ? b1 : b0, 128, a * T, es, rb, base_b,
+             [=](int u, int k2) {
+               const int k1 = u / T;
+               const int K = k1 + a * k2;
+               return (K + (K >> 7)) * es + (u - k1 * T);
+             },
+             Keep{});
+}
+
+// A tile's loads in flight in registers: fetch() starts the loads of the
+// first kPrefetch elements of each thread (element e = threadIdx.x +
+// q*blockDim.x), land() stores them to the tile, loads and stores the rest
+// kPrefetch at a time, and ends with __syncthreads.  Between the two the
+// block can work on another tile, so the loads overlap that work; and each
+// thread has kPrefetch loads in flight together, where pfft::tile_load's
+// loop waits on each load in turn.  The walk is tile_load's: columns
+// fastest where columns are contiguous in device memory, else elements.
+constexpr int kPrefetch = 8;
+
+struct Prefetch {
+  float2 v[kPrefetch];
+  int at[kPrefetch];  // tile position of each value, -1 for none
+};
+
+template <class X>
+__device__ inline void fetch(Prefetch& f, const pfft::Pass& p, int64_t b,
+                             int64_t c0, X x, int e0) {
+  using pfft::ld;
+  const pfft::Sub& s = p.sub;
+  const int m = s.m;
+  const int T = p.T;
+  const int es = pfft::tile_pitch(T);
+  const int total = m * T;
+  const bool cols_fast = p.ics == 1 && T > 1;
+  const int64_t left = p.ncols - c0;
+  const int tv = left < T ? int(left) : T;
+  const int64_t xo = b * p.ibs + c0 * p.ics;
+#pragma unroll
+  for (int q = 0; q < kPrefetch; ++q) {
+    const int e = e0 + q * blockDim.x;
+    const int i = cols_fast ? e / T : e % m;
+    const int t = cols_fast ? e - i * T : e / m;
+    f.at[q] = e < total && t < tv ? pfft::tile_pos(s, i) * es + t : -1;
+    if (f.at[q] >= 0) f.v[q] = ld(x, xo + i * p.iis + t * p.ics);
+  }
+}
+
+template <class X>
+__device__ inline void fetch(Prefetch& f, const pfft::Pass& p, int64_t b,
+                             int64_t c0, X x) {
+  fetch(f, p, b, c0, x, threadIdx.x);
+}
+
+template <class X>
+__device__ inline void land(Prefetch& f, const pfft::Pass& p, int64_t b,
+                            int64_t c0, X x, float2* dst) {
+  const int total = p.sub.m * p.T;
+  for (int e0 = threadIdx.x;;) {
+#pragma unroll
+    for (int q = 0; q < kPrefetch; ++q)
+      if (f.at[q] >= 0) dst[f.at[q]] = f.v[q];
+    e0 += kPrefetch * blockDim.x;
+    if (e0 - int(threadIdx.x) >= total) break;
+    fetch(f, p, b, c0, x, e0);
+  }
+  __syncthreads();
+}
+
+// pfft::tile_load's function with the loads of a thread in flight
+// together: columns c0 .. c0+T-1 of batch b into the tile dst; ends with
+// __syncthreads.
+template <class X>
+__device__ inline void load_tile(const pfft::Pass& p, int64_t b, int64_t c0,
+                                 X x, float2* dst) {
+  Prefetch f;
+  fetch(f, p, b, c0, x);
+  land(f, p, b, c0, x, dst);
+}
+
+}  // namespace pfft_radix

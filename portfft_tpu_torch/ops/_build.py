@@ -73,7 +73,7 @@ _SIGNATURES = {
     "pf_global_bf_ov": ([_P] * 3 + [_I] * 5 + [_P] * 10 + [_I64, _I64, _F, _P], _I),
     "pf_global_bf2": ([_P] * 3 + [_I] * 5 + [_P] * 12 + [_I64, _I64, _F, _P], _I),
     "pf_global_ilv": ([_P] * 3 + [_I] * 5 + [_P] * 10 + [_I64, _I64, _F, _P], _I),
-    "pf_global_fused": ([_P] * 3 + _SUB + _SUB + [_I, _I] + [_P] * 10
+    "pf_global_fused": ([_P] * 4 + _SUB + _SUB + [_I, _I] + [_P] * 10
                         + [_I64, _I64, _F, _P], _I),
     "pf_destride": ([_P] * 4 + [_I] + [_I64] * 5 + [_P], _I),
     "pf_restride": ([_P] * 4 + [_I] + [_I64] * 6 + [_I, _P], _I),

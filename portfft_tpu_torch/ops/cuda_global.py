@@ -15,9 +15,9 @@ function in one pass, the transform held on chip between its stages; the
 tuned engine ``{"eng": 5}``), ``pallas_global3.build_call`` (K16, the same
 function in two passes on the tensor cores, its twiddle from resident
 factored tables; the tuned engine ``{"eng": 3}``), ``global_fused_raw_call``
-(K17, K3's two passes in one cooperative launch whose intermediate stays
-in L2, its twiddle dense or factored; ``{"eng": 6}`` and ``{"eng": 6,
-"ftw": 1}``) and ``global2_call`` (K14, K3's two passes on
+(K17, K3's function in one cooperative launch on the radix stages of
+``csrc/fft_radix.cuh``, whose intermediate stays in L2, its twiddle dense or
+factored; ``{"eng": 6}`` and ``{"eng": 6, "ftw": 1}``) and ``global2_call`` (K14, K3's two passes on
 (re, im) float32 planes, with an optional ``post`` table multiplied in
 pass 2; the plane path's GLOBAL nodes and its Bluestein convolutions).
 Same rule as ``cuda_fft``: CPU tensors go to the plain version, CUDA
@@ -57,6 +57,7 @@ from .torch_fft import (
     full_fp32_matmuls,
     global3_digits,
     is_two_stage,
+    radix_sub_plain,
 )
 
 
@@ -419,15 +420,15 @@ def _pass_elems(sub: Plan1D, t: int) -> tuple[int, int]:
 
 
 def global_fused_smem(plan: Plan1D, ftw: bool = False) -> int:
-    """K17's dynamic shared memory in bytes: the larger root table of the
-    two passes, two tiles of the larger pass (each pass at its own width,
-    ``fused_tile``), and in the factored mode the per-tile factors C1 and
-    C2, (L + H)·T1 float2 (``ftw_factors``)."""
+    """K17's dynamic shared memory in bytes: both passes' root tables, two
+    tiles of the larger pass (each pass at its own width, ``fused_tile``),
+    and in the factored mode the per-tile factors C1 and C2, (L + H)·T1
+    float2 (``ftw_factors``)."""
     g1, g2 = plan.sub
     r1, e1 = _pass_elems(g1, fused_tile(g1.n, g2.n))
     r2, e2 = _pass_elems(g2, fused_tile(g2.n, g1.n))
     extra = sum(ftw_factors(plan)) * fused_tile(g1.n, g2.n) if ftw else 0
-    return 8 * (max(r1, r2) + 2 * max(e1, e2) + extra)
+    return 8 * (r1 + r2 + 2 * max(e1, e2) + extra)
 
 
 def global_fused_supported(plan: Plan1D, ftw: bool = False) -> bool:
@@ -521,31 +522,32 @@ def fused_twiddle(t) -> list[tuple]:
 
 def global_fused_plain(raw: torch.Tensor, batch: int, t: GlobalFusedTables,
                        scale: float) -> torch.Tensor:
-    """Plain version of K17, its two passes chunk by chunk: pass 1
-    ``S[b, n2, k1] = (G1-point transform of x[b, :, n2])[k1]`` times the
+    """Plain version of K17 on the radix stages of ``csrc/fft_radix.cuh``
+    (``torch_fft.radix_sub_plain``), ``t.chunk`` transforms at a time: pass
+    1 ``S[b, n2, k1] = (G1-point transform of x[b, :, n2])[k1]`` times the
     twiddle factors of ``fused_twiddle`` in turn; pass 2 ``out[b, k1 +
     G1·k2] = scale · (G2-point transform of S[b, :, k1])[k2]``."""
     g1, g2 = t.sub1.m, t.sub2.m
-    x = raw.view(batch, g1, g2, 2).transpose(1, 2)  # [b, n2, n1]
-    factors = fused_twiddle(t)
+    x = torch.view_as_complex(raw.view(batch, g1, g2, 2))
+    factors = [torch.complex(wr, wi) for wr, wi in fused_twiddle(t)]
     out = []
     with full_fp32_matmuls(raw):
         for b0 in range(0, batch, t.chunk):
-            xc = x[b0:b0 + t.chunk]
-            sr, si = rows_plain(t.sub1, xc[..., 0], xc[..., 1])
-            for wr, wi in factors:
-                sr, si = complex_mul(sr, si, wr, wi)
-            cr, ci = rows_plain(t.sub2, sr.transpose(1, 2), si.transpose(1, 2))
-            out.append(interleave(cr.transpose(1, 2), ci.transpose(1, 2), scale))
+            s = radix_sub_plain(t.sub1, x[b0:b0 + t.chunk].transpose(1, 2))
+            for w in factors:  # [n2, k1]
+                s = s * w
+            c = radix_sub_plain(t.sub2, s.transpose(1, 2)) * scale  # [b, k1, k2]
+            out.append(torch.view_as_real(c.transpose(1, 2).contiguous()).reshape(-1))
     return torch.cat(out)
 
 
 def global_fused(raw, batch: int, t: GlobalFusedTables, scale: float, out=None):
     """K17: ``batch`` GLOBAL transforms of length ``t.n`` in one cooperative
-    launch (``csrc/fft_global_fused.cu``): per chunk of ``t.chunk``
-    transforms, K3's pass 1 into a scratch sized to stay in L2, a grid-wide
-    barrier, K3's pass 2 into ``out`` (may be ``raw``), a barrier.  The
-    wrapper allocates the scratch."""
+    launch (``csrc/fft_global_fused.cu``): K3's pass 1 of each transform
+    into one of ``t.chunk`` scratch slots sized to stay in L2, K3's pass 2
+    from it into ``out`` (may be ``raw``), scheduled by a ticket and
+    per-transform arrival counters instead of grid barriers.  The wrapper
+    allocates the scratch and the counters."""
     check_buffer(raw, 2 * batch * t.n, "global_fused")
     if raw.device.type == "cpu":
         return into(out, global_fused_plain(raw, batch, t, scale))
@@ -554,12 +556,13 @@ def global_fused(raw, batch: int, t: GlobalFusedTables, scale: float, out=None):
     y = torch.empty_like(raw) if out is None else out
     scratch = torch.empty(2 * t.chunk * t.n, dtype=torch.float32,
                           device=raw.device)
+    counters = torch.empty(1 + 2 * batch, dtype=torch.int64, device=raw.device)
     tw = [p.data_ptr() for p in t.tw] if t.tw else [None, None]
     q = ([p.data_ptr() for pair in t.q for p in pair] if t.q else [None] * 8)
     with torch.cuda.device(raw.device):
         err = lib.pf_global_fused(
             raw.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-            t.sub1.m, t.sub1.a, *t.sub1.pointers(),
+            counters.data_ptr(), t.sub1.m, t.sub1.a, *t.sub1.pointers(),
             t.sub2.m, t.sub2.a, *t.sub2.pointers(), t.t1, t.t2, *tw, *q,
             batch, t.chunk, scale, stream_of(raw))
     _build.check(lib, err, "global_fused kernel")

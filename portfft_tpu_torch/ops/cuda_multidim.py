@@ -37,7 +37,7 @@ from .cuda_fft import (
     rows_plain,
     stream_of,
 )
-from .torch_fft import complex_mul, dft_x3, full_fp32_matmuls
+from .torch_fft import complex_mul, dft_x3, full_fp32_matmuls, radix_sub_plain
 
 # -- gates (pallas_multidim.py, pallas_global.py) -----------------------------
 
@@ -238,19 +238,22 @@ col_mm.plain = col_mm_plain
 
 def md2_plain(raw: torch.Tensor, batch: int, sub1: SubTables, sub2: SubTables,
               scale: float):
-    """Plain version of K11: ``rows_plain`` along n2, then along n1
-    (transposed), scaled and interleaved."""
-    x = raw.view(batch, sub1.m, sub2.m, 2)
+    """Plain version of K11 in the kernel's order and stages: phase A, the
+    n1-point transform down each column, then phase B along each row, times
+    ``scale`` (``torch_fft.radix_sub_plain``, the radix stages of
+    ``csrc/fft_radix.cuh``)."""
+    x = torch.view_as_complex(raw.view(batch, sub1.m, sub2.m, 2))
     with full_fp32_matmuls(raw):
-        ar, ai = rows_plain(sub2, x[..., 0], x[..., 1])
-        cr, ci = rows_plain(sub1, ar.transpose(1, 2), ai.transpose(1, 2))
-    return interleave(cr.transpose(1, 2), ci.transpose(1, 2), scale)
+        a = radix_sub_plain(sub1, x.transpose(1, 2)).transpose(1, 2)
+        c = radix_sub_plain(sub2, a) * scale
+    return torch.view_as_real(c).reshape(-1)
 
 
 def md2(raw, batch: int, sub1: SubTables, sub2: SubTables, scale: float,
         out=None):
-    """K11: ``batch`` 2D transforms of shape ``(sub1.m, sub2.m)``.  ``out``
-    (may be ``raw`` itself) receives the result; otherwise a new tensor."""
+    """K11: ``batch`` 2D transforms of shape ``(sub1.m, sub2.m)``, one block
+    a transform, on the radix stages (``csrc/fft_md2.cu``).  ``out`` (may be
+    ``raw`` itself) receives the result; otherwise a new tensor."""
     check_buffer(raw, 2 * batch * sub1.m * sub2.m, "md2")
     if raw.device.type == "cpu":
         return into(out, md2_plain(raw, batch, sub1, sub2, scale))

@@ -732,6 +732,103 @@ def complex_mul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
 
 
+def radix_stages(n: int) -> list[int]:
+    """The radices of ``csrc/fft_radix.cuh``'s n-point FFT in stage order
+    (its ``stages``): each prime factor above 3, then the 3s, then the
+    power of two as 8s with one 4, two 4s or one 2 (128 = 8·4·4, 384 =
+    3·8·4·4, 508 = 127·4, 512 = 8·8·8)."""
+    twos = threes = 0
+    while n % 2 == 0:
+        n, twos = n // 2, twos + 1
+    while n % 3 == 0:
+        n, threes = n // 3, threes + 1
+    primes, p = [], 5
+    while n > 1:
+        if p * p > n:
+            p = n
+        while n % p == 0:
+            primes.append(p)
+            n //= p
+        p += 2
+    fours = {0: [], 1: [4, 4] if twos > 1 else [2], 2: [4]}[twos % 3]
+    eights = (twos - (3 if twos % 3 == 1 and twos > 1 else 0)) // 3
+    return primes + [3] * threes + [8] * eights + fours
+
+
+def _butterfly(v: list, sg: float) -> list:
+    """The R-point DFT (R = ``len(v)`` in 2, 3, 4, 8) of complex tensors in
+    natural order, w_R = exp(sg·2πi/R), by ``fft_radix.cuh``'s ``Bfly``
+    steps and constants."""
+    if len(v) == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if len(v) == 3:
+        t1, t2 = v[1] + v[2], v[1] - v[2]
+        m, r = v[0] - 0.5 * t1, t2 * complex(0.0, sg * 0.86602540378443865)
+        return [v[0] + t1, m + r, m - r]
+    if len(v) == 4:
+        a, b = v[0] + v[2], v[0] - v[2]
+        c, d = v[1] + v[3], (v[1] - v[3]) * complex(0.0, sg)
+        return [a + c, b + d, a - c, b - d]
+    e, o = _butterfly(v[0::2], sg), _butterfly(v[1::2], sg)
+    c = 0.70710678118654752
+    o = [o[0], o[1] * complex(c, sg * c), o[2] * complex(0.0, sg),
+         o[3] * complex(-c, sg * c)]
+    return [e[q] + o[q] for q in range(4)] + [e[q] - o[q] for q in range(4)]
+
+
+def radix_plain(x: torch.Tensor, root: torch.Tensor) -> torch.Tensor:
+    """The n-point DFT of the last axis of the complex tensor ``x`` by the
+    Stockham stages of ``csrc/fft_radix.cuh``, in its stage order, twiddle
+    indices and output order: a stage of radix R after stages whose radices
+    multiply to ns views the data as v[r, jj, k] = x[(jj·ns + k) + r·n/R],
+    multiplies v[r] by root[r·k·n/(ns·R)] (ns > 1), takes the R-point
+    butterfly and writes [jj, q, k]; a prime R > 3 is one sum whose root
+    index r·(k + q·ns)·n/(ns·R) mod n folds in the stage twiddle.  ``root``
+    is the complex root table (row 1 of the DFT matrix), whose imaginary
+    part at 1 gives the direction."""
+    *lead, n = x.shape
+    sg = -1.0 if n > 2 and bool(root[1].imag < 0) else 1.0
+    ns = 1
+    for r in radix_stages(n):
+        tw = n // (ns * r)
+        v = x.reshape(*lead, r, n // (r * ns), ns)  # [r, jj, k]
+        rr = torch.arange(r, device=x.device)
+        k = torch.arange(ns, device=x.device)
+        if r in (2, 3, 4, 8):
+            if ns > 1:
+                v = v * root[rr[:, None] * k * tw][:, None, :]
+            y = torch.stack(_butterfly(list(v.unbind(-3)), sg), dim=-3)
+        else:  # w[k, r, q] = root[r·(k + q·ns)·tw mod n]
+            w = root[rr[None, :, None] * (k[:, None, None] + rr * ns) * tw % n]
+            y = (v.movedim(-1, -3).transpose(-1, -2) @ w).transpose(-1, -2).movedim(-3, -1)
+        x = y.movedim(-3, -2).reshape(*lead, n)  # [jj, q, k]
+        ns *= r
+    return x
+
+
+def _root_table(wr: torch.Tensor, wi: torch.Tensor, n: int) -> torch.Tensor:
+    """Row 1 of the n x n DFT planes as one complex tensor (the root table
+    a kernel loads, ``load_roots``)."""
+    row = n if n > 1 else 0
+    return torch.complex(wr.reshape(-1)[row:row + n], wi.reshape(-1)[row:row + n])
+
+
+def radix_sub_plain(sub, x: torch.Tensor) -> torch.Tensor:
+    """``fft_radix.cuh``'s ``sub_fft`` on the last axis of the complex
+    tensor ``x``, for the tables ``sub`` (``cuda_fft.SubTables``): DIRECT,
+    :func:`radix_plain` of the m-point roots; FUSED [a, 128], stage A over
+    n1 of element 128·n1 + n2, times the inner twiddle U[k1, n2], then stage
+    B over n2, output k1 + a·k2."""
+    if sub.a == 0:
+        return radix_plain(x, _root_table(sub.wr, sub.wi, sub.m))
+    a, lead = sub.a, x.shape[:-1]
+    xa = x.reshape(*lead, a, 128).transpose(-1, -2)  # [n2, n1]
+    ya = radix_plain(xa, _root_table(sub.wr, sub.wi, a))
+    ya = ya * torch.complex(sub.ur, sub.ui).reshape(a, 128).transpose(0, 1)
+    yb = radix_plain(ya.transpose(-1, -2), _root_table(sub.br, sub.bi, 128))
+    return yb.transpose(-1, -2).reshape(*lead, sub.m)  # [k2, k1]
+
+
 @contextlib.contextmanager
 def full_fp32_matmuls(t: torch.Tensor):
     """Plain versions multiply in full float32: on a CUDA tensor, TF32 for

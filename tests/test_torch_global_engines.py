@@ -36,7 +36,7 @@ from portfft_tpu.planner import Plan1D as RefPlan1D
 from portfft_tpu.planner import plan_1d as ref_plan_1d
 import portfft_tpu_torch as pf
 from portfft_tpu_torch import convert, fastpath, tuning
-from portfft_tpu_torch.config import DeviceConfig
+from portfft_tpu_torch.config import H100_SMEM_PER_BLOCK, DeviceConfig
 from portfft_tpu_torch.enums import Level
 from portfft_tpu_torch.ops import cuda_global, cuda_global_bf, cuda_global_ilv, torch_fft
 from portfft_tpu_torch.planner import Plan1D, plan_1d
@@ -148,6 +148,45 @@ def test_k17_chunks_and_twiddle():
         assert (tr - arrays[dense + "r"]).abs().max() <= 4e-7
         assert (ti - arrays[dense + "i"]).abs().max() <= 4e-7
 
+
+
+def test_k17_gate_counts_both_root_tables():
+    """K17 keeps both passes' root tables in shared memory and its gate
+    counts both.  That costs it no plan whose tiles fit beside the larger
+    table alone, in either twiddle mode: over the GLOBAL lengths 128·a·g
+    (a = 8 … 128, g = 8 … 512) and 12288·p (the FUSED [96, 128] sub beside
+    a prime DIRECT one, p = 131 … 509), the largest plan it takes,
+    [96, 128] x 509, leaves over 27 KiB of shared memory free, more than
+    both root tables take (at most 2 x 4 KiB: 512 DIRECT roots)."""
+    lengths = {128 * a * g for a in (8, 16, 32, 64, 96, 128)
+               for g in range(8, 513, 8)}
+    lengths |= {12288 * p for p in range(131, 510, 2)
+                if all(p % d for d in range(3, 23, 2))}
+    largest = 0
+    for n in sorted(lengths):
+        plan = plan_1d(n, CFG, 4)
+        if plan.level != Level.GLOBAL:
+            continue
+        s1, s2 = plan.sub
+        (r1, e1), (r2, e2) = (
+            cuda_global._pass_elems(s, cuda_global.fused_tile(s.n, o.n))
+            for s, o in ((s1, s2), (s2, s1)))
+        subs_ok = all(s.level == Level.DIRECT or torch_fft.is_two_stage(s)
+                      for s in plan.sub)
+        factors = torch_fft.ftw_factors(plan)
+        for ftw in (False, True):
+            if ftw and not factors:
+                assert not cuda_global.global_fused_supported(plan, ftw)
+                continue
+            extra = sum(factors) * cuda_global.fused_tile(s1.n, s2.n) if ftw else 0
+            tiles = 2 * max(e1, e2) + extra
+            assert cuda_global.global_fused_smem(plan, ftw) == 8 * (r1 + r2 + tiles)
+            fits = subs_ok and 8 * (max(r1, r2) + tiles) <= H100_SMEM_PER_BLOCK
+            assert cuda_global.global_fused_supported(plan, ftw) == fits, (n, ftw)
+            if fits:
+                largest = max(largest, cuda_global.global_fused_smem(plan, ftw))
+    assert largest == cuda_global.global_fused_smem(plan_1d(12288 * 509, CFG, 4))
+    assert H100_SMEM_PER_BLOCK - largest > 27 * 2**10 > 2 * 8 * 512
 
 # -- K18 global_ilv ------------------------------------------------------------------
 

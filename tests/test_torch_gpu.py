@@ -524,7 +524,8 @@ def _launch_counters():
             "chain": cuda_chain.chain, "destride": cuda_stride.destride,
             "restride": cuda_stride.restride,
             "global_bf_ov": cuda_global_bf.global_bf_ov,
-            "global3": cuda_global.global3}
+            "global3": cuda_global.global3,
+            "global_fused": cuda_global.global_fused}
 
 
 # One layout per route: (n, batch, SPLIT, descriptor fields, out= given,
@@ -613,12 +614,12 @@ def _check_layout_route(n, batch, split, fields, give_out, in_place, kinds):
 
 # -- the tuned GLOBAL engines: K4 global_sq, K5 global_bf, K5-ov global_bf_ov --
 
-# Layouts at 65536, whose plan (256 x 256) the shipped table sends to K16.
+# Layouts at 65536, whose plan (256 x 256) the shipped table sends to K17.
 SHIPPED_LAYOUTS = [
     (65536, 3, False, dict(forward_strides=[2], forward_distance=2 * 65536),
-     False, False, ("destride", "global3")),
+     False, False, ("destride", "global_fused")),
     (65536, 2, False, dict(forward_offset=1000, backward_offset=3), True, False,
-     ("global3",)),
+     ("global_fused",)),
 ]
 
 ENGINE_CASES = [
@@ -653,7 +654,7 @@ def _static_routes(monkeypatch):
 def test_layout_on_the_shipped_route(cuda, tmp_path, monkeypatch, n, batch, split,
                                      fields, give_out, in_place, kinds):
     """With tuning on and only the shipped table, a layout descriptor's
-    GLOBAL entry takes the shipped engine (K16 at 65536), which launches
+    GLOBAL entry takes the shipped engine (K17 at 65536), which launches
     with K7, and the result holds as on the static route."""
     from portfft_tpu_torch import tuning
 
@@ -665,7 +666,7 @@ def test_layout_on_the_shipped_route(cuda, tmp_path, monkeypatch, n, batch, spli
                              **fields).commit()
         shipped = tuning.lookup(plan.config.name, "global2",
                                 tuning._entry_key(plan, "global2"))
-        assert fastpath._engine_of(shipped) == "global3"
+        assert fastpath._engine_of(shipped) == "global_fused"
         _check_layout_route(n, batch, split, fields, give_out, in_place, kinds)
     finally:
         tuning._reset_for_tests()
@@ -954,10 +955,11 @@ def test_tuned_md_route_runs_its_kernels(cuda, tmp_path, monkeypatch, lengths,
         tuning._reset_for_tests()
 
 
-def test_real_half_length_takes_the_shipped_k16(cuda, tmp_path, monkeypatch):
+def test_real_half_length_takes_the_shipped_engine(cuda, tmp_path, monkeypatch):
     """With tuning on and only the shipped table, a REAL 131072 plan's
-    half-length GLOBAL entry (65536 = 256 x 256) runs K16, launched once
-    per direction, and both directions hold against ``rfft``/``irfft``."""
+    half-length GLOBAL entry (65536 = 256 x 256) runs the shipped engine,
+    K17 since the radix redesign (K16 before), launched once per
+    direction, and both directions hold against ``rfft``/``irfft``."""
     from portfft_tpu_torch import tuning
     from portfft_tpu_torch.ops import cuda_global
 
@@ -969,13 +971,13 @@ def test_real_half_length_takes_the_shipped_k16(cuda, tmp_path, monkeypatch):
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                              domain=pf.Domain.REAL).commit()
         for direction in pf.Direction:
-            assert plan._raw_fast[direction][1][-1] == "global3"
+            assert plan._raw_fast[direction][1][-1] == "global_fused"
         x = torch.rand(batch, n, device=cuda) * 2 - 1
-        before = cuda_global.global3.launches
+        before = cuda_global.global_fused.launches
         spec = plan.compute_forward(x.reshape(-1))
         back = plan.compute_backward(spec)
         torch.cuda.synchronize()
-        assert cuda_global.global3.launches == before + 2
+        assert cuda_global.global_fused.launches == before + 2
         ref = torch.fft.rfft(x.double())
         got = torch.view_as_complex(spec.view(batch, n // 2 + 1, 2))
         assert (got.to(torch.complex128) - ref).abs().max().item() <= oracle_tol(n)
@@ -989,13 +991,18 @@ def test_real_half_length_takes_the_shipped_k16(cuda, tmp_path, monkeypatch):
 
 # (engine, G1, G2, batch) at the splits of the parity tests
 # (test_torch_global_engines.py) and of chip_smoke's tuned rows; batches that
-# leave several chunks, the last one short, at 2^19 and 2^20.
+# leave several chunks, the last one short, at 2^19 and 2^20 (K17: more
+# transforms than scratch slots).
 SWEEP_CASES = [
     *((e, g1, g2, b) for e in ("global_fused", "global_fused_ftw")
       for g1, g2, b in ((256, 256, 3), (1024, 128, 2), (512, 256, 2),
                         (384, 384, 2), (512, 384, 2), (2048, 256, 3),
                         (2048, 512, 3), (512, 512, 2))),
     ("global_fused", 200, 384, 2),  # K3's DIRECT subs off 128ℤ, dense only
+    # K17's scratch ring wraps (23 slots at 65536) and the generic radix
+    # stages of a prime sub (509) and 508 = 127·4
+    ("global_fused", 256, 256, 64), ("global_fused_ftw", 256, 256, 64),
+    ("global_fused", 508, 509, 2),
     *(("global_ilv", g1, g2, b) for g1, g2, b in (
         (256, 256, 3), (512, 256, 2), (256, 512, 2), (128, 256, 2),
         (384, 384, 2), (384, 768, 2), (256, 1536, 2), (1536, 384, 2),

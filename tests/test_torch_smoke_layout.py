@@ -83,16 +83,16 @@ def test_layout_rows_route_through_k7():
 def test_tuned_layout_rows_take_the_shipped_engine():
     """Each tuned layout row is a layout row whose GLOBAL plan the shipped
     ``cuda_h100`` table names an engine for, and with that engine its route
-    is K7 around K16 (the table's 65536 winner)."""
+    is K7 around K17 (the table's 65536 winner)."""
     from portfft_tpu_torch import fastpath, tuning
 
     with open(tuning._DEFAULTS_PATH) as f:
         table = json.load(f)["cuda_h100"]["global2"]
     want = {
-        "strided_large": ["destride", "global3"],
-        "strided_out_large": ["global3", "restride"],
-        "bi_65536": ["destride", "global3", "restride"],
-        "offset_out_large_1d": ["global3"],
+        "strided_large": ["destride", "global_fused"],
+        "strided_out_large": ["global_fused", "restride"],
+        "bi_65536": ["destride", "global_fused", "restride"],
+        "offset_out_large_1d": ["global_fused"],
     }
     assert set(chip_smoke.TUNED_LAYOUT) == set(want)
     for name, n, batch, split, fields, _ in chip_smoke.LAYOUT_ROWS:

@@ -96,3 +96,20 @@ def test_fftn_call_computes_the_multidim_path_function(lengths, batch, bi):
         want = chip_smoke.plain_path(plan, plan._raw_fast[direction])(x)
         got = torch.view_as_real(chip_smoke.fftn_call(x, shape, dims, sign < 0)())
         assert torch.allclose(got.reshape(-1), want, atol=1e-3 * want.abs().max().item())
+
+
+def test_shipped_rows_stay_on_k11():
+    """``MD_SHIPPED`` rows: the shipped table names no ``multidim`` entry for
+    their shape, and their static route is K11 alone, so the smoke run's
+    commit with tuning on takes K11; their bound is the other rows'."""
+    from portfft_tpu_torch import tuning
+
+    for name, lengths, batch, dname, _ in chip_smoke.MD_SHIPPED:
+        key = "n" + "x".join(map(str, lengths))
+        assert tuning.lookup("cuda_h100", "multidim", key) is None, name
+        plan = pf.Descriptor(lengths=list(lengths),
+                             number_of_transforms=batch).commit(device="cpu")
+        assert chip_smoke.md_kinds(plan._raw_fast[pf.Direction(dname)]) == ["md2"]
+        assert (batch, *lengths) in chip_smoke.MD2_CASES
+        bound, by = chip_smoke.bound_of("md2", math.prod(lengths), batch)
+        assert by == "bytes" and bound == pytest.approx(2**30 / 3.35e9)
