@@ -548,6 +548,20 @@ class SmokeFailure(Exception):
     """A check of the smoke run failed."""
 
 
+def launched(kernel) -> int:
+    """The launches of a kernel wrapper so far, from the program's launch
+    registry (``portfft_tpu_torch.utils.tracing``)."""
+    from portfft_tpu_torch.utils import tracing
+
+    return tracing.launches(kernel.kernel)
+
+
+def reset_launches() -> None:
+    from portfft_tpu_torch.utils import tracing
+
+    tracing.reset_launches()
+
+
 def oracle_tol(n: int) -> float:
     return 2.0 * EPS32 * n * max(math.log2(n), 1.0)
 
@@ -868,10 +882,10 @@ def c2c_kernel_phase(pf, max_err: dict) -> None:
         for direction, sign in ((pf.Direction.FORWARD, -1),
                                 (pf.Direction.BACKWARD, +1)):
             kind, kernel, args = kernel_and_args(plan, direction)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_kernel(kind, kernel, args, x, n, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
             report(kind, f"n={n:<8d} batch={batch:<8d} {direction.value:8s}", r)
             max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
@@ -906,11 +920,11 @@ def real_kernel_phase(pf, max_err: dict, card: str) -> dict:
         for direction, sign in ((pf.Direction.FORWARD, -1),
                                 (pf.Direction.BACKWARD, +1)):
             kind, kernel, args, inp, finish = real_case(plan, direction, x, spec)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_real(kind, kernel, args, inp, finish,
                            x if sign < 0 else spec, n, sign, scales[direction])
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
             report(kind, f"n={n:<8d} batch={batch:<8d} {direction.value:8s}", r)
             max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
@@ -930,8 +944,7 @@ def real_kernel_phase(pf, max_err: dict, card: str) -> dict:
 
 def c2c_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     results = []
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     for name, n, batch, dname in ROWS:
         direction = pf.Direction(dname)
         forward = direction == pf.Direction.FORWARD
@@ -940,12 +953,12 @@ def c2c_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             device="cuda"
         )
         kind, kernel, args = kernel_and_args(plan, direction)
-        before = counters[kind].launches
+        before = launched(counters[kind])
         x = random_raw(2 * batch * n, seed=0)
         compute = plan.compute_forward if forward else plan.compute_backward
         y = compute(x)
         torch.cuda.synchronize()
-        rose = counters[kind].launches - before
+        rose = launched(counters[kind]) - before
         if rose <= 0:
             raise SmokeFailure(f"{name}: the {kind} kernel was not launched")
         if y.shape != x.shape or not torch.isfinite(y).all():
@@ -973,7 +986,7 @@ def c2c_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         results.append((name, kind, n, batch, ms, plain_ms, library_ms))
         del plan, x
         torch.cuda.empty_cache()
-    launches = {k: counters[k].launches for k in C2C_KINDS}
+    launches = {k: launched(counters[k]) for k in C2C_KINDS}
     print(f"main-path launches: {launches}")
     for kind, count in launches.items():
         if count == 0:
@@ -994,8 +1007,7 @@ def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
     ``torch.fft`` call are timed; every kernel of ``required`` must have
     launched."""
     results = []
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     for name, n, batch, dname in rows:
         direction = pf.Direction(dname)
         forward = direction == pf.Direction.FORWARD
@@ -1009,10 +1021,10 @@ def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
             kinds.append(inner[5] if inner[0] in ("global2", "fused2") else inner[0])
         x = random_raw(batch * n, seed=0) if forward else half_spectra(batch, n, 0)
         compute = plan.compute_forward if forward else plan.compute_backward
-        before = {k: counters[k].launches for k in kinds}
+        before = {k: launched(counters[k]) for k in kinds}
         y = compute(x)
         torch.cuda.synchronize()
-        rose = {k: counters[k].launches - before[k] for k in kinds}
+        rose = {k: launched(counters[k]) - before[k] for k in kinds}
         if min(rose.values()) <= 0:
             raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
         numel = batch * (n + 2) if forward else batch * n
@@ -1038,7 +1050,7 @@ def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
         results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
         del plan, x
         torch.cuda.empty_cache()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"REAL main-path launches: {launches}")
     for kind in required:
         if launches[kind] == 0:
@@ -1071,11 +1083,11 @@ def real_plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
         if wide and kind != "untangle_wide":  # a shape the gate declines
             kind, kernel = "untangle_wide", cuda_real.untangle_wide
         sign, scale = (-1, 0.5) if wide else (+1, 2.0 / n)
-        before = kernel.launches
+        before = launched(kernel)
         r = check_real(kind, kernel, args, inp, finish, x if wide else spec, n,
                        sign, scale)
         torch.cuda.synchronize()
-        if kernel.launches != before + 2:  # the call and the planted fault
+        if launched(kernel) != before + 2:  # the call and the planted fault
             raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
         flag = f"drop={args[-1]}" if not wide else "forward"
         report(kind, f"n={n:<8d} batch={batch:<8d} {flag:8s}", r)
@@ -1095,10 +1107,10 @@ def real_plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
         x = random_raw(2 * batch * n, seed=n)
         for sign in (-1, +1):
             kernel, args = plane_case(pf, "bluestein_bf", n, sign)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_plane("bluestein_bf", kernel, args, x, n, batch, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:
+            if launched(kernel) != before + 2:
                 raise SmokeFailure(f"bluestein_bf n={n}: launch counter did not rise")
             t = args[0]
             report("bluestein_bf", f"n={n:<8d} batch={batch:<8d} "
@@ -1148,8 +1160,7 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     from portfft_tpu_torch import fastpath
 
     results = []
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     for name, n, batch, dnames, bf in REAL_PLANE_ROWS:
         if bf:
             os.environ["PORTFFT_BLUESTEIN_BF"] = "1"
@@ -1170,13 +1181,13 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             kinds = [entry[6]] + path_kinds(entry[1])
             x = random_raw(batch * (n if forward else n + 2), seed=n)
             compute = plan.compute_forward if forward else plan.compute_backward
-            before = {k: counters[k].launches for k in kinds}
+            before = {k: launched(counters[k]) for k in kinds}
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             y = compute(x)
             torch.cuda.synchronize()
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
-            rose = {k: counters[k].launches - before[k] for k in kinds}
+            rose = {k: launched(counters[k]) - before[k] for k in kinds}
             if min(rose.values()) <= 0:
                 raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
             numel = batch * (n + 2) if forward else batch * n
@@ -1211,7 +1222,7 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             del x, plain
         del plan
         torch.cuda.empty_cache()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"REAL plane main-path launches: {launches}")
     for kind in ("untangle", "untangle_wide", "retangle", "deinterleave",
                  "interleave", "chain", "global2_planes", "bluestein",
@@ -1277,10 +1288,10 @@ def md_kernel_phase(pf, max_err: dict, card: str) -> dict:
         for sign in (-1, +1):
             scale = 0.5 if sign < 0 else 2.0 / n
             kernel, args = md_kernel_case(pf, kind, shape, sign, scale)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_md(kind, kernel, args, x, shape, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} {shape}: launch counter did not rise")
             report(kind, f"{str(shape):18s} sign={sign:+d}", r)
             max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
@@ -1313,8 +1324,7 @@ def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     still empty, so only the shipped table applies), each of which must
     take K11; every kernel of each row's route must launch."""
     results = []
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     rows = [(r, False) for r in MD_ROWS] + [(r, True) for r in MD_SHIPPED]
     for (name, lengths, batch, dname, bi), shipped in rows:
         direction = pf.Direction(dname)
@@ -1337,10 +1347,10 @@ def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         n = math.prod(lengths)
         x = random_raw(2 * batch * n, seed=0)
         compute = plan.compute_forward if forward else plan.compute_backward
-        before = {k: counters[k].launches for k in kinds}
+        before = {k: launched(counters[k]) for k in kinds}
         y = compute(x)
         torch.cuda.synchronize()
-        rose = {k: counters[k].launches - before[k] for k in kinds}
+        rose = {k: launched(counters[k]) - before[k] for k in kinds}
         if min(rose.values()) <= 0:
             raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
         if y.shape != x.shape or not torch.isfinite(y).all():
@@ -1369,7 +1379,7 @@ def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
         del plan, x
         torch.cuda.empty_cache()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"multi-dim main-path launches: {launches}")
     for kind in MD_KINDS:
         if launches[kind] == 0:
@@ -1474,9 +1484,9 @@ def plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
     alone = {}
     for m in IO_CASES:
         x = random_raw(2 * m, seed=m)
-        before = cuda_io.deinterleave.launches + cuda_io.interleave.launches
+        before = launched(cuda_io.deinterleave) + launched(cuda_io.interleave)
         r = check_io(m, x, 0.5)
-        if cuda_io.deinterleave.launches + cuda_io.interleave.launches != before + 2:
+        if launched(cuda_io.deinterleave) + launched(cuda_io.interleave) != before + 2:
             raise SmokeFailure(f"interleave m={m}: launch counters did not rise")
         print(f"kernel interleave  m={m:<10d} max|k-plain|={r['err']:.3e} "
               f"={r['rel']:.2e}·max|plain| (tol {KERNEL_TOL:g}), exact | planted "
@@ -1503,10 +1513,10 @@ def plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
         x = random_raw(2 * batch * n, seed=n)
         for sign in (-1, +1):
             kernel, args = plane_case(pf, kind, n, sign)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_plane(kind, kernel, args, x, n, batch, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
             mode = args[0].mode if kind == "chain" else (
                 f"{args[0].g1}x{args[0].g2}")
@@ -1540,8 +1550,7 @@ def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     executor and every K13 or K15 kernel of each row's route must
     launch."""
     results = []
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     for name, n, batch, dname in PLANE_ROWS:
         direction = pf.Direction(dname)
         forward = direction == pf.Direction.FORWARD
@@ -1557,10 +1566,10 @@ def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         kinds += ["bluestein"] if "bluestein" in routes else []
         x = random_raw(2 * batch * n, seed=0)
         compute = plan.compute_forward if forward else plan.compute_backward
-        before = {k: counters[k].launches for k in kinds}
+        before = {k: launched(counters[k]) for k in kinds}
         y = compute(x)
         torch.cuda.synchronize()
-        rose = {k: counters[k].launches - before[k] for k in kinds}
+        rose = {k: launched(counters[k]) - before[k] for k in kinds}
         if min(rose.values()) <= 0:
             raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
         if y.shape != x.shape or not torch.isfinite(y).all():
@@ -1585,7 +1594,7 @@ def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
         del plan, x
         torch.cuda.empty_cache()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"plane main-path launches: {launches}")
     for kind in ("deinterleave", "interleave", "chain", "bluestein"):
         if launches[kind] == 0:
@@ -1709,10 +1718,10 @@ def split_kernel_phase(pf, max_err: dict, card: str, plans: dict) -> dict:
         x = random_raw(2 * numel, seed=n)
         for sign in (-1, +1):
             kernel, args = split_case(pf, kind, case, sign, plans=plans)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_split(kind, kernel, args, x, shape, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} {case}: launch counter did not rise")
             report(kind, f"{str(case):26s} sign={sign:+d}", r)
             max_err[kind] = max(max_err.get(kind, 0.0), r["err"])
@@ -1768,8 +1777,7 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
     rows' numbers, the launches and ``{n: plan}`` of the 1D rows named in
     ``keep`` (their plans stay alive for a later kernel check)."""
     results, kept = [], {}
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     storage = (pf.ComplexStorage.SPLIT_COMPLEX if split
                else pf.ComplexStorage.INTERLEAVED_COMPLEX)
     for name, lengths, batch, dname in rows:
@@ -1792,13 +1800,13 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
         else:
             inputs = (x,)
         compute = plan.compute_forward if forward else plan.compute_backward
-        before = {k: counters[k].launches for k in kinds}
+        before = {k: launched(counters[k]) for k in kinds}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         y = compute(*inputs)
         torch.cuda.synchronize()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        rose = {k: counters[k].launches - before[k] for k in kinds}
+        rose = {k: launched(counters[k]) - before[k] for k in kinds}
         if min(rose.values()) <= 0:
             raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
         planes = y if split else y.view(-1, 2).unbind(-1)
@@ -1836,7 +1844,7 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
             kept[n] = plan
         del plan, inputs, plain
         torch.cuda.empty_cache()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"{'SPLIT' if split else 'plane rows'} main-path launches: {launches}")
     for kind in must_launch:
         if launches[kind] == 0:
@@ -1937,11 +1945,11 @@ def stride_kernel_phase(pf, max_err: dict, card: str) -> tuple:
 
     alone = None
     for name, m, split in STRIDE_CASES:
-        before = cuda_stride.destride.launches + cuda_stride.restride.launches
+        before = launched(cuda_stride.destride) + launched(cuda_stride.restride)
         r = check_stride(name, m, split)
         torch.cuda.synchronize()
         # destride, two restrides, each with its shifted-offset fault
-        if cuda_stride.destride.launches + cuda_stride.restride.launches != before + 6:
+        if launched(cuda_stride.destride) + launched(cuda_stride.restride) != before + 6:
             raise SmokeFailure(f"K7 {name}: launch counters did not rise by 6")
         print(f"kernel destride/restride {name:20s} {m} "
               f"{'planes' if split else 'interleaved'} max|k-plain|={r['err']:.1e} "
@@ -2023,8 +2031,7 @@ def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
     from portfft_tpu_torch.utils.layout import rows_1d
 
     results = []
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     fwd = pf.Direction.FORWARD
     for name, n, batch, split, fields, give_out in rows:
         storage = (pf.ComplexStorage.SPLIT_COMPLEX if split
@@ -2044,13 +2051,13 @@ def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
         def compute():
             return plan.compute_forward(*args, out=out)
 
-        before = {k: counters[k].launches for k in kinds}
+        before = {k: launched(counters[k]) for k in kinds}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         y = compute()
         torch.cuda.synchronize()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        rose = {k: counters[k].launches - before[k] for k in kinds}
+        rose = {k: launched(counters[k]) - before[k] for k in kinds}
         if min(rose.values()) <= 0:
             raise SmokeFailure(f"{name}: a kernel of the path was not launched: {rose}")
         width = 1 if split else 2
@@ -2100,7 +2107,7 @@ def layout_main_path(pf, counters: dict, card: str, rows=LAYOUT_ROWS,
         results.append((name, kinds, n, batch, ms, plain_ms, library_ms))
         del plan, x, out, args, plain
         torch.cuda.empty_cache()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"layout main-path launches: {launches}")
     for kind in required:
         if launches[kind] == 0:
@@ -2150,10 +2157,10 @@ def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
         for direction, sign in ((pf.Direction.FORWARD, -1),
                                 (pf.Direction.BACKWARD, +1)):
             kernel, args = tuned_kernel(plan, kind, direction)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_kernel(kind, kernel, args, x, n, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
             report(kind, f"{g1}x{g2} batch={batch:<6d} {direction.value:8s}", r)
             name = KERNEL_OF.get(kind, kind)
@@ -2196,8 +2203,7 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
 
     os.environ.pop("PORTFFT_NO_TUNING", None)
     winners = {}
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     fwd = pf.Direction.FORWARD
     try:
         for name, n, batch in TUNED_ROWS:
@@ -2214,13 +2220,13 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
                 if plan._raw_fast[fwd][-1] != kind:
                     raise SmokeFailure(f"{name}: the recorded {kind} did not route")
                 counter = counters[KERNEL_OF.get(kind, kind)]
-                before = counter.launches
+                before = launched(counter)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 y = plan.compute_forward(x)
                 torch.cuda.synchronize()
                 peak_gib = torch.cuda.max_memory_allocated() / 2**30
-                if counter.launches != before + 1:
+                if launched(counter) != before + 1:
                     raise SmokeFailure(f"{name}: {kind} was not launched once")
                 if y.shape != x.shape or not torch.isfinite(y).all():
                     raise SmokeFailure(f"{name} {kind}: output not finite")
@@ -2259,7 +2265,7 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             torch.cuda.empty_cache()
     finally:
         os.environ["PORTFFT_NO_TUNING"] = "1"
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"tuned main-path launches: {launches}")
     print("autotune winners (global2, "
           f"{card}): {json.dumps(winners, sort_keys=True)}")
@@ -2347,10 +2353,10 @@ def fused_kernel_phase(pf, max_err: dict, card: str) -> dict:
         for direction, sign in ((pf.Direction.FORWARD, -1),
                                 (pf.Direction.BACKWARD, +1)):
             kernel, args = fused_kernel(plan, kind, direction)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_kernel(kind, kernel, args, x, n, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"{kind} n={n}: launch counter did not rise")
             tile = f" bt={args[2]}" if len(args) == 4 else ""
             report(kind, f"n={n:<6d} batch={batch:<7d}{tile} {direction.value:8s}", r)
@@ -2411,10 +2417,10 @@ def fused_shipped_path(pf, counters: dict, card: str) -> list:
             raise SmokeFailure(f"real_large: route {inner[5]}, but the shipped "
                                f"table holds {params} for fused2/n{n // 2}")
         x = random_raw(batch * n, seed=0)
-        before = {k: counters[k].launches for k in ("untangle", engine)}
+        before = {k: launched(counters[k]) for k in ("untangle", engine)}
         y = plan.compute_forward(x)
         torch.cuda.synchronize()
-        rose = {k: counters[k].launches - before[k] for k in before}
+        rose = {k: launched(counters[k]) - before[k] for k in before}
         if min(rose.values()) <= 0:
             raise SmokeFailure(f"real_large: a kernel was not launched: {rose}")
         excess = real_oracle_excess(y, x, n, batch, -1, 1.0)
@@ -2460,8 +2466,7 @@ def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
 
     os.environ.pop("PORTFFT_NO_TUNING", None)
     winners = {}
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     fwd = pf.Direction.FORWARD
     try:
         for name, n, batch in TUNED_FUSED_ROWS:
@@ -2478,13 +2483,13 @@ def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
                 plan = desc.commit(device="cuda")
                 if plan._raw_fast[fwd][5] != kind:
                     raise SmokeFailure(f"{name}: the recorded {kind} did not route")
-                before = counters[kind].launches
+                before = launched(counters[kind])
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 y = plan.compute_forward(x)
                 torch.cuda.synchronize()
                 peak_gib = torch.cuda.max_memory_allocated() / 2**30
-                if counters[kind].launches != before + 1:
+                if launched(counters[kind]) != before + 1:
                     raise SmokeFailure(f"{name}: {kind} was not launched once")
                 if y.shape != x.shape or not torch.isfinite(y).all():
                     raise SmokeFailure(f"{name} {kind}: output not finite")
@@ -2535,7 +2540,7 @@ def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             torch.cuda.empty_cache()
     finally:
         os.environ["PORTFFT_NO_TUNING"] = "1"
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"tuned FUSED main-path launches: {launches}")
     print(f"autotune winners (fused2, {card}): {json.dumps(winners, sort_keys=True)}")
     for kind in FUSED_KINDS:
@@ -2576,10 +2581,10 @@ def mma_kernel_phase(pf, max_err: dict, card: str) -> dict:
         for sign in (-1, +1):
             scale = 0.5 if sign < 0 else 2.0 / n
             kernel, args = md_kernel_case(pf, "col_mm", shape, sign, scale)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_md("col_mm", kernel, args, x, shape, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"col_mm {shape}: launch counter did not rise")
             report("col_mm", f"{str(shape):18s} sign={sign:+d}", r)
             max_err["col_mm"] = max(max_err.get("col_mm", 0.0), r["err"])
@@ -2609,10 +2614,10 @@ def mma_kernel_phase(pf, max_err: dict, card: str) -> dict:
         for direction, sign in ((pf.Direction.FORWARD, -1),
                                 (pf.Direction.BACKWARD, +1)):
             kernel, args = tuned_kernel(plan, "global3", direction)
-            before = kernel.launches
+            before = launched(kernel)
             r = check_kernel("global3", kernel, args, x, n, sign)
             torch.cuda.synchronize()
-            if kernel.launches != before + 2:  # the call and the planted fault
+            if launched(kernel) != before + 2:  # the call and the planted fault
                 raise SmokeFailure(f"global3 n={n}: launch counter did not rise")
             report("global3", f"{g1}x{g2} batch={batch:<6d} {direction.value:8s}", r)
             max_err["global3"] = max(max_err.get("global3", 0.0), r["err"])
@@ -2650,8 +2655,7 @@ def tuned_md_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
 
     os.environ.pop("PORTFFT_NO_TUNING", None)
     winners = {}
-    for c in counters.values():
-        c.launches = 0
+    reset_launches()
     try:
         for name, lengths, batch, dname, bi in MD_ROWS:
             direction = pf.Direction(dname)
@@ -2684,10 +2688,10 @@ def tuned_md_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
                         "md2" in static and bool(params.get("m2", 1))):
                     raise SmokeFailure(f"{name}: {params} routed {kinds}")
                 compute = plan.compute_forward if forward else plan.compute_backward
-                before = {k: counters[k].launches for k in kinds}
+                before = {k: launched(counters[k]) for k in kinds}
                 y = compute(x)
                 torch.cuda.synchronize()
-                rose = {k: counters[k].launches - before[k] for k in kinds}
+                rose = {k: launched(counters[k]) - before[k] for k in kinds}
                 if min(rose.values()) <= 0:
                     raise SmokeFailure(f"{name} {params}: a kernel of the path was "
                                        f"not launched: {rose}")
@@ -2730,7 +2734,7 @@ def tuned_md_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             torch.cuda.empty_cache()
     finally:
         os.environ["PORTFFT_NO_TUNING"] = "1"
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     print(f"tuned multi-dim main-path launches: {launches}")
     print(f"autotune winners (multidim/bi_col, {card}): "
           f"{json.dumps(winners, sort_keys=True)}")

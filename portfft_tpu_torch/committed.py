@@ -62,7 +62,9 @@ from .enums import ComplexStorage, Direction, Domain, Placement
 from .exceptions import InvalidConfiguration, UnsupportedConfiguration
 from .ops.torch_fft import TwiddleBank, collect_bank_keys
 from .planner import plan_1d
-from .utils.logging import trace
+from .utils import tracing
+from .utils.logging import TRACES_ENABLED, trace
+from .utils.tracing import PROFILER
 
 
 def resolve_device(device) -> torch.device:
@@ -140,12 +142,13 @@ class CommittedDescriptor:
             direction: fastpath.build_fn(self, entry)
             for direction, entry in self._raw_fast.items()
         }
-        trace(
-            "committed:",
-            self.plan_description(),
-            f"device={self.device}",
-            {dn.value: e[0] for dn, e in self._raw_fast.items()},
-        )
+        if TRACES_ENABLED:
+            trace(
+                "committed:",
+                self.plan_description(),
+                f"device={self.device}",
+                {dn.value: e[0] for dn, e in self._raw_fast.items()},
+            )
 
     # -- public API ----------------------------------------------------------
 
@@ -190,6 +193,14 @@ class CommittedDescriptor:
     # -- internals -----------------------------------------------------------
 
     def _compute(self, direction, x, x_imag, out, out_imag):
+        """One call, inside the span ``portfft.call`` while a profiler
+        records (``utils.tracing``)."""
+        if PROFILER._is_profiler_enabled:
+            return tracing.run("portfft.call", self._call, direction, x, x_imag,
+                               out, out_imag, note=direction.value)
+        return self._call(direction, x, x_imag, out, out_imag)
+
+    def _call(self, direction, x, x_imag, out, out_imag):
         d = self.descriptor
         if d.placement == Placement.IN_PLACE and (
             out is not None or out_imag is not None

@@ -157,7 +157,9 @@ from .ops import (
 )
 from .ops.torch_fft import fold_factor, is_two_stage
 from .utils import logging as plog
+from .utils import tracing
 from .utils.layout import Rows, get_layout, rows_1d
+from .utils.tracing import PROFILER
 
 
 class RawFastUnavailable(UnsupportedConfiguration):
@@ -329,6 +331,7 @@ def _tuned_engine(committed, plan0, batch: int) -> tuple[str | None, int]:
     key = tuning._entry_key(committed, kind, plan0.n)
     params = tuning.lookup(committed.config.name, kind, key)
     if params is None:
+        tracing.tuned("miss")
         return kind, 0
     engine = _engine_of(params, plan0)
     bt = _tile_of(engine, params)
@@ -337,12 +340,23 @@ def _tuned_engine(committed, plan0, batch: int) -> tuple[str | None, int]:
                    f"batch {batch}; the kernel picks its tile")
         bt = 0
     if engine_supported(engine, plan0, batch, bt):
+        tracing.tuned("hit")
         return engine, bt
+    tracing.tuned("declined")
     reason = f"the gate of {engine} declines {plan0.describe()}"
     tuning.mark_stale_if_tuned(committed, kind, reason, plan0.n)
     plog.warn(f"stale tuned entry {kind}/{key} {params}: {reason}; "
               f"{'K3' if kind == 'global2' else 'K2'} runs")
     return kind, 0
+
+
+def _counted_lookup(committed, kind: str) -> dict:
+    """The tuned parameters of the committed shape's ``kind`` entry
+    (``multidim``, ``bi_col``), or ``{}``; the outcome is counted."""
+    params = tuning.lookup(committed.config.name, kind,
+                           tuning._entry_key(committed, kind))
+    tracing.tuned("miss" if params is None else "hit")
+    return params or {}
 
 
 def _tuned_kind(plan0) -> str | None:
@@ -596,8 +610,7 @@ def _register_multidim(committed, params: dict | None = None) -> dict:
                    plans[lengths[-1]], 1, -1, 1.0) is None:
         return _register_core(committed, split=False)
     if params is None:
-        params = tuning.lookup(committed.config.name, "multidim",
-                               tuning._entry_key(committed, "multidim")) or {}
+        params = _counted_lookup(committed, "multidim")
     total = batch * math.prod(lengths)
     plan_last = plans[lengths[-1]]
     plan_a = plans[lengths[-2]] if lengths[-2] > 1 else None
@@ -727,8 +740,7 @@ def register(committed) -> dict:
             and _col_axis_ok(plan0, committed.config)):
         # the (n, batch) buffer is one column transform with bpre = 1, on
         # the column kernel of the bi_col tuning kind
-        params = tuning.lookup(committed.config.name, "bi_col",
-                               tuning._entry_key(committed, "bi_col")) or {}
+        params = _counted_lookup(committed, "bi_col")
         kernel = _col_kernel(plan0, params)
         return _with_layout(d, {
             direction: ("bi_col", 1, plan0, batch, sign,
@@ -841,8 +853,11 @@ def plane_fn(committed, entry, plain: bool = False):
     keys, arrays = committed._bank_keys, committed._bank_arrays
 
     def walk(xr, xi):
-        return torch_exec.exec_plan(xr.view(batch, n), xi.view(batch, n),
-                                    plan0, sign, keys, arrays, leaf)
+        args = (xr.view(batch, n), xi.view(batch, n), plan0, sign, keys, arrays,
+                leaf)
+        if PROFILER._is_profiler_enabled:
+            return tracing.run("portfft.exec", torch_exec.exec_plan, *args)
+        return torch_exec.exec_plan(*args)
 
     return _interleaved(walk, scale, plain)
 
@@ -896,9 +911,11 @@ def core_fn(committed, entry, plain: bool = False):
     shape = (batch, *lengths)
 
     def walk(xr, xi, s=1.0):
-        return torch_exec.core_inner(xr.view(shape), xi.view(shape), lengths,
-                                     plans, sign, keys, arrays, leaf, axis_fn,
-                                     s)
+        args = (xr.view(shape), xi.view(shape), lengths, plans, sign, keys,
+                arrays, leaf, axis_fn, s)
+        if PROFILER._is_profiler_enabled:
+            return tracing.run("portfft.exec", torch_exec.core_inner, *args)
+        return torch_exec.core_inner(*args)
 
     if not split:
         return _interleaved(walk, scale, plain)

@@ -15,6 +15,7 @@ import torch
 
 from ..enums import Level
 from ..planner import Plan1D
+from ..utils import tracing
 from . import _build
 from .cuda_fft import SubTables, require_cuda, rows_plain, stream_of
 from .cuda_io import check_plane
@@ -57,6 +58,7 @@ def axis_m2_plain(xr: torch.Tensor, xi: torch.Tensor, bpre: int, rest: int,
             (yi * scale).transpose(1, 2).contiguous().reshape(xi.shape))
 
 
+@tracing.kernel("K12", ("sliced_kernel",))
 def axis_m2(xr: torch.Tensor, xi: torch.Tensor, bpre: int, rest: int,
             sub: SubTables, scale: float = 1.0):
     """K12: the ``sub.m``-point transform over axis 1 of the (bpre, sub.m,
@@ -79,9 +81,7 @@ def axis_m2(xr: torch.Tensor, xi: torch.Tensor, bpre: int, rest: int,
             None if q is None else q.data_ptr(), sub.m, sub.a, *sub.pointers(),
             bpre, rest, scale, stream_of(xr))
     _build.check(lib, err, "axis_m2 kernel")
-    axis_m2.launches += 1
     return yr, yi
 
 
-axis_m2.launches = 0
 axis_m2.plain = axis_m2_plain

@@ -26,6 +26,7 @@ import torch
 from ..enums import Level
 from ..exceptions import InvalidConfiguration
 from ..planner import Plan1D
+from ..utils import tracing
 from ..utils.logging import _env_flag
 from . import _build
 from .cuda_fft import SubTables, require_cuda, rows_plain, stream_of, sub_tables
@@ -192,18 +193,15 @@ def _launch(name: str, xr, xi, t: BluesteinTables, scale: float, plain):
     return yr, yi
 
 
+@tracing.kernel("K15", ("blue_pass1", "blue_pass2", "blue_pass3"))
 def bluestein(xr: torch.Tensor, xi: torch.Tensor, t: BluesteinTables,
               scale: float = 1.0):
     """K15: the ``t.n``-point transform of each row of the (b, n) planes,
     times ``scale``; returns new (b, n) planes.  Three launches through
     two float2 buffers of b·g1·g2 elements each."""
-    y = _launch("bluestein", xr, xi, t, scale, bluestein_plain)
-    if xr.is_cuda:
-        bluestein.launches += 1
-    return y
+    return _launch("bluestein", xr, xi, t, scale, bluestein_plain)
 
 
-bluestein.launches = 0
 bluestein.plain = bluestein_plain
 
 
@@ -257,15 +255,12 @@ def bluestein_bf_plain(xr: torch.Tensor, xi: torch.Tensor, t: BluesteinTables,
     return yr.contiguous(), yi.contiguous()
 
 
+@tracing.kernel("K15-bf", ("bf_pass1", "bf_pass2", "bf_pass3"))
 def bluestein_bf(xr: torch.Tensor, xi: torch.Tensor, t: BluesteinTables,
                  scale: float = 1.0):
     """K15-bf: K15's function in the butterfly mode (``t.bf`` tables),
     three launches as K15."""
-    y = _launch("bluestein_bf", xr, xi, t, scale, bluestein_bf_plain)
-    if xr.is_cuda:
-        bluestein_bf.launches += 1
-    return y
+    return _launch("bluestein_bf", xr, xi, t, scale, bluestein_bf_plain)
 
 
-bluestein_bf.launches = 0
 bluestein_bf.plain = bluestein_bf_plain

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from ..planner import Plan1D, stage_shapes
+from ..utils import tracing
 from . import _build
 from .cuda_fft import SubTables, require_cuda, rows_plain, stream_of, sub_tables
 from .cuda_io import check_plane
@@ -111,6 +112,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@tracing.kernel("K13", ("chain_kernel", "pass_kernel"))
 def chain(xr: torch.Tensor, xi: torch.Tensor, tabs: ChainTables):
     """K13: the ``tabs.n``-point transform of the last axis of the planes
     ``(xr, xi)``; returns new planes of the same shape.  Past 8192 points
@@ -147,9 +149,7 @@ def chain(xr: torch.Tensor, xi: torch.Tensor, tabs: ChainTables):
                 _ptr(scratch), sub.m, sub.a, *sub.pointers(), rows,
                 stream_of(xr))
     _build.check(lib, err, "chain kernel")
-    chain.launches += 1
     return yr, yi
 
 
-chain.launches = 0
 chain.plain = chain_plain

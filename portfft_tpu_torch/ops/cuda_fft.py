@@ -29,6 +29,7 @@ import torch
 from ..config import H100_SMEM_PER_BLOCK
 from ..exceptions import InvalidConfiguration
 from ..planner import Plan1D, two_stage_smem_bytes
+from ..utils import tracing
 from . import _build
 from .torch_fft import (
     complex_matmul,
@@ -147,6 +148,7 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@tracing.kernel("K1", ("direct_kernel",))
 def direct(raw, batch: int, sub: SubTables, scale: float, out=None):
     """K1: ``batch`` DIRECT transforms of length ``sub.m``.  ``out`` (may
     be ``raw`` itself) receives the result; otherwise a new tensor."""
@@ -162,14 +164,13 @@ def direct(raw, batch: int, sub: SubTables, scale: float, out=None):
             batch, sub.m, scale, stream_of(raw),
         )
     _build.check(lib, err, "direct kernel")
-    direct.launches += 1
     return y
 
 
-direct.launches = 0
 direct.plain = rows_plain_raw
 
 
+@tracing.kernel("K2", ("fused2_kernel",))
 def fused2(raw, batch: int, sub: SubTables, scale: float, out=None):
     """K2: ``batch`` FUSED [a, 128] transforms of length ``sub.m``.  For
     n > 8192 the kernel runs as two launches through a scratch buffer the
@@ -190,11 +191,9 @@ def fused2(raw, batch: int, sub: SubTables, scale: float, out=None):
             *sub.pointers(), batch, sub.a, scale, stream_of(raw),
         )
     _build.check(lib, err, "fused2 kernel")
-    fused2.launches += 1
     return y
 
 
-fused2.launches = 0
 fused2.plain = rows_plain_raw
 
 
@@ -262,6 +261,7 @@ def _launch_fused(name: str, raw, batch: int, sub: SubTables, tail: tuple,
     return y
 
 
+@tracing.kernel("K2-v1", ("fused2_v1_kernel",))
 def fused2_v1(raw, batch: int, sub: SubTables, scale: float, out=None):
     """K2-v1: ``batch`` FUSED [a, 128] transforms of length ``sub.m``, any
     a whose transform fits a block (``fused2_v1_supported``), in one
@@ -273,12 +273,9 @@ def fused2_v1(raw, batch: int, sub: SubTables, scale: float, out=None):
             f"fused2_v1: a = {sub.a} does not fit a block's shared memory")
     if raw.device.type == "cpu":
         return into(out, fused2_v1_plain(raw, batch, sub, scale))
-    y = _launch_fused("fused2_v1", raw, batch, sub, (scale,), out)
-    fused2_v1.launches += 1
-    return y
+    return _launch_fused("fused2_v1", raw, batch, sub, (scale,), out)
 
 
-fused2_v1.launches = 0
 fused2_v1.plain = fused2_v1_plain
 
 
@@ -295,6 +292,7 @@ def _folded(engine: str, raw, batch: int, sub: SubTables, bt: int) -> int:
     return bt
 
 
+@tracing.kernel("K2-v2", ("fused2_v2_kernel",))
 def fused2_v2(raw, batch: int, sub: SubTables, bt: int, scale: float,
               out=None):
     """K2-v2: ``batch`` FUSED [a, 128] transforms (a with a fold), ``bt``
@@ -302,15 +300,13 @@ def fused2_v2(raw, batch: int, sub: SubTables, bt: int, scale: float,
     bt = _folded("fused2_v2", raw, batch, sub, bt)
     if raw.device.type == "cpu":
         return into(out, fused2_v2_plain(raw, batch, sub, bt, scale))
-    y = _launch_fused("fused2_v2", raw, batch, sub, (bt, scale), out)
-    fused2_v2.launches += 1
-    return y
+    return _launch_fused("fused2_v2", raw, batch, sub, (bt, scale), out)
 
 
-fused2_v2.launches = 0
 fused2_v2.plain = fused2_v2_plain
 
 
+@tracing.kernel("K2-v3", ("fused2_v3_kernel",))
 def fused2_v3(raw, batch: int, sub: SubTables, bt: int, scale: float,
               out=None):
     """K2-v3: ``batch`` FUSED [a, 128] transforms (a with a fold), ``bt``
@@ -319,10 +315,7 @@ def fused2_v3(raw, batch: int, sub: SubTables, bt: int, scale: float,
     bt = _folded("fused2_v3", raw, batch, sub, bt)
     if raw.device.type == "cpu":
         return into(out, fused2_v3_plain(raw, batch, sub, bt, scale))
-    y = _launch_fused("fused2_v3", raw, batch, sub, (bt, scale), out)
-    fused2_v3.launches += 1
-    return y
+    return _launch_fused("fused2_v3", raw, batch, sub, (bt, scale), out)
 
 
-fused2_v3.launches = 0
 fused2_v3.plain = fused2_v3_plain

@@ -34,6 +34,7 @@ from ..config import H100_CLUSTER, H100_SMEM_PER_BLOCK
 from ..enums import Level
 from ..exceptions import InvalidConfiguration
 from ..planner import Plan1D
+from ..utils import tracing
 from . import _build
 from .cuda_fft import (
     SubTables,
@@ -96,6 +97,7 @@ def global2_plain(
     return interleave(cr.transpose(1, 2), ci.transpose(1, 2), scale)
 
 
+@tracing.kernel("K3", ("global2_kernel",))
 def global2(
     raw, batch: int, sub1: SubTables, sub2: SubTables, tr, ti, scale: float,
     out=None,
@@ -117,11 +119,9 @@ def global2(
             tr.data_ptr(), ti.data_ptr(), batch, scale, stream_of(raw),
         )
     _build.check(lib, err, "global2 kernel")
-    global2.launches += 1
     return y
 
 
-global2.launches = 0
 global2.plain = global2_plain
 
 
@@ -182,6 +182,7 @@ def global2_ftw_plain(raw: torch.Tensor, batch: int, t: Global2FtwTables,
     return interleave(cr.transpose(1, 2), ci.transpose(1, 2), scale)
 
 
+@tracing.kernel("K3-ftw", ("global2_ftw_kernel", "global2_kernel"))
 def global2_ftw(raw, batch: int, t: Global2FtwTables, scale: float, out=None):
     """K3-ftw: K3 (``global2``) with pass 1's twiddle formed in the kernel
     from the factored tables ``t.q`` (``csrc/fft_ftw.cuh``, shared with
@@ -202,11 +203,9 @@ def global2_ftw(raw, batch: int, t: Global2FtwTables, scale: float, out=None):
             *[p.data_ptr() for pair in t.q for p in pair],
             batch, scale, stream_of(raw))
     _build.check(lib, err, "global2_ftw kernel")
-    global2_ftw.launches += 1
     return y
 
 
-global2_ftw.launches = 0
 global2_ftw.plain = global2_ftw_plain
 
 
@@ -252,6 +251,7 @@ def global_sq_supported(plan: Plan1D) -> bool:
     return sq_cluster(plan) > 0
 
 
+@tracing.kernel("K4", ("global_sq_kernel",))
 def global_sq(
     raw, batch: int, sub1: SubTables, sub2: SubTables, tr, ti, scale: float,
     out=None,
@@ -277,11 +277,9 @@ def global_sq(
             tr.data_ptr(), ti.data_ptr(), batch, scale, stream_of(raw),
         )
     _build.check(lib, err, "global_sq kernel")
-    global_sq.launches += 1
     return y
 
 
-global_sq.launches = 0
 global_sq.plain = global2_plain
 
 
@@ -369,6 +367,7 @@ def global3_plain(raw: torch.Tensor, batch: int, t: Global3Tables,
     return interleave(cr, ci, scale)
 
 
+@tracing.kernel("K16", ("g3_pass1", "g3_pass2"))
 def global3(raw, batch: int, t: Global3Tables, scale: float, out=None):
     """K16: ``batch`` GLOBAL transforms of length ``t.n`` in two launches on
     the tensor cores (``csrc/fft_global3.cu``).  The wrapper allocates the
@@ -391,11 +390,9 @@ def global3(raw, batch: int, t: Global3Tables, scale: float, out=None):
             t.b2[0].data_ptr(), t.b2[1].data_ptr(), t.ga, t.gb, t.sign, batch,
             scale, stream_of(raw))
     _build.check(lib, err, "global3 kernel")
-    global3.launches += 1
     return y
 
 
-global3.launches = 0
 global3.plain = global3_plain
 
 
@@ -541,6 +538,7 @@ def global_fused_plain(raw: torch.Tensor, batch: int, t: GlobalFusedTables,
     return torch.cat(out)
 
 
+@tracing.kernel("K17", ("fused_kernel",))
 def global_fused(raw, batch: int, t: GlobalFusedTables, scale: float, out=None):
     """K17: ``batch`` GLOBAL transforms of length ``t.n`` in one cooperative
     launch (``csrc/fft_global_fused.cu``): K3's pass 1 of each transform
@@ -566,11 +564,9 @@ def global_fused(raw, batch: int, t: GlobalFusedTables, scale: float, out=None):
             t.sub2.m, t.sub2.a, *t.sub2.pointers(), t.t1, t.t2, *tw, *q,
             batch, t.chunk, scale, stream_of(raw))
     _build.check(lib, err, "global_fused kernel")
-    global_fused.launches += 1
     return y
 
 
-global_fused.launches = 0
 global_fused.plain = global_fused_plain
 
 
@@ -618,6 +614,7 @@ def global2_planes_plain(xr: torch.Tensor, xi: torch.Tensor, t: Global2Tables,
     return yr.contiguous(), yi.contiguous()
 
 
+@tracing.kernel("K14", ("sliced_kernel",))
 def global2_planes(xr: torch.Tensor, xi: torch.Tensor, t: Global2Tables,
                    scale: float = 1.0, post: tuple | None = None):
     """K14: the ``t.n``-point GLOBAL transform of each row of the (re, im)
@@ -652,9 +649,7 @@ def global2_planes(xr: torch.Tensor, xi: torch.Tensor, t: Global2Tables,
             t.tw[0].data_ptr(), t.tw[1].data_ptr(), pr, pi, b, scale,
             stream_of(xr))
     _build.check(lib, err, "global2_planes kernel")
-    global2_planes.launches += 1
     return yr, yi
 
 
-global2_planes.launches = 0
 global2_planes.plain = global2_planes_plain

@@ -38,6 +38,7 @@ import torch
 from ..config import H100_L2_BYTES, H100_SMEM_PER_BLOCK
 from ..enums import Level
 from ..planner import Plan1D
+from ..utils import tracing
 from . import _build
 from .cuda_fft import check_buffer, interleave, into, require_cuda, stream_of
 from .torch_fft import (
@@ -258,36 +259,31 @@ def launch_sweep(entry: str, raw, batch: int, t: BfTables, scale: float, out,
     return y
 
 
+@tracing.kernel("K5", ("sweep_kernel",))
 def global_bf(raw, batch: int, t: BfTables, scale: float, out=None):
     """K5: ``batch`` GLOBAL transforms of length ``t.g1 · t.g2`` in one
     cooperative launch: per chunk of ``t.chunk`` transforms, pass 1 into
     a scratch slot, a grid-wide barrier, pass 2 into ``out`` (may be
     ``raw``), a barrier.  The wrapper allocates the scratch slot."""
-    y = launch_sweep("global_bf", raw, batch, t, scale, out, 1)
-    if raw.is_cuda:
-        global_bf.launches += 1
-    return y
+    return launch_sweep("global_bf", raw, batch, t, scale, out, 1)
 
 
-global_bf.launches = 0
 global_bf.plain = global_bf_plain
 
 
+@tracing.kernel("K5-ov", ("overlay_kernel",))
 def global_bf_ov(raw, batch: int, t: BfTables, scale: float, out=None):
     """K5-ov: K5's function with the phase-overlay schedule: round r runs
     pass 1 of chunk r and pass 2 of chunk r − 1 over two scratch slots,
     one grid-wide barrier a round.  No output is written before its
     transform's pass 2."""
-    y = launch_sweep("global_bf_ov", raw, batch, t, scale, out, 2)
-    if raw.is_cuda:
-        global_bf_ov.launches += 1
-    return y
+    return launch_sweep("global_bf_ov", raw, batch, t, scale, out, 2)
 
 
-global_bf_ov.launches = 0
 global_bf_ov.plain = global_bf_plain
 
 
+@tracing.kernel("K19", ("sweep_kernel",))
 def global_bf2(raw, batch: int, t: BfTables, scale: float, out=None):
     """K19: K5's function and schedule with the low twiddle factor GB not
     streamed: each block holds B1ᵀ and B2 (``t.lo``, at ``BF2_T1`` = 128
@@ -298,13 +294,9 @@ def global_bf2(raw, batch: int, t: BfTables, scale: float, out=None):
     if t.gb is not None or not t.lo:
         raise ValueError("global_bf2 takes the resident tables "
                          "(bf_tables(..., resident=True))")
-    y = launch_sweep("global_bf2", raw, batch, t, scale, out, 1)
-    if raw.is_cuda:
-        global_bf2.launches += 1
-    return y
+    return launch_sweep("global_bf2", raw, batch, t, scale, out, 1)
 
 
 #: K19's plain version: K5's decomposition with GB formed from its factors.
 global_bf2_plain = global_bf_plain
-global_bf2.launches = 0
 global_bf2.plain = global_bf2_plain

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from ..enums import Level
 from ..planner import Plan1D
+from ..utils import tracing
 from .cuda_global_bf import BfTables, bf_tile, global_bf_plain, launch_sweep
 from .torch_fft import ilv_factor
 
@@ -56,16 +57,13 @@ def global_ilv_supported(plan: Plan1D) -> bool:
 global_ilv_plain = global_bf_plain
 
 
+@tracing.kernel("K18", ("sweep_kernel",))
 def global_ilv(raw, batch: int, t: BfTables, scale: float, out=None):
     """K18: ``batch`` GLOBAL transforms of length ``t.g1 · t.g2`` in one
     cooperative launch, K5's schedule (per chunk of ``t.chunk`` transforms,
     pass 1 into a scratch slot in L2, a grid-wide barrier, pass 2 into
     ``out``, which may be ``raw``) with the mixed-radix slab DFTs."""
-    y = launch_sweep("global_ilv", raw, batch, t, scale, out, 1)
-    if raw.is_cuda:
-        global_ilv.launches += 1
-    return y
+    return launch_sweep("global_ilv", raw, batch, t, scale, out, 1)
 
 
-global_ilv.launches = 0
 global_ilv.plain = global_ilv_plain

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..exceptions import InvalidConfiguration
+from ..utils import tracing
 from . import _build
 from .cuda_fft import check_buffer, require_cuda, stream_of
 
@@ -35,6 +36,7 @@ def deinterleave_plain(raw: torch.Tensor):
     return x[:, 0].contiguous(), x[:, 1].contiguous()
 
 
+@tracing.kernel("K6-de", ("deinterleave_kernel",))
 def deinterleave(raw: torch.Tensor):
     """K6: ``raw`` (flat float32, ``2·m`` scalars) -> ``(re, im)``, two new
     flat planes of ``m``."""
@@ -50,11 +52,9 @@ def deinterleave(raw: torch.Tensor):
         err = lib.pf_deinterleave(raw.data_ptr(), re.data_ptr(), im.data_ptr(),
                                   m, stream_of(raw))
     _build.check(lib, err, "deinterleave kernel")
-    deinterleave.launches += 1
     return re, im
 
 
-deinterleave.launches = 0
 deinterleave.plain = deinterleave_plain
 
 
@@ -63,6 +63,7 @@ def interleave_plain(re: torch.Tensor, im: torch.Tensor, scale: float):
     return (torch.stack((re.reshape(-1), im.reshape(-1)), dim=-1) * scale).reshape(-1)
 
 
+@tracing.kernel("K6-in", ("interleave_kernel",))
 def interleave(re: torch.Tensor, im: torch.Tensor, scale: float, out=None):
     """K6: planes ``re``, ``im`` of ``m`` elements -> the flat interleaved
     buffer of ``2·m`` scalars.  The direction's scale is folded in here: the
@@ -88,9 +89,7 @@ def interleave(re: torch.Tensor, im: torch.Tensor, scale: float, out=None):
         err = lib.pf_interleave(re.data_ptr(), im.data_ptr(), y.data_ptr(), m,
                                 scale, stream_of(re))
     _build.check(lib, err, "interleave kernel")
-    interleave.launches += 1
     return y
 
 
-interleave.launches = 0
 interleave.plain = interleave_plain

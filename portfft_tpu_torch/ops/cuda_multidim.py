@@ -27,6 +27,7 @@ import torch
 
 from ..enums import Level
 from ..planner import Plan1D
+from ..utils import tracing
 from . import _build
 from .cuda_fft import (
     SubTables,
@@ -133,6 +134,7 @@ def col_plain(raw: torch.Tensor, bpre: int, rest: int, sub: SubTables,
     return interleave(yr.transpose(1, 2), yi.transpose(1, 2), scale)
 
 
+@tracing.kernel("K10", ("sliced_kernel",))
 def col(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
     """K10: the ``sub.m``-point transform over axis 1 of the ``(bpre,
     sub.m, rest)`` complex view of ``raw``.  ``out`` (may be ``raw``
@@ -153,11 +155,9 @@ def col(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
             sub.m, sub.a, *sub.pointers(), bpre, rest, scale, stream_of(raw),
         )
     _build.check(lib, err, "col kernel")
-    col.launches += 1
     return y
 
 
-col.launches = 0
 col.plain = col_plain
 
 
@@ -209,6 +209,7 @@ def col_mm_plain(raw: torch.Tensor, bpre: int, rest: int, sub: SubTables,
     return interleave(yr, yi, scale)
 
 
+@tracing.kernel("K10-mm", ("col_mm_kernel",))
 def col_mm(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
     """K10-mm: K10's function (the ``sub.m``-point transform over axis 1 of
     the ``(bpre, sub.m, rest)`` complex view of ``raw``) on the tensor
@@ -225,11 +226,9 @@ def col_mm(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
         err = lib.pf_col_mm(raw.data_ptr(), y.data_ptr(), sub.m, sub.a,
                             *sub.pointers(), bpre, rest, scale, stream_of(raw))
     _build.check(lib, err, "col_mm kernel")
-    col_mm.launches += 1
     return y
 
 
-col_mm.launches = 0
 col_mm.plain = col_mm_plain
 
 
@@ -249,6 +248,7 @@ def md2_plain(raw: torch.Tensor, batch: int, sub1: SubTables, sub2: SubTables,
     return torch.view_as_real(c).reshape(-1)
 
 
+@tracing.kernel("K11", ("md2_kernel",))
 def md2(raw, batch: int, sub1: SubTables, sub2: SubTables, scale: float,
         out=None):
     """K11: ``batch`` 2D transforms of shape ``(sub1.m, sub2.m)``, one block
@@ -266,9 +266,7 @@ def md2(raw, batch: int, sub1: SubTables, sub2: SubTables, scale: float,
             sub2.m, sub2.a, *sub2.pointers(), batch, scale, stream_of(raw),
         )
     _build.check(lib, err, "md2 kernel")
-    md2.launches += 1
     return y
 
 
-md2.launches = 0
 md2.plain = md2_plain

@@ -23,6 +23,7 @@ import dataclasses
 import torch
 
 from ..exceptions import InvalidConfiguration
+from ..utils import tracing
 from . import _build
 from .cuda_fft import check_buffer, interleave, require_cuda, stream_of
 from .torch_fft import complex_mul, full_fp32_matmuls
@@ -149,6 +150,7 @@ def _half_length(kernel_name: str, src, batch, h, wr, wi, scale, out_numel,
     return out
 
 
+@tracing.kernel("K8a", ("untangle_kernel",))
 def untangle(z, batch: int, h: int, wr, wi, scale: float):
     """K8a: the raw Z spectrum of ``batch`` h-point forward transforms ->
     the interleaved half spectra of length n = 2h.  ``wr``/``wi``: the
@@ -159,14 +161,13 @@ def untangle(z, batch: int, h: int, wr, wi, scale: float):
     require_cuda(z, "untangle")
     _check_tables(z, h, "untangle", wr, wi)
     x = _half_length("untangle", z, batch, h, wr, wi, scale, batch * (2 * h + 2))
-    untangle.launches += 1
     return x
 
 
-untangle.launches = 0
 untangle.plain = untangle_plain
 
 
+@tracing.kernel("K8a-w", ("untangle_wide_kernel",))
 def untangle_wide(z, batch: int, h: int, wr, wi, scale: float):
     """K8a-w: K8a's function (``untangle``) in column chunks, for the
     shapes :func:`wide_supported` takes (the kernel itself takes any h ≥ 2 and
@@ -178,14 +179,13 @@ def untangle_wide(z, batch: int, h: int, wr, wi, scale: float):
     _check_tables(z, h, "untangle_wide", wr, wi)
     x = _half_length("untangle_wide", z, batch, h, wr, wi, scale,
                      batch * (2 * h + 2))
-    untangle_wide.launches += 1
     return x
 
 
-untangle_wide.launches = 0
 untangle_wide.plain = untangle_wide_plain
 
 
+@tracing.kernel("K8b", ("retangle_kernel",))
 def retangle(x, batch: int, h: int, wr, wi, scale: float, drop: bool = False):
     """K8b: ``batch`` interleaved half spectra of length n = 2h -> the raw
     Z spectrum that the h-point backward transform turns into the reals.
@@ -199,14 +199,13 @@ def retangle(x, batch: int, h: int, wr, wi, scale: float, drop: bool = False):
     _check_tables(x, h, "retangle", wr, wi)
     z = _half_length("retangle", x, batch, h, wr, wi, scale, 2 * batch * h,
                      int(drop))
-    retangle.launches += 1
     return z
 
 
-retangle.launches = 0
 retangle.plain = retangle_plain
 
 
+@tracing.kernel("K9", ("small_real_fwd_kernel", "small_real_bwd_kernel"))
 def small_real(raw, batch: int, tabs: SmallRealTables):
     """K9: ``batch`` whole REAL transforms of even length ``tabs.n`` ≤ 512:
     forward (``tabs.sign`` < 0) ``batch·n`` reals -> ``batch·(n+2)``
@@ -228,9 +227,7 @@ def small_real(raw, batch: int, tabs: SmallRealTables):
             batch, n, tabs.sign, tabs.scale, stream_of(raw),
         )
     _build.check(lib, err, "small_real kernel")
-    small_real.launches += 1
     return y
 
 
-small_real.launches = 0
 small_real.plain = small_real_plain

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..exceptions import InvalidConfiguration
+from ..utils import tracing
 from . import _build
 from .cuda_fft import require_cuda, stream_of
 
@@ -87,6 +88,7 @@ def destride_plain(x, o: int, s: int, dist: int, n: int, batch: int):
     return tuple(ys) if isinstance(x, tuple) else ys[0]
 
 
+@tracing.kernel("K7-de", ("destride_rows", "destride_tile"))
 def destride(x, o: int, s: int, dist: int, n: int, batch: int):
     """K7: the layout's elements of ``x`` -> new packed (batch, n) rows, of
     the kind of ``x`` (a raw tensor or a (re, im) pair)."""
@@ -104,11 +106,9 @@ def destride(x, o: int, s: int, dist: int, n: int, batch: int):
                               second[1], width, o, s, dist, n, batch,
                               stream_of(planes[0]))
     _build.check(lib, err, "destride kernel")
-    destride.launches += 1
     return ys if isinstance(x, tuple) else ys[0]
 
 
-destride.launches = 0
 destride.plain = destride_plain
 
 
@@ -125,6 +125,7 @@ def restride_plain(y, o: int, s: int, dist: int, n: int, batch: int, out,
     return out
 
 
+@tracing.kernel("K7-re", ("restride_rows", "restride_fill_rows", "restride_tile"))
 def restride(y, o: int, s: int, dist: int, n: int, batch: int, out,
              fill_gaps: bool):
     """K7: packed (batch, n) rows ``y`` -> the layout's elements of ``out``
@@ -151,9 +152,7 @@ def restride(y, o: int, s: int, dist: int, n: int, batch: int, out,
                               min(t.numel() for t in outs) // width, int(fill_gaps),
                               stream_of(planes[0]))
     _build.check(lib, err, "restride kernel")
-    restride.launches += 1
     return out
 
 
-restride.launches = 0
 restride.plain = restride_plain

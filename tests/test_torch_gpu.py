@@ -28,6 +28,7 @@ from chip_smoke import (
     real_case,
 )
 from portfft_tpu_torch import fastpath
+from portfft_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.gpu
 
@@ -64,7 +65,7 @@ def test_kernel_matches_plain(cuda, n, batch, kind, inplace):
         entry = plan._raw_fast[direction]
         assert entry[0] == kind
         kernel, args = fastpath.kernel_args(plan, entry)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         want = kernel.plain(x, *args)
         if inplace:
             got = x.clone()
@@ -72,7 +73,7 @@ def test_kernel_matches_plain(cuda, n, batch, kind, inplace):
         else:
             got = kernel(x, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
 
@@ -155,11 +156,11 @@ def test_real_kernel_matches_plain(cuda, n, batch, kinds):
     for direction, want_kind in zip(pf.Direction, kinds):
         kind, kernel, args, inp, _ = real_case(plan, direction, x, spec)
         assert kind == want_kind
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         want = kernel.plain(inp, *args)
         got = kernel(inp, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
 
@@ -217,7 +218,7 @@ def test_multidim_kernels_match_plain(cuda, lengths, batch, kinds, inplace):
         for kind, kernel, args in steps:
             x = torch.from_numpy(
                 rng.uniform(-1, 1, 2 * batch * n).astype(np.float32)).to(cuda)
-            before = kernel.launches
+            before = tracing.launches(kernel.kernel)
             want = kernel.plain(x, *args)
             if inplace:
                 got = x.clone()
@@ -225,7 +226,7 @@ def test_multidim_kernels_match_plain(cuda, lengths, batch, kinds, inplace):
             else:
                 got = kernel(x, *args)
             torch.cuda.synchronize()
-            assert kernel.launches == before + 1
+            assert tracing.launches(kernel.kernel) == before + 1
             err = (got - want).abs().max().item()
             assert err <= KERNEL_TOL * want.abs().max().item(), (kind, direction, err)
 
@@ -307,11 +308,11 @@ def test_plane_kernel_matches_plain(cuda, n, batch, kind):
               .to(cuda) for _ in range(2))
     for sign in (-1, +1):
         kernel, args = plane_case(pf, kind, n, sign)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         yr, yi = kernel(xr, xi, *args)
         wr, wi = kernel.plain(xr, xi, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         peak = max(wr.abs().max().item(), wi.abs().max().item())
         err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
         assert err <= KERNEL_TOL * peak, (sign, err)
@@ -378,11 +379,11 @@ def test_global2_planes_matches_plain(cuda, g1, g2, batch, post_n):
         np.float32)).to(cuda) for _ in range(2))
     for sign in (-1, +1):
         kernel, args = global2_planes_case(pf, g1, g2, sign, post_n)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         yr, yi = kernel(xr, xi, *args)
         wr, wi = kernel.plain(xr, xi, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         peak = max(wr.abs().max().item(), wi.abs().max().item())
         err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
         assert err <= KERNEL_TOL * peak, (sign, err)
@@ -402,11 +403,11 @@ def test_axis_m2_matches_plain(cuda, shape):
               .to(cuda) for _ in range(2))
     for sign in (-1, +1):
         kernel, args = axis_case(pf, shape, sign)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         yr, yi = kernel(xr, xi, *args)
         wr, wi = kernel.plain(xr, xi, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         peak = max(wr.abs().max().item(), wi.abs().max().item())
         err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
         assert err <= KERNEL_TOL * peak, (sign, err)
@@ -495,22 +496,22 @@ def test_k7_matches_plain_exactly(cuda, m, split):
         return b if split else (b,)
 
     x, y = buf(count), buf(batch * n)
-    before = cuda_stride.destride.launches
+    before = tracing.launches(cuda_stride.destride.kernel)
     got = cuda_stride.destride(x, *m)
     want = cuda_stride.destride.plain(x, *m)
     torch.cuda.synchronize()
-    assert cuda_stride.destride.launches == before + 1
+    assert tracing.launches(cuda_stride.destride.kernel) == before + 1
     assert all(torch.equal(g, w) for g, w in zip(planes(got), planes(want)))
     overlapping = batch > 1 and s <= dist < (n - 1) * s + 1
     for fill in (True, False):
         if overlapping:
             break  # rows that overlap are read-only layouts
         out, ref = buf(count, -5.0), buf(count, -5.0)
-        before = cuda_stride.restride.launches
+        before = tracing.launches(cuda_stride.restride.kernel)
         assert cuda_stride.restride(y, *m, out, fill) is out
         cuda_stride.restride.plain(y, *m, ref, fill)
         torch.cuda.synchronize()
-        assert cuda_stride.restride.launches == before + 1
+        assert tracing.launches(cuda_stride.restride.kernel) == before + 1
         assert all(torch.equal(g, w) for g, w in zip(planes(out), planes(ref)))
 
 
@@ -586,10 +587,10 @@ def _check_layout_route(n, batch, split, fields, give_out, in_place, kinds):
     rows = list(range(batch))
     ref = torch.fft.fft(sampled(x, src, rows))
     counters = _launch_counters()
-    before = {k: counters[k].launches for k in kinds}
+    before = {k: tracing.launches(counters[k].kernel) for k in kinds}
     y = plan.compute_forward(*planes, out=out)
     torch.cuda.synchronize()
-    assert all(counters[k].launches > before[k] for k in kinds)
+    assert all(tracing.launches(counters[k].kernel) > before[k] for k in kinds)
     if in_place or give_out:
         assert all(a is b for a, b in zip(planes if in_place else
                                           (out if split else (out,)),
@@ -689,7 +690,7 @@ def test_tuned_engine_matches_plain_and_oracle(cuda, engine, params, n, batch,
         entry = fastpath.with_engine(plan, plan._raw_fast[direction], params)
         kernel, args = fastpath.kernel_args(plan, entry)
         assert kernel.__name__ == engine
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         want = kernel.plain(x, *args)
         if inplace:
             got = x.clone()
@@ -697,7 +698,7 @@ def test_tuned_engine_matches_plain_and_oracle(cuda, engine, params, n, batch,
         else:
             got = kernel(x, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
         ref = (torch.fft.fft(xc) if direction == pf.Direction.FORWARD
@@ -729,10 +730,10 @@ def test_tuned_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatc
         kernel = getattr(cuda_global if engine in ("global_sq", "global3")
                          else cuda_global_bf, engine)
         x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         y = plan.compute_forward(x)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         ref = torch.fft.fft(x.to(torch.complex128))
         diff = (y.reshape(batch, n).to(torch.complex128) - ref).abs().max()
         assert diff.item() <= oracle_tol(n)
@@ -784,7 +785,7 @@ def test_fused2_engine_matches_plain_and_oracle(cuda, engine, n, batch, bt, inpl
         batch_, sub, scale_ = args
         assert scale_ == scale
         args = (batch_, sub, scale) if bt is None else (batch_, sub, bt, scale)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         plain_args = args if bt != 0 else (batch_, sub, cuda_fft.pick_tile(
             engine, sub.a, batch), scale)
         want = kernel.plain(x, *plain_args)
@@ -794,7 +795,7 @@ def test_fused2_engine_matches_plain_and_oracle(cuda, engine, n, batch, bt, inpl
         else:
             got = kernel(x, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
         ref = (torch.fft.fft(xc) if direction == pf.Direction.FORWARD
@@ -839,10 +840,10 @@ def test_tuned_fused2_route_runs_its_kernel(cuda, tmp_path, monkeypatch, fields,
         kernel = getattr(cuda_fft, engine)
         stride = fields.get("forward_strides", [1])[0]
         x = torch.rand(batch * n * stride * (1 if real else 2), device=cuda) * 2 - 1
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         y = plan.compute_forward(x)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         if real:
             ref = torch.fft.rfft(x.view(batch, n).double())
             got = torch.view_as_complex(y.view(batch, n // 2 + 1, 2))
@@ -879,7 +880,7 @@ def test_col_mm_matches_plain_and_oracle(cuda, shape, inplace):
     xc = torch.view_as_complex(x.view(bpre, n, rest, 2)).to(torch.complex128)
     for sign, scale in ((-1, 0.5), (+1, 3.0 / n)):
         kernel, args = md_kernel_case(pf, "col_mm", shape, sign, scale)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         want = kernel.plain(x, *args)
         if inplace:
             got = x.clone()
@@ -887,7 +888,7 @@ def test_col_mm_matches_plain_and_oracle(cuda, shape, inplace):
         else:
             got = kernel(x, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (sign, err)
         ref = (torch.fft.fft(xc, dim=1) if sign < 0
@@ -935,10 +936,11 @@ def test_tuned_md_route_runs_its_kernels(cuda, tmp_path, monkeypatch, lengths,
         for direction, compute in ((pf.Direction.FORWARD, plan.compute_forward),
                                    (pf.Direction.BACKWARD, plan.compute_backward)):
             assert tuple(md_kinds(plan._raw_fast[direction])) == kinds
-            before = cuda_multidim.col_mm.launches
+            before = tracing.launches(cuda_multidim.col_mm.kernel)
             y = compute(x)
             torch.cuda.synchronize()
-            assert cuda_multidim.col_mm.launches - before == kinds.count("col_mm")
+            rose = tracing.launches(cuda_multidim.col_mm.kernel) - before
+            assert rose == kinds.count("col_mm")
             ref = (torch.fft.fftn(xc, dim=dims) if direction == pf.Direction.FORWARD
                    else torch.fft.ifftn(xc, dim=dims, norm="forward"))
             diff = (torch.view_as_complex(y.view(*shape, 2)) - ref).abs().max()
@@ -973,11 +975,11 @@ def test_real_half_length_takes_the_shipped_engine(cuda, tmp_path, monkeypatch):
         for direction in pf.Direction:
             assert plan._raw_fast[direction][1][-1] == "global_fused"
         x = torch.rand(batch, n, device=cuda) * 2 - 1
-        before = cuda_global.global_fused.launches
+        before = tracing.launches(cuda_global.global_fused.kernel)
         spec = plan.compute_forward(x.reshape(-1))
         back = plan.compute_backward(spec)
         torch.cuda.synchronize()
-        assert cuda_global.global_fused.launches == before + 2
+        assert tracing.launches(cuda_global.global_fused.kernel) == before + 2
         ref = torch.fft.rfft(x.double())
         got = torch.view_as_complex(spec.view(batch, n // 2 + 1, 2))
         assert (got.to(torch.complex128) - ref).abs().max().item() <= oracle_tol(n)
@@ -1048,7 +1050,7 @@ def test_sweep_engine_matches_plain_and_oracle(cuda, engine, g1, g2, batch):
     for sign, scale, inplace in ((-1, 0.5, False), (+1, 3.0 / n, True)):
         kernel, args = _sweep_case(engine, g1, g2, batch, sign, scale)
         assert kernel.__name__ == engine.removesuffix("_ftw")
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         want = kernel.plain(x, *args)
         if inplace:
             got = x.clone()
@@ -1056,7 +1058,7 @@ def test_sweep_engine_matches_plain_and_oracle(cuda, engine, g1, g2, batch):
         else:
             got = kernel(x, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (sign, err)
         ref = (torch.fft.fft(xc) if sign < 0
@@ -1093,11 +1095,11 @@ def test_sweep_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatc
                   "global_ilv": cuda_global_ilv.global_ilv,
                   "global_bf2": cuda_global_bf.global_bf2}[engine]
         x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         y = plan.compute_forward(x)
         back = plan.compute_backward(x)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 2
+        assert tracing.launches(kernel.kernel) == before + 2
         xd = x.to(torch.complex128)
         for got, ref in ((y, torch.fft.fft(xd)),
                          (back, torch.fft.ifft(xd, norm="forward"))):
@@ -1132,12 +1134,12 @@ def test_untangle_wide_matches_plain_and_oracle(cuda, n, batch):
                          domain=pf.Domain.REAL).commit()
     r = plan._bank_keys[("R", n, -1)]
     tabs = (plan._bank_arrays[r + "r"], plan._bank_arrays[r + "i"])
-    before = cuda_real.untangle_wide.launches
+    before = tracing.launches(cuda_real.untangle_wide.kernel)
     got = cuda_real.untangle_wide(z, batch, h, *tabs, 0.5)
     want = cuda_real.untangle_wide.plain(z, batch, h, *tabs, 0.5)
     narrow = cuda_real.untangle(z, batch, h, *tabs, 0.5)
     torch.cuda.synchronize()
-    assert cuda_real.untangle_wide.launches == before + 1
+    assert tracing.launches(cuda_real.untangle_wide.kernel) == before + 1
     peak = want.abs().max().item()
     assert (got - want).abs().max().item() <= KERNEL_TOL * peak
     assert (got - narrow).abs().max().item() <= KERNEL_TOL * peak
@@ -1189,7 +1191,7 @@ def test_global2_ftw_matches_plain_and_oracle(cuda, g1, g2, batch):
     for sign, scale, inplace in ((-1, 0.5, False), (+1, 3.0 / n, True)):
         kernel, args = _ftw_case(g1, g2, batch, sign, scale)
         assert kernel.__name__ == "global2_ftw"
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         want = kernel.plain(x, *args)
         if inplace:
             got = x.clone()
@@ -1197,7 +1199,7 @@ def test_global2_ftw_matches_plain_and_oracle(cuda, g1, g2, batch):
         else:
             got = kernel(x, *args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (sign, err)
         ref = (torch.fft.fft(xc) if sign < 0
@@ -1225,10 +1227,10 @@ def test_global2_ftw_entry_runs_on_the_main_path(cuda, tmp_path, monkeypatch):
         plan = desc.commit()
         assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global2_ftw"
         x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
-        before = cuda_global.global2_ftw.launches
+        before = tracing.launches(cuda_global.global2_ftw.kernel)
         y, back = plan.compute_forward(x), plan.compute_backward(x)
         torch.cuda.synchronize()
-        assert cuda_global.global2_ftw.launches == before + 2
+        assert tracing.launches(cuda_global.global2_ftw.kernel) == before + 2
         xd = x.to(torch.complex128)
         for got, ref in ((y, torch.fft.fft(xd)),
                          (back, torch.fft.ifft(xd, norm="forward"))):
@@ -1261,12 +1263,12 @@ def test_bluestein_bf_matches_plain_and_oracle(cuda, monkeypatch, n, batch):
     for sign, scale in ((-1, 0.5), (+1, 2.0 / n)):
         kernel, args = plane_case(pf, "bluestein_bf", n, sign)
         dense, dargs = plane_case(pf, "bluestein", n, sign)
-        before = kernel.launches
+        before = tracing.launches(kernel.kernel)
         yr, yi = kernel(xr, xi, *args, scale=scale)
         wr, wi = kernel.plain(xr, xi, *args, scale=scale)
         dr, di = dense(xr, xi, *dargs, scale=scale)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert tracing.launches(kernel.kernel) == before + 1
         peak = max(wr.abs().max().item(), wi.abs().max().item())
         for ar, ai in ((wr, wi), (dr, di)):
             err = max((yr - ar).abs().max().item(), (yi - ai).abs().max().item())
@@ -1304,13 +1306,13 @@ def test_real_plane_main_path_matches_oracle(cuda, monkeypatch, n, batch, bf):
     if bf:
         assert "bluestein_bf" in fwd[1][5].values()
         counters.append(cuda_bluestein.bluestein_bf)
-    before = [c.launches for c in counters]
+    before = [tracing.launches(c.kernel) for c in counters]
     x = random_raw(batch * n, seed=n)
     y = plan.compute_forward(x)
     spec = random_raw(batch * (n + 2), seed=n + 1)
     back = plan.compute_backward(spec)
     torch.cuda.synchronize()
-    assert all(c.launches > b for c, b in zip(counters, before))
+    assert all(tracing.launches(c.kernel) > b for c, b in zip(counters, before))
     assert y.shape == (batch * (n + 2),) and back.shape == (batch * n,)
     assert real_oracle_excess(y, x, n, batch, -1, 0.5) <= 1.0
     ref = c2r_reference(torch.view_as_complex(spec.view(batch, -1, 2)).to(

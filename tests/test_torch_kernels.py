@@ -25,6 +25,7 @@ from portfft_tpu_torch import convert
 from portfft_tpu_torch.config import DeviceConfig
 from portfft_tpu_torch.ops import cuda_fft, cuda_global, torch_fft
 from portfft_tpu_torch.planner import plan_1d
+from portfft_tpu_torch.utils import tracing
 
 REF_CFG = RefConfig(name="cpu")
 CFG = DeviceConfig()
@@ -199,9 +200,9 @@ def test_wrappers_refuse_other_devices_and_bad_buffers():
         cuda_fft.direct(torch.zeros(62), 2, sub, 1.0)
     with pytest.raises(InvalidConfiguration, match="float32"):
         cuda_fft.direct(torch.zeros(64, dtype=torch.float64), 2, sub, 1.0)
-    before = cuda_fft.direct.launches
+    before = tracing.launches(cuda_fft.direct.kernel)
     cuda_fft.direct(torch.zeros(64), 2, sub, 1.0)
-    assert cuda_fft.direct.launches == before  # the plain version launches nothing
+    assert tracing.launches(cuda_fft.direct.kernel) == before  # the plain version launches nothing
 
 
 def test_kernel_build_is_lazy_and_reports_a_missing_compiler(monkeypatch, tmp_path):

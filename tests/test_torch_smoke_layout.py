@@ -39,13 +39,13 @@ def test_stride_checks_pass_and_reject_faults(name, m, split, monkeypatch):
     assert r["err"] == 0.0 and len(r["caught"]) == 6
     assert all(v > 0.0 for v in r["caught"].values())
     late = lambda x, o, *rest: cuda_stride.destride_plain(x, o + 1, *rest)  # noqa: E731
-    late.plain, late.launches = cuda_stride.destride.plain, 0
+    late.plain = cuda_stride.destride.plain
     monkeypatch.setattr(cuda_stride, "destride", late)
     with pytest.raises(chip_smoke.SmokeFailure, match="destride"):
         chip_smoke.check_stride(name, m, split, device="cpu")
     monkeypatch.undo()
     unfilled = lambda y, *a: cuda_stride.restride_plain(y, *a[:-1], False)  # noqa: E731
-    unfilled.plain, unfilled.launches = cuda_stride.restride.plain, 0
+    unfilled.plain = cuda_stride.restride.plain
     monkeypatch.setattr(cuda_stride, "restride", unfilled)
     with pytest.raises(chip_smoke.SmokeFailure, match="restride fill_gaps=True"):
         chip_smoke.check_stride(name, m, split, device="cpu")

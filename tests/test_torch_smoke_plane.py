@@ -48,7 +48,6 @@ def test_plane_checks_reject_a_faulty_kernel(kind, n, fault):
             return kernel.plain(xr, xi, *chip_smoke.planted(kind, a))
 
         faulty.plain = kernel.plain
-        faulty.launches = 0
         with pytest.raises(chip_smoke.SmokeFailure, match=r"max\|kernel - plain\|"):
             chip_smoke.check_plane(kind, faulty, args, x, n, 2, sign)
         y = chip_smoke.on_raw(faulty, n)(x, *args)
@@ -68,13 +67,13 @@ def test_io_check_passes_and_rejects_faults(m, monkeypatch):
     for rel, exc in r["caught"].values():
         assert rel > 100 * chip_smoke.KERNEL_TOL and exc > 100 * chip_smoke.KERNEL_TOL
     swapped = lambda raw: cuda_io.deinterleave_plain(raw)[::-1]  # noqa: E731
-    swapped.plain, swapped.launches = cuda_io.deinterleave.plain, 0
+    swapped.plain = cuda_io.deinterleave.plain
     monkeypatch.setattr(cuda_io, "deinterleave", swapped)
     with pytest.raises(chip_smoke.SmokeFailure, match="deinterleave"):
         chip_smoke.check_io(m, x, 0.5)
     monkeypatch.undo()
     unscaled = lambda re, im, scale: cuda_io.interleave_plain(re, im, 1.0)  # noqa: E731
-    unscaled.plain, unscaled.launches = cuda_io.interleave.plain, 0
+    unscaled.plain = cuda_io.interleave.plain
     monkeypatch.setattr(cuda_io, "interleave", unscaled)
     with pytest.raises(chip_smoke.SmokeFailure, match="interleave"):
         chip_smoke.check_io(m, x, 0.5)

@@ -56,7 +56,6 @@ def test_split_checks_reject_a_faulty_kernel(kind, case, fault):
             return kernel.plain(xr, xi, *chip_smoke.planted(kind, a))
 
         faulty.plain = kernel.plain
-        faulty.launches = 0
         with pytest.raises(chip_smoke.SmokeFailure, match=r"max\|kernel - plain\|"):
             chip_smoke.check_split(kind, faulty, args, x, shape, sign)
 

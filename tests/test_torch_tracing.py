@@ -1,0 +1,381 @@
+"""The tracer of portfft_tpu_torch (``utils/tracing.py``) on the CPU: spans
+only while a profiler records and never on its timeline, one root a call
+with its children nested inside it, the launch registry and its CUDA
+symbols, the tuning outcomes at commit, and the benchmark's readers of
+spans and counters (``port_bench/metrics``) on synthetic traces and on a
+traced run of each cell at small batches."""
+
+import importlib.util
+import os
+import re
+import sys
+import time
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import portfft_tpu_torch as pf
+from port_bench import devtrace, run
+from port_bench.tests.conftest import ROOT, small_copy
+from portfft_tpu_torch import tuning
+from portfft_tpu_torch.utils import tracing
+from portfft_tpu_torch.utils.tracing import Span
+
+READERS = ("call_self_us", "launch_self_us", "exec_self_us", "idle_in_program_pct",
+           "tuned_pct")
+
+
+def _reader(name):
+    path = os.path.join(ROOT, "port_bench", "metrics", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"reader_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _forbid_record_function(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the tracer entered record_function")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+
+
+# Calls of each kind the table of spans names: (descriptor, input, the span
+# names of its call in order of their start).
+def _k1():
+    return pf.Descriptor(lengths=[16], number_of_transforms=4), torch.randn(2 * 4 * 16)
+
+
+def _r2c():
+    desc = pf.Descriptor(lengths=[8192], number_of_transforms=2, domain=pf.Domain.REAL)
+    return desc, torch.randn(2 * 8192)
+
+
+def _bluestein():
+    return pf.Descriptor(lengths=[20011], number_of_transforms=1), torch.randn(2 * 20011)
+
+
+CALLS = {
+    "K1": (_k1, ["portfft.call", "portfft.K1"]),
+    "R2C": (_r2c, ["portfft.call", "portfft.K2", "portfft.K8a"]),
+    "Bluestein": (_bluestein, ["portfft.call", "portfft.K6-de", "portfft.exec",
+                               "portfft.K15", "portfft.K6-in"]),
+}
+
+
+@pytest.mark.parametrize("kind", list(CALLS))
+def test_no_profiler_no_span_and_no_record_function(kind, monkeypatch):
+    """With no profiler a call records nothing, and the tracer never
+    enters ``record_function``; the counters count all the same (the R2C
+    commit looks up its half length's FUSED entry)."""
+    make, _ = CALLS[kind]
+    _forbid_record_function(monkeypatch)
+    desc, x = make()
+    before = sum(tracing.tuning_outcomes().values())
+    plan = desc.commit(device="cpu")
+    assert sum(tracing.tuning_outcomes().values()) == before + (kind == "R2C")
+    kept = tracing.spans()
+    for _ in range(2):
+        plan.compute_forward(x)
+    assert tracing.spans() == kept
+
+
+@pytest.mark.parametrize("kind", list(CALLS))
+def test_a_traced_call_is_one_root_with_nested_children(kind, monkeypatch):
+    make, names = CALLS[kind]
+    desc, x = make()
+    plan = desc.commit(device="cpu")
+    plan.compute_forward(x)
+    _forbid_record_function(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        plan.compute_forward(x)
+    (call,) = tracing.calls(1)
+    root = call.root
+    assert root.name == "portfft.call" and root.parent == -1 and root.note == "forward"
+    assert [s.name for s in sorted(call.spans, key=lambda s: s.start_ns)] == names
+    by_id = {s.id: s for s in call.spans}
+    for s in call.spans:
+        assert s.call_id == root.call_id
+        if s is not root:
+            parent = by_id[s.parent]
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+    assert len([s for s in call.spans if s.parent == -1]) == 1
+    assert not [e.name for e in prof.events() if e.name.startswith("portfft.")]
+
+
+def test_spans_follow_the_profilers_switch():
+    desc, x = _k1()
+    plan = desc.commit(device="cpu")
+    prof = profile(activities=[ProfilerActivity.CPU])
+    count = len(tracing.spans())
+    prof.start()
+    assert tracing.PROFILER._is_profiler_enabled
+    plan.compute_forward(x)
+    prof.stop()
+    assert not tracing.PROFILER._is_profiler_enabled
+    plan.compute_forward(x)
+    assert len(tracing.spans()) == min(count + 2, tracing.RING)
+
+
+def test_the_ring_keeps_the_newest_spans(monkeypatch):
+    monkeypatch.setattr(tracing, "RING", 8)
+    monkeypatch.setattr(tracing, "_ring", [None] * 8)
+    for i in range(13):
+        tracing.run(f"portfft.t{i}", lambda: None)
+    names = [s.name for s in tracing.spans()]
+    assert names == [f"portfft.t{i}" for i in range(5, 13)]
+
+
+def test_a_kernel_counts_calls_that_reach_the_card(monkeypatch):
+    monkeypatch.setattr(tracing, "KERNELS", dict(tracing.KERNELS))
+    monkeypatch.setattr(tracing, "_launches", dict(tracing._launches))
+
+    @tracing.kernel("Ktest", ("direct_kernel",))
+    def launch(x, out=None):
+        """A wrapper."""
+        return x
+
+    class OnCard:
+        is_cuda = True
+
+    assert launch.kernel == "Ktest" and launch.__doc__ == "A wrapper."
+    launch(torch.zeros(2))  # the plain version: nothing launched
+    assert tracing.launches("Ktest") == 0
+    launch(OnCard())
+    launch((OnCard(), OnCard()), out=None)
+    assert tracing.launches("Ktest") == 2
+    assert tracing.launches()["Ktest"] == 2
+    with pytest.raises(ValueError, match="twice"):
+        tracing.kernel("Ktest", ())
+    tracing.reset_launches()
+    assert set(tracing.launches().values()) == {0}
+
+
+def test_every_wrapper_is_registered_once_with_a_k_number():
+    from portfft_tpu_torch.ops import (cuda_axis, cuda_bluestein, cuda_chain, cuda_fft,
+                                       cuda_global, cuda_global_bf, cuda_global_ilv,
+                                       cuda_io, cuda_multidim, cuda_real, cuda_stride)
+
+    wrappers = [f for m in (cuda_axis, cuda_bluestein, cuda_chain, cuda_fft, cuda_global,
+                            cuda_global_bf, cuda_global_ilv, cuda_io, cuda_multidim,
+                            cuda_real, cuda_stride)
+                for f in vars(m).values() if callable(getattr(f, "plain", None))]
+    names = [f.kernel for f in wrappers]
+    assert len(names) == 30 and sorted(set(names)) == sorted(tracing.KERNELS)
+    assert all(re.fullmatch(r"K\d+[a-z]?(-[a-z0-9]+)?", n) for n in names)
+    assert not any(hasattr(f, "launches") for f in wrappers)
+
+
+def test_every_registered_symbol_is_a_global_function_of_csrc():
+    csrc = os.path.join(ROOT, "portfft_tpu_torch", "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc)))
+    found = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", text))
+    for k in tracing.KERNELS.values():
+        assert k.symbols and set(k.symbols) <= found, (k.name, set(k.symbols) - found)
+    assert found <= {s for k in tracing.KERNELS.values() for s in k.symbols}
+
+
+@pytest.mark.parametrize("op,kernels", [
+    # device operations as the benchmark's breakdown names them
+    ("_anonymous_namespace_::direct_kernel_pfft::Pass__float2_const___", ("K1",)),
+    ("void__anonymous_namespace_::fused2_v2_kernel_2__1__float2_const_", ("K2-v2",)),
+    ("_anonymous_namespace_::fused_kernel__anonymous_namespace_::Fused", ("K17",)),
+    ("_anonymous_namespace_::small_real_fwd_kernel_float_const___float", ("K9",)),
+    ("_anonymous_namespace_::untangle_kernel_float2_const___float2___f", ("K8a",)),
+    ("_anonymous_namespace_::blue_pass2_pfft::Pass__pfft::Sub__float_c", ("K15",)),
+    ("_anonymous_namespace_::deinterleave_kernel_float2_const___float_", ("K6-de",)),
+    ("_anonymous_namespace_::interleave_kernel_float_const___float_con", ("K6-in",)),
+    # as the profiler names them
+    ("void pfft_bf::sweep_kernel<false>(pfft_bf::Bf)", ("K5", "K19", "K18")),
+    ("(anonymous namespace)::global2_kernel(pfft::Pass, float2 const*, float2*)",
+     ("K3", "K3-ftw")),
+    ("Memset (Device)", ()),
+])
+def test_device_operation_names_map_to_k_numbers(op, kernels):
+    assert tracing.kernels_of(op) == kernels
+
+
+# -- tuning outcomes at commit ------------------------------------------------
+
+
+@pytest.fixture
+def tmp_cache(tmp_path, monkeypatch):
+    monkeypatch.delenv("PORTFFT_NO_TUNING", raising=False)
+    monkeypatch.setattr(tuning, "_USER_PATH", str(tmp_path / "port.json"))
+    tuning._reset_for_tests()
+    yield
+    tuning._reset_for_tests()
+
+
+def _bi(n, batch):
+    return dict(forward_strides=[batch], backward_strides=[batch], forward_distance=1,
+                backward_distance=1)
+
+
+@pytest.mark.parametrize("outcome,lengths,batch,kw,kind,params", [
+    ("hit", [4096], 2, {}, "fused2", {}),
+    ("miss", [4096], 2, {}, None, None),
+    ("declined", [1 << 18], 1, {}, "global2", {"eng": 5}),  # past K4's cluster
+    ("hit", [512, 512], 1, {}, "multidim", {"m2": 0}),
+    ("miss", [4096], 4, _bi(4096, 4), None, None),  # the bi_col kind
+])
+def test_tuning_outcomes_are_counted_once_a_commit(tmp_cache, outcome, lengths, batch,
+                                                   kw, kind, params):
+    desc = pf.Descriptor(lengths=lengths, number_of_transforms=batch, **kw)
+    if kind is not None:
+        key = tuning._entry_key(desc.commit(device="cpu"), kind)
+        tuning.record("cpu", kind, key, params)
+    before = tracing.tuning_outcomes()
+    desc.commit(device="cpu")
+    after = tracing.tuning_outcomes()
+    rose = {k: after[k] - before[k] for k in after}
+    assert rose == {k: int(k == outcome) for k in after}
+
+
+def test_a_direct_or_plane_commit_looks_nothing_up(tmp_cache):
+    before = tracing.tuning_outcomes()
+    for n in (16, 20011):
+        pf.Descriptor(lengths=[n], number_of_transforms=1).commit(device="cpu")
+    assert tracing.tuning_outcomes() == before
+
+
+# -- the benchmark's readers ----------------------------------------------------
+
+US = 1000  # ns
+
+
+def _call(call_id, first_id, t0, self_us, children=(), offset_s=0.0):
+    """The spans of one call: a root at ``t0`` (µs, on the program's clock
+    less ``offset_s``) lasting ``self_us`` plus its children's time;
+    ``children`` are ``(name, start_us, us, grandchildren)``, a child's
+    start relative to the root's and a grandchild's to its parent's."""
+    base = int(offset_s * 1e9) + t0 * US
+    spans, ids = [], iter(range(first_id, first_id + 100))
+    rid = next(ids)
+    end = base + self_us * US + sum(c[2] for c in children) * US
+
+    def add(name, start, length, parent, kids):
+        sid = next(ids)
+        spans.append(Span(name, base + start * US, base + (start + length) * US, parent,
+                          call_id, sid))
+        for k in kids:
+            add(k[0], start + k[1], k[2], sid, ())
+
+    for name, start, length, kids in children:
+        add(name, start, length, rid, kids)
+    spans.insert(0, Span("portfft.call", base, end, -1, call_id, rid, "forward"))
+    return spans
+
+
+def _record(spans_prog, computes, ops, start, end, monkeypatch):
+    monkeypatch.setattr(tracing, "spans", lambda: sorted(spans_prog, key=lambda s: s.id))
+    trace = devtrace.Trace(ops=ops, spans=[("compute_forward", lo, hi) for lo, hi in computes]
+                           + [("traced_window", start, end)], start=start, end=end, rounds=1)
+    return run.Record(specs=[], setup_s=0.0, commit_s=[], calls=[], window_s=1.0,
+                      peak_bytes=0, trace=trace)
+
+
+def test_self_times_with_nested_children(monkeypatch):
+    # root 100 µs: K1 20 µs, exec 50 µs holding K15 30 µs, 30 µs its own
+    kids = [("portfft.K1", 10, 20, ()),
+            ("portfft.exec", 40, 50, [("portfft.K15", 10, 30)])]
+    spans = _call(1, 0, 0, 30, kids)
+    rec = _record(spans, [(0.0, 1e-3)], [], 0.0, 1e-3, monkeypatch)
+    assert _reader("call_self_us").read(rec) == pytest.approx(30.0)
+    assert _reader("exec_self_us").read(rec) == pytest.approx(20.0)
+    assert _reader("launch_self_us").read(rec) == pytest.approx(50.0)
+
+
+def test_exec_self_us_needs_an_executor_walk(monkeypatch):
+    spans = _call(1, 0, 0, 10, [("portfft.K1", 2, 5, ())])
+    rec = _record(spans, [(0.0, 1e-3)], [], 0.0, 1e-3, monkeypatch)
+    assert _reader("exec_self_us").read(rec) is None
+    assert _reader("launch_self_us").read(rec) == pytest.approx(5.0)
+
+
+def _idle_case(offset_s, jitter_us, monkeypatch):
+    """A 10 ms segment: device busy 0–1, 2–5.5 and 7.5–10 ms; the harness's
+    compute spans 1–3 and 5–7 ms; the program's calls 1–2.8 and 5–6.8 ms,
+    on a clock ``offset_s`` ahead, the second start ``jitter_us`` late.
+    Idle 3 ms (30%), 2.3 ms of it inside a call (23%)."""
+    spans = (_call(1, 0, 1000, 1800, offset_s=offset_s)
+             + _call(2, 10, 5000 + jitter_us, 1800 - jitter_us, offset_s=offset_s))
+    ms = 1e-3
+    ops = [("k", 0.0, 1 * ms), ("k", 2 * ms, 5.5 * ms), ("k", 7.5 * ms, 10 * ms)]
+    return _record(spans, [(1 * ms, 3 * ms), (5 * ms, 7 * ms)], ops, 0.0, 10 * ms,
+                   monkeypatch)
+
+
+@pytest.mark.parametrize("offset_s", [0.0, 123.456789])
+def test_idle_in_program_splits_a_gap_at_a_planted_offset(offset_s, monkeypatch):
+    rec = _idle_case(offset_s, 0, monkeypatch)
+    idle = _reader("idle_in_program_pct").read(rec)
+    assert idle == pytest.approx(23.0, abs=1e-6)
+    device = (1 - rec.trace.busy_s() / rec.trace.window_s) * 100
+    assert device == pytest.approx(30.0) and idle <= device
+
+
+def test_idle_in_program_refuses_a_wide_offset_spread(monkeypatch):
+    assert _reader("idle_in_program_pct").read(_idle_case(5.0, 10, monkeypatch)) is not None
+    assert _reader("idle_in_program_pct").read(_idle_case(5.0, 50, monkeypatch)) is None
+
+
+def test_idle_in_program_needs_device_operations(monkeypatch):
+    spans = _call(1, 0, 0, 10)
+    rec = _record(spans, [(0.0, 1e-3)], [], 0.0, 1e-3, monkeypatch)
+    assert _reader("idle_in_program_pct").read(rec) is None
+
+
+def test_readers_take_the_last_segments_calls_after_a_retake(monkeypatch):
+    # three calls of an earlier segment (1 ms of their own), then the two
+    # of the segment the trace holds (10 µs)
+    old = [s for i in range(3) for s in _call(i + 1, 10 * i, 1000 * i, 1000)]
+    new = [s for i in range(2) for s in _call(i + 4, 100 + 10 * i, 10000 + 100 * i, 10)]
+    rec = _record(old + new, [(0.010, 0.0101), (0.0101, 0.0102)], [], 0.010, 0.0102,
+                  monkeypatch)
+    assert _reader("call_self_us").read(rec) == pytest.approx(10.0)
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_readers_return_none_without_the_tracer(name, monkeypatch):
+    import portfft_tpu_torch.utils as utils
+
+    rec = _idle_case(0.0, 0, monkeypatch)
+    monkeypatch.delattr(utils, "tracing")
+    monkeypatch.setitem(sys.modules, "portfft_tpu_torch.utils.tracing", None)
+    assert _reader(name).read(rec) is None
+
+
+def test_tuned_pct_reads_the_counters(monkeypatch):
+    monkeypatch.setattr(tracing, "_tuning", {"hit": 3, "miss": 1, "declined": 0})
+    assert _reader("tuned_pct").read(None) == pytest.approx(75.0)
+    monkeypatch.setattr(tracing, "_tuning", {"hit": 0, "miss": 0, "declined": 0})
+    assert _reader("tuned_pct").read(None) is None
+
+
+@pytest.fixture(scope="module")
+def small_bench(tmp_path_factory):
+    return run.Bench(small_copy(str(tmp_path_factory.mktemp("small"))))
+
+
+@pytest.mark.parametrize("cell", ["c2c_1d.bulk", "r2c_1d.bulk", "c2c_1d.nonsmooth"])
+def test_a_traced_run_reports_the_cells_new_metrics(cell, small_bench, monkeypatch):
+    env = dict(os.environ)
+    run.pin_environment(env)
+    for key in [k for k in os.environ if k.startswith("PORTFFT_") and k not in env]:
+        monkeypatch.delenv(key)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(tracing, "_tuning", {"hit": 0, "miss": 0, "declined": 0})
+    result = run.run_cell(small_bench, pf, cell, 2**31 + 7, 3.0, True, "cpu", {},
+                          time.perf_counter())
+    assert result["correct"]
+    listed = {m["name"] for m in small_bench.spec["per_layer"]
+              if m["name"] in READERS and cell in m["workloads"]}
+    # the CPU run has no device operations to be idle between
+    assert set(result["metrics"]) & set(READERS) == listed - {"idle_in_program_pct"}
+    for name in listed - {"idle_in_program_pct"}:
+        assert result["metrics"][name]["value"] >= 0
