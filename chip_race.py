@@ -8,7 +8,8 @@ instance a ``git archive`` unpacked under ``_checkout/``; default: this
 script's own directory), builds its kernels there, and times each KERNEL
 (a name of ``chip_smoke.SOURCES``, or ``restride`` or ``global_fused_ftw``,
 the factored-twiddle mode of K17; default: every one) at every shape of its
-case table in ``chip_smoke`` (``CASES``): one forward call out of place,
+case table in ``chip_smoke`` (``CASES``; K15 and K15-bf also at the shape
+``chip_smoke`` times them alone, 65537 x 2048): one forward call out of place,
 the median of 10 CUDA-event timed calls after 3 warm-up calls
 (``chip_smoke.time_ms``).  ``--batch B`` (repeatable) runs every case whose
 table gives a number of transforms, (n, batch) of a 1D kernel, (batch, n1,
@@ -94,8 +95,11 @@ def md_cases(pf, kind, batches, device):
 
 
 def plane_cases(pf, kind, batches, device):
-    table = {"chain": cs.CHAIN_CASES, "bluestein": cs.BLUESTEIN_CASES,
-             "bluestein_bf": cs.BLUESTEIN_BF_CASES}[kind]
+    # K15 and K15-bf also at the shape chip_smoke times them alone
+    table = {"chain": cs.CHAIN_CASES,
+             "bluestein": cs.BLUESTEIN_CASES + [cs.PLANE_ALONE["bluestein"]],
+             "bluestein_bf": (cs.BLUESTEIN_BF_CASES
+                              + [cs.REAL_PLANE_ALONE["bluestein_bf"]])}[kind]
     for n, batch in at(table, batches):
         kernel, args = cs.plane_case(pf, kind, n, -1, device)
         yield (f"n={n} batch={batch}", cs.on_raw(kernel, n), args,

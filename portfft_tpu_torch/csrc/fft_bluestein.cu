@@ -24,19 +24,26 @@
 //           y[b, k1' + g2*k2'] for the indices below n.
 // The TPU kernel's lane tiles and in-VMEM transposes, and its
 // (b, nv, g2) output with the slice to n in XLA, are not carried over: each
-// pass here is pfft::pass_tile's column walk (pass 2 with two DFTs in one
-// tile), and pass 3 writes the rows of y itself.  The sums are fp32 FMA
-// over the root tables on the CUDA cores.
+// pass walks the columns of fft_common.cuh's tiles (pass 2 with two
+// sub-transforms in one tile), and pass 3 writes the rows of y itself.
+// Every sub-transform runs on the radix stages of fft_radix.cuh (DIRECT as
+// Stockham stages, FUSED [a, 128] in its two stages, a prime factor above 3
+// as one generic stage), fp32 FMA over the bank's root tables.  The blocks
+// stay resident and stride over the tiles; each starts its next tile's
+// loads (pfft_radix::Prefetch) before this tile's stages, so they fly
+// while it works.  The pointwise steps (b^, the twiddles, BFIN and the
+// scale) walk the transformed tile elements fastest, so that neighbouring
+// threads read neighbouring table entries; passes 1 and 2 store in the same
+// walk, while pass 3, whose rows of y run along k1' and BFIN's along k2',
+// puts the products back in the tile and stores it along the columns.
 //
 // Bound on the H100: the function moves 16 bytes per output element, but
 // the three passes move 8*(n + 2*M) + 8*4*M bytes per transform through
-// S1 and S2 (about 11.9 GB at n = 65537, b = 2048: 3.5 ms), and do
-// 8*(2*g1' + 2*g2') flops per convolution element (g' = g for a DIRECT
-// sub, a + 128 for FUSED [a, 128]; 1536 complex multiply-adds at 384 x
-// 384), so the kernel is bound by arithmetic (in this first version, as
-// K1-K3, by shared-memory operand reads).
-#include "fft_common.cuh"
+// S1 and S2 (about 11.9 GB at n = 65537, b = 2048: 3.5 ms) against about
+// 5*log2(g) flops a point of each of the four g-point sub-transforms, so
+// the kernel is bound by bytes.
 #include "fft_global_bf.cuh"
+#include "fft_radix.cuh"
 
 namespace pfft {
 
@@ -69,44 +76,139 @@ __device__ __forceinline__ void st(const HeadPlanes& o, int64_t j, float2 v) {
 
 namespace {
 
+// K15's tiles: about kTileElems elements of kTileCols columns at most, and
+// no more shared memory than lets two blocks share an SM.  Raced on the
+// H100 (PERF.md): wider tiles read longer row segments in the column walks,
+// and a lone block on an SM waits at every stage's barrier.
+constexpr int kTileElems = 6144;
+constexpr int kTileCols = 32;
+// (228 KiB of an SM, less 1 KiB each block reserves) / 2.
+constexpr size_t kBlockSmem = (233472 - 2 * 1024) / 2;
+
 __host__ __device__ int roots_len(const pfft::Sub& s) {
   return s.a ? s.a + 128 : s.m;
 }
 
-// Passes 1 and 3: the tiles of p over the b rows, with x and y given per
-// row by the functions in and out.
-template <class In, class Out>
-__device__ void blue_tiles(const pfft::Pass& p, In in, Out out) {
-  extern __shared__ float2 smem[];
-  const pfft::TileSmem sm = pfft::tile_smem(p.sub, p.T, smem);
-  pfft::load_sub_roots(p.sub, sm);
+// For each element k of each column t of the tile res that holds data,
+// elements fastest: put(t, k, pos, scale * res[pos] * tab[(c0 + t)*cs +
+// k*ks]), pos its tile position and tab an (re, im) pair of planes; each
+// thread's table loads kPrefetch at a time in flight together.  Ends with
+// __syncthreads.  The arithmetic of tile_store's twiddle and scale.
+template <class Put>
+__device__ void times(const pfft::Pass& p, int64_t c0, const float2* res,
+                      const float* re, const float* im, int64_t cs,
+                      int64_t ks, float scale, Put put) {
+  constexpr int K = pfft_radix::kPrefetch;
+  const int m = p.sub.m;
+  const int es = pfft::tile_pitch(p.T);
+  const int total = m * p.T;
+  const int64_t left = p.ncols - c0;
+  const int tv = left < p.T ? int(left) : p.T;
+  for (int e0 = threadIdx.x; e0 < total; e0 += K * blockDim.x) {
+    float2 w[K];
+    int at[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int e = e0 + q * blockDim.x;
+      const int t = e / m;
+      const int k = e - t * m;
+      at[q] = e < total && t < tv ? pfft::tile_pos(p.sub, k) * es + t : -1;
+      if (at[q] >= 0) {
+        const int64_t i = (c0 + t) * cs + k * ks;
+        w[q] = make_float2(__ldg(re + i), __ldg(im + i));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (at[q] < 0) continue;
+      const int e = e0 + q * blockDim.x;
+      const int t = e / m;
+      const float2 v = pfft::cmul(res[at[q]], w[q]);
+      put(t, e - t * m, at[q], make_float2(scale * v.x, scale * v.y));
+    }
+  }
+  __syncthreads();
+}
+
+// The pass's twiddle and scale on the transformed tile res, and its store.
+// Where the output's elements are contiguous (passes 1 and 2) one walk,
+// elements fastest, does both; where its columns are (pass 3: the rows of
+// y run along k1', BFIN's along k2'), the product goes back to the tile
+// and tile_store writes it along the columns.
+template <class Y>
+__device__ void finish(const pfft::Pass& p, int64_t c0, float2* res, Y y) {
+  if (p.ocs != 1) {
+    const int64_t ocs = p.ocs, oks = p.oks;
+    times(p, c0, res, p.twr, p.twi, p.tcs, p.tks, p.scale,
+          [=](int t, int k, int, float2 v) {
+            pfft::st(y, (c0 + t) * ocs + k * oks, v);
+          });
+    return;
+  }
+  times(p, c0, res, p.twr, p.twi, p.tcs, p.tks, p.scale,
+        [=](int, int, int pos, float2 v) { res[pos] = v; });
+  pfft::Pass q = p;
+  q.twr = nullptr;
+  q.scale = 1.f;
+  pfft::tile_store(q, 0, c0, res, y);
+}
+
+// The tiles of p over the b rows (x of row b: in(b)): each landed in b0,
+// then work(p, b, c0).  The blocks stride over the tiles, and each issues
+// its next tile's loads before this tile's work, which never writes what
+// they read.
+template <class In, class Work>
+__device__ void blue_tiles(const pfft::Pass& p, float2* b0, In in,
+                           Work work) {
   const int64_t per = (p.ncols + p.T - 1) / p.T;
   const int64_t ntiles = p.nbatch * per;
+  pfft_radix::Prefetch f;
+  if (blockIdx.x < ntiles)
+    pfft_radix::fetch(f, p, 0, (blockIdx.x % per) * p.T, in(blockIdx.x / per));
   for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int64_t b = tile / per;
-    pfft::pass_tile(p, 0, (tile - b * per) * p.T, in(b), out(b), sm);
+    const int64_t c0 = (tile - b * per) * p.T;
+    pfft_radix::land(f, p, 0, c0, in(b), b0);
+    const int64_t next = tile + gridDim.x;
+    if (next < ntiles)
+      pfft_radix::fetch(f, p, 0, (next % per) * p.T, in(next / per));
+    work(p, b, c0);
   }
 }
 
-__global__ void __launch_bounds__(pfft::kThreads)
+__global__ void __launch_bounds__(pfft::kThreads, 2)
     blue_pass1(pfft::Pass p, pfft::ConstPlanes x, const float* cr,
                const float* ci, int64_t n, float2* s1) {
+  extern __shared__ float2 smem[];
+  const pfft::TileSmem sm = pfft::tile_smem(p.sub, p.T, smem);
+  pfft::load_sub_roots(p.sub, sm);
   const int64_t conv = int64_t(p.sub.m) * p.ncols;
   blue_tiles(
-      p,
+      p, sm.b0,
       [=](int64_t b) {
         return pfft::ChirpIn{{x.re + b * n, x.im + b * n}, cr, ci, n};
       },
-      [=](int64_t b) { return s1 + b * conv; });
+      [=](const pfft::Pass& q, int64_t b, int64_t c0) {
+        finish(q, c0,
+               pfft_radix::sub_fft(q.sub, sm.ra, sm.rb, sm.b0, sm.b1, q.T,
+                                   pfft::tile_pitch(q.T)),
+               s1 + b * conv);
+      });
 }
 
-__global__ void __launch_bounds__(pfft::kThreads)
+__global__ void __launch_bounds__(pfft::kThreads, 2)
     blue_pass3(pfft::Pass p, const float2* s2, pfft::Planes y, int64_t n) {
+  extern __shared__ float2 smem[];
+  const pfft::TileSmem sm = pfft::tile_smem(p.sub, p.T, smem);
+  pfft::load_sub_roots(p.sub, sm);
   const int64_t conv = int64_t(p.sub.m) * p.ncols;
   blue_tiles(
-      p, [=](int64_t b) { return s2 + b * conv; },
-      [=](int64_t b) {
-        return pfft::HeadPlanes{{y.re + b * n, y.im + b * n}, n};
+      p, sm.b0, [=](int64_t b) { return s2 + b * conv; },
+      [=](const pfft::Pass& q, int64_t b, int64_t c0) {
+        finish(q, c0,
+               pfft_radix::sub_fft(q.sub, sm.ra, sm.rb, sm.b0, sm.b1, q.T,
+                                   pfft::tile_pitch(q.T)),
+               pfft::HeadPlanes{{y.re + b * n, y.im + b * n}, n});
       });
 }
 
@@ -117,46 +219,32 @@ size_t pass2_smem_bytes(const pfft::Sub& s, int T) {
 
 // Pass 2: p walks the g1 columns k1 of S1 (sub: the forward g2 sub) and
 // stores S2 with the backward twiddle; sb is the backward g2 sub.
-__global__ void __launch_bounds__(pfft::kThreads)
+__global__ void __launch_bounds__(pfft::kThreads, 2)
     blue_pass2(pfft::Pass p, pfft::Sub sb, const float* hr, const float* hi,
                const float2* s1, float2* s2) {
   extern __shared__ float2 smem[];
-  const pfft::Sub& sf = p.sub;
-  const int R = roots_len(sf);
-  pfft::TileSmem fw = pfft::tile_smem(sf, p.T, smem + R);  // b0, b1 after
-  fw.ra = smem;                                            // both root sets
-  fw.rb = fw.ra + (sf.a ? sf.a : sf.m);
+  const int R = roots_len(p.sub);
+  pfft::TileSmem fw = pfft::tile_smem(p.sub, p.T, smem + R);  // b0, b1 after
+  fw.ra = smem;                                               // both root sets
+  fw.rb = fw.ra + (p.sub.a ? p.sub.a : p.sub.m);
   pfft::TileSmem bw = fw;
   bw.ra = smem + R;
   bw.rb = bw.ra + (sb.a ? sb.a : sb.m);
-  pfft::load_sub_roots(sf, fw);
+  pfft::load_sub_roots(p.sub, fw);
   pfft::load_sub_roots(sb, bw);
-  const int g2 = sf.m;
-  const int T = p.T;
-  const int es = pfft::tile_pitch(T);
-  const int64_t conv = int64_t(g2) * p.ncols;
-  const int64_t per = (p.ncols + T - 1) / T;
-  const int64_t ntiles = p.nbatch * per;
-  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t b = tile / per;
-    const int64_t c0 = (tile - b * per) * T;
-    pfft::tile_load(p, 0, c0, s1 + b * conv, fw.b0);
-    float2* r = pfft::sub_dft(sf, fw.ra, fw.rb, fw.b0, fw.b1, T, es);
-    float2* o = r == fw.b0 ? fw.b1 : fw.b0;
-    const int64_t left = p.ncols - c0;
-    const int tv = left < T ? int(left) : T;
-    for (int e = threadIdx.x; e < g2 * T; e += blockDim.x) {
-      const int k = e / T;
-      const int t = e - k * T;
-      if (t >= tv) continue;
-      const int pos = pfft::tile_pos(sf, k) * es + t;
-      const int64_t h = (c0 + t) * g2 + k;  // b^[k1, k2]
-      r[pos] = pfft::cmul(r[pos], make_float2(__ldg(hr + h), __ldg(hi + h)));
-    }
-    __syncthreads();
-    r = pfft::sub_dft(sb, bw.ra, bw.rb, r, o, T, es);
-    pfft::tile_store(p, 0, c0, r, s2 + b * conv);
-  }
+  const int64_t conv = int64_t(p.sub.m) * p.ncols;
+  blue_tiles(
+      p, fw.b0, [=](int64_t b) { return s1 + b * conv; },
+      [=](const pfft::Pass& q, int64_t b, int64_t c0) {
+        const int es = pfft::tile_pitch(q.T);
+        float2* r =
+            pfft_radix::sub_fft(q.sub, fw.ra, fw.rb, fw.b0, fw.b1, q.T, es);
+        times(q, c0, r, hr, hi, q.sub.m, 1, 1.f,  // b^[k1, k2]
+              [=](int, int, int pos, float2 v) { r[pos] = v; });
+        float2* o = r == fw.b0 ? fw.b1 : fw.b0;
+        finish(q, c0, pfft_radix::sub_fft(sb, bw.ra, bw.rb, r, o, q.T, es),
+               s2 + b * conv);
+      });
 }
 
 // K15-bf: the butterfly mode (pallas_bluestein.py bluestein_call with
@@ -381,7 +469,39 @@ int launch_bf_pass(int A, const pfft::Pass& p1, const pfft::Pass& p2,
 }
 
 bool sub_ok(const pfft::Sub& s) {
-  return s.m >= 1 && (s.a == 0 || s.a * 128 == s.m);
+  return s.m >= 1 && s.m <= pfft::kTileMax && (s.a == 0 || s.a * 128 == s.m);
+}
+
+// Columns per tile of a pass over the sub s with ncols columns (pass 2:
+// two root sets in its shared memory).
+int tile_of(const pfft::Sub& s, int64_t ncols, bool pass2) {
+  int T = pfft::pick_tile(s.m, ncols, kTileElems, kTileCols);
+  while (T > 1 && (pass2 ? pass2_smem_bytes(s, T)
+                          : pfft::pass_smem_bytes(s, T)) > kBlockSmem)
+    --T;
+  return T;
+}
+
+// Launches `kernel(args...)` on `stream` with `smem` bytes of dynamic
+// shared memory and as many blocks as the card holds at once, at most one
+// a tile (the blocks stride over the tiles): two an SM (the kernels'
+// launch bounds keep their registers to two blocks' share), one where the
+// shared memory passes kBlockSmem.  Returns a cudaError_t.
+template <class Kernel, class... Args>
+int launch_resident(Kernel kernel, size_t smem, int64_t tiles,
+                    cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return int(err);
+  const int64_t blocks = int64_t(sms) * (smem <= kBlockSmem ? 2 : 1);
+  kernel<<<unsigned(tiles < blocks ? tiles : blocks), pfft::kThreads, smem,
+           stream>>>(args...);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -424,7 +544,7 @@ extern "C" int pf_bluestein(
   p1.sub = f1;
   p1.nbatch = batch;
   p1.ncols = g2;
-  p1.T = pfft::pick_tile(g1, g2, 4096, 8);
+  p1.T = tile_of(f1, g2, false);
   p1.iis = g2;
   p1.ics = 1;
   p1.oks = 1;
@@ -434,16 +554,16 @@ extern "C" int pf_bluestein(
   p1.tcs = g1;
   p1.tks = 1;
   p1.scale = 1.f;
-  int err = pfft::launch_tiles(blue_pass1, pfft::pass_smem_bytes(f1, p1.T),
-                               pfft::pass_tiles(p1), st, p1,
-                               pfft::ConstPlanes{xr, xi}, prer, prei, n, S1);
+  int err = launch_resident(blue_pass1, pfft::pass_smem_bytes(f1, p1.T),
+                            pfft::pass_tiles(p1), st, p1,
+                            pfft::ConstPlanes{xr, xi}, prer, prei, n, S1);
   if (err) return err;
 
   pfft::Pass p2{};
   p2.sub = f2;
   p2.nbatch = batch;
   p2.ncols = g1;
-  p2.T = pfft::pick_tile(g2, g1, 4096, 8);
+  p2.T = tile_of(f2, g1, true);
   p2.iis = g1;
   p2.ics = 1;
   p2.oks = 1;
@@ -453,16 +573,16 @@ extern "C" int pf_bluestein(
   p2.tcs = g2;
   p2.tks = 1;
   p2.scale = 1.f;
-  err = pfft::launch_tiles(blue_pass2, pass2_smem_bytes(f2, p2.T),
-                           pfft::pass_tiles(p2), st, p2, b2, hatr, hati,
-                           static_cast<const float2*>(S1), S2);
+  err = launch_resident(blue_pass2, pass2_smem_bytes(f2, p2.T),
+                        pfft::pass_tiles(p2), st, p2, b2, hatr, hati,
+                        static_cast<const float2*>(S1), S2);
   if (err) return err;
 
   pfft::Pass p3{};
   p3.sub = b1;
   p3.nbatch = batch;
   p3.ncols = g2;
-  p3.T = pfft::pick_tile(g1, g2, 4096, 8);
+  p3.T = tile_of(b1, g2, false);
   p3.iis = g2;
   p3.ics = 1;
   p3.oks = g2;
@@ -472,10 +592,10 @@ extern "C" int pf_bluestein(
   p3.tcs = g1;
   p3.tks = 1;
   p3.scale = scale;
-  return pfft::launch_tiles(blue_pass3, pfft::pass_smem_bytes(b1, p3.T),
-                            pfft::pass_tiles(p3), st, p3,
-                            static_cast<const float2*>(S2),
-                            pfft::Planes{yr, yi}, n);
+  return launch_resident(blue_pass3, pfft::pass_smem_bytes(b1, p3.T),
+                         pfft::pass_tiles(p3), st, p3,
+                         static_cast<const float2*>(S2), pfft::Planes{yr, yi},
+                         n);
 }
 
 // K15-bf: pf_bluestein's function in the butterfly mode.  The same

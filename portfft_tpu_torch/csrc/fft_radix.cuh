@@ -1,6 +1,6 @@
 // Block-level mixed-radix Stockham FFT of the T columns of a tile in shared
-// memory: the sub-transform of K11 (fft_md2.cu) and K17
-// (fft_global_fused.cu), in place of fft_common.cuh's O(len) sums.
+// memory: the sub-transform of K11 (fft_md2.cu), K15 (fft_bluestein.cu)
+// and K17 (fft_global_fused.cu), in place of fft_common.cuh's O(len) sums.
 //
 // It takes fft_common.cuh's tile and Sub as they are (element i of column t
 // at tile_pos(i)*es + t, pitch es = T+1, FUSED rows padded by i/128), so a

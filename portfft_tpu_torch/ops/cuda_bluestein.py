@@ -29,7 +29,7 @@ from ..planner import Plan1D
 from ..utils import tracing
 from ..utils.logging import _env_flag
 from . import _build
-from .cuda_fft import SubTables, require_cuda, rows_plain, stream_of, sub_tables
+from .cuda_fft import SubTables, require_cuda, stream_of, sub_tables
 from .cuda_global import global2_supported
 from .cuda_io import check_plane
 from .torch_fft import (
@@ -38,6 +38,7 @@ from .torch_fft import (
     full_fp32_matmuls,
     ilv_factor,
     mixed_radix_dft,
+    radix_sub_plain,
     valid_rows,
 )
 
@@ -135,29 +136,27 @@ def bluestein_tables(plan: Plan1D, sign: int, keys: dict, arrays: dict,
 
 def bluestein_plain(xr: torch.Tensor, xi: torch.Tensor, t: BluesteinTables,
                     scale: float = 1.0):
-    """Plain version of K15: its three passes as ``torch.matmul`` calls in
-    full float32 (``cuda_fft.rows_plain`` for every DFT)."""
+    """Plain version of K15: its three passes with every sub-transform on
+    the radix stages of ``csrc/fft_radix.cuh`` (``torch_fft.radix_sub_plain``:
+    the kernel's stages, twiddle indices and orders) and the pointwise
+    steps between them, in complex64."""
     b, n, g1, g2 = xr.shape[0], t.n, t.g1, t.g2
+
+    def table(pair):
+        return torch.complex(*pair)
+
     with full_fp32_matmuls(xr):
         # pass 1: chirp, zero-extend to g1 rows, DFT down n1, forward twiddle
-        ar, ai = complex_mul(xr, xi, t.pre[0].reshape(-1)[:n],
-                             t.pre[1].reshape(-1)[:n])
-        pad = g1 * g2 - n
-        ar = torch.nn.functional.pad(ar, (0, pad)).view(b, g1, g2)
-        ai = torch.nn.functional.pad(ai, (0, pad)).view(b, g1, g2)
-        ar, ai = rows_plain(t.f1, ar.transpose(1, 2), ai.transpose(1, 2))
-        ar, ai = complex_mul(ar, ai, *t.twf)  # (b, g2, g1) [n2, k1]
+        x = torch.complex(xr, xi) * table(t.pre).reshape(-1)[:n]
+        x = torch.nn.functional.pad(x, (0, g1 * g2 - n)).view(b, g1, g2)
+        a = radix_sub_plain(t.f1, x.transpose(1, 2)) * table(t.twf)  # [n2, k1]
         # pass 2: forward DFT over n2, b̂, backward DFT, backward twiddle
-        ar, ai = rows_plain(t.f2, ar.transpose(1, 2), ai.transpose(1, 2))
-        ar, ai = complex_mul(ar, ai, *t.hat)
-        ar, ai = rows_plain(t.b2, ar, ai)
-        ar, ai = complex_mul(ar, ai, *t.twb)  # (b, g1, g2) [k1, k1']
+        a = radix_sub_plain(t.f2, a.transpose(1, 2)) * table(t.hat)  # [k1, k2]
+        a = radix_sub_plain(t.b2, a) * table(t.twb)  # [k1, k1']
         # pass 3: backward DFT down k1, final chirp, the first n outputs
-        ar, ai = rows_plain(t.b1, ar.transpose(1, 2), ai.transpose(1, 2))
-        ar, ai = complex_mul(ar, ai, *t.fin)  # (b, g2, g1) [k1', k2']
-    yr = ar.transpose(1, 2).reshape(b, g1 * g2)[:, :n] * scale
-    yi = ai.transpose(1, 2).reshape(b, g1 * g2)[:, :n] * scale
-    return yr.contiguous(), yi.contiguous()
+        a = radix_sub_plain(t.b1, a.transpose(1, 2)) * table(t.fin)  # [k1', k2']
+    y = a.transpose(1, 2).reshape(b, g1 * g2)[:, :n] * scale
+    return y.real.contiguous(), y.imag.contiguous()
 
 
 def _launch(name: str, xr, xi, t: BluesteinTables, scale: float, plain):

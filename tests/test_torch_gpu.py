@@ -1280,6 +1280,59 @@ def test_bluestein_bf_matches_plain_and_oracle(cuda, monkeypatch, n, batch):
         assert diff <= oracle_tol(n) * scale, (sign, diff)
 
 
+def _k15_plan(n):
+    """The length-n plan K15 runs; 1109 on a hand-made 40 x 56 convolution
+    (generic radix-5 and radix-7 stages), which the planner never picks."""
+    from portfft_tpu_torch.enums import Level
+    from portfft_tpu_torch.planner import Plan1D
+
+    if n != 1109:
+        return pf.Descriptor(lengths=[n]).commit(device="cuda").plans[n]
+    subs = tuple(Plan1D(n=m, level=Level.DIRECT, factors=[m]) for m in (40, 56))
+    conv = Plan1D(n=2240, level=Level.GLOBAL, factors=[], sub=subs)
+    return Plan1D(n=n, level=Level.BLUESTEIN, factors=[], conv=conv)
+
+
+#: K15 on the radix stages: 65537 (384 x 384) at 37 rows, 444 tiles a pass,
+#: which no resident grid of the card divides, so the last round of tiles
+#: is ragged; 200191 (FUSED [16, 128] x 256: passes 1 and 3 in tiles of 6
+#: of the 256 columns, the last one ragged); 1109 (40 x 56, 56 columns in
+#: tiles of 32).
+K15_CASES = [(65537, 37), (200191, 2), (1109, 5)]
+
+
+@pytest.mark.parametrize("n,batch", K15_CASES)
+def test_bluestein_matches_plain_and_oracle(cuda, n, batch):
+    """K15 against its plain version (the same radix stages in PyTorch) and
+    ``torch.fft``, both directions with a scale; each call counts one K15
+    launch."""
+    from portfft_tpu_torch.ops import cuda_bluestein, torch_fft
+
+    plan = _k15_plan(n)
+    assert cuda_bluestein.supported(plan, pf.DeviceConfig())
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(batch, n, dtype=torch.complex64, generator=gen, device=cuda)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, 0.5), (+1, 2.0 / n)):
+        bank, keys = torch_fft.TwiddleBank(np.float32), {}
+        torch_fft.collect_bank_keys(plan, sign, bank, keys)
+        t = cuda_bluestein.bluestein_tables(plan, sign, keys,
+                                            bank.device_arrays(cuda))
+        before = tracing.launches()["K15"]
+        yr, yi = cuda_bluestein.bluestein(xr, xi, t, scale=scale)
+        wr, wi = cuda_bluestein.bluestein.plain(xr, xi, t, scale=scale)
+        torch.cuda.synchronize()
+        assert tracing.launches()["K15"] == before + 1
+        peak = max(wr.abs().max().item(), wi.abs().max().item())
+        err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
+        assert err <= KERNEL_TOL * peak, (sign, err)
+        xd = x.to(torch.complex128)
+        ref = (torch.fft.fft(xd) if sign < 0
+               else torch.fft.ifft(xd, norm="forward")) * scale
+        diff = (torch.complex(yr, yi).to(torch.complex128) - ref).abs().max().item()
+        assert diff <= oracle_tol(n) * scale, (sign, diff)
+
+
 @pytest.mark.parametrize("n,batch,bf", [(1200, 5, False), (2062, 2, False),
                                         (4124, 2, False), (2 * 65537, 1, False),
                                         (2 * 65537, 2, True), (4 * 65537, 1, True),
@@ -1288,7 +1341,8 @@ def test_real_plane_main_path_matches_oracle(cuda, monkeypatch, n, batch, bf):
     """The REAL plane path both ways against ``rfft`` and the port's C2R
     (``c2r_reference``: backward spectra with nonzero Im X[0] and
     Im X[n/2]), with scales; its kernels launch (K8a-w where its gate takes
-    the shape, K15-bf with the flag)."""
+    the shape, K15-bf with the flag, K15 once a direction where h's plane
+    path takes it, as at 2·65537 without the flag)."""
     from chip_smoke import c2r_reference, real_oracle_excess, random_raw
     from portfft_tpu_torch.ops import cuda_bluestein, cuda_real
 
@@ -1306,13 +1360,16 @@ def test_real_plane_main_path_matches_oracle(cuda, monkeypatch, n, batch, bf):
     if bf:
         assert "bluestein_bf" in fwd[1][5].values()
         counters.append(cuda_bluestein.bluestein_bf)
+    k15 = "bluestein" in fwd[1][5].values()  # h's plane path runs K15
     before = [tracing.launches(c.kernel) for c in counters]
+    k15_before = tracing.launches()["K15"]
     x = random_raw(batch * n, seed=n)
     y = plan.compute_forward(x)
     spec = random_raw(batch * (n + 2), seed=n + 1)
     back = plan.compute_backward(spec)
     torch.cuda.synchronize()
     assert all(tracing.launches(c.kernel) > b for c, b in zip(counters, before))
+    assert tracing.launches()["K15"] == k15_before + (2 if k15 else 0)
     assert y.shape == (batch * (n + 2),) and back.shape == (batch * n,)
     assert real_oracle_excess(y, x, n, batch, -1, 0.5) <= 1.0
     ref = c2r_reference(torch.view_as_complex(spec.view(batch, -1, 2)).to(

@@ -201,10 +201,12 @@ def _check_rows(got, want, xr, xi, sign, scale, factor):
     assert delta <= 1e-4 * np.abs(expect).max(), delta
 
 
-@pytest.mark.parametrize("n,sign", [(16411, -1), (20011, +1)])
+@pytest.mark.parametrize("n,sign", [(16411, -1), (20011, +1), (65537, -1),
+                                    (65537, +1)])
 def test_bluestein_matches_bluestein_call(n, sign):
     """K15's plain version against ``pallas_bluestein.bluestein_call`` on
-    the reference's own tables."""
+    the reference's own tables (65537: the 384 x 384 convolution of the
+    benchmark's Bluestein cell)."""
     xr, xi = _planes(n, 2, n)
     rplan = ref_plan_1d(n, REF_CFG, 4)
     rbank = xla_fft.TwiddleBank(np.float32)

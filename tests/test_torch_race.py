@@ -26,6 +26,8 @@ SMALL = {
     "CHAIN_CASES": [(100, 2)],
     "BLUESTEIN_CASES": [(20011, 1)],
     "BLUESTEIN_BF_CASES": [(24977, 1)],
+    "PLANE_ALONE": {**cs.PLANE_ALONE, "bluestein": (16411, 1)},
+    "REAL_PLANE_ALONE": {**cs.REAL_PLANE_ALONE, "bluestein_bf": (37951, 1)},
     "GLOBAL_PLANES_CASES": [(256, 256, 1, None)],
     "AXIS_CASES": [(2, 128, 4)],
     "REAL_KERNEL_CASES": [(32, 4), (1000, 2)],

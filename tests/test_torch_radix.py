@@ -1,5 +1,5 @@
-"""The radix sub-FFT of ``csrc/fft_radix.cuh`` (K11 ``md2`` and K17
-``global_fused`` run on it) through its plain version
+"""The radix sub-FFT of ``csrc/fft_radix.cuh`` (K11 ``md2``, K15
+``bluestein`` and K17 ``global_fused`` run on it) through its plain version
 ``torch_fft.radix_sub_plain``, on the CPU.
 
 Every sub length the two kernels' gates can hand it is held to the DFT:
@@ -7,11 +7,19 @@ DIRECT 2–512 (among them the prime 509, 508 = 4·127 with its generic
 radix-127 stage and 384 = 3·2^7) against the DFT matrix, and FUSED [a, 128]
 for a in {3, 4, 8, …, 256} against ``np.fft`` in float64, both directions,
 on the port's own root tables.  Then the stage factorization the kernel
-uses (``torch_fft.radix_stages`` mirrors its ``stages``).
+uses (``torch_fft.radix_stages`` mirrors its ``stages``), and K15's plain
+version, whose four sub-transforms a row run on these stages, against
+``np.fft`` at three convolutions: DIRECT 384 x 384 (65537), FUSED [16, 128]
+x DIRECT 144 (131101) and DIRECT 40 x 56 (1109, a hand-made plan: the
+planner's convolutions are 2^a·3^b, and 40 = 5·8 and 56 = 7·8 run generic
+radix-5 and radix-7 stages).
 
 Tolerance: max|y − DFT(x)| ≤ 4·eps·log2(n)·max|DFT(x)|, the growth of a
 radix FFT's fp32 error with the number of stages (well inside the oracle's
-2·eps·N·log2N).  Inputs are made with numpy from a seed.
+2·eps·N·log2N).  For K15 n is the convolution's length M = g1·g2: its four
+sub-transforms run 2·log2(M) stages between them, at 2·eps a stage, and
+the chirp, b̂ and twiddle products add a few eps (measured: 0.13–0.16
+eps·log2(M)).  Inputs are made with numpy from a seed.
 """
 
 import math
@@ -24,7 +32,7 @@ import torch
 
 from portfft_tpu_torch.config import DeviceConfig
 from portfft_tpu_torch.enums import Level
-from portfft_tpu_torch.ops import cuda_fft, torch_fft
+from portfft_tpu_torch.ops import cuda_bluestein, cuda_fft, torch_fft
 from portfft_tpu_torch.planner import Plan1D, plan_1d
 
 CFG = DeviceConfig()
@@ -97,3 +105,44 @@ def test_stages_are_the_kernel_factorization():
     assert torch_fft.radix_stages(512) == [8, 8, 8]
     for n in (128, 384, 508, 512):  # the header's own examples
         assert "*".join(map(str, torch_fft.radix_stages(n))) in HEADER.read_text()
+
+
+def _direct(m):
+    return Plan1D(n=m, level=Level.DIRECT, factors=[m])
+
+
+# g1 x g2 -> (plan, batch): the convolutions of K15's three sub shapes.
+BLUESTEIN_CASES = {
+    "384x384": (lambda: plan_1d(65537, CFG, 4), 2),
+    "2048x144": (lambda: plan_1d(131101, CFG, 4), 1),  # FUSED [16, 128] x 144
+    "40x56": (lambda: Plan1D(n=1109, level=Level.BLUESTEIN, factors=[], conv=Plan1D(
+        n=2240, level=Level.GLOBAL, factors=[], sub=(_direct(40), _direct(56)))), 3),
+}
+
+
+@pytest.mark.parametrize("case", list(BLUESTEIN_CASES))
+def test_bluestein_on_the_stages_is_the_dft(case):
+    """K15's plain version (``cuda_bluestein.bluestein`` on CPU planes: its
+    sub-transforms through ``radix_sub_plain``) against ``np.fft`` in
+    float64, both directions, with the scale 0.5; the plan is one K15's
+    gate takes, with the convolution subs named by the case."""
+    make, batch = BLUESTEIN_CASES[case]
+    plan = make()
+    assert cuda_bluestein.supported(plan, CFG)
+    assert "x".join(str(s.n) for s in plan.conv.sub) == case
+    n, m = plan.n, plan.conv.n
+    rng = np.random.default_rng(n)
+    xr, xi = (rng.uniform(-1, 1, (batch, n)).astype(np.float32) for _ in "ri")
+    xc = xr.astype(np.complex128) + 1j * xi
+    for sign in (-1, +1):
+        bank, keys = torch_fft.TwiddleBank(np.float32), {}
+        torch_fft.collect_bank_keys(plan, sign, bank, keys)
+        tabs = cuda_bluestein.bluestein_tables(plan, sign, keys,
+                                               bank.device_arrays("cpu"))
+        yr, yi = cuda_bluestein.bluestein(torch.from_numpy(xr),
+                                          torch.from_numpy(xi), tabs, 0.5)
+        got = yr.numpy() + 1j * yi.numpy()
+        want = 0.5 * (np.fft.fft(xc) if sign < 0 else np.fft.ifft(xc) * n)
+        tol = 4 * EPS * math.log2(m) * np.abs(want).max()
+        err = np.abs(got - want).max()
+        assert err <= tol, (case, sign, err, tol)
