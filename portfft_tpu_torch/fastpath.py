@@ -48,7 +48,10 @@ interleaved shapes the raw route below declines run the JAX package's
 per-axis walk (``_core_inner``, here ``torch_exec.core_inner``, the
 ``("core", ...)`` entry of ``_register_core``): the last axis through the
 executor, each outer axis on K12 (``cuda_axis.axis_m2``) where the JAX
-package's gates take it, else ``movedim`` + executor + ``movedim``.
+package's gates take it, else ``movedim`` + executor + ``movedim``.  The
+copies that move an axis and put it back count as glue bytes
+(``tracing.glue_bytes``), and each axis is a ``portfft.axis`` span under a
+profiler.
 SPLIT planes go in and out with no K6; the interleaved entry runs K6
 around the walk.  Where the scale goes:
 
@@ -133,6 +136,7 @@ sent down another path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -491,7 +495,9 @@ def leaf_hook(steps: dict, plain: bool = False):
     a node's step (its plain version if ``plain``), None for a generic
     node.  K14 and K15 fold the scale in (K14 also ``post``); after K13 it
     is one torch multiply.  Only K14 takes ``post`` (as the JAX package's
-    ``leaf_dispatch``): other nodes given one return None.  A DIRECT or
+    ``leaf_dispatch``): other nodes given one return None.  The copy that
+    makes a moved axis's rows contiguous, and the multiply, count as glue
+    bytes (``torch_exec.copied``).  A DIRECT or
     FUSED node without a step is a routing fault and raises: no torch
     chain stands in for K13."""
 
@@ -505,8 +511,8 @@ def leaf_hook(steps: dict, plain: bool = False):
         if post is not None and kind != "global2":
             return None
         fn = kernel.plain if plain else kernel
-        x2r = xr.reshape(-1, plan.n).contiguous()
-        x2i = xi.reshape(-1, plan.n).contiguous()
+        x2r = torch_exec.copied(xr, xr.reshape(-1, plan.n).contiguous())
+        x2i = torch_exec.copied(xi, xi.reshape(-1, plan.n).contiguous())
         if kind == "global2":
             yr, yi = fn(x2r, x2i, *args, scale=scale, post=post)
         elif kind in ("bluestein", "bluestein_bf"):
@@ -514,7 +520,8 @@ def leaf_hook(steps: dict, plain: bool = False):
         else:
             yr, yi = fn(x2r, x2i, *args)
             if scale != 1.0:
-                yr, yi = yr * scale, yi * scale
+                yr = torch_exec.copied(yr, yr * scale)
+                yi = torch_exec.copied(yi, yi * scale)
         return yr.reshape(xr.shape), yi.reshape(xi.shape)
 
     return leaf_fn
@@ -879,6 +886,12 @@ def _interleaved(walk, scale: float, plain: bool):
     return fn
 
 
+def _column(k, bpre, trailing, sub, xr, xi, s):
+    """K12 (or its plain version ``k``) on one outer axis of (b, L1, L2)
+    planes, times ``s``."""
+    return k(xr.contiguous(), xi.contiguous(), bpre, trailing, sub, s)
+
+
 def core_fn(committed, entry, plain: bool = False):
     """The function of a ``"core"`` entry (``_register_core``): the
     per-axis walk ``torch_exec.core_inner`` on (batch, *lengths) planes,
@@ -895,24 +908,18 @@ def core_fn(committed, entry, plain: bool = False):
     keys, arrays = committed._bank_keys, committed._bank_arrays
     walked = [plans[n] for n in set(lengths) if n in routes]
     leaf = leaf_hook(plane_steps(committed, walked, routes), plain)
+    k = cuda_axis.axis_m2.plain if plain else cuda_axis.axis_m2
     columns = {}
     for axis, _ in k12:
-        plan = plans[lengths[axis]]
-        sub = cuda_fft.sub_tables(plan, sign, keys, arrays)
-        columns[axis] = (batch * math.prod(lengths[:axis]),
-                         math.prod(lengths[axis + 1:]), sub)
-    k = cuda_axis.axis_m2.plain if plain else cuda_axis.axis_m2
-
-    def axis_fn(axis, xr, xi, s):
-        if axis not in columns:
-            return None
-        return k(xr.contiguous(), xi.contiguous(), *columns[axis], s)
-
+        sub = cuda_fft.sub_tables(plans[lengths[axis]], sign, keys, arrays)
+        columns[axis] = functools.partial(
+            _column, k, batch * math.prod(lengths[:axis]),
+            math.prod(lengths[axis + 1:]), sub)
     shape = (batch, *lengths)
 
     def walk(xr, xi, s=1.0):
         args = (xr.view(shape), xi.view(shape), lengths, plans, sign, keys,
-                arrays, leaf, axis_fn, s)
+                arrays, leaf, columns, s)
         if PROFILER._is_profiler_enabled:
             return tracing.run("portfft.exec", torch_exec.core_inner, *args)
         return torch_exec.core_inner(*args)

@@ -18,8 +18,9 @@ four-step's reshapes, swaps and twiddle multiply, the generic Bluestein
 transform's chirp multiply, zero pad, b̂ multiply and slice, and a
 multi-dimensional transform's ``movedim`` around an axis no column kernel
 takes.  Where the hook runs no kernel for the node, the scale is one torch
-multiply at the end, as the JAX package's XLA multiply.  Nothing here calls
-``torch.fft``.
+multiply at the end, as the JAX package's XLA multiply.  The copies of a
+moved axis, and the hook's (``copied``), count as glue bytes
+(``tracing.glue``).  Nothing here calls ``torch.fft``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import torch.nn.functional as F
 
 from ..enums import Level
 from ..planner import Plan1D
+from ..utils import tracing
+from ..utils.tracing import PROFILER
 from .torch_fft import complex_matmul, complex_mul, full_fp32_matmuls
 
 LeafFn = Optional[Callable]
@@ -132,36 +135,54 @@ def exec_bluestein(xr, xi, plan: Plan1D, sign: int, keys: dict, bank: dict,
     return _scaled(*complex_mul(yr[..., :n], yi[..., :n], cr, ci), scale)
 
 
+def copied(src, out):
+    """``out``, made from ``src``: where it is a copy (new memory), its bytes
+    count as the executor's glue (``tracing.glue``)."""
+    if out.data_ptr() != src.data_ptr():
+        tracing.glue(out.numel() * out.element_size())
+    return out
+
+
 def core_inner(xr, xi, lengths, plans: dict, sign: int, keys: dict,
-               bank: dict, leaf_fn: LeafFn = None, axis_fn: LeafFn = None,
+               bank: dict, leaf_fn: LeafFn = None, columns: dict | None = None,
                scale: float = 1.0):
     """The transform over every axis of (batch, *lengths) planes, the last
     (contiguous) axis first, times ``scale`` (the port of
     ``committed._core_inner``).  Length-1 axes are skipped.  An outer axis
-    goes to ``axis_fn(axis, xr3, xi3, scale)`` on the (b, L1, L2) view
-    (the column kernel K12; None where it does not take the axis), else
-    through the executor after a ``movedim`` to the last place.  The scale
-    is offered to the last axis that runs."""
+    in ``columns`` goes to ``columns[axis](xr3, xi3, scale)`` on the (b, L1,
+    L2) view (the column kernel K12), any other through the executor after
+    a ``movedim`` to the last place, and back by a copy (counted as glue).
+    The scale is offered to the last axis that runs.  Under a recording
+    profiler each axis is a ``portfft.axis`` span whose note is the axis
+    and its route."""
     ndims = len(lengths)
+    columns = columns or {}
     todo = [ax for ax in range(ndims - 1, -1, -1) if lengths[ax] > 1]
     shape = xr.shape
+
+    def step(xr, xi, axis, route, s):
+        n, plan = lengths[axis], plans[lengths[axis]]
+        if route == "exec":
+            return exec_plan(xr, xi, plan, sign, keys, bank, leaf_fn, s)
+        if route == "K12":
+            trailing = math.prod(shape[2 + axis:])
+            yr, yi = columns[axis](xr.reshape(-1, n, trailing),
+                                   xi.reshape(-1, n, trailing), s)
+            return yr.reshape(shape), yi.reshape(shape)
+        yr, yi = exec_plan(xr.movedim(1 + axis, -1), xi.movedim(1 + axis, -1),
+                           plan, sign, keys, bank, leaf_fn, s)
+        return (copied(yr, yr.movedim(-1, 1 + axis).contiguous()),
+                copied(yi, yi.movedim(-1, 1 + axis).contiguous()))
+
     for i, axis in enumerate(todo):
         s = scale if i == len(todo) - 1 else 1.0
-        n, plan = lengths[axis], plans[lengths[axis]]
-        if axis == ndims - 1:
-            xr, xi = exec_plan(xr, xi, plan, sign, keys, bank, leaf_fn, s)
-            continue
-        if axis_fn is not None:
-            trailing = math.prod(shape[2 + axis:])
-            res = axis_fn(axis, xr.reshape(-1, n, trailing),
-                          xi.reshape(-1, n, trailing), s)
-            if res is not None:
-                xr, xi = res[0].reshape(shape), res[1].reshape(shape)
-                continue
-        xr, xi = exec_plan(xr.movedim(1 + axis, -1), xi.movedim(1 + axis, -1),
-                           plan, sign, keys, bank, leaf_fn, s)
-        xr = xr.movedim(-1, 1 + axis).contiguous()
-        xi = xi.movedim(-1, 1 + axis).contiguous()
+        route = ("exec" if axis == ndims - 1
+                 else "K12" if axis in columns else "movedim")
+        if PROFILER._is_profiler_enabled:
+            xr, xi = tracing.run("portfft.axis", step, xr, xi, axis, route, s,
+                                 note=f"{axis} {route}")
+        else:
+            xr, xi = step(xr, xi, axis, route, s)
     if not todo and scale != 1.0:
         xr, xi = xr * scale, xi * scale
     return xr, xi

@@ -7,7 +7,7 @@ Spans record only while a ``torch.profiler`` (or the older
 no profiler runs.  The spans stay on the host: nothing here puts an
 annotation on the profiler's timeline (no ``record_function``, no NVTX), so
 a trace's device operations are the program's kernels alone.  Three layers
-record them:
+record them, and the per-axis walk splits the executor's:
 
 - ``portfft.call``: a compute call of a committed plan, the root of its
   spans (``CommittedDescriptor._compute``: validation, buffer conversion,
@@ -18,7 +18,12 @@ record them:
   or ``core_fn``);
 - ``portfft.<K>`` (``portfft.K1``, ``portfft.K2-v2``, ...): a kernel
   wrapper of ``ops/cuda_*.py`` (:func:`kernel`), from argument checks
-  through the launch and its error check.
+  through the launch and its error check;
+- ``portfft.axis``, inside ``portfft.exec``: one axis of ``core_inner``'s
+  walk; its ``note`` is the axis and its route (``1 exec``: the last axis
+  through the executor, ``0 K12``: the column kernel, ``0 movedim``: the
+  executor after a move).  It is no layer of its own: a span's self time
+  is seen through it (:meth:`Call.children`).
 
 Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 ``time.perf_counter_ns()``; ``parent`` is the id of the span it nests in
@@ -26,9 +31,13 @@ Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 ``call_id``.  The last ``RING`` spans are kept (:func:`spans`).
 
 Counters are always on: launches by kernel (:func:`launches`), counted
-where a wrapper's call reached the card, and the tuning table's outcomes
-where commit chooses a route (:func:`tuning_outcomes`).  One host thread
-is assumed to drive a plan at a time, as for the counters they replace.
+where a wrapper's call reached the card, the tuning table's outcomes
+where commit chooses a route (:func:`tuning_outcomes`), and the bytes the
+plane executor's copies write outside the port's kernels
+(:func:`glue_bytes`).  Under a recording profiler each such copy is also a
+``portfft.glue`` mark in its call, a span of no length whose note is its
+bytes (:meth:`Call.glue_bytes`).  One host thread is assumed to drive a
+plan at a time, as for the counters they replace.
 """
 
 from __future__ import annotations
@@ -73,6 +82,10 @@ _launches: dict = {}
 #: plan), ``miss`` (no tuned entry), ``declined`` (a tuned engine whose gate
 #: refused the plan; the entry is marked stale and the static route runs).
 _tuning = {"hit": 0, "miss": 0, "declined": 0}
+#: Bytes written by the plane executor's copies outside the kernels.
+_glue = {"bytes": 0}
+#: Spans that split their parent's time and are no layer of their own.
+WITHIN = (PREFIX + "axis", PREFIX + "glue")
 
 _ring: list = [None] * RING
 _ids = itertools.count()
@@ -126,7 +139,20 @@ class Call(NamedTuple):
     spans: list
 
     def children(self, span: Span) -> list:
-        return [s for s in self.spans if s.parent == span.id]
+        """The spans nested in ``span``, seen through the ``WITHIN`` spans
+        between them (a ``portfft.axis`` span's kernels are children of the
+        ``portfft.exec`` span that holds it)."""
+        by_id = {s.id: s for s in self.spans}
+        out = []
+        for s in self.spans:
+            if s.name in WITHIN:
+                continue
+            up = by_id.get(s.parent)
+            while up is not None and up.id != span.id and up.name in WITHIN:
+                up = by_id.get(up.parent)
+            if up is not None and up.id == span.id:
+                out.append(s)
+        return out
 
     def self_ns(self, span: Span) -> int:
         """``span``'s duration less the part its children cover."""
@@ -147,6 +173,10 @@ class Call(NamedTuple):
 
     def named(self, name: str) -> list:
         return [s for s in self.spans if s.name == name]
+
+    def glue_bytes(self) -> int:
+        """The bytes the call's ``portfft.glue`` marks count."""
+        return sum(int(s.note) for s in self.named(PREFIX + "glue"))
 
 
 def calls(last: int) -> list:
@@ -214,6 +244,23 @@ def kernels_of(op_name: str) -> tuple:
     return tuple(k.name for k in KERNELS.values()
                  if any(re.search(rf"(?<![A-Za-z0-9_]){s}(?![A-Za-z0-9])", op_name)
                         for s in k.symbols))
+
+
+def glue(nbytes: int) -> None:
+    """Count ``nbytes`` written by a copy or multiply of the plane executor
+    outside the port's kernels; under a recording profiler also a
+    ``portfft.glue`` mark in the call that made it."""
+    _glue["bytes"] += nbytes
+    if PROFILER._is_profiler_enabled:
+        _close(_open(PREFIX + "glue", str(nbytes)))
+
+
+def glue_bytes() -> int:
+    return _glue["bytes"]
+
+
+def reset_glue() -> None:
+    _glue["bytes"] = 0
 
 
 def tuned(outcome: str) -> None:

@@ -23,7 +23,9 @@ from portfft_tpu_torch.utils import tracing
 from portfft_tpu_torch.utils.tracing import Span
 
 READERS = ("call_self_us", "launch_self_us", "exec_self_us", "idle_in_program_pct",
-           "tuned_pct")
+           "tuned_pct", "glue_pct", "walk_glue_mib")
+#: Readers of the device's operations, which a CPU run has not.
+DEVICE_READERS = {"idle_in_program_pct", "glue_pct"}
 
 
 def _reader(name):
@@ -198,6 +200,96 @@ def test_device_operation_names_map_to_k_numbers(op, kernels):
     assert tracing.kernels_of(op) == kernels
 
 
+# -- the per-axis walk: axis spans and glue bytes -----------------------------
+
+
+def _points(lengths) -> int:
+    return int(torch.tensor(lengths).prod())
+
+
+@pytest.mark.parametrize("lengths,notes", [
+    ([640, 23], ["1 exec", "0 movedim"]),             # fastMRI's route, K13 both axes
+    ([16, 640, 16], ["2 exec", "1 movedim", "0 K12"]),  # K12 takes the outer axis
+])
+def test_the_walk_records_one_axis_span_an_axis(lengths, notes, monkeypatch):
+    plan = pf.Descriptor(lengths=lengths, number_of_transforms=2).commit(device="cpu")
+    x = torch.randn(2 * 2 * _points(lengths))
+    plan.compute_forward(x)
+    _forbid_record_function(monkeypatch)
+    kept = tracing.spans()
+    plan.compute_forward(x)
+    assert tracing.spans() == kept  # no profiler: no span, no glue mark
+    with profile(activities=[ProfilerActivity.CPU]):
+        plan.compute_forward(x)
+    (call,) = tracing.calls(1)
+    (walk,) = call.named("portfft.exec")
+    axes = sorted(call.named("portfft.axis"), key=lambda s: s.start_ns)
+    assert [s.note for s in axes] == notes
+    assert all(s.parent == walk.id for s in axes)
+    for axis in axes:
+        kernels = [c.name for c in call.children(axis)]
+        assert kernels == ["portfft.K12" if axis.note.endswith("K12") else "portfft.K13"]
+    # the axis spans split the walk and are no layer: its children are the
+    # kernels inside them
+    assert sorted(c.name for c in call.children(walk)) == sorted(
+        "portfft.K12" if n.endswith("K12") else "portfft.K13" for n in notes)
+
+
+def test_self_time_is_seen_through_axis_spans(monkeypatch):
+    # exec 60 µs: axis 0 of 25 µs holding K13 20 µs, axis 1 of 25 µs holding
+    # K13 15 µs and a glue mark; 10 µs of exec outside its axes
+    kids = [("portfft.exec", 0, 60, [("portfft.axis", 5, 25), ("portfft.axis", 30, 25)])]
+    spans = _call(1, 0, 0, 10, kids)
+    axis0, axis1 = [s for s in spans if s.name == "portfft.axis"]
+    spans += [Span("portfft.K13", axis0.start_ns + 2 * US, axis0.start_ns + 22 * US,
+                   axis0.id, 1, 90),
+              Span("portfft.K13", axis1.start_ns + 5 * US, axis1.start_ns + 20 * US,
+                   axis1.id, 1, 91),
+              Span("portfft.glue", axis1.end_ns - US, axis1.end_ns - US, axis1.id, 1, 92,
+                   str(3 << 20))]
+    rec = _record(spans, [(0.0, 1e-3)], [], 0.0, 1e-3, monkeypatch)
+    assert _reader("exec_self_us").read(rec) == pytest.approx(60.0 - 35.0)
+    assert _reader("call_self_us").read(rec) == pytest.approx(10.0)
+    assert _reader("launch_self_us").read(rec) == pytest.approx(35.0)
+    assert _reader("walk_glue_mib").read(rec) == pytest.approx(3.0)
+
+
+def _split_walk(lengths, batch):
+    s = 1 / _points(lengths) ** 0.5
+    desc = pf.Descriptor(lengths=lengths, number_of_transforms=batch, forward_scale=s,
+                         backward_scale=s, complex_storage=pf.ComplexStorage.SPLIT_COMPLEX)
+    n = batch * _points(lengths)
+    return desc, (torch.randn(n), torch.randn(n))
+
+
+@pytest.mark.parametrize("lengths,batch,planes,split", [
+    ([640, 368], 1, 4, False),  # fastMRI: axis 0's rows made contiguous, and put back
+    ([640, 23], 3, 4, False),
+    ([16, 640, 16], 1, 4, False),  # the axis K12 takes copies nothing
+    ([640, 23], 2, 6, True),  # SPLIT: the scale lands after K13, one multiply a plane
+    ([256, 256], 1, 0, False),  # the raw multi-dim route: no walk
+    ([20011], 1, 0, False),  # a 1D plane call: K6, K15, K6
+])
+def test_glue_bytes_count_the_walks_copies(lengths, batch, planes, split):
+    n = batch * _points(lengths)
+    if split:
+        desc, x = _split_walk(lengths, batch)
+    else:
+        desc, x = pf.Descriptor(lengths=lengths, number_of_transforms=batch), torch.randn(2 * n)
+    plan = desc.commit(device="cpu")
+    args = x if split else (x,)
+    tracing.reset_glue()
+    assert tracing.glue_bytes() == 0
+    plan.compute_forward(*args)
+    plan.compute_backward(*args)
+    assert tracing.glue_bytes() == 2 * planes * n * 4
+    with profile(activities=[ProfilerActivity.CPU]):
+        plan.compute_forward(*args)
+    (call,) = tracing.calls(1)
+    assert call.glue_bytes() == planes * n * 4
+    assert tracing.glue_bytes() == 3 * planes * n * 4
+
+
 # -- tuning outcomes at commit ------------------------------------------------
 
 
@@ -349,6 +441,50 @@ def test_readers_return_none_without_the_tracer(name, monkeypatch):
     assert _reader(name).read(rec) is None
 
 
+# device operations of one walk as a profiler names them: K6, K13 and PyTorch's
+# copy and multiply kernels, which map to no kernel of the port
+_COPY = ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast"
+         "<at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)")
+_MUL = ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor<float, "
+        "float, float, at::native::binary_internal::MulFunctor<float> >")
+
+
+def test_glue_pct_reads_the_busy_share_of_operations_of_no_kernel(monkeypatch):
+    ms = 1e-3
+    ops = [("(anonymous namespace)::deinterleave_kernel(float2 const*, float*, float*)",
+            0.0, 1 * ms),
+           ("(anonymous namespace)::chain_kernel(pfft::Chain, float const*)", 1 * ms, 5 * ms),
+           (_COPY, 5 * ms, 6 * ms),
+           (_COPY, 5.5 * ms, 6.5 * ms),  # overlapping: counted once
+           ("(anonymous namespace)::pass_kernel(pfft::Chain)", 7 * ms, 9 * ms),
+           (_MUL, 9 * ms, 9.5 * ms),
+           ("(anonymous namespace)::interleave_kernel(float const*, float const*)",
+            9.5 * ms, 10 * ms)]
+    rec = _record([], [(0.0, 10 * ms)], ops, 0.0, 10 * ms, monkeypatch)
+    # busy 9.5 ms (idle 6.5–7), glue 1.5 + 0.5 ms
+    assert _reader("glue_pct").read(rec) == pytest.approx(2.0 / 9.5 * 100)
+    kernels = [op for op in ops if op[0] not in (_COPY, _MUL)]
+    rec = _record([], [(0.0, 10 * ms)], kernels, 0.0, 10 * ms, monkeypatch)
+    assert _reader("glue_pct").read(rec) == 0.0
+    rec = _record([], [(0.0, 10 * ms)], [], 0.0, 10 * ms, monkeypatch)
+    assert _reader("glue_pct").read(rec) is None
+
+
+def test_walk_glue_mib_averages_the_segments_calls(monkeypatch):
+    spans = []
+    for i, mib in enumerate((4, 2)):
+        call = _call(i + 1, 10 * i, 1000 * i, 10)
+        root = call[0]
+        call.append(Span("portfft.glue", root.start_ns, root.start_ns, root.id, i + 1,
+                         10 * i + 5, str(mib << 20)))
+        spans += call
+    rec = _record(spans, [(0.0, 1e-3), (1e-3, 2e-3)], [], 0.0, 2e-3, monkeypatch)
+    assert _reader("walk_glue_mib").read(rec) == pytest.approx(3.0)
+    # a program without the counter (the tracer of an older program) reads None
+    monkeypatch.delattr(tracing, "glue_bytes")
+    assert _reader("walk_glue_mib").read(rec) is None
+
+
 def test_tuned_pct_reads_the_counters(monkeypatch):
     monkeypatch.setattr(tracing, "_tuning", {"hit": 3, "miss": 1, "declined": 0})
     assert _reader("tuned_pct").read(None) == pytest.approx(75.0)
@@ -361,7 +497,8 @@ def small_bench(tmp_path_factory):
     return run.Bench(small_copy(str(tmp_path_factory.mktemp("small"))))
 
 
-@pytest.mark.parametrize("cell", ["c2c_1d.bulk", "r2c_1d.bulk", "c2c_1d.nonsmooth"])
+@pytest.mark.parametrize("cell", ["c2c_1d.bulk", "r2c_1d.bulk", "c2c_1d.nonsmooth",
+                                  "fastmri_knee.volume"])
 def test_a_traced_run_reports_the_cells_new_metrics(cell, small_bench, monkeypatch):
     env = dict(os.environ)
     run.pin_environment(env)
@@ -376,6 +513,8 @@ def test_a_traced_run_reports_the_cells_new_metrics(cell, small_bench, monkeypat
     listed = {m["name"] for m in small_bench.spec["per_layer"]
               if m["name"] in READERS and cell in m["workloads"]}
     # the CPU run has no device operations to be idle between
-    assert set(result["metrics"]) & set(READERS) == listed - {"idle_in_program_pct"}
-    for name in listed - {"idle_in_program_pct"}:
+    assert set(result["metrics"]) & set(READERS) == listed - DEVICE_READERS
+    for name in listed - DEVICE_READERS:
         assert result["metrics"][name]["value"] >= 0
+    if cell == "fastmri_knee.volume":  # four planes a call of at most 2 transforms
+        assert result["metrics"]["walk_glue_mib"]["value"] == 4 * 2 * 640 * 368 * 4 / 2**20
