@@ -271,11 +271,14 @@ PLANE_ROWS = [
 # Plane kernel phase.  K6 at M complex elements (one M no multiple of 128,
 # large_1d_prime's); K13 at (n, batch): DIRECT 3 and 100, [24, 128] and the
 # two-launch [192, 128] (Bluestein convolutions), the chains [125, 8],
-# [120, 5] and the two-launch [81, 81, 3]; K15 at (n, batch) over the
-# convolutions 256 x 192, 384 x 384 and FUSED [16, 128] x 144.
+# [120, 5] and the two-launch [81, 81, 3], and fastmri_knee.volume's two
+# axes: DIRECT 368 on 336000 rows, the chain [5, 128] on 193200; K15 at
+# (n, batch) over the convolutions 256 x 192, 384 x 384 and FUSED [16, 128]
+# x 144.
 IO_CASES = [1031 * 1000, 1 << 20, 65537 * 2048]
 CHAIN_CASES = [(3, 1 << 20), (100, 1 << 17), (3072, 4096), (24576, 512),
-               (1000, 8192), (600, 8192), (19683, 512)]
+               (1000, 8192), (600, 8192), (19683, 512), (368, 336000),
+               (640, 193200)]
 BLUESTEIN_CASES = [(20011, 512), (65537, 256), (131101, 64)]
 # The shapes timed alone: K6 and K15 at large_1d_prime, K13 at the
 # [24, 128] convolution of the bluestein_1031 row.

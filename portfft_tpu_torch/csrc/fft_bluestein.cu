@@ -82,8 +82,8 @@ namespace {
 // and a lone block on an SM waits at every stage's barrier.
 constexpr int kTileElems = 6144;
 constexpr int kTileCols = 32;
-// (228 KiB of an SM, less 1 KiB each block reserves) / 2.
-constexpr size_t kBlockSmem = (233472 - 2 * 1024) / 2;
+using pfft_radix::kBlockSmem;
+using pfft_radix::launch_resident;
 
 __host__ __device__ int roots_len(const pfft::Sub& s) {
   return s.a ? s.a + 128 : s.m;
@@ -153,29 +153,6 @@ __device__ void finish(const pfft::Pass& p, int64_t c0, float2* res, Y y) {
   pfft::tile_store(q, 0, c0, res, y);
 }
 
-// The tiles of p over the b rows (x of row b: in(b)): each landed in b0,
-// then work(p, b, c0).  The blocks stride over the tiles, and each issues
-// its next tile's loads before this tile's work, which never writes what
-// they read.
-template <class In, class Work>
-__device__ void blue_tiles(const pfft::Pass& p, float2* b0, In in,
-                           Work work) {
-  const int64_t per = (p.ncols + p.T - 1) / p.T;
-  const int64_t ntiles = p.nbatch * per;
-  pfft_radix::Prefetch f;
-  if (blockIdx.x < ntiles)
-    pfft_radix::fetch(f, p, 0, (blockIdx.x % per) * p.T, in(blockIdx.x / per));
-  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t b = tile / per;
-    const int64_t c0 = (tile - b * per) * p.T;
-    pfft_radix::land(f, p, 0, c0, in(b), b0);
-    const int64_t next = tile + gridDim.x;
-    if (next < ntiles)
-      pfft_radix::fetch(f, p, 0, (next % per) * p.T, in(next / per));
-    work(p, b, c0);
-  }
-}
-
 __global__ void __launch_bounds__(pfft::kThreads, 2)
     blue_pass1(pfft::Pass p, pfft::ConstPlanes x, const float* cr,
                const float* ci, int64_t n, float2* s1) {
@@ -183,7 +160,7 @@ __global__ void __launch_bounds__(pfft::kThreads, 2)
   const pfft::TileSmem sm = pfft::tile_smem(p.sub, p.T, smem);
   pfft::load_sub_roots(p.sub, sm);
   const int64_t conv = int64_t(p.sub.m) * p.ncols;
-  blue_tiles(
+  pfft_radix::tiles(
       p, sm.b0,
       [=](int64_t b) {
         return pfft::ChirpIn{{x.re + b * n, x.im + b * n}, cr, ci, n};
@@ -202,7 +179,7 @@ __global__ void __launch_bounds__(pfft::kThreads, 2)
   const pfft::TileSmem sm = pfft::tile_smem(p.sub, p.T, smem);
   pfft::load_sub_roots(p.sub, sm);
   const int64_t conv = int64_t(p.sub.m) * p.ncols;
-  blue_tiles(
+  pfft_radix::tiles(
       p, sm.b0, [=](int64_t b) { return s2 + b * conv; },
       [=](const pfft::Pass& q, int64_t b, int64_t c0) {
         finish(q, c0,
@@ -233,7 +210,7 @@ __global__ void __launch_bounds__(pfft::kThreads, 2)
   pfft::load_sub_roots(p.sub, fw);
   pfft::load_sub_roots(sb, bw);
   const int64_t conv = int64_t(p.sub.m) * p.ncols;
-  blue_tiles(
+  pfft_radix::tiles(
       p, fw.b0, [=](int64_t b) { return s1 + b * conv; },
       [=](const pfft::Pass& q, int64_t b, int64_t c0) {
         const int es = pfft::tile_pitch(q.T);
@@ -480,28 +457,6 @@ int tile_of(const pfft::Sub& s, int64_t ncols, bool pass2) {
                           : pfft::pass_smem_bytes(s, T)) > kBlockSmem)
     --T;
   return T;
-}
-
-// Launches `kernel(args...)` on `stream` with `smem` bytes of dynamic
-// shared memory and as many blocks as the card holds at once, at most one
-// a tile (the blocks stride over the tiles): two an SM (the kernels'
-// launch bounds keep their registers to two blocks' share), one where the
-// shared memory passes kBlockSmem.  Returns a cudaError_t.
-template <class Kernel, class... Args>
-int launch_resident(Kernel kernel, size_t smem, int64_t tiles,
-                    cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return int(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return int(err);
-  const int64_t blocks = int64_t(sms) * (smem <= kBlockSmem ? 2 : 1);
-  kernel<<<unsigned(tiles < blocks ? tiles : blocks), pfft::kThreads, smem,
-           stream>>>(args...);
-  return int(cudaGetLastError());
 }
 
 }  // namespace

@@ -6,7 +6,7 @@
 // kernel) and ::_generic_chain_call (any factor chain; the JAX package runs
 // it in interpret mode only and leaves such chains to XLA on the TPU).
 // Three modes:
-//   DIRECT      one n-point DFT per row (pfft::sub_dft, as K1);
+//   DIRECT      one n-point DFT per row;
 //   [a, 128]    the two-stage transform of K2, one tile per row for
 //               n <= 8192, else two launches through a float2 scratch;
 //   chain       the Stockham chain of the plan's factors f_0 .. f_{K-1}:
@@ -22,13 +22,26 @@
 //               factor runs as a column pass into a scratch and the rest
 //               of the chain as a second launch on its contiguous vectors,
 //               storing out[k + f_0*j].
-// Every sum is fp32 FMA over the root tables on the CUDA cores.
+// The one-launch modes (DIRECT and [a, 128] up to pfft::kTileMax points, a
+// chain up to kChainMax) run on the radix stages of fft_radix.cuh, in
+// resident blocks that start their next tile's loads before this tile's
+// stages (pfft_radix::tiles, as K15): radix_pass_kernel takes DIRECT as
+// pfft_radix::dft_odd (368 = 23*4*4: a radix-23 stage in registers, then two
+// radix-4 stages) and [a, 128] as pfft_radix::sub_fft, radix_chain_kernel
+// each chain factor's f-point DFT as pfft_radix::dft over the factor's root
+// table (128 = 8*4*4, 5 one generic stage), T_s on its last radix stage's
+// store.  dft_odd runs the odd primes 5 .. 23 as stage_odd, in registers,
+// where dft runs them as stage_p's sums: 2x faster at 368 on the H100, and
+// slower in the chain kernel, whose registers it pushes into spills.  The
+// two-launch modes keep the plain sums of fft_common.cuh (pass_kernel,
+// chain_kernel), every sum an fp32 FMA over the root tables on the CUDA
+// cores.
 //
-// Bound on the H100, per complex element: 8*sum(factors) flops (8*n for
-// DIRECT, 8*(a + 128) for [a, 128]) against 16 bytes of device memory, so
-// the kernel is bound by arithmetic (in this first version, as K1-K3, by
-// shared-memory operand reads).
-#include "fft_common.cuh"
+// Bound on the H100, per complex element: 16 bytes of device memory
+// against about 5*log2(n) flops of the radix stages (8*n for the plain
+// DIRECT sum, 8*(a + 128) for [a, 128]), so the radix modes are bound by
+// bytes and the plain ones by their sums.
+#include "fft_radix.cuh"
 
 namespace {
 
@@ -155,6 +168,126 @@ pfft::Pass row_pass(const pfft::Sub& s, int64_t batch) {
   return p;
 }
 
+// The radix kernels' tiles: about kTileElems elements (K15's, raced on the
+// H100), fewer where their shared memory (bytes(T)) would keep two blocks
+// off an SM.
+constexpr int kTileElems = 6144;
+
+template <class Bytes>
+int radix_tile(int m, int64_t rows, Bytes bytes) {
+  int T = pfft::pick_tile(m, rows, kTileElems, 1 << 20);
+  while (T > 1 && bytes(T) > pfft_radix::kBlockSmem) --T;
+  return T;
+}
+
+// pass_kernel's pass on the radix stages: p.sub, at most pfft::kTileMax
+// points, DIRECT by pfft_radix::dft_odd (its odd prime factors up to 23 in
+// registers), [a, 128] by pfft_radix::sub_fft.
+template <class X, class Y>
+__global__ void __launch_bounds__(pfft::kThreads, 2)
+    radix_pass_kernel(pfft::Pass p, X x, Y y) {
+  extern __shared__ float2 smem[];
+  const pfft::TileSmem sm = pfft::tile_smem(p.sub, p.T, smem);
+  pfft::load_sub_roots(p.sub, sm);
+  const int64_t ibs = p.ibs;
+  pfft_radix::tiles(
+      p, sm.b0, [=](int64_t b) { return pfft::shift(x, b * ibs); },
+      [=](const pfft::Pass& q, int64_t b, int64_t c0) {
+        const int es = pfft::tile_pitch(q.T);
+        const auto col = [](int t) { return t; };
+        const float2* res =
+            q.sub.a == 0
+                ? pfft_radix::dft_odd(
+                      sm.b0, sm.b1, q.sub.m, q.T, es, sm.ra, col,
+                      pfft_radix::Strided<decltype(col)>{col, es},
+                      pfft_radix::Keep{})
+                : pfft_radix::sub_fft(q.sub, sm.ra, sm.rb, sm.b0, sm.b1, q.T,
+                                      es);
+        pfft::tile_store(q, b, c0, res, y);
+      });
+}
+
+// chain_kernel's chain on the radix stages: stage s runs the f-point DFT of
+// its L*m*T vectors (r, n2, t) as pfft_radix::dft over the factor's roots,
+// between the tiles t0 and t1, with T_s on the last radix stage's store.
+template <class X, class Y>
+__global__ void __launch_bounds__(pfft::kThreads, 2)
+    radix_chain_kernel(pfft::Pass p, Chain c, X x, Y y) {
+  extern __shared__ float2 smem[];
+  const int n = p.sub.m;
+  const int T = p.T;
+  const int es = pfft::tile_pitch(T);
+  float2* const roots = smem;
+  int off = 0;
+  for (int s = 0; s < c.nf; ++s) {
+    pfft::load_roots(roots + off, c.wr[s], c.wi[s], c.f[s]);
+    off += c.f[s];
+  }
+  float2* const t0 = roots + off;
+  float2* const t1 = t0 + n * es;
+  const int64_t ibs = p.ibs;
+  pfft_radix::tiles(
+      p, t0, [=](int64_t b) { return pfft::shift(x, b * ibs); },
+      [&](const pfft::Pass& q, int64_t b, int64_t c0) {
+        float2* cur = t0;
+        int L = 1, rem = n, roff = 0;
+        for (int s = 0; s < c.nf; ++s) {
+          const int f = c.f[s];
+          const int m = rem / f;
+          const float* tr = c.tr[s];
+          const float* ti = c.ti[s];
+          // vector u = (r, n2, t), t fastest
+          const auto base = [=](int u) {
+            const int v = u / T;
+            const int r = v / m;
+            return (r * f * m + (v - r * m)) * es + (u - v * T);
+          };
+          cur = pfft_radix::dft(
+              cur, cur == t0 ? t1 : t0, f, L * m * T, m * es, roots + roff,
+              base,
+              [=](int u, int k) {
+                const int v = u / T;
+                const int r = v / m;
+                return ((r + L * k) * m + (v - r * m)) * es + (u - v * T);
+              },
+              [=](int u, int k, float2 w) {
+                if (tr == nullptr) return w;
+                const int v = u / T;
+                const int i = (v - (v / m) * m) * f + k;
+                return pfft::cmul(w, make_float2(__ldg(tr + i), __ldg(ti + i)));
+              });
+          L *= f;
+          rem = m;
+          roff += f;
+        }
+        pfft::tile_store(q, b, c0, cur, y);
+      });
+}
+
+// pf_chain's one-launch mode: the rows of s on the radix stages.
+int launch_radix(const pfft::Sub& s, int64_t batch, pfft::ConstPlanes x,
+                 pfft::Planes y, cudaStream_t st) {
+  pfft::Pass p = row_pass(s, batch);
+  p.T = radix_tile(s.m, batch,
+                   [&](int T) { return pfft::pass_smem_bytes(s, T); });
+  return pfft_radix::launch_resident(
+      radix_pass_kernel<pfft::ConstPlanes, pfft::Planes>,
+      pfft::pass_smem_bytes(s, p.T), pfft::pass_tiles(p), st, p, x, y);
+}
+
+// pf_chain_general's one-launch mode: the rows of n = prod(c.f) on the
+// radix stages.
+int launch_radix_chain(const Chain& c, int n, int64_t batch,
+                       pfft::ConstPlanes x, pfft::Planes y, cudaStream_t st) {
+  pfft::Pass p = row_pass(
+      pfft::Sub{n, 0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr},
+      batch);
+  p.T = radix_tile(n, batch, [&](int T) { return chain_smem_bytes(c, n, T); });
+  return pfft_radix::launch_resident(
+      radix_chain_kernel<pfft::ConstPlanes, pfft::Planes>,
+      chain_smem_bytes(c, n, p.T), pfft::pass_tiles(p), st, p, c, x, y);
+}
+
 }  // namespace
 
 // 1 when pf_chain of a FUSED [a, 128] transform (a > 0) needs a scratch of
@@ -181,9 +314,9 @@ extern "C" int pf_chain(const float* xr, const float* xi, float* yr, float* yi,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const pfft::ConstPlanes x{xr, xi};
   const pfft::Planes y{yr, yi};
-  if (a == 0 || m <= pfft::kTileMax)
-    return launch_sub(row_pass(pfft::Sub{m, a, wr, wi, br, bi, ur, ui}, batch),
-                      x, y, st);
+  const pfft::Sub sub{m, a, wr, wi, br, bi, ur, ui};
+  if (m <= pfft::kTileMax) return launch_radix(sub, batch, x, y, st);
+  if (a == 0) return launch_sub(row_pass(sub, batch), x, y, st);
   if (scratch == nullptr) return int(cudaErrorInvalidValue);
   float2* s = reinterpret_cast<float2*>(scratch);
   // K2's two launches: the a-point DFT down each column n2 with the
@@ -247,13 +380,7 @@ extern "C" int pf_chain_general(const float* xr, const float* xi, float* yr,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const pfft::ConstPlanes x{xr, xi};
   const pfft::Planes y{yr, yi};
-  const pfft::Sub whole{n, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                        nullptr};
-  if (n <= kChainMax) {
-    pfft::Pass p = row_pass(whole, batch);
-    p.T = pfft::pick_tile(n, batch, 4096, 32);
-    return launch_chain(p, c, x, y, st);
-  }
+  if (n <= kChainMax) return launch_radix_chain(c, n, batch, x, y, st);
   if (scratch == nullptr) return int(cudaErrorInvalidValue);
   float2* s = reinterpret_cast<float2*>(scratch);
   const int f0 = c.f[0];

@@ -1,6 +1,7 @@
 // Block-level mixed-radix Stockham FFT of the T columns of a tile in shared
-// memory: the sub-transform of K11 (fft_md2.cu), K15 (fft_bluestein.cu)
-// and K17 (fft_global_fused.cu), in place of fft_common.cuh's O(len) sums.
+// memory: the sub-transform of K11 (fft_md2.cu), K13 (fft_chain.cu), K15
+// (fft_bluestein.cu) and K17 (fft_global_fused.cu), in place of
+// fft_common.cuh's O(len) sums.
 //
 // It takes fft_common.cuh's tile and Sub as they are (element i of column t
 // at tile_pos(i)*es + t, pitch es = T+1, FUSED rows padded by i/128), so a
@@ -26,6 +27,9 @@
 // generic stage, a p-term sum per output whose root index folds in the
 // stage twiddle, so a prime length costs what the plain sum costs.
 // torch_fft.radix_plain runs the same stages, twiddle indices and orders.
+// dft_odd, K13's, runs the odd primes 5 .. 23 in registers instead
+// (stage_odd: each input read once, (p-1)^2 real multiply-adds per p
+// outputs).
 //
 // The roots come from the sub's root table in shared memory (row 1 of the
 // bank's DFT matrix, w_len^e = root[e]; load_sub_roots); the direction is
@@ -275,6 +279,116 @@ __device__ inline float2* dft(float2* cur, float2* other, int len, int nvec,
   return cur;
 }
 
+// A stage of odd prime radix P in registers: butterfly j of every vector as
+// stage<R> takes it (the stage twiddle root[r*k*tw] on the inputs), then
+// the P-point DFT by the pairs a_r = v[r] + v[P-r], b_r = v[r] - v[P-r]
+// (r = 1 .. H = (P-1)/2) and w_P^e = c_e + i*s_e = root[e*len/P]:
+//   y[q] = v[0] + sum_r a_r*c_(rq) + i*sum_r b_r*s_(rq),  y[P-q] likewise
+//   with -i, (rq) taken mod P, c_(P-e) = c_e and s_(P-e) = -s_e.
+// That is 4*H*H real multiply-adds per P outputs where stage_p takes 4*P*P,
+// and each input is read from the tile once where stage_p reads it P times.
+// The same outputs as stage_p, summed in another order.
+template <int P, class Base, class Out, class Post>
+__device__ inline void stage_odd(const float2* src, float2* dst, int len,
+                                 int ns, int nvec, int step,
+                                 const float2* root, Base base, Out out,
+                                 Post post) {
+  constexpr int H = (P - 1) / 2;
+  const int m = len / P;
+  const int tw = len / (ns * P);
+  const int total = m * nvec;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int j = e / nvec;
+    const int u = e - j * nvec;
+    const int k = j % ns;
+    const float2* x = src + base(u);
+    const float2 v0 = x[j * step];
+    float2 a[H], b[H];
+    float2 y0 = v0;
+#pragma unroll
+    for (int r = 1; r <= H; ++r) {
+      float2 lo = x[(j + r * m) * step];
+      float2 hi = x[(j + (P - r) * m) * step];
+      if (ns > 1) {
+        lo = pfft::cmul(lo, root[r * k * tw]);
+        hi = pfft::cmul(hi, root[(P - r) * k * tw]);
+      }
+      a[r - 1] = add(lo, hi);
+      b[r - 1] = sub(lo, hi);
+      y0 = add(y0, a[r - 1]);
+    }
+    const int d = (j - k) * P + k;
+    dst[out(u, d)] = post(u, d, y0);
+#pragma unroll
+    for (int q = 1; q <= H; ++q) {
+      float2 A = v0, B = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int r = 1; r <= H; ++r) {
+        const int e = (r * q) % P;
+        const float2 w = root[(e <= H ? e : P - e) * m];
+        const float s = e <= H ? w.y : -w.y;
+        A = make_float2(fmaf(a[r - 1].x, w.x, A.x), fmaf(a[r - 1].y, w.x, A.y));
+        B = make_float2(fmaf(b[r - 1].x, s, B.x), fmaf(b[r - 1].y, s, B.y));
+      }
+      const int o = d + q * ns;
+      const int o2 = d + (P - q) * ns;
+      dst[out(u, o)] = post(u, o, make_float2(A.x - B.y, A.y + B.x));
+      dst[out(u, o2)] = post(u, o2, make_float2(A.x + B.y, A.y - B.x));
+    }
+  }
+}
+
+// run_stage with the odd primes 5 .. 23 on stage_odd.
+template <class Base, class Out, class Post>
+__device__ inline void run_stage_odd(int r, const float2* src, float2* dst,
+                                     int len, int ns, int nvec, int step,
+                                     const float2* root, float sg, Base base,
+                                     Out out, Post post) {
+  switch (r) {
+#define PFFT_ODD_CASE(p)                                                   \
+  case p:                                                                  \
+    stage_odd<p>(src, dst, len, ns, nvec, step, root, base, out, post);    \
+    break;
+    PFFT_ODD_CASE(5)
+    PFFT_ODD_CASE(7)
+    PFFT_ODD_CASE(11)
+    PFFT_ODD_CASE(13)
+    PFFT_ODD_CASE(17)
+    PFFT_ODD_CASE(19)
+    PFFT_ODD_CASE(23)
+#undef PFFT_ODD_CASE
+    default:
+      run_stage(r, src, dst, len, ns, nvec, step, root, sg, base, out, post);
+  }
+}
+
+// dft with the odd prime radices 5 .. 23 in registers (stage_odd) where dft
+// runs them as stage_p's sums.
+template <class Base, class Out, class Post>
+__device__ inline float2* dft_odd(float2* cur, float2* other, int len,
+                                  int nvec, int step, const float2* root,
+                                  Base base, Out out, Post post) {
+  const Stages st = stages(len);
+  const float sg = len > 2 && root[1].y < 0.f ? -1.f : 1.f;
+  const Strided<Base> mid{base, step};
+  int ns = 1;
+  for (int s = 0; s < st.n; ++s) {
+    const int r = st.r[s];
+    if (s + 1 < st.n)
+      run_stage_odd(r, cur, other, len, ns, nvec, step, root, sg, base, mid,
+                    Keep{});
+    else
+      run_stage_odd(r, cur, other, len, ns, nvec, step, root, sg, base, out,
+                    post);
+    __syncthreads();
+    float2* t = cur;
+    cur = other;
+    other = t;
+    ns *= r;
+  }
+  return cur;
+}
+
 // pfft::sub_dft's function on the radix stages: transforms the T columns
 // held in b0; returns the buffer (b0 or b1) that holds the result in
 // natural order at the same tile positions.  ra: roots of the m-point
@@ -385,6 +499,53 @@ __device__ inline void load_tile(const pfft::Pass& p, int64_t b, int64_t c0,
   Prefetch f;
   fetch(f, p, b, c0, x);
   land(f, p, b, c0, x, dst);
+}
+
+// The tiles of p over the b rows (x of row b: in(b)): each landed in b0,
+// then work(p, b, c0).  The blocks stride over the tiles, and each issues
+// its next tile's loads before this tile's work, which never writes what
+// they read.
+template <class In, class Work>
+__device__ void tiles(const pfft::Pass& p, float2* b0, In in, Work work) {
+  const int64_t per = (p.ncols + p.T - 1) / p.T;
+  const int64_t ntiles = p.nbatch * per;
+  Prefetch f;
+  if (blockIdx.x < ntiles)
+    fetch(f, p, 0, (blockIdx.x % per) * p.T, in(blockIdx.x / per));
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int64_t b = tile / per;
+    const int64_t c0 = (tile - b * per) * p.T;
+    land(f, p, 0, c0, in(b), b0);
+    const int64_t next = tile + gridDim.x;
+    if (next < ntiles) fetch(f, p, 0, (next % per) * p.T, in(next / per));
+    work(p, b, c0);
+  }
+}
+
+// The shared memory a block may take so that two blocks share an SM:
+// (228 KiB of an SM, less 1 KiB each block reserves) / 2.
+constexpr size_t kBlockSmem = (233472 - 2 * 1024) / 2;
+
+// Launches `kernel(args...)` on `stream` with `smem` bytes of dynamic
+// shared memory and as many blocks as the card holds at once, at most one
+// a tile (the blocks stride over the tiles, as tiles() does): two an SM
+// (the kernels' launch bounds keep their registers to two blocks' share),
+// one where the shared memory passes kBlockSmem.  Returns a cudaError_t.
+template <class Kernel, class... Args>
+int launch_resident(Kernel kernel, size_t smem, int64_t ntiles,
+                    cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return int(err);
+  const int64_t blocks = int64_t(sms) * (smem <= kBlockSmem ? 2 : 1);
+  kernel<<<unsigned(ntiles < blocks ? ntiles : blocks), pfft::kThreads, smem,
+           stream>>>(args...);
+  return int(cudaGetLastError());
 }
 
 }  // namespace pfft_radix

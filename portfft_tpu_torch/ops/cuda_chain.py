@@ -28,6 +28,9 @@ MAX_FACTORS = 12
 #: Longest chain the kernel runs in one tile; past it the first factor
 #: runs as a launch of its own and the rest must fit (``kChainMax``).
 CHAIN_TILE_MAX = 12288
+#: Longest DIRECT or [a, 128] leaf the kernel runs in one tile
+#: (``pfft::kTileMax``).
+TILE_MAX = 8192
 
 
 def leaf_mode(plan: Plan1D) -> str:
@@ -112,12 +115,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-@tracing.kernel("K13", ("chain_kernel", "pass_kernel"))
+def path_of(tabs: ChainTables) -> str:
+    """The kernel's code path for ``tabs``: ``"radix"`` (one launch on the
+    radix stages: a chain up to ``CHAIN_TILE_MAX`` points, DIRECT or [a, 128]
+    up to ``TILE_MAX``) or ``"plain"`` (plain sums, past those lengths)."""
+    cap = CHAIN_TILE_MAX if tabs.mode == "chain" else TILE_MAX
+    return "radix" if tabs.n <= cap else "plain"
+
+
+@tracing.kernel("K13", ("chain_kernel", "pass_kernel", "radix_chain_kernel",
+                        "radix_pass_kernel"))
 def chain(xr: torch.Tensor, xi: torch.Tensor, tabs: ChainTables):
     """K13: the ``tabs.n``-point transform of the last axis of the planes
-    ``(xr, xi)``; returns new planes of the same shape.  Past 8192 points
-    ([a, 128]) or ``CHAIN_TILE_MAX`` (chain) the kernel runs as two launches
-    through a scratch the size of the input."""
+    ``(xr, xi)``; returns new planes of the same shape.  Up to
+    ``TILE_MAX`` points (DIRECT, [a, 128]) or ``CHAIN_TILE_MAX`` (chain) one
+    launch on the radix stages; past them plain sums, [a, 128] and the chain
+    as two launches through a scratch the size of the input.  Each launch
+    counts on ``tracing.paths("K13")`` by :func:`path_of`."""
     n = tabs.n
     rows = xr.numel() // n
     check_plane(xr, rows * n, "chain")
@@ -149,6 +163,7 @@ def chain(xr: torch.Tensor, xi: torch.Tensor, tabs: ChainTables):
                 _ptr(scratch), sub.m, sub.a, *sub.pointers(), rows,
                 stream_of(xr))
     _build.check(lib, err, "chain kernel")
+    tracing.path("K13", path_of(tabs))
     return yr, yi
 
 

@@ -31,10 +31,11 @@ Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 ``call_id``.  The last ``RING`` spans are kept (:func:`spans`).
 
 Counters are always on: launches by kernel (:func:`launches`), counted
-where a wrapper's call reached the card, the tuning table's outcomes
-where commit chooses a route (:func:`tuning_outcomes`), and the bytes the
-plane executor's copies write outside the port's kernels
-(:func:`glue_bytes`).  Under a recording profiler each such copy is also a
+where a wrapper's call reached the card; launches by code path
+(:func:`paths`: K13's ``radix`` or ``plain``), counted by the wrappers that
+choose one; the tuning table's outcomes where commit chooses a route
+(:func:`tuning_outcomes`); and the bytes the plane executor's copies write
+outside the port's kernels (:func:`glue_bytes`).  Under a recording profiler each such copy is also a
 ``portfft.glue`` mark in its call, a span of no length whose note is its
 bytes (:meth:`Call.glue_bytes`).  One host thread is assumed to drive a
 plan at a time, as for the counters they replace.
@@ -78,6 +79,8 @@ class Kernel(NamedTuple):
 #: K-number -> :class:`Kernel`, one entry a wrapper.
 KERNELS: dict = {}
 _launches: dict = {}
+#: K-number -> {path: launches}, for the wrappers that count their paths.
+_paths: dict = {}
 #: The tuning table's outcomes at commit: ``hit`` (a tuned entry routes the
 #: plan), ``miss`` (no tuned entry), ``declined`` (a tuned engine whose gate
 #: refused the plan; the entry is marked stale and the static route runs).
@@ -235,6 +238,24 @@ def launches(name: str | None = None):
 def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
+    _paths.clear()
+
+
+def path(name: str, which: str) -> None:
+    """Count one launch of the kernel ``name`` (a K-number) on its code
+    path ``which``; the wrapper calls it where its launch reached the
+    card."""
+    counts = _paths.setdefault(name, {})
+    counts[which] = counts.get(which, 0) + 1
+
+
+def paths(name: str | None = None) -> dict:
+    """The launches of the kernel ``name`` so far by path, ``{path:
+    launches}`` (empty before its first), or with no name ``{K-number:
+    {path: launches}}`` of every kernel that counts its paths."""
+    if name is None:
+        return {k: dict(v) for k, v in _paths.items()}
+    return dict(_paths.get(name, {}))
 
 
 def kernels_of(op_name: str) -> tuple:

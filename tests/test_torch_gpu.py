@@ -296,12 +296,17 @@ def test_kernels_launch_on_the_tensor_card(cuda):
     "n,batch,kind",
     [(3, 9, "chain"), (100, 5, "chain"), (3072, 3, "chain"), (24576, 2, "chain"),
      (600, 7, "chain"), (1000, 3, "chain"), (19683, 2, "chain"),
+     (368, 5, "chain"), (640, 3, "chain"),
      (16411, 2, "bluestein"), (20011, 3, "bluestein"), (65537, 2, "bluestein"),
      (131101, 2, "bluestein")],
 )
 def test_plane_kernel_matches_plain(cuda, n, batch, kind):
-    """K13 (every mode) and K15 on planes against their plain versions."""
+    """K13 (every mode: DIRECT 3, 100 and 368, [24, 128] and the chains
+    [5, 128], [120, 5], [125, 8] on the radix stages, [192, 128] and
+    [81, 81, 3] past one tile on plain sums) and K15 on planes against
+    their plain versions; each K13 call counts one launch on its path."""
     from chip_smoke import plane_case
+    from portfft_tpu_torch.ops import cuda_chain
 
     rng = np.random.default_rng(n)
     xr, xi = (torch.from_numpy(rng.uniform(-1, 1, (batch, n)).astype(np.float32))
@@ -309,13 +314,71 @@ def test_plane_kernel_matches_plain(cuda, n, batch, kind):
     for sign in (-1, +1):
         kernel, args = plane_case(pf, kind, n, sign)
         before = tracing.launches(kernel.kernel)
+        paths = tracing.paths("K13")
         yr, yi = kernel(xr, xi, *args)
         wr, wi = kernel.plain(xr, xi, *args)
         torch.cuda.synchronize()
         assert tracing.launches(kernel.kernel) == before + 1
+        if kind == "chain":
+            path = cuda_chain.path_of(args[0])
+            assert path == ("plain" if n in (24576, 19683) else "radix")
+            paths[path] = paths.get(path, 0) + 1
+            assert tracing.paths("K13") == paths
         peak = max(wr.abs().max().item(), wi.abs().max().item())
         err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
         assert err <= KERNEL_TOL * peak, (sign, err)
+
+
+#: fastMRI's knee volume cut to a few slices: 640 × 368 (K13's chain
+#: [5, 128] and its DIRECT 368) at the orthonormal scale.
+FASTMRI = ([640, 368], 4, 1 / np.sqrt(640 * 368))
+
+
+def test_k13_radix_kernels_are_named_k13_on_the_card(cuda):
+    """Each of K13's radix ``__global__`` functions, as the profiler names
+    the device operation, maps to K13 alone through ``tracing.kernels_of``,
+    so ``glue_pct`` does not count it as glue."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lengths, batch, scale = FASTMRI
+    plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
+                         forward_scale=scale).commit()
+    x = torch.randn(batch, *lengths, dtype=torch.complex64, device=cuda)
+    plan.compute_forward(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        plan.compute_forward(x)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if "radix_pass_kernel" in e.key or "radix_chain_kernel" in e.key}
+    assert any("radix_pass_kernel" in k for k in names), names
+    assert any("radix_chain_kernel" in k for k in names), names
+    assert all(tracing.kernels_of(k) == ("K13",) for k in names), names
+
+
+def test_fastmri_walk_launches_k13_on_the_radix_path_alone(cuda):
+    """A fastMRI-shaped commit, forward and backward: every K13 launch is a
+    radix one (two a call: 368, then the chain at 640), and the result
+    matches ``torch.fft`` at the orthonormal scale."""
+    lengths, batch, scale = FASTMRI
+    plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
+                         forward_scale=scale, backward_scale=scale).commit()
+    assert plan._raw_fast[pf.Direction.FORWARD][6] == {640: "chain", 368: "direct"}
+    x = torch.randn(batch, *lengths, dtype=torch.complex64, device=cuda)
+    xd = x.to(torch.complex128)
+    before = tracing.paths("K13")
+    y = plan.compute_forward(x)
+    back = plan.compute_backward(y)
+    torch.cuda.synchronize()
+    after = tracing.paths("K13")
+    assert after.get("radix", 0) == before.get("radix", 0) + 4
+    assert after.get("plain", 0) == before.get("plain", 0)
+    n = int(np.prod(lengths))
+    ref = torch.fft.fftn(xd, dim=(1, 2), norm="ortho")
+    diff = (y.reshape(x.shape).to(torch.complex128) - ref).abs().max().item()
+    assert diff <= oracle_tol(n) * scale, diff
+    diff = (back.reshape(x.shape).to(torch.complex128) - xd).abs().max().item()
+    assert diff <= 2 * oracle_tol(n) * scale, diff
 
 
 @pytest.mark.parametrize("m", [1, 7, 1031 * 3, 1 << 16])

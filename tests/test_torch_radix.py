@@ -12,7 +12,13 @@ version, whose four sub-transforms a row run on these stages, against
 ``np.fft`` at three convolutions: DIRECT 384 x 384 (65537), FUSED [16, 128]
 x DIRECT 144 (131101) and DIRECT 40 x 56 (1109, a hand-made plan: the
 planner's convolutions are 2^a·3^b, and 40 = 5·8 and 56 = 7·8 run generic
-radix-5 and radix-7 stages).
+radix-5 and radix-7 stages).  Then a model of ``stage_odd``'s butterfly
+(the odd primes 5 .. 23 in registers, by pair sums over folded roots, where
+K13 runs them; ``stage_p``'s sums elsewhere) against ``np.fft``.  Last, a
+model of K13's chain mode on the
+stages (``fft_chain.cu``'s ``radix_chain_kernel``: each factor's DFT by
+``radix_plain``, the stage twiddle on its store) against ``np.fft`` at the
+planner's factors of 640, 600, 1000, 3072 and 19683.
 
 Tolerance: max|y − DFT(x)| ≤ 4·eps·log2(n)·max|DFT(x)|, the growth of a
 radix FFT's fp32 error with the number of stages (well inside the oracle's
@@ -33,7 +39,7 @@ import torch
 from portfft_tpu_torch.config import DeviceConfig
 from portfft_tpu_torch.enums import Level
 from portfft_tpu_torch.ops import cuda_bluestein, cuda_fft, torch_fft
-from portfft_tpu_torch.planner import Plan1D, plan_1d
+from portfft_tpu_torch.planner import Plan1D, plan_1d, stage_shapes
 
 CFG = DeviceConfig()
 EPS = float(np.finfo(np.float32).eps)
@@ -48,11 +54,13 @@ def _sub(plan, sign):
     return cuda_fft.sub_tables(plan, sign, keys, bank.device_arrays("cpu"))
 
 
-def _check(sub, n, sign, ref_of):
+def _check(sub, n, sign, ref_of, run=None):
+    """``run`` (default: ``radix_sub_plain`` of ``sub``) on three random
+    complex rows of n against ``ref_of`` in float64."""
     x = np.random.default_rng(n).uniform(-1, 1, (3, n, 2)).astype(np.float32)
     xc = x[..., 0].astype(np.complex128) + 1j * x[..., 1]
-    got = torch_fft.radix_sub_plain(
-        sub, torch.view_as_complex(torch.from_numpy(x))).numpy()
+    run = run or (lambda t: torch_fft.radix_sub_plain(sub, t))
+    got = run(torch.view_as_complex(torch.from_numpy(x))).numpy()
     want = ref_of(xc)
     tol = 4 * EPS * max(1.0, math.log2(n)) * np.abs(want).max()
     err = np.abs(got - want).max()
@@ -146,3 +154,86 @@ def test_bluestein_on_the_stages_is_the_dft(case):
         tol = 4 * EPS * math.log2(m) * np.abs(want).max()
         err = np.abs(got - want).max()
         assert err <= tol, (case, sign, err, tol)
+
+
+def _chain_stage_tables(factors, sign):
+    """Per stage the bank's (wr, wi, tr, ti): the f×f DFT planes and the
+    (m, f) twiddle planes, None at the last stage (``cuda_chain.chain_tables``'
+    tables for a chain plan)."""
+    bank = torch_fft.TwiddleBank(np.float32)
+    names = [(bank.dft(f, sign), bank.twiddle(f, m, sign) if m > 1 else None)
+             for f, m in stage_shapes(factors)]
+    arrays = bank.device_arrays("cpu")
+    return [(arrays[w + "r"], arrays[w + "i"],
+             None if t is None else arrays[t + "r"],
+             None if t is None else arrays[t + "i"]) for w, t in names]
+
+
+def chain_on_stages(x: torch.Tensor, factors, stages) -> torch.Tensor:
+    """K13's chain mode on the radix stages, on the complex rows of ``x``:
+    stage s views a row as L vectors of f·m elements, runs the f-point DFT
+    of each vector (r, n2) over n1 by ``radix_plain`` on the factor's roots,
+    multiplies output k by T_s[n2, k] on its store and writes it to
+    (r + L·k)·m + n2, as ``radix_chain_kernel`` does in a tile."""
+    *lead, n = x.shape
+    L = 1
+    for f, (wr, wi, tr, ti) in zip(factors, stages):
+        m = n // (L * f)
+        v = x.reshape(*lead, L, f, m).transpose(-1, -2)  # [r, n2, n1]
+        y = torch_fft.radix_plain(v, torch_fft._root_table(wr, wi, f))  # [r, n2, k]
+        if tr is not None:
+            y = y * torch.complex(tr, ti).reshape(m, f)
+        x = y.movedim(-1, -3).reshape(*lead, n)  # [k, r, n2]
+        L *= f
+    return x
+
+
+@pytest.mark.parametrize("n,factors", [(640, [5, 128]), (600, [120, 5]),
+                                       (1000, [125, 8]), (3072, [24, 128]),
+                                       (19683, [81, 81, 3])])
+def test_chain_on_the_stages_is_the_dft(n, factors):
+    """The model of K13's chain mode at the planner's factors, both
+    directions, against ``np.fft`` in float64 (640 = [5, 128] is fastMRI's
+    640-point axis; 19683 runs three stages)."""
+    assert plan_1d(n, CFG, 4).factors == factors
+    for sign in (-1, +1):
+        stages = _chain_stage_tables(factors, sign)
+        _check(None, n, sign,
+               lambda xc: np.fft.fft(xc) if sign < 0 else np.fft.ifft(xc) * n,
+               run=lambda x: chain_on_stages(x, factors, stages))
+
+
+def odd_butterfly(v: torch.Tensor, root: torch.Tensor) -> torch.Tensor:
+    """``fft_radix.cuh``'s ``stage_odd`` P-point DFT of the last axis of
+    ``v`` (P odd): a_r = v[r] + v[P-r], b_r = v[r] - v[P-r], y[q] = v[0] +
+    Σ a_r·Re w^(rq) + i·Σ b_r·Im w^(rq) and y[P-q] with -i, the root index
+    rq mod P folded to e ≤ (P-1)/2 (w^(P-e) = conj w^e).  ``root`` holds
+    w_P^e at e."""
+    P = v.shape[-1]
+    H = (P - 1) // 2
+    a = [v[..., r] + v[..., P - r] for r in range(1, H + 1)]
+    b = [v[..., r] - v[..., P - r] for r in range(1, H + 1)]
+    y = [v[..., 0] + sum(a)] + [None] * (P - 1)
+    for q in range(1, H + 1):
+        A, B = v[..., 0], torch.zeros_like(v[..., 0])
+        for r in range(1, H + 1):
+            e = r * q % P
+            w = root[min(e, P - e)]
+            A = A + a[r - 1] * w.real
+            B = B + b[r - 1] * (w.imag if e <= H else -w.imag)
+        y[q], y[P - q] = A + 1j * B, A - 1j * B
+    return torch.stack(y, dim=-1)
+
+
+@pytest.mark.parametrize("p", [5, 7, 11, 13, 17, 19, 23])
+def test_odd_stage_is_the_dft(p):
+    """The model of ``stage_odd`` on the bank's p-point roots, both
+    directions, against ``np.fft`` in float64."""
+    bank = torch_fft.TwiddleBank(np.float32)
+    for sign in (-1, +1):
+        w = bank.dft(p, sign)
+        arrays = bank.device_arrays("cpu")
+        root = torch_fft._root_table(arrays[w + "r"], arrays[w + "i"], p)
+        _check(None, p, sign,
+               lambda xc: np.fft.fft(xc) if sign < 0 else np.fft.ifft(xc) * p,
+               run=lambda x: odd_butterfly(x, root))

@@ -155,6 +155,27 @@ def test_a_kernel_counts_calls_that_reach_the_card(monkeypatch):
     assert set(tracing.launches().values()) == {0}
 
 
+def test_launches_count_by_path_and_reset(monkeypatch):
+    """``tracing.path`` counts a kernel's launches by code path; K13's
+    plain version on the CPU counts none; ``reset_launches`` clears them."""
+    from portfft_tpu_torch.ops import cuda_chain
+
+    monkeypatch.setattr(tracing, "_paths", {})
+    assert tracing.paths("K13") == {} and tracing.paths() == {}
+    for which in ("radix", "radix", "plain"):
+        tracing.path("Ktest", which)
+    assert tracing.paths("Ktest") == {"radix": 2, "plain": 1}
+    assert tracing.paths() == {"Ktest": {"radix": 2, "plain": 1}}
+    plan = pf.Descriptor(lengths=[368]).commit(device="cpu")
+    tabs = cuda_chain.chain_tables(plan.plans[368], -1, plan._bank_keys,
+                                   plan._bank_arrays)
+    assert cuda_chain.path_of(tabs) == "radix"
+    cuda_chain.chain(torch.zeros(2, 368), torch.zeros(2, 368), tabs)
+    assert tracing.paths("K13") == {}
+    tracing.reset_launches()
+    assert tracing.paths() == {}
+
+
 def test_every_wrapper_is_registered_once_with_a_k_number():
     from portfft_tpu_torch.ops import (cuda_axis, cuda_bluestein, cuda_chain, cuda_fft,
                                        cuda_global, cuda_global_bf, cuda_global_ilv,
@@ -189,11 +210,16 @@ def test_every_registered_symbol_is_a_global_function_of_csrc():
     ("_anonymous_namespace_::untangle_kernel_float2_const___float2___f", ("K8a",)),
     ("_anonymous_namespace_::blue_pass2_pfft::Pass__pfft::Sub__float_c", ("K15",)),
     ("_anonymous_namespace_::deinterleave_kernel_float2_const___float_", ("K6-de",)),
+    ("_anonymous_namespace_::radix_pass_kernel_pfft::ConstPlanes__pfft:", ("K13",)),
+    ("_anonymous_namespace_::radix_chain_kernel_pfft::ConstPlanes__pfft", ("K13",)),
+    ("_anonymous_namespace_::chain_kernel_float2_const___pfft::Planes__", ("K13",)),
     ("_anonymous_namespace_::interleave_kernel_float_const___float_con", ("K6-in",)),
     # as the profiler names them
     ("void pfft_bf::sweep_kernel<false>(pfft_bf::Bf)", ("K5", "K19", "K18")),
     ("(anonymous namespace)::global2_kernel(pfft::Pass, float2 const*, float2*)",
      ("K3", "K3-ftw")),
+    ("void (anonymous namespace)::radix_pass_kernel<pfft::ConstPlanes, pfft::Planes>"
+     "(pfft::Pass, pfft::ConstPlanes, pfft::Planes)", ("K13",)),
     ("Memset (Device)", ()),
 ])
 def test_device_operation_names_map_to_k_numbers(op, kernels):
