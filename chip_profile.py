@@ -141,8 +141,9 @@ def _tuned_fused_rows() -> list[tuple]:
     K2 (``{}``) and every engine its ``fused2`` entry can reach, at the
     shipped table's tile where that table names the engine, else at the
     tile the kernel picks."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import tuning
     from portfft_tpu_torch.config import DeviceConfig
+    from portfft_tpu_torch.engines import ENGINES, engine_of
     from portfft_tpu_torch.planner import plan_1d
 
     shipped = tuning._read(tuning._DEFAULTS_PATH).get("cuda_h100", {}).get(
@@ -153,8 +154,8 @@ def _tuned_fused_rows() -> list[tuple]:
         rows.append((f"tuned_fused_{n}_k2", n, batch, {}))
         for kind in fused_engines_reached(plan0, batch):
             params = shipped.get(f"n{n}", {})
-            if fastpath._engine_of(params, plan0) != kind:
-                params = fastpath.FUSED_ENGINE_PARAMS[kind]
+            if engine_of(params, plan0).name != kind:
+                params = dict(ENGINES[kind].params)
             rows.append((f"tuned_fused_{n}_{kind[-2:]}", n, batch, params))
     return rows
 
@@ -220,14 +221,13 @@ def commit(pf, desc, params):
             return desc.commit(device="cuda")
         finally:
             del os.environ["PORTFFT_BLUESTEIN_BF"]
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import tuning
 
     os.environ.pop("PORTFFT_NO_TUNING")
     try:
         probe = desc.commit(device="cuda")
-        inner = fastpath.inner_entry(probe._raw_fast[pf.Direction.FORWARD])
-        kind = (inner[0] if inner[0] in ("multidim", "bi_col")
-                else fastpath._tuned_kind(probe.plans[desc.lengths[0]]))
+        entry = probe._raw_fast[pf.Direction.FORWARD]
+        kind = getattr(entry, "inner", entry).tuning_kind
         tuning.record(probe.config.name, kind, tuning._entry_key(probe, kind),
                       params)
         return desc.commit(device="cuda")

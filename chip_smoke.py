@@ -613,13 +613,11 @@ def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
 
 
 def kernel_and_args(plan, direction):
-    """(kind, kernel wrapper, its arguments after the raw buffer) of a
-    committed plan's direction."""
-    from portfft_tpu_torch import fastpath
-
+    """(engine, kernel wrapper, its arguments after the raw buffer) of a
+    committed plan's direction, a raw route."""
     entry = plan._raw_fast[direction]
-    kernel, args = fastpath.kernel_args(plan, entry)
-    return entry[0], kernel, args
+    kernel, args = entry.kernel_args(plan)
+    return entry.engine.name, kernel, args
 
 
 def random_raw(numel: int, seed: int, device: str = "cuda") -> torch.Tensor:
@@ -796,12 +794,11 @@ def real_case(plan, direction, x, spec) -> tuple:
     from portfft_tpu_torch import fastpath
 
     entry = plan._raw_fast[direction]
-    kernel, args = fastpath.kernel_args(plan, entry)
-    forward = entry[0] in ("realf", "realsf") or (
-        entry[0] == "realplane" and entry[6] != "retangle")
-    if entry[0] in ("realsf", "realsb"):
+    kernel, args = entry.kernel_args(plan)
+    forward = entry.sign < 0
+    if isinstance(entry, fastpath.SmallReal):
         return "small_real", kernel, args, x if forward else spec, None
-    c2c = fastpath.half_c2c_fn(plan, entry[1])  # a raw or a plane entry
+    c2c = fastpath.half_c2c_fn(plan, entry.inner)  # a raw or a plane route
     if forward:
         return kernel.__name__, kernel, args, c2c(x), None
     return "retangle", kernel, args, spec, c2c
@@ -997,10 +994,6 @@ def c2c_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     return results, launches
 
 
-REAL_KIND_OF = {"realsf": "small_real", "realsb": "small_real",
-                "realf": "untangle", "realb": "retangle"}
-
-
 def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
                    required=REAL_KINDS) -> tuple[list, dict]:
     """``rows`` (``REAL_ROWS``) through the committed plan: each row's REAL
@@ -1009,6 +1002,8 @@ def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
     ``rfft``/``irfft``, and the path, its plain version and one
     ``torch.fft`` call are timed; every kernel of ``required`` must have
     launched."""
+    from portfft_tpu_torch import fastpath
+
     results = []
     reset_launches()
     for name, n, batch, dname in rows:
@@ -1018,10 +1013,10 @@ def real_main_path(pf, counters: dict, card: str, rows=REAL_ROWS,
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                              domain=pf.Domain.REAL).commit(device="cuda")
         entry = plan._raw_fast[direction]
-        kinds = [REAL_KIND_OF[entry[0]]]
-        if entry[0] in ("realf", "realb"):  # the C2C kernel under it
-            inner = entry[1]
-            kinds.append(inner[5] if inner[0] in ("global2", "fused2") else inner[0])
+        if isinstance(entry, fastpath.SmallReal):
+            kinds = ["small_real"]
+        else:  # the un/retangle and the C2C kernel under it
+            kinds = [entry.tangle, entry.inner.engine.name]
         x = random_raw(batch * n, seed=0) if forward else half_spectra(batch, n, 0)
         compute = plan.compute_forward if forward else plan.compute_backward
         before = {k: launched(counters[k]) for k in kinds}
@@ -1179,9 +1174,9 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             forward = direction == pf.Direction.FORWARD
             sign = -1 if forward else +1
             entry = plan._raw_fast[direction]
-            if entry[0] != "realplane":
-                raise SmokeFailure(f"{name}: entry {entry[0]}, not the REAL plane path")
-            kinds = [entry[6]] + path_kinds(entry[1])
+            if not isinstance(getattr(entry, "inner", None), fastpath.Plane):
+                raise SmokeFailure(f"{name}: route {entry}, not the REAL plane path")
+            kinds = [entry.tangle] + path_kinds(entry.inner)
             x = random_raw(batch * (n if forward else n + 2), seed=n)
             compute = plan.compute_forward if forward else plan.compute_backward
             before = {k: launched(counters[k]) for k in kinds}
@@ -1214,7 +1209,7 @@ def real_plane_path(pf, counters: dict, card: str) -> tuple[list, dict]:
             nbytes, _ = work("small_real", n, batch)
             bound, by = bound_of("small_real", n, batch)
             print(f"row {name:21s} n={n:<9d} batch={batch:<6d} {dname:8s} "
-                  f"{'+'.join(kinds):45s} launches {rose} route {entry[1][5]} "
+                  f"{'+'.join(kinds):45s} launches {rose} route {entry.inner.routes} "
                   f"oracle max|diff|={excess * oracle_tol(n):.3e} "
                   f"tol={oracle_tol(n):.3e} | max|path - plain|={rel:.2e}·max|plain| "
                   f"(tol {KERNEL_TOL:g}) | path {ms:.3f} ms "
@@ -1314,11 +1309,13 @@ def md_kernel_phase(pf, max_err: dict, card: str) -> dict:
 
 
 def md_kinds(entry) -> list[str]:
-    """The kernels of a multi-dim or ``bi_col`` entry, in the order they
-    run."""
-    if entry[0] == "bi_col":
-        return [entry[6]]
-    return [s[0] for s in entry[2]]
+    """The kernels of a multi-dim, column or raw route, in the order they
+    run: a raw step's engine, a column step's kernel, ``md2``."""
+    from portfft_tpu_torch import fastpath
+
+    steps = entry.steps if isinstance(entry, fastpath.MultiDim) else (entry,)
+    return [s.engine.name if isinstance(s, fastpath.Raw) else
+            s.kernel if isinstance(s, fastpath.Col) else "md2" for s in steps]
 
 
 def md_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
@@ -1552,6 +1549,8 @@ def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     """The ``PLANE_ROWS`` through the committed plan: K6 around the
     executor and every K13 or K15 kernel of each row's route must
     launch."""
+    from portfft_tpu_torch import fastpath
+
     results = []
     reset_launches()
     for name, n, batch, dname in PLANE_ROWS:
@@ -1561,9 +1560,9 @@ def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch).commit(
             device="cuda")
         entry = plan._raw_fast[direction]
-        if entry[0] != "plane":
-            raise SmokeFailure(f"{name}: entry {entry[0]}, not the plane path")
-        routes = set(entry[-1].values())
+        if not isinstance(entry, fastpath.Plane):
+            raise SmokeFailure(f"{name}: route {entry}, not the plane path")
+        routes = set(entry.routes.values())
         kinds = ["deinterleave", "interleave"]
         kinds += ["chain"] if routes & {"direct", "two_stage", "chain"} else []
         kinds += ["bluestein"] if "bluestein" in routes else []
@@ -1589,7 +1588,7 @@ def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
         nbytes, flops = work("bluestein", n, batch)
         bound, by = bound_of("bluestein", n, batch)
         print(f"row {name:24s} n={n:<6d} batch={batch:<7d} "
-              f"{'+'.join(kinds):36s} launches {rose} route {entry[-1]} oracle "
+              f"{'+'.join(kinds):36s} launches {rose} route {entry.routes} oracle "
               f"max|diff|={excess * oracle_tol(n):.3e} tol={oracle_tol(n):.3e} | "
               f"path {ms:.3f} ms {nbytes / ms / 1e6:.1f} GB/s | plain "
               f"{plain_ms:.3f} ms | torch.fft {library_ms:.3f} ms | bound "
@@ -1748,12 +1747,14 @@ def split_kernel_phase(pf, max_err: dict, card: str, plans: dict) -> dict:
 
 
 def path_kinds(entry) -> list[str]:
-    """The kernels a plane-path entry (``"plane"``, or ``"core"``, SPLIT or
+    """The kernels a plane-path route (a ``Plane``, or a ``Core``, SPLIT or
     interleaved) launches: K6 around an interleaved walk, K13, K14 and K15
     for the routes of its nodes, K12 for its column axes."""
-    values = set(entry[-1].values())
+    from portfft_tpu_torch import fastpath
+
+    values = set(entry.routes.values())
     kinds = []
-    if entry[0] == "plane" or not entry[1]:
+    if isinstance(entry, fastpath.Plane) or not entry.split:
         kinds += ["deinterleave", "interleave"]
     if values & {"direct", "two_stage", "chain"}:
         kinds.append("chain")
@@ -1763,7 +1764,7 @@ def path_kinds(entry) -> list[str]:
         kinds.append("bluestein")
     if "bluestein_bf" in values:
         kinds.append("bluestein_bf")
-    if entry[0] == "core" and entry[5]:
+    if isinstance(entry, fastpath.Core) and entry.k12:
         kinds.append("axis_m2")
     return kinds
 
@@ -1779,6 +1780,8 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
     Prints the peak device memory of the row's first call.  Returns the
     rows' numbers, the launches and ``{n: plan}`` of the 1D rows named in
     ``keep`` (their plans stay alive for a later kernel check)."""
+    from portfft_tpu_torch import fastpath
+
     results, kept = [], {}
     reset_launches()
     storage = (pf.ComplexStorage.SPLIT_COMPLEX if split
@@ -1790,8 +1793,8 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
         plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
                              complex_storage=storage).commit(device="cuda")
         entry = plan._raw_fast[direction]
-        if entry[0] not in ("plane", "core"):
-            raise SmokeFailure(f"{name}: entry {entry[0]}, not the plane path")
+        if not isinstance(entry, (fastpath.Plane, fastpath.Core)):
+            raise SmokeFailure(f"{name}: route {entry}, not the plane path")
         kinds = path_kinds(entry)
         n = math.prod(lengths)
         shape, dims = (batch, *lengths), tuple(range(1, len(lengths) + 1))
@@ -1836,7 +1839,7 @@ def plane_rows(pf, rows, split: bool, counters: dict, card: str,
         nbytes, flops = work("chain", n, batch)
         bound, by = bound_of("chain", n, batch)
         print(f"row {name:24s} {'x'.join(map(str, lengths)):12s} batch={batch:<6d} "
-              f"{'+'.join(kinds):40s} launches {rose} route {entry[-1]} "
+              f"{'+'.join(kinds):40s} launches {rose} route {entry.routes} "
               f"oracle max|diff|={excess * oracle_tol(n):.3e} "
               f"tol={oracle_tol(n):.3e} | path {ms:.3f} ms "
               f"{nbytes / ms / 1e6:.1f} GB/s | plain {plain_ms:.3f} ms | "
@@ -1983,22 +1986,19 @@ def stride_kernel_phase(pf, max_err: dict, card: str) -> tuple:
 
 
 def layout_kinds(entry) -> list[str]:
-    """The kernels a C2C entry launches: K7 destride where its input side
-    is strided, the inner entry's kernels (a ``global2`` or ``fused2``
-    entry's engine),
-    K7 restride where its output side is strided."""
+    """The kernels a C2C route launches: K7 destride where its input side
+    is strided, the inner route's kernels (a raw route's engine), K7
+    restride where its output side is strided."""
+    from portfft_tpu_torch import fastpath
     from portfft_tpu_torch.utils.layout import Rows
 
-    inner, src, dst = (entry[1:] if entry[0] == "layout" else (entry, 0, 0))
+    inner, src, dst = ((entry.inner, entry.src, entry.dst)
+                       if isinstance(entry, fastpath.Layout) else (entry, 0, 0))
     kinds = ["destride"] if isinstance(src, Rows) else []
-    if inner[0] in ("plane", "core"):
+    if isinstance(inner, (fastpath.Plane, fastpath.Core)):
         kinds += path_kinds(inner)
-    elif inner[0] == "multidim":
-        kinds += [step[0] for step in inner[2]]
-    elif inner[0] in ("global2", "fused2"):
-        kinds.append(inner[5])  # the entry's engine
     else:
-        kinds.append(inner[6] if inner[0] == "bi_col" else inner[0])
+        kinds += md_kinds(inner)
     return kinds + (["restride"] if isinstance(dst, Rows) else [])
 
 
@@ -2122,22 +2122,23 @@ def tuned_cases(pf, kinds=TUNED_ENGINES) -> list[tuple]:
     """``(kind, n, batch)`` of each tuned engine (``TUNED_ENGINES``, or
     ``kinds``) at every ``TUNED_ROWS`` shape its gate takes: the shapes the
     tuned main path gives it."""
-    from portfft_tpu_torch import fastpath
+    from portfft_tpu_torch.engines import ENGINES
     from portfft_tpu_torch.planner import plan_1d
 
     cfg = pf.DeviceConfig()  # the planning geometry is the same on the card
     return [(kind, n, batch) for kind in kinds for _, n, batch in TUNED_ROWS
-            if fastpath.engine_supported(kind, plan_1d(n, cfg, 4))]
+            if ENGINES[kind].gate(plan_1d(n, cfg, 4), 1, 0)]
 
 
 def tuned_kernel(plan, kind: str, direction):
     """``(kernel, args)`` of ``plan``'s GLOBAL entry for ``direction`` with
     the engine ``kind`` selected."""
     from portfft_tpu_torch import fastpath
+    from portfft_tpu_torch.engines import ENGINES
 
     entry = fastpath.with_engine(plan, plan._raw_fast[direction],
-                                 fastpath.ENGINE_PARAMS[kind])
-    return fastpath.kernel_args(plan, entry)
+                                 ENGINES[kind].params)
+    return entry.kernel_args(plan)
 
 
 def tuned_kernel_phase(pf, max_err: dict, card: str) -> dict:
@@ -2202,7 +2203,8 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     winner printed) and the tuned plan is held and timed again.  Peak
     device memory of each forced row's first call is printed.  Returns the
     launches and ``{key: winner}``."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.engines import ENGINES
 
     os.environ.pop("PORTFFT_NO_TUNING", None)
     winners = {}
@@ -2214,13 +2216,13 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             x = random_raw(2 * batch * n, seed=0)
             plan = desc.commit(device="cuda")
             device, key = plan.config.name, tuning._entry_key(plan, "global2")
-            shipped = plan._raw_fast[fwd][-1]
+            shipped = plan._raw_fast[fwd].engine.name
             del plan
             for kind in (k for k, m, _ in tuned_cases(pf, TUNED_ENGINES + ("global3",))
                          if m == n):
-                tuning.record(device, "global2", key, fastpath.ENGINE_PARAMS[kind])
+                tuning.record(device, "global2", key, dict(ENGINES[kind].params))
                 plan = desc.commit(device="cuda")
-                if plan._raw_fast[fwd][-1] != kind:
+                if plan._raw_fast[fwd].engine.name != kind:
                     raise SmokeFailure(f"{name}: the recorded {kind} did not route")
                 counter = counters[KERNEL_OF.get(kind, kind)]
                 before = launched(counter)
@@ -2249,7 +2251,7 @@ def tuned_main_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             plan = desc.commit(device="cuda")
             times = {}
             won = plan.autotune(times=times)
-            engine = plan._raw_fast[fwd][-1]
+            engine = plan._raw_fast[fwd].engine.name
             y = plan.compute_forward(x)
             torch.cuda.synchronize()
             excess = oracle_excess(y, x, n, batch, -1, 1.0)
@@ -2284,7 +2286,8 @@ def tuned_layout_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     GLOBAL entry must take the engine the shipped table names for its key,
     not K3, and the row then runs as on the layout main path
     (``layout_main_path``: that engine and K7 launch, oracle, gaps, times)."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.engines import engine_of
 
     rows = [r for r in LAYOUT_ROWS if r[0] in TUNED_LAYOUT]
     os.environ.pop("PORTFFT_NO_TUNING", None)
@@ -2294,8 +2297,9 @@ def tuned_layout_path(pf, counters: dict, card: str) -> tuple[list, dict]:
                                  **fields).commit(device="cuda")
             key = tuning._entry_key(plan, "global2")
             shipped = tuning.lookup(plan.config.name, "global2", key)
-            engine = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])[-1]
-            if shipped is None or engine != fastpath._engine_of(shipped):
+            entry = plan._raw_fast[pf.Direction.FORWARD]
+            engine = getattr(entry, "inner", entry).engine.name
+            if shipped is None or engine != engine_of(shipped).name:
                 raise SmokeFailure(f"{name}: route {engine}, but the shipped table "
                                    f"holds {shipped} for global2/{key}")
             print(f"row {name:20s} shipped global2/{key} {shipped} -> {engine}")
@@ -2311,7 +2315,8 @@ def tuned_wrapper_path(pf, counters: dict, card: str) -> None:
     plan forces it, and real_131072 (K8a over its half length) and
     strided_large (K7 around it) run as on the REAL and layout main paths,
     that engine launched under each wrapper."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.engines import ENGINES
 
     real = [r for r in REAL_ROWS if r[0] in WRAPPER_ROWS]
     layout = [r for r in LAYOUT_ROWS if r[0] in WRAPPER_ROWS]
@@ -2321,9 +2326,9 @@ def tuned_wrapper_path(pf, counters: dict, card: str) -> None:
         device, key = probe.config.name, tuning._entry_key(probe, "global2")
         del probe
         for kind in WRAPPER_ENGINES:
-            tuning.record(device, "global2", key, fastpath.ENGINE_PARAMS[kind])
+            tuning.record(device, "global2", key, dict(ENGINES[kind].params))
             print(f"wrappers on a recorded global2/{key} "
-                  f"{fastpath.ENGINE_PARAMS[kind]}")
+                  f"{ENGINES[kind].params}")
             real_main_path(pf, counters, card, real, ("untangle", kind))
             layout_main_path(pf, counters, card, layout, required=("destride", kind))
         tuning.forget(device, "global2", key)
@@ -2335,10 +2340,10 @@ def fused_kernel(plan, kind: str, direction):
     """``(kernel, args)`` of ``plan``'s FUSED entry for ``direction`` run by
     the engine ``kind`` (K2-v1 too on a plan with a fold, which no tuned
     entry reaches), the kernel picking its tile."""
-    from portfft_tpu_torch import fastpath
+    from portfft_tpu_torch.engines import ENGINES
 
     entry = plan._raw_fast[direction]
-    return fastpath.kernel_args(plan, (*entry[:5], kind, 0))
+    return dataclasses.replace(entry, engine=ENGINES[kind], bt=0).kernel_args(plan)
 
 
 def fused_kernel_phase(pf, max_err: dict, card: str) -> dict:
@@ -2383,20 +2388,21 @@ def fused_engines_reached(plan0, batch: int) -> list[str]:
     """The FUSED engines a recorded ``fused2`` entry of ``plan0`` can
     select at ``batch``: engines 2 and 3 reach K2-v2 and K2-v3 on a plan
     with a fold, K2-v1 on one without, where the gate takes the plan."""
-    from portfft_tpu_torch import fastpath
+    from portfft_tpu_torch.engines import ENGINES, engine_of
 
     return [k for k in FUSED_KINDS
-            if fastpath._engine_of(fastpath.FUSED_ENGINE_PARAMS[k], plan0) == k
-            and fastpath.engine_supported(k, plan0, batch)]
+            if engine_of(ENGINES[k].params, plan0).name == k
+            and ENGINES[k].gate(plan0, batch, 0)]
 
 
 def shipped_engine(plan, n: int) -> tuple[str, dict | None]:
     """The engine the tuning table names for the ``fused2`` key of the
     length-``n`` plan (K2 where it names none), and its entry."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import tuning
+    from portfft_tpu_torch.engines import engine_of
 
     params = tuning.lookup(plan.config.name, "fused2", f"n{n}")
-    engine = "fused2" if params is None else fastpath._engine_of(params, plan.plans[n])
+    engine = "fused2" if params is None else engine_of(params, plan.plans[n]).name
     return engine, params
 
 
@@ -2407,17 +2413,15 @@ def fused_shipped_path(pf, counters: dict, card: str) -> list:
     engine).  Each row's FUSED entry must take the engine the shipped table
     names for n4096; the row is then held to ``torch.fft``, its kernels
     must launch, and it is timed."""
-    from portfft_tpu_torch import fastpath
-
     os.environ.pop("PORTFFT_NO_TUNING", None)
     try:
         _, n, batch, _ = next(r for r in REAL_ROWS if r[0] == "real_large")
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                              domain=pf.Domain.REAL).commit(device="cuda")
         engine, params = shipped_engine(plan, n // 2)
-        inner = plan._raw_fast[pf.Direction.FORWARD][1]
-        if inner[5] != engine:
-            raise SmokeFailure(f"real_large: route {inner[5]}, but the shipped "
+        inner = plan._raw_fast[pf.Direction.FORWARD].inner
+        if inner.engine.name != engine:
+            raise SmokeFailure(f"real_large: route {inner.engine.name}, but the shipped "
                                f"table holds {params} for fused2/n{n // 2}")
         x = random_raw(batch * n, seed=0)
         before = {k: launched(counters[k]) for k in ("untangle", engine)}
@@ -2440,7 +2444,8 @@ def fused_shipped_path(pf, counters: dict, card: str) -> list:
             plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                                  **fields).commit(device="cuda")
             engine, params = shipped_engine(plan, n)
-            got = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])[5]
+            entry = plan._raw_fast[pf.Direction.FORWARD]
+            got = getattr(entry, "inner", entry).engine.name
             if got != engine:
                 raise SmokeFailure(f"{name}: route {got}, but the shipped table "
                                    f"holds {params} for fused2/n{n}")
@@ -2465,7 +2470,8 @@ def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     and the tuned plan is held and timed again (medium_large_1d both
     ways).  Returns the launches and ``{key: winner}`` of the rows a
     variant other than K2 won."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import race, tuning
+    from portfft_tpu_torch.engines import ENGINES
 
     os.environ.pop("PORTFFT_NO_TUNING", None)
     winners = {}
@@ -2477,14 +2483,13 @@ def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             x = random_raw(2 * batch * n, seed=0)
             plan = desc.commit(device="cuda")
             device, key = plan.config.name, tuning._entry_key(plan, "fused2")
-            shipped = plan._raw_fast[fwd][5]
+            shipped = plan._raw_fast[fwd].engine.name
             reached = fused_engines_reached(plan.plans[n], batch)
             del plan
             for kind in reached:
-                tuning.record(device, "fused2", key,
-                              fastpath.FUSED_ENGINE_PARAMS[kind])
+                tuning.record(device, "fused2", key, dict(ENGINES[kind].params))
                 plan = desc.commit(device="cuda")
-                if plan._raw_fast[fwd][5] != kind:
+                if plan._raw_fast[fwd].engine.name != kind:
                     raise SmokeFailure(f"{name}: the recorded {kind} did not route")
                 before = launched(counters[kind])
                 torch.cuda.synchronize()
@@ -2510,13 +2515,13 @@ def tuned_fused_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
                 torch.cuda.empty_cache()
             tuning.forget(device, "fused2", key)
             plan = desc.commit(device="cuda")
-            variants = tuning._variants_for_entry(plan, plan._raw_fast[fwd])
+            variants = race._variants_for_entry(plan, plan._raw_fast[fwd])
             times = {}
             won = plan.autotune(times=times)
             if won is not None and len(times) != len(variants):
                 raise SmokeFailure(f"{name}: autotune dropped a variant at its "
                                    f"parity gate: raced {sorted(times)} of {variants}")
-            engine = plan._raw_fast[fwd][5]
+            engine = plan._raw_fast[fwd].engine.name
             checks = [(plan.compute_forward, -1)]
             if name == "medium_large_1d":
                 checks.append((plan.compute_backward, +1))
@@ -2648,13 +2653,13 @@ def mma_kernel_phase(pf, max_err: dict, card: str) -> dict:
 def tuned_md_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
     """``MD_ROWS`` with tuning on, in the run's own tuning cache: per row,
     each variant of its ``multidim`` or ``bi_col`` entry
-    (``tuning._variants_for_entry``) is forced by a recorded entry, must
+    (``race._variants_for_entry``) is forced by a recorded entry, must
     route and launch its kernels (K10-mm under ``cm``, no K11 under
     ``{"m2": 0}``), is held to ``torch.fft`` and timed; then, with the
     entry forgotten, ``plan.autotune()`` races the variants (each one's ms
     and the winner printed) and the tuned plan is held and timed.  Returns
     the launches and ``{kind/key: winner}``."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import fastpath, race, tuning
 
     os.environ.pop("PORTFFT_NO_TUNING", None)
     winners = {}
@@ -2673,20 +2678,21 @@ def tuned_md_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             dims = (1,) if bi else tuple(range(1, len(shape)))
             x = random_raw(2 * batch * n, seed=0)
             plan = desc.commit(device="cuda")
-            inner = fastpath.inner_entry(plan._raw_fast[direction])
-            kind, key = inner[0], tuning._key_of(plan, inner)
+            entry = plan._raw_fast[direction]
+            inner = getattr(entry, "inner", entry)
+            kind, key = inner.tuning_kind, race._key_of(plan, inner)
             device = plan.config.name
             # the static route: no entry of an earlier row or the shipped table
             tuning.record(device, kind, key, {})
             plan = desc.commit(device="cuda")
             entry = plan._raw_fast[direction]
-            static = md_kinds(fastpath.inner_entry(entry))
-            variants = tuning._variants_for_entry(plan, entry)
+            static = md_kinds(getattr(entry, "inner", entry))
+            variants = race._variants_for_entry(plan, entry)
             del plan
             for params in variants:
                 tuning.record(device, kind, key, params)
                 plan = desc.commit(device="cuda")
-                kinds = md_kinds(fastpath.inner_entry(plan._raw_fast[direction]))
+                kinds = layout_kinds(plan._raw_fast[direction])
                 if ("col_mm" in kinds) != bool(params.get("cm")) or ("md2" in kinds) != (
                         "md2" in static and bool(params.get("m2", 1))):
                     raise SmokeFailure(f"{name}: {params} routed {kinds}")
@@ -2717,9 +2723,9 @@ def tuned_md_path(pf, counters: dict, card: str) -> tuple[dict, dict]:
             times = {}
             won = plan.autotune(times=times)
             compute = plan.compute_forward if forward else plan.compute_backward
-            kinds = md_kinds(fastpath.inner_entry(plan._raw_fast[direction]))
-            if won is None or kinds != md_kinds(fastpath.inner_entry(
-                    fastpath.with_engine(plan, entry, won))):
+            kinds = layout_kinds(plan._raw_fast[direction])
+            if won is None or kinds != layout_kinds(
+                    fastpath.with_engine(plan, entry, won)):
                 raise SmokeFailure(f"{name}: autotune won {won}, routed {kinds}")
             y = compute(x)
             torch.cuda.synchronize()

@@ -56,7 +56,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import fastpath
+from . import fastpath, race
 from .config import resolve_device_config
 from .enums import ComplexStorage, Direction, Domain, Placement
 from .exceptions import InvalidConfiguration, UnsupportedConfiguration
@@ -147,7 +147,7 @@ class CommittedDescriptor:
                 "committed:",
                 self.plan_description(),
                 f"device={self.device}",
-                {dn.value: e[0] for dn, e in self._raw_fast.items()},
+                {dn.value: type(e).__name__ for dn, e in self._raw_fast.items()},
             )
 
     # -- public API ----------------------------------------------------------
@@ -168,27 +168,16 @@ class CommittedDescriptor:
 
     def autotune(self, iters: int = 5, times=None):
         """Race the kernels that can run this plan's GLOBAL, FUSED,
-        multi-dim or BATCH_INTERLEAVED transform on the plan's device,
-        record the fastest in the tuning cache, switch both directions to it
-        and return its parameters.  GLOBAL: ``{}`` K3, ``{"eng": 2, "ftw":
-        1}`` K3-ftw, ``{"eng": 5}`` K4,
-        ``{"eng": 7}`` K5, ``{"eng": 7, "ov": 1}`` K5-ov, ``{"eng": 3}``
-        K16, ``{"eng": 6}`` K17 and ``{"eng": 6, "ftw": 1}`` (its factored
-        twiddle), ``{"eng": 8}`` K18, ``{"eng": 7, "bf2": 1}`` K19, where
-        their gates take the plan.  FUSED [a, 128]: ``{}`` K2,
-        ``{"eng": 2, "bt": bt}`` K2-v2 and ``{"eng": 3, "bt": bt}`` K2-v3
-        at each batch tile their gates take, or where a has no fold
-        ``{"eng": 2}`` K2-v1.  Multi-dim (kind ``multidim``, key
-        ``n{L0}x{L1}…``): ``{}``, ``{"cm": 1}`` (K10-mm for the column
-        steps it takes) and, where K11 runs, ``{"m2": 0}`` and ``{"m2": 0,
-        "cm": 1}``; BATCH_INTERLEAVED 1D (kind ``bi_col``, key ``n{n}``):
-        ``{}`` K10 and ``{"cm": 1}`` K10-mm.  A REAL transform races its
-        half-length transform's and records under that length.  None where
-        the plan has nothing to race.  ``times`` (a dict), where given,
-        receives each variant's ms per call.  See ``tuning.autotune``."""
-        from . import tuning
-
-        return tuning.autotune(self, iters, times)
+        multi-dim or BATCH_INTERLEAVED transform on the plan's device
+        (GLOBAL and FUSED: the engines of ``engines.ENGINES`` whose gates
+        take the plan; multi-dim: ``{"cm": 1}`` and ``{"m2": 0}``;
+        BATCH_INTERLEAVED: ``{"cm": 1}``), record the fastest in the
+        tuning cache, switch both directions to it and return its
+        parameters; None where the plan has nothing to race.  A REAL
+        transform races its half-length transform's and records under that
+        length.  ``times`` (a dict), where given, receives each variant's
+        ms per call.  See ``race.autotune``."""
+        return race.autotune(self, iters, times)
 
     # -- internals -----------------------------------------------------------
 

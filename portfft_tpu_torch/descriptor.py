@@ -14,9 +14,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .committed import CommittedDescriptor
 from .enums import ComplexStorage, Direction, Domain, Placement, inv
 from .exceptions import InvalidConfiguration, UnsupportedConfiguration
 from .utils.layout import default_strides, flattened_length
+from .validation import validate_descriptor
 
 _PRECISION_ALIASES = {
     "fp32": np.float32,
@@ -244,14 +246,10 @@ class Descriptor:
         not ported yet (ROADMAP Queue 1 item 15) and raises
         :class:`UnsupportedConfiguration`.
         """
-        from .validation import validate_descriptor
-
         validate_descriptor(self)
         if mesh is not None:
             raise UnsupportedConfiguration(
                 "distributed plans (commit(mesh=...)) are not ported yet "
                 "(ROADMAP Queue 1 item 15)"
             )
-        from .committed import CommittedDescriptor
-
         return CommittedDescriptor(dataclasses.replace(self), device=device)

@@ -1,40 +1,37 @@
-"""Raw-I/O registry: which kernel runs a committed plan.
+"""Raw-I/O registry: which kernels run a committed plan.
 
-The 1D C2C fp32 INTERLEAVED PACKED transform with zero offsets — the
-contract ``bench.py`` measures — runs as one kernel call on the raw
-interleaved buffer, chosen by plan level:
+``register`` fixes, at commit, one route per direction: a record below
+whose fields say what runs, the scale where it goes, and the route it
+wraps.  Every route runs on its own blocks at offset 0; a :class:`Layout`
+reaches any other buffer layout.  Anything outside this slice raises
+:class:`RawFastUnavailable` (an :class:`UnsupportedConfiguration`) naming
+the ROADMAP Queue 1 item that will port it; nothing is quietly sent down
+another path.
 
-| plan level | kernel (``ops``) | JAX counterpart |
+| transform | route | kernels, in order |
 |---|---|---|
-| DIRECT | ``cuda_fft.direct`` (K1) | ``pallas_fft.direct_raw_call`` |
-| FUSED [a, 128] | the entry's engine: ``cuda_fft.fused2`` (K2, the static route), ``fused2_v1`` (K2-v1), ``fused2_v2`` (K2-v2) or ``fused2_v3`` (K2-v3) | ``pallas_fft.fused2_raw_mm_call``, ``fused2_raw_call``, ``fused2_raw_v2_call``, ``fused2_raw_v3_call`` |
-| GLOBAL, DIRECT or FUSED [a, 128] subs | the entry's engine: ``cuda_global.global2`` (K3, the static route), ``cuda_global.global2_ftw`` (K3-ftw, its factored twiddle), ``cuda_global.global_sq`` (K4), ``cuda_global_bf.global_bf`` (K5), ``global_bf_ov`` (K5-ov), ``global_bf2`` (K19), ``cuda_global.global3`` (K16), ``cuda_global.global_fused`` (K17, dense or factored twiddle) or ``cuda_global_ilv.global_ilv`` (K18) | ``pallas_global.global2_raw_call`` (``use_ftw`` for K3-ftw), ``global_sq_raw_call``, ``pallas_global_bf.global_bf_raw_call``, ``global_bf_ov_raw_call``, ``global_bf2_raw_call``, ``pallas_global3.build_call``, ``pallas_global.global_fused_raw_call``, ``pallas_global_ilv.global_ilv_raw_call`` |
-| anything else (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | the plane path, ``("plane", ...)`` below | ``committed._traced_interleaved`` |
+| 1D C2C, a DIRECT, FUSED [a, 128] or GLOBAL plan with DIRECT or FUSED [a, 128] subs | :class:`Raw` | its engine (``engines.ENGINES``): the tuning table's for the plan's ``fused2`` or ``global2`` key, else K1, K2, K3 |
+| 1D C2C, any other plan (BLUESTEIN; GLOBAL with another sub; a FUSED chain not [a, 128]) | :class:`Plane` | K6, the executor ``ops/torch_exec.exec_plan`` with each node's kernel (below), K6 with the scale |
+| 1D BATCH_INTERLEAVED in both domains, a length K10 takes | :class:`Col` (bpre = 1) | K10, or K10-mm under ``{"cm": 1}`` of the ``bi_col`` kind |
+| multi-dim C2C, K11 takes the two trailing plans | :class:`MultiDim` | K11 (:class:`Md2`), then K10 (:class:`Col`) for axes −3 … 0 |
+| multi-dim C2C, the per-axis route | :class:`MultiDim` | the last axis's :class:`Raw` (K1–K3), then K10 for axes −2 … 0 |
+| SPLIT_COMPLEX, and multi-dim shapes the raw route declines | :class:`Core` | the JAX package's per-axis walk ``_core_inner`` (``torch_exec.core_inner``): K12 on the outer axes its gates take, ``movedim`` + executor + ``movedim`` on the others; K6 around it interleaved |
+| 1D REAL, even n ≤ ``SMALL_REAL_MAX_N`` | :class:`SmallReal` | K9 |
+| 1D REAL, longer even n | :class:`HalfReal` | the h = n/2 C2C route (:class:`Raw`, or :class:`Plane`), then K8a or K8a-w; backward K8b first |
 
-The engine of a GLOBAL entry, ``("global2", plan, batch, sign, scale,
-engine)``, and of a FUSED entry, ``("fused2", plan, batch, sign, scale,
-engine, bt)``, is fixed at commit from the tuning table (``tuning.lookup``
-of the plan's ``global2`` or ``fused2`` key, written by
-``CommittedDescriptor.autotune``), else the static route, K3 or K2
-(``_tuned_engine``).  FUSED follows the JAX package's chain: engine 4 or
-none is K2, engine 2 K2-v2 and engine 3 K2-v3, each K2-v1 on a plan whose
-a has no fold; ``bt`` is the tuned batch tile of K2-v2 and K2-v3 (0: the
-kernel picks; a tuned tile this batch cannot take is dropped).  The 1D
-entry, the half-length entry under a REAL transform and the inner entry of
-a layout take it; a multi-dimensional row step runs K3 or K2.  A tuned
-engine whose gate declines the plan is marked stale and the static route
-runs; an engine with no kernel here raises.
+A multi-dim route takes the ``multidim`` tuning kind: ``{"m2": 0}`` turns
+K11 off, ``{"cm": 1}`` puts K10-mm on each column step its gate takes; the
+reference's TPU tile knobs ``ct``, ``ds``, ``mt1`` and ``mt2`` are read and
+ignored.  Every outer axis must be one K10 takes (DIRECT ≤ 512 or FUSED [a,
+128] with a | 128) and the last axis one of K1–K3.  The JAX package
+declines some REAL shapes to its plane path (h not a multiple of 128, h ≥
+2^15, 512 < n < 1024, batches that do not group); the kernels here take
+them all.  The static FUSED route is K2 for every [a, 128] plan and batch;
+the JAX package's differs (ROADMAP Queue 3): v1 where a has no fold, and
+its plane path at batches its tiles decline.
 
-The static FUSED route is K2 for every [a, 128] plan and batch.  The JAX
-package's static route differs there (ROADMAP Queue 3): it runs v1 on the
-plans whose a has no fold, and at batches its tiles decline it falls back
-to its plane path.
-
-The plane path (``plane_fn``) runs ``cuda_io.deinterleave`` (K6), then the
-executor ``ops/torch_exec.exec_plan`` on the (re, im) planes with a leaf
-hook that runs each node's kernel, then ``cuda_io.interleave`` (K6) with
-the direction's scale.  The route of every node is fixed at commit
-(``plane_routes``) by the JAX package's ``leaf_dispatch`` gates:
+The plane path's node routes are fixed at commit (``plane_routes``) by the
+JAX package's ``leaf_dispatch`` gates:
 
 | node | kernel | JAX counterpart |
 |---|---|---|
@@ -43,17 +40,9 @@ the direction's scale.  The route of every node is fixed at commit
 | BLUESTEIN with a GLOBAL convolution (``cuda_bluestein.supported``) whose subs fit K15's tile | ``cuda_bluestein.bluestein`` (K15), or with ``PORTFFT_BLUESTEIN_BF`` set at commit and both subs A·128, A = 2^a·3^b ≤ 16, ``cuda_bluestein.bluestein_bf`` (K15-bf, its butterfly mode) | ``pallas_bluestein.bluestein_call`` (its butterfly mode under the same flag) |
 | other BLUESTEIN, other GLOBAL | the executor's glue around the kernels of its nodes; a Bluestein convolution on K14 takes b̂ and the final chirp as ``post`` tables | ``xla_fft._exec_bluestein``, ``exec_plan`` |
 
-SPLIT_COMPLEX C2C (PACKED, zero offsets, any rank) and the multi-dim
-interleaved shapes the raw route below declines run the JAX package's
-per-axis walk (``_core_inner``, here ``torch_exec.core_inner``, the
-``("core", ...)`` entry of ``_register_core``): the last axis through the
-executor, each outer axis on K12 (``cuda_axis.axis_m2``) where the JAX
-package's gates take it, else ``movedim`` + executor + ``movedim``.  The
-copies that move an axis and put it back count as glue bytes
-(``tracing.glue_bytes``), and each axis is a ``portfft.axis`` span under a
-profiler.
-SPLIT planes go in and out with no K6; the interleaved entry runs K6
-around the walk.  Where the scale goes:
+The per-axis walk's copies that move an axis and put it back count as glue
+bytes (``tracing.glue_bytes``), and each axis is a ``portfft.axis`` span
+under a profiler.  Where the scale goes on the plane path and the walk:
 
 | route of the last axis that runs | scale |
 |---|---|
@@ -61,76 +50,18 @@ around the walk.  Where the scale goes:
 | K14 (its node, or a Bluestein convolution with ``post``) | K14's pass 2 |
 | K15 | K15's pass 3 |
 | K13, generic GLOBAL or Bluestein | one torch multiply after it |
-| any, interleaved (``plane`` and ``core`` entries) | K6's interleave |
-
-The 1D REAL fp32 transform (R2C forward, C2R backward, INTERLEAVED PACKED,
-out-of-place) runs, for even n ≤ ``SMALL_REAL_MAX_N``, as one call of
-``cuda_real.small_real`` (K9, entries ``realsf``/``realsb``); for longer
-even n as the C2C transform of the h = n/2 plan at scale 1 on the real
-buffer viewed as h complex pairs, followed (forward) by
-``cuda_real.untangle`` (K8a) or preceded (backward) by
-``cuda_real.retangle`` (K8b), which apply the direction's scale.  Where h
-has a raw entry (K1, K2, K3 or a tuned engine) that entry runs
-(``realf``/``realb``); where h needs the plane path, the plane entry of h
-runs (``realplane``: K6, the executor with K13–K15, K6), and the forward
-untangle is K8a-w (``cuda_real.untangle_wide``) where its gate takes the
-shape (the JAX package's ``_core_real_forward``/``_core_real_backward``).
-C2R reads Im X[0] and Im X[n/2] as the JAX package does: dropped below
-n = 1024, where it has no retangle table, used from there on (K8b's
-``drop`` flag, set at commit).  The JAX package declines some raw shapes
-to its plane path (h not a multiple of 128, h ≥ 2^15, 512 < n < 1024,
-batches that do not group); the kernels here take them all.
-
-Multi-dimensional C2C fp32 (rank >= 2, INTERLEAVED PACKED, zero offsets)
-runs as an ``("multidim", md2, steps)`` entry: the kernels in the order they
-run, the first out of place (or into the caller's buffer in place) and the
-rest in place on its result.  Route as the JAX package's
-``_register_multidim``:
-
-| route | kernels, in order |
-|---|---|
-| md2 (``cuda_multidim.md2_supported`` of the two trailing plans) | ``cuda_multidim.md2`` (K11) on the trailing 2D transforms, then ``cuda_multidim.col`` (K10) for axes −3 … 0 |
-| per axis | the last axis's 1D kernel (K1, K2 or K3) at batch B·prod(lengths[:-1]), then K10 for axes −2 … 0 |
-
-Length-1 axes are skipped; the direction's scale goes into the last kernel
-that runs.  Every outer axis must be one K10 takes (DIRECT ≤ 512 or FUSED
-[a, 128] with a | 128, so up to 16384) and the last axis one of K1–K3;
-other shapes run on the per-axis walk above.  The 1D BATCH_INTERLEAVED
-layout (stride = batch, distance 1, both domains) is one K10 call with
-bpre = 1: the ``bi_col`` entry, where K10 takes the length.
-
-Both entries take the JAX package's ``multidim`` (key ``n{L0}x{L1}…``) and
-``bi_col`` (key ``n{n}``) tuning kinds at commit: ``{"m2": 0}`` turns K11
-off (the per-axis route), and ``{"cm": 1}`` runs each column step on
-K10-mm (``cuda_multidim.col_mm``, the tensor cores) where its gate takes
-the axis, K10 elsewhere.  The reference's TPU tile knobs ``ct``, ``ds``,
-``mt1`` and ``mt2`` are read and ignored: Hopper tiles are the kernels'
-own.
+| any, interleaved (:class:`Plane` and :class:`Core`) | K6's interleave |
 
 Buffer layouts (the JAX package's ``strided1d`` entry, without its TPU
-tile gates).  Every entry above runs on its own blocks at offset 0: PACKED
-rows, or ``bi_col``'s BATCH_INTERLEAVED block.  A descriptor whose buffers
-are laid out otherwise gets ``("layout", inner, src, dst)`` around the
-inner entry, ``src`` for the input domain and ``dst`` for the output
-domain (``_with_layout``):
+tile gates; ``_with_layout``):
 
-| a domain's buffer | side | how the inner entry reaches it |
+| a domain's buffer | side | how the inner route reaches it |
 |---|---|---|
-| the inner entry's block at an offset (any rank; PACKED, or BI for ``bi_col``) | the offset, an int | a contiguous view at the offset; the inner kernels read it, and write it where they can |
+| the inner route's block at an offset (any rank; PACKED, or BI for a :class:`Col`) | the offset, an int | a contiguous view at the offset; the inner kernels read it, and write it where they can |
 | any other 1D layout: strides, distances, BATCH_INTERLEAVED in one domain or over a length K10 declines | its ``utils.layout.Rows`` | ``cuda_stride.destride`` (K7) into packed rows; ``cuda_stride.restride`` (K7) back |
 
-The direction's scale stays in the inner entry, so K7 is a pure copy.  A
-new output buffer is zero wherever no result lands (K7's ``fill_gaps``, or
-the zeroed leading offset of a view); a caller's buffer keeps those
-elements.  IN_PLACE reads all input before writing any output: the inner
-entry runs in place only on the view it reads or on K7's scratch, else
-into a new buffer that is then restrided or copied into the caller's
-(``layout_fn``).  The REAL route takes only PACKED buffers at offset 0.
-
-Registration happens at commit.  Anything outside this slice raises
-:class:`RawFastUnavailable` (an :class:`UnsupportedConfiguration`) naming
-the ROADMAP Queue 1 item that will port it; no configuration is quietly
-sent down another path.
+The direction's scale stays in the inner route, so K7 is a pure copy.  The
+REAL routes take only PACKED buffers at offset 0.
 """
 
 from __future__ import annotations
@@ -138,220 +69,264 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import ClassVar
 
 import torch
 
 from . import tuning
-from .enums import ComplexStorage, Direction, Domain, Layout, Level, Placement
+from .engines import ENGINES, GLOBAL_SUB_MAX, Engine, RawFastUnavailable
+from .engines import engine_of, raw_kind
+from .enums import ComplexStorage, Direction, Domain, Level, Placement
+from .enums import Layout as BufferLayout
 from .enums import inv as _inv
-from .exceptions import UnsupportedConfiguration
 from .ops import (
     cuda_axis,
     cuda_bluestein,
     cuda_chain,
     cuda_fft,
     cuda_global,
-    cuda_global_bf,
-    cuda_global_ilv,
     cuda_io,
     cuda_multidim,
     cuda_real,
     cuda_stride,
     torch_exec,
 )
-from .ops.torch_fft import fold_factor, is_two_stage
+from .planner import Plan1D
 from .utils import logging as plog
 from .utils import tracing
 from .utils.layout import Rows, get_layout, rows_1d
 from .utils.tracing import PROFILER
 
-
-class RawFastUnavailable(UnsupportedConfiguration):
-    """No kernel of this package covers the descriptor (declined at
-    commit)."""
-
-
 _SIGNS = {Direction.FORWARD: -1, Direction.BACKWARD: +1}
-
-#: Longest sub-transform a GLOBAL pass holds in one tile: one column in two
-#: ping-pong tiles of float2 plus its root table (``pass_smem_bytes`` in
-#: csrc/fft_common.cuh) fits the 227 KB of shared memory a block may use up
-#: to this length.  The C side checks no length; a launch past it fails.
-#: K15's convolution subs share the tile geometry and the limit.
-GLOBAL_SUB_MAX = 8192
 
 #: Longest REAL transform K9 takes whole; longer even lengths run the
 #: half-length path.  The JAX package's limit (``pallas_real``) too.
 SMALL_REAL_MAX_N = 512
 
+#: Shortest REAL length whose C2R keeps Im X[0] and Im X[n/2]: the JAX
+#: package banks its retangle table (``R``) from n = 1024 on and uses both
+#: parts there; below it runs a C2C of the Hermitian extension and keeps the
+#: real part, which drops them (``committed._core_real_backward``).
+REAL_KEEP_MIN_N = 1024
 
-def _leaf_ok(plan) -> bool:
-    return plan.level == Level.DIRECT or is_two_stage(plan)
+
+# -- routes -------------------------------------------------------------------
+
+
+class Route:
+    """A committed route.  ``tuning_kind`` names the tuning kind
+    ``autotune`` races on it (None: nothing to race); a wrapper route
+    (:class:`Layout`, :class:`HalfReal`) has none and holds its ``inner``
+    route."""
+
+    tuning_kind: ClassVar[str | None] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Raw(Route):
+    """One 1D PACKED transform of ``batch`` rows on the raw interleaved
+    buffer by ``engine`` (:mod:`engines`), at the batch tile ``bt`` (0: the
+    kernel picks)."""
+
+    plan: Plan1D
+    batch: int
+    sign: int
+    scale: float
+    engine: Engine
+    bt: int = 0
+
+    @property
+    def tuning_kind(self) -> str | None:
+        return None if self.engine.kind == "direct" else self.engine.kind
+
+    def kernel_args(self, committed) -> tuple:
+        """``(kernel, args after the buffer)``."""
+        tables = self.engine.tables(self.plan, self.sign, committed._bank_keys,
+                                    committed._bank_arrays, self.batch, self.bt)
+        return self.engine.kernel, (self.batch, *tables, self.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class Col(Route):
+    """A column transform of ``plan`` over (``bpre``, L, ``rest``) rows on
+    ``kernel``: ``"col"`` (K10) or ``"col_mm"`` (K10-mm).  A multi-dim
+    step, or with ``bpre`` = 1 and ``rest`` the batch the whole 1D
+    BATCH_INTERLEAVED transform (the ``bi_col`` tuning kind)."""
+
+    tuning_kind: ClassVar[str] = "bi_col"
+
+    kernel: str
+    bpre: int
+    plan: Plan1D
+    rest: int
+    sign: int
+    scale: float
+
+    def kernel_args(self, committed) -> tuple:
+        return getattr(cuda_multidim, self.kernel), (
+            self.bpre, self.rest, cuda_fft.sub_tables(
+                self.plan, self.sign, committed._bank_keys,
+                committed._bank_arrays), self.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class Md2(Route):
+    """K11 (``cuda_multidim.md2``) on ``batch`` trailing 2D transforms of
+    ``plan1`` × ``plan2``: a multi-dim step."""
+
+    batch: int
+    plan1: Plan1D
+    plan2: Plan1D
+    sign: int
+    scale: float
+
+    def kernel_args(self, committed) -> tuple:
+        keys, arrays = committed._bank_keys, committed._bank_arrays
+        return cuda_multidim.md2, (
+            self.batch, cuda_fft.sub_tables(self.plan1, self.sign, keys, arrays),
+            cuda_fft.sub_tables(self.plan2, self.sign, keys, arrays), self.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiDim(Route):
+    """A multi-dimensional C2C transform: ``steps`` (an :class:`Md2` or a
+    :class:`Raw`, then :class:`Col` steps) in the order they run, the first
+    out of place and the rest in place on its result."""
+
+    tuning_kind: ClassVar[str] = "multidim"
+
+    steps: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Plane(Route):
+    """One 1D transform of ``batch`` rows on the plane path (``plane_fn``),
+    its nodes on ``routes`` (``plane_routes``)."""
+
+    plan: Plan1D
+    batch: int
+    sign: int
+    scale: float
+    routes: dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Core(Route):
+    """A transform on the plane path's per-axis walk (``core_fn``): SPLIT
+    (``split``, planes in and out) or interleaved with K6 around it.
+    ``k12`` is ``((axis, mode), ...)`` for the outer axes the column kernel
+    K12 takes; every other axis runs through the executor on ``routes``."""
+
+    split: bool
+    batch: int
+    sign: int
+    scale: float
+    k12: tuple
+    routes: dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout(Route):
+    """The ``inner`` route on buffers laid out otherwise than its own
+    blocks at offset 0: ``src`` (input) and ``dst`` (output) are each an
+    offset or the domain's :class:`Rows` (``_side``)."""
+
+    inner: Route
+    src: object
+    dst: object
+
+
+@dataclasses.dataclass(frozen=True)
+class SmallReal(Route):
+    """A REAL transform of even ``n`` ≤ ``SMALL_REAL_MAX_N`` on K9
+    (``cuda_real.small_real``), forward for ``sign`` −1."""
+
+    n: int
+    batch: int
+    sign: int
+    scale: float
+
+    def kernel_args(self, committed) -> tuple:
+        keys, arrays = committed._bank_keys, committed._bank_arrays
+        w, m = keys[("W", self.n, self.sign)], keys[("RM", self.n, self.sign)]
+        return cuda_real.small_real, (self.batch, cuda_real.SmallRealTables(
+            self.n, self.sign, self.scale, arrays[w + "r"], arrays[w + "i"],
+            arrays[m + "m"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class HalfReal(Route):
+    """A REAL transform of n = 2h: the ``inner`` C2C route of h at scale 1
+    (a :class:`Raw` or a :class:`Plane`) and ``tangle``, the kernel that
+    applies the scale: ``"untangle"`` (K8a) or ``"untangle_wide"`` (K8a-w)
+    after it forward, ``"retangle"`` (K8b) before it backward.  ``drop`` is
+    K8b's flag: Im X[0] and Im X[n/2] read as 0 below ``REAL_KEEP_MIN_N``,
+    as the JAX package."""
+
+    inner: Route
+    h: int
+    batch: int
+    sign: int
+    scale: float
+    tangle: str
+    drop: bool
+
+    def kernel_args(self, committed) -> tuple:
+        """The un/retangle kernel and its arguments after the buffer."""
+        r = committed._bank_keys[("R", 2 * self.h, self.sign)]
+        arrays = committed._bank_arrays
+        return getattr(cuda_real, self.tangle), (
+            self.batch, self.h, arrays[r + "r"], arrays[r + "i"], self.scale,
+            *((self.drop,) if self.tangle == "retangle" else ()))
+
+
+# -- engines of the fused2 and global2 kinds ------------------------------------
 
 
 def _raw_entry(plan0, batch: int, sign: int, scale: float,
-               engine: str | None = None, bt: int = 0):
-    """The raw entry of one 1D PACKED transform, ``(kind, plan, batch,
-    sign, scale)``, for a FUSED [a, 128] plan with its ``engine`` and batch
-    tile ``bt`` after them, for a GLOBAL plan with its ``engine``; None
-    where the plan needs the plane path.  ``engine`` None is the static
-    route (K2, K3)."""
-    if plan0.level == Level.DIRECT:
-        return ("direct", plan0, batch, sign, scale)
-    if is_two_stage(plan0):
-        return ("fused2", plan0, batch, sign, scale, engine or "fused2", bt)
-    if _global_raw(plan0):
-        return ("global2", plan0, batch, sign, scale, engine or "global2")
-    return None
-
-
-def _global_raw(plan0) -> bool:
-    """A GLOBAL plan whose subs K3 takes (the ``global2`` entry)."""
-    if plan0.level != Level.GLOBAL:
-        return False
-    g1, g2 = plan0.sub
-    return _leaf_ok(g1) and _leaf_ok(g2) and max(g1.n, g2.n) <= GLOBAL_SUB_MAX
-
-
-# -- engines of the global2 and fused2 entries ----------------------------------
-
-#: The kernels of a ``global2`` entry and the tuning parameters (the JAX
-#: package's engine numbers) that select them.
-ENGINE_PARAMS = {
-    "global2": {},                         # K3, two passes (engine 2)
-    "global2_ftw": {"eng": 2, "ftw": 1},   # K3-ftw, its factored twiddle
-    "global_sq": {"eng": 5},               # K4, one pass in a cluster
-    "global_bf": {"eng": 7},               # K5, butterfly-factored sweep
-    "global_bf_ov": {"eng": 7, "ov": 1},   # K5-ov, its phase overlay
-    "global3": {"eng": 3},                 # K16, two passes on tensor cores
-    "global_fused": {"eng": 6},            # K17, K3's passes in one launch
-    "global_fused_ftw": {"eng": 6, "ftw": 1},  # K17, factored twiddle
-    "global_ilv": {"eng": 8},              # K18, mixed-radix sweep
-    "global_bf2": {"eng": 7, "bf2": 1},    # K19, K5 with GB resident
-}
-
-#: The kernels of a ``fused2`` entry and the JAX package's engine numbers
-#: that select them (with a batch tile ``bt`` for engines 2 and 3).  On a
-#: plan whose a has no fold, engines 2 and 3 select K2-v1, as the
-#: reference's chain (v3 or v2, then v1) reaches it there.
-FUSED_ENGINE_PARAMS = {
-    "fused2": {},             # K2 (engine 4, the mm kernel)
-    "fused2_v1": {"eng": 2},  # K2-v1, on a plan with no fold
-    "fused2_v2": {"eng": 2},  # K2-v2
-    "fused2_v3": {"eng": 3},  # K2-v3
-}
-
-def _engine_of(params: dict, plan0=None) -> str:
-    """The kernel that tuning parameters select: for a GLOBAL plan (or
-    ``plan0`` None) the JAX package's engine 2 is K3 (``"ftw": 1`` K3-ftw,
-    its factored twiddle), 3 K16, 5 K4, 6 K17 (``"ftw": 1`` its factored
-    twiddle), 7 K5, K5-ov (``"ov": 1``) or K19 (``"bf2": 1``), 8 K18.  The
-    reference's TPU knobs have no counterpart here and are read and
-    ignored: the tiles ``t1``/``t2`` (engines 2, 3, 6, 7, 8; the factored
-    tables are read at ``torch_fft.FTW_T1`` columns whatever ``t1``),
-    ``bt`` (5), ``st3``/``ta`` (bf2), and ``mm`` and ``ds`` on engine 2.
-    For a FUSED [a, 128] plan, engine 4 (or none) is K2 (its ``flat``,
-    ``ds`` and ``bt`` knobs have no counterpart), 2 K2-v2 and 3 K2-v3, each
-    K2-v1 where a has no fold; any other engine raises."""
-    eng = params.get("eng")
-    if plan0 is not None and is_two_stage(plan0):
-        if eng in (None, 4):
-            return "fused2"
-        if eng in (2, 3):
-            if fold_factor(plan0.factors[0]) == 0:
-                return "fused2_v1"
-            return "fused2_v2" if eng == 2 else "fused2_v3"
-        raise RawFastUnavailable(
-            f"the FUSED engine {params} has no kernel in this package")
-    eng = 2 if eng is None else eng
-    if eng == 2:
-        return "global2_ftw" if params.get("ftw") else "global2"
-    if eng == 3:
-        return "global3"
-    if eng == 5:
-        return "global_sq"
-    if eng == 6:
-        return "global_fused_ftw" if params.get("ftw") else "global_fused"
-    if eng == 7:
-        if params.get("bf2"):
-            return "global_bf2"
-        return "global_bf_ov" if params.get("ov") else "global_bf"
-    if eng == 8:
-        return "global_ilv"
-    raise RawFastUnavailable(
-        f"the GLOBAL engine {params} has no kernel in this package")
-
-
-def engine_supported(engine: str, plan0, batch: int = 1, bt: int = 0) -> bool:
-    """Whether ``engine``'s gate takes the plan (K3 and K2 take every plan
-    their entries hold); K2-v2 and K2-v3 at the batch tile ``bt`` (0: at
-    any tile)."""
-    if engine == "global_sq":
-        return cuda_global.global_sq_supported(plan0)
-    if engine == "global2_ftw":
-        return _global_raw(plan0) and cuda_global.global2_ftw_supported(plan0)
-    if engine in ("global_bf", "global_bf_ov"):
-        return cuda_global_bf.global_bf_supported(plan0)
-    if engine == "global_bf2":
-        return cuda_global_bf.global_bf2_supported(plan0)
-    if engine == "global3":
-        return cuda_global.global3_supported(plan0)
-    if engine in ("global_fused", "global_fused_ftw"):
-        return cuda_global.global_fused_supported(
-            plan0, ftw=engine == "global_fused_ftw")
-    if engine == "global_ilv":
-        return cuda_global_ilv.global_ilv_supported(plan0)
-    if engine == "fused2_v1":
-        return cuda_fft.fused2_v1_supported(plan0)
-    if engine == "fused2_v2":
-        return cuda_fft.fused2_v2_supported(plan0, batch, bt)
-    if engine == "fused2_v3":
-        return cuda_fft.fused2_v3_supported(plan0, batch, bt)
-    if engine == "fused2":
-        return is_two_stage(plan0)
-    return _global_raw(plan0)
-
-
-def _tile_of(engine: str, params: dict) -> int:
-    """The batch tile tuning parameters give ``engine`` (0: none, the
-    kernel picks)."""
-    return params.get("bt", 0) if engine in ("fused2_v2", "fused2_v3") else 0
-
-
-def _tuned_engine(committed, plan0, batch: int) -> tuple[str | None, int]:
-    """``(engine, bt)`` of the ``global2`` or ``fused2`` entry of
-    ``plan0`` (:func:`_tuned_kind`), fixed at commit: the tuned table's
-    (``tuning.lookup``), else the static route, whose engine has the
-    kind's name (K3, K2); ``(None, 0)`` for a plan of no tuned kind.  The key holds no
-    batch, so a tuned batch tile that does not divide this batch, or does
-    not fit, is dropped with a trace and the kernel picks its own (the JAX
-    package's "stale tuning (different batch): let the kernel pick").  A
-    tuned engine whose gate declines the plan at every tile is marked stale
-    in the tuning cache, with a warning, and the static route runs; one
-    that has no kernel here raises."""
-    kind = _tuned_kind(plan0)
+               engine: Engine | None = None, bt: int = 0) -> Raw | None:
+    """The :class:`Raw` route of one 1D PACKED transform on ``engine``
+    (None: its kind's static route, K1, K2 or K3), or None where the plan
+    needs the plane path."""
+    kind = raw_kind(plan0)
     if kind is None:
+        return None
+    return Raw(plan0, batch, sign, scale, engine or ENGINES[kind], bt)
+
+
+def _tuned_engine(committed, plan0, batch: int) -> tuple[Engine | None, int]:
+    """``(engine, bt)`` of the raw route of ``plan0``, fixed at commit: the
+    tuned table's (``tuning.lookup`` of the plan's ``fused2`` or
+    ``global2`` key), else ``(None, 0)``, the static route.  The key holds
+    no batch, so a tuned batch tile that does not divide this batch, or
+    does not fit, is dropped with a trace and the kernel picks its own (the
+    JAX package's "stale tuning (different batch): let the kernel pick").
+    A tuned engine whose gate declines the plan at every tile is marked
+    stale in the tuning cache, with a warning, and the static route runs;
+    one that has no kernel here raises."""
+    kind = raw_kind(plan0)
+    if kind not in ("fused2", "global2"):
         return None, 0
     key = tuning._entry_key(committed, kind, plan0.n)
     params = tuning.lookup(committed.config.name, kind, key)
     if params is None:
         tracing.tuned("miss")
-        return kind, 0
-    engine = _engine_of(params, plan0)
-    bt = _tile_of(engine, params)
-    if bt and not engine_supported(engine, plan0, batch, bt):
+        return None, 0
+    engine = engine_of(params, plan0)
+    bt = params.get("bt", 0) if engine.tiled else 0
+    if bt and not engine.gate(plan0, batch, bt):
         plog.trace(f"tuned {kind}/{key} {params}: batch tile {bt} does not suit "
                    f"batch {batch}; the kernel picks its tile")
         bt = 0
-    if engine_supported(engine, plan0, batch, bt):
+    if engine.gate(plan0, batch, bt):
         tracing.tuned("hit")
         return engine, bt
     tracing.tuned("declined")
-    reason = f"the gate of {engine} declines {plan0.describe()}"
+    reason = f"the gate of {engine.name} declines {plan0.describe()}"
     tuning.mark_stale_if_tuned(committed, kind, reason, plan0.n)
     plog.warn(f"stale tuned entry {kind}/{key} {params}: {reason}; "
-              f"{'K3' if kind == 'global2' else 'K2'} runs")
-    return kind, 0
+              f"{ENGINES[kind].kernel.kernel} runs")
+    return None, 0
 
 
 def _counted_lookup(committed, kind: str) -> dict:
@@ -363,52 +338,31 @@ def _counted_lookup(committed, kind: str) -> dict:
     return params or {}
 
 
-def _tuned_kind(plan0) -> str | None:
-    """The tuned kind of a plan's raw entry, or None (DIRECT, plane)."""
-    if is_two_stage(plan0):
-        return "fused2"
-    return "global2" if _global_raw(plan0) else None
-
-
-#: Entries that wrap an inner entry at ``entry[1]``.
-_WRAPPERS = ("layout", "realf", "realb", "realplane")
-#: The REAL entries: small path, half-length path, half length on the plane
-#: path.
-_REAL = ("realsf", "realsb", "realf", "realb", "realplane")
-
-
-def inner_entry(entry):
-    """The entry a REAL or layout entry runs (unwrapped), or ``entry``."""
-    while entry[0] in _WRAPPERS:
-        entry = entry[1]
-    return entry
-
-
-def with_engine(committed, entry, params: dict):
-    """``entry`` with the engine of its ``global2`` or ``fused2`` entry
-    (:func:`inner_entry`) set by ``params``, or its ``multidim`` or
-    ``bi_col`` entry rebuilt with the tuning parameters ``params``; raises
-    where that engine has no kernel here or its gate declines the plan at
-    the given tile."""
-    kind = entry[0]
-    if kind in _WRAPPERS:
-        return (kind, with_engine(committed, entry[1], params), *entry[2:])
-    if kind == "bi_col":
-        return (*entry[:6], _col_kernel(entry[2], params))
-    if kind == "multidim":
-        sign = _step_sign(entry[2][0])
+def with_engine(committed, entry: Route, params: dict) -> Route:
+    """``entry`` with the engine of its :class:`Raw` route (inside a
+    wrapper's) set by ``params``, or its :class:`MultiDim` or top-level
+    :class:`Col` route rebuilt with the tuning parameters ``params``;
+    raises where that engine has no kernel here or its gate declines the
+    plan at the given tile."""
+    if isinstance(entry, (Layout, HalfReal)):
+        return dataclasses.replace(
+            entry, inner=with_engine(committed, entry.inner, params))
+    if isinstance(entry, Col):
+        return dataclasses.replace(entry, kernel=_col_kernel(entry.plan, params))
+    if isinstance(entry, MultiDim):
         return _register_multidim(committed, params)[
-            next(dn for dn, s in _SIGNS.items() if s == sign)]
-    if kind not in ("global2", "fused2"):
-        raise RawFastUnavailable(f"a {kind} entry has no tuned engine")
-    plan0, batch = entry[1], entry[2]
-    engine = _engine_of(params, plan0)
-    bt = _tile_of(engine, params)
-    if not engine_supported(engine, plan0, batch, bt):
+            next(dn for dn, s in _SIGNS.items() if s == entry.steps[0].sign)]
+    if entry.tuning_kind is None:
         raise RawFastUnavailable(
-            f"the gate of {engine} declines {plan0.describe()} at batch "
+            f"a {type(entry).__name__} entry has no tuned engine")
+    plan0, batch = entry.plan, entry.batch
+    engine = engine_of(params, plan0)
+    bt = params.get("bt", 0) if engine.tiled else 0
+    if not engine.gate(plan0, batch, bt):
+        raise RawFastUnavailable(
+            f"the gate of {engine.name} declines {plan0.describe()} at batch "
             f"{batch}" + (f", tile {bt}" if bt else ""))
-    return (*entry[:5], engine, bt) if kind == "fused2" else (*entry[:5], engine)
+    return dataclasses.replace(entry, engine=engine, bt=bt)
 
 
 # -- the plane path -----------------------------------------------------------
@@ -527,8 +481,13 @@ def leaf_hook(steps: dict, plain: bool = False):
     return leaf_fn
 
 
-def _side(d, direction, block: Layout):
-    """How an entry reaches one domain's buffer: the offset of the block
+def _both(d, route) -> dict:
+    """``{direction: route(sign, scale)}`` for both directions of ``d``."""
+    return {dn: route(sign, float(d.get_scale(dn))) for dn, sign in _SIGNS.items()}
+
+
+def _side(d, direction, block: BufferLayout):
+    """How a route reaches one domain's buffer: the offset of the block
     its inner kernels read or write as it is (the domain is in the
     ``block`` layout, or its :class:`Rows` are contiguous), or the
     domain's :class:`Rows`, which K7 de/restrides."""
@@ -538,28 +497,24 @@ def _side(d, direction, block: Layout):
     return rows.offset if rows.contiguous else rows
 
 
-def _with_layout(d, entries: dict, block: Layout = Layout.PACKED) -> dict:
-    """``entries`` (inner entries on ``block`` buffers at offset 0) as the
-    descriptor's layouts need them: an inner entry as it is where both of
-    its buffers are such blocks at offset 0, else ``("layout", inner, src,
-    dst)`` with ``_side`` of the input and the output domain."""
+def _with_layout(d, entries: dict, block: BufferLayout = BufferLayout.PACKED) -> dict:
+    """``entries`` (inner routes on ``block`` buffers at offset 0) as the
+    descriptor's layouts need them: an inner route as it is where both of
+    its buffers are such blocks at offset 0, else a :class:`Layout` with
+    ``_side`` of the input and the output domain."""
     out = {}
     for direction, inner in entries.items():
         src, dst = _side(d, direction, block), _side(d, _inv(direction), block)
-        out[direction] = inner if src == 0 and dst == 0 else (
-            "layout", inner, src, dst)
+        out[direction] = inner if src == 0 and dst == 0 else Layout(inner, src, dst)
     return out
 
 
 def _register_core(committed, split: bool) -> dict:
-    """Entries of a transform on the plane path's per-axis walk
-    (``torch_exec.core_inner``): ``("core", split, batch, sign, scale,
-    k12, routes)``.  ``k12`` is ``((axis, mode), ...)`` for the outer axes
-    the column kernel K12 takes (``cuda_axis.axis_m2_mode`` of the axis
-    and the product of the axes after it); every other axis runs through
-    the executor, on ``routes`` (``plane_routes`` of its plan).  SPLIT
-    entries take and give (re, im) planes; interleaved ones run K6 around
-    the walk and fold the scale into the interleave."""
+    """:class:`Core` routes of a transform on the plane path's per-axis
+    walk (``torch_exec.core_inner``): K12 on the outer axes
+    ``cuda_axis.axis_m2_mode`` takes (of the axis and the product of the
+    axes after it), every other axis through the executor on its plan's
+    ``plane_routes``."""
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
     k12, routes = [], {}
@@ -572,11 +527,8 @@ def _register_core(committed, split: bool) -> dict:
             routes.update(plane_routes(plans[n], committed.config))
         else:
             k12.append((axis, mode))
-    return {
-        direction: ("core", split, d.number_of_transforms, sign,
-                    float(d.get_scale(direction)), tuple(k12), routes)
-        for direction, sign in _SIGNS.items()
-    }
+    return _both(d, lambda sign, scale: Core(
+        split, d.number_of_transforms, sign, scale, tuple(k12), routes))
 
 
 def _col_axis_ok(plan, config) -> bool:
@@ -592,29 +544,20 @@ def _col_kernel(plan, params: dict) -> str:
     return "col"
 
 
-def _step_sign(step) -> int:
-    """The sign of a multi-dim step: a K10, K10-mm or K11 step, or a 1D
-    entry."""
-    return step[4] if step[0] in ("col", "col_mm", "md2") else step[3]
-
-
 def _register_multidim(committed, params: dict | None = None) -> dict:
-    """Entries of a multi-dimensional C2C transform: ``("multidim", md2,
-    steps)``, the steps in the order they run (see the module docstring).
-    A column step is ``("col", bpre, plan, rest, sign, scale)`` (K10) or
-    ``("col_mm", ...)`` (K10-mm), the K11 step ``("md2", batch, plan1,
-    plan2, sign, scale)``, a row step a 1D entry.  ``params`` are the
-    ``multidim`` tuning parameters (default: the tuning table's for the
-    shape): ``{"m2": 0}`` turns K11 off, ``{"cm": 1}`` takes K10-mm.
-    Where K10 does not take an outer axis or the last axis needs the plane
-    path, the transform runs on the plane path's per-axis walk
-    (``_register_core``), as the JAX package's ``_traced_interleaved``."""
+    """:class:`MultiDim` routes of a multi-dimensional C2C transform (see
+    the module docstring).  ``params`` are the ``multidim`` tuning
+    parameters (default: the tuning table's for the shape): ``{"m2": 0}``
+    turns K11 off, ``{"cm": 1}`` takes K10-mm.  Where K10 does not take an
+    outer axis or the last axis needs the plane path, the transform runs on
+    the plane path's per-axis walk (``_register_core``), as the JAX
+    package's ``_traced_interleaved``."""
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
     batch = d.number_of_transforms
     if not all(_col_axis_ok(plans[ln], committed.config)
-               for ln in lengths[:-1] if ln > 1) or _raw_entry(
-                   plans[lengths[-1]], 1, -1, 1.0) is None:
+               for ln in lengths[:-1] if ln > 1) or raw_kind(
+                   plans[lengths[-1]]) is None:
         return _register_core(committed, split=False)
     if params is None:
         params = _counted_lookup(committed, "multidim")
@@ -630,42 +573,27 @@ def _register_multidim(committed, params: dict | None = None) -> dict:
         for ax in range(first, -1, -1)
         if lengths[ax] > 1
     ]
-    out: dict = {}
-    for direction, sign in _SIGNS.items():
-        scale = float(d.get_scale(direction))
+
+    def route(sign, scale):
         # the scale goes into the last kernel that runs
         head_scale = 1.0 if cols else scale
         if md2:
             n2d = lengths[-2] * lengths[-1]
-            head = ("md2", total // n2d, plan_a, plan_last, sign, head_scale)
+            head = Md2(total // n2d, plan_a, plan_last, sign, head_scale)
         else:
             head = _raw_entry(plan_last, total // lengths[-1], sign, head_scale)
-        steps = [head] + [
-            (_col_kernel(plan, params), bpre, plan, rest, sign,
-             scale if i == len(cols) - 1 else 1.0)
-            for i, (plan, bpre, rest) in enumerate(cols)
-        ]
-        out[direction] = ("multidim", md2, tuple(steps))
-    return out
+        return MultiDim((head, *(
+            Col(_col_kernel(plan, params), bpre, plan, rest, sign,
+                scale if i == len(cols) - 1 else 1.0)
+            for i, (plan, bpre, rest) in enumerate(cols))))
 
-
-#: Shortest REAL length whose C2R keeps Im X[0] and Im X[n/2]: the JAX
-#: package banks its retangle table (``R``) from n = 1024 on and uses both
-#: parts there; below it runs a C2C of the Hermitian extension and keeps the
-#: real part, which drops them (``committed._core_real_backward``).
-REAL_KEEP_MIN_N = 1024
+    return _both(d, route)
 
 
 def _register_real(committed) -> dict:
-    """Entries of a 1D REAL transform: ``(kind, n, batch, sign, scale)``
-    for the small path; for the half-length path ``("realf", c2c_entry, h,
-    batch, sign, scale)`` and ``("realb", c2c_entry, h, batch, sign, scale,
-    drop)``, whose C2C entry runs at scale 1; where the half length needs
-    the plane path, ``("realplane", plane_entry, h, batch, sign, scale,
-    kernel, drop)``: ``kernel`` the un/retangle that runs (``"untangle"``
-    K8a, ``"untangle_wide"`` K8a-w where ``cuda_real.wide_supported`` takes the
-    shape, ``"retangle"`` K8b).  ``drop`` (backward) is K8b's flag: Im X[0]
-    and Im X[n/2] read as 0 below ``REAL_KEEP_MIN_N``, as the JAX package."""
+    """Routes of a 1D REAL transform: :class:`SmallReal` up to
+    ``SMALL_REAL_MAX_N``, else :class:`HalfReal` around the h = n/2 route
+    (a :class:`Raw` on h's tuned engine, or a :class:`Plane`)."""
     d = committed.descriptor
     if len(d.lengths) >= 2:
         raise RawFastUnavailable(
@@ -683,7 +611,7 @@ def _register_real(committed) -> dict:
             "(ROADMAP Queue 1 item 9)"
         )
     for direction in _SIGNS:
-        if d.get_offset(direction) or get_layout(d, direction) != Layout.PACKED:
+        if d.get_offset(direction) or get_layout(d, direction) != BufferLayout.PACKED:
             raise RawFastUnavailable(
                 "REAL transforms with buffer offsets or strided layouts are "
                 "not ported yet (ROADMAP Queue 1 item 9): the JAX package "
@@ -697,35 +625,26 @@ def _register_real(committed) -> dict:
     engine, bt = (_tuned_engine(committed, plan_h, batch)
                   if plan_h is not None else (None, 0))
     routes = (plane_routes(plan_h, committed.config)
-              if plan_h is not None and _raw_entry(plan_h, 1, -1, 1.0) is None
-              else None)
-    drop = n < REAL_KEEP_MIN_N
-    out: dict = {}
-    for direction, sign in _SIGNS.items():
-        scale = float(d.get_scale(direction))
-        forward = direction == Direction.FORWARD
+              if plan_h is not None and raw_kind(plan_h) is None else None)
+
+    def route(sign, scale):
         if plan_h is None:
-            out[direction] = ("realsf" if forward else "realsb", n, batch,
-                              sign, scale)
-        elif routes is not None:
-            inner = ("plane", plan_h, batch, sign, 1.0, routes)
-            kernel = ("retangle" if not forward else "untangle_wide"
-                      if cuda_real.wide_supported(n, batch) else "untangle")
-            out[direction] = ("realplane", inner, h, batch, sign, scale,
-                              kernel, drop)
-        elif forward:
-            out[direction] = ("realf", _raw_entry(plan_h, batch, sign, 1.0,
-                                                  engine, bt),
-                              h, batch, sign, scale)
+            return SmallReal(n, batch, sign, scale)
+        if routes is None:
+            inner = _raw_entry(plan_h, batch, sign, 1.0, engine, bt)
         else:
-            out[direction] = ("realb", _raw_entry(plan_h, batch, sign, 1.0,
-                                                  engine, bt),
-                              h, batch, sign, scale, drop)
-    return out
+            inner = Plane(plan_h, batch, sign, 1.0, routes)
+        # K8a-w under a plane inner route only, as the JAX package
+        tangle = ("retangle" if sign > 0 else "untangle_wide"
+                  if routes is not None and cuda_real.wide_supported(n, batch)
+                  else "untangle")
+        return HalfReal(inner, h, batch, sign, scale, tangle, n < REAL_KEEP_MIN_N)
+
+    return _both(d, route)
 
 
 def register(committed) -> dict:
-    """The per-direction entry table of a committed plan.  Raises
+    """The per-direction route table of a committed plan.  Raises
     :class:`RawFastUnavailable` for every descriptor outside the slice."""
     d = committed.descriptor
     if committed.precision.name != "float32":
@@ -742,121 +661,34 @@ def register(committed) -> dict:
         return _with_layout(d, _register_multidim(committed))
     plan0 = committed.plans[d.lengths[0]]
     batch = d.number_of_transforms
-    bi = Layout.BATCH_INTERLEAVED
+    bi = BufferLayout.BATCH_INTERLEAVED
     if (get_layout(d, Direction.FORWARD) == bi == get_layout(d, Direction.BACKWARD)
             and _col_axis_ok(plan0, committed.config)):
         # the (n, batch) buffer is one column transform with bpre = 1, on
         # the column kernel of the bi_col tuning kind
-        params = _counted_lookup(committed, "bi_col")
-        kernel = _col_kernel(plan0, params)
-        return _with_layout(d, {
-            direction: ("bi_col", 1, plan0, batch, sign,
-                        float(d.get_scale(direction)), kernel)
-            for direction, sign in _SIGNS.items()
-        }, bi)
-    engine, bt = _tuned_engine(committed, plan0, batch)
-    out = {}
-    for direction, sign in _SIGNS.items():
-        scale = float(d.get_scale(direction))
-        out[direction] = _raw_entry(plan0, batch, sign, scale, engine, bt)
-    if out[Direction.FORWARD] is None:
+        kernel = _col_kernel(plan0, _counted_lookup(committed, "bi_col"))
+        return _with_layout(d, _both(d, lambda sign, scale: Col(
+            kernel, 1, plan0, batch, sign, scale)), bi)
+    if raw_kind(plan0) is None:
         routes = plane_routes(plan0, committed.config)
-        out = {
-            direction: ("plane", plan0, batch, sign,
-                        float(d.get_scale(direction)), routes)
-            for direction, sign in _SIGNS.items()
-        }
-    return _with_layout(d, out)
+        return _with_layout(d, _both(d, lambda sign, scale: Plane(
+            plan0, batch, sign, scale, routes)))
+    engine, bt = _tuned_engine(committed, plan0, batch)
+    return _with_layout(d, _both(d, lambda sign, scale: _raw_entry(
+        plan0, batch, sign, scale, engine, bt)))
 
 
-def kernel_args(committed, entry):
-    """``(kernel, args)`` of an entry: the wrapper (``cuda_fft.direct``,
-    the ``fused2`` entry's engine ``cuda_fft.fused2``/``fused2_v1``/
-    ``fused2_v2``/``fused2_v3``, the ``global2`` entry's, ``cuda_real.small_real``,
-    ``cuda_multidim.col`` or ``col_mm`` for ``bi_col`` and a column step,
-    ``cuda_multidim.md2`` for a K11 step, or for the half-length REAL
-    entries ``cuda_real.untangle``/``retangle``) and the arguments that
-    follow the buffer, with the committed plan's device tables.  A
-    half-length REAL entry's C2C kernel is ``kernel_args(committed,
-    entry[1])``; a multi-dim entry's are those of its steps,
-    ``entry[2]``."""
-    kind = entry[0]
-    keys, arrays = committed._bank_keys, committed._bank_arrays
-    if kind in ("col", "col_mm", "bi_col"):
-        _, bpre, plan, rest, sign, scale = entry[:6]
-        kernel = getattr(cuda_multidim, entry[6] if kind == "bi_col" else kind)
-        return kernel, (
-            bpre, rest, cuda_fft.sub_tables(plan, sign, keys, arrays), scale
-        )
-    if kind == "md2":
-        _, batch, plan1, plan2, sign, scale = entry
-        return cuda_multidim.md2, (
-            batch, cuda_fft.sub_tables(plan1, sign, keys, arrays),
-            cuda_fft.sub_tables(plan2, sign, keys, arrays), scale,
-        )
-    if kind in ("realsf", "realsb"):
-        _, n, batch, sign, scale = entry
-        w, m = keys[("W", n, sign)], keys[("RM", n, sign)]
-        return cuda_real.small_real, (batch, cuda_real.SmallRealTables(
-            n, sign, scale, arrays[w + "r"], arrays[w + "i"], arrays[m + "m"]
-        ))
-    if kind in ("realf", "realb", "realplane"):
-        _, _, h, batch, sign, scale = entry[:6]
-        r = keys[("R", 2 * h, sign)]
-        args = (batch, h, arrays[r + "r"], arrays[r + "i"], scale)
-        if sign > 0:  # K8b, with its flag
-            return cuda_real.retangle, (*args, entry[-1])
-        name = entry[6] if kind == "realplane" else "untangle"
-        return getattr(cuda_real, name), args
-    if kind == "global2":
-        _, plan0, batch, sign, scale, engine = entry
-        if engine in ("global_bf", "global_bf_ov", "global_bf2", "global_ilv"):
-            kernel = (cuda_global_ilv.global_ilv if engine == "global_ilv"
-                      else getattr(cuda_global_bf, engine))
-            return kernel, (batch, cuda_global_bf.bf_tables(
-                plan0, sign, keys, arrays, batch,
-                resident=engine == "global_bf2"), scale)
-        if engine in ("global_fused", "global_fused_ftw"):
-            return cuda_global.global_fused, (batch, cuda_global.global_fused_tables(
-                plan0, sign, keys, arrays, batch,
-                ftw=engine == "global_fused_ftw"), scale)
-        if engine == "global3":
-            return cuda_global.global3, (batch, cuda_global.global3_tables(
-                plan0, sign, keys, arrays), scale)
-        if engine == "global2_ftw":
-            return cuda_global.global2_ftw, (batch, cuda_global.global2_ftw_tables(
-                plan0, sign, keys, arrays), scale)
-        g1, g2 = plan0.sub
-        t = keys[("T", g1.n, g2.n, sign)]
-        return getattr(cuda_global, engine), (
-            batch,
-            cuda_fft.sub_tables(g1, sign, keys, arrays),
-            cuda_fft.sub_tables(g2, sign, keys, arrays),
-            arrays[t + "r"], arrays[t + "i"], scale,
-        )
-    if kind == "fused2":
-        _, plan0, batch, sign, scale, engine, bt = entry
-        sub = cuda_fft.sub_tables(plan0, sign, keys, arrays)
-        if engine in ("fused2_v2", "fused2_v3"):
-            # the tile is fixed here, so the plain version tiles as the kernel
-            bt = bt or cuda_fft.pick_tile(engine, plan0.factors[0], batch)
-            return getattr(cuda_fft, engine), (batch, sub, bt, scale)
-        return getattr(cuda_fft, engine), (batch, sub, scale)
-    _, plan0, batch, sign, scale = entry
-    return cuda_fft.direct, (batch, cuda_fft.sub_tables(plan0, sign, keys, arrays),
-                             scale)
-
-
-def plane_fn(committed, entry, plain: bool = False):
-    """``fn(raw, out=None) -> tensor`` of a plane entry: K6 deinterleave,
-    the executor (``torch_exec.exec_plan``) with the route's K13, K14 and
-    K15 steps as its leaf hook, and K6 interleave with the direction's scale
-    into ``out`` (for IN_PLACE the caller's buffer, which the deinterleave
-    has already read).  ``plain`` chains the plain versions instead (the
-    CPU path, and ``chip_smoke.py``'s yardstick on the card)."""
-    _, plan0, batch, sign, scale, routes = entry
+def plane_fn(committed, entry: Plane, plain: bool = False):
+    """``fn(raw, out=None) -> tensor`` of a :class:`Plane` route: K6
+    deinterleave, the executor (``torch_exec.exec_plan``) with the route's
+    K13, K14 and K15 steps as its leaf hook, and K6 interleave with the
+    direction's scale into ``out`` (for IN_PLACE the caller's buffer, which
+    the deinterleave has already read).  ``plain`` chains the plain
+    versions instead (the CPU path, and ``chip_smoke.py``'s yardstick on
+    the card)."""
+    plan0, batch, sign = entry.plan, entry.batch, entry.sign
     n = plan0.n
-    leaf = leaf_hook(plane_steps(committed, [plan0], routes), plain)
+    leaf = leaf_hook(plane_steps(committed, [plan0], entry.routes), plain)
     keys, arrays = committed._bank_keys, committed._bank_arrays
 
     def walk(xr, xi):
@@ -866,7 +698,7 @@ def plane_fn(committed, entry, plain: bool = False):
             return tracing.run("portfft.exec", torch_exec.exec_plan, *args)
         return torch_exec.exec_plan(*args)
 
-    return _interleaved(walk, scale, plain)
+    return _interleaved(walk, entry.scale, plain)
 
 
 def _interleaved(walk, scale: float, plain: bool):
@@ -892,8 +724,8 @@ def _column(k, bpre, trailing, sub, xr, xi, s):
     return k(xr.contiguous(), xi.contiguous(), bpre, trailing, sub, s)
 
 
-def core_fn(committed, entry, plain: bool = False):
-    """The function of a ``"core"`` entry (``_register_core``): the
+def core_fn(committed, entry: Core, plain: bool = False):
+    """The function of a :class:`Core` route (``_register_core``): the
     per-axis walk ``torch_exec.core_inner`` on (batch, *lengths) planes,
     with K12 (``cuda_axis.axis_m2``) on the outer axes it takes and the
     route's K13, K14 and K15 steps as the executor's leaf hook.  SPLIT:
@@ -902,7 +734,7 @@ def core_fn(committed, entry, plain: bool = False):
     multiply; interleaved: ``fn(raw, out=None)`` with K6 around the walk
     and the scale in the interleave.  ``plain`` chains the plain versions
     instead."""
-    _, split, batch, sign, scale, k12, routes = entry
+    batch, sign, scale, routes = entry.batch, entry.sign, entry.scale, entry.routes
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
     keys, arrays = committed._bank_keys, committed._bank_arrays
@@ -910,7 +742,7 @@ def core_fn(committed, entry, plain: bool = False):
     leaf = leaf_hook(plane_steps(committed, walked, routes), plain)
     k = cuda_axis.axis_m2.plain if plain else cuda_axis.axis_m2
     columns = {}
-    for axis, _ in k12:
+    for axis, _ in entry.k12:
         sub = cuda_fft.sub_tables(plans[lengths[axis]], sign, keys, arrays)
         columns[axis] = functools.partial(
             _column, k, batch * math.prod(lengths[:axis]),
@@ -924,7 +756,7 @@ def core_fn(committed, entry, plain: bool = False):
             return tracing.run("portfft.exec", torch_exec.core_inner, *args)
         return torch_exec.core_inner(*args)
 
-    if not split:
+    if not entry.split:
         return _interleaved(walk, scale, plain)
 
     def fn(xr, xi):
@@ -934,23 +766,23 @@ def core_fn(committed, entry, plain: bool = False):
     return fn
 
 
-def packed_fn(committed, entry, plain: bool = False):
-    """``fn(x, out=None)`` of a C2C entry on its own buffers at offset 0
-    (PACKED, or the BATCH_INTERLEAVED block of ``bi_col``): interleaved,
-    ``x`` is the raw input of exactly the input count and ``out`` (may be
-    ``x``) receives the result, else a new tensor; SPLIT (``"core"``),
-    ``x`` is the (re, im) pair and the result new planes.  A multi-dim
-    entry runs its first step into ``out`` and the rest in place on its
-    result.  ``plain`` chains the plain versions instead (the CPU path,
-    and ``chip_smoke.py``'s yardstick on the card)."""
-    kind = entry[0]
-    if kind == "plane":
+def packed_fn(committed, entry: Route, plain: bool = False):
+    """``fn(x, out=None)`` of a C2C route on its own buffers at offset 0
+    (PACKED, or the BATCH_INTERLEAVED block of a top-level :class:`Col`):
+    interleaved, ``x`` is the raw input of exactly the input count and
+    ``out`` (may be ``x``) receives the result, else a new tensor; SPLIT
+    (a :class:`Core`), ``x`` is the (re, im) pair and the result new
+    planes.  A :class:`MultiDim` runs its first step into ``out`` and the
+    rest in place on its result.  ``plain`` chains the plain versions
+    instead (the CPU path, and ``chip_smoke.py``'s yardstick on the
+    card)."""
+    if isinstance(entry, Plane):
         return plane_fn(committed, entry, plain)
-    if kind == "core":
+    if isinstance(entry, Core):
         walk = core_fn(committed, entry, plain)
-        return walk if not entry[1] else lambda x, out=None: walk(*x)
-    steps = [kernel_args(committed, s)
-             for s in (entry[2] if kind == "multidim" else (entry,))]
+        return walk if not entry.split else lambda x, out=None: walk(*x)
+    steps = [s.kernel_args(committed)
+             for s in (entry.steps if isinstance(entry, MultiDim) else (entry,))]
 
     def fn(raw, out=None):
         x = raw
@@ -964,10 +796,9 @@ def packed_fn(committed, entry, plain: bool = False):
 
     return fn
 
-
-def layout_fn(committed, entry, plain: bool = False):
-    """``fn(x, out=None)`` of a ``("layout", inner, src, dst)`` entry (see
-    ``build_fn``): the input side as a view of ``x`` at its offset (``src``
+def layout_fn(committed, entry: Layout, plain: bool = False):
+    """``fn(x, out=None)`` of a :class:`Layout` route (see ``build_fn``):
+    the input side as a view of ``x`` at its offset (``src``
     an int) or K7 ``destride`` of its :class:`Rows`, the inner entry on
     packed buffers, and the output side likewise: the inner entry writes
     straight into the view of ``out`` at ``dst`` where it can, else K7
@@ -976,13 +807,13 @@ def layout_fn(committed, entry, plain: bool = False):
     output: the inner entry runs in place only on the very view it reads
     or on K7's scratch, and otherwise into a new buffer that is then
     copied or restrided into the caller's."""
-    _, inner, src, dst = entry
+    src, dst = entry.src, entry.dst
     d = committed.descriptor
     split = d.complex_storage == ComplexStorage.SPLIT_COMPLEX
     in_place = d.placement == Placement.IN_PLACE
     total = d.number_of_transforms * math.prod(d.lengths)
     width = 1 if split else 2
-    run = packed_fn(committed, inner, plain)
+    run = packed_fn(committed, entry.inner, plain)
     de, re = cuda_stride.destride, cuda_stride.restride
     if plain:
         de, re = de.plain, re.plain
@@ -1028,20 +859,20 @@ def _planes(buf) -> tuple:
     return buf if isinstance(buf, tuple) else (buf,)
 
 
-def half_c2c_fn(committed, sub, plain: bool = False):
-    """``fn(raw, out=None)`` of the C2C entry under a half-length REAL
-    entry (``entry[1]``): a raw kernel entry, or a plane entry
-    (``plane_fn``); ``plain`` runs the plain versions."""
-    if sub[0] == "plane":
-        return plane_fn(committed, sub, plain)
-    kernel, args = kernel_args(committed, sub)
+def half_c2c_fn(committed, inner: Route, plain: bool = False):
+    """``fn(raw, out=None)`` of the C2C route under a :class:`HalfReal`: a
+    :class:`Raw` route's kernel called straight, or a :class:`Plane`
+    route (``plane_fn``); ``plain`` runs the plain versions."""
+    if isinstance(inner, Plane):
+        return plane_fn(committed, inner, plain)
+    kernel, args = inner.kernel_args(committed)
     if plain:
         return lambda x, out=None: cuda_fft.into(out, kernel.plain(x, *args))
     return lambda x, out=None: kernel(x, *args, out=out)
 
 
-def build_fn(committed, entry, plain: bool = False):
-    """The function of an entry.  C2C: ``fn(x, out=None)``, where ``x`` is
+def build_fn(committed, entry: Route, plain: bool = False):
+    """The function of a route.  C2C: ``fn(x, out=None)``, where ``x`` is
     the caller's whole input buffer on the plan's device (a flat float32
     tensor of raw (re, im) pairs, or for SPLIT_COMPLEX a (re, im) pair of
     flat float32 planes), at least the input count long; ``out``, of the
@@ -1052,17 +883,16 @@ def build_fn(committed, entry, plain: bool = False):
     REAL: ``fn(raw)`` on exactly the input count, returning a new buffer.
     ``plain`` chains the plain versions (the CPU path, and
     ``chip_smoke.py``'s yardstick on the card)."""
-    kind = entry[0]
-    if kind not in _REAL:
-        return layout_fn(committed, entry if kind == "layout"
-                         else ("layout", entry, 0, 0), plain)
-    kernel, args = kernel_args(committed, entry)
+    if not isinstance(entry, (SmallReal, HalfReal)):
+        return layout_fn(committed, entry if isinstance(entry, Layout)
+                         else Layout(entry, 0, 0), plain)
+    kernel, args = entry.kernel_args(committed)
     if plain:
         kernel = kernel.plain
-    if kind in ("realsf", "realsb"):
+    if isinstance(entry, SmallReal):
         return lambda raw: kernel(raw, *args)
-    c2c = half_c2c_fn(committed, entry[1], plain)
-    if entry[4] < 0:
+    c2c = half_c2c_fn(committed, entry.inner, plain)
+    if entry.sign < 0:
 
         def fn(raw):
             # the real rows are the h-point input z = x_even + i·x_odd

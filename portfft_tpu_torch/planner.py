@@ -24,6 +24,7 @@ import dataclasses
 import math
 from typing import Optional
 
+from . import tuning
 from .config import DeviceConfig
 from .enums import Level
 
@@ -283,8 +284,6 @@ def plan_1d(n: int, cfg: DeviceConfig, itemsize: int) -> Plan1D:
     g1, g2 = _global_split(n, cfg, itemsize)
     # a measured split (tuning.record(device, "global_split", f"n{n}", ...)),
     # ignored where it does not factor n
-    from . import tuning
-
     tuned = tuning.lookup(cfg.name, "global_split", f"n{n}")
     if tuned and tuned.get("g1", 0) * tuned.get("g2", 0) == n:
         g1, g2 = tuned["g1"], tuned["g2"]

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from .enums import Direction, Domain, Layout, Placement
+from .enums import ComplexStorage, Direction, Domain, Layout, Placement
 from .exceptions import InvalidConfiguration, UnsupportedConfiguration
 from .utils.layout import get_layout
 
@@ -190,8 +190,6 @@ def _validate_real_in_place(desc) -> None:
     """In-place R2C/C2R uses the FFTW padded layout: 1D, interleaved, unit
     strides, real rows padded to ``2·(n/2+1)`` elements so the half spectrum
     overwrites the same buffer (FFTW's in-place real-data layout)."""
-    from .enums import ComplexStorage
-
     h1 = desc.lengths[-1] // 2 + 1
     if len(desc.lengths) != 1:
         raise UnsupportedConfiguration(

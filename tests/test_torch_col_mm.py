@@ -113,10 +113,12 @@ def test_cm_route_and_values_match_reference(ref_calls, lengths, batch, params,
                                                    sum(lengths) + batch):
         assert tuple(ref_calls) == kinds
         ref_calls.clear()
-        assert entry[0] == "multidim"
-        assert tuple(step[0] for step in entry[2]) == kinds
+        assert isinstance(entry, fastpath.MultiDim)
+        assert tuple(s.engine.name if isinstance(s, fastpath.Raw) else
+                     s.kernel if isinstance(s, fastpath.Col) else "md2"
+                     for s in entry.steps) == kinds
         scale = float(pdesc.get_scale(pt.Direction(rdir.value)))
-        assert [step[-1] for step in entry[2]] == [1.0] * (len(kinds) - 1) + [scale]
+        assert [s.scale for s in entry.steps] == [1.0] * (len(kinds) - 1) + [scale]
         expect = oracle.reference_output(rdesc, canon, rdir)
         for y in (want, got):
             oracle.verify(rdesc, y, expect, rdir, check_padding=False)
@@ -133,7 +135,7 @@ def test_bi_col_cm_matches_reference(ref_calls):
     for rdir, canon, want, got, entry in _run_both(rdesc, pdesc, {"cm": 1}, 22):
         assert ref_calls == ["col_mm"]
         ref_calls.clear()
-        assert entry[0] == "bi_col" and entry[6] == "col_mm"
+        assert isinstance(entry, fastpath.Col) and entry.kernel == "col_mm"
         expect = oracle.reference_output(rdesc, canon, rdir)
         for y in (want, got):
             oracle.verify(rdesc, y, expect, rdir, check_padding=False)

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import portfft_tpu_torch as pt
+from portfft_tpu_torch import fastpath
 from port_bench import run
 from port_bench.tests.conftest import ROOT
 
@@ -66,10 +67,11 @@ def test_the_plan_takes_the_per_axis_walk(lengths, batch):
     plan = _plan(lengths, batch)
     for direction in pt.Direction:
         entry = plan._raw_fast[direction]
-        assert entry[0] == "core" and entry[1] is False and entry[2] == batch
-        assert entry[4] == _scale(lengths)
-        assert entry[5] == ()
-        assert entry[6] == {640: "chain", lengths[1]: "direct"}
+        assert isinstance(entry, fastpath.Core)
+        assert entry.split is False and entry.batch == batch
+        assert entry.scale == _scale(lengths)
+        assert entry.k12 == ()
+        assert entry.routes == {640: "chain", lengths[1]: "direct"}
 
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])

@@ -31,7 +31,8 @@ from portfft_tpu import tuning as ref_tuning
 from portfft_tpu.enums import Direction as RefDirection
 from portfft_tpu.ops import pallas_fft
 import portfft_tpu_torch as pf
-from portfft_tpu_torch import fastpath, tuning
+from portfft_tpu_torch import fastpath, race, tuning
+from portfft_tpu_torch.engines import engine_of
 from portfft_tpu_torch.config import DeviceConfig
 from portfft_tpu_torch.ops import cuda_fft, torch_fft
 from portfft_tpu_torch.planner import plan_1d
@@ -107,9 +108,9 @@ def _ref_run(n, batch, direction, overrides, raw):
                            forward_scale=0.5, backward_scale=2.0 / n)
     rplan = rdesc.commit(use_pallas=True)
     rdir = RefDirection[direction.name]
-    entry = rplan._raw_fast[rdir]
-    assert entry[0] == "fused2"
-    fn = ref_fastpath.build_fn(rplan, rdir, entry, 2 * batch * n,
+    rroute = rplan._raw_fast[rdir]
+    assert rroute[0] == "fused2"
+    fn = ref_fastpath.build_fn(rplan, rdir, rroute, 2 * batch * n,
                                overrides=overrides)
     return np.asarray(fn(jnp.asarray(raw), rplan._bank_arrays))
 
@@ -170,8 +171,8 @@ def test_fold_zero_routes_differ_from_the_reference_as_recorded(ref_calls, n):
     plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                          forward_scale=0.5, backward_scale=2.0 / n).commit(device="cpu")
     entry = plan._raw_fast[FWD]
-    assert entry[0] == "fused2" and entry[5:] == ("fused2", 0)
-    kernel, _ = fastpath.kernel_args(plan, entry)
+    assert (entry.engine.name, entry.bt) == ("fused2", 0)
+    kernel, _ = entry.kernel_args(plan)
     assert kernel is cuda_fft.fused2
     got = plan.compute_forward(torch.from_numpy(raw))
     _check(got.numpy(), want, raw, batch, n, -1, 0.5)
@@ -209,8 +210,9 @@ def test_tuned_engine_is_fixed_at_commit(tmp_caches, n, batch, params, engine, b
     tuning.record("cpu", "fused2", f"n{n}", params)
     plan = _commit(n, batch)
     for direction in (FWD, BWD):
-        assert plan._raw_fast[direction][5:] == (engine, bt)
-    kernel, args = fastpath.kernel_args(plan, plan._raw_fast[FWD])
+        route = plan._raw_fast[direction]
+        assert (route.engine.name, route.bt) == (engine, bt)
+    kernel, args = plan._raw_fast[FWD].kernel_args(plan)
     assert kernel is getattr(cuda_fft, engine)
     _fft_ok(plan, n, batch)
 
@@ -224,8 +226,10 @@ def test_a_tile_the_batch_cannot_take_is_dropped_not_stale(tmp_caches, monkeypat
     monkeypatch.setattr(plog, "trace", lambda *m: msgs.append(" ".join(map(str, m))))
     tuning.record("cpu", "fused2", "n4096", {"eng": 2, "bt": 4})
     plan = _commit(4096, 6)
-    assert plan._raw_fast[FWD][5:] == ("fused2_v2", 0)
-    assert fastpath.kernel_args(plan, plan._raw_fast[FWD])[1][2] == 2
+    route = plan._raw_fast[FWD]
+    assert (route.engine.name, route.bt) == ("fused2_v2", 0)
+    _, (_, _, bt, _) = route.kernel_args(plan)
+    assert bt == 2
     assert any("batch tile 4" in m for m in msgs), msgs
     assert tuning.lookup("cpu", "fused2", "n4096") == {"eng": 2, "bt": 4}
     assert not tuning.stale_entries("cpu")
@@ -243,7 +247,8 @@ def test_a_declining_gate_marks_the_entry_stale(tmp_caches, monkeypatch, n, para
     monkeypatch.setattr(plog, "warn", lambda *m: warns.append(" ".join(map(str, m))))
     tuning.record("cpu", "fused2", f"n{n}", params)
     plan = _commit(n, 2)
-    assert plan._raw_fast[FWD][5:] == ("fused2", 0)
+    route = plan._raw_fast[FWD]
+    assert (route.engine.name, route.bt) == ("fused2", 0)
     assert any("stale tuned entry fused2" in w for w in warns), warns
     assert tuning.lookup("cpu", "fused2", f"n{n}") is None
     assert [k for (_, kind, k, _) in tuning.stale_entries("cpu")
@@ -275,13 +280,15 @@ def test_real_and_layout_entries_take_the_tuned_engine(tmp_caches):
     n, batch = 8192, 4
     plan = _commit(n, batch, domain=pf.Domain.REAL)
     entry = plan._raw_fast[FWD]
-    assert entry[0] == "realf" and entry[1][5:] == ("fused2_v3", 2)
+    assert isinstance(entry, fastpath.HalfReal) and entry.tangle == "untangle"
+    assert (entry.inner.engine.name, entry.inner.bt) == ("fused2_v3", 2)
     x = np.random.default_rng(7).uniform(-1, 1, (batch, n)).astype(np.float32)
     y = plan.compute_forward(x.reshape(-1)).reshape(batch, -1)
     assert np.abs(y - np.fft.rfft(x)).max() <= oracle.tolerance(ref.Descriptor(lengths=[n]))
     lay = _commit(4096, 2, forward_strides=[2], forward_distance=2 * 4096)
     entry = lay._raw_fast[FWD]
-    assert entry[0] == "layout" and entry[1][5:] == ("fused2_v3", 2)
+    assert isinstance(entry, fastpath.Layout)
+    assert (entry.inner.engine.name, entry.inner.bt) == ("fused2_v3", 2)
     x = _input(2, 2 * 4096, 4)
     y = lay.compute_forward(torch.from_numpy(x)).numpy()
     xs = x.view(np.complex64).reshape(2, 2 * 4096)[:, ::2]
@@ -292,8 +299,8 @@ def test_real_and_layout_entries_take_the_tuned_engine(tmp_caches):
 def test_multidim_row_step_stays_k2(tmp_caches):
     tuning.record("cpu", "fused2", "n1024", {"eng": 2, "bt": 8})
     plan = pf.Descriptor(lengths=[4, 1024], number_of_transforms=2).commit(device="cpu")
-    steps = plan._raw_fast[FWD][2]
-    assert steps[0][0] == "fused2" and steps[0][5:] == ("fused2", 0)
+    head = plan._raw_fast[FWD].steps[0]
+    assert (head.engine.name, head.bt) == ("fused2", 0)
 
 
 # -- variants and autotune --------------------------------------------------------
@@ -312,7 +319,7 @@ def test_variants_of_the_fused2_kind(tmp_caches):
              (640, 8, [{}, {"eng": 2}]), (12288, 3, [{}, {"eng": 2}])]
     for n, batch, want in cases:
         plan = _commit(n, batch)
-        assert tuning._variants_for_entry(plan, plan._raw_fast[FWD]) == want, n
+        assert race._variants_for_entry(plan, plan._raw_fast[FWD]) == want, n
         assert tuning._entry_key(plan, "fused2") == f"n{n}"
     rplan = ref.Descriptor(lengths=[4096], number_of_transforms=8).commit(use_pallas=True)
     rvar = ref_tuning._variants_for_entry(rplan, rplan._raw_fast[RefDirection.FORWARD])
@@ -327,8 +334,7 @@ def test_autotune_records_under_the_fused2_key(tmp_caches):
     won = plan.autotune(iters=1, times=times)
     assert len(times) == 7 and json.dumps(won, sort_keys=True) in times
     assert tuning.lookup("cpu", "fused2", "n4096") == won
-    engine = fastpath._engine_of(won, plan.plans[n])
-    assert plan._raw_fast[BWD][5] == engine
+    assert plan._raw_fast[BWD].engine == engine_of(won, plan.plans[n])
     _fft_ok(plan, n, batch)
 
 
@@ -338,11 +344,12 @@ def test_autotune_real_records_under_the_half_length(tmp_caches):
     n, batch = 1280, 2  # h = 640, no fold: K2 against K2-v1
     plan = _commit(n, batch, domain=pf.Domain.REAL)
     entry = plan._raw_fast[FWD]
-    assert entry[0] == "realf" and entry[1][0] == "fused2"
-    assert tuning._variants_for_entry(plan, entry) == [{}, {"eng": 2}]
+    assert isinstance(entry, fastpath.HalfReal)
+    assert entry.inner.tuning_kind == "fused2"
+    assert race._variants_for_entry(plan, entry) == [{}, {"eng": 2}]
     won = plan.autotune(iters=1)
     assert tuning.lookup("cpu", "fused2", "n640") == won
-    assert plan._raw_fast[FWD][1][5] == fastpath._engine_of(won, plan.plans[640])
+    assert plan._raw_fast[FWD].inner.engine == engine_of(won, plan.plans[640])
     x = np.random.default_rng(8).uniform(-1, 1, (batch, n)).astype(np.float32)
     y = plan.compute_forward(x.reshape(-1)).reshape(batch, -1)
     assert np.abs(y - np.fft.rfft(x)).max() <= oracle.tolerance(ref.Descriptor(lengths=[n]))

@@ -27,6 +27,7 @@ from portfft_tpu.ops import pallas_global, pallas_global3
 from portfft_tpu.planner import plan_1d as ref_plan_1d
 from portfft_tpu_torch import convert, fastpath
 from portfft_tpu_torch.config import DeviceConfig
+from portfft_tpu_torch.engines import ENGINES
 from portfft_tpu_torch.ops import cuda_global, torch_fft
 from portfft_tpu_torch.planner import plan_1d
 
@@ -84,8 +85,8 @@ def test_engine3_matches_reference(ref_calls, n, batch, scale):
         want = np.asarray(fn(jnp.asarray(raw), rplan._bank_arrays))
         assert ref_calls == ["global3"]
         entry = fastpath.with_engine(plan, plan._raw_fast[pdir], ENGINE3)
-        assert entry[0] == "global2" and entry[-1] == "global3"
-        kernel, args = fastpath.kernel_args(plan, entry)
+        assert entry.tuning_kind == "global2" and entry.engine.name == "global3"
+        kernel, args = entry.kernel_args(plan)
         assert kernel is cuda_global.global3 and args[-1] == scale
         got = fastpath.build_fn(plan, entry)(torch.from_numpy(raw.copy())).numpy()
         expect = oracle.reference_output(rdesc, canon, rdir)
@@ -121,7 +122,7 @@ def test_no_plan_needs_engine3():
         plan = plan_1d(n, CFG, 4)
         if cuda_global.global3_supported(plan):
             found.append(n)
-            assert fastpath.engine_supported("global2", plan), n
+            assert ENGINES["global2"].gate(plan), n
     assert {65536, 1 << 17, 1 << 18, 196608, 1 << 19, 1 << 20} <= set(found)
 
 

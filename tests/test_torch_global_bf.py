@@ -30,7 +30,7 @@ from portfft_tpu.ops import pallas_global, pallas_global_bf, xla_fft
 from portfft_tpu.planner import Plan1D as RefPlan1D
 from portfft_tpu.planner import plan_1d as ref_plan_1d
 import portfft_tpu_torch as pf
-from portfft_tpu_torch import fastpath, tuning
+from portfft_tpu_torch import tuning
 from portfft_tpu_torch.config import DeviceConfig
 from portfft_tpu_torch.enums import Level
 from portfft_tpu_torch.ops import cuda_fft, cuda_global, cuda_global_bf, torch_fft
@@ -132,16 +132,16 @@ def test_k4_tuned_route_matches_the_reference_override(tmp_caches, n, batch, sca
     port's committed plan whose tuned entry selects K4."""
     rplan = ref.Descriptor(lengths=[n], number_of_transforms=batch,
                            forward_scale=scale).commit(use_pallas=True)
-    entry = rplan._raw_fast[RefDirection.FORWARD]
+    rroute = rplan._raw_fast[RefDirection.FORWARD]
     raw = _input(batch, n, 11)
-    want = ref_fastpath.build_fn(rplan, RefDirection.FORWARD, entry, 2 * batch * n,
+    want = ref_fastpath.build_fn(rplan, RefDirection.FORWARD, rroute, 2 * batch * n,
                                  overrides={"eng": 5, "bt": 1})(
         jnp.asarray(raw), rplan._bank_arrays)
     desc = pf.Descriptor(lengths=[n], number_of_transforms=batch, forward_scale=scale)
     probe = desc.commit(device="cpu")
     tuning.record("cpu", "global2", tuning._entry_key(probe, "global2"), {"eng": 5})
     plan = desc.commit(device="cpu")
-    assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global_sq"
+    assert plan._raw_fast[pf.Direction.FORWARD].engine.name == "global_sq"
     got = plan.compute_forward(torch.from_numpy(raw))
     _check(got.numpy(), want, raw, batch, n, -1, scale)
 

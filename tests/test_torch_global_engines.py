@@ -35,8 +35,9 @@ from portfft_tpu.ops import pallas_global, pallas_global_bf, pallas_global_ilv, 
 from portfft_tpu.planner import Plan1D as RefPlan1D
 from portfft_tpu.planner import plan_1d as ref_plan_1d
 import portfft_tpu_torch as pf
-from portfft_tpu_torch import convert, fastpath, tuning
+from portfft_tpu_torch import convert, fastpath, race, tuning
 from portfft_tpu_torch.config import H100_SMEM_PER_BLOCK, DeviceConfig
+from portfft_tpu_torch.engines import ENGINES, engine_of
 from portfft_tpu_torch.enums import Level
 from portfft_tpu_torch.ops import cuda_global, cuda_global_bf, cuda_global_ilv, torch_fft
 from portfft_tpu_torch.planner import Plan1D, plan_1d
@@ -86,15 +87,15 @@ def _check(got, want, raw, batch, n, sign, scale):
 
 
 def _port_run(engine, plan, raw, batch, sign, scale, arrays=None):
-    """The port's ``engine`` on ``raw`` through ``fastpath.kernel_args`` (its
-    wrapper, on a CPU tensor: the plain version)."""
+    """The port's ``engine`` on ``raw`` through its raw route's
+    ``kernel_args`` (its wrapper, on a CPU tensor: the plain version)."""
     keys, own = _port_arrays(plan, sign)
 
     class Committed:
         _bank_keys, _bank_arrays = keys, own if arrays is None else arrays
 
-    kernel, args = fastpath.kernel_args(
-        Committed, ("global2", plan, batch, sign, scale, engine))
+    kernel, args = fastpath.Raw(plan, batch, sign, scale,
+                                ENGINES[engine]).kernel_args(Committed)
     return kernel(torch.from_numpy(raw.copy()), *args).numpy()
 
 
@@ -337,7 +338,7 @@ def test_tuned_route_matches_the_reference(tmp_caches, ref_calls, n, params,
     ref_tuning.record(rprobe.config.name, "global2", key, params)
     rplan = rdesc.commit(use_pallas=True)
     plan = desc.commit(device="cpu")
-    assert plan._raw_fast[pf.Direction.FORWARD][-1] == engine
+    assert plan._raw_fast[pf.Direction.FORWARD].engine.name == engine
     raw = _input(batch, n, 3)
     for sign, scale, rcompute, compute in (
             (-1, 0.5, rplan.compute_forward, plan.compute_forward),
@@ -397,7 +398,7 @@ def test_gates_against_the_references():
                 <= 2 * cfg.vmem_bytes for t1 in (128, 256, 512)),
         }
         for engine, takes in theirs.items():
-            ours = fastpath.engine_supported(engine, plan)
+            ours = ENGINES[engine].gate(plan, 1, 0)
             assert ours or not takes, (engine, n)
             if ours and not takes:
                 declines[engine].add(n)
@@ -407,22 +408,23 @@ def test_gates_against_the_references():
 @pytest.mark.parametrize("n", [65536, 1 << 17, 147456, 196608, 1 << 19, 1 << 20])
 def test_variants_and_engines_of_the_references(n):
     """``_variants_1d`` lists each new engine exactly where its gate takes
-    the plan, and ``_engine_of`` maps every parameter set the reference's
+    the plan, and ``engine_of`` maps every parameter set the reference's
     ``_variants_1d`` emits for ``global2`` to a kernel here (engine 2's
     ``ftw`` on K3-ftw)."""
     plan = pf.Descriptor(lengths=[n], number_of_transforms=2).commit(device="cpu")
-    variants = tuning._variants_1d(plan, "global2", n, 2)
+    variants = race._variants_1d(plan, "global2", n, 2)
     p0 = plan.plans[n]
-    for engine, params in fastpath.ENGINE_PARAMS.items():
-        assert (params in variants) == fastpath.engine_supported(engine, p0)
+    for engine in ENGINES.values():
+        if engine.kind == "global2":
+            assert (engine.params in variants) == engine.gate(p0, 1, 0)
     assert {"eng": 6} in variants and {"eng": 6, "ftw": 1} in variants
     assert ({"eng": 8} in variants) == bool(
         torch_fft.ilv_factor(p0.sub[0].n) and torch_fft.ilv_factor(p0.sub[1].n))
     rplan = ref.Descriptor(lengths=[n], number_of_transforms=2).commit(use_pallas=True)
     emitted = ref_tuning._variants_1d(rplan, "global2", n)
-    engines = {fastpath._engine_of(p, p0) for p in emitted}
+    engines = {engine_of(p, p0).name for p in emitted}
     assert {"global2", "global3"} <= engines
-    assert fastpath._engine_of({"eng": 2, "t1": 64, "t2": 256, "ftw": 1}, p0) \
+    assert engine_of({"eng": 2, "t1": 64, "t2": 256, "ftw": 1}, p0).name \
         == "global2_ftw"
     for p in emitted:
         want = {2: "global2", 3: "global3", 5: "global_sq", 8: "global_ilv"}.get(
@@ -434,7 +436,7 @@ def test_variants_and_engines_of_the_references(n):
         if p.get("eng") == 7:
             want = ("global_bf2" if p.get("bf2") else
                     "global_bf_ov" if p.get("ov") else "global_bf")
-        assert fastpath._engine_of(p, p0) == want, p
+        assert engine_of(p, p0).name == want, p
 
 
 @pytest.mark.parametrize("n,engines", [

@@ -27,7 +27,8 @@ from chip_smoke import (
     oracle_tol,
     real_case,
 )
-from portfft_tpu_torch import fastpath
+from portfft_tpu_torch import fastpath, race
+from portfft_tpu_torch.engines import ENGINES, engine_of
 from portfft_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.gpu
@@ -63,8 +64,8 @@ def test_kernel_matches_plain(cuda, n, batch, kind, inplace):
     ).to(cuda)
     for direction in (pf.Direction.FORWARD, pf.Direction.BACKWARD):
         entry = plan._raw_fast[direction]
-        assert entry[0] == kind
-        kernel, args = fastpath.kernel_args(plan, entry)
+        assert entry.engine.name == kind
+        kernel, args = entry.kernel_args(plan)
         before = tracing.launches(kernel.kernel)
         want = kernel.plain(x, *args)
         if inplace:
@@ -118,7 +119,7 @@ def test_tensor_on_other_device_raises(cuda):
 
 def test_plain_versions_leave_the_tf32_setting_alone(cuda):
     plan = pf.Descriptor(lengths=[4096], number_of_transforms=2).commit()
-    kernel, args = fastpath.kernel_args(plan, plan._raw_fast[pf.Direction.FORWARD])
+    kernel, args = plan._raw_fast[pf.Direction.FORWARD].kernel_args(plan)
     x = torch.rand(2 * 2 * 4096, device=cuda)
     allowed = torch.backends.cuda.matmul.allow_tf32
     try:
@@ -189,10 +190,10 @@ def test_real_main_path_matches_oracle(cuda, n, batch):
 
 
 def _steps(plan, direction):
-    """The (kind, kernel, args) of each step of a multi-dim or BI entry."""
+    """The (kind, kernel, args) of each step of a multi-dim or BI route."""
     entry = plan._raw_fast[direction]
-    steps = entry[2] if entry[0] == "multidim" else (entry,)
-    return [(s[0], *fastpath.kernel_args(plan, s)) for s in steps]
+    steps = entry.steps if isinstance(entry, fastpath.MultiDim) else (entry,)
+    return [(kind, *s.kernel_args(plan)) for kind, s in zip(md_kinds(entry), steps)]
 
 
 @pytest.mark.parametrize(
@@ -265,7 +266,7 @@ def test_bi_main_path_in_place_matches_oracle(cuda, n, batch):
         backward_strides=[batch], forward_distance=1, backward_distance=1,
         placement=pf.Placement.IN_PLACE,
     ).commit()
-    assert plan._raw_fast[pf.Direction.FORWARD][0] == "bi_col"
+    assert isinstance(plan._raw_fast[pf.Direction.FORWARD], fastpath.Col)
     x = torch.randn(n, batch, dtype=torch.complex64, device=cuda)
     ref = torch.fft.fft(x.to(torch.complex128), dim=0)
     y = plan.compute_forward(x)
@@ -363,7 +364,7 @@ def test_fastmri_walk_launches_k13_on_the_radix_path_alone(cuda):
     lengths, batch, scale = FASTMRI
     plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
                          forward_scale=scale, backward_scale=scale).commit()
-    assert plan._raw_fast[pf.Direction.FORWARD][6] == {640: "chain", 368: "direct"}
+    assert plan._raw_fast[pf.Direction.FORWARD].routes == {640: "chain", 368: "direct"}
     x = torch.randn(batch, *lengths, dtype=torch.complex64, device=cuda)
     xd = x.to(torch.complex128)
     before = tracing.paths("K13")
@@ -404,7 +405,7 @@ def test_plane_main_path_matches_oracle(cuda, n, batch, inplace):
     plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                          placement=placement, forward_scale=0.5,
                          backward_scale=2.0 / n).commit()
-    assert plan._raw_fast[pf.Direction.FORWARD][0] == "plane"
+    assert isinstance(plan._raw_fast[pf.Direction.FORWARD], fastpath.Plane)
     gen = torch.Generator(device="cuda").manual_seed(n)
     x = torch.randn(batch, n, dtype=torch.complex64, generator=gen, device=cuda)
     xd = x.to(torch.complex128)
@@ -518,7 +519,7 @@ def test_plane_multidim_main_path_matches_oracle(cuda, lengths, batch):
     """Interleaved multi-dim shapes the raw kernels decline, on the plane
     path's per-axis walk (K6, K13/K14/K15, K12, K6), against ``torch.fft``."""
     plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch).commit()
-    assert plan._raw_fast[pf.Direction.FORWARD][0] == "core"
+    assert isinstance(plan._raw_fast[pf.Direction.FORWARD], fastpath.Core)
     x = torch.randn(batch, *lengths, dtype=torch.complex64, device=cuda)
     n, dims = int(np.prod(lengths)), tuple(range(1, len(lengths) + 1))
     y = plan.compute_forward(x)
@@ -730,7 +731,7 @@ def test_layout_on_the_shipped_route(cuda, tmp_path, monkeypatch, n, batch, spli
                              **fields).commit()
         shipped = tuning.lookup(plan.config.name, "global2",
                                 tuning._entry_key(plan, "global2"))
-        assert fastpath._engine_of(shipped) == "global_fused"
+        assert engine_of(shipped).name == "global_fused"
         _check_layout_route(n, batch, split, fields, give_out, in_place, kinds)
     finally:
         tuning._reset_for_tests()
@@ -751,7 +752,7 @@ def test_tuned_engine_matches_plain_and_oracle(cuda, engine, params, n, batch,
     for direction, scale in ((pf.Direction.FORWARD, 0.5),
                              (pf.Direction.BACKWARD, 3.0 / n)):
         entry = fastpath.with_engine(plan, plan._raw_fast[direction], params)
-        kernel, args = fastpath.kernel_args(plan, entry)
+        kernel, args = entry.kernel_args(plan)
         assert kernel.__name__ == engine
         before = tracing.launches(kernel.kernel)
         want = kernel.plain(x, *args)
@@ -802,7 +803,7 @@ def test_tuned_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatc
         assert diff.item() <= oracle_tol(n)
         times = {}
         won = plan.autotune(iters=1, times=times)
-        assert won in [fastpath.ENGINE_PARAMS[e] for e in fastpath.ENGINE_PARAMS]
+        assert won in [e.params for e in ENGINES.values() if e.kind == "global2"]
         assert len(times) >= 3 and tuning.lookup(plan.config.name, "global2", key) == won
         y = plan.compute_forward(x).reshape(batch, n)
         assert (y.to(torch.complex128) - ref).abs().max().item() <= oracle_tol(n)
@@ -843,8 +844,7 @@ def test_fused2_engine_matches_plain_and_oracle(cuda, engine, n, batch, bt, inpl
     kernel = getattr(cuda_fft, engine)
     for direction, scale in ((pf.Direction.FORWARD, 0.5),
                              (pf.Direction.BACKWARD, 3.0 / n)):
-        entry = plan._raw_fast[direction]
-        _, args = fastpath.kernel_args(plan, entry)
+        _, args = plan._raw_fast[direction].kernel_args(plan)
         batch_, sub, scale_ = args
         assert scale_ == scale
         args = (batch_, sub, scale) if bt is None else (batch_, sub, bt, scale)
@@ -1008,7 +1008,7 @@ def test_tuned_md_route_runs_its_kernels(cuda, tmp_path, monkeypatch, lengths,
                    else torch.fft.ifftn(xc, dim=dims, norm="forward"))
             diff = (torch.view_as_complex(y.view(*shape, 2)) - ref).abs().max()
             assert diff.item() <= oracle_tol(n), (direction, diff.item())
-        variants = tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
+        variants = race._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
         times = {}
         won = plan.autotune(iters=1, times=times)
         if len(variants) > 1:
@@ -1036,7 +1036,7 @@ def test_real_half_length_takes_the_shipped_engine(cuda, tmp_path, monkeypatch):
         plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                              domain=pf.Domain.REAL).commit()
         for direction in pf.Direction:
-            assert plan._raw_fast[direction][1][-1] == "global_fused"
+            assert plan._raw_fast[direction].inner.engine.name == "global_fused"
         x = torch.rand(batch, n, device=cuda) * 2 - 1
         before = tracing.launches(cuda_global.global_fused.kernel)
         spec = plan.compute_forward(x.reshape(-1))
@@ -1081,8 +1081,8 @@ SWEEP_CASES = [
 
 def _sweep_case(engine, g1, g2, batch, sign, scale):
     """``(kernel, args)`` of ``engine`` on the split g1 x g2 (subs planned
-    as the planner plans them), through ``fastpath.kernel_args`` on a bank
-    built for the split."""
+    as the planner plans them), through its raw route's ``kernel_args`` on a
+    bank built for the split."""
     from types import SimpleNamespace
 
     from portfft_tpu_torch.config import DeviceConfig
@@ -1093,13 +1093,13 @@ def _sweep_case(engine, g1, g2, batch, sign, scale):
     cfg = DeviceConfig()
     plan = Plan1D(n=g1 * g2, level=Level.GLOBAL, factors=[],
                   sub=(plan_1d(g1, cfg, 4), plan_1d(g2, cfg, 4)))
-    assert fastpath.engine_supported(engine, plan)
+    assert ENGINES[engine].gate(plan)
     bank, keys = torch_fft.TwiddleBank(), {}
     torch_fft.collect_bank_keys(plan, sign, bank, keys)
     committed = SimpleNamespace(_bank_keys=keys,
                                 _bank_arrays=bank.device_arrays("cuda"))
-    return fastpath.kernel_args(
-        committed, ("global2", plan, batch, sign, scale, engine))
+    return fastpath.Raw(plan, batch, sign, scale,
+                        ENGINES[engine]).kernel_args(committed)
 
 
 @pytest.mark.parametrize("engine,g1,g2,batch", SWEEP_CASES)
@@ -1170,8 +1170,7 @@ def test_sweep_entry_runs_its_kernel_on_the_main_path(cuda, tmp_path, monkeypatc
             assert diff.item() <= oracle_tol(n)
         times = {}
         won = plan.autotune(iters=1, times=times)
-        assert json.dumps(fastpath.ENGINE_PARAMS[fastpath._engine_of(params)],
-                          sort_keys=True) in times
+        assert json.dumps(engine_of(params).params, sort_keys=True) in times
         assert tuning.lookup(plan.config.name, "global2", key) == won
     finally:
         tuning._reset_for_tests()
@@ -1221,7 +1220,7 @@ def test_retangle_drop_flag_matches_plain_and_oracle(cuda, n, batch):
     plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                          domain=pf.Domain.REAL, backward_scale=2.0 / n).commit()
     entry = plan._raw_fast[pf.Direction.BACKWARD]
-    assert entry[0] == "realb" and entry[-1] == (n < 1024)
+    assert entry.tangle == "retangle" and entry.drop == (n < 1024)
     spec = random_raw(batch * (n + 2), seed=n)
     r = plan._bank_keys[("R", n, +1)]
     tabs = (plan._bank_arrays[r + "r"], plan._bank_arrays[r + "i"])
@@ -1288,7 +1287,7 @@ def test_global2_ftw_entry_runs_on_the_main_path(cuda, tmp_path, monkeypatch):
         tuning.record(probe.config.name, "global2", key,
                       {"eng": 2, "t1": 64, "t2": 256, "ftw": 1})
         plan = desc.commit()
-        assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global2_ftw"
+        assert plan._raw_fast[pf.Direction.FORWARD].engine.name == "global2_ftw"
         x = torch.randn(batch, n, dtype=torch.complex64, device=cuda)
         before = tracing.launches(cuda_global.global2_ftw.kernel)
         y, back = plan.compute_forward(x), plan.compute_backward(x)
@@ -1415,15 +1414,15 @@ def test_real_plane_main_path_matches_oracle(cuda, monkeypatch, n, batch, bf):
                          domain=pf.Domain.REAL, forward_scale=0.5,
                          backward_scale=2.0 / n).commit()
     fwd, bwd = (plan._raw_fast[d] for d in pf.Direction)
-    assert fwd[0] == bwd[0] == "realplane"
+    assert isinstance(fwd.inner, fastpath.Plane) and isinstance(bwd.inner, fastpath.Plane)
     wide = cuda_real.wide_supported(n, batch)
-    assert fwd[6] == ("untangle_wide" if wide else "untangle")
+    assert fwd.tangle == ("untangle_wide" if wide else "untangle")
     counters = [cuda_real.untangle_wide if wide else cuda_real.untangle,
                 cuda_real.retangle]
     if bf:
-        assert "bluestein_bf" in fwd[1][5].values()
+        assert "bluestein_bf" in fwd.inner.routes.values()
         counters.append(cuda_bluestein.bluestein_bf)
-    k15 = "bluestein" in fwd[1][5].values()  # h's plane path runs K15
+    k15 = "bluestein" in fwd.inner.routes.values()  # h's plane path runs K15
     before = [tracing.launches(c.kernel) for c in counters]
     k15_before = tracing.launches()["K15"]
     x = random_raw(batch * n, seed=n)

@@ -281,3 +281,61 @@ def test_logging_flags(monkeypatch, caplog):
     assert not plog._env_flag("PORTFFT_LOG_TRACES")
     monkeypatch.setenv("PORTFFT_LOG_TRACES", "1")
     assert plog._env_flag("PORTFFT_LOG_TRACES")
+
+
+def _imports(path) -> tuple[set, set]:
+    """The package modules a source file of portfft_tpu_torch imports at
+    module level, and those it imports inside a function, as dotted names
+    below the package (``fastpath``, ``ops.cuda_fft``)."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(pt.__file__).parent
+    here = path.relative_to(root).with_suffix("").parts[:-1]
+    top, inner = set(), set()
+
+    def targets(node):
+        if isinstance(node, ast.Import):
+            return [a.name[len("portfft_tpu_torch."):] for a in node.names
+                    if a.name.startswith("portfft_tpu_torch.")]
+        if node.level == 0:
+            mod = node.module or ""
+            if not mod.startswith("portfft_tpu_torch"):
+                return []
+            base = mod.split(".")[1:]
+        else:
+            base = list(here[:len(here) - node.level + 1]) + (
+                node.module.split(".") if node.module else [])
+        # ``from . import x`` names a module; ``from .m import x`` the module m
+        return (["/".join(base + [a.name]).replace("/", ".") for a in node.names]
+                if node.module is None else [".".join(base)])
+
+    def walk(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.Import, ast.ImportFrom)):
+                (inner if in_function else top).update(targets(child))
+            walk(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)))
+
+    walk(ast.parse(path.read_text()), False)
+    return top, inner
+
+
+def test_the_layers_import_one_way():
+    """The import graph points one way: the kernels (``ops``) import none of
+    the registry, the tuning cache, the committed plan or the race; the
+    tuning cache and the engine table import neither the registry nor the
+    committed plan; and no module imports one of the package's inside a
+    function (a function-level import would hide a cycle)."""
+    import pathlib
+
+    root = pathlib.Path(pt.__file__).parent
+    above = {"fastpath", "tuning", "committed", "race"}
+    graph = {str(p.relative_to(root)): _imports(p) for p in root.rglob("*.py")}
+    for name, (top, inner) in graph.items():
+        assert not inner, (name, inner)
+        if name.startswith("ops/"):
+            assert not top & above, (name, top & above)
+    for name in ("tuning.py", "engines.py"):
+        top, _ = graph[name]
+        assert not top & {"fastpath", "committed", "race"}, (name, top)

@@ -21,6 +21,7 @@ import oracle
 import portfft_tpu as ref
 import portfft_tpu_torch as pt
 from portfft_tpu.ops import pallas_io
+from portfft_tpu_torch import fastpath
 from portfft_tpu_torch.ops import cuda_stride
 from portfft_tpu_torch.utils.layout import Rows, rows_1d
 
@@ -173,10 +174,10 @@ def _calls(opts, rfn, pfn, flat, out_buf):
 
 
 def _sides(entry):
-    if entry[0] != "layout":
+    if not isinstance(entry, fastpath.Layout):
         return ("view", "view"), entry
-    _, inner, src, dst = entry
-    return tuple("K7" if isinstance(s, Rows) else "view" for s in (src, dst)), inner
+    return tuple("K7" if isinstance(s, Rows) else "view"
+                 for s in (entry.src, entry.dst)), entry.inner
 
 
 @pytest.mark.parametrize("lengths,batch,fields,opts,sides",
@@ -303,8 +304,8 @@ def test_rows_of_one_transform_ignore_the_declared_distance():
     assert rows_1d(d, pt.Direction.FORWARD) == Rows(0, 2, 2047, 1024, 1)
     plan = pt.Descriptor(lengths=[64], forward_distance=10**9,
                          forward_offset=3).commit(device="cpu")
-    assert plan._raw_fast[pt.Direction.FORWARD] == (
-        "layout", plan._raw_fast[pt.Direction.FORWARD][1], 3, 0)
+    route = plan._raw_fast[pt.Direction.FORWARD]
+    assert route == fastpath.Layout(route.inner, 3, 0)
     x = np.random.default_rng(0).uniform(-1, 1, 2 * 67).astype(np.float32)
     x = x.view(np.complex64)
     assert np.allclose(plan.compute_forward(x),

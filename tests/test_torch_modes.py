@@ -33,6 +33,7 @@ from portfft_tpu.planner import plan_1d as ref_plan_1d
 import portfft_tpu_torch as pf
 from portfft_tpu_torch import convert, fastpath, tuning
 from portfft_tpu_torch.config import DeviceConfig
+from portfft_tpu_torch.engines import ENGINES, engine_of
 from portfft_tpu_torch.enums import Level
 from portfft_tpu_torch.ops import cuda_bluestein, cuda_global, cuda_real, torch_fft
 from portfft_tpu_torch.planner import Plan1D, plan_1d
@@ -145,8 +146,8 @@ def test_k3ftw_plain_matches_global2_raw_call(monkeypatch, g1, g2, batch, sign,
     class Committed:
         _bank_keys, _bank_arrays = keys, bank.device_arrays("cpu")
 
-    kernel, args = fastpath.kernel_args(
-        Committed, ("global2", plan, batch, sign, scale, "global2_ftw"))
+    kernel, args = fastpath.Raw(plan, batch, sign, scale,
+                                ENGINES["global2_ftw"]).kernel_args(Committed)
     assert kernel is cuda_global.global2_ftw
     got = kernel(torch.from_numpy(raw.copy()), *args).numpy()
     _check_c2c(got, np.asarray(want), raw, batch, n, sign, scale)
@@ -188,7 +189,7 @@ def test_k3ftw_tuned_route_matches_the_reference(tmp_caches, monkeypatch):
 
     monkeypatch.setattr(pallas_global, "_apply_factored_q", recorded)
     rplan, plan = rdesc.commit(use_pallas=True), desc.commit(device="cpu")
-    assert all(plan._raw_fast[d][-1] == "global2_ftw" for d in pf.Direction)
+    assert all(plan._raw_fast[d].engine.name == "global2_ftw" for d in pf.Direction)
     raw = np.random.default_rng(3).uniform(-1, 1, 2 * batch * n).astype(np.float32)
     for sign, scale, rcompute, compute in (
             (-1, 0.5, rplan.compute_forward, plan.compute_forward),
@@ -208,11 +209,11 @@ def test_k3ftw_gate_and_variant():
     for g1, g2, takes in ((256, 256, True), (384, 384, True), (2048, 512, True),
                           (640, 256, False), (200, 256, False), (256, 96, False)):
         _, plan = _plans(g1, g2)
-        assert fastpath.engine_supported("global2_ftw", plan) == takes, (g1, g2)
-        assert takes == fastpath.engine_supported("global_fused_ftw", plan)
-    assert fastpath.ENGINE_PARAMS["global2_ftw"] == {"eng": 2, "ftw": 1}
-    assert fastpath._engine_of({"eng": 2, "ftw": 1}) == "global2_ftw"
-    assert fastpath._engine_of({"eng": 2}) == "global2"
+        assert ENGINES["global2_ftw"].gate(plan) == takes, (g1, g2)
+        assert takes == ENGINES["global_fused_ftw"].gate(plan)
+    assert ENGINES["global2_ftw"].params == {"eng": 2, "ftw": 1}
+    assert engine_of({"eng": 2, "ftw": 1}) is ENGINES["global2_ftw"]
+    assert engine_of({"eng": 2}) is ENGINES["global2"]
 
 
 # -- K15-bf bluestein_bf ---------------------------------------------------------------
@@ -315,7 +316,7 @@ def test_butterfly_mode_is_chosen_at_commit(monkeypatch):
         device="cpu")
     monkeypatch.delenv("PORTFFT_BLUESTEIN_BF")
     assert fastpath.plane_routes(plan65537, CFG) == {65537: "bluestein"}
-    assert committed._raw_fast[pf.Direction.FORWARD][5] == {24593: "bluestein_bf"}
+    assert committed._raw_fast[pf.Direction.FORWARD].routes == {24593: "bluestein_bf"}
     x = np.random.default_rng(1).standard_normal((2, 24593)).astype(np.complex64)
     y = committed.compute_forward(x.reshape(-1)).reshape(2, -1)
     tol = oracle.tolerance(ref.Descriptor(lengths=[24593]))

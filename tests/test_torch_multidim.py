@@ -101,6 +101,14 @@ def _assert_close(got, want_ref, desc, canon, direction):
     assert delta <= 5e-5 * np.abs(want_ref).max(), delta
 
 
+def _step_kinds(route) -> tuple:
+    """The kernel of each step of a multi-dim route, in order: a row
+    step's engine, a column step's kernel, ``md2``."""
+    return tuple(s.engine.name if isinstance(s, fastpath.Raw) else
+                 s.kernel if isinstance(s, fastpath.Col) else "md2"
+                 for s in route.steps)
+
+
 def _ref_md2(rplan, lengths) -> bool:
     """Whether the reference's fast path takes md2 for ``lengths``."""
     if lengths[-2] == 1:
@@ -128,14 +136,16 @@ def test_multidim_route_and_values_match_reference(ref_calls, lengths, batch,
         want = rfn(x)
         got = pfn(x)
         # the reference ran its fast path (no fallback) through these kernels
-        assert rplan._raw_fast[rdir][0] == "multidim"
+        rroute = rplan._raw_fast[rdir]
+        assert rroute[0] == "multidim"
         assert tuple(ref_calls) == kinds
         entry = plan._raw_fast[pdir]
-        assert entry[0] == "multidim" and entry[1] == _ref_md2(rplan, lengths)
-        assert tuple(step[0] for step in entry[2]) == kinds
+        assert isinstance(entry, fastpath.MultiDim)
+        assert isinstance(entry.steps[0], fastpath.Md2) == _ref_md2(rplan, lengths)
+        assert _step_kinds(entry) == kinds
         # the scale rides on the last kernel only
         scale = float(pdesc.get_scale(pdir))
-        assert [step[-1] for step in entry[2]] == [1.0] * (len(kinds) - 1) + [scale]
+        assert [s.scale for s in entry.steps] == [1.0] * (len(kinds) - 1) + [scale]
         assert isinstance(got, np.ndarray) and got.dtype == np.complex64
         assert got.shape == want.shape == x.shape
         _assert_close(got, want, rdesc, canon, rdir)
@@ -180,9 +190,11 @@ def test_batch_interleaved_matches_reference(ref_calls, n, batch):
             plan.compute_backward)
         want = rfn(flat)
         got = pfn(flat)
-        assert rplan._raw_fast[rdir][0] == "bi_col" and ref_calls == ["col"]
+        rroute = rplan._raw_fast[rdir]
+        assert rroute[0] == "bi_col" and ref_calls == ["col"]
         entry = plan._raw_fast[pdir]
-        assert entry[0] == "bi_col" and entry[1:4] == (1, plan.plans[n], batch)
+        assert isinstance(entry, fastpath.Col)
+        assert (entry.bpre, entry.plan, entry.rest) == (1, plan.plans[n], batch)
         _assert_close(got, want, rdesc, canon, rdir)
 
 
@@ -282,8 +294,7 @@ def test_bench_rows_route_as_the_reference():
                            ([1024, 1024], ("fused2", "col")),
                            ([128, 128, 128], ("md2", "col"))):
         plan = pt.Descriptor(lengths=lengths).commit(device="cpu")
-        steps = plan._raw_fast[pt.Direction.FORWARD][2]
-        assert tuple(s[0] for s in steps) == kinds
+        assert _step_kinds(plan._raw_fast[pt.Direction.FORWARD]) == kinds
     rplan = ref.Descriptor(lengths=[1024, 1024]).commit(use_pallas=True)
     assert not _ref_md2(rplan, [1024, 1024])
 
@@ -321,8 +332,9 @@ def test_plane_outer_axes_take_the_plane_route(lengths, routes):
     plan = pdesc.commit(device="cpu")
     assert ref.Direction.FORWARD not in rplan._raw_fast
     entry = plan._raw_fast[pt.Direction.FORWARD]
-    assert entry[0] == "core" and entry[1] is False and entry[5] == ()
-    assert entry[-1] == routes
+    assert isinstance(entry, fastpath.Core)
+    assert entry.split is False and entry.k12 == ()
+    assert entry.routes == routes
     canon = oracle.gen_input(rdesc, seed=sum(lengths))
     x = canon.reshape(-1)
     _assert_close(plan.compute_forward(x), rplan.compute_forward(x), rdesc,
@@ -355,5 +367,5 @@ def test_every_axis_length_has_its_tables():
             assert ("W", n, sign) in plan._bank_keys
         assert ("U", 8, 128, sign) in plan._bank_keys
     for direction in pt.Direction:
-        for step in plan._raw_fast[direction][2]:
-            fastpath.kernel_args(plan, step)  # every table resolves
+        for s in plan._raw_fast[direction].steps:
+            s.kernel_args(plan)  # every table resolves

@@ -124,8 +124,8 @@ def test_plane_route_and_values_match_reference(calls, n, batch, routes,
         # the reference's raw fast path declines these lengths
         assert rdir not in rplan._raw_fast
         entry = plan._raw_fast[pdir]
-        assert entry[0] == "plane" and entry[-1] == routes
-        assert entry[4] == float(pdesc.get_scale(pdir))
+        assert isinstance(entry, fastpath.Plane) and entry.routes == routes
+        assert entry.scale == float(pdesc.get_scale(pdir))
         calls["ref"].clear()
         calls["port"].clear()
         want = (rplan.compute_forward if rdir == ref.Direction.FORWARD
@@ -352,7 +352,7 @@ def test_bluestein_past_the_tpu_tile_budget():
     assert not pallas_global._pick_tile(p2.n, p1, p1.n,
                                         REF_CFG.vmem_bytes * 5 // 8, 512, 128)
     plan = pt.Descriptor(lengths=[n], backward_scale=0.5).commit(device="cpu")
-    assert plan._raw_fast[pt.Direction.FORWARD][-1] == {n: "bluestein"}
+    assert plan._raw_fast[pt.Direction.FORWARD].routes == {n: "bluestein"}
     xr, xi = _planes(n, 1, n)
     x = (xr + 1j * xi).astype(np.complex64).reshape(-1)
     for sign, fn, scale in ((-1, plan.compute_forward, 1.0),

@@ -192,10 +192,12 @@ def test_real_slice_matches_reference(n, batch, entry, c2c):
     rplan = ref.Descriptor(domain=ref.Domain.REAL, **kw).commit(use_pallas=True)
     plan = pt.Descriptor(domain=pt.Domain.REAL, **kw).commit(device="cpu")
     fwd, bwd = plan._raw_fast[pt.Direction.FORWARD], plan._raw_fast[pt.Direction.BACKWARD]
-    assert (fwd[0], bwd[0]) == (entry, entry.replace("f", "b"))
+    route = {"realsf": fastpath.SmallReal, "realf": fastpath.HalfReal}[entry]
+    assert isinstance(fwd, route) and isinstance(bwd, route)
+    assert (fwd.sign, bwd.sign) == (-1, +1)
     if c2c is not None:
-        assert fwd[1][0] == bwd[1][0] == c2c
-        assert fwd[1][1] is plan.plans[n // 2]
+        assert fwd.inner.engine.name == bwd.inner.engine.name == c2c
+        assert fwd.inner.plan is plan.plans[n // 2]
     described, want_described = plan.plan_description(), rplan.plan_description()
     if 512 < n < 1024:  # the reference adds the h plan only from n = 1024
         assert described.pop(n // 2) == plan.plans[n // 2].describe()

@@ -102,11 +102,12 @@ def test_real_plane_matches_reference(n, batch, routes, fs, bs):
     plan, runs = _run_both(n, batch, fs, bs, n)
     for direction in pt.Direction:
         entry = plan._raw_fast[direction]
-        assert entry[0] == "realplane" and entry[1][0] == "plane"
-        assert entry[1][1] is plan.plans[n // 2] and entry[1][5] == routes
-        assert entry[6] == ("untangle" if direction == pt.Direction.FORWARD
-                            else "retangle")
-        assert entry[7] is False
+        assert isinstance(entry, fastpath.HalfReal)
+        assert isinstance(entry.inner, fastpath.Plane)
+        assert entry.inner.plan is plan.plans[n // 2] and entry.inner.routes == routes
+        assert entry.tangle == ("untangle" if direction == pt.Direction.FORWARD
+                                else "retangle")
+        assert entry.drop is False
     for got, want, exact, tol in runs:
         _close(got, exact, tol)
         _close(want, exact, tol)
@@ -123,7 +124,7 @@ def test_c2r_bins_match_reference(n, scale):
     rdesc, pdesc = _descs(n, 2, 1.0, scale)
     rplan, plan = rdesc.commit(use_pallas=True), pdesc.commit(device="cpu")
     entry = plan._raw_fast[pt.Direction.BACKWARD]
-    assert entry[-1] == (n < 1024)
+    assert entry.drop == (n < 1024)
     spec = _spectra(2, n, n)
     got = plan.compute_backward(spec.reshape(-1)).reshape(2, n)
     want = np.asarray(rplan.compute_backward(spec.reshape(-1))).reshape(2, n)
@@ -171,13 +172,12 @@ def test_real_plane_routes_at_commit(n, batch, untangle, kinds):
     (h, batch); K8b keeps the two bins (n >= 1024)."""
     entries, plan_h = _register(n, batch)
     fwd, bwd = entries[pt.Direction.FORWARD], entries[pt.Direction.BACKWARD]
-    assert fwd[:6] == ("realplane", fwd[1], n // 2, batch, -1, 1.0)
-    assert bwd[:6] == ("realplane", bwd[1], n // 2, batch, +1, 1.0)
-    assert (fwd[6], bwd[6], fwd[7], bwd[7]) == (untangle, "retangle", False, False)
-    for entry, sign in ((fwd, -1), (bwd, +1)):
-        assert entry[1] == ("plane", plan_h, batch, sign, 1.0,
-                            fastpath.plane_routes(plan_h, CFG))
-    assert set(fwd[1][5].values()) == kinds
+    for entry, sign, tangle in ((fwd, -1, untangle), (bwd, +1, "retangle")):
+        assert entry == fastpath.HalfReal(
+            fastpath.Plane(plan_h, batch, sign, 1.0,
+                           fastpath.plane_routes(plan_h, CFG)),
+            n // 2, batch, sign, 1.0, tangle, False)
+    assert set(fwd.inner.routes.values()) == kinds
     assert cuda_real.wide_supported(n, batch) == (untangle == "untangle_wide")
 
 
@@ -219,7 +219,7 @@ def test_real_plane_butterfly_mode_matches_reference(monkeypatch):
     plan, runs = _run_both(n, batch, 0.5, 2.0 / n, 11)
     assert seen  # the reference ran its butterfly mode
     for direction in pt.Direction:
-        assert plan._raw_fast[direction][1][5] == {24977: "bluestein_bf"}
+        assert plan._raw_fast[direction].inner.routes == {24977: "bluestein_bf"}
     for got, want, exact, tol in runs:
         _close(got, exact, tol)
         _close(want, exact, 30 * tol)  # the reference's bf16x3 products
@@ -236,7 +236,7 @@ def test_real_plane_wide_untangle_end_to_end():
     plan = pt.Descriptor(lengths=[n], number_of_transforms=batch,
                          domain=pt.Domain.REAL, forward_scale=0.5).commit(
         device="cpu")
-    assert plan._raw_fast[pt.Direction.FORWARD][6] == "untangle_wide"
+    assert plan._raw_fast[pt.Direction.FORWARD].tangle == "untangle_wide"
     x = np.random.default_rng(5).uniform(-1, 1, (batch, n)).astype(np.float32)
     y = plan.compute_forward(x.reshape(-1)).reshape(batch, -1)
     tol = oracle.tolerance(ref.Descriptor(lengths=[n]))

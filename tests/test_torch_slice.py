@@ -51,8 +51,9 @@ def test_slice_out_of_place_numpy_complex(n, batch):
     rplan = rdesc.commit(use_pallas=True)
     plan = _desc(pt, n, batch).commit(device="cpu")
     assert plan.plan_description() == rplan.plan_description()
-    assert plan._raw_fast[pt.Direction.FORWARD][0] == KERNEL_OF[n]
-    assert rplan._raw_fast[ref.Direction.FORWARD][0] == KERNEL_OF[n]
+    assert plan._raw_fast[pt.Direction.FORWARD].engine.kind == KERNEL_OF[n]
+    rroute = rplan._raw_fast[ref.Direction.FORWARD]
+    assert rroute[0] == KERNEL_OF[n]
     x = oracle.gen_input(rdesc, seed=n).reshape(-1)
     for rdir, pdir in zip(ref.Direction, pt.Direction):
         rfn = rplan.compute_forward if rdir == ref.Direction.FORWARD else (
@@ -214,8 +215,9 @@ def test_plane_last_axes_commit_on_the_per_axis_walk(lengths, routes):
     outer axis of 2 or 4 is one the column kernel K12 takes)."""
     plan = pt.Descriptor(lengths=lengths).commit(device="cpu")
     entry = plan._raw_fast[pt.Direction.FORWARD]
-    assert entry[0] == "core" and entry[1] is False and entry[5] == ()
-    assert entry[-1] == routes
+    assert isinstance(entry, fastpath.Core)
+    assert entry.split is False and entry.k12 == ()
+    assert entry.routes == routes
 
 
 def test_global_with_a_16384_sub_routes_to_k14():

@@ -81,16 +81,18 @@ def test_fused_shipped_rows_take_the_engine_of_n4096():
     """real_large's half length and bi_in_4096 are n = 4096 FUSED entries:
     with tuning on they take the engine the shipped table names for n4096
     (K2 where it names none)."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import engines, fastpath, tuning
 
     with open(tuning._DEFAULTS_PATH) as f:
         params = json.load(f)["cuda_h100"].get("fused2", {}).get("n4096")
     plan = pf.Descriptor(lengths=[8192], number_of_transforms=2,
                          domain=pf.Domain.REAL).commit(device="cpu")
-    want = "fused2" if params is None else fastpath._engine_of(params, plan.plans[4096])
+    want = ("fused2" if params is None
+            else engines.engine_of(params, plan.plans[4096]).name)
     entry = plan._raw_fast[pf.Direction.FORWARD]
-    inner = entry[1] if params is None else fastpath.with_engine(plan, entry, params)[1]
-    assert inner[5] == want
+    if params is not None:
+        entry = fastpath.with_engine(plan, entry, params)
+    assert entry.inner.engine.name == want
     name, n, _, _, fields, _ = next(r for r in chip_smoke.LAYOUT_ROWS
                                     if r[0] == "bi_in_4096")
     assert set(chip_smoke.FUSED_SHIPPED) == {"real_large", name}

@@ -54,6 +54,7 @@ def test_stride_checks_pass_and_reject_faults(name, m, split, monkeypatch):
 def test_layout_rows_route_through_k7():
     """Each layout row commits to the route its name promises, and the K7
     phase checks K7 at every layout those rows give it."""
+    from portfft_tpu_torch import fastpath
     from portfft_tpu_torch.utils.layout import Rows, rows_1d
 
     want = {
@@ -72,7 +73,8 @@ def test_layout_rows_route_through_k7():
                              **fields)
         entry = desc.commit(device="cpu")._raw_fast[pf.Direction.FORWARD]
         assert chip_smoke.layout_kinds(entry) == want[name]
-        for side in entry[2:]:
+        for side in ((entry.src, entry.dst) if isinstance(entry, fastpath.Layout)
+                     else ()):
             if isinstance(side, Rows):
                 assert (tuple(vars(side).values()), split) in cases, (name, side)
         for direction in pf.Direction:

@@ -89,7 +89,7 @@ def test_mma_cases_hold_the_main_path_shapes():
     ``multidim`` or ``bi_col`` variant of an ``MD_ROWS`` row gives it
     (md_128^3's axis-1 step (4096, 128, 128) where K11 is off among them),
     and K16 at every tuned row its gate takes (``tuned_cases``)."""
-    from portfft_tpu_torch import fastpath, tuning
+    from portfft_tpu_torch import fastpath, race
 
     steps = set()
     for _, lengths, batch, dname, bi in chip_smoke.MD_ROWS:
@@ -98,13 +98,12 @@ def test_mma_cases_hold_the_main_path_shapes():
         plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
                              **kw).commit(device="cpu")
         entry = plan._raw_fast[pf.Direction(dname)]
-        for params in tuning._variants_for_entry(plan, entry):
-            inner = fastpath.inner_entry(fastpath.with_engine(plan, entry, params))
-            if inner[0] == "bi_col":
-                if inner[6] == "col_mm":
-                    steps.add((inner[1], inner[2].n, inner[3]))
-            else:
-                steps |= {(s[1], s[2].n, s[3]) for s in inner[2] if s[0] == "col_mm"}
+        for params in race._variants_for_entry(plan, entry):
+            tuned = fastpath.with_engine(plan, entry, params)
+            inner = getattr(tuned, "inner", tuned)
+            cols = inner.steps if isinstance(inner, fastpath.MultiDim) else (inner,)
+            steps |= {(s.bpre, s.plan.n, s.rest) for s in cols
+                      if isinstance(s, fastpath.Col) and s.kernel == "col_mm"}
     assert (4096, 128, 128) in steps and (1, 4096, 32768) in steps
     assert steps <= set(chip_smoke.MMA_COL_CASES)
     tuned = {(n, batch) for _, n, batch in chip_smoke.tuned_cases(pf, ("global3",))}
@@ -119,7 +118,7 @@ def test_col_mm_declines_only_direct_lengths_off_128():
 
 
 def test_md_kinds_of_the_tuned_routes():
-    """``md_kinds`` names every kernel of a multi-dim or ``bi_col`` entry:
+    """``md_kinds`` names every kernel of a multi-dim or column route:
     K10-mm where ``{"cm": 1}`` selects it."""
     from portfft_tpu_torch import fastpath
 

@@ -110,11 +110,13 @@ def test_bounds_of_the_plane_rows():
 def test_library_call_computes_the_plane_path_function(n, batch):
     """The ``torch.fft`` yardstick of a plane row computes what the row's
     plain path (``fastpath.plane_fn(plain=True)``) computes, both ways."""
+    from portfft_tpu_torch import fastpath
+
     plan = pf.Descriptor(lengths=[n], number_of_transforms=batch).commit(device="cpu")
     x = chip_smoke.random_raw(2 * batch * n, 7, device="cpu")
     for direction, sign in DIRECTIONS:
         entry = plan._raw_fast[direction]
-        assert entry[0] == "plane"
+        assert isinstance(entry, fastpath.Plane)
         want = chip_smoke.plain_path(plan, entry)(x)
         got = torch.view_as_real(chip_smoke.library_call(x, n, batch, False, sign < 0)())
         assert torch.allclose(got.reshape(-1), want, atol=1e-3 * want.abs().max().item())

@@ -110,8 +110,8 @@ def test_real_plane_rows_launch_every_kernel_of_the_path(monkeypatch):
         entries = _entries(n, batch, monkeypatch, bf)
         for dname in dnames:
             entry = entries[pf.Direction(dname)]
-            assert entry[0] == "realplane", name
-            kinds |= {entry[6], *chip_smoke.path_kinds(entry[1])}
+            assert isinstance(entry.inner, fastpath.Plane), name
+            kinds |= {entry.tangle, *chip_smoke.path_kinds(entry.inner)}
     assert kinds == {"untangle", "untangle_wide", "retangle", "deinterleave",
                      "interleave", "chain", "global2_planes", "bluestein",
                      "bluestein_bf"}
@@ -157,7 +157,7 @@ def test_library_call_computes_the_real_plane_function(n, batch):
                          domain=pf.Domain.REAL).commit(device="cpu")
     for direction, forward in ((pf.Direction.FORWARD, True),
                                (pf.Direction.BACKWARD, False)):
-        assert plan._raw_fast[direction][0] == "realplane"
+        assert isinstance(plan._raw_fast[direction].inner, fastpath.Plane)
         x = (chip_smoke.random_raw(batch * n, 7, device="cpu") if forward
              else chip_smoke.half_spectra(batch, n, 7, device="cpu"))
         want = chip_smoke.plain_path(plan, plan._raw_fast[direction])(x)

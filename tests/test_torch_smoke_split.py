@@ -87,7 +87,7 @@ def test_path_kinds_of_the_new_rows():
     for n, kinds in ((12232320, ["chain", "global2_planes"]),
                      (50431897, ["global2_planes"])):
         routes = fastpath.plane_routes(plan_1d(n, cfg, 4), cfg)
-        entry = ("plane", None, 1, -1, 1.0, routes)
+        entry = fastpath.Plane(None, 1, -1, 1.0, routes)
         assert chip_smoke.path_kinds(entry) == ["deinterleave", "interleave", *kinds]
 
 

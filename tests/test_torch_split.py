@@ -153,8 +153,8 @@ def test_split_route_and_values_match_reference(calls, lengths, batch, k12,
     xi = np.ascontiguousarray(canon.imag).reshape(-1)
     for rdir, rfn, pdir, pfn in _directions(rplan, plan):
         entry = plan._raw_fast[pdir]
-        assert entry[:2] == ("core", True) and entry[5] == k12
-        assert entry[4] == float(pdesc.get_scale(pdir)) and entry[-1] == routes
+        assert isinstance(entry, fastpath.Core) and entry.split and entry.k12 == k12
+        assert entry.scale == float(pdesc.get_scale(pdir)) and entry.routes == routes
         calls["ref"].clear()
         calls["port"].clear()
         wr, wi = rfn(xr, xi)
@@ -180,8 +180,8 @@ def test_plane_multidim_route_and_values_match_reference(calls, lengths, batch,
     for rdir, rfn, pdir, pfn in _directions(rplan, plan):
         assert rdir not in rplan._raw_fast
         entry = plan._raw_fast[pdir]
-        assert entry[:2] == ("core", False) and entry[5] == k12
-        assert entry[-1] == routes
+        assert isinstance(entry, fastpath.Core) and not entry.split
+        assert entry.k12 == k12 and entry.routes == routes
         calls["ref"].clear()
         calls["port"].clear()
         want = rfn(x)
@@ -209,7 +209,7 @@ def test_k14_past_the_tpu_tile_budget(calls):
     xr = np.ascontiguousarray(canon.real).reshape(-1)
     xi = np.ascontiguousarray(canon.imag).reshape(-1)
     for rdir, rfn, pdir, pfn in _directions(rplan, plan):
-        assert plan._raw_fast[pdir][-1] == {n: "global2"}
+        assert plan._raw_fast[pdir].routes == {n: "global2"}
         calls["ref"].clear()
         calls["port"].clear()
         wr, wi = rfn(xr, xi)

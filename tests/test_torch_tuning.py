@@ -24,7 +24,7 @@ from portfft_tpu.config import DeviceConfig as RefConfig
 from portfft_tpu.enums import Direction as RefDirection
 from portfft_tpu.planner import plan_1d as ref_plan_1d
 import portfft_tpu_torch as pf
-from portfft_tpu_torch import fastpath, tuning
+from portfft_tpu_torch import engines, fastpath, race, tuning
 from portfft_tpu_torch.config import DeviceConfig
 from portfft_tpu_torch.planner import plan_1d
 
@@ -144,12 +144,13 @@ def test_shipped_table_is_consistent():
     assert table.get("fused2")
     for key, params in table["fused2"].items():
         plan = plan_1d(int(key[1:]), DeviceConfig(), 4)
-        engine = fastpath._engine_of(params, plan)
-        assert engine in fastpath.FUSED_ENGINE_PARAMS and engine != "fused2", key
+        engine = engines.engine_of(params, plan)
+        assert engine.kind == "fused2" and engine.name != "fused2", key
         bt = params.get("bt", 0)
-        assert fastpath.engine_supported(engine, plan, bt or 1, bt), (key, params)
+        assert engine.gate(plan, bt or 1, bt), (key, params)
+    global2 = [e.params for e in engines.ENGINES.values() if e.kind == "global2"]
     for key, params in table.get("global2", {}).items():
-        assert params in fastpath.ENGINE_PARAMS.values(), (key, params)
+        assert params in global2, (key, params)
         n, split = key[1:].split("_g")
         g1, g2 = map(int, split.split("x"))
         assert g1 * g2 == int(n)
@@ -159,7 +160,7 @@ def test_shipped_table_is_consistent():
         for key, params in table.get(kind, {}).items():
             lengths = [int(v) for v in key[1:].split("x")]
             plan = _md_desc(lengths, 4, kind == "bi_col").commit(device="cpu")
-            variants = tuning._variants_for_entry(
+            variants = race._variants_for_entry(
                 plan, plan._raw_fast[pf.Direction.FORWARD])
             assert params in variants[1:], (kind, key, params)
 
@@ -188,7 +189,7 @@ FUSED_ENGINES = tuple({"eng": e, "bt": b} for b in (1, 2) for e in (2, 3))
 ])
 def test_variants_where_the_gates_take_the_plan(tmp_caches, n, expect, ref_expect):
     plan = pf.Descriptor(lengths=[n], number_of_transforms=2).commit(device="cpu")
-    variants = tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
+    variants = race._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
     assert variants == [{}, *expect]
     rplan = ref.Descriptor(lengths=[n], number_of_transforms=2).commit(use_pallas=True)
     rvar = ref_tuning._variants_for_entry(rplan, rplan._raw_fast[RefDirection.FORWARD])
@@ -196,7 +197,7 @@ def test_variants_where_the_gates_take_the_plan(tmp_caches, n, expect, ref_expec
         assert any(r.get("eng") == v["eng"] and all(
             bool(r.get(k)) == bool(v.get(k)) for k in ("ov", "ftw", "bf2"))
             for r in rvar), v
-    kind = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])[0]
+    kind = plan._raw_fast[pf.Direction.FORWARD].tuning_kind
     assert tuning._entry_key(plan, kind) == ref_tuning._entry_key(rplan, kind)
 
 
@@ -205,10 +206,10 @@ def test_no_variants_outside_global(tmp_caches):
     nor on a FUSED plan only K2 takes (32768 = [256, 128]: one transform
     does not fit a block of K2-v1, K2-v2 or K2-v3)."""
     plan = pf.Descriptor(lengths=[256], number_of_transforms=2).commit(device="cpu")
-    assert tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD]) == []
+    assert race._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD]) == []
     assert plan.autotune(iters=1) is None
     plan = pf.Descriptor(lengths=[32768], number_of_transforms=2).commit(device="cpu")
-    assert tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD]) == [{}]
+    assert race._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD]) == [{}]
     assert plan.autotune(iters=1) is None
 
 
@@ -223,12 +224,12 @@ def test_autotune_records_under_the_global_key(tmp_caches):
     key = tuning._entry_key(plan, "global2")
     assert key == "n65536_g256x256"
     assert tuning.lookup("cpu", "global2", key) == won
-    assert plan._raw_fast[pf.Direction.BACKWARD][-1] == fastpath._engine_of(won)
+    assert plan._raw_fast[pf.Direction.BACKWARD].engine == engines.engine_of(won)
     x = _input(batch, n, 1)
     _fft_ok(plan.compute_forward(x), x, n, batch)
     # a new commit takes the recorded engine
-    assert desc.commit(device="cpu")._raw_fast[pf.Direction.FORWARD][-1] == \
-        fastpath._engine_of(won)
+    assert desc.commit(device="cpu")._raw_fast[pf.Direction.FORWARD].engine == \
+        engines.engine_of(won)
 
 
 def test_autotune_takes_iters_first_as_the_reference(tmp_caches):
@@ -246,17 +247,17 @@ def test_autotune_takes_iters_first_as_the_reference(tmp_caches):
 
 
 def test_global_entry_unwraps_real_and_layout_entries(tmp_caches):
-    """``fastpath.inner_entry`` finds the GLOBAL entry inside a REAL or
-    layout entry, and returns an unwrapped entry (a FUSED one) as it is."""
+    """A REAL or layout route holds its GLOBAL route as ``inner``; a FUSED
+    route stands unwrapped."""
     for fields in (dict(domain=pf.Domain.REAL, lengths=[1 << 17]),
                    dict(lengths=[65536], forward_strides=[2],
                         forward_distance=2 * 65536)):
         plan = pf.Descriptor(number_of_transforms=2, **fields).commit(device="cpu")
-        inner = fastpath.inner_entry(plan._raw_fast[pf.Direction.FORWARD])
-        assert inner[0] == "global2" and inner[1].n == 65536
+        inner = plan._raw_fast[pf.Direction.FORWARD].inner
+        assert inner.tuning_kind == "global2" and inner.plan.n == 65536
     plan = pf.Descriptor(lengths=[4096]).commit(device="cpu")
     entry = plan._raw_fast[pf.Direction.FORWARD]
-    assert fastpath.inner_entry(entry) is entry and entry[0] == "fused2"
+    assert isinstance(entry, fastpath.Raw) and entry.tuning_kind == "fused2"
 
 
 def test_autotune_real_records_under_its_sub(tmp_caches):
@@ -266,11 +267,12 @@ def test_autotune_real_records_under_its_sub(tmp_caches):
     plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
                          domain=pf.Domain.REAL).commit(device="cpu")
     entry = plan._raw_fast[pf.Direction.FORWARD]
-    assert entry[0] == "realf" and entry[1][0] == "global2"
-    assert tuning._variants_for_entry(plan, entry) == [{}, *ENGINES]
+    assert isinstance(entry, fastpath.HalfReal) and entry.tangle == "untangle"
+    assert entry.inner.tuning_kind == "global2"
+    assert race._variants_for_entry(plan, entry) == [{}, *ENGINES]
     won = plan.autotune(iters=1)
     assert tuning.lookup("cpu", "global2", "n65536_g256x256") == won
-    assert plan._raw_fast[pf.Direction.FORWARD][1][-1] == fastpath._engine_of(won)
+    assert plan._raw_fast[pf.Direction.FORWARD].inner.engine == engines.engine_of(won)
     x = np.random.default_rng(7).uniform(-1, 1, (batch, n)).astype(np.float32)
     y = plan.compute_forward(x.reshape(-1)).reshape(batch, -1)
     tol = oracle.tolerance(ref.Descriptor(lengths=[n]))
@@ -286,7 +288,8 @@ def test_layout_entry_takes_the_tuned_engine(tmp_caches):
                          forward_strides=[2], forward_distance=2 * n)
     plan = desc.commit(device="cpu")
     entry = plan._raw_fast[pf.Direction.FORWARD]
-    assert entry[0] == "layout" and entry[1][-1] == "global_bf"
+    assert isinstance(entry, fastpath.Layout)
+    assert entry.inner.engine.name == "global_bf"
     x = _input(batch, 2 * n, 4)
     y = plan.compute_forward(x)
     xs = x.view(np.complex64).reshape(batch, 2 * n)[:, ::2].copy().view(np.float32)
@@ -306,8 +309,7 @@ def test_autotune_drops_a_mismatching_variant(tmp_caches, monkeypatch):
 
     def corrupting(committed, entry, plain=False):
         fn = real_build(committed, entry, plain)
-        inner = entry[1] if entry[0] == "layout" else entry
-        if inner[-1] == "global_bf_ov":
+        if getattr(entry, "inner", entry).engine.name == "global_bf_ov":
             return lambda *a, **k: fn(*a, **k) * 0.0
         return fn
 
@@ -335,7 +337,7 @@ def test_declined_tuned_engine_is_marked_stale_at_commit(tmp_caches, monkeypatch
     warns = []
     monkeypatch.setattr(plog, "warn", lambda *m: warns.append(" ".join(map(str, m))))
     plan = desc.commit(device="cpu")
-    assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global2"
+    assert plan._raw_fast[pf.Direction.FORWARD].engine.name == "global2"
     assert any("stale tuned entry" in w for w in warns), warns
     assert tuning.lookup("cpu", "global2", key) is None
     assert any(k == key for (_, _, k, _) in tuning.stale_entries("cpu"))
@@ -366,12 +368,12 @@ def test_reference_engine_3_is_k16(tmp_caches):
     desc = pf.Descriptor(lengths=[n], number_of_transforms=batch)
     plan = desc.commit(device="cpu")
     params = {"eng": 3, "t1": 128, "t2": 256}
-    assert fastpath._engine_of(params) == "global3"
+    assert engines.engine_of(params).name == "global3"
     assert fastpath.with_engine(plan, plan._raw_fast[pf.Direction.FORWARD],
-                                params)[-1] == "global3"
+                                params).engine.name == "global3"
     tuning.record("cpu", "global2", tuning._entry_key(plan, "global2"), params)
     plan = desc.commit(device="cpu")
-    assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global3"
+    assert plan._raw_fast[pf.Direction.FORWARD].engine.name == "global3"
     x = _input(batch, n, 3)
     _fft_ok(plan.compute_forward(x), x, n, batch)
 
@@ -390,7 +392,7 @@ def test_declined_engine_3_is_marked_stale_at_commit(tmp_caches, monkeypatch):
     warns = []
     monkeypatch.setattr(plog, "warn", lambda *m: warns.append(" ".join(map(str, m))))
     plan = desc.commit(device="cpu")
-    assert plan._raw_fast[pf.Direction.FORWARD][-1] == "global2"
+    assert plan._raw_fast[pf.Direction.FORWARD].engine.name == "global2"
     assert any("stale tuned entry" in w and "global3" in w for w in warns), warns
     assert tuning.lookup("cpu", "global2", key) is None
     x = _input(1, n, 4)
@@ -422,8 +424,10 @@ def _md_desc(lengths, batch, bi, **kw):
 
 
 def _md_kinds(entry):
-    inner = fastpath.inner_entry(entry)
-    return (inner[6],) if inner[0] == "bi_col" else tuple(s[0] for s in inner[2])
+    inner = getattr(entry, "inner", entry)
+    steps = inner.steps if isinstance(inner, fastpath.MultiDim) else (inner,)
+    return tuple(s.engine.name if isinstance(s, fastpath.Raw) else
+                 s.kernel if isinstance(s, fastpath.Col) else "md2" for s in steps)
 
 
 @pytest.mark.parametrize("lengths,batch,bi,kind,key,variants,routes", MD_TUNED)
@@ -437,15 +441,15 @@ def test_md_keys_variants_and_routes(tmp_caches, lengths, batch, bi, kind, key,
     desc = _md_desc(lengths, batch, bi)
     plan = desc.commit(device="cpu")
     entry = plan._raw_fast[pf.Direction.FORWARD]
-    assert fastpath.inner_entry(entry)[0] == kind
-    assert tuning._key_of(plan, fastpath.inner_entry(entry)) == key
+    assert getattr(entry, "inner", entry).tuning_kind == kind
+    assert race._key_of(plan, getattr(entry, "inner", entry)) == key
     rkw = dict(lengths=lengths, number_of_transforms=batch)
     if bi:
         rkw.update(forward_strides=[batch], backward_strides=[batch],
                    forward_distance=1, backward_distance=1)
     rplan = ref.Descriptor(**rkw).commit(use_pallas=True)
     assert ref_tuning._entry_key(rplan, kind) == key
-    assert tuning._variants_for_entry(plan, entry) == variants
+    assert race._variants_for_entry(plan, entry) == variants
     for params, kinds in zip(variants, routes):
         tuning.record("cpu", kind, key, params)
         plan = desc.commit(device="cpu")
@@ -462,12 +466,12 @@ def test_md_variants_do_not_depend_on_the_tuned_entry(tmp_caches, lengths, won):
     whose shipped table holds a winner races them all again."""
     desc = pf.Descriptor(lengths=lengths)
     static = desc.commit(device="cpu")
-    want = tuning._variants_for_entry(static, static._raw_fast[pf.Direction.FORWARD])
+    want = race._variants_for_entry(static, static._raw_fast[pf.Direction.FORWARD])
     tuning.record("cpu", "multidim", tuning._entry_key(static, "multidim"), won)
     plan = desc.commit(device="cpu")
     entry = plan._raw_fast[pf.Direction.FORWARD]
     assert _md_kinds(entry) != _md_kinds(static._raw_fast[pf.Direction.FORWARD])
-    assert tuning._variants_for_entry(plan, entry) == want
+    assert race._variants_for_entry(plan, entry) == want
 
 
 @pytest.mark.parametrize("knobs", [{"ct": 128, "ds": 1}, {"mt1": 64, "mt2": 64},
@@ -495,8 +499,11 @@ def test_autotune_md_records_and_reregisters(tmp_caches, lengths, batch, bi,
     desc = _md_desc(lengths, batch, bi, **fields)
     plan = desc.commit(device="cpu")
     static = plan._raw_fast[pf.Direction.BACKWARD]
-    assert static[0] == ("layout" if fields else kind)
-    variants = tuning._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
+    if fields:
+        assert isinstance(static, fastpath.Layout)
+    else:
+        assert static.tuning_kind == kind
+    variants = race._variants_for_entry(plan, plan._raw_fast[pf.Direction.FORWARD])
     times = {}
     won = plan.autotune(iters=1, times=times)
     assert won in variants and len(times) == len(variants) > 1
@@ -524,7 +531,7 @@ def test_reference_two_pass_engine_is_k3(tmp_caches):
     """The reference's engine 2 with its TPU tile knobs is K3 here."""
     desc = pf.Descriptor(lengths=[65536], number_of_transforms=2)
     tuning.record("cpu", "global2", "n65536_g256x256", {"eng": 2, "t1": 64, "t2": 256})
-    assert desc.commit(device="cpu")._raw_fast[pf.Direction.FORWARD][-1] == "global2"
+    assert desc.commit(device="cpu")._raw_fast[pf.Direction.FORWARD].engine.name == "global2"
 
 
 def test_explicit_engine_the_gate_declines_raises(tmp_caches):
