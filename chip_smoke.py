@@ -34,7 +34,12 @@
    faults (K6: a conjugated result; K13: its roots or inner twiddle
    conjugated; K15: its pass-1 chirp conjugated).  K6 and K15 are timed
    alone at large_1d_prime, K13 at the [24, 128] convolution of n = 1031
-   and in its chain mode at n = 1000.  Then K7 (destride, and restride
+   and in its chain mode at n = 1000.  K13's column form at
+   ``CHAIN_COLS_CASES`` (down axis 1 of (bpre, n, trailing) planes, a scale
+   of 0.5) against its plain version and ``fft`` over that axis, with the
+   same planted faults, each call counted on the ``radix_col`` path; timed
+   alone at fastMRI's 525 x 640 x 368 beside the row form on the moved
+   planes and the four copies of the move.  Then K7 (destride, and restride
    with fill_gaps on and off) at the layouts of ``STRIDE_CASES``, held to
    its plain version exactly (max|kernel - plain| = 0), each check
    rejecting a run at the offset plus one and an all-zero output; K7's
@@ -280,6 +285,22 @@ CHAIN_CASES = [(3, 1 << 20), (100, 1 << 17), (3072, 4096), (24576, 512),
                (1000, 8192), (600, 8192), (19683, 512), (368, 336000),
                (640, 193200)]
 BLUESTEIN_CASES = [(20011, 512), (65537, 256), (131101, 64)]
+# K13's column form (``cuda_chain.chain_cols``) at (bpre, n, trailing): the
+# 640 axis where it lies in fastmri_knee.volume (525 x 640 x 368, 8-column
+# tiles) and in plane_md_128x640x128 (12 x 640 x 128), a DIRECT axis over 21
+# columns (the last tile partial) and the chain over 4 columns (a tile of
+# whole rows); scale CHAIN_COLS_SCALE both ways.  Timed alone at fastMRI's
+# shape, beside the row form on the moved planes and the four plane copies
+# of the move there and back that the column form saves.
+CHAIN_COLS_CASES = [(525, 640, 368), (12, 640, 128), (4096, 100, 21),
+                    (8192, 640, 4)]
+CHAIN_COLS_ALONE = (525, 640, 368)
+CHAIN_COLS_SCALE = 0.5
+# The measurement behind the column form's gate (``cuda_chain.cols_supported``,
+# its ``COLS_MIN_POINTS``): (n, trailing) around the break-even against the
+# walk's move, row form and move back, each over fastMRI's number of points.
+CHAIN_COLS_GATE = [(640, 1), (640, 2), (640, 4), (368, 2), (368, 4), (100, 8),
+                   (100, 16)]
 # The shapes timed alone: K6 and K15 at large_1d_prime, K13 at the
 # [24, 128] convolution of the bluestein_1031 row.
 PLANE_ALONE = {"interleave": (65537 * 2048, 1), "chain": (3072, 1 << 17),
@@ -302,8 +323,8 @@ SPLIT_ROWS = [
     ("split_md_128^3", (128, 128, 128), 32, "forward"),
 ]
 # Interleaved plane rows the raw kernels decline, about 1 GiB in: a
-# multi-dim shape with an outer axis K10 does not take (K6, K13, movedim +
-# K13's chain [5, 128], K12, K6), the nested GLOBAL length (K6, K14 on its
+# multi-dim shape with an outer axis K10 does not take (K6, K13, K13's chain
+# [5, 128] in column geometry, K12, K6), the nested GLOBAL length (K6, K14 on its
 # inner 240 x 184, K13, K6) and a Bluestein length whose convolution has a
 # [128, 128] sub (K6, K14 with post both ways, K6).
 PLANE_MORE_ROWS = [
@@ -751,6 +772,9 @@ def planted(kind: str, args: tuple) -> tuple:
     if kind == "md2":
         batch, sub1, sub2, scale = args
         return (batch, sub1, conjugated(sub2), scale)
+    if kind == "chain_cols":  # as the row form
+        bpre, trailing, tabs, scale = args
+        return (bpre, trailing, *planted("chain", (tabs,)), scale)
     if kind == "chain":  # the first stage's roots, or as K1/K2
         (tabs,) = args
         if tabs.mode != "chain":
@@ -1477,8 +1501,10 @@ def io_library_calls(x, re, im) -> tuple:
 
 def plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
     """Checks K6 at ``IO_CASES``, K13 at ``CHAIN_CASES`` and K15 at
-    ``BLUESTEIN_CASES`` (both directions); returns ``{kind: (ms, plain_ms,
-    library_ms)}`` of each timed alone at its ``PLANE_ALONE`` shape."""
+    ``BLUESTEIN_CASES`` (both directions), then K13's column form
+    (``chain_cols_phase``); returns ``{kind: (ms, plain_ms, library_ms)}``
+    of each timed alone at its ``PLANE_ALONE`` shape, and of the column
+    form (``"chain_cols"``) at ``CHAIN_COLS_ALONE``."""
     from portfft_tpu_torch.ops import cuda_bluestein, cuda_chain, cuda_io
 
     alone = {}
@@ -1542,7 +1568,122 @@ def plane_kernel_phase(pf, max_err: dict, card: str) -> dict:
               f"bound {bound:.3f} ms ({by}) | {card}")
         del xr, xi, xc, kernel, args
         torch.cuda.empty_cache()
+    alone.update(chain_cols_phase(pf, max_err, card))
     return alone
+
+
+def check_chain_cols(pf, shape: tuple, x, sign: int) -> dict:
+    """``check_against`` for K13's column form on the (bpre, n, trailing)
+    ``shape`` of ``x``, times ``CHAIN_COLS_SCALE``: the oracle is the
+    transform over axis 1."""
+    from portfft_tpu_torch.ops import cuda_chain
+
+    bpre, n, trailing = shape
+    (tabs,) = plane_case(pf, "chain", n, sign, x.device.type)[1]
+    return check_against(
+        f"chain_cols {bpre}x{n}x{trailing} sign={sign:+d}", "chain_cols",
+        on_raw(cuda_chain.chain_cols, n), (bpre, trailing, tabs, CHAIN_COLS_SCALE),
+        x, lambda y: nd_oracle_excess(y, x, shape, (1,), sign, CHAIN_COLS_SCALE))
+
+
+def chain_cols_phase(pf, max_err: dict, card: str) -> dict:
+    """Checks K13's column form at ``CHAIN_COLS_CASES`` (both directions):
+    each call, and the planted fault's, is one K13 launch on the
+    ``radix_col`` path.  Times it alone at ``CHAIN_COLS_ALONE`` beside its
+    plain version, the row form on the moved planes, the four plane copies
+    of the move there and back, one ``torch.fft`` call and its bound;
+    returns ``{"chain_cols": (ms, plain_ms, library_ms)}``."""
+    from portfft_tpu_torch.ops import cuda_chain
+    from portfft_tpu_torch.utils import tracing
+
+    def counts():
+        return launched(cuda_chain.chain_cols), tracing.paths("K13").get("radix_col", 0)
+
+    alone = {}
+    for shape in CHAIN_COLS_CASES:
+        bpre, n, trailing = shape
+        x = random_raw(2 * math.prod(shape), seed=n + trailing)
+        for sign in (-1, +1):
+            before = counts()
+            r = check_chain_cols(pf, shape, x, sign)
+            torch.cuda.synchronize()
+            if counts() != (before[0] + 2, before[1] + 2):  # call and planted fault
+                raise SmokeFailure(f"chain_cols {shape}: launches {before} -> "
+                                   f"{counts()}, not two more radix_col")
+            report("chain_cols", f"{bpre}x{n}x{trailing} sign={sign:+d}", r)
+            max_err["chain_cols"] = max(max_err.get("chain_cols", 0.0), r["err"])
+        if shape == CHAIN_COLS_ALONE:
+            alone["chain_cols"] = time_chain_cols(pf, shape, x, card)
+        del x
+        torch.cuda.empty_cache()
+    for n, trailing in CHAIN_COLS_GATE:
+        time_cols_gate(pf, n, trailing, card)
+        torch.cuda.empty_cache()
+    return alone
+
+
+def time_cols_gate(pf, n: int, trailing: int, card: str,
+                   points: int = math.prod(CHAIN_COLS_ALONE),
+                   device: str = "cuda") -> tuple:
+    """K13's column form against the walk's ``movedim`` path (the move of
+    both planes, the row form, the move back) down axis 1 of (bpre, n,
+    ``trailing``) planes of about ``points`` points, forward; prints both
+    and whether ``cuda_chain.cols_supported`` takes the axis.  Returns
+    ``(cols_ms, walk_ms)``."""
+    from portfft_tpu_torch.ops import cuda_chain
+
+    bpre = max(points // (n * trailing), 1)
+    shape = (bpre, n, trailing)
+    plan = pf.Descriptor(lengths=[n]).commit(device=device)
+    (tabs,) = plane_case(pf, "chain", n, -1, device)[1]
+    xr, xi = (t.contiguous() for t in random_raw(
+        2 * math.prod(shape), n + trailing, device).view(-1, 2).unbind(-1))
+
+    def walk():
+        moved = (t.view(shape).movedim(1, -1).contiguous() for t in (xr, xi))
+        return tuple(y.movedim(-1, 1).contiguous()
+                     for y in cuda_chain.chain(*moved, tabs))
+
+    cols_ms = time_ms(lambda: cuda_chain.chain_cols(xr, xi, bpre, trailing, tabs))
+    walk_ms = time_ms(walk)
+    takes = cuda_chain.cols_supported(plan.plans[n], trailing)
+    print(f"gate   chain_cols n={n:<5d} trailing={trailing:<3d} bpre={bpre:<8d} "
+          f"({n * trailing} points a tile at most) columns {cols_ms:.3f} ms | "
+          f"walk {walk_ms:.3f} ms | ratio {cols_ms / walk_ms:.3f} | "
+          f"gate takes it: {takes} | {card}")
+    return cols_ms, walk_ms
+
+
+def time_chain_cols(pf, shape: tuple, x, card: str) -> tuple:
+    """K13's column form timed alone on the (bpre, n, trailing) ``shape`` of
+    ``x`` (forward, ``CHAIN_COLS_SCALE``), with what it replaces: the row
+    form on the planes with axis 1 moved last, and the four plane copies of
+    that move there and back.  Returns ``(ms, plain_ms, library_ms)``."""
+    from portfft_tpu_torch.ops import cuda_chain
+
+    bpre, n, trailing = shape
+    (tabs,) = plane_case(pf, "chain", n, -1, x.device.type)[1]
+    xr, xi = (t.contiguous() for t in x.view(-1, 2).unbind(-1))
+    args = (bpre, trailing, tabs, CHAIN_COLS_SCALE)
+    ms = time_ms(lambda: cuda_chain.chain_cols(xr, xi, *args))
+    plain_ms = time_ms(lambda: cuda_chain.chain_cols.plain(xr, xi, *args))
+    mr, mi = (t.view(shape).movedim(1, -1).contiguous() for t in (xr, xi))
+    rows_ms = time_ms(lambda: cuda_chain.chain(mr, mi, tabs))
+
+    def move_there_and_back():
+        for t in (xr, xi):
+            t.view(shape).movedim(1, -1).contiguous().movedim(-1, 1).contiguous()
+
+    copies_ms = time_ms(move_there_and_back)
+    del mr, mi
+    xc = torch.complex(xr, xi).view(shape)
+    library_ms = time_ms(lambda: torch.fft.fft(xc, dim=1))
+    bound, by = bound_of("chain", n, bpre * trailing)
+    print(f"alone  chain_cols {bpre}x{n}x{trailing} {tabs.mode} kernel {ms:.3f} ms "
+          f"| rows on the moved planes {rows_ms:.3f} ms + the four copies "
+          f"{copies_ms:.3f} ms | plain {plain_ms:.3f} ms | torch.fft {library_ms:.3f} "
+          f"ms | bound {bound:.3f} ms ({by}) | {card}")
+    return ms, plain_ms, library_ms
 
 
 def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
@@ -1753,10 +1894,12 @@ def path_kinds(entry) -> list[str]:
     from portfft_tpu_torch import fastpath
 
     values = set(entry.routes.values())
+    columns = ({c for _, c in entry.columns} if isinstance(entry, fastpath.Core)
+               else set())
     kinds = []
     if isinstance(entry, fastpath.Plane) or not entry.split:
         kinds += ["deinterleave", "interleave"]
-    if values & {"direct", "two_stage", "chain"}:
+    if values & {"direct", "two_stage", "chain"} or "K13col" in columns:
         kinds.append("chain")
     if "global2" in values:
         kinds.append("global2_planes")
@@ -1764,7 +1907,7 @@ def path_kinds(entry) -> list[str]:
         kinds.append("bluestein")
     if "bluestein_bf" in values:
         kinds.append("bluestein_bf")
-    if isinstance(entry, fastpath.Core) and entry.k12:
+    if "K12" in columns:
         kinds.append("axis_m2")
     return kinds
 

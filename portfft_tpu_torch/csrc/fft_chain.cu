@@ -23,7 +23,11 @@
 //               of the chain as a second launch on its contiguous vectors,
 //               storing out[k + f_0*j].
 // The one-launch modes (DIRECT and [a, 128] up to pfft::kTileMax points, a
-// chain up to kChainMax) run on the radix stages of fft_radix.cuh, in
+// chain up to kChainMax) also take a column geometry (pf_chain_cols,
+// pf_chain_general_cols): the transform down axis 1 of (bpre, n, trailing)
+// planes where they lie, an outer axis of a multi-dimensional transform, in
+// place of moving the axis last and back by two copies of the planes.
+// The one-launch modes run on the radix stages of fft_radix.cuh, in
 // resident blocks that start their next tile's loads before this tile's
 // stages (pfft_radix::tiles, as K15): radix_pass_kernel takes DIRECT as
 // pfft_radix::dft_odd (368 = 23*4*4: a radix-23 stage in registers, then two
@@ -180,6 +184,31 @@ int radix_tile(int m, int64_t rows, Bytes bytes) {
   return T;
 }
 
+// A column pass's tiles: radix_tile's width, cut to a multiple of 8 columns
+// where the tiles do not take whole rows, so that the row segment a tile
+// reads and writes is whole 32-byte sectors of a plane (640 points over 368
+// columns: T = 8, 46 tiles a row, where the row mode takes 9).
+template <class Bytes>
+int col_tile(int m, int64_t cols, Bytes bytes) {
+  const int T = radix_tile(m, cols, bytes);
+  return T < cols && T > 8 ? T - T % 8 : T;
+}
+
+// A pass down axis 1 of (bpre, m, trailing) planes: each (batch, column) one
+// transform of stride trailing, stored where it was read, times scale.
+pfft::Pass col_pass(const pfft::Sub& s, int64_t bpre, int64_t trailing,
+                    float scale) {
+  pfft::Pass p{};
+  p.sub = s;
+  p.nbatch = bpre;
+  p.ncols = trailing;
+  p.ibs = p.obs = int64_t(s.m) * trailing;
+  p.iis = p.oks = trailing;
+  p.ics = p.ocs = 1;
+  p.scale = scale;
+  return p;
+}
+
 // pass_kernel's pass on the radix stages: p.sub, at most pfft::kTileMax
 // points, DIRECT by pfft_radix::dft_odd (its odd prime factors up to 23 in
 // registers), [a, 128] by pfft_radix::sub_fft.
@@ -264,28 +293,45 @@ __global__ void __launch_bounds__(pfft::kThreads, 2)
       });
 }
 
-// pf_chain's one-launch mode: the rows of s on the radix stages.
-int launch_radix(const pfft::Sub& s, int64_t batch, pfft::ConstPlanes x,
-                 pfft::Planes y, cudaStream_t st) {
-  pfft::Pass p = row_pass(s, batch);
-  p.T = radix_tile(s.m, batch,
-                   [&](int T) { return pfft::pass_smem_bytes(s, T); });
+// pf_chain's one-launch mode: pass p of s (its tile width T set) on the
+// radix stages.
+int launch_radix(const pfft::Pass& p, pfft::ConstPlanes x, pfft::Planes y,
+                 cudaStream_t st) {
   return pfft_radix::launch_resident(
       radix_pass_kernel<pfft::ConstPlanes, pfft::Planes>,
-      pfft::pass_smem_bytes(s, p.T), pfft::pass_tiles(p), st, p, x, y);
+      pfft::pass_smem_bytes(p.sub, p.T), pfft::pass_tiles(p), st, p, x, y);
 }
 
-// pf_chain_general's one-launch mode: the rows of n = prod(c.f) on the
-// radix stages.
-int launch_radix_chain(const Chain& c, int n, int64_t batch,
+// pf_chain_general's one-launch mode: pass p of the chain c (p.sub.m = n =
+// prod(c.f), its tile width T set) on the radix stages.
+int launch_radix_chain(const pfft::Pass& p, const Chain& c,
                        pfft::ConstPlanes x, pfft::Planes y, cudaStream_t st) {
-  pfft::Pass p = row_pass(
-      pfft::Sub{n, 0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr},
-      batch);
-  p.T = radix_tile(n, batch, [&](int T) { return chain_smem_bytes(c, n, T); });
   return pfft_radix::launch_resident(
       radix_chain_kernel<pfft::ConstPlanes, pfft::Planes>,
-      chain_smem_bytes(c, n, p.T), pfft::pass_tiles(p), st, p, c, x, y);
+      chain_smem_bytes(c, p.sub.m, p.T), pfft::pass_tiles(p), st, p, c, x, y);
+}
+
+pfft::Sub chain_sub(int n) {
+  return pfft::Sub{n, 0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+}
+
+// The chain of nf factors and their 4*nf tables (pf_chain_general's);
+// returns its length n, or 0 where nf is out of range.
+int chain_of(int nf, const int* factors, const float* const* tables,
+             Chain& c) {
+  if (nf < 2 || nf > kMaxFactors) return 0;
+  c = Chain{};
+  int n = 1;
+  c.nf = nf;
+  for (int s = 0; s < nf; ++s) {
+    c.f[s] = factors[s];
+    c.wr[s] = tables[4 * s];
+    c.wi[s] = tables[4 * s + 1];
+    c.tr[s] = tables[4 * s + 2];
+    c.ti[s] = tables[4 * s + 3];
+    n *= factors[s];
+  }
+  return n;
 }
 
 }  // namespace
@@ -315,7 +361,12 @@ extern "C" int pf_chain(const float* xr, const float* xi, float* yr, float* yi,
   const pfft::ConstPlanes x{xr, xi};
   const pfft::Planes y{yr, yi};
   const pfft::Sub sub{m, a, wr, wi, br, bi, ur, ui};
-  if (m <= pfft::kTileMax) return launch_radix(sub, batch, x, y, st);
+  if (m <= pfft::kTileMax) {
+    pfft::Pass p = row_pass(sub, batch);
+    p.T = radix_tile(m, batch,
+                     [&](int T) { return pfft::pass_smem_bytes(sub, T); });
+    return launch_radix(p, x, y, st);
+  }
   if (a == 0) return launch_sub(row_pass(sub, batch), x, y, st);
   if (scratch == nullptr) return int(cudaErrorInvalidValue);
   float2* s = reinterpret_cast<float2*>(scratch);
@@ -364,23 +415,18 @@ extern "C" int pf_chain_general(const float* xr, const float* xi, float* yr,
                                 const int* factors,
                                 const float* const* tables, int64_t batch,
                                 void* stream) {
-  if (nf < 2 || nf > kMaxFactors || batch < 1)
-    return int(cudaErrorInvalidValue);
-  Chain c{};
-  int n = 1;
-  c.nf = nf;
-  for (int s = 0; s < nf; ++s) {
-    c.f[s] = factors[s];
-    c.wr[s] = tables[4 * s];
-    c.wi[s] = tables[4 * s + 1];
-    c.tr[s] = tables[4 * s + 2];
-    c.ti[s] = tables[4 * s + 3];
-    n *= factors[s];
-  }
+  Chain c;
+  const int n = chain_of(nf, factors, tables, c);
+  if (n == 0 || batch < 1) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const pfft::ConstPlanes x{xr, xi};
   const pfft::Planes y{yr, yi};
-  if (n <= kChainMax) return launch_radix_chain(c, n, batch, x, y, st);
+  if (n <= kChainMax) {
+    pfft::Pass p = row_pass(chain_sub(n), batch);
+    p.T = radix_tile(n, batch,
+                     [&](int T) { return chain_smem_bytes(c, n, T); });
+    return launch_radix_chain(p, c, x, y, st);
+  }
   if (scratch == nullptr) return int(cudaErrorInvalidValue);
   float2* s = reinterpret_cast<float2*>(scratch);
   const int f0 = c.f[0];
@@ -432,4 +478,45 @@ extern "C" int pf_chain_general(const float* xr, const float* xi, float* yr,
   p2.ocs = 1;
   p2.scale = 1.f;
   return launch_chain(p2, rest, static_cast<const float2*>(s), y, st);
+}
+
+// pf_chain's one-launch modes down axis 1 of the planes (xr, xi) viewed as
+// (bpre, m, trailing), m <= pfft::kTileMax: each column's m-point transform,
+// times scale, stored in the same layout in (yr, yi).  Tables as pf_chain.
+// Returns a cudaError_t.
+extern "C" int pf_chain_cols(const float* xr, const float* xi, float* yr,
+                             float* yi, int m, int a, const float* wr,
+                             const float* wi, const float* br, const float* bi,
+                             const float* ur, const float* ui, int64_t bpre,
+                             int64_t trailing, float scale, void* stream) {
+  if (m < 1 || m > pfft::kTileMax || bpre < 1 || trailing < 1 ||
+      (a != 0 && a * 128 != m))
+    return int(cudaErrorInvalidValue);
+  const pfft::Sub sub{m, a, wr, wi, br, bi, ur, ui};
+  pfft::Pass p = col_pass(sub, bpre, trailing, scale);
+  p.T = col_tile(m, trailing,
+                 [&](int T) { return pfft::pass_smem_bytes(sub, T); });
+  return launch_radix(p, pfft::ConstPlanes{xr, xi}, pfft::Planes{yr, yi},
+                      static_cast<cudaStream_t>(stream));
+}
+
+// pf_chain_general's one-launch mode down axis 1 of the planes (xr, xi)
+// viewed as (bpre, n, trailing), n = prod(factors) <= kChainMax, times
+// scale, stored in the same layout in (yr, yi).  Tables as
+// pf_chain_general.  Returns a cudaError_t.
+extern "C" int pf_chain_general_cols(const float* xr, const float* xi,
+                                     float* yr, float* yi, int nf,
+                                     const int* factors,
+                                     const float* const* tables, int64_t bpre,
+                                     int64_t trailing, float scale,
+                                     void* stream) {
+  Chain c;
+  const int n = chain_of(nf, factors, tables, c);
+  if (n == 0 || n > kChainMax || bpre < 1 || trailing < 1)
+    return int(cudaErrorInvalidValue);
+  pfft::Pass p = col_pass(chain_sub(n), bpre, trailing, scale);
+  p.T = col_tile(n, trailing, [&](int T) { return chain_smem_bytes(c, n, T); });
+  return launch_radix_chain(p, c, pfft::ConstPlanes{xr, xi},
+                            pfft::Planes{yr, yi},
+                            static_cast<cudaStream_t>(stream));
 }

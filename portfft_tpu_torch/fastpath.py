@@ -15,7 +15,7 @@ another path.
 | 1D BATCH_INTERLEAVED in both domains, a length K10 takes | :class:`Col` (bpre = 1) | K10, or K10-mm under ``{"cm": 1}`` of the ``bi_col`` kind |
 | multi-dim C2C, K11 takes the two trailing plans | :class:`MultiDim` | K11 (:class:`Md2`), then K10 (:class:`Col`) for axes −3 … 0 |
 | multi-dim C2C, the per-axis route | :class:`MultiDim` | the last axis's :class:`Raw` (K1–K3), then K10 for axes −2 … 0 |
-| SPLIT_COMPLEX, and multi-dim shapes the raw route declines | :class:`Core` | the JAX package's per-axis walk ``_core_inner`` (``torch_exec.core_inner``): K12 on the outer axes its gates take, ``movedim`` + executor + ``movedim`` on the others; K6 around it interleaved |
+| SPLIT_COMPLEX, and multi-dim shapes the raw route declines | :class:`Core` | the JAX package's per-axis walk ``_core_inner`` (``torch_exec.core_inner``): K12 on the outer axes its gates take, K13's column form on the others whose leaf it runs in one launch, ``movedim`` + executor + ``movedim`` on the rest; K6 around it interleaved |
 | 1D REAL, even n ≤ ``SMALL_REAL_MAX_N`` | :class:`SmallReal` | K9 |
 | 1D REAL, longer even n | :class:`HalfReal` | the h = n/2 C2C route (:class:`Raw`, or :class:`Plane`), then K8a or K8a-w; backward K8b first |
 
@@ -46,7 +46,7 @@ under a profiler.  Where the scale goes on the plane path and the walk:
 
 | route of the last axis that runs | scale |
 |---|---|
-| K12 | in K12 |
+| K12, K13's column form | in the kernel |
 | K14 (its node, or a Bluestein convolution with ``post``) | K14's pass 2 |
 | K15 | K15's pass 3 |
 | K13, generic GLOBAL or Bluestein | one torch multiply after it |
@@ -214,14 +214,16 @@ class Plane(Route):
 class Core(Route):
     """A transform on the plane path's per-axis walk (``core_fn``): SPLIT
     (``split``, planes in and out) or interleaved with K6 around it.
-    ``k12`` is ``((axis, mode), ...)`` for the outer axes the column kernel
-    K12 takes; every other axis runs through the executor on ``routes``."""
+    ``columns`` is ``((axis, kernel), ...)`` for the outer axes a column
+    kernel takes where they lie: ``"K12"`` (``cuda_axis.axis_m2``) or
+    ``"K13col"`` (K13's column form, ``cuda_chain.chain_cols``); every other
+    axis runs through the executor on ``routes``."""
 
     split: bool
     batch: int
     sign: int
     scale: float
-    k12: tuple
+    columns: tuple
     routes: dict
 
 
@@ -509,26 +511,36 @@ def _with_layout(d, entries: dict, block: BufferLayout = BufferLayout.PACKED) ->
     return out
 
 
+def _column_kernel(plan, trailing: int) -> str | None:
+    """The column kernel of an outer axis of ``plan`` over ``trailing``
+    columns: K12 where ``cuda_axis.axis_m2_mode`` takes it, else K13's
+    column form where ``cuda_chain.cols_supported`` does, else None (the
+    executor after a ``movedim``)."""
+    if cuda_axis.axis_m2_mode(plan, trailing) is not None:
+        return "K12"
+    return "K13col" if cuda_chain.cols_supported(plan, trailing) else None
+
+
 def _register_core(committed, split: bool) -> dict:
     """:class:`Core` routes of a transform on the plane path's per-axis
-    walk (``torch_exec.core_inner``): K12 on the outer axes
-    ``cuda_axis.axis_m2_mode`` takes (of the axis and the product of the
-    axes after it), every other axis through the executor on its plan's
+    walk (``torch_exec.core_inner``): each outer axis, of the product of
+    the axes after it, on its column kernel (``_column_kernel``); the last
+    axis and the outer axes no column kernel takes on their plans'
     ``plane_routes``."""
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
-    k12, routes = [], {}
+    columns, routes = [], {}
     for axis, n in enumerate(lengths):
         if n == 1:
             continue
-        mode = None if axis == len(lengths) - 1 else cuda_axis.axis_m2_mode(
-            plans[n], math.prod(lengths[axis + 1:]))
-        if mode is None:
+        kernel = (_column_kernel(plans[n], math.prod(lengths[axis + 1:]))
+                  if axis < len(lengths) - 1 else None)
+        if kernel is None:
             routes.update(plane_routes(plans[n], committed.config))
         else:
-            k12.append((axis, mode))
+            columns.append((axis, kernel))
     return _both(d, lambda sign, scale: Core(
-        split, d.number_of_transforms, sign, scale, tuple(k12), routes))
+        split, d.number_of_transforms, sign, scale, tuple(columns), routes))
 
 
 def _col_axis_ok(plan, config) -> bool:
@@ -718,35 +730,38 @@ def _interleaved(walk, scale: float, plain: bool):
     return fn
 
 
-def _column(k, bpre, trailing, sub, xr, xi, s):
-    """K12 (or its plain version ``k``) on one outer axis of (b, L1, L2)
-    planes, times ``s``."""
-    return k(xr.contiguous(), xi.contiguous(), bpre, trailing, sub, s)
+def _column(k, bpre, trailing, tabs, xr, xi, s):
+    """A column kernel (K12, K13's column form, or the plain version
+    ``k``) on one outer axis of (b, L1, L2) planes, times ``s``."""
+    return k(xr.contiguous(), xi.contiguous(), bpre, trailing, tabs, s)
 
 
 def core_fn(committed, entry: Core, plain: bool = False):
     """The function of a :class:`Core` route (``_register_core``): the
     per-axis walk ``torch_exec.core_inner`` on (batch, *lengths) planes,
-    with K12 (``cuda_axis.axis_m2``) on the outer axes it takes and the
+    with K12 (``cuda_axis.axis_m2``) and K13's column form
+    (``cuda_chain.chain_cols``) on the outer axes they take and the
     route's K13, K14 and K15 steps as the executor's leaf hook.  SPLIT:
     ``fn(xr, xi) -> (yr, yi)`` on flat planes, the scale in the last
-    kernel that takes one (K12, K14 pass 2, K15 pass 3) or else one torch
-    multiply; interleaved: ``fn(raw, out=None)`` with K6 around the walk
-    and the scale in the interleave.  ``plain`` chains the plain versions
-    instead."""
+    kernel that takes one (K12, K13's column form, K14 pass 2, K15 pass 3)
+    or else one torch multiply; interleaved: ``fn(raw, out=None)`` with K6
+    around the walk and the scale in the interleave.  ``plain`` chains the
+    plain versions instead."""
     batch, sign, scale, routes = entry.batch, entry.sign, entry.scale, entry.routes
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
     keys, arrays = committed._bank_keys, committed._bank_arrays
     walked = [plans[n] for n in set(lengths) if n in routes]
     leaf = leaf_hook(plane_steps(committed, walked, routes), plain)
-    k = cuda_axis.axis_m2.plain if plain else cuda_axis.axis_m2
+    kernels = {"K12": (cuda_axis.axis_m2, cuda_fft.sub_tables),
+               "K13col": (cuda_chain.chain_cols, cuda_chain.chain_tables)}
     columns = {}
-    for axis, _ in entry.k12:
-        sub = cuda_fft.sub_tables(plans[lengths[axis]], sign, keys, arrays)
-        columns[axis] = functools.partial(
-            _column, k, batch * math.prod(lengths[:axis]),
-            math.prod(lengths[axis + 1:]), sub)
+    for axis, route in entry.columns:
+        k, tables = kernels[route]
+        columns[axis] = (route, functools.partial(
+            _column, k.plain if plain else k, batch * math.prod(lengths[:axis]),
+            math.prod(lengths[axis + 1:]),
+            tables(plans[lengths[axis]], sign, keys, arrays)))
     shape = (batch, *lengths)
 
     def walk(xr, xi, s=1.0):

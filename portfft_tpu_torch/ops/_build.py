@@ -61,6 +61,13 @@ _SIGNATURES = {
         + [_I64, _P],
         _I,
     ),
+    "pf_chain_cols": ([_P] * 4 + _SUB + [_I64, _I64, _F, _P], _I),
+    "pf_chain_general_cols": (
+        [_P] * 4
+        + [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)]
+        + [_I64, _I64, _F, _P],
+        _I,
+    ),
     "pf_bluestein": ([_P] * 6 + [_I64] + _SUB * 4 + [_P] * 10 + [_I64, _F, _P], _I),
     "pf_bluestein_bf": ([_P] * 6 + [_I64] + _SUB * 4 + [_P] * 10 + [_I64, _F, _P],
                         _I),

@@ -1,12 +1,15 @@
-"""K13 ``chain``: wrapper of the CUDA kernel (``csrc/fft_chain.cu``), its
-plain PyTorch version, and the JAX package's leaf gates.
+"""K13 ``chain``: wrappers of the CUDA kernel (``csrc/fft_chain.cu``), their
+plain PyTorch versions, and the JAX package's leaf gates.
 
 Counterpart of ``portfft_tpu/ops/pallas_fft.py`` ``fused_chain`` (a DIRECT
 leaf, or a two-stage FUSED [a ≥ 8, 128] leaf) and ``_generic_chain_call``
 (any factor chain): the leaves of the plane path's executor, on (re, im)
-float32 planes whose last axis is the transform.  Same rule as
-``cuda_fft``: CPU tensors go to the plain version, CUDA tensors to the
-kernel, and nothing falls back.
+float32 planes whose last axis is the transform (:func:`chain`), and the
+outer axes of the per-axis walk that the column kernel K12 declines, down
+axis 1 of (b, n, trailing) planes where they lie (:func:`chain_cols`, the
+one-launch modes only; the JAX package moves such an axis last and back).
+Same rule as ``cuda_fft``: CPU tensors go to the plain version, CUDA
+tensors to the kernel, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import dataclasses
 
 import torch
 
+from ..enums import Level
+from ..exceptions import InvalidConfiguration
 from ..planner import Plan1D, stage_shapes
 from ..utils import tracing
 from . import _build
@@ -31,6 +36,12 @@ CHAIN_TILE_MAX = 12288
 #: Longest DIRECT or [a, 128] leaf the kernel runs in one tile
 #: (``pfft::kTileMax``).
 TILE_MAX = 8192
+#: Fewest points (n · trailing) of the column form's widest tile that it
+#: takes: its tiles are at most ``trailing`` columns wide, and below 4 points
+#: a thread of a block the SMs hold too few loads in flight, so the walk's
+#: copies and the row form on the moved planes cost less (H100: 640 over 2
+#: columns 0.97× the walk's time, 100 over 8 1.11×, 368 over 4 0.79×).
+COLS_MIN_POINTS = 1024
 
 
 def leaf_mode(plan: Plan1D) -> str:
@@ -115,16 +126,44 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _path(mode: str, n: int) -> str:
+    cap = CHAIN_TILE_MAX if mode == "chain" else TILE_MAX
+    return "radix" if n <= cap else "plain"
+
+
 def path_of(tabs: ChainTables) -> str:
     """The kernel's code path for ``tabs``: ``"radix"`` (one launch on the
     radix stages: a chain up to ``CHAIN_TILE_MAX`` points, DIRECT or [a, 128]
     up to ``TILE_MAX``) or ``"plain"`` (plain sums, past those lengths)."""
-    cap = CHAIN_TILE_MAX if tabs.mode == "chain" else TILE_MAX
-    return "radix" if tabs.n <= cap else "plain"
+    return _path(tabs.mode, tabs.n)
 
 
-@tracing.kernel("K13", ("chain_kernel", "pass_kernel", "radix_chain_kernel",
-                        "radix_pass_kernel"))
+def cols_supported(plan: Plan1D, trailing: int) -> bool:
+    """Whether :func:`chain_cols` takes the transform of ``plan`` down axis
+    1 of (b, n, ``trailing``) planes: a DIRECT or FUSED leaf that K13 runs
+    in one launch on the radix stages (:func:`path_of`), over more than one
+    column (over one, the axis is contiguous and the walk copies nothing)
+    and at least ``COLS_MIN_POINTS`` points a tile."""
+    if (plan.level not in (Level.DIRECT, Level.FUSED) or trailing < 2
+            or plan.n * trailing < COLS_MIN_POINTS):
+        return False
+    mode = leaf_mode(plan)
+    return (mode != "chain" or chain_fits(plan)) and _path(mode, plan.n) == "radix"
+
+
+def _chain_args(tabs: ChainTables) -> tuple:
+    """``(nf, factors, tables)`` of a chain for the C entries."""
+    nf = len(tabs.factors)
+    return (nf, (ctypes.c_int * nf)(*tabs.factors),
+            (ctypes.c_void_p * (4 * nf))(
+                *[_ptr(t) for stage in tabs.stages for t in stage]))
+
+
+_K13 = tracing.kernel("K13", ("chain_kernel", "pass_kernel", "radix_chain_kernel",
+                              "radix_pass_kernel"))
+
+
+@_K13
 def chain(xr: torch.Tensor, xi: torch.Tensor, tabs: ChainTables):
     """K13: the ``tabs.n``-point transform of the last axis of the planes
     ``(xr, xi)``; returns new planes of the same shape.  Up to
@@ -143,16 +182,12 @@ def chain(xr: torch.Tensor, xi: torch.Tensor, tabs: ChainTables):
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     with torch.cuda.device(xr.device):
         if tabs.mode == "chain":
-            nf = len(tabs.factors)
             scratch = (torch.empty(2 * rows * n, dtype=torch.float32,
                                    device=xr.device)
                        if lib.pf_chain_general_needs_scratch(n) else None)
-            factors = (ctypes.c_int * nf)(*tabs.factors)
-            tables = (ctypes.c_void_p * (4 * nf))(
-                *[_ptr(t) for stage in tabs.stages for t in stage])
             err = lib.pf_chain_general(
                 xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                _ptr(scratch), nf, factors, tables, rows, stream_of(xr))
+                _ptr(scratch), *_chain_args(tabs), rows, stream_of(xr))
         else:
             sub = tabs.sub
             scratch = (torch.empty(2 * rows * n, dtype=torch.float32,
@@ -168,3 +203,54 @@ def chain(xr: torch.Tensor, xi: torch.Tensor, tabs: ChainTables):
 
 
 chain.plain = chain_plain
+
+
+def chain_cols_plain(xr: torch.Tensor, xi: torch.Tensor, bpre: int,
+                     trailing: int, tabs: ChainTables, scale: float = 1.0):
+    """Plain version of K13's column form: move axis 1 of the (bpre, n,
+    trailing) view last, :func:`chain_plain`, move it back, scale."""
+    shape = (bpre, tabs.n, trailing)
+    yr, yi = chain_plain(xr.reshape(shape).transpose(1, 2),
+                         xi.reshape(shape).transpose(1, 2), tabs)
+    return ((yr * scale).transpose(1, 2).contiguous().reshape(xr.shape),
+            (yi * scale).transpose(1, 2).contiguous().reshape(xi.shape))
+
+
+@_K13
+def chain_cols(xr: torch.Tensor, xi: torch.Tensor, bpre: int, trailing: int,
+               tabs: ChainTables, scale: float = 1.0):
+    """K13 in column geometry: the ``tabs.n``-point transform down axis 1 of
+    the (bpre, n, trailing) view of the planes, times ``scale``, in one
+    launch on the radix stages (:func:`path_of` must say ``"radix"``);
+    returns new planes of the input's shape.  Each launch counts on
+    ``tracing.paths("K13")`` as ``"radix_col"``."""
+    n = tabs.n
+    numel = bpre * n * trailing
+    check_plane(xr, numel, "chain_cols")
+    check_plane(xi, numel, "chain_cols")
+    if path_of(tabs) != "radix":
+        raise InvalidConfiguration(
+            f"chain_cols: {n} points in mode {tabs.mode} are past K13's one "
+            "launch")
+    if xr.device.type == "cpu":
+        return chain_cols_plain(xr, xi, bpre, trailing, tabs, scale)
+    require_cuda(xr, "chain_cols")
+    lib = _build.load()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    with torch.cuda.device(xr.device):
+        if tabs.mode == "chain":
+            err = lib.pf_chain_general_cols(
+                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                *_chain_args(tabs), bpre, trailing, scale, stream_of(xr))
+        else:
+            sub = tabs.sub
+            err = lib.pf_chain_cols(
+                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                sub.m, sub.a, *sub.pointers(), bpre, trailing, scale,
+                stream_of(xr))
+    _build.check(lib, err, "chain kernel (columns)")
+    tracing.path("K13", "radix_col")
+    return yr, yi
+
+
+chain_cols.plain = chain_cols_plain

@@ -17,10 +17,10 @@ JAX package computes in XLA outside its Pallas kernels: the GLOBAL
 four-step's reshapes, swaps and twiddle multiply, the generic Bluestein
 transform's chirp multiply, zero pad, b̂ multiply and slice, and a
 multi-dimensional transform's ``movedim`` around an axis no column kernel
-takes.  Where the hook runs no kernel for the node, the scale is one torch
-multiply at the end, as the JAX package's XLA multiply.  The copies of a
-moved axis, and the hook's (``copied``), count as glue bytes
-(``tracing.glue``).  Nothing here calls ``torch.fft``.
+takes (K12 or K13's column form).  Where the hook runs no kernel for the
+node, the scale is one torch multiply at the end, as the JAX package's XLA
+multiply.  The copies of a moved axis, and the hook's (``copied``), count as
+glue bytes (``tracing.glue``).  Nothing here calls ``torch.fft``.
 """
 
 from __future__ import annotations
@@ -149,12 +149,13 @@ def core_inner(xr, xi, lengths, plans: dict, sign: int, keys: dict,
     """The transform over every axis of (batch, *lengths) planes, the last
     (contiguous) axis first, times ``scale`` (the port of
     ``committed._core_inner``).  Length-1 axes are skipped.  An outer axis
-    in ``columns`` goes to ``columns[axis](xr3, xi3, scale)`` on the (b, L1,
-    L2) view (the column kernel K12), any other through the executor after
-    a ``movedim`` to the last place, and back by a copy (counted as glue).
-    The scale is offered to the last axis that runs.  Under a recording
-    profiler each axis is a ``portfft.axis`` span whose note is the axis
-    and its route."""
+    in ``columns``, ``{axis: (route, fn)}``, goes to ``fn(xr3, xi3, scale)``
+    on the (b, L1, L2) view where it lies (route ``"K12"``: the column
+    kernel K12; ``"K13col"``: K13's column form), any other through the
+    executor after a ``movedim`` to the last place, and back by a copy
+    (counted as glue).  The scale is offered to the last axis that runs.
+    Under a recording profiler each axis is a ``portfft.axis`` span whose
+    note is the axis and its route."""
     ndims = len(lengths)
     columns = columns or {}
     todo = [ax for ax in range(ndims - 1, -1, -1) if lengths[ax] > 1]
@@ -164,20 +165,21 @@ def core_inner(xr, xi, lengths, plans: dict, sign: int, keys: dict,
         n, plan = lengths[axis], plans[lengths[axis]]
         if route == "exec":
             return exec_plan(xr, xi, plan, sign, keys, bank, leaf_fn, s)
-        if route == "K12":
-            trailing = math.prod(shape[2 + axis:])
-            yr, yi = columns[axis](xr.reshape(-1, n, trailing),
-                                   xi.reshape(-1, n, trailing), s)
-            return yr.reshape(shape), yi.reshape(shape)
-        yr, yi = exec_plan(xr.movedim(1 + axis, -1), xi.movedim(1 + axis, -1),
-                           plan, sign, keys, bank, leaf_fn, s)
-        return (copied(yr, yr.movedim(-1, 1 + axis).contiguous()),
-                copied(yi, yi.movedim(-1, 1 + axis).contiguous()))
+        if route == "movedim":
+            yr, yi = exec_plan(xr.movedim(1 + axis, -1),
+                               xi.movedim(1 + axis, -1), plan, sign, keys,
+                               bank, leaf_fn, s)
+            return (copied(yr, yr.movedim(-1, 1 + axis).contiguous()),
+                    copied(yi, yi.movedim(-1, 1 + axis).contiguous()))
+        trailing = math.prod(shape[2 + axis:])
+        yr, yi = columns[axis][1](xr.reshape(-1, n, trailing),
+                                  xi.reshape(-1, n, trailing), s)
+        return yr.reshape(shape), yi.reshape(shape)
 
     for i, axis in enumerate(todo):
         s = scale if i == len(todo) - 1 else 1.0
         route = ("exec" if axis == ndims - 1
-                 else "K12" if axis in columns else "movedim")
+                 else columns[axis][0] if axis in columns else "movedim")
         if PROFILER._is_profiler_enabled:
             xr, xi = tracing.run("portfft.axis", step, xr, xi, axis, route, s,
                                  note=f"{axis} {route}")

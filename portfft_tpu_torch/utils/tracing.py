@@ -21,8 +21,9 @@ record them, and the per-axis walk splits the executor's:
   through the launch and its error check;
 - ``portfft.axis``, inside ``portfft.exec``: one axis of ``core_inner``'s
   walk; its ``note`` is the axis and its route (``1 exec``: the last axis
-  through the executor, ``0 K12``: the column kernel, ``0 movedim``: the
-  executor after a move).  It is no layer of its own: a span's self time
+  through the executor, ``0 K12``: the column kernel, ``0 K13col``: K13's
+  column form, ``0 movedim``: the executor after a move).  It is no layer
+  of its own: a span's self time
   is seen through it (:meth:`Call.children`).
 
 Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
@@ -32,7 +33,8 @@ Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 
 Counters are always on: launches by kernel (:func:`launches`), counted
 where a wrapper's call reached the card; launches by code path
-(:func:`paths`: K13's ``radix`` or ``plain``), counted by the wrappers that
+(:func:`paths`: K13's ``radix``, ``plain`` or ``radix_col``, its column
+form), counted by the wrappers that
 choose one; the tuning table's outcomes where commit chooses a route
 (:func:`tuning_outcomes`); and the bytes the plane executor's copies write
 outside the port's kernels (:func:`glue_bytes`).  Under a recording profiler each such copy is also a

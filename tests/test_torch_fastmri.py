@@ -4,9 +4,10 @@ CPU (the kernels' plain versions), against the benchmark's plain reference
 ``norm="ortho"``).
 
 At the published lengths 640 × 368 and at 640 × 23, which takes the same
-route, the plan commits on the ``core`` entry with no column kernel
-(``k12 == ()``: K12's trailing tile declines 368 and 23) and K13 on both
-axes, and both directions at the orthonormal scale 1/√N match the
+route, the plan commits on the ``core`` entry with K13 on both axes, the 640
+axis in column geometry where it lies (``columns == ((0, "K13col"),)``: K12's
+trailing tile declines 368 and 23), so the walk copies nothing; and both
+directions at the orthonormal scale 1/√N match the
 reference.  Tolerance: the widest |error| at most ``TOL`` of the
 reference's root mean square.  The port's fp32 path reads 1.6e-6–2.1e-6
 (about 18 radix stages and two scalings at eps = 6e-8); ``TOL`` is five
@@ -21,6 +22,7 @@ import torch
 
 import portfft_tpu_torch as pt
 from portfft_tpu_torch import fastpath
+from portfft_tpu_torch.utils import tracing
 from port_bench import run
 from port_bench.tests.conftest import ROOT
 
@@ -70,8 +72,20 @@ def test_the_plan_takes_the_per_axis_walk(lengths, batch):
         assert isinstance(entry, fastpath.Core)
         assert entry.split is False and entry.batch == batch
         assert entry.scale == _scale(lengths)
-        assert entry.k12 == ()
-        assert entry.routes == {640: "chain", lengths[1]: "direct"}
+        assert entry.columns == ((0, "K13col"),)
+        assert entry.routes == {lengths[1]: "direct"}
+
+
+@pytest.mark.parametrize("lengths,batch", CASES)
+def test_the_walk_counts_no_glue_bytes(lengths, batch):
+    """No plane copy or multiply outside the kernels, in either direction:
+    the 640 axis runs where it lies, and the scale goes into K6."""
+    plan = _plan(lengths, batch)
+    x = _input(lengths, batch, seed=batch)
+    for fn in (plan.compute_forward, plan.compute_backward):
+        before = tracing.glue_bytes()
+        fn(x)
+        assert tracing.glue_bytes() == before
 
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])

@@ -359,27 +359,69 @@ def test_k13_radix_kernels_are_named_k13_on_the_card(cuda):
 
 def test_fastmri_walk_launches_k13_on_the_radix_path_alone(cuda):
     """A fastMRI-shaped commit, forward and backward: every K13 launch is a
-    radix one (two a call: 368, then the chain at 640), and the result
+    radix one, two a call (368 on the rows, then the chain at 640 in column
+    geometry, where the axis lies), the walk copies nothing, and the result
     matches ``torch.fft`` at the orthonormal scale."""
     lengths, batch, scale = FASTMRI
     plan = pf.Descriptor(lengths=lengths, number_of_transforms=batch,
                          forward_scale=scale, backward_scale=scale).commit()
-    assert plan._raw_fast[pf.Direction.FORWARD].routes == {640: "chain", 368: "direct"}
+    entry = plan._raw_fast[pf.Direction.FORWARD]
+    assert entry.routes == {368: "direct"} and entry.columns == ((0, "K13col"),)
     x = torch.randn(batch, *lengths, dtype=torch.complex64, device=cuda)
     xd = x.to(torch.complex128)
-    before = tracing.paths("K13")
+    before, glue = tracing.paths("K13"), tracing.glue_bytes()
     y = plan.compute_forward(x)
     back = plan.compute_backward(y)
     torch.cuda.synchronize()
     after = tracing.paths("K13")
-    assert after.get("radix", 0) == before.get("radix", 0) + 4
+    assert after.get("radix", 0) == before.get("radix", 0) + 2
+    assert after.get("radix_col", 0) == before.get("radix_col", 0) + 2
     assert after.get("plain", 0) == before.get("plain", 0)
+    assert tracing.glue_bytes() == glue
     n = int(np.prod(lengths))
     ref = torch.fft.fftn(xd, dim=(1, 2), norm="ortho")
     diff = (y.reshape(x.shape).to(torch.complex128) - ref).abs().max().item()
     assert diff <= oracle_tol(n) * scale, diff
     diff = (back.reshape(x.shape).to(torch.complex128) - xd).abs().max().item()
     assert diff <= 2 * oracle_tol(n) * scale, diff
+
+
+#: K13's column form (bpre, n, trailing): fastMRI's volume (the chain
+#: [5, 128] over 368 columns, 46 tiles of 8 a row), a DIRECT outer axis K12
+#: declines (100 % 8), a two-stage [16, 128] one, and trailing widths that
+#: leave a partial last tile (21: 8 + 8 + 5) or take whole rows (9).
+K13_COL_CASES = [(525, 640, 368), (6, 100, 256), (2, 2048, 24), (3, 640, 21),
+                 (5, 640, 9)]
+
+
+@pytest.mark.parametrize("shape", K13_COL_CASES)
+@pytest.mark.parametrize("scale", [1.0, 0.375])
+def test_k13_column_form_matches_the_row_form(cuda, shape, scale):
+    """K13 down axis 1 of (bpre, n, trailing) planes where they lie
+    (``chain_cols``) against its row form on the planes with the axis moved
+    last and made contiguous, times the scale, both directions: within
+    K13's kernel tolerance; each call counts one ``radix_col`` launch."""
+    from chip_smoke import plane_case
+    from portfft_tpu_torch.ops import cuda_chain
+
+    bpre, n, trailing = shape
+    gen = torch.Generator(device="cuda").manual_seed(n + trailing)
+    xr, xi = (torch.rand(shape, generator=gen, device=cuda) * 2 - 1
+              for _ in range(2))
+    rows = [t.transpose(1, 2).contiguous() for t in (xr, xi)]
+    for sign in (-1, +1):
+        _, (tabs,) = plane_case(pf, "chain", n, sign)
+        assert cuda_chain.path_of(tabs) == "radix"
+        before = tracing.paths("K13").get("radix_col", 0)
+        yr, yi = cuda_chain.chain_cols(xr, xi, bpre, trailing, tabs, scale)
+        wr, wi = (w.mul_(scale).transpose(1, 2)
+                  for w in cuda_chain.chain(*rows, tabs))
+        torch.cuda.synchronize()
+        assert tracing.paths("K13")["radix_col"] == before + 1
+        assert yr.shape == xr.shape
+        peak = max(wr.abs().max().item(), wi.abs().max().item())
+        err = max((yr - wr).abs().max().item(), (yi - wi).abs().max().item())
+        assert err <= KERNEL_TOL * peak, (sign, err)
 
 
 @pytest.mark.parametrize("m", [1, 7, 1031 * 3, 1 << 16])
@@ -481,7 +523,7 @@ def test_axis_m2_matches_plain(cuda, shape):
     "lengths,batch",
     [([64], 3), ([2048], 2), ([1000], 2), ([65536], 2), ([270336], 1),
      ([1031], 2), ([65537], 2), ([128, 256], 2), ([1024, 128], 1),
-     ([3072, 128], 1), ([16, 32, 128], 2), ([8, 1031], 2)],
+     ([3072, 128], 1), ([16, 32, 128], 2), ([8, 1031], 2), ([100, 256], 2)],
 )
 @pytest.mark.parametrize("inplace", [False, True])
 def test_split_main_path_matches_oracle(cuda, lengths, batch, inplace):

@@ -317,7 +317,7 @@ def test_outside_the_slice_raises_at_commit(kw, match):
 @pytest.mark.parametrize(
     "lengths,routes",
     [
-        ([640, 16], {640: "chain", 16: "direct"}),  # FUSED [5, 128] outer axis
+        ([640, 16], {16: "direct"}),  # FUSED [5, 128] outer axis: K13 in columns
         ([65536, 2], {65536: "global2", 2: "direct"}),  # GLOBAL outer axis
     ],
 )
@@ -325,16 +325,17 @@ def test_plane_outer_axes_take_the_plane_route(lengths, routes):
     """An outer axis K10 does not take sends the transform down the plane
     path's per-axis walk, as the reference's raw registry sends it to
     ``_traced_interleaved``: here no column kernel K12 either (a < 8, and
-    a GLOBAL axis), so each axis runs through the executor; the result
-    matches the reference."""
+    a GLOBAL axis), so each axis runs through the executor but the FUSED
+    one, which K13's column form takes where it lies; the result matches
+    the reference."""
     rdesc, pdesc = _descs(lengths, 1)
     rplan = rdesc.commit(use_pallas=True)
     plan = pdesc.commit(device="cpu")
     assert ref.Direction.FORWARD not in rplan._raw_fast
     entry = plan._raw_fast[pt.Direction.FORWARD]
     assert isinstance(entry, fastpath.Core)
-    assert entry.split is False and entry.k12 == ()
-    assert entry.routes == routes
+    assert entry.split is False and entry.routes == routes
+    assert entry.columns == (() if lengths[0] in routes else ((0, "K13col"),))
     canon = oracle.gen_input(rdesc, seed=sum(lengths))
     x = canon.reshape(-1)
     _assert_close(plan.compute_forward(x), rplan.compute_forward(x), rdesc,

@@ -119,12 +119,18 @@ ROUTES = [
     ("plane_65537", dict(lengths=[65537]), []),
     ("plane_1000", dict(lengths=[1000], number_of_transforms=2), []),
     ("plane_2062_nested", dict(lengths=[2062], number_of_transforms=2), []),
-    # the per-axis walk: fastMRI's slice at the orthonormal scale, and a
-    # SPLIT transform whose outer axis runs on K12
+    # the per-axis walk: fastMRI's slice at the orthonormal scale (its 640
+    # axis on K13's column form), a SPLIT transform whose outer axis runs on
+    # K12, one whose outer DIRECT 100 K12 declines (K13's column form, the
+    # scale in it), and one whose outer Bluestein axis stays on movedim
     ("core_fastmri", dict(lengths=[640, 368], forward_scale=ORTHO,
                           backward_scale=ORTHO), []),
     ("core_split_k12", dict(lengths=[128, 256], number_of_transforms=2,
                             complex_storage=pf.ComplexStorage.SPLIT_COMPLEX), []),
+    ("core_split_k13col", dict(lengths=[100, 256], number_of_transforms=2,
+                               complex_storage=pf.ComplexStorage.SPLIT_COMPLEX), []),
+    ("core_split_movedim", dict(lengths=[1031, 16],
+                                complex_storage=pf.ComplexStorage.SPLIT_COMPLEX), []),
     # multi-dim: K11 and K10; the last axis's kernel and K10 (no md2);
     # K11 turned off and K10-mm on by a tuned entry
     ("multidim_md2", dict(lengths=[2, 128, 128], number_of_transforms=2), []),
@@ -167,15 +173,25 @@ PINNED = {'bi_col_256': ({'miss': 1},
  'core_fastmri': ({},
                   [('K6-de',),
                    ('K13', ('ChainTables',)),
-                   ('K13', ('ChainTables', 'factors', 'stages')),
+                   ('K13', 1, 368, ('ChainTables', 'factors', 'stages'), 1.0),
                    ('K6-in', 0.0020605639793618343)],
                   [('K6-de',),
                    ('K13', ('ChainTables',)),
-                   ('K13', ('ChainTables', 'factors', 'stages')),
+                   ('K13', 1, 368, ('ChainTables', 'factors', 'stages'), 1.0),
                    ('K6-in', 0.0020605639793618343)]),
  'core_split_k12': ({},
                     [('K13', ('ChainTables',)), ('K12', 2, 256, ('SubTables',), 0.5)],
                     [('K13', ('ChainTables',)), ('K12', 2, 256, ('SubTables',), 0.25)]),
+ 'core_split_k13col': ({},
+                       [('K13', ('ChainTables',)), ('K13', 2, 256, ('ChainTables',), 0.5)],
+                       [('K13', ('ChainTables',)), ('K13', 2, 256, ('ChainTables',), 0.25)]),
+ 'core_split_movedim': ({},
+                        [('K13', ('ChainTables',)),
+                         ('K13', ('ChainTables',)),
+                         ('K13', ('ChainTables',))],
+                        [('K13', ('ChainTables',)),
+                         ('K13', ('ChainTables',)),
+                         ('K13', ('ChainTables',))]),
  'direct_256': ({}, [('K1', 2, ('SubTables',), 0.5)], [('K1', 2, ('SubTables',), 0.25)]),
  'fused_4096': ({'miss': 1}, [('K2', 2, ('SubTables',), 0.5)], [('K2', 2, ('SubTables',), 0.25)]),
  'fused_4096_v2': ({'hit': 1},

@@ -9,6 +9,8 @@ version on a conjugated table (``chip_smoke.planted``) or returns zeros.
 The batch is cut to 1 or 2 rows.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -52,6 +54,79 @@ def test_plane_checks_reject_a_faulty_kernel(kind, n, fault):
             chip_smoke.check_plane(kind, faulty, args, x, n, 2, sign)
         y = chip_smoke.on_raw(faulty, n)(x, *args)
         assert chip_smoke.oracle_excess(y, x, n, 2, sign, 1.0) > 100.0
+
+
+# K13's column form, cut on the CPU to one batch: (1, n, trailing).
+COLS_CASES = [(1, n, trailing) for _, n, trailing in chip_smoke.CHAIN_COLS_CASES]
+
+
+@pytest.mark.parametrize("shape", COLS_CASES)
+def test_column_checks_pass_a_correct_result(shape):
+    x = chip_smoke.random_raw(2 * math.prod(shape), seed=sum(shape), device="cpu")
+    for _, sign in DIRECTIONS:
+        r = chip_smoke.check_chain_cols(pf, shape, x, sign)
+        assert r["rel"] == 0.0 and r["excess"] <= 1.0
+        for rel, excess in r["caught"].values():
+            assert rel > 100 * chip_smoke.KERNEL_TOL and excess > 100.0
+
+
+@pytest.mark.parametrize("fault", ["conjugated table", "zeros", "rows",
+                                   "unscaled"])
+@pytest.mark.parametrize("shape", COLS_CASES)
+def test_column_checks_reject_a_faulty_kernel(shape, fault, monkeypatch):
+    """The column check rejects the planted faults, a kernel that runs the
+    transform along the contiguous axis instead (the row geometry), and
+    one that drops the scale."""
+    from portfft_tpu_torch.ops import cuda_chain
+
+    plain = cuda_chain.chain_cols.plain
+
+    def faulty(xr, xi, bpre, trailing, tabs, scale):
+        if fault == "zeros":
+            return torch.zeros_like(xr), torch.zeros_like(xi)
+        if fault == "rows":
+            yr, yi = cuda_chain.chain_plain(xr.view(-1, tabs.n), xi.view(-1, tabs.n), tabs)
+            return (yr * scale).reshape(xr.shape), (yi * scale).reshape(xi.shape)
+        args = (bpre, trailing, tabs, 1.0 if fault == "unscaled" else scale)
+        if fault == "conjugated table":
+            args = chip_smoke.planted("chain_cols", args)
+        return plain(xr, xi, *args)
+
+    faulty.plain = plain
+    monkeypatch.setattr(cuda_chain, "chain_cols", faulty)
+    x = chip_smoke.random_raw(2 * math.prod(shape), seed=sum(shape), device="cpu")
+    for _, sign in DIRECTIONS:
+        with pytest.raises(chip_smoke.SmokeFailure, match=r"max\|kernel - plain\|"):
+            chip_smoke.check_chain_cols(pf, shape, x, sign)
+
+
+def test_column_form_timed_alone_runs_its_yardsticks(monkeypatch):
+    """The column form's timing alone runs the kernel, its plain version,
+    the row form on the moved planes, the move's copies and ``torch.fft``
+    over the axis (timer stubbed), at fastMRI's 640 axis over 368 columns,
+    cut to one batch."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 0.0)[1])
+    shape = (1, *chip_smoke.CHAIN_COLS_ALONE[1:])
+    x = chip_smoke.random_raw(2 * math.prod(shape), seed=5, device="cpu")
+    assert chip_smoke.time_chain_cols(pf, shape, x, "cpu") == (0.0, 0.0, 0.0)
+    (yr, yi), (pr, pi), _, _, yc = calls
+    assert torch.equal(yr, pr) and torch.equal(yi, pi)
+    assert torch.allclose(torch.complex(yr, yi).view(shape),
+                          yc * chip_smoke.CHAIN_COLS_SCALE, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,trailing", chip_smoke.CHAIN_COLS_GATE)
+def test_column_gate_times_the_same_transform_both_ways(n, trailing, monkeypatch):
+    """The gate's measurement times the column form and the walk's move,
+    row form and move back on the same planes (timer stubbed, a few
+    thousand points): both give the same transform, in the same layout."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 1.0)[1])
+    assert chip_smoke.time_cols_gate(pf, n, trailing, "cpu", points=2 * n * trailing,
+                                     device="cpu") == (1.0, 1.0)
+    (cr, ci), (wr, wi) = calls
+    assert torch.equal(cr, wr.reshape(-1)) and torch.equal(ci, wi.reshape(-1))
 
 
 @pytest.mark.parametrize("m", [m for m in chip_smoke.IO_CASES if m <= 1 << 20])

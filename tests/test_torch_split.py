@@ -6,7 +6,9 @@ The kernel sequences compared are the reference's ``global2_call`` (K14),
 ``fft_axis_m2_call`` / ``fft_axis_m2_fused_call`` (K12), ``fused_chain``
 (K13) and ``bluestein_call`` (K15) calls that returned a result, against
 the port's ``cuda_global.global2_planes``, ``cuda_axis.axis_m2``,
-``cuda_chain.chain`` and ``cuda_bluestein.bluestein`` calls, in order.
+``cuda_chain.chain`` or ``chain_cols`` (K13 on an outer axis where it lies,
+where the reference moves the axis and runs ``fused_chain``) and
+``cuda_bluestein.bluestein`` calls, in order.
 
 Tolerances, as ``tests/test_torch_plane.py``: the port within the oracle's
 per-element 2·eps·N·log2N of ``np.fft``; the reference within 30× that
@@ -46,8 +48,9 @@ REF_CFG = RefConfig(name="cpu")
 CFG = DeviceConfig()
 BLUESTEIN_LENGTHS = {1031, 65537}
 
-# (lengths, batch, the port's K12 axes, its executor routes, the kernels
-# the reference and the port call in order on the CPU)
+# (lengths, batch, the port's column axes (``Core.columns``: all K12 here),
+# its executor routes, the kernels the reference and the port call in order
+# on the CPU)
 SPLIT_CASES = [
     ([64], 3, (), {64: "direct"}, ("chain",)),
     ([2048], 2, (), {2048: "two_stage"}, ("chain",)),
@@ -55,20 +58,20 @@ SPLIT_CASES = [
     ([65536], 1, (), {65536: "global2"}, ("K14",)),  # DIRECT 256 x 256 subs
     ([1031], 2, (), {1031: "generic", 3072: "two_stage"}, ("chain", "chain")),
     ([65537], 1, (), {65537: "bluestein"}, ("bluestein",)),
-    ([128, 256], 2, ((0, "direct"),), {256: "direct"}, ("chain", "K12")),
-    ([1024, 128], 1, ((0, "fused"),), {128: "direct"}, ("chain", "K12")),
-    ([3072, 128], 1, ((0, "fused"),), {128: "direct"}, ("chain", "K12")),
-    ([16, 32, 128], 2, ((0, "direct"), (1, "direct")), {128: "direct"},
+    ([128, 256], 2, ((0, "K12"),), {256: "direct"}, ("chain", "K12")),
+    ([1024, 128], 1, ((0, "K12"),), {128: "direct"}, ("chain", "K12")),
+    ([3072, 128], 1, ((0, "K12"),), {128: "direct"}, ("chain", "K12")),
+    ([16, 32, 128], 2, ((0, "K12"), (1, "K12")), {128: "direct"},
      ("chain", "K12", "K12")),
 ]
 # Interleaved multi-dim shapes the raw route declines: an outer FUSED
-# [5, 128] axis (movedim + K13's chain mode; the DIRECT 16 on K12), and a
+# [5, 128] axis (K13's chain mode in column geometry; the DIRECT 16 on K12), and a
 # Bluestein last axis whose outer axis K12 declines (L2 = 1031 has no lane
-# tile).
+# tile) and K13's column form takes.
 PLANE_MD_CASES = [
-    ([16, 640, 128], 1, ((0, "direct"),), {640: "chain", 128: "direct"},
+    ([16, 640, 128], 1, ((0, "K12"), (1, "K13col")), {128: "direct"},
      ("chain", "chain", "K12")),
-    ([8, 1031], 2, (), {8: "direct", 1031: "generic", 3072: "two_stage"},
+    ([8, 1031], 2, ((0, "K13col"),), {1031: "generic", 3072: "two_stage"},
      ("chain", "chain", "chain")),
 ]
 
@@ -85,6 +88,7 @@ def calls(monkeypatch):
         (pallas_global, "fft_axis_m2_call", "ref", "K12"),
         (pallas_global, "fft_axis_m2_fused_call", "ref", "K12"),
         (cuda_chain, "chain", "port", "chain"),
+        (cuda_chain, "chain_cols", "port", "chain"),
         (cuda_bluestein, "bluestein", "port", "bluestein"),
         (cuda_global, "global2_planes", "port", "K14"),
         (cuda_axis, "axis_m2", "port", "K12"),
@@ -153,7 +157,7 @@ def test_split_route_and_values_match_reference(calls, lengths, batch, k12,
     xi = np.ascontiguousarray(canon.imag).reshape(-1)
     for rdir, rfn, pdir, pfn in _directions(rplan, plan):
         entry = plan._raw_fast[pdir]
-        assert isinstance(entry, fastpath.Core) and entry.split and entry.k12 == k12
+        assert isinstance(entry, fastpath.Core) and entry.split and entry.columns == k12
         assert entry.scale == float(pdesc.get_scale(pdir)) and entry.routes == routes
         calls["ref"].clear()
         calls["port"].clear()
@@ -181,7 +185,7 @@ def test_plane_multidim_route_and_values_match_reference(calls, lengths, batch,
         assert rdir not in rplan._raw_fast
         entry = plan._raw_fast[pdir]
         assert isinstance(entry, fastpath.Core) and not entry.split
-        assert entry.k12 == k12 and entry.routes == routes
+        assert entry.columns == k12 and entry.routes == routes
         calls["ref"].clear()
         calls["port"].clear()
         want = rfn(x)
@@ -376,6 +380,27 @@ def test_k12_gates_match_the_reference():
             want = ("direct" if jax.eval_shape(direct) is not None else
                     "fused" if jax.eval_shape(fused) is not None else None)
             assert cuda_axis.axis_m2_mode(plan, l2) == want, (l1, l2)
+
+
+@pytest.mark.parametrize("n,trailing,takes", [
+    (640, 368, True),  # fastMRI's chain [5, 128]
+    (640, 2, True),  # tiles of 1280 points
+    (368, 4, True),  # 1472
+    (100, 16, True),  # 1600
+    (100, 8, False),  # 800: the walk's copies and rows on the moved planes cost less
+    (368, 2, False),  # 736
+    (640, 1, False),  # one column: the axis is contiguous, the walk copies nothing
+    (1031, 16, False),  # Bluestein: no K13 leaf
+    (65536, 2, False),  # GLOBAL
+    (16384, 2, False),  # [128, 128]: past K13's one launch
+])
+def test_k13_column_gate(n, trailing, takes):
+    """``cols_supported`` takes a K13 leaf the kernel runs in one launch,
+    over more than one column, where the column form's tiles hold at least
+    ``COLS_MIN_POINTS`` points: the H100's break-even against the walk's
+    ``movedim`` lies between 800 points (100 over 8 columns, 1.11× the
+    walk's time) and 1280 (640 over 2, 0.97×)."""
+    assert cuda_chain.cols_supported(plan_1d(n, CFG, 4), trailing) is takes
 
 
 def test_bluestein_post_branch_matches_the_reference(calls):

@@ -157,7 +157,7 @@ def test_a_kernel_counts_calls_that_reach_the_card(monkeypatch):
 
 def test_launches_count_by_path_and_reset(monkeypatch):
     """``tracing.path`` counts a kernel's launches by code path; K13's
-    plain version on the CPU counts none; ``reset_launches`` clears them."""
+    plain versions (row and column forms) on the CPU count none; ``reset_launches`` clears them."""
     from portfft_tpu_torch.ops import cuda_chain
 
     monkeypatch.setattr(tracing, "_paths", {})
@@ -171,6 +171,7 @@ def test_launches_count_by_path_and_reset(monkeypatch):
                                    plan._bank_arrays)
     assert cuda_chain.path_of(tabs) == "radix"
     cuda_chain.chain(torch.zeros(2, 368), torch.zeros(2, 368), tabs)
+    cuda_chain.chain_cols(torch.zeros(2, 368, 8), torch.zeros(2, 368, 8), 2, 8, tabs)
     assert tracing.paths("K13") == {}
     tracing.reset_launches()
     assert tracing.paths() == {}
@@ -186,7 +187,10 @@ def test_every_wrapper_is_registered_once_with_a_k_number():
                             cuda_real, cuda_stride)
                 for f in vars(m).values() if callable(getattr(f, "plain", None))]
     names = [f.kernel for f in wrappers]
-    assert len(names) == 30 and sorted(set(names)) == sorted(tracing.KERNELS)
+    # 31 wrappers under 30 K-numbers: K13's row and column forms share one
+    # registration
+    assert len(names) == 31 and sorted(set(names)) == sorted(tracing.KERNELS)
+    assert sorted(n for n in names if names.count(n) > 1) == ["K13", "K13"]
     assert all(re.fullmatch(r"K\d+[a-z]?(-[a-z0-9]+)?", n) for n in names)
     assert not any(hasattr(f, "launches") for f in wrappers)
 
@@ -234,8 +238,10 @@ def _points(lengths) -> int:
 
 
 @pytest.mark.parametrize("lengths,notes", [
-    ([640, 23], ["1 exec", "0 movedim"]),             # fastMRI's route, K13 both axes
-    ([16, 640, 16], ["2 exec", "1 movedim", "0 K12"]),  # K12 takes the outer axis
+    ([640, 23], [("1 exec", "K13"), ("0 K13col", "K13")]),  # fastMRI's route
+    ([16, 640, 16], [("2 exec", "K13"), ("1 K13col", "K13"), ("0 K12", "K12")]),
+    # a GLOBAL outer axis, which no column kernel takes: moved
+    ([65536, 2], [("1 exec", "K13"), ("0 movedim", "K14")]),
 ])
 def test_the_walk_records_one_axis_span_an_axis(lengths, notes, monkeypatch):
     plan = pf.Descriptor(lengths=lengths, number_of_transforms=2).commit(device="cpu")
@@ -250,15 +256,14 @@ def test_the_walk_records_one_axis_span_an_axis(lengths, notes, monkeypatch):
     (call,) = tracing.calls(1)
     (walk,) = call.named("portfft.exec")
     axes = sorted(call.named("portfft.axis"), key=lambda s: s.start_ns)
-    assert [s.note for s in axes] == notes
+    assert [s.note for s in axes] == [note for note, _ in notes]
     assert all(s.parent == walk.id for s in axes)
-    for axis in axes:
-        kernels = [c.name for c in call.children(axis)]
-        assert kernels == ["portfft.K12" if axis.note.endswith("K12") else "portfft.K13"]
+    for axis, (_, kernel) in zip(axes, notes):
+        assert [c.name for c in call.children(axis)] == [f"portfft.{kernel}"]
     # the axis spans split the walk and are no layer: its children are the
     # kernels inside them
     assert sorted(c.name for c in call.children(walk)) == sorted(
-        "portfft.K12" if n.endswith("K12") else "portfft.K13" for n in notes)
+        f"portfft.{kernel}" for _, kernel in notes)
 
 
 def test_self_time_is_seen_through_axis_spans(monkeypatch):
@@ -289,12 +294,18 @@ def _split_walk(lengths, batch):
 
 
 @pytest.mark.parametrize("lengths,batch,planes,split", [
-    ([640, 368], 1, 4, False),  # fastMRI: axis 0's rows made contiguous, and put back
-    ([640, 23], 3, 4, False),
-    ([16, 640, 16], 1, 4, False),  # the axis K12 takes copies nothing
-    ([640, 23], 2, 6, True),  # SPLIT: the scale lands after K13, one multiply a plane
+    ([640, 368], 1, 0, False),  # fastMRI: axis 0 on K13's column form, where it lies
+    ([640, 23], 3, 0, False),
+    ([16, 640, 16], 1, 0, False),  # K12 and K13's column form copy nothing
+    ([640, 23], 2, 0, True),  # SPLIT: the scale in K13's column launch
     ([256, 256], 1, 0, False),  # the raw multi-dim route: no walk
     ([20011], 1, 0, False),  # a 1D plane call: K6, K15, K6
+    # an outer Bluestein axis, which no column kernel takes: its chirp reads
+    # the moved view, and the result is put back by a copy
+    ([1031, 4], 3, 2, False),
+    # SPLIT, tiles of 800 points, under cuda_chain.COLS_MIN_POINTS: axis 0's
+    # rows made contiguous, put back, and the scale after K13, one multiply a plane
+    ([100, 8], 2, 6, True),
 ])
 def test_glue_bytes_count_the_walks_copies(lengths, batch, planes, split):
     n = batch * _points(lengths)
@@ -542,5 +553,5 @@ def test_a_traced_run_reports_the_cells_new_metrics(cell, small_bench, monkeypat
     assert set(result["metrics"]) & set(READERS) == listed - DEVICE_READERS
     for name in listed - DEVICE_READERS:
         assert result["metrics"][name]["value"] >= 0
-    if cell == "fastmri_knee.volume":  # four planes a call of at most 2 transforms
-        assert result["metrics"]["walk_glue_mib"]["value"] == 4 * 2 * 640 * 368 * 4 / 2**20
+    if cell == "fastmri_knee.volume":  # the 640 axis where it lies: no plane copied
+        assert result["metrics"]["walk_glue_mib"]["value"] == 0
