@@ -171,7 +171,13 @@
    generic glue around K15; 2^28 on K14; 4222976 x 64 with K8a-w), backward
    on spectra whose two bins are not 0, with its peak memory and its host
    commit time.
-11. Prints the kernel table as one JSON line (each kernel's launches on the
+11. Multi-dim REAL: FourCastNet's AFNO call (``AFNO``, 12288 x 90 x 180,
+   both directions, ``afno_phase``): K9 at 180 and K10 at (12288, 90, 91),
+   each held to its plain version and timed alone, and for the record K13's
+   column form with K6 around it on the same half spectrum, held to K10's
+   result; the whole call held to ``torch.fft`` on its first rows and timed
+   beside one ``rfft2``/``irfft2`` call.  One ``afno`` line a direction.
+12. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms; twenty-eight kernels), then, as the last line, ``{"ok":
    true, "device": {...}}``.  Any failure exits non-zero before that line.
@@ -262,6 +268,10 @@ MD_SHIPPED = [("md_256x256", (256, 256), 1024, "forward", False)]
 MD_ALONE = {"col": (64, 1024, 1024), "md2": (256, 512, 512)}
 # The transformed axes of each kernel's complex (b, ., .) view.
 MD_DIMS = {"col": (1,), "col_mm": (1,), "md2": (1, 2)}
+# FourCastNet's AFNO block (the benchmark cell ``fourcastnet_afno.ensemble``):
+# 16 members x 768 channels of 90 x 180 a call, rfft2/irfft2 at the
+# orthonormal scale; the multi-dim REAL route, K9 then K10.
+AFNO = ((90, 180), 12288, 1 / math.sqrt(90 * 180))
 # Plane path rows (bench.py EXTRA_CONFIGS large_1d_prime, both directions,
 # and one row per other route at about 1 GiB of input): name, n, batch,
 # direction.  1031: generic Bluestein over K13 [24, 128]; 1000: K13's
@@ -1686,6 +1696,85 @@ def time_chain_cols(pf, shape: tuple, x, card: str) -> tuple:
     return ms, plain_ms, library_ms
 
 
+def afno_phase(pf, card: str, case: tuple = AFNO, device: str = "cuda") -> dict:
+    """FourCastNet's AFNO call (``AFNO``) through the committed plan, each
+    direction: its two steps, K9 at n = 180 over batch·90 rows and K10 over
+    90 down the (batch, 90, 91) half spectrum, each held to its plain version
+    and timed alone; for the record, K13's column form with K6 around it on
+    the same half spectrum (what the per-axis walk would run on that axis),
+    held to K10's result; the whole call, held to ``torch.fft`` on its first
+    rows at the oracle bound, beside one ``rfft2``/``irfft2`` call and the
+    call's bound.  Prints one line a direction; returns ``{direction: {name:
+    ms}}``."""
+    from portfft_tpu_torch import fastpath
+    from portfft_tpu_torch.ops import cuda_chain, cuda_io
+
+    lengths, batch, scale = case
+    n_out, n = lengths
+    bins = n // 2 + 1
+    plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                         domain=pf.Domain.REAL, forward_scale=scale,
+                         backward_scale=scale).commit(device=device)
+    reals = random_raw(batch * n_out * n, seed=n, device=device)
+    half = random_raw(2 * batch * n_out * bins, seed=bins, device=device)
+    rows = min(batch, 64)
+    bound = 4 * n_out * n * batch + 8 * n_out * bins * batch
+    out = {}
+
+    def agree(what: str, got, want, tol: float = KERNEL_TOL) -> None:
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        if not rel <= tol:
+            raise SmokeFailure(f"afno {what}: max|kernel - plain| = {rel:.2e}·max|plain|")
+
+    for direction, sign in ((pf.Direction.FORWARD, -1), (pf.Direction.BACKWARD, +1)):
+        forward = sign < 0
+        entry = plan._raw_fast[direction]
+        k9, k9_args = fastpath.real_step(entry).kernel_args(plan)
+        col = next(s for s in entry.steps if isinstance(s, fastpath.Col))
+        k10, k10_args = col.kernel_args(plan)
+        (tabs,) = plane_case(pf, "chain", n_out, sign, device)[1]
+
+        def k13_walk():
+            xr, xi = cuda_io.deinterleave(half)
+            yr, yi = cuda_chain.chain_cols(xr, xi, batch, bins, tabs, col.scale)
+            return cuda_io.interleave(yr, yi, 1.0)
+
+        k9_in = reals if forward else half
+        agree(f"K9 {direction.value}", k9(k9_in, *k9_args), k9.plain(k9_in, *k9_args))
+        k10_out = k10(half, *k10_args)
+        agree(f"K10 {direction.value}", k10_out, k10.plain(half, *k10_args))
+        agree(f"K13col+K6 {direction.value}", k13_walk(), k10_out, 1e-4)
+        del k10_out
+        x = reals if forward else torch.view_as_complex(half.view(-1, 2))
+        fn = plan.compute_forward if forward else plan.compute_backward
+        y = fn(x)
+        xs = x.view(batch, -1)[:rows].to(torch.float64 if forward else torch.complex128)
+        if forward:
+            got = torch.view_as_complex(y.view(batch, n_out, bins, 2)[:rows])
+            want = torch.fft.rfft2(xs.view(rows, *lengths), norm="ortho")
+            library = lambda: torch.fft.rfft2(reals.view(batch, *lengths), norm="ortho")
+        else:
+            got = y.view(batch, *lengths)[:rows]
+            want = torch.fft.irfft2(xs.view(rows, n_out, bins), s=lengths, norm="ortho")
+            library = lambda: torch.fft.irfft2(x.view(batch, n_out, bins), s=lengths,
+                                               norm="ortho")
+        excess = (got.to(want.dtype) - want).abs().max().item() / (
+            oracle_tol(n_out * n) * scale)
+        if not excess <= 1.0:
+            raise SmokeFailure(f"afno {direction.value}: {excess:.2f}x the oracle bound")
+        del y, got, want
+        ms = {"call": time_ms(lambda: fn(x)), "K9": time_ms(lambda: k9(k9_in, *k9_args)),
+              "K10": time_ms(lambda: k10(half, *k10_args)), "K13col+K6": time_ms(k13_walk),
+              "torch.fft": time_ms(library)}
+        print(f"afno   {direction.value:8s} {batch} x {n_out}x{n} call {ms['call']:.3f} ms "
+              f"| K9 at {n} over {batch * n_out} rows {ms['K9']:.3f} | K10 at "
+              f"({batch}, {n_out}, {bins}) {ms['K10']:.3f} | K13's column form with K6 "
+              f"around it {ms['K13col+K6']:.3f} | torch.fft {ms['torch.fft']:.3f} | bound "
+              f"{bound / HBM_BYTES_PER_MS:.3f} ms (bytes) | oracle {excess:.3f} | {card}")
+        out[direction.value] = ms
+    return out
+
+
 def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     """The ``PLANE_ROWS`` through the committed plan: K6 around the
     executor and every K13 or K15 kernel of each row's route must
@@ -3091,6 +3180,7 @@ def phases_run(t_start: float, card: str) -> None:
     mma_alone = phase("tensor-core kernels", mma_kernel_phase, pf, max_err, card)
     md_tuned_launches, _ = phase("tuned multi-dim main path", tuned_md_path, pf,
                                  counters, card)
+    phase("AFNO", afno_phase, pf, card)
     # K10-mm runs on the tuned multi-dim path, K16 on the tuned GLOBAL one
     mma_launches = {"col_mm": md_tuned_launches["col_mm"],
                     "global3": tuned_launches["global3"]}

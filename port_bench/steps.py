@@ -1,0 +1,94 @@
+"""The steps of a multi-dim REAL call, for the per-step roofline metrics
+(``metrics/real_axis_roofline_pct.py``, ``metrics/outer_axes_roofline_pct.py``):
+each step's work from the call's shapes alone, which kernels ran it, and
+their device time in a traced segment.
+
+A step is what the program's tracer records as one ``portfft.axis`` span of
+a call: its note gives the axes the step transforms and its kernels in the
+order they ran (``"1 K9"``, ``"0 K10"``, ``"1 K1+K8a"``).  The step that
+holds a call's last axis is the REAL one (R2C forward, C2R backward); the
+others transform the outer axes as C2C on the half spectrum.
+
+Work of one call of ``batch`` transforms of N points whose last axis is n,
+bins = N/n·(n/2 + 1) a transform, the same both ways:
+
+- the REAL step: 4·b·N + 8·b·bins bytes (reals read once, half spectrum
+  written once) and 2.5·n·log2 n flops a row of n;
+- the outer axes: for each outer axis L > 1, 16·b·bins bytes (the half
+  spectrum read and written) and 5·bins·log2 L flops a transform.
+
+A step's least time is the larger of its bytes over 3.35 TB/s and its flops
+over 67 TFLOP/s (``work.py``).  Its device time is the union of the
+intervals of the traced operations that ``tracing.kernels_of`` maps to one
+of its kernels, whatever kernels a later program puts on the step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from port_bench import work
+
+REAL, OUTER = "real", "outer"
+
+
+def step_work(step: str, lengths, batch: int) -> tuple[int, float]:
+    """``(bytes, flops)`` of the ``step`` (``REAL`` or ``OUTER``) of one call
+    of ``batch`` REAL transforms of ``lengths``."""
+    *outer, n = lengths
+    points = math.prod(lengths)
+    bins = math.prod(outer) * (n // 2 + 1)
+    if step == REAL:
+        return 4 * batch * points + 8 * batch * bins, 2.5 * batch * points * math.log2(n)
+    axes = [ln for ln in outer if ln > 1]
+    return (16 * batch * bins * len(axes),
+            sum(5.0 * batch * bins * math.log2(ln) for ln in axes))
+
+
+def least_s(step: str, lengths, batch: int) -> float:
+    nbytes, flops = step_work(step, lengths, batch)
+    return max(nbytes / work.HBM_BYTES_PER_S, flops / work.FP32_FLOPS_PER_S)
+
+
+def step_kernels(calls) -> dict | None:
+    """``{REAL: K-numbers, OUTER: K-numbers}`` of the steps of ``calls``
+    (the tracer's ``Call`` records), from their ``portfft.axis`` notes; None
+    where a call has no such note, a note names no kernel, or one kernel
+    ran both kinds of step."""
+    kernels: dict = {REAL: set(), OUTER: set()}
+    for call in calls:
+        notes = [s.note.split(" ", 1) for s in call.named("portfft.axis")]
+        if not notes or any(len(n) != 2 or not n[1] for n in notes):
+            return None
+        axes = [[int(a) for a in n[0].split(",")] for n in notes]
+        last = max(max(a) for a in axes)
+        for a, (_, names) in zip(axes, notes):
+            kernels[REAL if last in a else OUTER].update(names.split("+"))
+    if not calls or kernels[REAL] & kernels[OUTER]:
+        return None
+    return kernels
+
+
+def roofline_pct(run, step: str):
+    """The traced segment's calls' least time of ``step`` over the device
+    time of that step's kernels, in percent; None where the program has no
+    tracer, the trace holds no device operation of the step, or the notes
+    cannot tell the steps apart (``step_kernels``)."""
+    try:
+        from portfft_tpu_torch.utils import tracing
+    except ImportError:
+        return None
+    trc = run.trace
+    if trc is None or not trc.ops or not hasattr(tracing, "kernels_of"):
+        return None
+    n = sum(s[0].startswith("compute_") for s in trc.spans)
+    kernels = step_kernels(tracing.calls(n))
+    if kernels is None or not kernels[step]:
+        return None
+    mine = [op for op in trc.ops if set(tracing.kernels_of(op[0])) & kernels[step]]
+    busy = dataclasses.replace(trc, ops=mine).busy_s()
+    if not busy:
+        return None
+    least = trc.rounds * sum(least_s(step, spec.lengths, spec.batch) for spec in run.specs)
+    return least / busy * 100

@@ -12,10 +12,12 @@ where it takes the length; multi-dimensional PACKED of any rank runs K11
 and K10, or the last axis's 1D kernel and K10, or else the plane path's
 per-axis walk with K12 between K6; SPLIT runs the per-axis walk with no
 K6.  Any other 1D layout runs the strided copy kernel K7 around the packed
-route.  And 1D REAL fp32 (R2C forward, C2R backward) INTERLEAVED PACKED
-with zero offsets, out-of-place: K9 up to n = 512, else the C2C transform
-of h = n/2 (a raw kernel or the plane path) with K8a/K8a-w or K8b.
-Forward and backward each have their own scale.
+route.  And REAL fp32 (R2C forward, C2R backward) INTERLEAVED PACKED with
+zero offsets, out-of-place: the last axis on K9 up to n = 512, else the C2C
+transform of h = n/2 (a raw kernel or the plane path) with K8a/K8a-w or
+K8b; at rank 2 and more the outer axes on K10 in place on the half
+spectrum (after the last axis forward, before it backward).  Forward and
+backward each have their own scale.
 
 C2C I/O types follow the JAX package's ``_to_raw``/``_from_raw``:
 
@@ -46,9 +48,10 @@ pair, or ``out`` and ``out_imag``.
 REAL I/O follows the JAX package's ``_compute_real``: forward takes a real
 buffer (numpy or float tensor; a complex one raises
 :class:`InvalidConfiguration`) and returns the half spectra, complex64 for
-numpy input and raw float32 pairs of ``batch·(n+2)`` scalars for a tensor;
+numpy input and raw float32 pairs of ``batch·∏outer·(n+2)`` scalars for a
+tensor (n the last length, ∏outer the product of the others, 1 in 1D);
 backward takes the half spectra (complex or raw pairs) and returns
-``batch·n`` float32 reals, numpy for numpy input.
+``batch·∏outer·n`` float32 reals, numpy for numpy input.
 """
 
 from __future__ import annotations
@@ -120,13 +123,16 @@ class CommittedDescriptor:
                 collect_bank_keys(self.plans[n_last // 2], sign, self._bank, keys)
                 keys[("R", n_last, sign)] = self._bank.rfft_untangle(n_last, sign)
             elif real:
+                # K9's matrix holds the scale of its step: 1 forward where
+                # the outer axes' last column step takes the direction's
                 keys[("W", n_last, sign)] = self._bank.dft(n_last, sign)
                 keys[("RM", n_last, sign)] = self._bank.real_small(
-                    n_last, sign, float(descriptor.get_scale(direction))
+                    n_last, sign, fastpath.real_step(self._raw_fast[direction]).scale
                 )
-            else:  # every axis length's tables: rows, columns, K11
-                for n in set(descriptor.lengths):
-                    collect_bank_keys(self.plans[n], sign, self._bank, keys)
+            # every C2C axis length's tables (rows, columns, K11); a REAL
+            # transform's outer axes (columns)
+            for n in set(descriptor.lengths[:-1] if real else descriptor.lengths):
+                collect_bank_keys(self.plans[n], sign, self._bank, keys)
         self._bank_arrays = self._bank.device_arrays(self.device)
         self._build_fns()
 

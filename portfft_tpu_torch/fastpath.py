@@ -18,17 +18,22 @@ another path.
 | SPLIT_COMPLEX, and multi-dim shapes the raw route declines | :class:`Core` | the JAX package's per-axis walk ``_core_inner`` (``torch_exec.core_inner``): K12 on the outer axes its gates take, K13's column form on the others whose leaf it runs in one launch, ``movedim`` + executor + ``movedim`` on the rest; K6 around it interleaved |
 | 1D REAL, even n ≤ ``SMALL_REAL_MAX_N`` | :class:`SmallReal` | K9 |
 | 1D REAL, longer even n | :class:`HalfReal` | the h = n/2 C2C route (:class:`Raw`, or :class:`Plane`), then K8a or K8a-w; backward K8b first |
+| multi-dim REAL, every outer axis one K10 takes | :class:`MultiDim` | the last axis's 1D REAL route (:class:`SmallReal` or :class:`HalfReal`) over batch·∏outer rows, then K10 (:class:`Col`) for axes −2 … 0 in place on the half spectrum, the scale in the last; backward the :class:`Col` steps first, then the 1D REAL route with the scale |
 
 A multi-dim route takes the ``multidim`` tuning kind: ``{"m2": 0}`` turns
 K11 off, ``{"cm": 1}`` puts K10-mm on each column step its gate takes; the
 reference's TPU tile knobs ``ct``, ``ds``, ``mt1`` and ``mt2`` are read and
 ignored.  Every outer axis must be one K10 takes (DIRECT ≤ 512 or FUSED [a,
-128] with a | 128) and the last axis one of K1–K3.  The JAX package
-declines some REAL shapes to its plane path (h not a multiple of 128, h ≥
-2^15, 512 < n < 1024, batches that do not group); the kernels here take
-them all.  The static FUSED route is K2 for every [a, 128] plan and batch;
-the JAX package's differs (ROADMAP Queue 3): v1 where a has no fold, and
-its plane path at batches its tiles decline.
+128] with a | 128) and the last axis one of K1–K3; a multi-dim REAL
+transform whose outer axis K10 declines raises (no per-axis walk for REAL
+yet).  The JAX package declines some REAL shapes to its plane path (h not a
+multiple of 128, h ≥ 2^15, 512 < n < 1024, batches that do not group), and
+walks the outer axes of a multi-dim REAL transform on planes
+(``committed._core_real_forward``); the kernels here take them all, the
+outer axes on K10 in place on the interleaved half spectrum.  The static
+FUSED route is K2 for every [a, 128] plan and batch; the JAX package's
+differs (ROADMAP Queue 3): v1 where a has no fold, and its plane path at
+batches its tiles decline.
 
 The plane path's node routes are fixed at commit (``plane_routes``) by the
 JAX package's ``leaf_dispatch`` gates:
@@ -42,7 +47,8 @@ JAX package's ``leaf_dispatch`` gates:
 
 The per-axis walk's copies that move an axis and put it back count as glue
 bytes (``tracing.glue_bytes``), and each axis is a ``portfft.axis`` span
-under a profiler.  Where the scale goes on the plane path and the walk:
+under a profiler, as is each step of a :class:`MultiDim` (``step_notes``).
+Where the scale goes on the plane path and the walk:
 
 | route of the last axis that runs | scale |
 |---|---|
@@ -189,9 +195,12 @@ class Md2(Route):
 
 @dataclasses.dataclass(frozen=True)
 class MultiDim(Route):
-    """A multi-dimensional C2C transform: ``steps`` (an :class:`Md2` or a
-    :class:`Raw`, then :class:`Col` steps) in the order they run, the first
-    out of place and the rest in place on its result."""
+    """A multi-dimensional transform: ``steps`` in the order they run, the
+    first out of place and the rest in place on its result.  C2C: an
+    :class:`Md2` or a :class:`Raw`, then :class:`Col` steps.  REAL: forward
+    the last axis's :class:`SmallReal` or :class:`HalfReal`, then
+    :class:`Col` steps on the half spectrum; backward the reverse (the REAL
+    step makes its own output)."""
 
     tuning_kind: ClassVar[str] = "multidim"
 
@@ -352,7 +361,9 @@ def with_engine(committed, entry: Route, params: dict) -> Route:
     if isinstance(entry, Col):
         return dataclasses.replace(entry, kernel=_col_kernel(entry.plan, params))
     if isinstance(entry, MultiDim):
-        return _register_multidim(committed, params)[
+        register_md = (_register_real if committed.descriptor.domain == Domain.REAL
+                       else _register_multidim)
+        return register_md(committed, params)[
             next(dn for dn, s in _SIGNS.items() if s == entry.steps[0].sign)]
     if entry.tuning_kind is None:
         raise RawFastUnavailable(
@@ -556,6 +567,31 @@ def _col_kernel(plan, params: dict) -> str:
     return "col"
 
 
+def _outer_cols(committed, shape, first: int) -> list:
+    """``(plan, bpre, rest)`` of the column steps over axes ``first`` … 0
+    of (batch, *``shape``) complex elements, in the order they run; axes of
+    length 1 have none."""
+    batch, plans = committed.descriptor.number_of_transforms, committed.plans
+    return [(plans[shape[ax]], batch * math.prod(shape[:ax]), math.prod(shape[ax + 1:]))
+            for ax in range(first, -1, -1) if shape[ax] > 1]
+
+
+def _cols(cols: list, params: dict, sign: int, scale: float) -> tuple:
+    """The :class:`Col` steps of ``cols`` (``_outer_cols``), each on the
+    column kernel ``_col_kernel`` picks under the ``multidim`` tuning
+    parameters ``params``, ``scale`` in the last."""
+    return tuple(Col(_col_kernel(plan, params), bpre, plan, rest, sign,
+                     scale if i == len(cols) - 1 else 1.0)
+                 for i, (plan, bpre, rest) in enumerate(cols))
+
+
+def _declined_outer(committed) -> list:
+    """The plans of the outer axes (longer than 1) K10 does not take."""
+    lengths, plans = committed.descriptor.lengths, committed.plans
+    return [plans[ln] for ln in lengths[:-1]
+            if ln > 1 and not _col_axis_ok(plans[ln], committed.config)]
+
+
 def _register_multidim(committed, params: dict | None = None) -> dict:
     """:class:`MultiDim` routes of a multi-dimensional C2C transform (see
     the module docstring).  ``params`` are the ``multidim`` tuning
@@ -566,25 +602,16 @@ def _register_multidim(committed, params: dict | None = None) -> dict:
     package's ``_traced_interleaved``."""
     d = committed.descriptor
     lengths, plans = list(d.lengths), committed.plans
-    batch = d.number_of_transforms
-    if not all(_col_axis_ok(plans[ln], committed.config)
-               for ln in lengths[:-1] if ln > 1) or raw_kind(
-                   plans[lengths[-1]]) is None:
+    if _declined_outer(committed) or raw_kind(plans[lengths[-1]]) is None:
         return _register_core(committed, split=False)
     if params is None:
         params = _counted_lookup(committed, "multidim")
-    total = batch * math.prod(lengths)
+    total = d.number_of_transforms * math.prod(lengths)
     plan_last = plans[lengths[-1]]
     plan_a = plans[lengths[-2]] if lengths[-2] > 1 else None
     md2 = plan_a is not None and params.get("m2", 1) != 0 and (
         cuda_multidim.md2_supported(plan_a, plan_last, committed.config))
-    first = len(lengths) - (3 if md2 else 2)
-    cols = [
-        (plans[lengths[ax]], batch * math.prod(lengths[:ax]),
-         math.prod(lengths[ax + 1:]))
-        for ax in range(first, -1, -1)
-        if lengths[ax] > 1
-    ]
+    cols = _outer_cols(committed, lengths, len(lengths) - (3 if md2 else 2))
 
     def route(sign, scale):
         # the scale goes into the last kernel that runs
@@ -594,43 +621,16 @@ def _register_multidim(committed, params: dict | None = None) -> dict:
             head = Md2(total // n2d, plan_a, plan_last, sign, head_scale)
         else:
             head = _raw_entry(plan_last, total // lengths[-1], sign, head_scale)
-        return MultiDim((head, *(
-            Col(_col_kernel(plan, params), bpre, plan, rest, sign,
-                scale if i == len(cols) - 1 else 1.0)
-            for i, (plan, bpre, rest) in enumerate(cols))))
+        return MultiDim((head, *_cols(cols, params, sign, scale)))
 
     return _both(d, route)
 
 
-def _register_real(committed) -> dict:
-    """Routes of a 1D REAL transform: :class:`SmallReal` up to
-    ``SMALL_REAL_MAX_N``, else :class:`HalfReal` around the h = n/2 route
-    (a :class:`Raw` on h's tuned engine, or a :class:`Plane`)."""
-    d = committed.descriptor
-    if len(d.lengths) >= 2:
-        raise RawFastUnavailable(
-            "multi-dimensional REAL transforms are not ported yet "
-            "(ROADMAP Queue 1 item 9)"
-        )
-    if d.placement == Placement.IN_PLACE:
-        raise RawFastUnavailable(
-            "in-place REAL transforms (the FFTW padded layout) are not "
-            "ported yet (ROADMAP Queue 1 item 9)"
-        )
-    if d.complex_storage != ComplexStorage.INTERLEAVED_COMPLEX:
-        raise RawFastUnavailable(
-            "SPLIT_COMPLEX REAL transforms are not ported yet "
-            "(ROADMAP Queue 1 item 9)"
-        )
-    for direction in _SIGNS:
-        if d.get_offset(direction) or get_layout(d, direction) != BufferLayout.PACKED:
-            raise RawFastUnavailable(
-                "REAL transforms with buffer offsets or strided layouts are "
-                "not ported yet (ROADMAP Queue 1 item 9): the JAX package "
-                "runs them through its REAL plane path, which on C2R drops "
-                f"Im X[0] and Im X[n/2] below n = {REAL_KEEP_MIN_N} and "
-                "uses them from there on, as the packed route here does")
-    n, batch = d.lengths[0], d.number_of_transforms
+def _real_head(committed, n: int, batch: int):
+    """``route(sign, scale)`` of ``batch`` 1D REAL transforms of even
+    ``n``: :class:`SmallReal` up to ``SMALL_REAL_MAX_N``, else
+    :class:`HalfReal` around the h = n/2 route (a :class:`Raw` on h's
+    tuned engine, or a :class:`Plane`)."""
     h = n // 2
     plan_h = committed.plans[h] if n > SMALL_REAL_MAX_N else None
     # the half-length transform takes the tuned engine of its own length
@@ -652,7 +652,69 @@ def _register_real(committed) -> dict:
                   else "untangle")
         return HalfReal(inner, h, batch, sign, scale, tangle, n < REAL_KEEP_MIN_N)
 
+    return route
+
+
+def _register_real(committed, params: dict | None = None) -> dict:
+    """Routes of a REAL transform.  1D: the last axis's route
+    (``_real_head``).  Multi-dim: a :class:`MultiDim` whose REAL step is
+    that route over batch·∏outer rows and whose :class:`Col` steps (the
+    column rule of ``_register_multidim``, under the ``multidim`` tuning
+    parameters ``params``, default the table's) run the outer axes, from
+    the last to axis 0, in place on the interleaved half spectrum: forward
+    the REAL step first, the scale in the last column; backward the
+    columns first, the scale in the REAL step.  Raises where K10 declines
+    an outer axis."""
+    d = committed.descriptor
+    if d.placement == Placement.IN_PLACE:
+        raise RawFastUnavailable(
+            "in-place REAL transforms (the FFTW padded layout) are not "
+            "ported yet (ROADMAP Queue 1 item 9)"
+        )
+    if d.complex_storage != ComplexStorage.INTERLEAVED_COMPLEX:
+        raise RawFastUnavailable(
+            "SPLIT_COMPLEX REAL transforms are not ported yet "
+            "(ROADMAP Queue 1 item 9)"
+        )
+    for direction in _SIGNS:
+        if d.get_offset(direction) or get_layout(d, direction) != BufferLayout.PACKED:
+            raise RawFastUnavailable(
+                "REAL transforms with buffer offsets or strided layouts are "
+                "not ported yet (ROADMAP Queue 1 item 9): the JAX package "
+                "runs them through its REAL plane path, which on C2R drops "
+                f"Im X[0] and Im X[n/2] below n = {REAL_KEEP_MIN_N} and "
+                "uses them from there on, as the packed route here does")
+    lengths = list(d.lengths)
+    n = lengths[-1]
+    head = _real_head(committed, n, d.number_of_transforms * math.prod(lengths[:-1]))
+    if len(lengths) == 1:
+        return _both(d, head)
+    declined = _declined_outer(committed)
+    if declined:
+        raise RawFastUnavailable(
+            f"multi-dimensional REAL transforms whose outer axes K10 does not "
+            f"take ({', '.join(p.describe() for p in declined)}) are not ported "
+            "yet (ROADMAP Queue 1 item 9): no per-axis walk runs the outer axes "
+            "of the half spectrum")
+    if params is None:
+        params = _counted_lookup(committed, "multidim")
+    cols = _outer_cols(committed, [*lengths[:-1], n // 2 + 1], len(lengths) - 2)
+
+    def route(sign, scale):
+        if sign < 0:
+            return MultiDim((head(sign, 1.0 if cols else scale),
+                             *_cols(cols, params, sign, scale)))
+        return MultiDim((*_cols(cols, params, sign, 1.0), head(sign, scale)))
+
     return _both(d, route)
+
+
+def real_step(entry: Route) -> Route:
+    """The 1D REAL step of a REAL route: the route itself, or the
+    :class:`SmallReal` or :class:`HalfReal` step of its :class:`MultiDim`."""
+    if isinstance(entry, MultiDim):
+        return next(s for s in entry.steps if isinstance(s, (SmallReal, HalfReal)))
+    return entry
 
 
 def register(committed) -> dict:
@@ -781,35 +843,93 @@ def core_fn(committed, entry: Core, plain: bool = False):
     return fn
 
 
+def route_kernels(route: Route) -> tuple:
+    """The K-numbers of the kernels ``route`` launches, in the order they
+    run (a plane node the executor glues runs none of its own)."""
+    if isinstance(route, Raw):
+        return (route.engine.kernel.kernel,)
+    if isinstance(route, Col):
+        return (getattr(cuda_multidim, route.kernel).kernel,)
+    if isinstance(route, Md2):
+        return (cuda_multidim.md2.kernel,)
+    if isinstance(route, SmallReal):
+        return (cuda_real.small_real.kernel,)
+    if isinstance(route, HalfReal):
+        tangle = (getattr(cuda_real, route.tangle).kernel,)
+        inner = route_kernels(route.inner)
+        return inner + tangle if route.sign < 0 else tangle + inner
+    if isinstance(route, Plane):
+        nodes = {"global2": cuda_global.global2_planes,
+                 "bluestein": cuda_bluestein.bluestein,
+                 "bluestein_bf": cuda_bluestein.bluestein_bf}
+        inner = {nodes.get(kind, cuda_chain.chain).kernel
+                 for kind in route.routes.values() if kind != "generic"}
+        return (cuda_io.deinterleave.kernel, *sorted(inner), cuda_io.interleave.kernel)
+    raise TypeError(f"no kernels listed for a {type(route).__name__} route")
+
+
+def step_notes(committed, entry: MultiDim) -> list:
+    """The note of each step's ``portfft.axis`` span: the axes it
+    transforms (comma-separated) and its kernels in the order they run
+    (``+``-joined), e.g. ``1 K9``, ``0 K10``, ``1 K1+K8a``, ``0,1 K11``."""
+    lengths = committed.descriptor.lengths
+    last = len(lengths) - 1
+    # the column steps take the outer axes longer than 1, last first (an
+    # Md2 the first of them with the last axis)
+    outer = iter(ax for ax in range(last - 1, -1, -1) if lengths[ax] > 1)
+    notes = []
+    for step in entry.steps:
+        axes = (next(outer) if isinstance(step, Col)
+                else f"{next(outer)},{last}" if isinstance(step, Md2) else last)
+        notes.append(f"{axes} {'+'.join(route_kernels(step))}")
+    return notes
+
+
+def _step_fn(committed, step: Route, plain: bool):
+    """``fn(x, out)`` of one step: its kernel on ``x`` into ``out`` (None:
+    a new buffer), or for a 1D REAL step the REAL route, which makes its
+    own output.  ``plain`` runs the plain versions."""
+    if isinstance(step, (SmallReal, HalfReal)):
+        real = build_fn(committed, step, plain)
+        return lambda x, out: real(x)
+    kernel, args = step.kernel_args(committed)
+    if plain:
+        return lambda x, out: cuda_fft.into(out, kernel.plain(x, *args))
+    return lambda x, out: kernel(x, *args, out=out)
+
+
 def packed_fn(committed, entry: Route, plain: bool = False):
-    """``fn(x, out=None)`` of a C2C route on its own buffers at offset 0
+    """``fn(x, out=None)`` of a route on its own buffers at offset 0
     (PACKED, or the BATCH_INTERLEAVED block of a top-level :class:`Col`):
     interleaved, ``x`` is the raw input of exactly the input count and
     ``out`` (may be ``x``) receives the result, else a new tensor; SPLIT
     (a :class:`Core`), ``x`` is the (re, im) pair and the result new
     planes.  A :class:`MultiDim` runs its first step into ``out`` and the
-    rest in place on its result.  ``plain`` chains the plain versions
-    instead (the CPU path, and ``chip_smoke.py``'s yardstick on the
-    card)."""
+    rest in place on its result (a REAL step makes its own output), each
+    step a ``portfft.axis`` span (``step_notes``) while a profiler records.
+    ``plain`` chains the plain versions instead (the CPU path, and
+    ``chip_smoke.py``'s yardstick on the card)."""
     if isinstance(entry, Plane):
         return plane_fn(committed, entry, plain)
     if isinstance(entry, Core):
         walk = core_fn(committed, entry, plain)
         return walk if not entry.split else lambda x, out=None: walk(*x)
-    steps = [s.kernel_args(committed)
-             for s in (entry.steps if isinstance(entry, MultiDim) else (entry,))]
+    multi = isinstance(entry, MultiDim)
+    steps = [_step_fn(committed, s, plain) for s in (entry.steps if multi else (entry,))]
+    notes = step_notes(committed, entry) if multi else None
 
     def fn(raw, out=None):
         x = raw
-        for i, (kernel, args) in enumerate(steps):
+        for i, step in enumerate(steps):
             target = out if i == 0 else x
-            if plain:
-                x = cuda_fft.into(target, kernel.plain(x, *args))
+            if notes and PROFILER._is_profiler_enabled:
+                x = tracing.run("portfft.axis", step, x, target, note=notes[i])
             else:
-                x = kernel(x, *args, out=target)
+                x = step(x, target)
         return x
 
     return fn
+
 
 def layout_fn(committed, entry: Layout, plain: bool = False):
     """``fn(x, out=None)`` of a :class:`Layout` route (see ``build_fn``):
@@ -880,10 +1000,8 @@ def half_c2c_fn(committed, inner: Route, plain: bool = False):
     route (``plane_fn``); ``plain`` runs the plain versions."""
     if isinstance(inner, Plane):
         return plane_fn(committed, inner, plain)
-    kernel, args = inner.kernel_args(committed)
-    if plain:
-        return lambda x, out=None: cuda_fft.into(out, kernel.plain(x, *args))
-    return lambda x, out=None: kernel(x, *args, out=out)
+    step = _step_fn(committed, inner, plain)
+    return lambda x, out=None: step(x, out)
 
 
 def build_fn(committed, entry: Route, plain: bool = False):
@@ -895,9 +1013,12 @@ def build_fn(committed, entry: Route, plain: bool = False):
     the output count long, whose elements outside the output layout are
     left as they are, or None for a new buffer of exactly the output count
     that is zero wherever no result lands.  Returns the output buffer.
-    REAL: ``fn(raw)`` on exactly the input count, returning a new buffer.
+    REAL (1D, or a multi-dim :class:`MultiDim`): ``fn(raw)`` on exactly the
+    input count, returning a new buffer.
     ``plain`` chains the plain versions (the CPU path, and
     ``chip_smoke.py``'s yardstick on the card)."""
+    if isinstance(entry, MultiDim) and committed.descriptor.domain == Domain.REAL:
+        return packed_fn(committed, entry, plain)
     if not isinstance(entry, (SmallReal, HalfReal)):
         return layout_fn(committed, entry if isinstance(entry, Layout)
                          else Layout(entry, 0, 0), plain)

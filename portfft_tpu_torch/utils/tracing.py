@@ -22,9 +22,12 @@ record them, and the per-axis walk splits the executor's:
 - ``portfft.axis``, inside ``portfft.exec``: one axis of ``core_inner``'s
   walk; its ``note`` is the axis and its route (``1 exec``: the last axis
   through the executor, ``0 K12``: the column kernel, ``0 K13col``: K13's
-  column form, ``0 movedim``: the executor after a move).  It is no layer
-  of its own: a span's self time
-  is seen through it (:meth:`Call.children`).
+  column form, ``0 movedim``: the executor after a move).  Inside
+  ``portfft.call``: one step of a ``fastpath.MultiDim`` route (the step
+  loop of ``fastpath.packed_fn``); its ``note`` is the axes the step
+  transforms and its kernels in the order they run (``1 K9``, ``0 K10``,
+  ``1 K1+K8a``, ``0,1 K11``; ``fastpath.step_notes``).  It is no layer of
+  its own: a span's self time is seen through it (:meth:`Call.children`).
 
 Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 ``time.perf_counter_ns()``; ``parent`` is the id of the span it nests in

@@ -19,6 +19,7 @@ import torch
 
 import portfft_tpu_torch as pf
 from chip_smoke import (
+    AFNO,
     KERNEL_TOL,
     MMA_COL_CASES,
     MMA_GLOBAL_CASES,
@@ -384,6 +385,62 @@ def test_fastmri_walk_launches_k13_on_the_radix_path_alone(cuda):
     assert diff <= oracle_tol(n) * scale, diff
     diff = (back.reshape(x.shape).to(torch.complex128) - xd).abs().max().item()
     assert diff <= 2 * oracle_tol(n) * scale, diff
+
+
+def test_afno_main_path_matches_oracle(cuda):
+    """FourCastNet's AFNO block at the benchmark's batch: forward and
+    backward through the committed multi-dim REAL route, one K9 and one K10
+    launch a call, each within the oracle bound of ``torch.fft`` at the
+    orthonormal scale (the backward input a half spectrum with no Hermitian
+    symmetry, whose C2R reads Im of bins 0 and 90 as 0, as ``irfft2``)."""
+    lengths, batch, scale = AFNO
+    n, bins = int(np.prod(lengths)), (lengths[0], lengths[1] // 2 + 1)
+    plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                         domain=pf.Domain.REAL, forward_scale=scale,
+                         backward_scale=scale).commit()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(batch, *lengths, generator=gen, device=cuda) * 2 - 1
+    spec = torch.complex(torch.rand(batch, *bins, generator=gen, device=cuda) * 2 - 1,
+                         torch.rand(batch, *bins, generator=gen, device=cuda) * 2 - 1)
+    for forward in (True, False):
+        before = {k: tracing.launches(k) for k in ("K9", "K10")}
+        y = plan.compute_forward(x) if forward else plan.compute_backward(spec)
+        torch.cuda.synchronize()
+        assert {k: tracing.launches(k) - v for k, v in before.items()} == {"K9": 1, "K10": 1}
+        if forward:
+            assert y.dtype == torch.float32 and y.shape == (2 * batch * bins[0] * bins[1],)
+            got = torch.view_as_complex(y.view(batch, *bins, 2)).to(torch.complex128)
+            want = torch.fft.rfft2(x.double(), norm="ortho")
+        else:
+            assert y.dtype == torch.float32 and y.shape == (batch * n,)
+            got = y.view(batch, *lengths).double()
+            want = torch.fft.irfft2(spec.to(torch.complex128), s=lengths, norm="ortho")
+        diff = (got - want).abs().max().item()
+        assert diff <= oracle_tol(n) * scale, (forward, diff)
+        del y, got, want
+
+
+@pytest.mark.parametrize("direction", [pf.Direction.FORWARD, pf.Direction.BACKWARD])
+def test_afno_steps_match_plain(cuda, direction):
+    """Each step of the AFNO route at the benchmark's batch, K9 at 180 over
+    batch·90 rows and K10 over the 90 axis of (batch, 90, 91) (an odd
+    trailing extent), against its plain version."""
+    lengths, batch, scale = AFNO
+    plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                         domain=pf.Domain.REAL, forward_scale=scale,
+                         backward_scale=scale).commit()
+    entry = plan._raw_fast[direction]
+    half = 2 * batch * lengths[0] * (lengths[1] // 2 + 1)
+    rng = np.random.default_rng(7)
+    for step in entry.steps:
+        kernel, args = step.kernel_args(plan)
+        real_in = isinstance(step, fastpath.SmallReal) and direction == pf.Direction.FORWARD
+        numel = batch * int(np.prod(lengths)) if real_in else half
+        x = torch.from_numpy(rng.uniform(-1, 1, numel).astype(np.float32)).to(cuda)
+        got, want = kernel(x, *args), kernel.plain(x, *args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= KERNEL_TOL * want.abs().max().item(), (kernel.kernel, err)
 
 
 #: K13's column form (bpre, n, trailing): fastMRI's volume (the chain

@@ -178,7 +178,8 @@ def test_commit_needs_cuda_unless_cpu_is_named(monkeypatch):
     [
         (dict(lengths=[16], domain="REAL", complex_storage="SPLIT_COMPLEX"),
          "item 9"),
-        (dict(lengths=[4, 4], domain="REAL"), "multi-dim.*item 9"),  # multi-dim REAL
+        # multi-dim REAL whose outer axis K10 declines (FUSED [5, 128])
+        (dict(lengths=[640, 4], domain="REAL"), "multi-dim.*item 9"),
         # REAL layouts come with the REAL plane path; the C2C cases that
         # raised naming item 8 are parity cases of tests/test_torch_layout.py
         (dict(lengths=[16], domain="REAL", number_of_transforms=2,

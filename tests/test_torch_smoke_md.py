@@ -113,3 +113,35 @@ def test_shipped_rows_stay_on_k11():
         assert (batch, *lengths) in chip_smoke.MD2_CASES
         bound, by = chip_smoke.bound_of("md2", math.prod(lengths), batch)
         assert by == "bytes" and bound == pytest.approx(2**30 / 3.35e9)
+
+
+def test_afno_phase_checks_and_times_each_step(monkeypatch, capsys):
+    """The AFNO phase on the CPU at the published lengths, cut to two
+    transforms (timer stubbed): its checks pass the plain path, every timed
+    function runs, and one line a direction is printed."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 1.0)[1])
+    lengths, _, scale = chip_smoke.AFNO
+    out = chip_smoke.afno_phase(pf, "cpu", (lengths, 2, scale), device="cpu")
+    assert set(out) == {"forward", "backward"}
+    assert all(set(ms) == {"call", "K9", "K10", "K13col+K6", "torch.fft"}
+               for ms in out.values())
+    assert len(calls) == 10
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("afno")]
+    assert len(lines) == 2
+
+
+def test_afno_phase_rejects_a_faulty_column_step(monkeypatch):
+    from portfft_tpu_torch.ops import cuda_multidim
+
+    plain = cuda_multidim.col.plain
+
+    def faulty(raw, *a, out=None):
+        return torch.zeros_like(raw)
+
+    faulty.plain = plain
+    faulty.kernel = "K10"
+    monkeypatch.setattr(cuda_multidim, "col", faulty)
+    lengths, _, scale = chip_smoke.AFNO
+    with pytest.raises(chip_smoke.SmokeFailure, match="afno K10"):
+        chip_smoke.afno_phase(pf, "cpu", (lengths, 2, scale), device="cpu")

@@ -535,7 +535,7 @@ def small_bench(tmp_path_factory):
 
 
 @pytest.mark.parametrize("cell", ["c2c_1d.bulk", "r2c_1d.bulk", "c2c_1d.nonsmooth",
-                                  "fastmri_knee.volume"])
+                                  "fastmri_knee.volume", "fourcastnet_afno.ensemble"])
 def test_a_traced_run_reports_the_cells_new_metrics(cell, small_bench, monkeypatch):
     env = dict(os.environ)
     run.pin_environment(env)
