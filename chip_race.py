@@ -9,9 +9,9 @@ script's own directory), builds its kernels there, and times each KERNEL
 (a name of ``chip_smoke.SOURCES``, or ``restride`` or ``global_fused_ftw``,
 the factored-twiddle mode of K17; default: every one) at every shape of its
 case table in ``chip_smoke`` (``CASES``; K15 and K15-bf also at the shape
-``chip_smoke`` times them alone, 65537 x 2048): one forward call out of place,
-the median of 10 CUDA-event timed calls after 3 warm-up calls
-(``chip_smoke.time_ms``).  ``--batch B`` (repeatable) runs every case whose
+``chip_smoke`` times them alone, 65537 x 2048, and K9 at ``K9_ALONE``): one
+forward call out of place, the median of 10 CUDA-event timed calls after 3
+warm-up calls (``chip_smoke.time_ms``).  ``--batch B`` (repeatable) runs every case whose
 table gives a number of transforms, (n, batch) of a 1D kernel, (batch, n1,
 n2) of K11 and (g1, g2, batch, post) of K14, at each B instead; the other
 cases keep their shapes.  Each case is first held to its plain version
@@ -121,6 +121,8 @@ def real_cases(pf, kind, batches, device):
 
     wide = kind == "untangle_wide"
     table = cs.WIDE_CASES if wide else cs.REAL_KERNEL_CASES
+    if kind == "small_real":  # also where chip_smoke times K9 alone
+        table = table + [c for c in cs.K9_ALONE if c not in table]
     for n, batch in at(table, batches):
         plan = commit(pf, n, batch, device, domain=pf.Domain.REAL)
         x = cs.random_raw(batch * n, n, device)

@@ -177,6 +177,11 @@
    column form with K6 around it on the same half spectrum, held to K10's
    result; the whole call held to ``torch.fft`` on its first rows and timed
    beside one ``rfft2``/``irfft2`` call.  One ``afno`` line a direction.
+   Then K9 alone (``k9_phase``) at ``K9_ALONE``: r2c's 32 x 2Mi and 512 x
+   256Ki, AFNO's 180 over 1,105,920 rows and the prime h = 251 and 127,
+   both directions, each held to its plain version and timed beside its
+   byte bound (``python -c "import chip_smoke, portfft_tpu_torch as pf;
+   chip_smoke.k9_phase(pf, 'card')"`` runs it alone).
 12. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms; twenty-eight kernels), then, as the last line, ``{"ok":
@@ -272,6 +277,11 @@ MD_DIMS = {"col": (1,), "col_mm": (1,), "md2": (1, 2)}
 # 16 members x 768 channels of 90 x 180 a call, rfft2/irfft2 at the
 # orthonormal scale; the multi-dim REAL route, K9 then K10.
 AFNO = ((90, 180), 12288, 1 / math.sqrt(90 * 180))
+# K9 timed alone (``k9_phase``): (n, batch) of r2c_1d.bulk's two K9 specs,
+# AFNO's REAL step (180 over 12288·90 rows) and the prime h = 251 and 127,
+# which K9 runs as one stage of pair sums.
+K9_ALONE = [(32, 2 * 1024 * 1024), (512, 256 * 1024), (180, 12288 * 90),
+            (502, 256 * 1024), (254, 512 * 1024)]
 # Plane path rows (bench.py EXTRA_CONFIGS large_1d_prime, both directions,
 # and one row per other route at about 1 GiB of input): name, n, batch,
 # direction.  1031: generic Bluestein over K13 [24, 128]; 1000: K13's
@@ -1775,6 +1785,40 @@ def afno_phase(pf, card: str, case: tuple = AFNO, device: str = "cuda") -> dict:
     return out
 
 
+def k9_phase(pf, card: str, cases=K9_ALONE, device: str = "cuda") -> dict:
+    """K9 alone at ``cases``, both directions (scale 0.5 forward, 1/n
+    backward): each call held to its plain version, then timed beside its
+    byte bound and its multiple of it.  Prints one line a case and
+    direction; returns ``{(n, batch, direction): (ms, bound_ms)}``."""
+    out = {}
+    for n, batch in cases:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             domain=pf.Domain.REAL, forward_scale=0.5,
+                             backward_scale=1.0 / n).commit(device=device)
+        x = random_raw(batch * n, seed=n, device=device)
+        spec = half_spectra(batch, n, seed=n + 1, device=device)
+        for direction in (pf.Direction.FORWARD, pf.Direction.BACKWARD):
+            kind, kernel, args, inp, _ = real_case(plan, direction, x, spec)
+            if kind != "small_real":
+                raise SmokeFailure(f"K9 n={n}: the route runs {kind}, not K9")
+            got, want = kernel(inp, *args), kernel.plain(inp, *args)
+            rel = (got - want).abs().max().item() / want.abs().max().item()
+            if not rel <= KERNEL_TOL:
+                raise SmokeFailure(f"K9 n={n} {direction.value}: max|kernel - "
+                                   f"plain| = {rel:.2e}·max|plain|")
+            del got, want
+            ms = time_ms(lambda: kernel(inp, *args))
+            bound, by = bound_of("small_real", n, batch)
+            out[(n, batch, direction.value)] = (ms, bound)
+            print(f"alone  K9 n={n:<4d} h={n // 2:<4d} batch={batch:<8d} "
+                  f"{direction.value:8s} kernel {ms:.3f} ms | bound {bound:.3f} ms "
+                  f"({by}) | {ms / bound:.2f}x bound | {card}")
+        del plan, x, spec, inp
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     """The ``PLANE_ROWS`` through the committed plan: K6 around the
     executor and every K13 or K15 kernel of each row's route must
@@ -3181,6 +3225,7 @@ def phases_run(t_start: float, card: str) -> None:
     md_tuned_launches, _ = phase("tuned multi-dim main path", tuned_md_path, pf,
                                  counters, card)
     phase("AFNO", afno_phase, pf, card)
+    phase("K9 alone", k9_phase, pf, card)
     # K10-mm runs on the tuned multi-dim path, K16 on the tuned GLOBAL one
     mma_launches = {"col_mm": md_tuned_launches["col_mm"],
                     "global3": tuned_launches["global3"]}

@@ -28,26 +28,43 @@
 // about 12 flops per bin (0.75 flop/byte, far under the ~20 flop/byte fp32
 // ridge); K8b the same the other way.
 //
-// Small path (even n <= 512), K9:
+// Small path (even n <= 512), K9: the same identities around the h-point
+// FFT, in one launch a direction with the whole row in shared memory:
 //   forward   X[k] = scale * sum_j x[j] * w^(j*k),  k <= h,  w = exp(-2*pi*i/n)
+//             = the untangle above of Z, the h-point FFT of z = x_even + i*x_odd
 //   backward  x[j] = scale * (Re X[0] + (-1)^j Re X[h]
 //                             + 2 * sum_{0<k<h} Re(X[k] * w^(j*k))),  w = exp(+2*pi*i/n)
+//             = the retangle above, with Im X[0] and Im X[h] dropped, then
+//               the h-point inverse FFT, whose z are the row's n reals
 // (irfft semantics: the imaginary parts of X[0] and X[h] are dropped, as
 // the JAX package's matrix drops them.)  The TPU kernel multiplies groups of
 // rows by one constant real matrix on its matrix unit, 1 MB at n = 512: too
-// large for shared memory.  Here a block keeps a tile of R rows (about 4096
-// scalars) transposed in shared memory, with the n-entry root table (row 1
-// of the bank's n x n DFT matrix, as K1 reads it), and sums directly,
-// indexing w^((j*k) mod n).  Real input makes each forward term two FMAs,
-// not four.  Tiles load and store as linear runs of whole rows, so device
-// memory sees contiguous floats whatever the row pitch (n or n+2 floats;
-// 34 at n = 32 is not 16-byte aligned).
-// Bound on the H100, per row: the direct sums take 4n(h+1) flops against
-// 4n + 8(h+1) bytes of device memory, 8 flops/byte at n = 32 (under the
-// ~20 flops/byte fp32 ridge: bytes) and 128 at n = 512 (operations).  This
-// first version is bound by shared-memory reads of the operands, as K1 is.
+// large for shared memory.  Here a block keeps a tile of T rows, each row's
+// h complex values (forward) or h+1 bins (backward) one column of the tile
+// (element i of row t at i*(T+1) + t, fft_radix.cuh's column layout), runs
+// the h-point FFT of every column on fft_radix.cuh's Stockham stages
+// (pfft_radix::stages(h): radix 2, 3, 4, 8 and 5 in registers, the largest
+// odd prime 7 .. 23 of h too, through one kernel instantiation a prime, so
+// that no kernel holds the registers of all seven; another odd prime by
+// pair sums, stage_pairs), and untangles or retangles each bin pair (k,
+// h-k) in place in shared memory, one thread a pair, as K8a and K8b do.
+// The roots are row 1 of the bank's n x n DFT planes, W^k = root[k] and
+// w_h^e = root[2e].  The scale is applied once, on the store.  Every
+// device access is a float2 (a row of n reals is h float2, of h+1 bins
+// h+1), in linear runs of whole rows.  The blocks stay resident, two an SM,
+// and stride over the tiles; a tile lands by cp.async in a third buffer
+// while the block works on the tile before, so a whole tile's loads are in
+// flight and no register holds them.
+// Bound on the H100, per row: 4n + 8(h+1) bytes of device memory against
+// about 2.5*n*log2(n) flops of the stages and 10(h+1) of the untangle, 1 to
+// 4 flops a byte (n = 2 .. 512), far under the ~20 flop/byte fp32 ridge:
+// bytes.  On the H100 the loads and stores alone run at a copy's rate; the
+// stages and the untangle, each a pass over the tile in shared memory with
+// a barrier, add 60-75% to that at n = 32 and 512 and 120% at 180 (four
+// stages: 5, 3, 3, 2).  A prime h above 23 (n = 254, 502) runs as one stage of pair sums,
+// (h-1)/2 terms an output pair: bound by those sums, not by bytes.
 // All index math that touches device memory is 64-bit.
-#include "fft_common.cuh"
+#include "fft_radix.cuh"
 
 namespace {
 
@@ -193,114 +210,318 @@ __global__ void __launch_bounds__(pfft::kThreads)
   }
 }
 
-// Rows per tile of K9: about 4096 scalars, even, so that the transposed
-// tile's pitch R+1 is odd.
-int small_rows(int n) {
-  int r = 4096 / n;
-  if (r > 1) r &= ~1;
-  return r < 1 ? 1 : r;
-}
-
-size_t small_smem_bytes(int n, int R, bool forward) {
-  const size_t roots = sizeof(float2) * size_t(n);
-  const size_t in = forward ? size_t(n) * (R + 1) : size_t(n + 2) * (R + 1);
-  const size_t out = forward ? size_t(R) * (n + 2) : size_t(R) * n;
-  return roots + sizeof(float) * (in + out);
-}
-
-// x: b rows of n reals; y: b rows of n+2 floats (h+1 complex).
-__global__ void __launch_bounds__(pfft::kThreads)
-    small_real_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
-                          const float* __restrict__ wr,
-                          const float* __restrict__ wi, int64_t batch, int n,
-                          int R, float scale) {
-  extern __shared__ float2 smem[];
-  float2* roots = smem;
-  float* xs = reinterpret_cast<float*>(roots + n);  // [j][row], pitch R+1
-  float* ys = xs + n * (R + 1);                      // [row][n+2]
-  pfft::load_roots(roots, wr, wi, n);
-  const int h = n / 2;
-  const int pitch = R + 1;
-  const int64_t tiles = (batch + R - 1) / R;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * R;
-    const int rows = batch - r0 < R ? int(batch - r0) : R;
-    const float* xb = x + r0 * n;
-    for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-      const int row = e / n;
-      xs[(e - row * n) * pitch + row] = xb[e];
+// x / d for 0 <= x < 2^31 by a multiply and a shift (CUTLASS's
+// FastDivmod): K9's loops split an element index into row and column with
+// it in place of an integer division.
+struct FastDiv {
+  int d;
+  unsigned m;
+  int s;
+  __host__ FastDiv(int d_ = 1) : d(d_), m(0), s(0) {
+    if (d > 1) {
+      int l = 0;
+      while ((1 << l) < d) ++l;
+      m = unsigned(((uint64_t(1) << (31 + l)) + d - 1) / d);
+      s = l - 1;
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < (h + 1) * R; e += blockDim.x) {
-      const int k = e / R;
-      const int row = e - k * R;
-      if (row >= rows) continue;
-      float re = 0.f, im = 0.f;
-      int r = 0;
-      for (int j = 0; j < n; ++j) {
-        const float v = xs[j * pitch + row];
-        const float2 w = roots[r];
-        re = fmaf(v, w.x, re);
-        im = fmaf(v, w.y, im);
-        r += k;
-        if (r >= n) r -= n;
+  }
+  __device__ __forceinline__ int operator()(int x) const {
+    return d == 1 ? x : int(__umulhi(unsigned(x), m) >> s);
+  }
+};
+
+// One 8-byte copy from device to shared memory, in flight until
+// cp_async_wait(): no register holds it.
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// K9's launch: h = n/2, T rows a tile, m_in / m_out float2 a row read and
+// written (h and h+1 forward, h+1 and h backward), and the divisions by
+// m_in, m_out and T.
+struct SmallReal {
+  int h, T;
+  int64_t batch;
+  int m_in, m_out;
+  float scale;
+  FastDiv div_in, div_out, div_T;
+};
+
+// Tiles of K9 in shared memory: three of T columns of h+1 elements (the
+// tile in work, its ping-pong partner, and the next tile landing), after
+// the root tables W^k = w_n^k and w_h^e = w_n^(2e) of h entries each.
+size_t small_smem_bytes(int h, int T) {
+  return sizeof(float2) *
+         (2 * size_t(h) + 3 * size_t(h + 1) * pfft::tile_pitch(T));
+}
+
+// The odd prime above 5 whose stage K9 runs in registers for h: the
+// largest prime factor of h if it is 7 .. 23, else 1 (none).  Radix 5
+// always runs in registers; another odd prime runs on stage_pairs.
+int small_odd_prime(int h) {
+  int big = 1;
+  for (int p = 2; h > 1; ++p)
+    while (h % p == 0) h /= p, big = p;
+  return big >= 7 && big <= 23 ? big : 1;
+}
+
+// Rows a tile of K9.  A stage, and the untangle, run in rounds of one work
+// item a thread (kThreads a round) with a barrier after the last, so a
+// round that is partly idle costs a whole one: T is the even width, from
+// the most that two blocks on an SM hold down to half of it, with the
+// fewest rounds a row (an even T keeps the column pitch T+1 odd, off a
+// single bank).  One tile of the whole batch where it fits.
+int small_rows(int h, int64_t batch) {
+  const int64_t fit =
+      (int64_t(pfft_radix::kBlockSmem / sizeof(float2)) - 2 * h) / (3 * (h + 1)) - 1;
+  if (batch <= fit) return int(batch);
+  if (fit < 2) return 1;
+  const pfft_radix::Stages st = pfft_radix::stages(h);
+  const int p = small_odd_prime(h);
+  const auto rounds = [](int64_t items) {
+    return (items + pfft::kThreads - 1) / pfft::kThreads;
+  };
+  int best = 0;
+  double best_cost = 0.0;
+  for (int T = int(fit) & ~1; T >= 2 && T >= fit / 2; T -= 2) {
+    int64_t r = 1 + rounds(int64_t(h / 2 + 1) * T);  // the tile's wait, the untangle
+    for (int s = 0; s < st.n; ++s) {  // a butterfly an item; stage_pairs, a pair
+      const int q = st.r[s];
+      r += rounds(int64_t(h / q) * (q <= 5 || q == 8 || q == p ? 1 : q / 2 + 1) * T);
+    }
+    const double cost = double(r) / T;
+    if (best == 0 || cost < best_cost) best = T, best_cost = cost;
+  }
+  return best;
+}
+
+// A stage of odd prime radix p that no register stage takes (p > 23, or a
+// second odd prime of h), by stage_odd's pair sums with the pairs read from
+// the tile: one work item a butterfly j and output pair (q, p-q), q <= H =
+// (p-1)/2 (q = 0: y[0] alone), summing over r = 1 .. H
+//   a_r = v[r] + v[p-r],  b_r = v[r] - v[p-r]  (v: the inputs times the
+//   stage twiddle),  y[q] = v[0] + sum a_r*c_(rq) + i*sum b_r*s_(rq),
+//   y[p-q] the same with -i,  c_e + i*s_e = w_p^e = root[(e mod p)*len/p].
+// Per output pair that is 3 reads of the tile a term where stage_p takes 8,
+// and a quarter of its multiply-adds.  Consecutive threads take
+// consecutive vectors.
+template <class Base, class Out, class Post>
+__device__ inline void stage_pairs(const float2* src, float2* dst, int len,
+                                   int ns, int nvec, int step,
+                                   const float2* root, int p, Base base,
+                                   Out out, Post post) {
+  const int m = len / p;
+  const int tw = len / (ns * p);
+  const int H = (p - 1) / 2;
+  const int total = m * (H + 1) * nvec;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int jq = e / nvec;
+    const int u = e - jq * nvec;
+    const int j = jq / (H + 1);
+    const int q = jq - j * (H + 1);
+    const int k = j % ns;
+    const float2* x = src + base(u);
+    const auto in = [&](int r) {
+      const float2 v = x[(j + r * m) * step];
+      return ns > 1 ? pfft::cmul(v, root[r * k * tw]) : v;
+    };
+    const float2 v0 = x[j * step];
+    float2 A = v0, B = make_float2(0.f, 0.f);
+    int ei = 0;
+    for (int r = 1; r <= H; ++r) {
+      const float2 lo = in(r), hi = in(p - r);
+      ei += q;
+      if (ei >= p) ei -= p;
+      const float2 w = root[ei * m];
+      if (q == 0) {
+        A = pfft_radix::add(A, pfft_radix::add(lo, hi));
+      } else {
+        A = make_float2(fmaf(lo.x + hi.x, w.x, A.x), fmaf(lo.y + hi.y, w.x, A.y));
+        B = make_float2(fmaf(lo.x - hi.x, w.y, B.x), fmaf(lo.y - hi.y, w.y, B.y));
       }
-      ys[row * (n + 2) + 2 * k] = re * scale;
-      ys[row * (n + 2) + 2 * k + 1] = im * scale;
     }
-    __syncthreads();
-    float* yb = y + r0 * (n + 2);
-    for (int e = threadIdx.x; e < rows * (n + 2); e += blockDim.x) yb[e] = ys[e];
-    __syncthreads();
+    const int d = (j - k) * p + k;
+    const int o = d + q * ns;
+    dst[out(u, o)] = post(u, o, make_float2(A.x - B.y, A.y + B.x));
+    if (q != 0) {
+      const int o2 = d + (p - q) * ns;
+      dst[out(u, o2)] = post(u, o2, make_float2(A.x + B.y, A.y - B.x));
+    }
   }
 }
 
-// x: b rows of n+2 floats (h+1 complex); y: b rows of n reals.
-__global__ void __launch_bounds__(pfft::kThreads)
-    small_real_bwd_kernel(const float* __restrict__ x, float* __restrict__ y,
-                          const float* __restrict__ wr,
-                          const float* __restrict__ wi, int64_t batch, int n,
-                          int R, float scale) {
+// pfft_radix::run_stage with radix 5 and P (if P > 5) on stage_odd and any
+// other odd prime on stage_pairs: one or two odd stages' registers, where
+// run_stage_odd's switch holds all seven and pushes the kernel into spills.
+template <int P, class Base, class Out, class Post>
+__device__ inline void small_stage(int r, const float2* src, float2* dst,
+                                   int len, int ns, int nvec, int step,
+                                   const float2* root, float sg, Base base,
+                                   Out out, Post post) {
+  if (r == 5)
+    pfft_radix::stage_odd<5>(src, dst, len, ns, nvec, step, root, base, out,
+                             post);
+  else if (P > 5 && r == P)
+    pfft_radix::stage_odd<(P > 5 ? P : 5)>(src, dst, len, ns, nvec, step,
+                                           root, base, out, post);
+  else if (r > 5 && r % 2)  // 7 .. 23 but P, and the primes above
+    stage_pairs(src, dst, len, ns, nvec, step, root, r, base, out, post);
+  else
+    pfft_radix::run_stage(r, src, dst, len, ns, nvec, step, root, sg, base,
+                          out, post);
+}
+
+// The h-point FFT of the T columns in cur (pfft_radix::dft_odd's stages on
+// small_stage), between cur and other; returns the buffer that holds it.
+template <int P>
+__device__ inline float2* small_fft(float2* cur, float2* other, int h, int T,
+                                    int es, const float2* root) {
+  const pfft_radix::Stages st = pfft_radix::stages(h);
+  const float sg = h > 2 && root[1].y < 0.f ? -1.f : 1.f;
+  const auto col = [](int t) { return t; };
+  const pfft_radix::Strided<decltype(col)> at{col, es};
+  int ns = 1;
+  for (int s = 0; s < st.n; ++s) {
+    small_stage<P>(st.r[s], cur, other, h, ns, T, es, root, sg, col, at,
+                   pfft_radix::Keep{});
+    __syncthreads();
+    float2* t = cur;
+    cur = other;
+    other = t;
+    ns *= st.r[s];
+  }
+  return cur;
+}
+
+// The body of both K9 kernels.  The blocks stride over the tiles of T rows;
+// each tile's rows land by cp.async in a third buffer while the block works
+// on the tile before (the whole tile in flight, no register held), as
+// columns of the tile (element i of row t at i*es + t).  Forward: the
+// h-point FFT of z = x_even + i*x_odd, then the untangle of each bin pair
+// in place; backward: the retangle in place, then the inverse FFT.  The
+// store writes whole rows, times the scale.  wr/wi: the n x n DFT planes of
+// the direction.
+template <bool kForward, int P>
+__device__ inline void small_real_tiles(const SmallReal& k, const float2* x,
+                                        float2* y, const float* wr,
+                                        const float* wi) {
   extern __shared__ float2 smem[];
-  const int h = n / 2;
-  const int pitch = R + 1;
-  float2* roots = smem;
-  float* xr = reinterpret_cast<float*>(roots + n);  // [k][row], pitch R+1
-  float* xi = xr + (h + 1) * pitch;
-  float* ys = xi + (h + 1) * pitch;  // [row][n]
-  pfft::load_roots(roots, wr, wi, n);
-  const int64_t tiles = (batch + R - 1) / R;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * R;
-    const int rows = batch - r0 < R ? int(batch - r0) : R;
-    const float* xb = x + r0 * (n + 2);
-    for (int e = threadIdx.x; e < rows * (n + 2); e += blockDim.x) {
-      const int row = e / (n + 2);
-      const int q = e - row * (n + 2);
-      ((q & 1) ? xi : xr)[(q >> 1) * pitch + row] = xb[e];
+  const int h = k.h;
+  const int n = 2 * h;
+  const int T = k.T;
+  const int es = pfft::tile_pitch(T);
+  float2* const rw = smem;
+  float2* const rh = rw + h;
+  float2* const buf[3] = {rh + h, rh + h + (h + 1) * es,
+                          rh + h + 2 * (h + 1) * es};
+  for (int i = threadIdx.x; i < h; i += blockDim.x) {  // row 1 of the planes
+    rw[i] = make_float2(__ldg(wr + n + i), __ldg(wi + n + i));
+    rh[i] = make_float2(__ldg(wr + n + 2 * i), __ldg(wi + n + 2 * i));
+  }
+  const int64_t ntiles = (k.batch + T - 1) / T;
+  const auto rows_of = [&](int64_t tile) {
+    const int64_t left = k.batch - tile * T;
+    return left < T ? int(left) : T;
+  };
+  const auto load = [&](int64_t tile, float2* dst) {
+    const float2* src = x + tile * T * k.m_in;
+    const int total = rows_of(tile) * k.m_in;
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int t = k.div_in(e);
+      cp_async8(dst + (e - t * k.m_in) * es + t, src + e);
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < n * R; e += blockDim.x) {
-      const int j = e / R;
-      const int row = e - j * R;
-      if (row >= rows) continue;
-      float acc = 0.f;
-      int r = j;  // (j*k) mod n at k = 1
-      for (int k = 1; k < h; ++k) {
-        const float2 w = roots[r];
-        acc = fmaf(xr[k * pitch + row], w.x, acc);
-        acc = fmaf(-xi[k * pitch + row], w.y, acc);
-        r += j;
-        if (r >= n) r -= n;
+  };
+  const int pairs = h / 2 + 1;
+  int cur = 0;
+  if (blockIdx.x < ntiles) load(blockIdx.x, buf[0]);
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    cp_async_wait();
+    __syncthreads();  // the tile has landed; the spare buffer is free
+    float2* const b0 = buf[cur];
+    float2* const b1 = buf[cur == 2 ? 0 : cur + 1];
+    cur = cur == 0 ? 2 : cur - 1;
+    if (tile + gridDim.x < ntiles) load(tile + gridDim.x, buf[cur]);
+    float2* z = b0;
+    if (kForward) {
+      z = small_fft<P>(b0, b1, h, T, es, rh);
+      // the bin pair (q, (h-q) mod h) of row t; q = 0 also gives X[h]
+      for (int e = threadIdx.x; e < pairs * T; e += blockDim.x) {
+        const int q = k.div_T(e), t = e - q * T;
+        const int q2 = q == 0 ? 0 : h - q;
+        const float2 a = z[q * es + t], b = z[q2 * es + t];
+        z[q * es + t] = untangle_bin(a, b, rw[q], 1.f);
+        if (q2 != q) z[q2 * es + t] = untangle_bin(b, a, rw[q2], 1.f);
+        if (q == 0) z[h * es + t] = make_float2(a.x - a.y, 0.f);
       }
-      const float nyq = xr[h * pitch + row];
-      const float v = xr[row] + ((j & 1) ? -nyq : nyq) + 2.f * acc;
-      ys[row * n + j] = v * scale;
+      __syncthreads();
+    } else {
+      // the bin pair (q, h-q) of row t; q = 0 reads X[h] and drops Im X[0]
+      // and Im X[h]
+      for (int e = threadIdx.x; e < pairs * T; e += blockDim.x) {
+        const int q = k.div_T(e), t = e - q * T;
+        const int q2 = h - q;
+        float2 a = b0[q * es + t], c = b0[q2 * es + t];
+        if (q == 0) a.y = c.y = 0.f;
+        b0[q * es + t] = retangle_bin(a, c, rw[q], 1.f);
+        if (q != 0 && q2 != q) b0[q2 * es + t] = retangle_bin(c, a, rw[q2], 1.f);
+      }
+      __syncthreads();
+      z = small_fft<P>(b0, b1, h, T, es, rh);
     }
-    __syncthreads();
-    float* yb = y + r0 * n;
-    for (int e = threadIdx.x; e < rows * n; e += blockDim.x) yb[e] = ys[e];
-    __syncthreads();
+    float2* dst = y + tile * T * k.m_out;
+    const int total = rows_of(tile) * k.m_out;
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int t = k.div_out(e);
+      const float2 v = z[(e - t * k.m_out) * es + t];
+      dst[e] = make_float2(k.scale * v.x, k.scale * v.y);
+    }
+  }
+}
+
+// x: b rows of n reals (h complex z); y: b rows of h+1 complex.
+template <int P>
+__global__ void __launch_bounds__(pfft::kThreads, 2)
+    small_real_fwd_kernel(SmallReal k, const float2* x, float2* y,
+                          const float* wr, const float* wi) {
+  small_real_tiles<true, P>(k, x, y, wr, wi);
+}
+
+// x: b rows of h+1 complex; y: b rows of n reals (h complex z).
+template <int P>
+__global__ void __launch_bounds__(pfft::kThreads, 2)
+    small_real_bwd_kernel(SmallReal k, const float2* x, float2* y,
+                          const float* wr, const float* wi) {
+  small_real_tiles<false, P>(k, x, y, wr, wi);
+}
+
+using SmallKernel = void (*)(SmallReal, const float2*, float2*, const float*,
+                             const float*);
+
+template <int P>
+SmallKernel small_kernel(bool forward) {
+  return forward ? small_real_fwd_kernel<P> : small_real_bwd_kernel<P>;
+}
+
+SmallKernel small_kernel_of(int p, bool forward) {
+  switch (p) {
+    case 7: return small_kernel<7>(forward);
+    case 11: return small_kernel<11>(forward);
+    case 13: return small_kernel<13>(forward);
+    case 17: return small_kernel<17>(forward);
+    case 19: return small_kernel<19>(forward);
+    case 23: return small_kernel<23>(forward);
+    default: return small_kernel<1>(forward);
   }
 }
 
@@ -364,14 +585,20 @@ extern "C" int pf_small_real(const float* x, float* y, const float* wr,
                              float scale, void* stream) {
   if (n < 2 || n % 2 || batch < 1) return int(cudaErrorInvalidValue);
   const bool forward = sign < 0;
-  const int R = small_rows(n);
-  const size_t smem = small_smem_bytes(n, R, forward);
-  auto kernel = forward ? small_real_fwd_kernel : small_real_bwd_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  kernel<<<grid_of((batch + R - 1) / R), pfft::kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(x, y, wr, wi, batch, n, R,
-                                                scale);
-  return int(cudaGetLastError());
+  const int h = n / 2;
+  SmallReal k{};
+  k.h = h;
+  k.T = small_rows(h, batch);
+  k.batch = batch;
+  k.m_in = forward ? h : h + 1;
+  k.m_out = forward ? h + 1 : h;
+  k.scale = scale;
+  k.div_in = FastDiv(k.m_in);
+  k.div_out = FastDiv(k.m_out);
+  k.div_T = FastDiv(k.T);
+  return pfft_radix::launch_resident(
+      small_kernel_of(small_odd_prime(h), forward), small_smem_bytes(h, k.T),
+      (batch + k.T - 1) / k.T, static_cast<cudaStream_t>(stream), k,
+      reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(y), wr,
+      wi);
 }

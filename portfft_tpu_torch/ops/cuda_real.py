@@ -210,7 +210,10 @@ def small_real(raw, batch: int, tabs: SmallRealTables):
     """K9: ``batch`` whole REAL transforms of even length ``tabs.n`` ≤ 512:
     forward (``tabs.sign`` < 0) ``batch·n`` reals -> ``batch·(n+2)``
     interleaved half spectra; backward the reverse (irfft semantics).  The
-    kernel reads ``tabs.wr``/``wi`` and ``tabs.scale``."""
+    kernel reads ``tabs.wr``/``wi`` and ``tabs.scale``, and runs each row as
+    the h = n/2 point FFT on the radix stages with the untangle (or the
+    retangle) in shared memory; each launch counts on
+    ``tracing.paths("K9")`` as ``"radix"``."""
     n = tabs.n
     forward = tabs.sign < 0
     check_buffer(raw, batch * (n if forward else n + 2), "small_real")
@@ -227,6 +230,7 @@ def small_real(raw, batch: int, tabs: SmallRealTables):
             batch, n, tabs.sign, tabs.scale, stream_of(raw),
         )
     _build.check(lib, err, "small_real kernel")
+    tracing.path("K9", "radix")
     return y
 
 

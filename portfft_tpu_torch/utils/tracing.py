@@ -37,7 +37,7 @@ Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 Counters are always on: launches by kernel (:func:`launches`), counted
 where a wrapper's call reached the card; launches by code path
 (:func:`paths`: K13's ``radix``, ``plain`` or ``radix_col``, its column
-form), counted by the wrappers that
+form; K9's ``radix``), counted by the wrappers that
 choose one; the tuning table's outcomes where commit chooses a route
 (:func:`tuning_outcomes`); and the bytes the plane executor's copies write
 outside the port's kernels (:func:`glue_bytes`).  Under a recording profiler each such copy is also a

@@ -143,6 +143,7 @@ def _half_spectra(rng, batch, n, device):
     [
         (4, 9, ("small_real",) * 2), (32, 1000, ("small_real",) * 2),
         (100, 37, ("small_real",) * 2), (512, 9, ("small_real",) * 2),
+        (180, 1000, ("small_real",) * 2), (502, 37, ("small_real",) * 2),
         (1000, 3, ("untangle", "retangle")), (1022, 2, ("untangle", "retangle")),
         (8192, 2, ("untangle", "retangle")), (1 << 17, 1, ("untangle", "retangle")),
     ],
@@ -167,6 +168,35 @@ def test_real_kernel_matches_plain(cuda, n, batch, kinds):
         assert err <= KERNEL_TOL * want.abs().max().item(), (direction, err)
 
 
+@pytest.mark.parametrize("n", [180, 502, 512])
+def test_small_real_drops_the_two_imaginary_parts(cuda, n):
+    """K9 backward on half spectra whose Im X[0] and Im X[h] are not 0
+    (batch 1000: a partial last tile at every n): both are read as 0, as
+    its plain version's matrix and ``irfft`` read them, and the launch
+    counts on ``tracing.paths("K9")`` as ``radix``."""
+    batch, scale = 1000, 3.0 / n
+    plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                         domain=pf.Domain.REAL, backward_scale=scale).commit()
+    kernel, args = plan._raw_fast[pf.Direction.BACKWARD].kernel_args(plan)
+    rng = np.random.default_rng(n)
+    spec = rng.uniform(-1, 1, (batch, n // 2 + 1, 2)).astype(np.float32)
+    assert np.abs(spec[:, [0, -1], 1]).min() > 0
+    x = torch.from_numpy(spec.reshape(-1)).to(cuda)
+    before = tracing.paths("K9")
+    got = kernel(x, *args)
+    want = kernel.plain(x, *args)
+    torch.cuda.synchronize()
+    after = tracing.paths("K9")
+    assert after.get("radix", 0) == before.get("radix", 0) + 1
+    assert after.get("plain", 0) == before.get("plain", 0)
+    err = (got - want).abs().max().item()
+    assert err <= KERNEL_TOL * want.abs().max().item(), err
+    ref = torch.fft.irfft(torch.view_as_complex(x.view(batch, -1, 2)).to(
+        torch.complex128), n) * (n * scale)
+    diff = (got.view(batch, n).double() - ref).abs().max().item()
+    assert diff <= oracle_tol(n) * scale, diff
+
+
 @pytest.mark.parametrize("n,batch", [(32, 64), (512, 8), (1000, 4), (8192, 4),
                                      (1 << 17, 1)])
 def test_real_main_path_matches_oracle(cuda, n, batch):
@@ -174,7 +204,12 @@ def test_real_main_path_matches_oracle(cuda, n, batch):
                          domain=pf.Domain.REAL).commit()
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(batch, n, generator=gen, device=cuda)
+    paths = tracing.paths("K9")
     y = plan.compute_forward(x)
+    # r2c_1d's K9 lengths (32 and 512): one radix launch a call, no plain one
+    if n <= 512:
+        paths["radix"] = paths.get("radix", 0) + 1
+    assert tracing.paths("K9") == paths
     assert y.dtype == torch.float32 and y.shape == (batch * (n + 2),)
     ref = torch.fft.rfft(x.double())
     got = torch.view_as_complex(y.view(batch, n // 2 + 1, 2)).to(torch.complex128)
@@ -184,6 +219,9 @@ def test_real_main_path_matches_oracle(cuda, n, batch):
         _half_spectra(np.random.default_rng(n), batch, n, cuda).view(batch, -1, 2)
     )
     back = plan.compute_backward(spec)
+    if n <= 512:
+        paths["radix"] += 1
+    assert tracing.paths("K9") == paths
     assert back.dtype == torch.float32 and back.shape == (batch * n,)
     want = torch.fft.irfft(spec.to(torch.complex128), n, norm="forward")
     diff = (back.view(batch, n).double() - want).abs().max().item()
@@ -392,7 +430,9 @@ def test_afno_main_path_matches_oracle(cuda):
     backward through the committed multi-dim REAL route, one K9 and one K10
     launch a call, each within the oracle bound of ``torch.fft`` at the
     orthonormal scale (the backward input a half spectrum with no Hermitian
-    symmetry, whose C2R reads Im of bins 0 and 90 as 0, as ``irfft2``)."""
+    symmetry, whose C2R reads Im of bins 0 and 90 as 0, as ``irfft2``); K9
+    counts one ``radix`` launch a call on ``tracing.paths("K9")`` and no
+    ``plain`` one."""
     lengths, batch, scale = AFNO
     n, bins = int(np.prod(lengths)), (lengths[0], lengths[1] // 2 + 1)
     plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
@@ -404,9 +444,11 @@ def test_afno_main_path_matches_oracle(cuda):
                          torch.rand(batch, *bins, generator=gen, device=cuda) * 2 - 1)
     for forward in (True, False):
         before = {k: tracing.launches(k) for k in ("K9", "K10")}
+        paths = tracing.paths("K9")
         y = plan.compute_forward(x) if forward else plan.compute_backward(spec)
         torch.cuda.synchronize()
         assert {k: tracing.launches(k) - v for k, v in before.items()} == {"K9": 1, "K10": 1}
+        assert tracing.paths("K9") == {**paths, "radix": paths.get("radix", 0) + 1}
         if forward:
             assert y.dtype == torch.float32 and y.shape == (2 * batch * bins[0] * bins[1],)
             got = torch.view_as_complex(y.view(batch, *bins, 2)).to(torch.complex128)
@@ -418,6 +460,30 @@ def test_afno_main_path_matches_oracle(cuda):
         diff = (got - want).abs().max().item()
         assert diff <= oracle_tol(n) * scale, (forward, diff)
         del y, got, want
+
+
+def test_k9_kernels_are_named_k9_on_the_card(cuda):
+    """K9's ``__global__`` functions (one instantiation an odd prime of h,
+    ``small_real_fwd_kernel<P>``), as the profiler names the device
+    operations, map to K9 alone through ``tracing.kernels_of``, both ways
+    at AFNO's 180 (P = 1) and at 28 (h = 14, P = 7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for n in (180, 28):
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=64,
+                             domain=pf.Domain.REAL).commit()
+        x = torch.rand(64, n, device=cuda)
+        y = plan.compute_forward(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            plan.compute_backward(plan.compute_forward(x))
+            torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages() if "small_real" in e.key}
+        del y
+    assert any("small_real_fwd_kernel<1>" in k for k in names), names
+    assert any("small_real_bwd_kernel<7>" in k for k in names), names
+    assert all(tracing.kernels_of(k) == ("K9",) for k in names), names
 
 
 @pytest.mark.parametrize("direction", [pf.Direction.FORWARD, pf.Direction.BACKWARD])

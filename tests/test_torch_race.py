@@ -31,6 +31,7 @@ SMALL = {
     "GLOBAL_PLANES_CASES": [(256, 256, 1, None)],
     "AXIS_CASES": [(2, 128, 4)],
     "REAL_KERNEL_CASES": [(32, 4), (1000, 2)],
+    "K9_ALONE": [(180, 3), (32, 4)],
     "WIDE_CASES": [(16384, 2)],
     "IO_CASES": [1000],
     "STRIDE_CASES": [("strided", (0, 2, 128, 64, 4), False),

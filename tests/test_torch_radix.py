@@ -18,7 +18,11 @@ K13 runs them; ``stage_p``'s sums elsewhere) against ``np.fft``.  Last, a
 model of K13's chain mode on the
 stages (``fft_chain.cu``'s ``radix_chain_kernel``: each factor's DFT by
 ``radix_plain``, the stage twiddle on its store) against ``np.fft`` at the
-planner's factors of 640, 600, 1000, 3072 and 19683.
+planner's factors of 640, 600, 1000, 3072 and 19683, and a model of K9's
+``small_real`` kernels (``fft_real.cu``: each row as the h = n/2 point FFT
+on the stages with the untangle, or the retangle and then the inverse)
+against ``np.fft.rfft``/``irfft`` at every even length K9 serves that the
+benchmark or a prime h gives.
 
 Tolerance: max|y − DFT(x)| ≤ 4·eps·log2(n)·max|DFT(x)|, the growth of a
 radix FFT's fp32 error with the number of stages (well inside the oracle's
@@ -237,3 +241,67 @@ def test_odd_stage_is_the_dft(p):
         _check(None, p, sign,
                lambda xc: np.fft.fft(xc) if sign < 0 else np.fft.ifft(xc) * p,
                run=lambda x: odd_butterfly(x, root))
+
+
+def small_real_on_stages(x: torch.Tensor, n: int, sign: int, wr, wi,
+                         scale: float) -> torch.Tensor:
+    """K9 on the radix stages (``fft_real.cu``'s ``small_real_tiles``), on
+    rows of ``x``, with the n x n DFT planes ``wr``/``wi`` of the direction
+    (W^k = root[k], w_h^e = root[2e]).  Forward (``sign`` < 0): real rows of
+    n -> z = x_even + i·x_odd, Z = ``radix_plain`` of z on the h-point roots,
+    then the untangle of each bin pair, X[k] = E + W^k·O with E = (Z[k] +
+    conj Z[(h−k) mod h])/2, O = −i(Z[k] − conj Z[(h−k) mod h])/2, and X[h] =
+    Re Z[0] − Im Z[0].  Backward: complex rows of h + 1 bins with Im X[0]
+    and Im X[h] dropped, the retangle Z[k] = E2 + i·W^k·N2 with E2 = X[k] +
+    conj X[h−k] and N2 = X[k] − conj X[h−k], then ``radix_plain`` of Z,
+    whose z are the n reals.  Both times ``scale``, on the store."""
+    h = n // 2
+    root = torch_fft._root_table(wr, wi, n)
+    root_h, w = root[0::2][:h], root[:h]
+    if sign < 0:
+        z = torch.complex(x[..., 0::2], x[..., 1::2])
+        zk = torch_fft.radix_plain(z, root_h)
+        zr = zk[..., (h - torch.arange(h)) % h].conj()
+        e, o = (zk + zr) / 2, -1j * (zk - zr) / 2
+        nyq = (zk[..., :1].real - zk[..., :1].imag).to(zk.dtype)
+        return torch.cat([e + w * o, nyq], -1) * scale
+    im = x.imag.clone()
+    im[..., [0, h]] = 0.0
+    x = torch.complex(x.real, im)
+    xr = x[..., h - torch.arange(h)].conj()
+    e2, n2 = x[..., :h] + xr, x[..., :h] - xr
+    z = torch_fft.radix_plain(e2 + 1j * w * n2, root_h)
+    return torch.stack([z.real, z.imag], -1).reshape(*x.shape[:-1], n) * scale
+
+
+@pytest.mark.parametrize("n", [2, 4, 32, 90, 100, 180, 254, 502, 512])
+def test_small_real_on_the_stages_is_the_rfft(n):
+    """The model of K9 at r2c's 32 and 512, AFNO's 180, the smallest
+    lengths, h = 45 and 50, and the prime h = 127 and 251 (one stage: the
+    model's sum, the kernel's pair sums), both directions with a scale,
+    against ``np.fft.rfft`` and
+    ``irfft`` in float64; the backward input's Im X[0] and Im X[h] are not
+    0 and must be dropped."""
+    scale = 0.5
+    rng = np.random.default_rng(n)
+    bank = torch_fft.TwiddleBank(np.float32)
+    for sign in (-1, +1):
+        w = bank.dft(n, sign)
+        arrays = bank.device_arrays("cpu")
+        wr, wi = arrays[w + "r"], arrays[w + "i"]
+        if sign < 0:
+            x = rng.uniform(-1, 1, (3, n)).astype(np.float32)
+            got = small_real_on_stages(torch.from_numpy(x), n, sign, wr, wi, scale)
+            want = np.fft.rfft(x.astype(np.float64)) * scale
+        else:
+            spec = rng.uniform(-1, 1, (3, n // 2 + 1, 2)).astype(np.float32)
+            assert np.abs(spec[:, [0, -1], 1]).min() > 0
+            xc = torch.view_as_complex(torch.from_numpy(spec))
+            got = small_real_on_stages(xc, n, sign, wr, wi, scale)
+            kept = spec[..., 0] + 1j * spec[..., 1].astype(np.float64)
+            kept[:, [0, -1]] = kept[:, [0, -1]].real
+            want = np.fft.irfft(kept, n) * n * scale
+        got = got.numpy()
+        tol = 4 * EPS * max(1.0, math.log2(n)) * np.abs(want).max()
+        err = np.abs(got - want).max()
+        assert err <= tol, (n, sign, err, tol)

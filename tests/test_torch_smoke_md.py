@@ -145,3 +145,18 @@ def test_afno_phase_rejects_a_faulty_column_step(monkeypatch):
     lengths, _, scale = chip_smoke.AFNO
     with pytest.raises(chip_smoke.SmokeFailure, match="afno K10"):
         chip_smoke.afno_phase(pf, "cpu", (lengths, 2, scale), device="cpu")
+
+
+def test_k9_phase_checks_and_times_each_case(monkeypatch, capsys):
+    """The K9 phase on the CPU at small batches of its lengths (timer
+    stubbed): every case runs K9 both ways against its plain version and
+    prints one line a direction with its multiple of the byte bound."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 1.0)[1])
+    cases = [(n, 3) for n, _ in chip_smoke.K9_ALONE]
+    out = chip_smoke.k9_phase(pf, "cpu", cases, device="cpu")
+    assert set(out) == {(n, 3, d) for n, _ in cases for d in ("forward", "backward")}
+    assert len(calls) == 2 * len(cases)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("alone  K9")]
+    assert len(lines) == 2 * len(cases) and all("x bound" in ln for ln in lines)
