@@ -182,6 +182,20 @@
    both directions, each held to its plain version and timed beside its
    byte bound (``python -c "import chip_smoke, portfft_tpu_torch as pf;
    chip_smoke.k9_phase(pf, 'card')"`` runs it alone).
+   Then fp64 (``dns_phase``): the Taylor-Green DNS call (``DNS``, one 512^3
+   component, ``rfftn``/``irfftn`` with the backward scale 1/N^3, the
+   benchmark cell ``taylor_green_dns.stage``): its three steps, K9 at 512 in
+   double over 262,144 rows and K10 in double down (512, 512, 257) and (1,
+   512, 131584), each held to its plain version in float64 and timed alone;
+   the whole call held to ``torch.fft`` in complex128 (the widest |error| as
+   a share of the reference's root mean square, the benchmark's measure)
+   with one K9 ``radix_f64`` and two K10 ``f64`` launches and no float32
+   launch, timed beside one ``torch.fft`` call and the call's byte bound.
+   One ``dns`` line a direction (``python -c "import chip_smoke,
+   portfft_tpu_torch as pf; chip_smoke.dns_phase(pf, 'card')"`` runs it
+   alone).  ``fp32_digests`` gives the SHA-256 of K9's and K10's float32
+   outputs at AFNO's and r2c's shapes on inputs that depend on no random
+   generator, so that two trees' kernels can be compared bit for bit.
 12. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms; twenty-eight kernels), then, as the last line, ``{"ok":
@@ -277,6 +291,14 @@ MD_DIMS = {"col": (1,), "col_mm": (1,), "md2": (1, 2)}
 # 16 members x 768 channels of 90 x 180 a call, rfft2/irfft2 at the
 # orthonormal scale; the multi-dim REAL route, K9 then K10.
 AFNO = ((90, 180), 12288, 1 / math.sqrt(90 * 180))
+# The Taylor-Green DNS call (the benchmark cell ``taylor_green_dns.stage``):
+# one 512^3 velocity component a call in float64, rfftn forward at scale 1
+# and irfftn backward at 1/N^3; K9 at 512 then K10 on axes 1 and 0.
+DNS = ((512, 512, 512), 1, 2.0**-27)
+# The fp32 kernel outputs ``fp32_digests`` hashes: K9 at AFNO's REAL step
+# and r2c's 512 spec, K10 down AFNO's half spectrum, both directions each.
+FP32_DIGEST_CASES = [("K9", 180, 12288 * 90), ("K9", 512, 256 * 1024),
+                     ("K10", 90, (12288, 91))]
 # K9 timed alone (``k9_phase``): (n, batch) of r2c_1d.bulk's two K9 specs,
 # AFNO's REAL step (180 over 12288·90 rows) and the prime h = 251 and 127,
 # which K9 runs as one stage of pair sums.
@@ -590,6 +612,14 @@ FP32_FLOPS_PER_MS = 67e9
 
 class SmokeFailure(Exception):
     """A check of the smoke run failed."""
+
+
+# The fp64 DNS phase's bound, on a step's largest difference from its plain
+# version (as a share of the plain version's largest element) and on the
+# call's widest |error| against ``torch.fft`` in complex128 (as a share of
+# the reference's root mean square): about a hundred times the float64
+# rounding of a 512^3 transform, and 1e-5 below what float32 gives.
+DNS_TOL = 1e-12
 
 
 def launched(kernel) -> int:
@@ -1816,6 +1846,139 @@ def k9_phase(pf, card: str, cases=K9_ALONE, device: str = "cuda") -> dict:
         del plan, x, spec, inp
         if device == "cuda":
             torch.cuda.empty_cache()
+    return out
+
+
+def hashed_uniform(numel: int, seed: int, dtype=torch.float32,
+                   device: str = "cuda") -> torch.Tensor:
+    """``numel`` values in [-1, 1) from integer hashing of their index and
+    ``seed``: the same on every card, torch version and random generator."""
+    i = torch.arange(numel, dtype=torch.int64, device=device) + seed * 0x9E3779B9
+    i = (i * 0x2545F491) & 0xFFFFFFFF
+    i = ((i ^ (i >> 15)) * 0x2C1B3C6D) & 0xFFFFFFFF
+    i = i ^ (i >> 12)
+    return ((i & 0xFFFFFF).to(torch.float64) / 2**23 - 1.0).to(dtype)
+
+
+def fp32_digests(pf, device: str = "cuda", cases=FP32_DIGEST_CASES) -> dict:
+    """``{case: sha256}`` of K9's and K10's float32 outputs at
+    ``FP32_DIGEST_CASES``, both directions, each kernel called with the
+    tables and arguments of the committed plan's step (K9 at scale 1 and
+    1/n, K10 AFNO's orthonormal scale) on ``hashed_uniform`` inputs: equal
+    digests from two trees mean the kernels' outputs are equal bit for
+    bit."""
+    import hashlib
+
+    fastpath = sys.modules[pf.__name__ + ".fastpath"]
+    out = {}
+    for kernel, n, batch in cases:
+        if kernel == "K9":
+            plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                                 domain=pf.Domain.REAL,
+                                 backward_scale=1.0 / n).commit(device=device)
+        else:
+            lengths, _, scale = AFNO
+            plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch[0],
+                                 domain=pf.Domain.REAL, forward_scale=scale,
+                                 backward_scale=scale).commit(device=device)
+        for direction in (pf.Direction.FORWARD, pf.Direction.BACKWARD):
+            entry = plan._raw_fast[direction]
+            if kernel == "K9":
+                step = fastpath.real_step(entry)
+                numel = batch * (n if direction == pf.Direction.FORWARD else n + 2)
+            else:
+                step = next(st for st in entry.steps if isinstance(st, fastpath.Col))
+                numel = 2 * batch[0] * n * batch[1]
+            fn, args = step.kernel_args(plan)
+            y = fn(hashed_uniform(numel, n, device=device), *args)
+            out[f"{kernel} n={n} {direction.value}"] = hashlib.sha256(
+                y.cpu().numpy().tobytes()).hexdigest()
+            del y
+        del plan
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dns_phase(pf, card: str, case: tuple = DNS, device: str = "cuda") -> dict:
+    """The Taylor-Green DNS call (``DNS``) in float64 through the committed
+    plan, each direction: its steps (K9 over batch·L0·L1 rows of L2, K10 down
+    each outer axis of the half spectrum) each held to its plain version
+    at ``DNS_TOL`` and timed alone; the whole call held to ``torch.fft`` in
+    complex128 at ``DNS_TOL`` of the reference's root mean square, launching one
+    K9 ``radix_f64`` and one K10 ``f64`` an outer axis and nothing in
+    float32, timed beside one ``rfftn``/``irfftn`` call and the call's byte
+    bound in double (8 bytes a real, 16 a bin).  Prints one line a
+    direction; returns ``{direction: {name: ms}}`` with ``"err"``, the
+    call's error."""
+    from portfft_tpu_torch import fastpath
+    from portfft_tpu_torch.utils import tracing
+
+    lengths, batch, bscale = case
+    *outer, n = lengths
+    bins = n // 2 + 1
+    dims = tuple(range(1, 1 + len(lengths)))
+    plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                         domain=pf.Domain.REAL, precision="fp64",
+                         backward_scale=bscale).commit(device=device)
+    points, half_n = batch * math.prod(lengths), batch * math.prod(outer) * bins
+    reals = hashed_uniform(points, 1, torch.float64, device)
+    half = hashed_uniform(2 * half_n, 2, torch.float64, device)
+    bound = (8 * points + 16 * half_n) / HBM_BYTES_PER_MS
+    out = {}
+
+    def agree(what: str, got, want) -> None:
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        if not rel <= DNS_TOL:
+            raise SmokeFailure(f"dns {what}: max|kernel - plain| = {rel:.2e}·max|plain|")
+
+    for direction in (pf.Direction.FORWARD, pf.Direction.BACKWARD):
+        forward = direction == pf.Direction.FORWARD
+        entry = plan._raw_fast[direction]
+        ms = {}
+        for step in entry.steps:
+            kernel, args = step.kernel_args(plan)
+            x = reals if isinstance(step, fastpath.SmallReal) and forward else half
+            name = f"{kernel.kernel} {'rows' if kernel.kernel == 'K9' else step.rest}"
+            got = kernel(x, *args)
+            if got.dtype != torch.float64:
+                raise SmokeFailure(f"dns {name}: {got.dtype} output")
+            agree(f"{name} {direction.value}", got, kernel.plain(x, *args))
+            del got
+            ms[name] = time_ms(lambda: kernel(x, *args))
+        x = reals if forward else torch.view_as_complex(half.view(-1, 2))
+        fn = plan.compute_forward if forward else plan.compute_backward
+        launches = {k: tracing.launches(k) for k in ("K9", "K10")}
+        paths = {k: tracing.paths(k) for k in ("K9", "K10")}
+        y = fn(x)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            ran = {k: tracing.launches(k) - v for k, v in launches.items()}
+            new = {k: {p: c - paths[k].get(p, 0) for p, c in tracing.paths(k).items()
+                       if c != paths[k].get(p, 0)} for k in paths}
+            if ran != {"K9": 1, "K10": len(outer)} or new != {
+                    "K9": {"radix_f64": 1}, "K10": {"f64": len(outer)}}:
+                raise SmokeFailure(f"dns {direction.value}: launches {ran}, paths {new}")
+        if forward:
+            got = torch.view_as_complex(y.view(batch, *outer, bins, 2))
+            want = torch.fft.rfftn(x.view(batch, *lengths), dim=dims)
+            library = lambda: torch.fft.rfftn(x.view(batch, *lengths), dim=dims)  # noqa: E731
+        else:
+            got = y.view(batch, *lengths)
+            spec = x.view(batch, *outer, bins)
+            want = torch.fft.irfftn(spec, s=lengths, dim=dims) * (points // batch * bscale)
+            library = lambda: torch.fft.irfftn(spec, s=lengths, dim=dims)  # noqa: E731
+        err = ((got - want).abs().max() / want.abs().square().mean().sqrt()).item()
+        if not err <= DNS_TOL:
+            raise SmokeFailure(f"dns {direction.value}: error {err:.3e} of the rms")
+        del y, got, want
+        ms.update(call=time_ms(lambda: fn(x)), torch_fft=time_ms(library), err=err)
+        steps = " | ".join(f"{k} {v:.3f}" for k, v in ms.items()
+                           if k not in ("call", "torch_fft", "err"))
+        print(f"dns    {direction.value:8s} {batch} x {'x'.join(map(str, lengths))} fp64 "
+              f"call {ms['call']:.3f} ms | {steps} | torch.fft {ms['torch_fft']:.3f} | "
+              f"bound {bound:.3f} ms (bytes) | error {err:.3e} of the rms | {card}")
+        out[direction.value] = ms
     return out
 
 
@@ -3226,6 +3389,7 @@ def phases_run(t_start: float, card: str) -> None:
                                  counters, card)
     phase("AFNO", afno_phase, pf, card)
     phase("K9 alone", k9_phase, pf, card)
+    phase("fp64 DNS", dns_phase, pf, card)
     # K10-mm runs on the tuned multi-dim path, K16 on the tuned GLOBAL one
     mma_launches = {"col_mm": md_tuned_launches["col_mm"],
                     "global3": tuned_launches["global3"]}

@@ -52,6 +52,11 @@ numpy input and raw float32 pairs of ``batch·∏outer·(n+2)`` scalars for a
 tensor (n the last length, ∏outer the product of the others, 1 in 1D);
 backward takes the half spectra (complex or raw pairs) and returns
 ``batch·∏outer·n`` float32 reals, numpy for numpy input.
+
+fp64 (``precision="fp64"``) runs the REAL routes whose every step has a
+double kernel (K9, K10; ``fastpath._check_f64``): the same I/O in double,
+float64 reals and complex128 spectra (raw float64 pairs for a tensor), the
+tables banked in float64.  Any other fp64 descriptor raises at commit.
 """
 
 from __future__ import annotations
@@ -113,7 +118,10 @@ class CommittedDescriptor:
             self.plans[n_last // 2] = plan_1d(
                 n_last // 2, self.config, self.precision.itemsize
             )
-        self._bank = TwiddleBank(np.float32)
+        # the plan's scalar on the card: float32, or float64 at fp64
+        self._real = torch.float64 if self.precision.itemsize == 8 else torch.float32
+        self._complex = torch.complex128 if self._real == torch.float64 else torch.complex64
+        self._bank = TwiddleBank(self.precision)
         self._bank_keys: dict = {}
         self._raw_fast = fastpath.register(self)
         # the tables of the kernels the entries run, both directions
@@ -231,27 +239,28 @@ class CommittedDescriptor:
             )
 
     def _to_raw(self, x):
-        """Any accepted interleaved buffer -> (flat float32 tensor on the
-        plan's device, kind, aliases) where ``aliases`` says whether the
-        tensor shares memory with ``x``."""
+        """Any accepted interleaved buffer -> (flat tensor of the plan's
+        scalar on its device, kind, aliases) where ``aliases`` says whether
+        the tensor shares memory with ``x``."""
+        real = self.precision.type
         if isinstance(x, torch.Tensor):
             self._check_device(x)
             if x.is_complex():
-                flat = x.to(torch.complex64).contiguous().reshape(-1)
+                flat = x.to(self._complex).contiguous().reshape(-1)
                 raw = torch.view_as_real(flat).reshape(-1)
                 kind = "torch_complex"
             else:
-                raw = x.to(torch.float32).contiguous().reshape(-1)
+                raw = x.to(self._real).contiguous().reshape(-1)
                 kind = "torch_raw"
             aliases = raw.data_ptr() == x.data_ptr()
         else:
             arr = np.asarray(x)
             if np.iscomplexobj(arr):
-                host = np.ascontiguousarray(arr, dtype=np.complex64)
-                host = host.reshape(-1).view(np.float32)
+                host = np.ascontiguousarray(arr, dtype=np.result_type(real, np.complex64))
+                host = host.reshape(-1).view(real)
                 kind = "np_complex"
             else:
-                host = np.ascontiguousarray(arr, dtype=np.float32).reshape(-1)
+                host = np.ascontiguousarray(arr, dtype=real).reshape(-1)
                 kind = "np_raw"
             raw = torch.from_numpy(host).to(self.device)
             aliases = (
@@ -268,7 +277,8 @@ class CommittedDescriptor:
     @staticmethod
     def _from_raw(raw: torch.Tensor, kind: str):
         if kind == "np_complex":
-            return raw.cpu().numpy().view(np.complex64)
+            host = raw.cpu().numpy()
+            return host.view(np.result_type(host.dtype, np.complex64))
         if kind == "np_raw":
             return raw.cpu().numpy()
         if kind == "torch_complex":
@@ -382,7 +392,7 @@ class CommittedDescriptor:
             for o, (t, is_tensor, aliases) in zip(outs, dests))
 
     def _to_real(self, x):
-        """A real buffer -> (flat float32 tensor on the plan's device,
+        """A real buffer -> (flat tensor of the plan's scalar on its device,
         whether ``x`` is a tensor)."""
         if isinstance(x, torch.Tensor):
             self._check_device(x)
@@ -390,13 +400,13 @@ class CommittedDescriptor:
                 raise InvalidConfiguration(
                     "REAL domain forward input must be a real buffer"
                 )
-            return x.to(torch.float32).contiguous().reshape(-1), True
+            return x.to(self._real).contiguous().reshape(-1), True
         arr = np.asarray(x)
         if np.iscomplexobj(arr):
             raise InvalidConfiguration(
                 "REAL domain forward input must be a real buffer"
             )
-        host = np.ascontiguousarray(arr, dtype=np.float32).reshape(-1)
+        host = np.ascontiguousarray(arr, dtype=self.precision).reshape(-1)
         return torch.from_numpy(host).to(self.device), False
 
     def _compute_real(self, direction, x):

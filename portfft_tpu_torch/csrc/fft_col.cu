@@ -1,5 +1,6 @@
 // K10 `col`: the FFT over a non-contiguous axis of the PACKED interleaved
-// buffer viewed as (bpre, L, rest) complex elements:
+// buffer viewed as (bpre, L, rest) complex elements, in fp32 (pf_col) or
+// fp64 (pf_col_f64):
 //   out[b, k, c] = scale * sum_j x[b, j, c] * w_L^(j*k)
 // for every b < bpre and column c < rest.  The multi-dimensional path runs
 // it once per outer axis; the BATCH_INTERLEAVED 1D layout, (n, batch), is
@@ -35,19 +36,24 @@ extern "C" int pf_col_needs_scratch(int m) {
   return m > pfft::kTileMax ? 1 : 0;
 }
 
-// x (2*bpre*m*rest floats) -> y through scratch (the same size, only for
+// x (2*bpre*m*rest scalars) -> y through scratch (the same size, only for
 // m > 8192); y may equal x.  a = 0: DIRECT, wr/wi the m x m DFT planes;
 // a > 0: FUSED m = a*128, wr/wi a x a, br/bi 128 x 128, ur/ui the (a, 128)
-// twiddle planes.  Returns a cudaError_t.
-extern "C" int pf_col(const float* x, float* y, float* scratch, int m, int a,
-                      const float* wr, const float* wi, const float* br,
-                      const float* bi, const float* ur, const float* ui,
-                      int64_t bpre, int64_t rest, float scale, void* stream) {
+// twiddle planes.  R = double is K10 at fp64: double2 elements, tables and
+// FMAs, the same pass; its tile fits the shared memory of a block up to
+// m = 4096 (past it the launch returns the error).  Returns a cudaError_t.
+namespace {
+
+template <class R>
+int col(const R* x, R* y, R* scratch, int m, int a, const R* wr, const R* wi,
+        const R* br, const R* bi, const R* ur, const R* ui, int64_t bpre,
+        int64_t rest, R scale, void* stream) {
+  using C = pfft::cplx<R>;
   if (m < 1 || (a != 0 && a * 128 != m) || (a == 0 && m > pfft::kTileMax) ||
       bpre < 1 || rest < 1)
     return int(cudaErrorInvalidValue);
-  pfft::Pass p{};
-  p.sub = pfft::Sub{m, a, wr, wi, br, bi, ur, ui};
+  pfft::PassT<R> p{};
+  p.sub = pfft::SubT<R>{m, a, wr, wi, br, bi, ur, ui};
   p.nbatch = bpre;
   p.ncols = rest;
   p.T = pfft::pick_tile(m, rest, 4096, 32);
@@ -58,8 +64,28 @@ extern "C" int pf_col(const float* x, float* y, float* scratch, int m, int a,
   p.oks = rest;
   p.ocs = 1;
   p.scale = scale;
-  return pfft::launch_column(p, reinterpret_cast<const float2*>(x),
-                             reinterpret_cast<float2*>(scratch),
-                             reinterpret_cast<float2*>(y),
+  return pfft::launch_column(p, reinterpret_cast<const C*>(x),
+                             reinterpret_cast<C*>(scratch),
+                             reinterpret_cast<C*>(y),
                              static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+extern "C" int pf_col(const float* x, float* y, float* scratch, int m, int a,
+                      const float* wr, const float* wi, const float* br,
+                      const float* bi, const float* ur, const float* ui,
+                      int64_t bpre, int64_t rest, float scale, void* stream) {
+  return col(x, y, scratch, m, a, wr, wi, br, bi, ur, ui, bpre, rest, scale,
+             stream);
+}
+
+// K10 at fp64: pf_col on double buffers and tables.
+extern "C" int pf_col_f64(const double* x, double* y, double* scratch, int m,
+                          int a, const double* wr, const double* wi,
+                          const double* br, const double* bi, const double* ur,
+                          const double* ui, int64_t bpre, int64_t rest,
+                          double scale, void* stream) {
+  return col(x, y, scratch, m, a, wr, wi, br, bi, ur, ui, bpre, rest, scale,
+             stream);
 }

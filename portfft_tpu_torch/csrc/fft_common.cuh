@@ -15,58 +15,101 @@
 // DIRECT (one m-point DFT) or FUSED m = a*128 in two stages:
 //   stage A  A[k1, n2] = sum_n1 x[128*n1 + n2] * w_a^(n1*k1),  A *= w_m^(n2*k1)
 //   stage B  C[k1, k2] = sum_n2 A[k1, n2] * w_128^(n2*k2),     y[k1 + a*k2] = C
-// Each DFT is a plain sum on the CUDA cores in fp32 FMA: no tensor cores, no
+// Each DFT is a plain sum on the CUDA cores in FMA: no tensor cores, no
 // TF32.  The roots come from the host tables (row 1 of the bank's m-point DFT
 // matrix, w^(j*k) = row1[(j*k) mod m]); the device evaluates no sin or cos.
 // All global index math is 64-bit.
+//
+// The pass is written on its scalar R: float (float2 elements) for every
+// kernel, and double (double2 elements, double tables, double FMAs) for K10
+// at fp64 (fft_col.cu).  Sub and Pass are the float ones.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace pfft {
 
 constexpr int kThreads = 256;
 
-// One sub-transform of length m.
-struct Sub {
-  int m;
-  int a;            // 0: DIRECT.  > 0: FUSED, m = a * 128.
-  const float* wr;  // DIRECT: m x m DFT planes.  FUSED: a x a.
-  const float* wi;
-  const float* br;  // FUSED: 128 x 128 DFT planes.
-  const float* bi;
-  const float* ur;  // FUSED: (a, 128) twiddle planes, [k1][n2] = w_m^(k1*n2).
-  const float* ui;
+// The complex element of scalar R, and the scalar of a complex element.
+template <class R>
+struct Complex;
+template <>
+struct Complex<float> {
+  using type = float2;
 };
+template <>
+struct Complex<double> {
+  using type = double2;
+};
+template <class R>
+using cplx = typename Complex<R>::type;
+template <class C>
+using scalar_of = decltype(C::x);
 
-struct Pass {
-  Sub sub;
+__host__ __device__ __forceinline__ float2 mkc(float re, float im) {
+  return make_float2(re, im);
+}
+__host__ __device__ __forceinline__ double2 mkc(double re, double im) {
+  return make_double2(re, im);
+}
+// a*b + c, rounded once.
+__device__ __forceinline__ float mad(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double mad(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// One sub-transform of length m.
+template <class R>
+struct SubT {
+  int m;
+  int a;        // 0: DIRECT.  > 0: FUSED, m = a * 128.
+  const R* wr;  // DIRECT: m x m DFT planes.  FUSED: a x a.
+  const R* wi;
+  const R* br;  // FUSED: 128 x 128 DFT planes.
+  const R* bi;
+  const R* ur;  // FUSED: (a, 128) twiddle planes, [k1][n2] = w_m^(k1*n2).
+  const R* ui;
+};
+using Sub = SubT<float>;
+
+template <class R>
+struct PassT {
+  SubT<R> sub;
   int64_t nbatch, ncols;
   int T;  // columns per tile
   int64_t ibs, iis, ics;
   int64_t obs, oks, ocs;
-  const float* twr;  // nullptr: no twiddle
-  const float* twi;
+  const R* twr;  // nullptr: no twiddle
+  const R* twi;
   int64_t tcs, tks;
-  float scale;
+  R scale;
 };
+using Pass = PassT<float>;
 
 // Shared-memory tile: element i of column t sits at pos(i)*es + t.  The
 // column pitch es = T+1 (odd for even T) and the FUSED row padding
 // pos(i) = i + i/128 keep the strided walks of both stages off a single
 // bank.
-__host__ __device__ inline int tile_rows(const Sub& s) {
+template <class R>
+__host__ __device__ inline int tile_rows(const SubT<R>& s) {
   return s.a ? s.m + (s.m >> 7) : s.m;
 }
 __host__ __device__ inline int tile_pitch(int T) { return T > 1 ? T + 1 : 1; }
-__device__ __forceinline__ int tile_pos(const Sub& s, int i) {
+template <class R>
+__device__ __forceinline__ int tile_pos(const SubT<R>& s, int i) {
   return s.a ? i + (i >> 7) : i;
 }
 
-inline size_t pass_smem_bytes(const Sub& s, int T) {
+template <class R>
+inline size_t pass_smem_bytes(const SubT<R>& s, int T) {
   const int roots = s.a ? s.a + 128 : s.m;
-  return sizeof(float2) *
+  return sizeof(cplx<R>) *
          (size_t(roots) + 2 * size_t(tile_rows(s)) * tile_pitch(T));
 }
 
@@ -82,54 +125,59 @@ inline int pick_tile(int m, int64_t ncols, int cap, int tmax) {
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
 }
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
 
 // dst[out(u, k)] = post(u, k, sum_j src[in_base(u) + j*in_step] * root[(j*k) mod len])
 // for nvec vectors u and len outputs k.  Consecutive threads take
 // consecutive vectors at the same k: they read neighbouring words of the
 // tile and one shared root.
-template <class InBase, class Out, class Post>
-__device__ __forceinline__ void dft_stage(const float2* src, float2* dst,
-                                          int len, int nvec, int in_step,
-                                          const float2* root, InBase in_base,
-                                          Out out, Post post) {
+template <class C, class InBase, class Out, class Post>
+__device__ __forceinline__ void dft_stage(const C* src, C* dst, int len,
+                                          int nvec, int in_step, const C* root,
+                                          InBase in_base, Out out, Post post) {
+  using R = scalar_of<C>;
   const int total = len * nvec;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int k = e / nvec;
     const int u = e - k * nvec;
-    const float2* xs = src + in_base(u);
-    float re = 0.f, im = 0.f;
+    const C* xs = src + in_base(u);
+    R re = 0, im = 0;
     int r = 0;
     for (int j = 0; j < len; ++j) {
-      const float2 x = xs[j * in_step];
-      const float2 w = root[r];
-      re = fmaf(x.x, w.x, re);
-      re = fmaf(-x.y, w.y, re);
-      im = fmaf(x.x, w.y, im);
-      im = fmaf(x.y, w.x, im);
+      const C x = xs[j * in_step];
+      const C w = root[r];
+      re = mad(x.x, w.x, re);
+      re = mad(-x.y, w.y, re);
+      im = mad(x.x, w.y, im);
+      im = mad(x.y, w.x, im);
       r += k;
       if (r >= len) r -= len;
     }
-    dst[out(u, k)] = post(u, k, make_float2(re, im));
+    dst[out(u, k)] = post(u, k, mkc(re, im));
   }
 }
 
 // Transforms the T columns held in b0; returns the buffer (b0 or b1) that
 // holds the result in natural order, at the same tile positions.
 // ra: roots of the m-point (DIRECT) or a-point (FUSED) DFT; rb: 128-point.
-__device__ inline float2* sub_dft(const Sub& s, const float2* ra,
-                                  const float2* rb, float2* b0, float2* b1,
-                                  int T, int es) {
+template <class R>
+__device__ inline cplx<R>* sub_dft(const SubT<R>& s, const cplx<R>* ra,
+                                   const cplx<R>* rb, cplx<R>* b0,
+                                   cplx<R>* b1, int T, int es) {
+  using C = cplx<R>;
   if (s.a == 0) {
     dft_stage(
         b0, b1, s.m, T, es, ra, [=](int t) { return t; },
         [=](int t, int k) { return k * es + t; },
-        [](int, int, float2 y) { return y; });
+        [](int, int, C y) { return y; });
     __syncthreads();
     return b1;
   }
   const int a = s.a;
-  const float* ur = s.ur;
-  const float* ui = s.ui;
+  const R* ur = s.ur;
+  const R* ui = s.ui;
   // Stage A: vector u = (n2, t) over n1, element 128*n1 + n2 at
   // (129*n1 + n2)*es + t; inner twiddle on the way out.
   dft_stage(
@@ -142,9 +190,9 @@ __device__ inline float2* sub_dft(const Sub& s, const float2* ra,
         const int n2 = u / T;
         return (129 * k1 + n2) * es + (u - n2 * T);
       },
-      [=](int u, int k1, float2 y) {
+      [=](int u, int k1, C y) {
         const int i = k1 * 128 + u / T;
-        return cmul(y, make_float2(__ldg(ur + i), __ldg(ui + i)));
+        return cmul(y, mkc(__ldg(ur + i), __ldg(ui + i)));
       });
   __syncthreads();
   // Stage B: vector u = (k1, t) over n2; C[k1, k2] lands at natural index
@@ -160,30 +208,35 @@ __device__ inline float2* sub_dft(const Sub& s, const float2* ra,
         const int K = k1 + a * k2;
         return (K + (K >> 7)) * es + (u - k1 * T);
       },
-      [](int, int, float2 y) { return y; });
+      [](int, int, C y) { return y; });
   __syncthreads();
   return b0;
 }
 
 // Copies row 1 of a len x len DFT matrix (its root table) to shared memory.
-__device__ inline void load_roots(float2* dst, const float* wr,
-                                  const float* wi, int len) {
+template <class R>
+__device__ inline void load_roots(cplx<R>* dst, const R* wr, const R* wi,
+                                  int len) {
   const int row = len > 1 ? len : 0;
   for (int i = threadIdx.x; i < len; i += blockDim.x)
-    dst[i] = make_float2(__ldg(wr + row + i), __ldg(wi + row + i));
+    dst[i] = mkc(__ldg(wr + row + i), __ldg(wi + row + i));
 }
 
 // A pass's shared memory: the root tables ra (m-point DIRECT or a-point
 // FUSED) and rb (128-point, FUSED only), then the ping-pong tiles b0, b1.
-struct TileSmem {
-  float2* ra;
-  float2* rb;
-  float2* b0;
-  float2* b1;
+template <class R>
+struct TileSmemT {
+  cplx<R>* ra;
+  cplx<R>* rb;
+  cplx<R>* b0;
+  cplx<R>* b1;
 };
+using TileSmem = TileSmemT<float>;
 
-__device__ inline TileSmem tile_smem(const Sub& s, int T, float2* smem) {
-  TileSmem t;
+template <class R>
+__device__ inline TileSmemT<R> tile_smem(const SubT<R>& s, int T,
+                                         cplx<R>* smem) {
+  TileSmemT<R> t;
   t.ra = smem;
   t.rb = t.ra + (s.a ? s.a : s.m);
   t.b0 = t.rb + (s.a ? 128 : 0);
@@ -193,7 +246,8 @@ __device__ inline TileSmem tile_smem(const Sub& s, int T, float2* smem) {
 
 // Loads the sub-transform's root tables; the first __syncthreads of the
 // next tile makes them visible.
-__device__ inline void load_sub_roots(const Sub& s, const TileSmem& sm) {
+template <class R>
+__device__ inline void load_sub_roots(const SubT<R>& s, const TileSmemT<R>& sm) {
   if (s.a) {
     load_roots(sm.ra, s.wr, s.wi, s.a);
     load_roots(sm.rb, s.br, s.bi, 128);
@@ -216,10 +270,16 @@ struct ConstPlanes {
 __device__ __forceinline__ float2 ld(const float2* x, int64_t i) {
   return x[i];
 }
+__device__ __forceinline__ double2 ld(const double2* x, int64_t i) {
+  return x[i];
+}
 __device__ __forceinline__ float2 ld(const ConstPlanes& x, int64_t i) {
   return make_float2(x.re[i], x.im[i]);
 }
 __device__ __forceinline__ void st(float2* y, int64_t i, float2 v) {
+  y[i] = v;
+}
+__device__ __forceinline__ void st(double2* y, int64_t i, double2 v) {
   y[i] = v;
 }
 __device__ __forceinline__ void st(const Planes& y, int64_t i, float2 v) {
@@ -231,6 +291,12 @@ __host__ __device__ inline const float2* shift(const float2* x, int64_t o) {
   return x + o;
 }
 __host__ __device__ inline float2* shift(float2* x, int64_t o) { return x + o; }
+__host__ __device__ inline const double2* shift(const double2* x, int64_t o) {
+  return x + o;
+}
+__host__ __device__ inline double2* shift(double2* x, int64_t o) {
+  return x + o;
+}
 __host__ __device__ inline ConstPlanes shift(const ConstPlanes& x, int64_t o) {
   return ConstPlanes{x.re + o, x.im + o};
 }
@@ -242,10 +308,10 @@ __host__ __device__ inline Planes shift(const Planes& x, int64_t o) {
 // column t at tile_pos(i)*es + t); ends with __syncthreads.  The walk goes
 // columns fastest where columns are contiguous in device memory, else
 // elements fastest.
-template <class X>
-__device__ inline void tile_load(const Pass& p, int64_t b, int64_t c0, X x,
-                                 float2* dst) {
-  const Sub& s = p.sub;
+template <class R, class X>
+__device__ inline void tile_load(const PassT<R>& p, int64_t b, int64_t c0, X x,
+                                 cplx<R>* dst) {
+  const SubT<R>& s = p.sub;
   const int m = s.m;
   const int T = p.T;
   const int es = tile_pitch(T);
@@ -266,10 +332,10 @@ __device__ inline void tile_load(const Pass& p, int64_t b, int64_t c0, X x,
 // twiddle (if any) and scale, to y[b*obs + k*oks + (c0+t)*ocs]; ends with
 // __syncthreads, so the block's global writes are visible to all its
 // threads afterwards.
-template <class Y>
-__device__ inline void tile_store(const Pass& p, int64_t b, int64_t c0,
-                                  const float2* res, Y y) {
-  const Sub& s = p.sub;
+template <class R, class Y>
+__device__ inline void tile_store(const PassT<R>& p, int64_t b, int64_t c0,
+                                  const cplx<R>* res, Y y) {
+  const SubT<R>& s = p.sub;
   const int m = s.m;
   const int T = p.T;
   const int es = tile_pitch(T);
@@ -282,34 +348,36 @@ __device__ inline void tile_store(const Pass& p, int64_t b, int64_t c0,
     const int k = cols_fast ? e / T : e % m;
     const int t = cols_fast ? e - k * T : e / m;
     if (t >= tv) continue;
-    float2 v = res[tile_pos(s, k) * es + t];
+    cplx<R> v = res[tile_pos(s, k) * es + t];
     if (p.twr) {
       const int64_t ti = (c0 + t) * p.tcs + k * p.tks;
-      v = cmul(v, make_float2(__ldg(p.twr + ti), __ldg(p.twi + ti)));
+      v = cmul(v, mkc(__ldg(p.twr + ti), __ldg(p.twi + ti)));
     }
-    st(y, yo + k * p.oks + t * p.ocs, make_float2(p.scale * v.x, p.scale * v.y));
+    st(y, yo + k * p.oks + t * p.ocs, mkc(p.scale * v.x, p.scale * v.y));
   }
   __syncthreads();
 }
 
 // One tile of a pass: columns c0 .. c0+T-1 of batch b, loaded, transformed,
 // stored.
-template <class X, class Y>
-__device__ inline void pass_tile(const Pass& p, int64_t b, int64_t c0, X x,
-                                 Y y, const TileSmem& sm) {
+template <class R, class X, class Y>
+__device__ inline void pass_tile(const PassT<R>& p, int64_t b, int64_t c0, X x,
+                                 Y y, const TileSmemT<R>& sm) {
   tile_load(p, b, c0, x, sm.b0);
-  const float2* res =
+  const cplx<R>* res =
       sub_dft(p.sub, sm.ra, sm.rb, sm.b0, sm.b1, p.T, tile_pitch(p.T));
   tile_store(p, b, c0, res, y);
 }
 
 // The body of every pass kernel: the blocks share out the tiles.  x and y
 // may be the same buffer when a tile is read only by the block that writes
-// it.
-template <class X, class Y>
-__device__ inline void run_pass(const Pass& p, X x, Y y) {
+// it.  The dynamic shared memory, declared float2 in every kernel, holds
+// elements of the pass's own type.
+template <class R, class X, class Y>
+__device__ inline void run_pass(const PassT<R>& p, X x, Y y) {
   extern __shared__ float2 smem[];
-  const TileSmem sm = tile_smem(p.sub, p.T, smem);
+  const TileSmemT<R> sm =
+      tile_smem(p.sub, p.T, reinterpret_cast<cplx<R>*>(smem));
   load_sub_roots(p.sub, sm);
   const int64_t per_batch = (p.ncols + p.T - 1) / p.T;
   const int64_t ntiles = p.nbatch * per_batch;
@@ -328,10 +396,12 @@ struct Slices {
   int64_t n, is, os, ts;
 };
 
-template <class X, class Y>
-__device__ inline void run_sliced(const Pass& p, const Slices& sl, X x, Y y) {
+template <class R, class X, class Y>
+__device__ inline void run_sliced(const PassT<R>& p, const Slices& sl, X x,
+                                  Y y) {
   extern __shared__ float2 smem[];
-  const TileSmem sm = tile_smem(p.sub, p.T, smem);
+  const TileSmemT<R> sm =
+      tile_smem(p.sub, p.T, reinterpret_cast<cplx<R>*>(smem));
   load_sub_roots(p.sub, sm);
   const int64_t per = (p.ncols + p.T - 1) / p.T;
   const int64_t ntiles = p.nbatch * sl.n * per;
@@ -339,7 +409,7 @@ __device__ inline void run_sliced(const Pass& p, const Slices& sl, X x, Y y) {
     const int64_t bs = tile / per;
     const int64_t b = bs / sl.n;
     const int64_t s = bs - b * sl.n;
-    Pass q = p;
+    PassT<R> q = p;
     if (p.twr) {
       q.twr = p.twr + s * sl.ts;
       q.twi = p.twi + s * sl.ts;
@@ -364,7 +434,8 @@ inline int launch_tiles(Kernel kernel, size_t smem, int64_t tiles,
   return int(cudaGetLastError());
 }
 
-inline int64_t pass_tiles(const Pass& p) {
+template <class R>
+inline int64_t pass_tiles(const PassT<R>& p) {
   return p.nbatch * ((p.ncols + p.T - 1) / p.T);
 }
 
@@ -384,7 +455,8 @@ constexpr int kTileMax = 8192;
 constexpr size_t kSmemMax = 232448;
 
 // The largest tile width up to T whose shared memory fits.
-inline int fit_tile(const Sub& s, int T) {
+template <class R>
+inline int fit_tile(const SubT<R>& s, int T) {
   while (T > 1 && pass_smem_bytes(s, T) > kSmemMax) --T;
   return T;
 }
@@ -393,14 +465,23 @@ inline int fit_tile(const Sub& s, int T) {
 // copy of the kernel and of the functions that launch it.
 namespace {
 
+// The scalar of a pass's buffer x (float2 or double2 elements, or float
+// planes).
+float buffer_scalar(const float2*);
+float buffer_scalar(const ConstPlanes&);
+float buffer_scalar(const Planes&);
+double buffer_scalar(const double2*);
+template <class X>
+using buffer_scalar_t = decltype(buffer_scalar(std::declval<X>()));
+
 template <class X, class Y>
 __global__ void __launch_bounds__(kThreads)
-    sliced_kernel(Pass p, Slices sl, X x, Y y) {
+    sliced_kernel(PassT<buffer_scalar_t<X>> p, Slices sl, X x, Y y) {
   run_sliced(p, sl, x, y);
 }
 
-template <class X, class Y>
-int launch_sliced(const Pass& p, const Slices& sl, X x, Y y,
+template <class R, class X, class Y>
+int launch_sliced(const PassT<R>& p, const Slices& sl, X x, Y y,
                   cudaStream_t stream) {
   const int64_t tiles = p.nbatch * sl.n * ((p.ncols + p.T - 1) / p.T);
   return launch_tiles(sliced_kernel<X, Y>, pass_smem_bytes(p.sub, p.T), tiles,
@@ -415,15 +496,16 @@ int launch_sliced(const Pass& p, const Slices& sl, X x, Y y,
 //   launch 2: per slice k1 < a, the 128-point DFT down n2 of q, stored as
 //             p stores output k = k1 + a*k2 (its twiddle and scale too).
 // That doubles the bytes the pass moves.  Returns a cudaError_t.
-template <class X, class Y>
-int launch_column(const Pass& p, X x, float2* q, Y y, cudaStream_t stream) {
-  const Sub& s = p.sub;
+template <class R, class X, class Y>
+int launch_column(const PassT<R>& p, X x, cplx<R>* q, Y y,
+                  cudaStream_t stream) {
+  const SubT<R>& s = p.sub;
   if (s.m <= kTileMax) return launch_sliced(p, Slices{1, 0, 0, 0}, x, y, stream);
   if (s.a == 0 || q == nullptr) return int(cudaErrorInvalidValue);
   const int a = s.a;
   const int64_t nc = p.ncols;
-  Pass p1 = p;
-  p1.sub = Sub{a, 0, s.wr, s.wi, nullptr, nullptr, nullptr, nullptr};
+  PassT<R> p1 = p;
+  p1.sub = SubT<R>{a, 0, s.wr, s.wi, nullptr, nullptr, nullptr, nullptr};
   p1.T = fit_tile(p1.sub, pick_tile(a, nc, 4096, 8));
   p1.iis = 128 * p.iis;
   p1.obs = int64_t(s.m) * nc;
@@ -433,12 +515,12 @@ int launch_column(const Pass& p, X x, float2* q, Y y, cudaStream_t stream) {
   p1.twi = s.ui;
   p1.tcs = 0;
   p1.tks = 128;
-  p1.scale = 1.f;
+  p1.scale = R(1);
   int err = launch_sliced(p1, Slices{128, p.iis, int64_t(a) * nc, 1}, x, q,
                           stream);
   if (err) return err;
-  Pass p2 = p;
-  p2.sub = Sub{128, 0, s.br, s.bi, nullptr, nullptr, nullptr, nullptr};
+  PassT<R> p2 = p;
+  p2.sub = SubT<R>{128, 0, s.br, s.bi, nullptr, nullptr, nullptr, nullptr};
   p2.T = fit_tile(p2.sub, pick_tile(128, nc, 4096, 8));
   p2.ibs = int64_t(s.m) * nc;
   p2.iis = int64_t(a) * nc;
@@ -446,7 +528,7 @@ int launch_column(const Pass& p, X x, float2* q, Y y, cudaStream_t stream) {
   p2.oks = int64_t(a) * p.oks;
   p2.tks = int64_t(a) * p.tks;
   return launch_sliced(p2, Slices{a, nc, p.oks, p.tks},
-                       static_cast<const float2*>(q), y, stream);
+                       static_cast<const cplx<R>*>(q), y, stream);
 }
 
 }  // namespace

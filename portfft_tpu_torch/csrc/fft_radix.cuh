@@ -34,7 +34,9 @@
 // The roots come from the sub's root table in shared memory (row 1 of the
 // bank's DFT matrix, w_len^e = root[e]; load_sub_roots); the direction is
 // the sign of Im root[1].  The device evaluates no sin or cos.  fp32 FMA
-// throughout, no TF32: the error grows as log2 len.
+// throughout, no TF32: the error grows as log2 len.  The stages themselves
+// (Bfly, stage, stage_p, run_stage, stage_odd) take the element type C,
+// float2 or double2 (K9 at fp64, fft_real.cu), and compute in its scalar.
 //
 // What bounds it: a stage reads and writes each element of the tile once in
 // shared memory and does about log2 R complex multiply-adds an element, so
@@ -79,13 +81,34 @@ __host__ __device__ inline Stages stages(int len) {
 __device__ __forceinline__ float2 add(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
 }
+__device__ __forceinline__ double2 add(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
 __device__ __forceinline__ float2 sub(float2 a, float2 b) {
   return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ double2 sub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
 }
 // a * (sg * i)
 __device__ __forceinline__ float2 rot(float2 a, float sg) {
   return make_float2(-sg * a.y, sg * a.x);
 }
+__device__ __forceinline__ double2 rot(double2 a, double sg) {
+  return make_double2(-sg * a.y, sg * a.x);
+}
+
+// sin(pi/3) and cos(pi/4) in the scalar of the argument.
+__device__ __forceinline__ float sin_pi3(float) { return 0.86602540378443865f; }
+__device__ __forceinline__ double sin_pi3(double) {
+  return 0.86602540378443864676;
+}
+__device__ __forceinline__ float cos_pi4(float) { return 0.70710678118654752f; }
+__device__ __forceinline__ double cos_pi4(double) {
+  return 0.70710678118654752440;
+}
+
+using pfft::scalar_of;
 
 // v <- the R-point DFT of v, w_R = exp(sg*2*pi*i/R), natural order.
 template <int R>
@@ -93,8 +116,9 @@ struct Bfly;
 
 template <>
 struct Bfly<2> {
-  static __device__ __forceinline__ void run(float2 (&v)[2], float) {
-    const float2 a = v[0];
+  template <class C>
+  static __device__ __forceinline__ void run(C (&v)[2], scalar_of<C>) {
+    const C a = v[0];
     v[0] = add(a, v[1]);
     v[1] = sub(a, v[1]);
   }
@@ -102,12 +126,14 @@ struct Bfly<2> {
 
 template <>
 struct Bfly<3> {
-  static __device__ __forceinline__ void run(float2 (&v)[3], float sg) {
-    const float s = sg * 0.86602540378443865f;  // Im w_3
-    const float2 t1 = add(v[1], v[2]), t2 = sub(v[1], v[2]);
-    const float2 m = make_float2(fmaf(-0.5f, t1.x, v[0].x),
-                                 fmaf(-0.5f, t1.y, v[0].y));
-    const float2 r = make_float2(-s * t2.y, s * t2.x);
+  template <class C>
+  static __device__ __forceinline__ void run(C (&v)[3], scalar_of<C> sg) {
+    using S = scalar_of<C>;
+    const S s = sg * sin_pi3(sg);  // Im w_3
+    const C t1 = add(v[1], v[2]), t2 = sub(v[1], v[2]);
+    const C m = pfft::mkc(pfft::mad(S(-0.5), t1.x, v[0].x),
+                          pfft::mad(S(-0.5), t1.y, v[0].y));
+    const C r = pfft::mkc(-s * t2.y, s * t2.x);
     v[0] = add(v[0], t1);
     v[1] = add(m, r);
     v[2] = sub(m, r);
@@ -116,9 +142,10 @@ struct Bfly<3> {
 
 template <>
 struct Bfly<4> {
-  static __device__ __forceinline__ void run(float2 (&v)[4], float sg) {
-    const float2 a = add(v[0], v[2]), b = sub(v[0], v[2]);
-    const float2 c = add(v[1], v[3]), d = rot(sub(v[1], v[3]), sg);
+  template <class C>
+  static __device__ __forceinline__ void run(C (&v)[4], scalar_of<C> sg) {
+    const C a = add(v[0], v[2]), b = sub(v[0], v[2]);
+    const C c = add(v[1], v[3]), d = rot(sub(v[1], v[3]), sg);
     v[0] = add(a, c);
     v[1] = add(b, d);
     v[2] = sub(a, c);
@@ -130,15 +157,17 @@ struct Bfly<4> {
 // w_8^q O[q].
 template <>
 struct Bfly<8> {
-  static __device__ __forceinline__ void run(float2 (&v)[8], float sg) {
-    float2 e[4] = {v[0], v[2], v[4], v[6]};
-    float2 o[4] = {v[1], v[3], v[5], v[7]};
+  template <class C>
+  static __device__ __forceinline__ void run(C (&v)[8], scalar_of<C> sg) {
+    using S = scalar_of<C>;
+    C e[4] = {v[0], v[2], v[4], v[6]};
+    C o[4] = {v[1], v[3], v[5], v[7]};
     Bfly<4>::run(e, sg);
     Bfly<4>::run(o, sg);
-    const float c = 0.70710678118654752f;  // cos(pi/4)
-    o[1] = make_float2(c * (o[1].x - sg * o[1].y), c * (o[1].y + sg * o[1].x));
+    const S c = cos_pi4(sg);
+    o[1] = pfft::mkc(c * (o[1].x - sg * o[1].y), c * (o[1].y + sg * o[1].x));
     o[2] = rot(o[2], sg);
-    o[3] = make_float2(-c * (o[3].x + sg * o[3].y), c * (sg * o[3].x - o[3].y));
+    o[3] = pfft::mkc(-c * (o[3].x + sg * o[3].y), c * (sg * o[3].x - o[3].y));
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       v[q] = add(e[q], o[q]);
@@ -158,7 +187,8 @@ struct Strided {
 };
 
 struct Keep {
-  __device__ __forceinline__ float2 operator()(int, int, float2 v) const {
+  template <class C>
+  __device__ __forceinline__ C operator()(int, int, C v) const {
     return v;
   }
 };
@@ -166,9 +196,9 @@ struct Keep {
 // One radix-R stage of nvec len-point vectors, element i of vector u at
 // base(u) + i*step in src; output k of vector u to dst[out(u, k)] as
 // post(u, k, y).  Consecutive threads take consecutive vectors.
-template <int R, class Base, class Out, class Post>
-__device__ inline void stage(const float2* src, float2* dst, int len, int ns,
-                             int nvec, int step, const float2* root, float sg,
+template <int R, class C, class Base, class Out, class Post>
+__device__ inline void stage(const C* src, C* dst, int len, int ns, int nvec,
+                             int step, const C* root, scalar_of<C> sg,
                              Base base, Out out, Post post) {
   const int m = len / R;
   const int tw = len / (ns * R);
@@ -177,8 +207,8 @@ __device__ inline void stage(const float2* src, float2* dst, int len, int ns,
     const int j = e / nvec;
     const int u = e - j * nvec;
     const int k = j % ns;
-    const float2* x = src + base(u);
-    float2 v[R];
+    const C* x = src + base(u);
+    C v[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) v[r] = x[(j + r * m) * step];
     if (ns > 1) {
@@ -197,10 +227,11 @@ __device__ inline void stage(const float2* src, float2* dst, int len, int ns,
 // vector is sum_r src[j + r*len/p] * root[(r*(k + q*ns)*tw) mod len], j =
 // jj*ns + k, tw = len/(ns*p): the stage twiddle and the p-point DFT in one
 // root index.  One output a thread.
-template <class Base, class Out, class Post>
-__device__ inline void stage_p(const float2* src, float2* dst, int len, int ns,
-                               int nvec, int step, const float2* root, int p,
-                               Base base, Out out, Post post) {
+template <class C, class Base, class Out, class Post>
+__device__ inline void stage_p(const C* src, C* dst, int len, int ns, int nvec,
+                               int step, const C* root, int p, Base base,
+                               Out out, Post post) {
+  using S = scalar_of<C>;
   const int m = len / p;
   const int tw = len / (ns * p);
   const int total = len * nvec;
@@ -212,28 +243,28 @@ __device__ inline void stage_p(const float2* src, float2* dst, int len, int ns,
     const int q = jq % p;
     const int j = (jq / p) * ns + k;
     const int de = (k + q * ns) * tw;
-    const float2* x = src + base(u) + j * step;
-    float re = 0.f, im = 0.f;
+    const C* x = src + base(u) + j * step;
+    S re = 0, im = 0;
     int ri = 0;
     for (int r = 0; r < p; ++r) {
-      const float2 v = x[r * m * step];
-      const float2 w = root[ri];
-      re = fmaf(v.x, w.x, re);
-      re = fmaf(-v.y, w.y, re);
-      im = fmaf(v.x, w.y, im);
-      im = fmaf(v.y, w.x, im);
+      const C v = x[r * m * step];
+      const C w = root[ri];
+      re = pfft::mad(v.x, w.x, re);
+      re = pfft::mad(-v.y, w.y, re);
+      im = pfft::mad(v.x, w.y, im);
+      im = pfft::mad(v.y, w.x, im);
       ri += de;
       if (ri >= len) ri -= len;
     }
-    dst[out(u, o)] = post(u, o, make_float2(re, im));
+    dst[out(u, o)] = post(u, o, pfft::mkc(re, im));
   }
 }
 
-template <class Base, class Out, class Post>
-__device__ inline void run_stage(int r, const float2* src, float2* dst,
-                                 int len, int ns, int nvec, int step,
-                                 const float2* root, float sg, Base base,
-                                 Out out, Post post) {
+template <class C, class Base, class Out, class Post>
+__device__ inline void run_stage(int r, const C* src, C* dst, int len, int ns,
+                                 int nvec, int step, const C* root,
+                                 scalar_of<C> sg, Base base, Out out,
+                                 Post post) {
   switch (r) {
     case 2:
       stage<2>(src, dst, len, ns, nvec, step, root, sg, base, out, post);
@@ -288,11 +319,11 @@ __device__ inline float2* dft(float2* cur, float2* other, int len, int nvec,
 // That is 4*H*H real multiply-adds per P outputs where stage_p takes 4*P*P,
 // and each input is read from the tile once where stage_p reads it P times.
 // The same outputs as stage_p, summed in another order.
-template <int P, class Base, class Out, class Post>
-__device__ inline void stage_odd(const float2* src, float2* dst, int len,
-                                 int ns, int nvec, int step,
-                                 const float2* root, Base base, Out out,
-                                 Post post) {
+template <int P, class C, class Base, class Out, class Post>
+__device__ inline void stage_odd(const C* src, C* dst, int len, int ns,
+                                 int nvec, int step, const C* root, Base base,
+                                 Out out, Post post) {
+  using S = scalar_of<C>;
   constexpr int H = (P - 1) / 2;
   const int m = len / P;
   const int tw = len / (ns * P);
@@ -301,14 +332,14 @@ __device__ inline void stage_odd(const float2* src, float2* dst, int len,
     const int j = e / nvec;
     const int u = e - j * nvec;
     const int k = j % ns;
-    const float2* x = src + base(u);
-    const float2 v0 = x[j * step];
-    float2 a[H], b[H];
-    float2 y0 = v0;
+    const C* x = src + base(u);
+    const C v0 = x[j * step];
+    C a[H], b[H];
+    C y0 = v0;
 #pragma unroll
     for (int r = 1; r <= H; ++r) {
-      float2 lo = x[(j + r * m) * step];
-      float2 hi = x[(j + (P - r) * m) * step];
+      C lo = x[(j + r * m) * step];
+      C hi = x[(j + (P - r) * m) * step];
       if (ns > 1) {
         lo = pfft::cmul(lo, root[r * k * tw]);
         hi = pfft::cmul(hi, root[(P - r) * k * tw]);
@@ -321,19 +352,21 @@ __device__ inline void stage_odd(const float2* src, float2* dst, int len,
     dst[out(u, d)] = post(u, d, y0);
 #pragma unroll
     for (int q = 1; q <= H; ++q) {
-      float2 A = v0, B = make_float2(0.f, 0.f);
+      C A = v0, B = pfft::mkc(S(0), S(0));
 #pragma unroll
       for (int r = 1; r <= H; ++r) {
         const int e = (r * q) % P;
-        const float2 w = root[(e <= H ? e : P - e) * m];
-        const float s = e <= H ? w.y : -w.y;
-        A = make_float2(fmaf(a[r - 1].x, w.x, A.x), fmaf(a[r - 1].y, w.x, A.y));
-        B = make_float2(fmaf(b[r - 1].x, s, B.x), fmaf(b[r - 1].y, s, B.y));
+        const C w = root[(e <= H ? e : P - e) * m];
+        const S s = e <= H ? w.y : -w.y;
+        A = pfft::mkc(pfft::mad(a[r - 1].x, w.x, A.x),
+                      pfft::mad(a[r - 1].y, w.x, A.y));
+        B = pfft::mkc(pfft::mad(b[r - 1].x, s, B.x),
+                      pfft::mad(b[r - 1].y, s, B.y));
       }
       const int o = d + q * ns;
       const int o2 = d + (P - q) * ns;
-      dst[out(u, o)] = post(u, o, make_float2(A.x - B.y, A.y + B.x));
-      dst[out(u, o2)] = post(u, o2, make_float2(A.x + B.y, A.y - B.x));
+      dst[out(u, o)] = post(u, o, pfft::mkc(A.x - B.y, A.y + B.x));
+      dst[out(u, o2)] = post(u, o2, pfft::mkc(A.x + B.y, A.y - B.x));
     }
   }
 }

@@ -64,30 +64,41 @@
 // stages: 5, 3, 3, 2).  A prime h above 23 (n = 254, 502) runs as one stage of pair sums,
 // (h-1)/2 terms an output pair: bound by those sums, not by bytes.
 // All index math that touches device memory is 64-bit.
+//
+// K9 at fp64 (pf_small_real_f64) is the same kernel body on double: double2
+// elements (a row of n reals is h double2), double tables, double FMAs, 16-byte
+// cp.async copies, and tiles sized for double2 (small_rows); its __global__
+// functions are small_real_{fwd,bwd}_f64_kernel.
 #include "fft_radix.cuh"
 
 namespace {
 
-__device__ __forceinline__ float2 untangle_bin(float2 z, float2 r, float2 w,
-                                               float scale) {
-  const float er = 0.5f * (z.x + r.x);
-  const float ei = 0.5f * (z.y - r.y);
-  const float our = 0.5f * (z.y + r.y);
-  const float oui = -0.5f * (z.x - r.x);
-  const float tr = our * w.x - oui * w.y;
-  const float ti = our * w.y + oui * w.x;
-  return make_float2((er + tr) * scale, (ei + ti) * scale);
+using pfft::cplx;
+using pfft::mkc;
+using pfft::scalar_of;
+
+template <class C>
+__device__ __forceinline__ C untangle_bin(C z, C r, C w, scalar_of<C> scale) {
+  using S = scalar_of<C>;
+  const S er = S(0.5) * (z.x + r.x);
+  const S ei = S(0.5) * (z.y - r.y);
+  const S our = S(0.5) * (z.y + r.y);
+  const S oui = S(-0.5) * (z.x - r.x);
+  const S tr = our * w.x - oui * w.y;
+  const S ti = our * w.y + oui * w.x;
+  return mkc((er + tr) * scale, (ei + ti) * scale);
 }
 
-__device__ __forceinline__ float2 retangle_bin(float2 a, float2 c, float2 w,
-                                               float scale) {
-  const float e2r = a.x + c.x;
-  const float e2i = a.y - c.y;
-  const float n2r = a.x - c.x;
-  const float n2i = a.y + c.y;
-  const float o2r = n2r * w.x - n2i * w.y;
-  const float o2i = n2r * w.y + n2i * w.x;
-  return make_float2((e2r - o2i) * scale, (e2i + o2r) * scale);
+template <class C>
+__device__ __forceinline__ C retangle_bin(C a, C c, C w, scalar_of<C> scale) {
+  using S = scalar_of<C>;
+  const S e2r = a.x + c.x;
+  const S e2i = a.y - c.y;
+  const S n2r = a.x - c.x;
+  const S n2i = a.y + c.y;
+  const S o2r = n2r * w.x - n2i * w.y;
+  const S o2i = n2r * w.y + n2i * w.x;
+  return mkc((e2r - o2i) * scale, (e2i + o2r) * scale);
 }
 
 __device__ __forceinline__ float2 twiddle(const float* wr, const float* wi,
@@ -230,12 +241,20 @@ struct FastDiv {
   }
 };
 
-// One 8-byte copy from device to shared memory, in flight until
-// cp_async_wait(): no register holds it.
-__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+// One element's copy from device to shared memory (8 bytes a float2, 16 a
+// double2), in flight until cp_async_wait(): no register holds it.
+__device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
 #ifdef __CUDA_ARCH__
   const unsigned d = unsigned(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_async(double2* dst, const double2* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 #else
   *dst = *src;
 #endif
@@ -247,23 +266,25 @@ __device__ __forceinline__ void cp_async_wait() {
 #endif
 }
 
-// K9's launch: h = n/2, T rows a tile, m_in / m_out float2 a row read and
-// written (h and h+1 forward, h+1 and h backward), and the divisions by
-// m_in, m_out and T.
-struct SmallReal {
+// K9's launch: h = n/2, T rows a tile, m_in / m_out elements (float2 or
+// double2) a row read and written (h and h+1 forward, h+1 and h backward),
+// and the divisions by m_in, m_out and T.
+template <class S>
+struct SmallRealT {
   int h, T;
   int64_t batch;
   int m_in, m_out;
-  float scale;
+  S scale;
   FastDiv div_in, div_out, div_T;
 };
+using SmallReal = SmallRealT<float>;
 
 // Tiles of K9 in shared memory: three of T columns of h+1 elements (the
 // tile in work, its ping-pong partner, and the next tile landing), after
-// the root tables W^k = w_n^k and w_h^e = w_n^(2e) of h entries each.
-size_t small_smem_bytes(int h, int T) {
-  return sizeof(float2) *
-         (2 * size_t(h) + 3 * size_t(h + 1) * pfft::tile_pitch(T));
+// the root tables W^k = w_n^k and w_h^e = w_n^(2e) of h entries each;
+// `elem` bytes an element.
+size_t small_smem_bytes(int h, int T, size_t elem) {
+  return elem * (2 * size_t(h) + 3 * size_t(h + 1) * pfft::tile_pitch(T));
 }
 
 // The odd prime above 5 whose stage K9 runs in registers for h: the
@@ -281,10 +302,11 @@ int small_odd_prime(int h) {
 // round that is partly idle costs a whole one: T is the even width, from
 // the most that two blocks on an SM hold down to half of it, with the
 // fewest rounds a row (an even T keeps the column pitch T+1 odd, off a
-// single bank).  One tile of the whole batch where it fits.
-int small_rows(int h, int64_t batch) {
+// single bank).  One tile of the whole batch where it fits.  `elem` bytes
+// an element.
+int small_rows(int h, int64_t batch, size_t elem) {
   const int64_t fit =
-      (int64_t(pfft_radix::kBlockSmem / sizeof(float2)) - 2 * h) / (3 * (h + 1)) - 1;
+      (int64_t(pfft_radix::kBlockSmem / elem) - 2 * h) / (3 * (h + 1)) - 1;
   if (batch <= fit) return int(batch);
   if (fit < 2) return 1;
   const pfft_radix::Stages st = pfft_radix::stages(h);
@@ -316,11 +338,11 @@ int small_rows(int h, int64_t batch) {
 // Per output pair that is 3 reads of the tile a term where stage_p takes 8,
 // and a quarter of its multiply-adds.  Consecutive threads take
 // consecutive vectors.
-template <class Base, class Out, class Post>
-__device__ inline void stage_pairs(const float2* src, float2* dst, int len,
-                                   int ns, int nvec, int step,
-                                   const float2* root, int p, Base base,
-                                   Out out, Post post) {
+template <class C, class Base, class Out, class Post>
+__device__ inline void stage_pairs(const C* src, C* dst, int len, int ns,
+                                   int nvec, int step, const C* root, int p,
+                                   Base base, Out out, Post post) {
+  using S = scalar_of<C>;
   const int m = len / p;
   const int tw = len / (ns * p);
   const int H = (p - 1) / 2;
@@ -331,32 +353,32 @@ __device__ inline void stage_pairs(const float2* src, float2* dst, int len,
     const int j = jq / (H + 1);
     const int q = jq - j * (H + 1);
     const int k = j % ns;
-    const float2* x = src + base(u);
+    const C* x = src + base(u);
     const auto in = [&](int r) {
-      const float2 v = x[(j + r * m) * step];
+      const C v = x[(j + r * m) * step];
       return ns > 1 ? pfft::cmul(v, root[r * k * tw]) : v;
     };
-    const float2 v0 = x[j * step];
-    float2 A = v0, B = make_float2(0.f, 0.f);
+    const C v0 = x[j * step];
+    C A = v0, B = mkc(S(0), S(0));
     int ei = 0;
     for (int r = 1; r <= H; ++r) {
-      const float2 lo = in(r), hi = in(p - r);
+      const C lo = in(r), hi = in(p - r);
       ei += q;
       if (ei >= p) ei -= p;
-      const float2 w = root[ei * m];
+      const C w = root[ei * m];
       if (q == 0) {
         A = pfft_radix::add(A, pfft_radix::add(lo, hi));
       } else {
-        A = make_float2(fmaf(lo.x + hi.x, w.x, A.x), fmaf(lo.y + hi.y, w.x, A.y));
-        B = make_float2(fmaf(lo.x - hi.x, w.y, B.x), fmaf(lo.y - hi.y, w.y, B.y));
+        A = mkc(pfft::mad(lo.x + hi.x, w.x, A.x), pfft::mad(lo.y + hi.y, w.x, A.y));
+        B = mkc(pfft::mad(lo.x - hi.x, w.y, B.x), pfft::mad(lo.y - hi.y, w.y, B.y));
       }
     }
     const int d = (j - k) * p + k;
     const int o = d + q * ns;
-    dst[out(u, o)] = post(u, o, make_float2(A.x - B.y, A.y + B.x));
+    dst[out(u, o)] = post(u, o, mkc(A.x - B.y, A.y + B.x));
     if (q != 0) {
       const int o2 = d + (p - q) * ns;
-      dst[out(u, o2)] = post(u, o2, make_float2(A.x + B.y, A.y - B.x));
+      dst[out(u, o2)] = post(u, o2, mkc(A.x + B.y, A.y - B.x));
     }
   }
 }
@@ -364,11 +386,11 @@ __device__ inline void stage_pairs(const float2* src, float2* dst, int len,
 // pfft_radix::run_stage with radix 5 and P (if P > 5) on stage_odd and any
 // other odd prime on stage_pairs: one or two odd stages' registers, where
 // run_stage_odd's switch holds all seven and pushes the kernel into spills.
-template <int P, class Base, class Out, class Post>
-__device__ inline void small_stage(int r, const float2* src, float2* dst,
-                                   int len, int ns, int nvec, int step,
-                                   const float2* root, float sg, Base base,
-                                   Out out, Post post) {
+template <int P, class C, class Base, class Out, class Post>
+__device__ inline void small_stage(int r, const C* src, C* dst, int len,
+                                   int ns, int nvec, int step, const C* root,
+                                   scalar_of<C> sg, Base base, Out out,
+                                   Post post) {
   if (r == 5)
     pfft_radix::stage_odd<5>(src, dst, len, ns, nvec, step, root, base, out,
                              post);
@@ -384,11 +406,12 @@ __device__ inline void small_stage(int r, const float2* src, float2* dst,
 
 // The h-point FFT of the T columns in cur (pfft_radix::dft_odd's stages on
 // small_stage), between cur and other; returns the buffer that holds it.
-template <int P>
-__device__ inline float2* small_fft(float2* cur, float2* other, int h, int T,
-                                    int es, const float2* root) {
+template <int P, class C>
+__device__ inline C* small_fft(C* cur, C* other, int h, int T, int es,
+                               const C* root) {
+  using S = scalar_of<C>;
   const pfft_radix::Stages st = pfft_radix::stages(h);
-  const float sg = h > 2 && root[1].y < 0.f ? -1.f : 1.f;
+  const S sg = h > 2 && root[1].y < S(0) ? S(-1) : S(1);
   const auto col = [](int t) { return t; };
   const pfft_radix::Strided<decltype(col)> at{col, es};
   int ns = 1;
@@ -396,7 +419,7 @@ __device__ inline float2* small_fft(float2* cur, float2* other, int h, int T,
     small_stage<P>(st.r[s], cur, other, h, ns, T, es, root, sg, col, at,
                    pfft_radix::Keep{});
     __syncthreads();
-    float2* t = cur;
+    C* t = cur;
     cur = other;
     other = t;
     ns *= st.r[s];
@@ -411,35 +434,36 @@ __device__ inline float2* small_fft(float2* cur, float2* other, int h, int T,
 // h-point FFT of z = x_even + i*x_odd, then the untangle of each bin pair
 // in place; backward: the retangle in place, then the inverse FFT.  The
 // store writes whole rows, times the scale.  wr/wi: the n x n DFT planes of
-// the direction.
-template <bool kForward, int P>
-__device__ inline void small_real_tiles(const SmallReal& k, const float2* x,
-                                        float2* y, const float* wr,
-                                        const float* wi) {
+// the direction.  S: the scalar, float or double; the dynamic shared memory,
+// declared float2, holds its elements.
+template <class S, bool kForward, int P>
+__device__ inline void small_real_tiles(const SmallRealT<S>& k,
+                                        const cplx<S>* x, cplx<S>* y,
+                                        const S* wr, const S* wi) {
+  using C = cplx<S>;
   extern __shared__ float2 smem[];
   const int h = k.h;
   const int n = 2 * h;
   const int T = k.T;
   const int es = pfft::tile_pitch(T);
-  float2* const rw = smem;
-  float2* const rh = rw + h;
-  float2* const buf[3] = {rh + h, rh + h + (h + 1) * es,
-                          rh + h + 2 * (h + 1) * es};
+  C* const rw = reinterpret_cast<C*>(smem);
+  C* const rh = rw + h;
+  C* const buf[3] = {rh + h, rh + h + (h + 1) * es, rh + h + 2 * (h + 1) * es};
   for (int i = threadIdx.x; i < h; i += blockDim.x) {  // row 1 of the planes
-    rw[i] = make_float2(__ldg(wr + n + i), __ldg(wi + n + i));
-    rh[i] = make_float2(__ldg(wr + n + 2 * i), __ldg(wi + n + 2 * i));
+    rw[i] = mkc(__ldg(wr + n + i), __ldg(wi + n + i));
+    rh[i] = mkc(__ldg(wr + n + 2 * i), __ldg(wi + n + 2 * i));
   }
   const int64_t ntiles = (k.batch + T - 1) / T;
   const auto rows_of = [&](int64_t tile) {
     const int64_t left = k.batch - tile * T;
     return left < T ? int(left) : T;
   };
-  const auto load = [&](int64_t tile, float2* dst) {
-    const float2* src = x + tile * T * k.m_in;
+  const auto load = [&](int64_t tile, C* dst) {
+    const C* src = x + tile * T * k.m_in;
     const int total = rows_of(tile) * k.m_in;
     for (int e = threadIdx.x; e < total; e += blockDim.x) {
       const int t = k.div_in(e);
-      cp_async8(dst + (e - t * k.m_in) * es + t, src + e);
+      cp_async(dst + (e - t * k.m_in) * es + t, src + e);
     }
   };
   const int pairs = h / 2 + 1;
@@ -448,21 +472,21 @@ __device__ inline void small_real_tiles(const SmallReal& k, const float2* x,
   for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     cp_async_wait();
     __syncthreads();  // the tile has landed; the spare buffer is free
-    float2* const b0 = buf[cur];
-    float2* const b1 = buf[cur == 2 ? 0 : cur + 1];
+    C* const b0 = buf[cur];
+    C* const b1 = buf[cur == 2 ? 0 : cur + 1];
     cur = cur == 0 ? 2 : cur - 1;
     if (tile + gridDim.x < ntiles) load(tile + gridDim.x, buf[cur]);
-    float2* z = b0;
+    C* z = b0;
     if (kForward) {
       z = small_fft<P>(b0, b1, h, T, es, rh);
       // the bin pair (q, (h-q) mod h) of row t; q = 0 also gives X[h]
       for (int e = threadIdx.x; e < pairs * T; e += blockDim.x) {
         const int q = k.div_T(e), t = e - q * T;
         const int q2 = q == 0 ? 0 : h - q;
-        const float2 a = z[q * es + t], b = z[q2 * es + t];
-        z[q * es + t] = untangle_bin(a, b, rw[q], 1.f);
-        if (q2 != q) z[q2 * es + t] = untangle_bin(b, a, rw[q2], 1.f);
-        if (q == 0) z[h * es + t] = make_float2(a.x - a.y, 0.f);
+        const C a = z[q * es + t], b = z[q2 * es + t];
+        z[q * es + t] = untangle_bin(a, b, rw[q], S(1));
+        if (q2 != q) z[q2 * es + t] = untangle_bin(b, a, rw[q2], S(1));
+        if (q == 0) z[h * es + t] = mkc(a.x - a.y, S(0));
       }
       __syncthreads();
     } else {
@@ -471,20 +495,20 @@ __device__ inline void small_real_tiles(const SmallReal& k, const float2* x,
       for (int e = threadIdx.x; e < pairs * T; e += blockDim.x) {
         const int q = k.div_T(e), t = e - q * T;
         const int q2 = h - q;
-        float2 a = b0[q * es + t], c = b0[q2 * es + t];
-        if (q == 0) a.y = c.y = 0.f;
-        b0[q * es + t] = retangle_bin(a, c, rw[q], 1.f);
-        if (q != 0 && q2 != q) b0[q2 * es + t] = retangle_bin(c, a, rw[q2], 1.f);
+        C a = b0[q * es + t], c = b0[q2 * es + t];
+        if (q == 0) a.y = c.y = S(0);
+        b0[q * es + t] = retangle_bin(a, c, rw[q], S(1));
+        if (q != 0 && q2 != q) b0[q2 * es + t] = retangle_bin(c, a, rw[q2], S(1));
       }
       __syncthreads();
       z = small_fft<P>(b0, b1, h, T, es, rh);
     }
-    float2* dst = y + tile * T * k.m_out;
+    C* dst = y + tile * T * k.m_out;
     const int total = rows_of(tile) * k.m_out;
     for (int e = threadIdx.x; e < total; e += blockDim.x) {
       const int t = k.div_out(e);
-      const float2 v = z[(e - t * k.m_out) * es + t];
-      dst[e] = make_float2(k.scale * v.x, k.scale * v.y);
+      const C v = z[(e - t * k.m_out) * es + t];
+      dst[e] = mkc(k.scale * v.x, k.scale * v.y);
     }
   }
 }
@@ -494,7 +518,7 @@ template <int P>
 __global__ void __launch_bounds__(pfft::kThreads, 2)
     small_real_fwd_kernel(SmallReal k, const float2* x, float2* y,
                           const float* wr, const float* wi) {
-  small_real_tiles<true, P>(k, x, y, wr, wi);
+  small_real_tiles<float, true, P>(k, x, y, wr, wi);
 }
 
 // x: b rows of h+1 complex; y: b rows of n reals (h complex z).
@@ -502,27 +526,75 @@ template <int P>
 __global__ void __launch_bounds__(pfft::kThreads, 2)
     small_real_bwd_kernel(SmallReal k, const float2* x, float2* y,
                           const float* wr, const float* wi) {
-  small_real_tiles<false, P>(k, x, y, wr, wi);
+  small_real_tiles<float, false, P>(k, x, y, wr, wi);
 }
 
-using SmallKernel = void (*)(SmallReal, const float2*, float2*, const float*,
-                             const float*);
+// The same two at fp64.
+template <int P>
+__global__ void __launch_bounds__(pfft::kThreads, 2)
+    small_real_fwd_f64_kernel(SmallRealT<double> k, const double2* x,
+                              double2* y, const double* wr, const double* wi) {
+  small_real_tiles<double, true, P>(k, x, y, wr, wi);
+}
 
 template <int P>
-SmallKernel small_kernel(bool forward) {
-  return forward ? small_real_fwd_kernel<P> : small_real_bwd_kernel<P>;
+__global__ void __launch_bounds__(pfft::kThreads, 2)
+    small_real_bwd_f64_kernel(SmallRealT<double> k, const double2* x,
+                              double2* y, const double* wr, const double* wi) {
+  small_real_tiles<double, false, P>(k, x, y, wr, wi);
 }
 
-SmallKernel small_kernel_of(int p, bool forward) {
+template <class S>
+using SmallKernel = void (*)(SmallRealT<S>, const cplx<S>*, cplx<S>*,
+                             const S*, const S*);
+
+// The kernel of a direction for the scalar of the tag argument.
+template <int P>
+SmallKernel<float> small_kernel(float, bool forward) {
+  return forward ? small_real_fwd_kernel<P> : small_real_bwd_kernel<P>;
+}
+template <int P>
+SmallKernel<double> small_kernel(double, bool forward) {
+  return forward ? small_real_fwd_f64_kernel<P> : small_real_bwd_f64_kernel<P>;
+}
+
+template <class S>
+SmallKernel<S> small_kernel_of(int p, bool forward) {
   switch (p) {
-    case 7: return small_kernel<7>(forward);
-    case 11: return small_kernel<11>(forward);
-    case 13: return small_kernel<13>(forward);
-    case 17: return small_kernel<17>(forward);
-    case 19: return small_kernel<19>(forward);
-    case 23: return small_kernel<23>(forward);
-    default: return small_kernel<1>(forward);
+    case 7: return small_kernel<7>(S(), forward);
+    case 11: return small_kernel<11>(S(), forward);
+    case 13: return small_kernel<13>(S(), forward);
+    case 17: return small_kernel<17>(S(), forward);
+    case 19: return small_kernel<19>(S(), forward);
+    case 23: return small_kernel<23>(S(), forward);
+    default: return small_kernel<1>(S(), forward);
   }
+}
+
+// Forward (sign < 0): x (batch*n reals) -> y (batch*(n+2) scalars);
+// backward: the reverse.  Returns a cudaError_t.
+template <class S>
+int small_real(const S* x, S* y, const S* wr, const S* wi, int64_t batch,
+               int n, int sign, S scale, void* stream) {
+  using C = cplx<S>;
+  if (n < 2 || n % 2 || batch < 1) return int(cudaErrorInvalidValue);
+  const bool forward = sign < 0;
+  const int h = n / 2;
+  SmallRealT<S> k{};
+  k.h = h;
+  k.T = small_rows(h, batch, sizeof(C));
+  k.batch = batch;
+  k.m_in = forward ? h : h + 1;
+  k.m_out = forward ? h + 1 : h;
+  k.scale = scale;
+  k.div_in = FastDiv(k.m_in);
+  k.div_out = FastDiv(k.m_out);
+  k.div_T = FastDiv(k.T);
+  return pfft_radix::launch_resident(
+      small_kernel_of<S>(small_odd_prime(h), forward),
+      small_smem_bytes(h, k.T, sizeof(C)), (batch + k.T - 1) / k.T,
+      static_cast<cudaStream_t>(stream), k, reinterpret_cast<const C*>(x),
+      reinterpret_cast<C*>(y), wr, wi);
 }
 
 unsigned grid_of(int64_t units) {
@@ -583,22 +655,12 @@ extern "C" int pf_untangle_wide(const float* z, float* x, const float* wr,
 extern "C" int pf_small_real(const float* x, float* y, const float* wr,
                              const float* wi, int64_t batch, int n, int sign,
                              float scale, void* stream) {
-  if (n < 2 || n % 2 || batch < 1) return int(cudaErrorInvalidValue);
-  const bool forward = sign < 0;
-  const int h = n / 2;
-  SmallReal k{};
-  k.h = h;
-  k.T = small_rows(h, batch);
-  k.batch = batch;
-  k.m_in = forward ? h : h + 1;
-  k.m_out = forward ? h + 1 : h;
-  k.scale = scale;
-  k.div_in = FastDiv(k.m_in);
-  k.div_out = FastDiv(k.m_out);
-  k.div_T = FastDiv(k.T);
-  return pfft_radix::launch_resident(
-      small_kernel_of(small_odd_prime(h), forward), small_smem_bytes(h, k.T),
-      (batch + k.T - 1) / k.T, static_cast<cudaStream_t>(stream), k,
-      reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(y), wr,
-      wi);
+  return small_real(x, y, wr, wi, batch, n, sign, scale, stream);
+}
+
+// K9 at fp64: pf_small_real on double buffers and tables.
+extern "C" int pf_small_real_f64(const double* x, double* y, const double* wr,
+                                 const double* wi, int64_t batch, int n,
+                                 int sign, double scale, void* stream) {
+  return small_real(x, y, wr, wi, batch, n, sign, scale, stream);
 }

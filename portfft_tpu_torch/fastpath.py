@@ -19,6 +19,14 @@ another path.
 | 1D REAL, even n ≤ ``SMALL_REAL_MAX_N`` | :class:`SmallReal` | K9 |
 | 1D REAL, longer even n | :class:`HalfReal` | the h = n/2 C2C route (:class:`Raw`, or :class:`Plane`), then K8a or K8a-w; backward K8b first |
 | multi-dim REAL, every outer axis one K10 takes | :class:`MultiDim` | the last axis's 1D REAL route (:class:`SmallReal` or :class:`HalfReal`) over batch·∏outer rows, then K10 (:class:`Col`) for axes −2 … 0 in place on the half spectrum, the scale in the last; backward the :class:`Col` steps first, then the 1D REAL route with the scale |
+| fp64: 1D REAL of even n ≤ ``SMALL_REAL_MAX_N``, and multi-dim REAL of such a last axis whose outer axes K10 takes in float64 (``cuda_multidim.col_f64_supported``) | :class:`SmallReal`, or :class:`MultiDim` of it and :class:`Col` steps | the fp32 route's kernels in double: K9 and K10 on float64 buffers and tables (K10, never K10-mm) |
+
+fp64 runs only where every step has a double kernel: the REAL routes of K9
+and K10 above.  Every other fp64 descriptor raises, naming what it lacks: a
+C2C transform (no C2C kernel has a double instantiation), a REAL last axis
+past ``SMALL_REAL_MAX_N`` (:class:`HalfReal`: K8a/K8b around a C2C of
+n/2), an outer axis K10 takes only in float32, and K10-mm (its three-term
+TF32 split is a float32 method).
 
 A multi-dim route takes the ``multidim`` tuning kind: ``{"m2": 0}`` turns
 K11 off, ``{"cm": 1}`` puts K10-mm on each column step its gate takes; the
@@ -561,10 +569,16 @@ def _col_axis_ok(plan, config) -> bool:
 def _col_kernel(plan, params: dict) -> str:
     """The column kernel of an axis under tuning parameters: K10-mm
     (``"col_mm"``) for ``{"cm": 1}`` where its gate takes the plan, else
-    K10 (``"col"``)."""
+    K10 (``"col"``).  An fp64 route reads no table and passes no parameters
+    (``_register_real``): K10."""
     if params.get("cm") and cuda_multidim.col_mm_supported(plan):
         return "col_mm"
     return "col"
+
+
+def _f64(committed) -> bool:
+    """Whether the plan runs in double (``precision`` fp64)."""
+    return committed.precision.itemsize == 8
 
 
 def _outer_cols(committed, shape, first: int) -> list:
@@ -579,17 +593,20 @@ def _outer_cols(committed, shape, first: int) -> list:
 def _cols(cols: list, params: dict, sign: int, scale: float) -> tuple:
     """The :class:`Col` steps of ``cols`` (``_outer_cols``), each on the
     column kernel ``_col_kernel`` picks under the ``multidim`` tuning
-    parameters ``params``, ``scale`` in the last."""
+    parameters ``params`` (``{}`` at fp64), ``scale`` in the last."""
     return tuple(Col(_col_kernel(plan, params), bpre, plan, rest, sign,
                      scale if i == len(cols) - 1 else 1.0)
                  for i, (plan, bpre, rest) in enumerate(cols))
 
 
-def _declined_outer(committed) -> list:
-    """The plans of the outer axes (longer than 1) K10 does not take."""
+def _declined_outer(committed, f64: bool = False) -> list:
+    """The plans of the outer axes (longer than 1) K10 does not take, in
+    float64 where ``f64``."""
     lengths, plans = committed.descriptor.lengths, committed.plans
-    return [plans[ln] for ln in lengths[:-1]
-            if ln > 1 and not _col_axis_ok(plans[ln], committed.config)]
+    ok = (functools.partial(cuda_multidim.col_f64_supported,
+                            max_direct=committed.config.direct_threshold)
+          if f64 else lambda p: _col_axis_ok(p, committed.config))
+    return [plans[ln] for ln in lengths[:-1] if ln > 1 and not ok(plans[ln])]
 
 
 def _register_multidim(committed, params: dict | None = None) -> dict:
@@ -696,7 +713,16 @@ def _register_real(committed, params: dict | None = None) -> dict:
             f"take ({', '.join(p.describe() for p in declined)}) are not ported "
             "yet (ROADMAP Queue 1 item 9): no per-axis walk runs the outer axes "
             "of the half spectrum")
-    if params is None:
+    if _f64(committed):
+        # K10 alone runs fp64 columns: the table is not read, and asking for
+        # K10-mm raises
+        if params and params.get("cm"):
+            raise RawFastUnavailable(
+                "K10-mm at fp64 is not ported (ROADMAP Queue 1 item 12): its "
+                "three-term TF32 split is a float32 method; fp64 columns run "
+                "on K10")
+        params = {}
+    elif params is None:
         params = _counted_lookup(committed, "multidim")
     cols = _outer_cols(committed, [*lengths[:-1], n // 2 + 1], len(lengths) - 2)
 
@@ -717,14 +743,40 @@ def real_step(entry: Route) -> Route:
     return entry
 
 
+def _check_f64(committed) -> None:
+    """Raises for an fp64 descriptor whose route has a step with no double
+    kernel (the module docstring); the REAL routes' own rules (placement,
+    storage, layouts, outer axes K10 declines at every precision) are
+    ``_register_real``'s."""
+    d = committed.descriptor
+    if d.domain != Domain.REAL:
+        raise RawFastUnavailable(
+            "fp64 C2C transforms are not ported yet (ROADMAP Queue 1 item "
+            "12): no C2C kernel has a double instantiation; fp64 runs the "
+            f"REAL routes of K9 and K10 (last axis ≤ {SMALL_REAL_MAX_N})")
+    n = d.lengths[-1]
+    if n > SMALL_REAL_MAX_N:
+        raise RawFastUnavailable(
+            f"fp64 REAL transforms whose last axis is longer than "
+            f"{SMALL_REAL_MAX_N} ({n}) are not ported yet (ROADMAP Queue 1 "
+            "item 12): their HalfReal route (K8a/K8b around a C2C of n/2) "
+            "has no double kernels")
+    only32 = [p for p in _declined_outer(committed, f64=True)
+              if _col_axis_ok(p, committed.config)]
+    if only32:
+        raise RawFastUnavailable(
+            f"fp64 REAL outer axes that K10 takes only in float32 "
+            f"({', '.join(p.describe() for p in only32)}) are not ported yet "
+            f"(ROADMAP Queue 1 item 12): K10's double tile holds at most "
+            f"{cuda_multidim.COL_F64_MAX} points")
+
+
 def register(committed) -> dict:
     """The per-direction route table of a committed plan.  Raises
     :class:`RawFastUnavailable` for every descriptor outside the slice."""
     d = committed.descriptor
-    if committed.precision.name != "float32":
-        raise RawFastUnavailable(
-            "fp64 transforms are not ported yet (ROADMAP Queue 1 item 12)"
-        )
+    if _f64(committed):
+        _check_f64(committed)
     if d.domain == Domain.REAL:
         return _register_real(committed)
     if d.complex_storage == ComplexStorage.SPLIT_COMPLEX:
@@ -871,8 +923,10 @@ def route_kernels(route: Route) -> tuple:
 def step_notes(committed, entry: MultiDim) -> list:
     """The note of each step's ``portfft.axis`` span: the axes it
     transforms (comma-separated) and its kernels in the order they run
-    (``+``-joined), e.g. ``1 K9``, ``0 K10``, ``1 K1+K8a``, ``0,1 K11``."""
+    (``+``-joined), e.g. ``1 K9``, ``0 K10``, ``1 K1+K8a``, ``0,1 K11``;
+    at fp64 followed by `` f64`` (``2 K9 f64``), the precision that ran."""
     lengths = committed.descriptor.lengths
+    tag = " f64" if _f64(committed) else ""
     last = len(lengths) - 1
     # the column steps take the outer axes longer than 1, last first (an
     # Md2 the first of them with the last axis)
@@ -881,7 +935,7 @@ def step_notes(committed, entry: MultiDim) -> list:
     for step in entry.steps:
         axes = (next(outer) if isinstance(step, Col)
                 else f"{next(outer)},{last}" if isinstance(step, Md2) else last)
-        notes.append(f"{axes} {'+'.join(route_kernels(step))}")
+        notes.append(f"{axes} {'+'.join(route_kernels(step))}{tag}")
     return notes
 
 

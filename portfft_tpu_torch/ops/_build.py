@@ -30,6 +30,7 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_D = ctypes.c_double
 _SUB = [_I, _I, _P, _P, _P, _P, _P, _P]  # m, a, wr, wi, br, bi, ur, ui
 _SIGNATURES = {
     "pf_direct": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
@@ -44,8 +45,10 @@ _SIGNATURES = {
     "pf_untangle_wide": ([_P, _P, _P, _P, _I64, _I, _F, _P], _I),
     "pf_retangle": ([_P, _P, _P, _P, _I64, _I, _F, _I, _P], _I),
     "pf_small_real": ([_P, _P, _P, _P, _I64, _I, _I, _F, _P], _I),
+    "pf_small_real_f64": ([_P, _P, _P, _P, _I64, _I, _I, _D, _P], _I),
     "pf_col_needs_scratch": ([_I], _I),
     "pf_col": ([_P, _P, _P] + _SUB + [_I64, _I64, _F, _P], _I),
+    "pf_col_f64": ([_P, _P, _P] + _SUB + [_I64, _I64, _D, _P], _I),
     "pf_md2": ([_P, _P] + _SUB + _SUB + [_I64, _F, _P], _I),
     "pf_col_mm": ([_P, _P] + _SUB + [_I64, _I64, _F, _P], _I),
     "pf_global3": ([_P] * 3 + [_I, _I] + [_P] * 6 + [_I] + [_P] * 6

@@ -113,20 +113,24 @@ def rows_plain_raw(raw: torch.Tensor, batch: int, sub: SubTables, scale: float):
         return interleave(*rows_plain(sub, x[..., 0], x[..., 1]), scale)
 
 
-def check_buffer(raw: torch.Tensor, numel: int, what: str) -> None:
-    """The kernels take a flat, contiguous float32 tensor of exactly
-    ``numel`` scalars whose address is float2-aligned."""
-    if raw.dtype != torch.float32 or raw.dim() != 1 or not raw.is_contiguous():
+def check_buffer(raw: torch.Tensor, numel: int, what: str,
+                 dtypes: tuple = (torch.float32,)) -> None:
+    """The kernels take a flat, contiguous tensor of exactly ``numel``
+    scalars of one of ``dtypes`` (float32; K9 and K10 also float64) whose
+    address is aligned to a complex element (float2, double2)."""
+    if raw.dtype not in dtypes or raw.dim() != 1 or not raw.is_contiguous():
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise InvalidConfiguration(
-            f"{what}: expected a flat contiguous float32 tensor, got "
+            f"{what}: expected a flat contiguous {names} tensor, got "
             f"{raw.dtype} of shape {tuple(raw.shape)}"
         )
     if raw.numel() != numel:
         raise InvalidConfiguration(
             f"{what}: expected {numel} scalars, got {raw.numel()}"
         )
-    if raw.is_cuda and raw.data_ptr() % 8:
-        raise InvalidConfiguration(f"{what}: buffer is not 8-byte aligned")
+    align = 2 * raw.element_size()
+    if raw.is_cuda and raw.data_ptr() % align:
+        raise InvalidConfiguration(f"{what}: buffer is not {align}-byte aligned")
 
 
 def require_cuda(raw: torch.Tensor, what: str) -> None:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..enums import Level
+from ..exceptions import InvalidConfiguration
 from ..planner import Plan1D
 from ..utils import tracing
 from . import _build
@@ -60,6 +61,19 @@ def col_axis_supported(plan: Plan1D, max_direct: int = 512) -> bool:
     if plan.level == Level.DIRECT:
         return plan.n <= max_direct
     return _lane_dft_shape(plan)
+
+
+#: Longest axis K10 takes in float64: its tile (the roots and two ping-pong
+#: tiles of double2, ``pfft::pass_smem_bytes``) passes the shared memory of
+#: a block at a FUSED 8192, and the two-launch lengths past it are not
+#: ported in float64.
+COL_F64_MAX = 4096
+
+
+def col_f64_supported(plan: Plan1D, max_direct: int = 512) -> bool:
+    """K10's gate in float64: ``col_axis_supported`` up to
+    ``COL_F64_MAX``."""
+    return plan.n <= COL_F64_MAX and col_axis_supported(plan, max_direct)
 
 
 def pass_est_bytes(sub_lane: Plan1D, n_lane: int, t: int) -> int:
@@ -137,24 +151,31 @@ def col_plain(raw: torch.Tensor, bpre: int, rest: int, sub: SubTables,
 @tracing.kernel("K10", ("sliced_kernel",))
 def col(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
     """K10: the ``sub.m``-point transform over axis 1 of the ``(bpre,
-    sub.m, rest)`` complex view of ``raw``.  ``out`` (may be ``raw``
-    itself) receives the result; otherwise a new tensor.  Past 8192 points
-    the kernel runs as two launches through a scratch buffer the size of
-    the input (see ``csrc/fft_col.cu``)."""
-    check_buffer(raw, 2 * bpre * sub.m * rest, "col")
+    sub.m, rest)`` complex view of ``raw``, in its precision: float32, or
+    float64 with float64 tables (the double kernel, ``pf_col_f64``, whose
+    tile holds up to ``COL_F64_MAX`` points).  ``out`` (may be ``raw`` itself) receives the
+    result; otherwise a new tensor.  Past 8192 points the kernel runs as two
+    launches through a scratch buffer the size of the input (see
+    ``csrc/fft_col.cu``).  Each launch counts on ``tracing.paths("K10")``
+    as ``"f32"`` or ``"f64"``."""
+    check_buffer(raw, 2 * bpre * sub.m * rest, "col", (torch.float32, torch.float64))
     if raw.device.type == "cpu":
         return into(out, col_plain(raw, bpre, rest, sub, scale))
     require_cuda(raw, "col")
+    f64 = raw.dtype == torch.float64
+    if any(t is not None and t.dtype != raw.dtype for t in (sub.wr, sub.br, sub.ur)):
+        raise InvalidConfiguration(f"col: the tables are not {raw.dtype}")
     lib = _build.load()
     y = torch.empty_like(raw) if out is None else out
     scratch = torch.empty_like(raw) if lib.pf_col_needs_scratch(sub.m) else None
     with torch.cuda.device(raw.device):
-        err = lib.pf_col(
+        err = (lib.pf_col_f64 if f64 else lib.pf_col)(
             raw.data_ptr(), y.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             sub.m, sub.a, *sub.pointers(), bpre, rest, scale, stream_of(raw),
         )
     _build.check(lib, err, "col kernel")
+    tracing.path("K10", "f64" if f64 else "f32")
     return y
 
 

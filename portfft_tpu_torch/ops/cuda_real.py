@@ -12,8 +12,10 @@ REAL matrix (``TwiddleBank.real_small``).
 
 Buffers are flat float32 tensors: the raw Z spectrum of ``2·batch·h``
 scalars, the interleaved half spectrum of ``batch·(2h+2)`` and the real rows
-of ``batch·n``.  Same rule as ``cuda_fft``: CPU tensors go to the plain
-version, CUDA tensors to the kernel, and nothing falls back.
+of ``batch·n``.  K9 also takes float64 buffers with float64 tables (fp64:
+its double kernels, ``pf_small_real_f64``).  Same rule as ``cuda_fft``: CPU
+tensors go to the plain version, CUDA tensors to the kernel, and nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -45,10 +47,12 @@ class SmallRealTables:
 
 
 def _check_tables(buf: torch.Tensor, numel: int, what: str, *tables) -> None:
+    """The tables are of ``numel`` scalars, on the buffer's device and of
+    its dtype."""
     for t in tables:
-        if t.device != buf.device or t.dtype != torch.float32 or t.numel() != numel:
+        if t.device != buf.device or t.dtype != buf.dtype or t.numel() != numel:
             raise InvalidConfiguration(
-                f"{what}: expected float32 tables of {numel} scalars on "
+                f"{what}: expected {buf.dtype} tables of {numel} scalars on "
                 f"{buf.device}, got {t.dtype} of {t.numel()} on {t.device}"
             )
 
@@ -205,32 +209,37 @@ def retangle(x, batch: int, h: int, wr, wi, scale: float, drop: bool = False):
 retangle.plain = retangle_plain
 
 
-@tracing.kernel("K9", ("small_real_fwd_kernel", "small_real_bwd_kernel"))
+@tracing.kernel("K9", ("small_real_fwd_kernel", "small_real_bwd_kernel",
+                        "small_real_fwd_f64_kernel", "small_real_bwd_f64_kernel"))
 def small_real(raw, batch: int, tabs: SmallRealTables):
     """K9: ``batch`` whole REAL transforms of even length ``tabs.n`` ≤ 512:
     forward (``tabs.sign`` < 0) ``batch·n`` reals -> ``batch·(n+2)``
-    interleaved half spectra; backward the reverse (irfft semantics).  The
+    interleaved half spectra; backward the reverse (irfft semantics), in the
+    buffer's precision (float32, or float64 with float64 tables).  The
     kernel reads ``tabs.wr``/``wi`` and ``tabs.scale``, and runs each row as
     the h = n/2 point FFT on the radix stages with the untangle (or the
     retangle) in shared memory; each launch counts on
-    ``tracing.paths("K9")`` as ``"radix"``."""
+    ``tracing.paths("K9")`` as ``"radix"``, or ``"radix_f64"`` in
+    float64."""
     n = tabs.n
     forward = tabs.sign < 0
-    check_buffer(raw, batch * (n if forward else n + 2), "small_real")
+    check_buffer(raw, batch * (n if forward else n + 2), "small_real",
+                 (torch.float32, torch.float64))
     if raw.device.type == "cpu":
         return small_real_plain(raw, batch, tabs)
     require_cuda(raw, "small_real")
     _check_tables(raw, n * n, "small_real", tabs.wr, tabs.wi)
     lib = _build.load()
-    y = torch.empty(batch * (n + 2 if forward else n), dtype=torch.float32,
+    f64 = raw.dtype == torch.float64
+    y = torch.empty(batch * (n + 2 if forward else n), dtype=raw.dtype,
                     device=raw.device)
     with torch.cuda.device(raw.device):
-        err = lib.pf_small_real(
+        err = (lib.pf_small_real_f64 if f64 else lib.pf_small_real)(
             raw.data_ptr(), y.data_ptr(), tabs.wr.data_ptr(), tabs.wi.data_ptr(),
             batch, n, tabs.sign, tabs.scale, stream_of(raw),
         )
     _build.check(lib, err, "small_real kernel")
-    tracing.path("K9", "radix")
+    tracing.path("K9", "radix_f64" if f64 else "radix")
     return y
 
 

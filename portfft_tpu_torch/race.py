@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from . import fastpath, tuning
-from .engines import ENGINES, engine_of
+from .engines import ENGINES, RawFastUnavailable, engine_of
 from .enums import Direction, Domain
 from .utils import logging as plog
 
@@ -44,11 +44,15 @@ def _variants_md(committed, inner) -> list[dict]:
     where some column step takes K10-mm; where K11 runs, ``{"m2": 0}`` and
     ``{"m2": 0, "cm": 1}`` (the latter where the per-axis route has a
     column step K10-mm takes).  ``bi_col``: ``{"cm": 1}`` where K10-mm takes
-    the length.  The JAX package's TPU tile knobs (``ct``, ``ds``, ``mt1``,
-    ``mt2``) are not raced: they have no counterpart here."""
+    the length; none where the route raises for K10-mm (fp64).  The JAX
+    package's TPU tile knobs (``ct``, ``ds``, ``mt1``, ``mt2``) are not
+    raced: they have no counterpart here."""
 
     def takes_mm(params):
-        e = fastpath.with_engine(committed, inner, params)
+        try:
+            e = fastpath.with_engine(committed, inner, params)
+        except RawFastUnavailable:
+            return False
         steps = e.steps if isinstance(e, fastpath.MultiDim) else (e,)
         return any(isinstance(s, fastpath.Col) and s.kernel == "col_mm"
                    for s in steps)

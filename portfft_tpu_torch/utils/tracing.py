@@ -26,8 +26,9 @@ record them, and the per-axis walk splits the executor's:
   ``portfft.call``: one step of a ``fastpath.MultiDim`` route (the step
   loop of ``fastpath.packed_fn``); its ``note`` is the axes the step
   transforms and its kernels in the order they run (``1 K9``, ``0 K10``,
-  ``1 K1+K8a``, ``0,1 K11``; ``fastpath.step_notes``).  It is no layer of
-  its own: a span's self time is seen through it (:meth:`Call.children`).
+  ``1 K1+K8a``, ``0,1 K11``; at fp64 ``2 K9 f64``: ``fastpath.step_notes``).
+  It is no layer of its own: a span's self time is seen through it
+  (:meth:`Call.children`).
 
 Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 ``time.perf_counter_ns()``; ``parent`` is the id of the span it nests in
@@ -37,7 +38,8 @@ Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 Counters are always on: launches by kernel (:func:`launches`), counted
 where a wrapper's call reached the card; launches by code path
 (:func:`paths`: K13's ``radix``, ``plain`` or ``radix_col``, its column
-form; K9's ``radix``), counted by the wrappers that
+form; K9's ``radix``, or ``radix_f64`` in double; K10's ``f32`` or ``f64``,
+its precision), counted by the wrappers that
 choose one; the tuning table's outcomes where commit chooses a route
 (:func:`tuning_outcomes`); and the bytes the plane executor's copies write
 outside the port's kernels (:func:`glue_bytes`).  Under a recording profiler each such copy is also a

@@ -12,6 +12,7 @@ oracle.
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -20,9 +21,11 @@ import torch
 import portfft_tpu_torch as pf
 from chip_smoke import (
     AFNO,
+    DNS,
     KERNEL_TOL,
     MMA_COL_CASES,
     MMA_GLOBAL_CASES,
+    fp32_digests,
     md_kernel_case,
     md_kinds,
     oracle_tol,
@@ -507,6 +510,181 @@ def test_afno_steps_match_plain(cuda, direction):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         assert err <= KERNEL_TOL * want.abs().max().item(), (kernel.kernel, err)
+
+
+# -- fp64: K9 and K10 in double (the Taylor-Green DNS cell) -------------------
+
+
+def _f64_plan(lengths, batch, **kw):
+    return pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
+                         domain=pf.Domain.REAL, precision="fp64", **kw).commit()
+
+
+def _rel(got, want) -> float:
+    """The widest |error| as a share of ``want``'s root mean square."""
+    return ((got - want).abs().max() / want.abs().square().mean().sqrt()).item()
+
+
+#: K9 in double: (n, batch) with DNS's 512 over a 512^2 plane's rows, AFNO's
+#: 180 (stages 5, 3, 3, 2), 28 (h = 14, the P = 7 kernel), 502 (h = 251, a
+#: stage of pair sums), 2 and a batch no tile divides.
+K9_F64_CASES = [(512, 512 * 512), (180, 1000), (28, 333), (502, 37), (2, 5),
+                (32, 4097)]
+
+
+@pytest.mark.parametrize("n,batch", K9_F64_CASES)
+def test_k9_f64_matches_plain_and_torch(cuda, n, batch):
+    """K9 on float64 buffers runs its double kernel (``radix_f64`` on
+    ``tracing.paths("K9")``), both ways with a scale, against its plain
+    version in float64 and ``torch.fft`` in complex128: within 1e-13 of the
+    reference's root mean square, where float32 reads about 1e-7."""
+    plan = _f64_plan([n], batch, forward_scale=0.5, backward_scale=1.0 / n)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.rand(batch * n, generator=gen, device=cuda, dtype=torch.float64) * 2 - 1
+    spec = torch.rand(batch * (n + 2), generator=gen, device=cuda, dtype=torch.float64) * 2 - 1
+    for direction in pf.Direction:
+        step = plan._raw_fast[direction]
+        kernel, args = step.kernel_args(plan)
+        inp = x if direction == pf.Direction.FORWARD else spec
+        paths = tracing.paths("K9")
+        got = kernel(inp, *args)
+        torch.cuda.synchronize()
+        assert tracing.paths("K9") == {**paths, "radix_f64": paths.get("radix_f64", 0) + 1}
+        assert got.dtype == torch.float64
+        assert _rel(got, kernel.plain(inp, *args)) <= 1e-13
+        if direction == pf.Direction.FORWARD:
+            want = torch.fft.rfft(x.view(batch, n)) * 0.5
+            assert _rel(torch.view_as_complex(got.view(batch, -1, 2)), want) <= 1e-13
+        else:
+            c = torch.view_as_complex(spec.view(batch, -1, 2))
+            want = torch.fft.irfft(c, n)  # drops Im X[0] and Im X[n/2], as K9
+            assert _rel(got.view(batch, n), want) <= 1e-13
+
+
+#: K10 in double: (bpre, L, rest) with DNS's two outer axes, AFNO's 90 down
+#: an odd trailing extent, FUSED [2, 128] and [8, 128], and 4096 ([32, 128],
+#: the longest column K10 takes in float64).
+K10_F64_CASES = [(512, 512, 257), (1, 512, 131584), (7, 90, 91), (3, 256, 5),
+                 (2, 1024, 3), (1, 4096, 2)]
+
+
+@pytest.mark.parametrize("shape", K10_F64_CASES)
+def test_k10_f64_matches_plain_and_torch(cuda, shape):
+    """K10 on float64 buffers and tables runs its double kernel (``f64`` on
+    ``tracing.paths("K10")``), in place, against its plain version in
+    float64 and ``torch.fft.fft`` down axis 1 in complex128, both signs at a
+    scale of 0.25."""
+    from portfft_tpu_torch.ops import cuda_fft, cuda_multidim
+
+    bpre, m, rest = shape
+    plan = _f64_plan([m, 2], 1)
+    x = torch.rand(2 * bpre * m * rest, generator=torch.Generator(device="cuda").manual_seed(m),
+                   device=cuda, dtype=torch.float64) * 2 - 1
+    for sign in (-1, +1):
+        sub = cuda_fft.sub_tables(plan.plans[m], sign, plan._bank_keys, plan._bank_arrays)
+        assert sub.wr.dtype == torch.float64
+        paths = tracing.paths("K10")
+        got = cuda_multidim.col(x, bpre, rest, sub, 0.25)
+        y = x.clone()
+        cuda_multidim.col(y, bpre, rest, sub, 0.25, out=y)  # in place
+        torch.cuda.synchronize()
+        assert tracing.paths("K10") == {**paths, "f64": paths.get("f64", 0) + 2}
+        assert torch.equal(got, y)
+        assert _rel(got, cuda_multidim.col.plain(x, bpre, rest, sub, 0.25)) <= 1e-13
+        c = torch.view_as_complex(x.view(bpre, m, rest, 2))
+        ref = (torch.fft.fft(c, dim=1) if sign < 0 else torch.fft.ifft(c, dim=1) * m) * 0.25
+        assert _rel(torch.view_as_complex(got.view(bpre, m, rest, 2)), ref) <= 1e-13
+
+
+def test_dns_main_path_runs_k9_and_k10_in_double(cuda):
+    """The Taylor-Green DNS call (one 512^3 component, ``chip_smoke.DNS``)
+    through the committed fp64 route: forward K9 ``radix_f64`` then K10
+    ``f64`` on axes 1 and 0, backward the reverse with the scale 2^-27 in
+    K9; one K9 and two K10 launches a call, no float32 path taken; float64
+    reals and complex128 spectra out, within 1e-13 of ``torch.fft`` in
+    complex128 (as a share of its root mean square)."""
+    lengths, batch, bscale = DNS
+    plan = _f64_plan(lengths, batch, backward_scale=bscale)
+    notes = [fastpath.step_notes(plan, plan._raw_fast[d]) for d in pf.Direction]
+    assert notes == [["2 K9 f64", "1 K10 f64", "0 K10 f64"],
+                     ["1 K10 f64", "0 K10 f64", "2 K9 f64"]]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.rand(batch, *lengths, generator=gen, device=cuda, dtype=torch.float64) * 2 - 1
+    for forward in (True, False):
+        launches = {k: tracing.launches(k) for k in ("K9", "K10")}
+        paths = {k: tracing.paths(k) for k in ("K9", "K10")}
+        if forward:
+            y = plan.compute_forward(x)
+        else:
+            spec = torch.fft.rfftn(x, dim=(1, 2, 3))
+            y = plan.compute_backward(spec)
+        torch.cuda.synchronize()
+        assert {k: tracing.launches(k) - v for k, v in launches.items()} == {"K9": 1, "K10": 2}
+        assert tracing.paths("K9") == {**paths["K9"],
+                                       "radix_f64": paths["K9"].get("radix_f64", 0) + 1}
+        assert tracing.paths("K10") == {**paths["K10"], "f64": paths["K10"].get("f64", 0) + 2}
+        if forward:
+            assert y.dtype == torch.float64 and y.numel() == 2 * 512 * 512 * 257
+            got = torch.view_as_complex(y.view(batch, 512, 512, 257, 2))
+            assert _rel(got, torch.fft.rfftn(x, dim=(1, 2, 3))) <= 1e-13
+        else:
+            assert y.dtype == torch.float64 and y.numel() == 512**3
+            assert _rel(y.view_as(x), x) <= 1e-13  # the round trip
+        del y
+
+
+def test_f64_kernels_are_named_on_the_card(cuda):
+    """The double kernels' ``__global__`` functions, as the profiler names
+    them (``small_real_{fwd,bwd}_f64_kernel<P>``, ``sliced_kernel<double2
+    const*, double2*>``), map to K9 and K10 through ``tracing.kernels_of``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = _f64_plan([12, 180], 4)
+    x = torch.rand(4 * 12 * 180, device=cuda, dtype=torch.float64)
+    plan.compute_backward(plan.compute_forward(x))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler may miss the card's first operations after it starts
+        for _ in range(8):
+            torch.ones(1, device=cuda).add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        for _ in range(2):
+            plan.compute_backward(plan.compute_forward(x))
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if "small_real" in e.key or "sliced_kernel" in e.key}
+    assert any("small_real_fwd_f64_kernel<1>" in k for k in names), names
+    assert any("small_real_bwd_f64_kernel<1>" in k for k in names), names
+    assert any("sliced_kernel<double2" in k for k in names), names
+    for k in names:
+        assert ("K9" if "small_real" in k else "K10") in tracing.kernels_of(k), k
+
+
+def test_fp32_k9_and_k10_are_the_parents_bit_for_bit(cuda):
+    """K9's and K10's float32 outputs at AFNO's and r2c's shapes
+    (``chip_smoke.fp32_digests``) are those of the kernels before they were
+    written on the scalar type: the digests the earlier tree gave on an
+    NVIDIA H100 80GB HBM3."""
+    assert fp32_digests(pf) == FP32_PARENT_DIGESTS
+
+
+#: ``chip_smoke.fp32_digests`` of the tree before K9 and K10 took a scalar
+#: type (NVIDIA H100 80GB HBM3, torch 2.11, CUDA 12.8).
+FP32_PARENT_DIGESTS = {
+    "K9 n=180 forward":
+        "4a60440140408f91df0c7906483007182c62c4a36a6e4706befe85f80d973c13",
+    "K9 n=180 backward":
+        "899be22e8e8e93ec56057912ce8088bdff8e4128cf9977fbb1b8c67db0f33d94",
+    "K9 n=512 forward":
+        "fcbf050e854233e66f7acdb2ef8a1065d494dcbea4d0de9bf9c231bad2207597",
+    "K9 n=512 backward":
+        "00448fcf88cb771649c37fbd7fec155b822e07d9da039e3056cead4350bd6c17",
+    "K10 n=90 forward":
+        "4391cd6c6b55368dc3623a76fe8703823eb4a37f7a0bd76c1e2dc4efe02b2d28",
+    "K10 n=90 backward":
+        "26121304592608b0aedf5245c4ac75c68d3ade91f4f9a8634ea824d502c2e5c0",
+}
 
 
 #: K13's column form (bpre, n, trailing): fastMRI's volume (the chain

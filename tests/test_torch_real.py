@@ -295,7 +295,9 @@ def test_real_buffer_errors():
         (dict(placement="IN_PLACE"), "item 9"),
         (dict(complex_storage="SPLIT_COMPLEX"), "item 9"),
         (dict(lengths=[640, 16]), "item 9"),  # an outer axis K10 declines
-        (dict(precision="fp64"), "item 12"),
+        # fp64 runs K9 (n <= 512); a longer length's HalfReal route has no
+        # double kernels
+        (dict(lengths=[1024], precision="fp64"), "item 12"),
         (dict(forward_offset=4), "item 9"),
         (dict(number_of_transforms=2, forward_strides=[2], backward_strides=[2],
               forward_distance=64, backward_distance=34), "item 9"),

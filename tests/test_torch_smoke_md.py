@@ -160,3 +160,58 @@ def test_k9_phase_checks_and_times_each_case(monkeypatch, capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("alone  K9")]
     assert len(lines) == 2 * len(cases) and all("x bound" in ln for ln in lines)
+
+
+def test_dns_phase_checks_and_times_each_step(monkeypatch, capsys):
+    """The fp64 DNS phase on the CPU at 8 x 12 x 16, two transforms (timer
+    stubbed): each step runs in double and passes its plain version, the
+    call passes ``torch.fft`` in complex128 far inside ``DNS_TOL``, and
+    one line a direction is printed."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 1.0)[1])
+    out = chip_smoke.dns_phase(pf, "cpu", ((8, 12, 16), 2, 1 / 1536), device="cpu")
+    assert set(out) == {"forward", "backward"}
+    for ms in out.values():
+        assert set(ms) == {"K9 rows", "K10 9", "K10 108", "call", "torch_fft", "err"}
+        assert ms["err"] < 1e-2 * chip_smoke.DNS_TOL
+    assert len(calls) == 10
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("dns")]
+    assert len(lines) == 2 and all("fp64" in ln for ln in lines)
+    lengths, batch, scale = chip_smoke.DNS
+    assert lengths == (512, 512, 512) and batch == 1 and scale == 2.0**-27
+
+
+def test_dns_phase_rejects_a_float32_step(monkeypatch):
+    """A K10 that runs in float32 under double data fails its plain check."""
+    from portfft_tpu_torch.ops import cuda_multidim
+
+    plain = cuda_multidim.col.plain
+
+    def narrow(raw, bpre, rest, sub, scale, out=None):
+        y = plain(raw.float(), bpre, rest, type(sub)(*(
+            t.float() if isinstance(t, torch.Tensor) else t for t in vars(sub).values())),
+            scale).double()
+        return y if out is None else out.copy_(y)
+
+    narrow.plain = plain
+    narrow.kernel = "K10"
+    monkeypatch.setattr(cuda_multidim, "col", narrow)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (fn(), 1.0)[1])
+    with pytest.raises(chip_smoke.SmokeFailure, match="dns K10"):
+        chip_smoke.dns_phase(pf, "cpu", ((8, 12, 16), 2, 1 / 1536), device="cpu")
+
+
+def test_fp32_digests_are_bit_for_bit():
+    """The digests hash the kernels' outputs: the same tree gives the same
+    digests, a table off by one float32 ulp another; the inputs depend on no
+    random generator."""
+    cases = [("K9", 180, 6), ("K9", 512, 3), ("K10", 90, (2, 91))]
+    first = chip_smoke.fp32_digests(pf, "cpu", cases)
+    assert set(first) == {f"{k} n={n} {d}" for k, n, _ in cases
+                          for d in ("forward", "backward")}
+    assert chip_smoke.fp32_digests(pf, "cpu", cases) == first
+    x = chip_smoke.hashed_uniform(1000, 3, device="cpu")
+    assert torch.equal(x, chip_smoke.hashed_uniform(1000, 3, device="cpu"))
+    assert x.min() >= -1 and x.max() < 1 and x.std() > 0.5
+    assert not torch.equal(x, chip_smoke.hashed_uniform(1000, 4, device="cpu"))
+    assert len({tuple(k for k, n, _ in chip_smoke.FP32_DIGEST_CASES)}) == 1

@@ -224,6 +224,14 @@ def test_every_registered_symbol_is_a_global_function_of_csrc():
      ("K3", "K3-ftw")),
     ("void (anonymous namespace)::radix_pass_kernel<pfft::ConstPlanes, pfft::Planes>"
      "(pfft::Pass, pfft::ConstPlanes, pfft::Planes)", ("K13",)),
+    # the fp64 instantiations of K9 and K10 (one sliced kernel, shared by K12
+    # and K14 in float32)
+    ("void__anonymous_namespace_::small_real_fwd_f64_kernel_1___anonymous_", ("K9",)),
+    ("void (anonymous namespace)::small_real_bwd_f64_kernel<1>((anonymous namespace)::"
+     "SmallRealT<double>, double2 const*, double2*, double const*, double const*)", ("K9",)),
+    ("void pfft::(anonymous namespace)::sliced_kernel<double2 const*, double2*>(pfft::PassT"
+     "<decltype (buffer_scalar((std::declval<double2 const*>)()))>, pfft::Slices, double2 "
+     "const*, double2*)", ("K10", "K14", "K12")),
     ("Memset (Device)", ()),
 ])
 def test_device_operation_names_map_to_k_numbers(op, kernels):
