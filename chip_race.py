@@ -9,7 +9,8 @@ script's own directory), builds its kernels there, and times each KERNEL
 (a name of ``chip_smoke.SOURCES``, or ``restride`` or ``global_fused_ftw``,
 the factored-twiddle mode of K17; default: every one) at every shape of its
 case table in ``chip_smoke`` (``CASES``; K15 and K15-bf also at the shape
-``chip_smoke`` times them alone, 65537 x 2048, and K9 at ``K9_ALONE``): one
+``chip_smoke`` times them alone, 65537 x 2048, K9 at ``K9_ALONE`` and K10
+at ``K10_ALONE``): one
 forward call out of place, the median of 10 CUDA-event timed calls after 3
 warm-up calls (``chip_smoke.time_ms``).  ``--batch B`` (repeatable) runs every case whose
 table gives a number of transforms, (n, batch) of a 1D kernel, (batch, n1,
@@ -92,6 +93,12 @@ def md_cases(pf, kind, batches, device):
         kernel, args = cs.md_kernel_case(pf, kind, shape, -1, 1.0, device)
         yield ("x".join(map(str, shape)), kernel, args,
                cs.random_raw(2 * math.prod(shape), sum(shape), device))
+    if kind == "col":  # also where chip_smoke times K10 alone
+        for shape, dtype in cs.K10_ALONE:
+            kernel, args = cs.k10_case(pf, shape, dtype, -1, 1.0, device)
+            yield (f"{'x'.join(map(str, shape))} {str(dtype).split('.')[-1]}",
+                   kernel, args,
+                   cs.hashed_uniform(2 * math.prod(shape), shape[1], dtype, device))
 
 
 def plane_cases(pf, kind, batches, device):

@@ -189,13 +189,20 @@
    512, 131584), each held to its plain version in float64 and timed alone;
    the whole call held to ``torch.fft`` in complex128 (the widest |error| as
    a share of the reference's root mean square, the benchmark's measure)
-   with one K9 ``radix_f64`` and two K10 ``f64`` launches and no float32
-   launch, timed beside one ``torch.fft`` call and the call's byte bound.
-   One ``dns`` line a direction (``python -c "import chip_smoke,
+   with one K9 ``radix_f64`` and two K10 ``radix_f64`` launches and no
+   float32 launch, timed beside one ``torch.fft`` call and the call's byte
+   bound.  One ``dns`` line a direction (``python -c "import chip_smoke,
    portfft_tpu_torch as pf; chip_smoke.dns_phase(pf, 'card')"`` runs it
-   alone).  ``fp32_digests`` gives the SHA-256 of K9's and K10's float32
-   outputs at AFNO's and r2c's shapes on inputs that depend on no random
-   generator, so that two trees' kernels can be compared bit for bit.
+   alone).  Then K10 alone (``k10_phase``) at ``K10_ALONE``: AFNO's (12288,
+   90, 91) in float32 and DNS's (512, 512, 257) and (1, 512, 131584) in
+   float64, both directions, each held to its plain version and to
+   ``torch.fft`` along the axis in complex128, in place once, and timed
+   beside its byte bound, its plain version and one ``torch.fft`` call
+   along the axis (``python -c "import chip_smoke, portfft_tpu_torch as pf;
+   chip_smoke.k10_phase(pf, 'card')"`` runs it alone).  ``fp32_digests``
+   gives the SHA-256 of K9's and K10's float32 outputs at AFNO's and r2c's
+   shapes on inputs that depend on no random generator, so that two trees'
+   kernels can be compared bit for bit.
 12. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms; twenty-eight kernels), then, as the last line, ``{"ok":
@@ -304,6 +311,10 @@ FP32_DIGEST_CASES = [("K9", 180, 12288 * 90), ("K9", 512, 256 * 1024),
 # which K9 runs as one stage of pair sums.
 K9_ALONE = [(32, 2 * 1024 * 1024), (512, 256 * 1024), (180, 12288 * 90),
             (502, 256 * 1024), (254, 512 * 1024)]
+# K10 timed alone (``k10_phase``, and ``chip_race.py`` ``col``): (bpre, L,
+# rest) and precision of AFNO's column step and DNS's two.
+K10_ALONE = [((12288, 90, 91), torch.float32), ((512, 512, 257), torch.float64),
+             ((1, 512, 131584), torch.float64)]
 # Plane path rows (bench.py EXTRA_CONFIGS large_1d_prime, both directions,
 # and one row per other route at about 1 GiB of input): name, n, batch,
 # direction.  1031: generic Bluestein over K13 [24, 128]; 1000: K13's
@@ -1906,7 +1917,7 @@ def dns_phase(pf, card: str, case: tuple = DNS, device: str = "cuda") -> dict:
     each outer axis of the half spectrum) each held to its plain version
     at ``DNS_TOL`` and timed alone; the whole call held to ``torch.fft`` in
     complex128 at ``DNS_TOL`` of the reference's root mean square, launching one
-    K9 ``radix_f64`` and one K10 ``f64`` an outer axis and nothing in
+    K9 ``radix_f64`` and one K10 ``radix_f64`` an outer axis and nothing in
     float32, timed beside one ``rfftn``/``irfftn`` call and the call's byte
     bound in double (8 bytes a real, 16 a bin).  Prints one line a
     direction; returns ``{direction: {name: ms}}`` with ``"err"``, the
@@ -1957,7 +1968,7 @@ def dns_phase(pf, card: str, case: tuple = DNS, device: str = "cuda") -> dict:
             new = {k: {p: c - paths[k].get(p, 0) for p, c in tracing.paths(k).items()
                        if c != paths[k].get(p, 0)} for k in paths}
             if ran != {"K9": 1, "K10": len(outer)} or new != {
-                    "K9": {"radix_f64": 1}, "K10": {"f64": len(outer)}}:
+                    "K9": {"radix_f64": 1}, "K10": {"radix_f64": len(outer)}}:
                 raise SmokeFailure(f"dns {direction.value}: launches {ran}, paths {new}")
         if forward:
             got = torch.view_as_complex(y.view(batch, *outer, bins, 2))
@@ -1979,6 +1990,83 @@ def dns_phase(pf, card: str, case: tuple = DNS, device: str = "cuda") -> dict:
               f"call {ms['call']:.3f} ms | {steps} | torch.fft {ms['torch_fft']:.3f} | "
               f"bound {bound:.3f} ms (bytes) | error {err:.3e} of the rms | {card}")
         out[direction.value] = ms
+    return out
+
+
+def k10_case(pf, shape: tuple, dtype, sign: int, scale: float,
+             device: str = "cuda") -> tuple:
+    """``(kernel, args)`` of K10 at ``shape`` = (bpre, L, rest) in ``dtype``:
+    float32 as ``md_kernel_case``, float64 tables from an fp64 REAL commit
+    whose outer axis is L."""
+    from portfft_tpu_torch.ops import cuda_fft, cuda_multidim
+
+    if dtype == torch.float32:
+        return md_kernel_case(pf, "col", shape, sign, scale, device)
+    bpre, length, rest = shape
+    plan = pf.Descriptor(lengths=[length, 2], domain=pf.Domain.REAL,
+                         precision="fp64").commit(device=device)
+    sub = cuda_fft.sub_tables(plan.plans[length], sign, plan._bank_keys,
+                              plan._bank_arrays)
+    return cuda_multidim.col, (bpre, rest, sub, scale)
+
+
+def k10_phase(pf, card: str, cases=K10_ALONE, device: str = "cuda") -> dict:
+    """K10 alone at ``cases``, both directions (scale 1 forward, 1/L
+    backward), out of place into a kept buffer: each call held to its plain
+    version (``KERNEL_TOL`` in float32, ``DNS_TOL`` in float64, of
+    max|plain|) and to ``torch.fft`` along axis 1 in complex128 (4·eps·log2 L
+    of its largest element), in place equal to out of place, then timed
+    beside its byte bound (16 bytes an element in float32, 32 in float64),
+    its plain version and one ``torch.fft`` call along the axis in its own
+    precision.  Prints one line a case and direction; returns ``{(shape,
+    precision, direction): {name: ms}}``."""
+    out = {}
+    for shape, dtype in cases:
+        bpre, length, rest = shape
+        f64 = dtype == torch.float64
+        x = hashed_uniform(2 * math.prod(shape), length, dtype, device)
+        y = torch.empty_like(x)
+        xc = torch.view_as_complex(x.view(*shape, 2))
+        eps = torch.finfo(dtype).eps
+        bound = (32 if f64 else 16) * math.prod(shape) / HBM_BYTES_PER_MS
+        for direction, sign in (("forward", -1), ("backward", +1)):
+            what = f"K10 {shape} {dtype} {direction}"
+            scale = 1.0 if sign < 0 else 1.0 / length
+            kernel, args = k10_case(pf, shape, dtype, sign, scale, device)
+            got = kernel(x, *args, out=y)
+            plain = kernel.plain(x, *args)
+            rel = (got - plain).abs().max().item() / plain.abs().max().item()
+            if not rel <= (DNS_TOL if f64 else KERNEL_TOL):
+                raise SmokeFailure(f"{what}: max|kernel - plain| = {rel:.2e}·max|plain|")
+            del plain
+            xd = xc.to(torch.complex128)
+            want = (torch.fft.fft(xd, dim=1) if sign < 0
+                    else torch.fft.ifft(xd, dim=1) * length) * scale
+            del xd
+            err = ((torch.view_as_complex(got.view(*shape, 2)) - want).abs().max()
+                   / want.abs().max()).item()
+            del want
+            if not err <= 4 * eps * max(math.log2(length), 1.0):
+                raise SmokeFailure(f"{what}: {err / eps:.1f} eps of max|torch.fft|")
+            inplace = x.clone()
+            kernel(inplace, *args, out=inplace)
+            if not torch.equal(inplace, got):
+                raise SmokeFailure(f"{what}: in place differs from out of place")
+            del inplace
+            library = ((lambda: torch.fft.fft(xc, dim=1)) if sign < 0
+                       else (lambda: torch.fft.ifft(xc, dim=1)))
+            ms = {"kernel": time_ms(lambda: kernel(x, *args, out=y)),
+                  "plain": time_ms(lambda: kernel.plain(x, *args)),
+                  "torch.fft": time_ms(library)}
+            out[(shape, str(dtype).split(".")[-1], direction)] = ms
+            print(f"alone  K10 {shape} {str(dtype).split('.')[-1]} {direction:8s} "
+                  f"kernel {ms['kernel']:.3f} ms | bound {bound:.3f} ms (bytes) | "
+                  f"{ms['kernel'] / bound:.2f}x bound | plain {ms['plain']:.3f} | "
+                  f"torch.fft {ms['torch.fft']:.3f} | {err / eps:.2f} eps of "
+                  f"torch.fft | {card}")
+        del x, y, xc
+        if device == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3390,6 +3478,7 @@ def phases_run(t_start: float, card: str) -> None:
     phase("AFNO", afno_phase, pf, card)
     phase("K9 alone", k9_phase, pf, card)
     phase("fp64 DNS", dns_phase, pf, card)
+    phase("K10 alone", k10_phase, pf, card)
     # K10-mm runs on the tuned multi-dim path, K16 on the tuned GLOBAL one
     mma_launches = {"col_mm": md_tuned_launches["col_mm"],
                     "global3": tuned_launches["global3"]}

@@ -1,7 +1,7 @@
 // Block-level mixed-radix Stockham FFT of the T columns of a tile in shared
-// memory: the sub-transform of K11 (fft_md2.cu), K13 (fft_chain.cu), K15
-// (fft_bluestein.cu) and K17 (fft_global_fused.cu), in place of
-// fft_common.cuh's O(len) sums.
+// memory: the sub-transform of K10 (fft_col.cu), K11 (fft_md2.cu), K13
+// (fft_chain.cu), K15 (fft_bluestein.cu) and K17 (fft_global_fused.cu), in
+// place of fft_common.cuh's O(len) sums.
 //
 // It takes fft_common.cuh's tile and Sub as they are (element i of column t
 // at tile_pos(i)*es + t, pitch es = T+1, FUSED rows padded by i/128), so a
@@ -36,7 +36,9 @@
 // the sign of Im root[1].  The device evaluates no sin or cos.  fp32 FMA
 // throughout, no TF32: the error grows as log2 len.  The stages themselves
 // (Bfly, stage, stage_p, run_stage, stage_odd) take the element type C,
-// float2 or double2 (K9 at fp64, fft_real.cu), and compute in its scalar.
+// float2 or double2 (K9 at fp64, fft_real.cu), and compute in its scalar;
+// so do dft, sub_fft and the loads of tiles (PrefetchT, fetch, land), for
+// K10 at fp64 (fft_col.cu).  dft_odd and load_tile are float2 alone.
 //
 // What bounds it: a stage reads and writes each element of the tile once in
 // shared memory and does about log2 R complex multiply-adds an element, so
@@ -287,12 +289,13 @@ __device__ inline void run_stage(int r, const C* src, C* dst, int len, int ns,
 // i*step) held in cur, stage by stage between cur and other; the last
 // stage writes output k of vector u to out(u, k) as post(u, k, y).  Every
 // stage ends with __syncthreads.  Returns the buffer that holds the result.
-template <class Base, class Out, class Post>
-__device__ inline float2* dft(float2* cur, float2* other, int len, int nvec,
-                              int step, const float2* root, Base base, Out out,
-                              Post post) {
+// C: float2, or double2 (K10 at fp64, fft_col.cu).
+template <class C, class Base, class Out, class Post>
+__device__ inline C* dft(C* cur, C* other, int len, int nvec, int step,
+                         const C* root, Base base, Out out, Post post) {
+  using S = scalar_of<C>;
   const Stages st = stages(len);
-  const float sg = len > 2 && root[1].y < 0.f ? -1.f : 1.f;
+  const S sg = len > 2 && root[1].y < S(0) ? S(-1) : S(1);
   const Strided<Base> mid{base, step};
   int ns = 1;
   for (int s = 0; s < st.n; ++s) {
@@ -302,7 +305,7 @@ __device__ inline float2* dft(float2* cur, float2* other, int len, int nvec,
     else
       run_stage(r, cur, other, len, ns, nvec, step, root, sg, base, out, post);
     __syncthreads();
-    float2* t = cur;
+    C* t = cur;
     cur = other;
     other = t;
     ns *= r;
@@ -425,30 +428,35 @@ __device__ inline float2* dft_odd(float2* cur, float2* other, int len,
 // pfft::sub_dft's function on the radix stages: transforms the T columns
 // held in b0; returns the buffer (b0 or b1) that holds the result in
 // natural order at the same tile positions.  ra: roots of the m-point
-// (DIRECT) or a-point (FUSED) DFT; rb: 128-point.
-__device__ inline float2* sub_fft(const pfft::Sub& s, const float2* ra,
-                                  const float2* rb, float2* b0, float2* b1,
-                                  int T, int es) {
+// (DIRECT) or a-point (FUSED) DFT; rb: 128-point.  R: float, or double
+// (K10 at fp64).
+template <class R>
+__device__ inline pfft::cplx<R>* sub_fft(const pfft::SubT<R>& s,
+                                         const pfft::cplx<R>* ra,
+                                         const pfft::cplx<R>* rb,
+                                         pfft::cplx<R>* b0, pfft::cplx<R>* b1,
+                                         int T, int es) {
+  using C = pfft::cplx<R>;
   if (s.a == 0) {
     const auto col = [](int t) { return t; };
     return dft(b0, b1, s.m, T, es, ra, col, Strided<decltype(col)>{col, es},
                Keep{});
   }
   const int a = s.a;
-  const float* ur = s.ur;
-  const float* ui = s.ui;
+  const R* ur = s.ur;
+  const R* ui = s.ui;
   // Stage A: vector u = (n2, t) over n1, element 128*n1 + n2 at
   // (129*n1 + n2)*es + t; the inner twiddle on the last stage's store.
   const auto base_a = [=](int u) {
     const int n2 = u / T;
     return n2 * es + (u - n2 * T);
   };
-  float2* c = dft(b0, b1, a, 128 * T, 129 * es, ra, base_a,
-                  Strided<decltype(base_a)>{base_a, 129 * es},
-                  [=](int u, int k1, float2 y) {
-                    const int i = k1 * 128 + u / T;
-                    return pfft::cmul(y, make_float2(__ldg(ur + i), __ldg(ui + i)));
-                  });
+  C* c = dft(b0, b1, a, 128 * T, 129 * es, ra, base_a,
+             Strided<decltype(base_a)>{base_a, 129 * es},
+             [=](int u, int k1, C y) {
+               const int i = k1 * 128 + u / T;
+               return pfft::cmul(y, pfft::mkc(__ldg(ur + i), __ldg(ui + i)));
+             });
   // Stage B: vector u = (k1, t) over n2; output k2 lands at natural index
   // k1 + a*k2.
   const auto base_b = [=](int u) {
@@ -474,16 +482,20 @@ __device__ inline float2* sub_fft(const pfft::Sub& s, const float2* ra,
 // fastest where columns are contiguous in device memory, else elements.
 constexpr int kPrefetch = 8;
 
-struct Prefetch {
-  float2 v[kPrefetch];
+template <class C>
+struct PrefetchT {
+  C v[kPrefetch];
   int at[kPrefetch];  // tile position of each value, -1 for none
 };
+using Prefetch = PrefetchT<float2>;
 
-template <class X>
-__device__ inline void fetch(Prefetch& f, const pfft::Pass& p, int64_t b,
-                             int64_t c0, X x, int e0) {
+// The pass's scalar R: float, or double (K10 at fp64).
+template <class R, class X>
+__device__ inline void fetch(PrefetchT<pfft::cplx<R>>& f,
+                             const pfft::PassT<R>& p, int64_t b, int64_t c0,
+                             X x, int e0) {
   using pfft::ld;
-  const pfft::Sub& s = p.sub;
+  const pfft::SubT<R>& s = p.sub;
   const int m = s.m;
   const int T = p.T;
   const int es = pfft::tile_pitch(T);
@@ -502,15 +514,17 @@ __device__ inline void fetch(Prefetch& f, const pfft::Pass& p, int64_t b,
   }
 }
 
-template <class X>
-__device__ inline void fetch(Prefetch& f, const pfft::Pass& p, int64_t b,
-                             int64_t c0, X x) {
+template <class R, class X>
+__device__ inline void fetch(PrefetchT<pfft::cplx<R>>& f,
+                             const pfft::PassT<R>& p, int64_t b, int64_t c0,
+                             X x) {
   fetch(f, p, b, c0, x, threadIdx.x);
 }
 
-template <class X>
-__device__ inline void land(Prefetch& f, const pfft::Pass& p, int64_t b,
-                            int64_t c0, X x, float2* dst) {
+template <class R, class X>
+__device__ inline void land(PrefetchT<pfft::cplx<R>>& f,
+                            const pfft::PassT<R>& p, int64_t b, int64_t c0,
+                            X x, pfft::cplx<R>* dst) {
   const int total = p.sub.m * p.T;
   for (int e0 = threadIdx.x;;) {
 #pragma unroll
@@ -538,11 +552,12 @@ __device__ inline void load_tile(const pfft::Pass& p, int64_t b, int64_t c0,
 // then work(p, b, c0).  The blocks stride over the tiles, and each issues
 // its next tile's loads before this tile's work, which never writes what
 // they read.
-template <class In, class Work>
-__device__ void tiles(const pfft::Pass& p, float2* b0, In in, Work work) {
+template <class R, class In, class Work>
+__device__ void tiles(const pfft::PassT<R>& p, pfft::cplx<R>* b0, In in,
+                      Work work) {
   const int64_t per = (p.ncols + p.T - 1) / p.T;
   const int64_t ntiles = p.nbatch * per;
-  Prefetch f;
+  PrefetchT<pfft::cplx<R>> f;
   if (blockIdx.x < ntiles)
     fetch(f, p, 0, (blockIdx.x % per) * p.T, in(blockIdx.x / per));
   for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {

@@ -36,7 +36,6 @@ from .cuda_fft import (
     interleave,
     into,
     require_cuda,
-    rows_plain,
     stream_of,
 )
 from .torch_fft import complex_mul, dft_x3, full_fp32_matmuls, radix_sub_plain
@@ -140,24 +139,28 @@ def md2_supported(plan1: Plan1D, plan2: Plan1D, config) -> bool:
 
 def col_plain(raw: torch.Tensor, bpre: int, rest: int, sub: SubTables,
               scale: float):
-    """Plain version of K10: move L to the last axis, ``rows_plain``,
-    move it back, scale and interleave."""
-    x = raw.view(bpre, sub.m, rest, 2).transpose(1, 2)  # [b, c, j]
+    """Plain version of K10 in the kernel's stages: the ``sub.m``-point
+    transform of each column of the ``(bpre, sub.m, rest)`` complex view by
+    ``torch_fft.radix_sub_plain`` (the radix stages of
+    ``csrc/fft_radix.cuh``), times ``scale``, in the input's precision."""
+    x = torch.view_as_complex(raw.view(bpre, sub.m, rest, 2))
     with full_fp32_matmuls(raw):
-        yr, yi = rows_plain(sub, x[..., 0], x[..., 1])
-    return interleave(yr.transpose(1, 2), yi.transpose(1, 2), scale)
+        y = radix_sub_plain(sub, x.transpose(1, 2)).transpose(1, 2) * scale
+    return torch.view_as_real(y).reshape(-1)
 
 
-@tracing.kernel("K10", ("sliced_kernel",))
+@tracing.kernel("K10", ("sliced_kernel", "col_radix_kernel"))
 def col(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
     """K10: the ``sub.m``-point transform over axis 1 of the ``(bpre,
     sub.m, rest)`` complex view of ``raw``, in its precision: float32, or
     float64 with float64 tables (the double kernel, ``pf_col_f64``, whose
-    tile holds up to ``COL_F64_MAX`` points).  ``out`` (may be ``raw`` itself) receives the
-    result; otherwise a new tensor.  Past 8192 points the kernel runs as two
-    launches through a scratch buffer the size of the input (see
-    ``csrc/fft_col.cu``).  Each launch counts on ``tracing.paths("K10")``
-    as ``"f32"`` or ``"f64"``."""
+    tile holds up to ``COL_F64_MAX`` points).  ``out`` (may be ``raw``
+    itself) receives the result; otherwise a new tensor.  Up to 8192 points
+    one launch on the radix stages (``col_radix_kernel``), counted on
+    ``tracing.paths("K10")`` as ``"radix"`` or ``"radix_f64"``; past it two
+    launches of plain sums through a scratch buffer the size of the input
+    (see ``csrc/fft_col.cu``), counted as ``"f32"`` (``"f64"`` in
+    double)."""
     check_buffer(raw, 2 * bpre * sub.m * rest, "col", (torch.float32, torch.float64))
     if raw.device.type == "cpu":
         return into(out, col_plain(raw, bpre, rest, sub, scale))
@@ -167,7 +170,8 @@ def col(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
         raise InvalidConfiguration(f"col: the tables are not {raw.dtype}")
     lib = _build.load()
     y = torch.empty_like(raw) if out is None else out
-    scratch = torch.empty_like(raw) if lib.pf_col_needs_scratch(sub.m) else None
+    two = lib.pf_col_needs_scratch(sub.m)
+    scratch = torch.empty_like(raw) if two else None
     with torch.cuda.device(raw.device):
         err = (lib.pf_col_f64 if f64 else lib.pf_col)(
             raw.data_ptr(), y.data_ptr(),
@@ -175,7 +179,8 @@ def col(raw, bpre: int, rest: int, sub: SubTables, scale: float, out=None):
             sub.m, sub.a, *sub.pointers(), bpre, rest, scale, stream_of(raw),
         )
     _build.check(lib, err, "col kernel")
-    tracing.path("K10", "f64" if f64 else "f32")
+    tracing.path("K10", ("f64" if f64 else "f32") if two else
+                 ("radix_f64" if f64 else "radix"))
     return y
 
 

@@ -38,8 +38,9 @@ Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
 Counters are always on: launches by kernel (:func:`launches`), counted
 where a wrapper's call reached the card; launches by code path
 (:func:`paths`: K13's ``radix``, ``plain`` or ``radix_col``, its column
-form; K9's ``radix``, or ``radix_f64`` in double; K10's ``f32`` or ``f64``,
-its precision), counted by the wrappers that
+form; K9's ``radix``, or ``radix_f64`` in double; K10's ``radix`` or
+``radix_f64`` up to 8192 points, ``f32`` or ``f64`` on its two launches
+past it), counted by the wrappers that
 choose one; the tuning table's outcomes where commit chooses a route
 (:func:`tuning_outcomes`); and the bytes the plane executor's copies write
 outside the port's kernels (:func:`glue_bytes`).  Under a recording profiler each such copy is also a

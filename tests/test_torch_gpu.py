@@ -26,6 +26,8 @@ from chip_smoke import (
     MMA_COL_CASES,
     MMA_GLOBAL_CASES,
     fp32_digests,
+    hashed_uniform,
+    k10_case,
     md_kernel_case,
     md_kinds,
     oracle_tol,
@@ -435,7 +437,8 @@ def test_afno_main_path_matches_oracle(cuda):
     orthonormal scale (the backward input a half spectrum with no Hermitian
     symmetry, whose C2R reads Im of bins 0 and 90 as 0, as ``irfft2``); K9
     counts one ``radix`` launch a call on ``tracing.paths("K9")`` and no
-    ``plain`` one."""
+    ``plain`` one, K10 one ``radix`` launch and no ``f32`` or ``f64``
+    one."""
     lengths, batch, scale = AFNO
     n, bins = int(np.prod(lengths)), (lengths[0], lengths[1] // 2 + 1)
     plan = pf.Descriptor(lengths=list(lengths), number_of_transforms=batch,
@@ -447,11 +450,12 @@ def test_afno_main_path_matches_oracle(cuda):
                          torch.rand(batch, *bins, generator=gen, device=cuda) * 2 - 1)
     for forward in (True, False):
         before = {k: tracing.launches(k) for k in ("K9", "K10")}
-        paths = tracing.paths("K9")
+        paths = {k: tracing.paths(k) for k in ("K9", "K10")}
         y = plan.compute_forward(x) if forward else plan.compute_backward(spec)
         torch.cuda.synchronize()
         assert {k: tracing.launches(k) - v for k, v in before.items()} == {"K9": 1, "K10": 1}
-        assert tracing.paths("K9") == {**paths, "radix": paths.get("radix", 0) + 1}
+        for k in ("K9", "K10"):
+            assert tracing.paths(k) == {**paths[k], "radix": paths[k].get("radix", 0) + 1}
         if forward:
             assert y.dtype == torch.float32 and y.shape == (2 * batch * bins[0] * bins[1],)
             got = torch.view_as_complex(y.view(batch, *bins, 2)).to(torch.complex128)
@@ -570,8 +574,9 @@ K10_F64_CASES = [(512, 512, 257), (1, 512, 131584), (7, 90, 91), (3, 256, 5),
 
 @pytest.mark.parametrize("shape", K10_F64_CASES)
 def test_k10_f64_matches_plain_and_torch(cuda, shape):
-    """K10 on float64 buffers and tables runs its double kernel (``f64`` on
-    ``tracing.paths("K10")``), in place, against its plain version in
+    """K10 on float64 buffers and tables runs its double kernel on the radix
+    stages (``radix_f64`` on ``tracing.paths("K10")``), out of place and in
+    place, against its plain version in
     float64 and ``torch.fft.fft`` down axis 1 in complex128, both signs at a
     scale of 0.25."""
     from portfft_tpu_torch.ops import cuda_fft, cuda_multidim
@@ -588,7 +593,7 @@ def test_k10_f64_matches_plain_and_torch(cuda, shape):
         y = x.clone()
         cuda_multidim.col(y, bpre, rest, sub, 0.25, out=y)  # in place
         torch.cuda.synchronize()
-        assert tracing.paths("K10") == {**paths, "f64": paths.get("f64", 0) + 2}
+        assert tracing.paths("K10") == {**paths, "radix_f64": paths.get("radix_f64", 0) + 2}
         assert torch.equal(got, y)
         assert _rel(got, cuda_multidim.col.plain(x, bpre, rest, sub, 0.25)) <= 1e-13
         c = torch.view_as_complex(x.view(bpre, m, rest, 2))
@@ -596,10 +601,54 @@ def test_k10_f64_matches_plain_and_torch(cuda, shape):
         assert _rel(torch.view_as_complex(got.view(bpre, m, rest, 2)), ref) <= 1e-13
 
 
+#: K10's one-launch kernel at the benchmark's column steps: AFNO's (12288,
+#: 90, 91) in float32, DNS's (512, 512, 257) and (1, 512, 131584) in
+#: float64, and FUSED [8, 128] over a ragged last tile in both.
+K10_RADIX_CASES = [((12288, 90, 91), torch.float32), ((512, 512, 257), torch.float64),
+                   ((1, 512, 131584), torch.float64), ((4, 1024, 91), torch.float32),
+                   ((4, 1024, 91), torch.float64)]
+
+
+@pytest.mark.parametrize("shape,dtype", K10_RADIX_CASES)
+def test_k10_radix_matches_plain_and_torch(cuda, shape, dtype):
+    """K10 on the radix stages (``col_radix_kernel``) both ways, out of
+    place and in place (equal), against its plain version (``KERNEL_TOL``
+    in float32, 1e-13 in float64, of max|plain|) and ``torch.fft`` along
+    axis 1 in complex128 (4·eps·log2 L of max|y|); each launch counts one
+    ``radix`` or ``radix_f64`` on ``tracing.paths("K10")``."""
+    bpre, m, rest = shape
+    f64 = dtype == torch.float64
+    path = "radix_f64" if f64 else "radix"
+    x = hashed_uniform(2 * bpre * m * rest, m, dtype, "cuda")
+    xc = torch.view_as_complex(x.view(*shape, 2)).to(torch.complex128)
+    eps = torch.finfo(dtype).eps
+    for sign in (-1, +1):
+        scale = 1.0 if sign < 0 else 1.0 / m
+        kernel, args = k10_case(pf, shape, dtype, sign, scale, "cuda")
+        paths = tracing.paths("K10")
+        got = kernel(x, *args)
+        y = x.clone()
+        kernel(y, *args, out=y)
+        torch.cuda.synchronize()
+        assert tracing.paths("K10") == {**paths, path: paths.get(path, 0) + 2}
+        assert torch.equal(got, y)
+        del y
+        plain = kernel.plain(x, *args)
+        tol = 1e-13 if f64 else KERNEL_TOL
+        assert (got - plain).abs().max().item() <= tol * plain.abs().max().item()
+        del plain
+        want = (torch.fft.fft(xc, dim=1) if sign < 0
+                else torch.fft.ifft(xc, dim=1) * m) * scale
+        err = ((torch.view_as_complex(got.view(*shape, 2)) - want).abs().max()
+               / want.abs().max()).item()
+        assert err <= 4 * eps * np.log2(m), (sign, err / eps)
+        del got, want
+
+
 def test_dns_main_path_runs_k9_and_k10_in_double(cuda):
     """The Taylor-Green DNS call (one 512^3 component, ``chip_smoke.DNS``)
     through the committed fp64 route: forward K9 ``radix_f64`` then K10
-    ``f64`` on axes 1 and 0, backward the reverse with the scale 2^-27 in
+    ``radix_f64`` on axes 1 and 0, backward the reverse with the scale 2^-27 in
     K9; one K9 and two K10 launches a call, no float32 path taken; float64
     reals and complex128 spectra out, within 1e-13 of ``torch.fft`` in
     complex128 (as a share of its root mean square)."""
@@ -622,7 +671,8 @@ def test_dns_main_path_runs_k9_and_k10_in_double(cuda):
         assert {k: tracing.launches(k) - v for k, v in launches.items()} == {"K9": 1, "K10": 2}
         assert tracing.paths("K9") == {**paths["K9"],
                                        "radix_f64": paths["K9"].get("radix_f64", 0) + 1}
-        assert tracing.paths("K10") == {**paths["K10"], "f64": paths["K10"].get("f64", 0) + 2}
+        assert tracing.paths("K10") == {**paths["K10"],
+                                        "radix_f64": paths["K10"].get("radix_f64", 0) + 2}
         if forward:
             assert y.dtype == torch.float64 and y.numel() == 2 * 512 * 512 * 257
             got = torch.view_as_complex(y.view(batch, 512, 512, 257, 2))
@@ -635,8 +685,9 @@ def test_dns_main_path_runs_k9_and_k10_in_double(cuda):
 
 def test_f64_kernels_are_named_on_the_card(cuda):
     """The double kernels' ``__global__`` functions, as the profiler names
-    them (``small_real_{fwd,bwd}_f64_kernel<P>``, ``sliced_kernel<double2
-    const*, double2*>``), map to K9 and K10 through ``tracing.kernels_of``."""
+    them (``small_real_{fwd,bwd}_f64_kernel<P>``,
+    ``col_radix_kernel<double2>``), map to K9 and K10 through
+    ``tracing.kernels_of``."""
     from torch.profiler import ProfilerActivity, profile
 
     plan = _f64_plan([12, 180], 4)
@@ -653,24 +704,27 @@ def test_f64_kernels_are_named_on_the_card(cuda):
             plan.compute_backward(plan.compute_forward(x))
         torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages()
-             if "small_real" in e.key or "sliced_kernel" in e.key}
+             if "small_real" in e.key or "col_radix_kernel" in e.key}
     assert any("small_real_fwd_f64_kernel<1>" in k for k in names), names
     assert any("small_real_bwd_f64_kernel<1>" in k for k in names), names
-    assert any("sliced_kernel<double2" in k for k in names), names
+    assert any("col_radix_kernel<double2>" in k for k in names), names
     for k in names:
         assert ("K9" if "small_real" in k else "K10") in tracing.kernels_of(k), k
 
 
 def test_fp32_k9_and_k10_are_the_parents_bit_for_bit(cuda):
     """K9's and K10's float32 outputs at AFNO's and r2c's shapes
-    (``chip_smoke.fp32_digests``) are those of the kernels before they were
-    written on the scalar type: the digests the earlier tree gave on an
-    NVIDIA H100 80GB HBM3."""
+    (``chip_smoke.fp32_digests``) are the recorded ones: K9's those of the
+    kernel before it was written on the scalar type, K10's those of its
+    radix kernel (``col_radix_kernel``) as first built, on an NVIDIA H100
+    80GB HBM3."""
     assert fp32_digests(pf) == FP32_PARENT_DIGESTS
 
 
-#: ``chip_smoke.fp32_digests`` of the tree before K9 and K10 took a scalar
-#: type (NVIDIA H100 80GB HBM3, torch 2.11, CUDA 12.8).
+#: ``chip_smoke.fp32_digests`` on an NVIDIA H100 80GB HBM3 (torch 2.11, CUDA
+#: 12.8): K9's from the tree before K9 took a scalar type, K10's from the
+#: first build of ``col_radix_kernel`` (K10 on the radix stages; the sums
+#: before it gave other bits).
 FP32_PARENT_DIGESTS = {
     "K9 n=180 forward":
         "4a60440140408f91df0c7906483007182c62c4a36a6e4706befe85f80d973c13",
@@ -681,9 +735,9 @@ FP32_PARENT_DIGESTS = {
     "K9 n=512 backward":
         "00448fcf88cb771649c37fbd7fec155b822e07d9da039e3056cead4350bd6c17",
     "K10 n=90 forward":
-        "4391cd6c6b55368dc3623a76fe8703823eb4a37f7a0bd76c1e2dc4efe02b2d28",
+        "7cebcd5cc283d395c14b282ae5ea2615b01b572e699c848630aa848ad9354570",
     "K10 n=90 backward":
-        "26121304592608b0aedf5245c4ac75c68d3ade91f4f9a8634ea824d502c2e5c0",
+        "92ce89dc57cdb4f0d372e770b7512bd728292bea79cd8741a24fd316fcdbde61",
 }
 
 

@@ -247,6 +247,61 @@ def test_col_matches_col_raw_call(bpre, L, rest, sign, scale):
     _check_axis(got.numpy(), want, x, (bpre, L, rest), (1,), sign, scale)
 
 
+#: (L, rest) of K10 on the radix stages: a DIRECT length for each radix the
+#: stage plan has (2, 4, 8, 3; the odd primes 5 .. 23, which the float
+#: kernel runs in registers; 29 on the generic stage; the benchmark's 90 =
+#: 5·3·3·2 and 512 = 8·8·8), FUSED [8, 128], and trailing extents 5, 91 and
+#: 257 that leave a ragged last tile.
+COL_RADIX_CASES = [(2, 5), (4, 91), (8, 257), (3, 5), (5, 91), (7, 257),
+                   (11, 5), (13, 91), (17, 257), (23, 5), (29, 91), (90, 257),
+                   (512, 5), (1024, 91)]
+
+
+def _f64_sub(n, sign):
+    """The port's float64 sub-tables of the length-n plan."""
+    plan = plan_1d(n, CFG, 8)
+    bank, keys = torch_fft.TwiddleBank(np.float64), {}
+    torch_fft.collect_bank_keys(plan, sign, bank, keys)
+    return cuda_fft.sub_tables(plan, sign, keys, bank.device_arrays("cpu"))
+
+
+@pytest.mark.parametrize("L,rest", COL_RADIX_CASES)
+def test_col_on_the_radix_stages(L, rest):
+    """K10's plain version, the kernel's radix stages and order, both
+    directions with a scale: in float32 against the reference's
+    ``col_raw_call`` (5e-5·max) and ``np.fft`` in both precisions within
+    4·eps·log2(L)·max|y|, the growth of a radix FFT's error with its
+    stages."""
+    bpre = 2
+    x = np.random.default_rng(L + rest).uniform(-1, 1, 2 * bpre * L * rest)
+    xc = x.view(np.complex128).reshape(bpre, L, rest)
+    for sign, scale in ((-1, 1.0), (+1, 0.375)):
+        ref_y = (np.fft.fft(xc, axis=1) if sign < 0
+                 else np.fft.ifft(xc, axis=1) * L) * scale
+        rplan = ref_plan_1d(L, REF_CFG, 4)
+        rbank = xla_fft.TwiddleBank(np.float32)
+        xla_fft.collect_bank_keys(rplan, sign, rbank)
+        names = pallas_multidim.col_table_names(rplan, sign, rbank)
+        x32 = x.astype(np.float32)
+        want = pallas_multidim.col_raw_call(
+            jnp.asarray(x32), bpre, rplan, 2 * rest, sign, names,
+            rbank.device_arrays(), REF_CFG, scale=scale)
+        assert want is not None
+        for dtype, sub, inp in ((np.float32, _sub(L, sign, rbank), x32),
+                                (np.float64, _f64_sub(L, sign), x)):
+            t = torch.from_numpy(inp)
+            got = cuda_multidim.col(t, bpre, rest, sub, scale)
+            assert got.dtype == t.dtype
+            assert torch.equal(got, cuda_multidim.col.plain(t, bpre, rest, sub, scale))
+            y = got.numpy().astype(np.float64).view(np.complex128).reshape(xc.shape)
+            tol = 4 * np.finfo(dtype).eps * max(np.log2(L), 1.0)
+            err = np.abs(y - ref_y).max() / np.abs(ref_y).max()
+            assert err <= tol, (dtype, sign, err / np.finfo(dtype).eps)
+            if dtype == np.float32:
+                delta = np.abs(got.numpy() - np.asarray(want)).max()
+                assert delta <= 5e-5 * np.abs(np.asarray(want)).max(), delta
+
+
 @pytest.mark.parametrize(
     "batch,n1,n2,sign,scale",
     [(2, 256, 128, -1, 1.0), (1, 1024, 128, +1, 0.25), (1, 128, 1024, -1, 0.5)],

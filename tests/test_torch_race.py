@@ -9,6 +9,7 @@ to one small shape of each kernel.
 """
 
 import pytest
+import torch
 
 import chip_race
 import chip_smoke as cs
@@ -32,6 +33,7 @@ SMALL = {
     "AXIS_CASES": [(2, 128, 4)],
     "REAL_KERNEL_CASES": [(32, 4), (1000, 2)],
     "K9_ALONE": [(180, 3), (32, 4)],
+    "K10_ALONE": [((2, 90, 5), torch.float32), ((1, 16, 3), torch.float64)],
     "WIDE_CASES": [(16384, 2)],
     "IO_CASES": [1000],
     "STRIDE_CASES": [("strided", (0, 2, 128, 64, 4), False),

@@ -215,3 +215,46 @@ def test_fp32_digests_are_bit_for_bit():
     assert x.min() >= -1 and x.max() < 1 and x.std() > 0.5
     assert not torch.equal(x, chip_smoke.hashed_uniform(1000, 4, device="cpu"))
     assert len({tuple(k for k, n, _ in chip_smoke.FP32_DIGEST_CASES)}) == 1
+
+
+def test_k10_phase_checks_and_times_each_case(monkeypatch, capsys):
+    """The K10 phase on the CPU at its lengths and precisions, cut to two
+    batches of 5 to 7 columns (timer stubbed): every case passes its plain
+    version, ``torch.fft`` and the in-place check both ways, and prints one
+    line a direction with its multiple of the byte bound; the phase's
+    shapes are the AFNO and DNS cells' column steps."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 1.0)[1])
+    cases = [((2, L, 5 + i), dtype)
+             for i, ((_, L, _), dtype) in enumerate(chip_smoke.K10_ALONE)]
+    out = chip_smoke.k10_phase(pf, "cpu", cases, device="cpu")
+    assert len(out) == 2 * len(cases)
+    assert all(set(ms) == {"kernel", "plain", "torch.fft"} for ms in out.values())
+    assert len(calls) == 6 * len(cases)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("alone  K10")]
+    assert len(lines) == 2 * len(cases) and all("x bound" in ln for ln in lines)
+    assert chip_smoke.K10_ALONE == [((12288, 90, 91), torch.float32),
+                                    ((512, 512, 257), torch.float64),
+                                    ((1, 512, 131584), torch.float64)]
+
+
+@pytest.mark.parametrize("fault,match", [("zeros", r"max\|kernel - plain\|"),
+                                         ("in place", "in place differs")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k10_phase_rejects_a_faulty_kernel(monkeypatch, fault, match, dtype):
+    from portfft_tpu_torch.ops import cuda_multidim
+
+    col = cuda_multidim.col
+
+    def faulty(raw, *a, out=None):
+        if fault == "zeros" or out is raw:
+            return torch.zeros_like(raw) if out is None else out.zero_()
+        return col(raw, *a, out=out)
+
+    faulty.plain = col.plain
+    faulty.kernel = "K10"
+    monkeypatch.setattr(cuda_multidim, "col", faulty)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (fn(), 1.0)[1])
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.k10_phase(pf, "cpu", [((2, 90, 5), dtype)], device="cpu")

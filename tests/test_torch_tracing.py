@@ -232,6 +232,10 @@ def test_every_registered_symbol_is_a_global_function_of_csrc():
     ("void pfft::(anonymous namespace)::sliced_kernel<double2 const*, double2*>(pfft::PassT"
      "<decltype (buffer_scalar((std::declval<double2 const*>)()))>, pfft::Slices, double2 "
      "const*, double2*)", ("K10", "K14", "K12")),
+    # K10 on the radix stages, both precisions
+    ("void (anonymous namespace)::col_radix_kernel<double2>(pfft::PassT<double>, "
+     "double2 const*, double2*)", ("K10",)),
+    ("void__anonymous_namespace_::col_radix_kernel_float2__pfft::PassT_float__", ("K10",)),
     ("Memset (Device)", ()),
 ])
 def test_device_operation_names_map_to_k_numbers(op, kernels):
