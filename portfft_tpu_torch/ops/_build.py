@@ -6,8 +6,10 @@ device, into ``portfft_tpu_torch/_build/`` (listed in ``.gitignore``).  Its
 file name carries a hash of the sources and flags, so a stale build is never
 loaded.  Each C entry point takes raw device pointers and the caller's CUDA
 stream, allocates nothing, and returns ``cudaGetLastError()`` after its
-launches; :func:`check` raises when that code is not 0.  Importing this
-module builds and loads nothing.
+launches; :func:`check` raises when that code is not 0.  While a profiler
+records, each call of an entry point that launches kernels is a
+``portfft.launch`` span (``utils.tracing``).  Importing this module builds
+and loads nothing.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ..utils import tracing
+from ..utils.tracing import PROFILER
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -89,6 +94,8 @@ _SIGNATURES = {
     "pf_restride": ([_P] * 4 + [_I] + [_I64] * 6 + [_I, _P], _I),
     "pf_error_string": ([_I], ctypes.c_char_p),
 }
+#: The entry points that launch nothing: they answer a question.
+_QUERIES = {"pf_error_string"} | {n for n in _SIGNATURES if n.endswith("_needs_scratch")}
 
 
 class BuildError(RuntimeError):
@@ -180,13 +187,31 @@ def build_log() -> str:
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's signature."""
-    lib = ctypes.CDLL(str(build()))
+    """Build if needed, load, and declare every entry point."""
+    return declare(ctypes.CDLL(str(build())))
+
+
+def declare(lib):
+    """Give each entry point of ``lib`` its signature, and put each one that
+    launches kernels inside a ``portfft.launch`` span while a profiler
+    records; return ``lib``."""
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
+        if name not in _QUERIES:
+            setattr(lib, name, _spanned(name, fn))
     return lib
+
+
+def _spanned(name: str, fn):
+    def launch(*args):
+        if PROFILER._is_profiler_enabled:
+            return tracing.leaf(tracing.LAUNCH, fn, args, name)
+        return fn(*args)
+
+    launch.__name__ = name
+    return launch
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

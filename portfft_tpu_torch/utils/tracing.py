@@ -7,7 +7,8 @@ Spans record only while a ``torch.profiler`` (or the older
 no profiler runs.  The spans stay on the host: nothing here puts an
 annotation on the profiler's timeline (no ``record_function``, no NVTX), so
 a trace's device operations are the program's kernels alone.  Three layers
-record them, and the per-axis walk splits the executor's:
+record them, a wrapper's launch splits the wrapper's, and the per-axis walk
+splits the executor's:
 
 - ``portfft.call``: a compute call of a committed plan, the root of its
   spans (``CommittedDescriptor._compute``: validation, buffer conversion,
@@ -19,6 +20,13 @@ record them, and the per-axis walk splits the executor's:
 - ``portfft.<K>`` (``portfft.K1``, ``portfft.K2-v2``, ...): a kernel
   wrapper of ``ops/cuda_*.py`` (:func:`kernel`), from argument checks
   through the launch and its error check;
+- ``portfft.launch``, inside ``portfft.<K>``: the call of one library
+  entry point that launches kernels (``ops/_build.load`` declares it), a
+  :func:`leaf` span; its ``note`` is the entry point's name
+  (``pf_direct``).  It splits a
+  wrapper's host time into its Python and the launch, any wait to
+  enqueue on the card included, and is no kernel: :meth:`Call.kernel_ns`
+  counts the wrapper that holds it;
 - ``portfft.axis``, inside ``portfft.exec``: one axis of ``core_inner``'s
   walk; its ``note`` is the axis and its route (``1 exec``: the last axis
   through the executor, ``0 K12``: the column kernel, ``0 K13col``: K13's
@@ -31,8 +39,16 @@ record them, and the per-axis walk splits the executor's:
   (:meth:`Call.children`).
 
 Each span is ``(name, start_ns, end_ns, parent, call_id, id, note)`` on
-``time.perf_counter_ns()``; ``parent`` is the id of the span it nests in
-(-1 for a root), and every span under one root shares the root's
+:data:`CLOCK`, ``time.time_ns()``: the Unix time onto which a profiler maps
+its own clock, so a span's time in a trace is ``(ns - origin) / 1e9``
+seconds, the origin being the profile's ``trace_start_ns()``.  That clock
+is assumed not to be stepped while a profiler records: a step would put
+every later span off the trace's clock and give the span it falls in a
+wrong length.  The readers take each self time as a median over a
+segment's calls, which one such span does not move, and
+``port_bench/idle_by_span.py`` gives no split where the launches and the
+device's operations disagree.  ``parent`` is the id of the span it nests
+in (-1 for a root), and every span under one root shares the root's
 ``call_id``.  The last ``RING`` spans are kept (:func:`spans`).
 
 Counters are always on: launches by kernel (:func:`launches`), counted
@@ -64,6 +80,10 @@ from torch.autograd import profiler as PROFILER
 PREFIX = "portfft."
 #: How many spans are kept, the newest.
 RING = 1 << 17
+#: The clock of every span's stamps, in ns.
+CLOCK = time.time_ns
+#: The span of a library entry point's call inside a kernel wrapper.
+LAUNCH = PREFIX + "launch"
 
 
 class Span(NamedTuple):
@@ -116,16 +136,16 @@ def _open(name: str, note: str = "") -> tuple:
         parent, call_id = stack[-1][0], stack[-1][2]
     else:
         parent, call_id = -1, next(_call_ids)
-    token = (next(_ids), name, call_id, parent, note, time.perf_counter_ns())
+    token = (next(_ids), name, call_id, parent, note, CLOCK())
     stack.append(token)
     return token
 
 
 def _close(token: tuple) -> None:
-    end = time.perf_counter_ns()
+    end = CLOCK()
     _local.stack.pop()
     sid, name, call_id, parent, note, start = token
-    _ring[sid % RING] = Span(name, start, end, parent, call_id, sid, note)
+    _ring[sid % RING] = (name, start, end, parent, call_id, sid, note)
 
 
 def run(name: str, fn, *args, note: str = "", **kwargs):
@@ -138,9 +158,28 @@ def run(name: str, fn, *args, note: str = "", **kwargs):
         _close(token)
 
 
+def leaf(name: str, fn, args: tuple, note: str = ""):
+    """``fn(*args)`` as the span ``name`` under the innermost open one, for
+    a site where no span nests (a library entry point's call): its two
+    stamps go straight to the ring, with no token on the stack and no
+    ``try``, so the span costs its wrapper little (a call that raises
+    records none).  Sites call it only while
+    ``PROFILER._is_profiler_enabled``."""
+    stack = getattr(_local, "stack", None)
+    if stack:
+        parent, call_id = stack[-1][0], stack[-1][2]
+    else:
+        parent, call_id = -1, next(_call_ids)
+    sid = next(_ids)
+    start = CLOCK()
+    out = fn(*args)
+    _ring[sid % RING] = (name, start, CLOCK(), parent, call_id, sid, note)
+    return out
+
+
 def spans() -> list:
     """The kept spans, oldest first."""
-    return sorted((s for s in _ring if s is not None), key=lambda s: s.id)
+    return sorted((Span._make(s) for s in _ring if s is not None), key=lambda s: s.id)
 
 
 class Call(NamedTuple):
@@ -300,8 +339,3 @@ def tuned(outcome: str) -> None:
 
 def tuning_outcomes() -> dict:
     return dict(_tuning)
-
-
-def reset_tuning() -> None:
-    for outcome in _tuning:
-        _tuning[outcome] = 0

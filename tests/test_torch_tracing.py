@@ -5,27 +5,32 @@ symbols, the tuning outcomes at commit, and the benchmark's readers of
 spans and counters (``port_bench/metrics``) on synthetic traces and on a
 traced run of each cell at small batches."""
 
+import ctypes
 import importlib.util
+import itertools
 import os
 import re
 import sys
 import time
+import types
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import portfft_tpu_torch as pf
-from port_bench import devtrace, run
+from port_bench import devtrace, idle_by_span, run
 from port_bench.tests.conftest import ROOT, small_copy
 from portfft_tpu_torch import tuning
 from portfft_tpu_torch.utils import tracing
 from portfft_tpu_torch.utils.tracing import Span
 
 READERS = ("call_self_us", "launch_self_us", "exec_self_us", "idle_in_program_pct",
-           "tuned_pct", "glue_pct", "walk_glue_mib")
+           "tuned_pct", "glue_pct", "walk_glue_mib", "idle_in_call_pct", "idle_in_exec_pct",
+           "idle_in_wrapper_pct", "idle_in_launch_pct")
 #: Readers of the device's operations, which a CPU run has not.
-DEVICE_READERS = {"idle_in_program_pct", "glue_pct"}
+DEVICE_READERS = {"idle_in_program_pct", "glue_pct", "idle_in_call_pct", "idle_in_exec_pct",
+                  "idle_in_wrapper_pct", "idle_in_launch_pct"}
 
 
 def _reader(name):
@@ -67,12 +72,42 @@ CALLS = {
 }
 
 
-@pytest.mark.parametrize("kind", list(CALLS))
+class _Entry:
+    """An entry point of a stand-in kernel library: returns 0, as a launch
+    that succeeded."""
+
+    def __call__(self, *args):
+        return 0
+
+
+def _library():
+    """A stand-in kernel library, declared as ``_build.load`` declares the
+    real one (a CPU run reaches no launch of its own)."""
+    from portfft_tpu_torch.ops import _build
+
+    return _build.declare(types.SimpleNamespace(**{n: _Entry() for n in _build._SIGNATURES}))
+
+
+class _Launching:
+    """A stand-in descriptor whose plan's call asks the library a question
+    and launches through it."""
+
+    def commit(self, device):
+        lib = _library()
+        return types.SimpleNamespace(
+            compute_forward=lambda x: (lib.pf_fused2_needs_scratch(1), lib.pf_direct(*x)))
+
+
+#: Launches through a declared library: (descriptor, input), as ``CALLS``.
+LAUNCHES = {"launch": (lambda: (_Launching(), [0] * 8), [])}
+
+
+@pytest.mark.parametrize("kind", list(CALLS) + list(LAUNCHES))
 def test_no_profiler_no_span_and_no_record_function(kind, monkeypatch):
-    """With no profiler a call records nothing, and the tracer never
-    enters ``record_function``; the counters count all the same (the R2C
-    commit looks up its half length's FUSED entry)."""
-    make, _ = CALLS[kind]
+    """With no profiler a call or a launch records nothing, and the tracer
+    never enters ``record_function``; the counters count all the same (the
+    R2C commit looks up its half length's FUSED entry)."""
+    make, _ = {**CALLS, **LAUNCHES}[kind]
     _forbid_record_function(monkeypatch)
     desc, x = make()
     before = sum(tracing.tuning_outcomes().values())
@@ -119,6 +154,125 @@ def test_spans_follow_the_profilers_switch():
     assert not tracing.PROFILER._is_profiler_enabled
     plan.compute_forward(x)
     assert len(tracing.spans()) == min(count + 2, tracing.RING)
+
+
+def test_a_launch_is_a_span_of_its_entry_point_inside_its_wrapper(monkeypatch):
+    monkeypatch.setattr(tracing, "KERNELS", dict(tracing.KERNELS))
+    monkeypatch.setattr(tracing, "_launches", dict(tracing._launches))
+    lib = _library()
+
+    @tracing.kernel("Ktest", ("direct_kernel",))
+    def launch(x):
+        lib.pf_fused2_needs_scratch(1)  # a question: no span
+        return lib.pf_direct(*[0] * 8)
+
+    _forbid_record_function(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert launch(torch.zeros(2)) == 0
+    last = tracing.spans()[-1]
+    wrapper, entry = [s for s in tracing.spans() if s.call_id == last.call_id]
+    assert (wrapper.name, wrapper.parent) == ("portfft.Ktest", -1)
+    assert (entry.name, entry.note, entry.parent) == (tracing.LAUNCH, "pf_direct", wrapper.id)
+    assert wrapper.start_ns <= entry.start_ns <= entry.end_ns <= wrapper.end_ns
+    assert not [e.name for e in prof.events() if e.name.startswith("portfft.")]
+
+
+def test_every_entry_point_that_launches_is_spanned_and_no_question():
+    from portfft_tpu_torch.ops import _build
+
+    lib = _library()
+    questions = {n for n in _build._SIGNATURES if isinstance(getattr(lib, n), _Entry)}
+    assert questions == _build._QUERIES == {
+        "pf_error_string", "pf_fused2_needs_scratch", "pf_col_needs_scratch",
+        "pf_chain_needs_scratch", "pf_chain_general_needs_scratch",
+        "pf_global2_planes_needs_scratch", "pf_axis_m2_needs_scratch"}
+    for name in set(_build._SIGNATURES) - questions:
+        assert getattr(lib, name).__name__ == name
+
+
+def test_a_launch_with_no_open_span_is_a_root_and_pushes_nothing():
+    lib = _library()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert lib.pf_direct(*[0] * 8) == 0
+    last = tracing.spans()[-1]
+    assert (last.name, last.note, last.parent) == (tracing.LAUNCH, "pf_direct", -1)
+    assert last.start_ns <= last.end_ns
+    assert not getattr(tracing._local, "stack", [])
+
+
+def test_a_launch_that_raises_records_no_span_and_its_wrapper_closes(monkeypatch):
+    from portfft_tpu_torch.ops import _build
+
+    monkeypatch.setattr(tracing, "KERNELS", dict(tracing.KERNELS))
+    monkeypatch.setattr(tracing, "_launches", dict(tracing._launches))
+
+    def refuse(*args):
+        raise ctypes.ArgumentError("argument 1: wrong type")
+
+    entries = {n: _Entry() for n in _build._SIGNATURES}
+    lib = _build.declare(types.SimpleNamespace(**{**entries, "pf_direct": refuse}))
+
+    @tracing.kernel("Ktest", ("direct_kernel",))
+    def launch(x):
+        return lib.pf_direct(*[0] * 8)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ctypes.ArgumentError):
+            launch(torch.zeros(2))
+    last = tracing.spans()[-1]
+    assert (last.name, last.parent) == ("portfft.Ktest", -1)
+    assert not getattr(tracing._local, "stack", [])
+
+
+def _traced_calls(plan, x, count):
+    """``count`` calls of ``plan``, each inside a harness-style
+    ``compute_forward`` span in one ``traced_window``, under a CPU profiler:
+    the profile, its trace, the calls' spans and the trace's origin, found
+    as the readers find it beside the harness's profile."""
+    from torch.profiler import record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("traced_window"):
+            for _ in range(count):
+                with record_function("compute_forward"):
+                    plan.compute_forward(x)
+    trc = devtrace.collect(prof, rounds=count)
+    return prof, trc, tracing.calls(count), idle_by_span.origin_ns(trc)
+
+
+def _on_trace_clock(span, origin):
+    return (span.start_ns - origin) / 1e9, (span.end_ns - origin) / 1e9
+
+
+@pytest.mark.parametrize("kind", list(CALLS))
+def test_calls_lie_inside_their_compute_spans_on_the_trace_clock(kind):
+    make, _ = CALLS[kind]
+    desc, x = make()
+    plan = desc.commit(device="cpu")
+    plan.compute_forward(x)
+    prof, trc, calls, origin = _traced_calls(plan, x, 5)
+    computes = sorted((s for s in trc.spans if s[0] == "compute_forward"), key=lambda s: s[1])
+    assert origin == prof.profiler.kineto_results.trace_start_ns()
+    assert origin is not None and len(calls) == len(computes) == 5
+    for call, (_, lo, hi) in zip(calls, computes):
+        start, end = _on_trace_clock(call.root, origin)
+        assert lo <= start < end <= hi
+
+
+@pytest.mark.parametrize("kind", list(CALLS))
+def test_the_plain_paths_operations_lie_inside_their_call(kind):
+    make, _ = CALLS[kind]
+    desc, x = make()
+    plan = desc.commit(device="cpu")
+    plan.compute_forward(x)
+    prof, trc, calls, origin = _traced_calls(plan, x, 3)
+    computes = sorted((s for s in trc.spans if s[0] == "compute_forward"), key=lambda s: s[1])
+    ops = [(e.time_range.start / 1e6, e.time_range.end / 1e6) for e in prof.events()
+           if e.name.startswith("aten::")]
+    for call, (_, lo, hi) in zip(calls, computes):
+        start, end = _on_trace_clock(call.root, origin)
+        mine = [op for op in ops if lo <= op[0] < hi]
+        assert mine and all(start <= a <= b <= end for a, b in mine)
 
 
 def test_the_ring_keeps_the_newest_spans(monkeypatch):
@@ -411,10 +565,12 @@ def _call(call_id, first_id, t0, self_us, children=(), offset_s=0.0):
     return spans
 
 
-def _record(spans_prog, computes, ops, start, end, monkeypatch):
+def _record(spans_prog, computes, ops, start, end, monkeypatch, origin_ns=None):
     monkeypatch.setattr(tracing, "spans", lambda: sorted(spans_prog, key=lambda s: s.id))
     trace = devtrace.Trace(ops=ops, spans=[("compute_forward", lo, hi) for lo, hi in computes]
                            + [("traced_window", start, end)], start=start, end=end, rounds=1)
+    if origin_ns is not None:  # a synthetic trace's clock: no profile to read it from
+        trace.origin_ns = origin_ns
     return run.Record(specs=[], setup_s=0.0, commit_s=[], calls=[], window_s=1.0,
                       peak_bytes=0, trace=trace)
 
@@ -478,6 +634,135 @@ def test_readers_take_the_last_segments_calls_after_a_retake(monkeypatch):
     rec = _record(old + new, [(0.010, 0.0101), (0.0101, 0.0102)], [], 0.010, 0.0102,
                   monkeypatch)
     assert _reader("call_self_us").read(rec) == pytest.approx(10.0)
+
+
+#: A Unix time in ns: the origin of the synthetic traces' clock.
+ORIGIN = 1_789_012_345_678_901_234
+
+
+def _tree(node, call_id, ids, parent=-1):
+    """The spans of ``node``, ``(name, start_us, end_us, children)`` with
+    every time in µs on the trace's clock from ``ORIGIN``."""
+    name, lo, hi, kids = node
+    sid = next(ids)
+    out = [Span(name, ORIGIN + lo * US, ORIGIN + hi * US, parent, call_id, sid,
+                "forward" if parent == -1 else "")]
+    for kid in kids:
+        out += _tree(kid, call_id, ids, sid)
+    return out
+
+
+def _split_case(inner, monkeypatch, ops=True, origin_ns=ORIGIN):
+    """A 10 ms segment, the device busy 0–1 and 6–10 ms: idle 1–6 ms (50%),
+    across the harness's compute span 0.5–6 ms and the call 2–5.5 ms that
+    holds ``inner``."""
+    spans = _tree(("portfft.call", 2000, 5500, [inner]), 1, itertools.count())
+    busy = [("k", 0.0, 1e-3), ("k", 6e-3, 10e-3)] if ops else []
+    return _record(spans, [(0.5e-3, 6e-3)], busy, 0.0, 10e-3, monkeypatch, origin_ns)
+
+
+#: A wrapper 2.5–5 ms with its launch 3–4.5 ms.
+_WRAPPED = ("portfft.K1", 2500, 5000, [("portfft.launch", 3000, 4500, [])])
+#: The executor 2.2–5.3 ms, an axis 2.3–5.2 ms in it holding the wrapper.
+_WALKED = ("portfft.exec", 2200, 5300, [
+    ("portfft.axis", 2300, 5200, [("portfft.K13", 2500, 5000,
+                                   [("portfft.launch", 3000, 4500, [])])])])
+
+IDLE = ("idle_in_call_pct", "idle_in_exec_pct", "idle_in_wrapper_pct", "idle_in_launch_pct")
+
+
+@pytest.mark.parametrize("inner,want", [
+    # call 2–2.5 and 5–5.5 ms, wrapper 2.5–3 and 4.5–5, launch 3–4.5; the
+    # harness's 1–2 and 5.5–6 ms are no layer's
+    (_WRAPPED, (10.0, None, 10.0, 15.0)),
+    # call 2–2.2 and 5.3–5.5; the executor 2.2–2.5 and 5–5.3, through its axis
+    (_WALKED, (4.0, 6.0, 10.0, 15.0)),
+])
+def test_idle_splits_a_gap_by_the_hosts_innermost_span(inner, want, monkeypatch):
+    rec = _split_case(inner, monkeypatch)
+    got = tuple(_reader(name).read(rec) for name in IDLE)
+    for g, w in zip(got, want):
+        assert g == (None if w is None else pytest.approx(w, abs=1e-9))
+    device = (1 - rec.trace.busy_s() / rec.trace.window_s) * 100
+    assert device == pytest.approx(50.0)
+    # the harness's 1.5 ms: left to none of them
+    assert device - sum(g for g in got if g is not None) == pytest.approx(15.0)
+
+
+@pytest.mark.parametrize("name", IDLE)
+def test_idle_by_span_needs_device_operations_a_clock_origin_and_the_tracers_clock(
+        name, monkeypatch):
+    assert _reader(name).read(_split_case(_WALKED, monkeypatch)) is not None
+    assert _reader(name).read(_split_case(_WALKED, monkeypatch, ops=False)) is None
+    assert _reader(name).read(_split_case(_WALKED, monkeypatch, origin_ns=None)) is None
+    # a program whose spans are on another clock (``perf_counter_ns``)
+    monkeypatch.setattr(tracing, "CLOCK", time.perf_counter_ns)
+    assert _reader(name).read(_split_case(_WALKED, monkeypatch)) is None
+
+
+def _drift_case(ops_ms, monkeypatch):
+    """``_split_case`` with ``_WRAPPED`` (its launch 3–4.5 ms) and the
+    device operations ``(name, start_ms, end_ms)`` besides."""
+    rec = _split_case(_WRAPPED, monkeypatch)
+    rec.trace.ops = sorted(rec.trace.ops + [(n, a * 1e-3, b * 1e-3) for n, a, b in ops_ms],
+                           key=lambda op: op[1])
+    return rec
+
+
+#: A kernel of the port, as a profiler names it.
+_K1_OP = "(anonymous namespace)::direct_kernel(float2 const*, float2*)"
+
+
+@pytest.mark.parametrize("ops_ms,agree", [
+    # the kernel starts 5 µs after its launch returned, on an idle card
+    ([(_K1_OP, 4.505, 4.6)], True),
+    # 5 µs before its launch began: within the stamps' own error
+    ([(_K1_OP, 2.995, 3.1)], True),
+    # 50 µs before its launch began: the device's stamps run early
+    ([(_K1_OP, 2.95, 3.1)], False),
+    # 200 µs after its launch returned, the card idle all along: late
+    ([(_K1_OP, 4.7, 4.8)], False),
+    # 30 µs after another operation ended, with no launch open: queued
+    # behind it, so not held to the launches
+    ([("k", 2.3, 2.47), (_K1_OP, 2.5, 2.6)], True),
+    # an operation of no kernel of the port is not held to them
+    ([("k", 2.5, 2.6)], True),
+])
+def test_idle_by_span_gives_no_split_where_the_device_and_the_launches_disagree(
+        ops_ms, agree, monkeypatch):
+    rec = _drift_case(ops_ms, monkeypatch)
+    got = [_reader(name).read(rec) for name in IDLE if name != "idle_in_exec_pct"]
+    assert all((g is not None) == agree for g in got)
+
+
+def test_disagreements_finds_early_and_late_kernels():
+    from port_bench import idle_by_span
+
+    ops = [("k", 0.0, 1e-3), (_K1_OP, 2.95e-3, 3.1e-3), (_K1_OP, 4.7e-3, 4.8e-3),
+           (_K1_OP, 6.0e-3, 6.1e-3)]
+    trc = devtrace.Trace(ops=ops, spans=[], start=0.0, end=10e-3, rounds=1)
+    launches = [(3.0e-3, 3.05e-3), (4.5e-3, 4.55e-3), (5.99e-3, 6.0e-3)]
+    assert idle_by_span.disagreements(trc, launches, 0.0, 10e-3) == ([ops[1]], [ops[2]])
+    # outside ``[lo, hi]`` nothing is held to them
+    assert idle_by_span.disagreements(trc, launches, 5e-3, 10e-3) == ([], [])
+
+
+def test_a_launch_span_leaves_the_self_times_as_they_were(monkeypatch):
+    def call(launches):
+        inner = [("portfft.launch", 15, 25, [])] if launches else []
+        walked = [("portfft.launch", 55, 75, [])] if launches else []
+        return _tree(("portfft.call", 0, 100, [
+            ("portfft.K1", 10, 30, inner),
+            ("portfft.exec", 40, 90, [("portfft.axis", 45, 85, [
+                ("portfft.K15", 50, 80, walked)])])]), 1, itertools.count())
+
+    read = {}
+    for launches in (False, True):
+        rec = _record(call(launches), [(0.0, 1e-3)], [], 0.0, 1e-3, monkeypatch, ORIGIN)
+        read[launches] = [_reader(n).read(rec)
+                          for n in ("call_self_us", "launch_self_us", "exec_self_us")]
+    assert read[True] == read[False] == [pytest.approx(30.0), pytest.approx(50.0),
+                                         pytest.approx(20.0)]
 
 
 @pytest.mark.parametrize("name", READERS)
@@ -544,6 +829,26 @@ def test_tuned_pct_reads_the_counters(monkeypatch):
 @pytest.fixture(scope="module")
 def small_bench(tmp_path_factory):
     return run.Bench(small_copy(str(tmp_path_factory.mktemp("small"))))
+
+
+def test_the_readers_find_the_harness_profiles_origin(small_bench, monkeypatch):
+    profiles, seen = [], []
+    collect = devtrace.collect
+
+    def keep(prof, rounds):
+        profiles.append(prof)
+        return collect(prof, rounds)
+
+    monkeypatch.setattr(devtrace, "collect", keep)
+    monkeypatch.setattr(idle_by_span, "split",
+                        lambda rec: seen.append(idle_by_span.origin_ns(rec.trace)))
+    run.run_cell(small_bench, pf, "r2c_1d.bulk", 2**31 + 11, 1.0, True, "cpu", {},
+                 time.perf_counter())
+    origin = profiles[-1].profiler.kineto_results.trace_start_ns()
+    assert seen and origin is not None and set(seen) == {origin}
+    # away from the harness's frame there is none to find
+    assert idle_by_span.origin_ns(devtrace.Trace(ops=[], spans=[], start=0.0, end=1.0,
+                                                 rounds=1)) is None
 
 
 @pytest.mark.parametrize("cell", ["c2c_1d.bulk", "r2c_1d.bulk", "c2c_1d.nonsmooth",
