@@ -202,7 +202,13 @@
    chip_smoke.k10_phase(pf, 'card')"`` runs it alone).  ``fp32_digests``
    gives the SHA-256 of K9's and K10's float32 outputs at AFNO's and r2c's
    shapes on inputs that depend on no random generator, so that two trees'
-   kernels can be compared bit for bit.
+   kernels can be compared bit for bit.  Then K1 alone (``k1_phase``) at
+   ``K1_ALONE``: c2c_1d.bulk's 16 x 8Mi and 256 x 512Ki, both directions,
+   each held to its plain version and to ``torch.fft`` in complex128, in
+   place once, one ``radix`` launch a call, and timed beside its byte bound,
+   its plain version and one ``torch.fft`` call (``python -c "import
+   chip_smoke, portfft_tpu_torch as pf; chip_smoke.k1_phase(pf, 'card')"``
+   runs it alone).
 12. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms; twenty-eight kernels), then, as the last line, ``{"ok":
@@ -311,6 +317,8 @@ FP32_DIGEST_CASES = [("K9", 180, 12288 * 90), ("K9", 512, 256 * 1024),
 # which K9 runs as one stage of pair sums.
 K9_ALONE = [(32, 2 * 1024 * 1024), (512, 256 * 1024), (180, 12288 * 90),
             (502, 256 * 1024), (254, 512 * 1024)]
+# K1 timed alone (``k1_phase``): (n, batch) of c2c_1d.bulk's two K1 specs.
+K1_ALONE = [(16, 8 * 1024 * 1024), (256, 512 * 1024)]
 # K10 timed alone (``k10_phase``, and ``chip_race.py`` ``col``): (bpre, L,
 # rest) and precision of AFNO's column step and DNS's two.
 K10_ALONE = [((12288, 90, 91), torch.float32), ((512, 512, 257), torch.float64),
@@ -2070,6 +2078,74 @@ def k10_phase(pf, card: str, cases=K10_ALONE, device: str = "cuda") -> dict:
     return out
 
 
+def k1_phase(pf, card: str, cases=K1_ALONE, device: str = "cuda") -> dict:
+    """K1 alone at ``cases``, both directions (scale 1 forward, 1/n
+    backward), out of place into a kept buffer: each call held to its plain
+    version (``KERNEL_TOL`` of max|plain|) and to ``torch.fft`` in
+    complex128 (4·eps·log2 n of its largest element), in place equal to out
+    of place, on the card one ``radix`` launch a call on
+    ``tracing.paths("K1")``, then timed beside its byte bound, its plain
+    version and one ``torch.fft`` call.  Prints one line a case and
+    direction; returns ``{(n, batch, direction): {name: ms}}``."""
+    from portfft_tpu_torch.utils import tracing
+
+    out = {}
+    for n, batch in cases:
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             backward_scale=1.0 / n).commit(device=device)
+        x = hashed_uniform(2 * batch * n, n, device=device)
+        y = torch.empty_like(x)
+        xc = torch.view_as_complex(x.view(batch, n, 2))
+        bound, by = bound_of("direct", n, batch)
+        for direction, sign in ((pf.Direction.FORWARD, -1),
+                                (pf.Direction.BACKWARD, +1)):
+            what = f"K1 n={n} batch={batch} {direction.value}"
+            kind, kernel, args = kernel_and_args(plan, direction)
+            if kind != "direct":
+                raise SmokeFailure(f"{what}: the route runs {kind}, not K1")
+            paths = tracing.paths("K1")
+            got = kernel(x, *args, out=y)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                if tracing.paths("K1") != {**paths, "radix": paths.get("radix", 0) + 1}:
+                    raise SmokeFailure(f"{what}: not one radix launch "
+                                       f"({paths} -> {tracing.paths('K1')})")
+            plain = kernel.plain(x, *args)
+            rel = (got - plain).abs().max().item() / plain.abs().max().item()
+            if not rel <= KERNEL_TOL:
+                raise SmokeFailure(f"{what}: max|kernel - plain| = {rel:.2e}·max|plain|")
+            del plain
+            xd = xc.to(torch.complex128)
+            want = (torch.fft.fft(xd, dim=1) if sign < 0
+                    else torch.fft.ifft(xd, dim=1))
+            del xd
+            err = ((torch.view_as_complex(got.view(batch, n, 2)) - want).abs().max()
+                   / want.abs().max()).item()
+            del want
+            if not err <= 4 * EPS32 * max(math.log2(n), 1.0):
+                raise SmokeFailure(f"{what}: {err / EPS32:.1f} eps of max|torch.fft|")
+            inplace = x.clone()
+            kernel(inplace, *args, out=inplace)
+            if not torch.equal(inplace, got):
+                raise SmokeFailure(f"{what}: in place differs from out of place")
+            del inplace
+            library = ((lambda: torch.fft.fft(xc, dim=1)) if sign < 0
+                       else (lambda: torch.fft.ifft(xc, dim=1)))
+            ms = {"kernel": time_ms(lambda: kernel(x, *args, out=y)),
+                  "plain": time_ms(lambda: kernel.plain(x, *args)),
+                  "torch.fft": time_ms(library)}
+            out[(n, batch, direction.value)] = ms
+            print(f"alone  K1 n={n:<4d} batch={batch:<8d} {direction.value:8s} "
+                  f"kernel {ms['kernel']:.3f} ms | bound {bound:.3f} ms ({by}) | "
+                  f"{ms['kernel'] / bound:.2f}x bound | plain {ms['plain']:.3f} | "
+                  f"torch.fft {ms['torch.fft']:.3f} | {err / EPS32:.2f} eps of "
+                  f"torch.fft | {card}")
+        del plan, x, y, xc
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def plane_main_path(pf, counters: dict, card: str) -> tuple[list, dict]:
     """The ``PLANE_ROWS`` through the committed plan: K6 around the
     executor and every K13 or K15 kernel of each row's route must
@@ -3479,6 +3555,7 @@ def phases_run(t_start: float, card: str) -> None:
     phase("K9 alone", k9_phase, pf, card)
     phase("fp64 DNS", dns_phase, pf, card)
     phase("K10 alone", k10_phase, pf, card)
+    phase("K1 alone", k1_phase, pf, card)
     # K10-mm runs on the tuned multi-dim path, K16 on the tuned GLOBAL one
     mma_launches = {"col_mm": md_tuned_launches["col_mm"],
                     "global3": tuned_launches["global3"]}

@@ -23,6 +23,7 @@ tests and ``chip_smoke.py`` call them on the card to hold the kernels to.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -152,10 +153,28 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-@tracing.kernel("K1", ("direct_kernel",))
+#: The lengths K1 runs as plain sums besides the primes from
+#: ``DIRECT_PLAIN_MIN`` on (``fft_direct.cu``'s ``kDirectPlainSmall`` and
+#: ``kDirectPlainMin``).
+DIRECT_PLAIN_SMALL = (2, 6)
+DIRECT_PLAIN_MIN = 29
+
+
+def direct_path(n: int) -> str:
+    """K1's code path at length ``n`` (``fft_direct.cu``'s
+    ``direct_plain``): ``"plain"`` (``direct_kernel``, an n-term sum an
+    element) at 2, 6 and each prime from ``DIRECT_PLAIN_MIN`` on, where the
+    H100 ran the sum faster; else ``"radix"`` (``direct_radix_kernel``, the
+    Stockham stages of ``fft_radix.cuh``)."""
+    prime = n >= DIRECT_PLAIN_MIN and all(n % p for p in range(2, math.isqrt(n) + 1))
+    return "plain" if prime or n in DIRECT_PLAIN_SMALL else "radix"
+
+
+@tracing.kernel("K1", ("direct_radix_kernel", "direct_kernel"))
 def direct(raw, batch: int, sub: SubTables, scale: float, out=None):
     """K1: ``batch`` DIRECT transforms of length ``sub.m``.  ``out`` (may
-    be ``raw`` itself) receives the result; otherwise a new tensor."""
+    be ``raw`` itself) receives the result; otherwise a new tensor.  Each
+    launch counts on ``tracing.paths("K1")`` under :func:`direct_path`."""
     check_buffer(raw, 2 * batch * sub.m, "direct")
     if raw.device.type == "cpu":
         return into(out, rows_plain_raw(raw, batch, sub, scale))
@@ -168,6 +187,7 @@ def direct(raw, batch: int, sub: SubTables, scale: float, out=None):
             batch, sub.m, scale, stream_of(raw),
         )
     _build.check(lib, err, "direct kernel")
+    tracing.path("K1", direct_path(sub.m))
     return y
 
 

@@ -12,6 +12,7 @@ oracle.
 """
 
 import json
+import pathlib
 import time
 
 import numpy as np
@@ -1835,3 +1836,121 @@ def test_real_plane_main_path_matches_oracle(cuda, monkeypatch, n, batch, bf):
         torch.complex128), n) * (2.0 / n)
     diff = (back.view(batch, n).double() - ref).abs().max().item()
     assert diff <= oracle_tol(n) * 2.0 / n, diff
+
+
+# -- K1 on the radix stages ---------------------------------------------------
+
+#: Every DIRECT length 1 … 512, in groups of 32.
+K1_GROUPS = [list(range(lo, min(lo + 32, 513))) for lo in range(1, 513, 32)]
+#: The elements of a K1 tile (``csrc/fft_direct.cu``): ``kDirectElems`` on
+#: the radix path, whose T = 6144 // n rows keep two blocks on an SM at
+#: every n ≤ 512, and 2048 on the plain one (``pfft::pick_tile``).
+K1_TILE_ELEMS = {"radix": 6144, "plain": 2048}
+#: Tiles of each K1 case: more than two an SM of an H100 (132 SMs), so the
+#: resident blocks stride over the tiles.
+K1_TILES = 300
+
+
+@pytest.mark.parametrize("lengths", K1_GROUPS, ids=[f"{g[0]}-{g[-1]}" for g in K1_GROUPS])
+def test_k1_radix_matches_plain_and_torch(cuda, lengths):
+    """K1 at every DIRECT length, both ways at the scales 0.5 and 3/n, over
+    K1_TILES·T + 1 rows (a last tile of one row), out of place and in place
+    (equal), against its plain version (``KERNEL_TOL`` of max|plain|) and
+    ``torch.fft`` in complex128 (4·eps·log2 n of max|y|); each launch counts
+    one on ``tracing.paths("K1")`` under ``cuda_fft.direct_path``:
+    ``radix`` but at 2, 6 and each prime from 29 on."""
+    from portfft_tpu_torch.ops import cuda_fft
+
+    eps = float(np.finfo(np.float32).eps)
+    for n in lengths:
+        batch = K1_TILES * max(1, K1_TILE_ELEMS[cuda_fft.direct_path(n)] // n) + 1
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch,
+                             forward_scale=0.5, backward_scale=3.0 / n).commit()
+        x = hashed_uniform(2 * batch * n, n, device="cuda")
+        xc = torch.view_as_complex(x.view(batch, n, 2)).to(torch.complex128)
+        for direction, sign, scale in ((pf.Direction.FORWARD, -1, 0.5),
+                                       (pf.Direction.BACKWARD, +1, 3.0 / n)):
+            entry = plan._raw_fast[direction]
+            assert entry.engine.name == "direct", n
+            kernel, args = entry.kernel_args(plan)
+            paths = tracing.paths("K1")
+            got = kernel(x, *args)
+            y = x.clone()
+            kernel(y, *args, out=y)
+            torch.cuda.synchronize()
+            path = cuda_fft.direct_path(n)
+            assert tracing.paths("K1") == {**paths, path: paths.get(path, 0) + 2}
+            assert torch.equal(got, y), (n, sign)
+            del y
+            plain = kernel.plain(x, *args)
+            assert ((got - plain).abs().max().item()
+                    <= KERNEL_TOL * plain.abs().max().item()), (n, sign)
+            del plain
+            want = (torch.fft.fft(xc, dim=1) if sign < 0
+                    else torch.fft.ifft(xc, dim=1) * n) * scale
+            err = ((torch.view_as_complex(got.view(batch, n, 2)) - want).abs().max()
+                   / want.abs().max()).item()
+            assert err <= 4 * eps * max(1.0, np.log2(n)), (n, sign, err / eps)
+            del got, want
+
+
+def _bulk_k1_specs():
+    """c2c_1d.bulk's call specs that run K1, with the descriptor keywords
+    the cell commits them with (``port_bench/configs/c2c_1d.json``)."""
+    root = pathlib.Path(__file__).resolve().parent.parent / "port_bench"
+    config = json.loads((root / "configs" / "c2c_1d.json").read_text())
+    traffic = json.loads((root / "traffic" / "c2c_1d.bulk.json").read_text())
+    enums = {"domain": pf.Domain, "complex_storage": pf.ComplexStorage,
+             "placement": pf.Placement}
+    kw = {k: enums[k][v] if k in enums else v for k, v in config["descriptor"].items()}
+    return [(c, kw) for c in traffic["calls"] if c["lengths"][0] <= 512]
+
+
+def test_bulk_k1_specs_launch_k1_on_the_radix_path_alone(cuda):
+    """c2c_1d.bulk's two K1 specs (16 × 8Mi and 256 × 512Ki), committed as
+    the cell commits them: each call counts one ``radix`` launch on
+    ``tracing.paths("K1")`` and no ``plain`` one, and its first and last
+    rows match ``torch.fft`` within the oracle bound."""
+    specs = _bulk_k1_specs()
+    assert [(c["lengths"], c["batch"]) for c, _ in specs] == [([16], 8 << 20), ([256], 512 << 10)]
+    for call, kw in specs:
+        (n,), batch = call["lengths"], call["batch"]
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=batch, **kw).commit()
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        raw = torch.empty(2 * batch * n, device=cuda).uniform_(-1.0, 1.0, generator=gen)
+        x = torch.view_as_complex(raw.view(-1, 2))
+        compute = (plan.compute_forward if call["direction"] == "forward"
+                   else plan.compute_backward)
+        for _ in range(2):
+            paths = tracing.paths("K1")
+            y = compute(x)
+            torch.cuda.synchronize()
+            assert tracing.paths("K1") == {**paths, "radix": paths.get("radix", 0) + 1}
+        rows = torch.tensor([0, batch - 1], device=cuda)
+        ref = torch.fft.fft(x.view(batch, n).index_select(0, rows).to(torch.complex128))
+        got = y.view(batch, n).index_select(0, rows).to(torch.complex128)
+        assert (got - ref).abs().max().item() <= oracle_tol(n), n
+        del plan, raw, x, y
+
+
+def test_k1_kernels_are_named_k1_on_the_card(cuda):
+    """K1's ``__global__`` functions, as the profiler names the device
+    operations, are ``direct_radix_kernel`` at 256 and ``direct_kernel`` at
+    the prime 509, and map to K1 alone through ``tracing.kernels_of``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for n in (256, 509):
+        plan = pf.Descriptor(lengths=[n], number_of_transforms=64).commit()
+        x = torch.randn(64, n, dtype=torch.complex64, device=cuda)
+        plan.compute_forward(x)
+        torch.cuda.synchronize()
+        # the first profile of a process may see no device operation
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                plan.compute_backward(plan.compute_forward(x))
+                torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages() if "direct" in e.key and "kernel" in e.key}
+    assert any("direct_radix_kernel" in k for k in names), names
+    assert any("direct_kernel" in k for k in names), names
+    assert all(tracing.kernels_of(k) == ("K1",) for k in names), names

@@ -305,3 +305,61 @@ def test_small_real_on_the_stages_is_the_rfft(n):
         tol = 4 * EPS * max(1.0, math.log2(n)) * np.abs(want).max()
         err = np.abs(got - want).max()
         assert err <= tol, (n, sign, err, tol)
+
+
+DIRECT_SOURCE = HEADER.parent / "fft_direct.cu"
+
+
+def test_k1_lengths_run_the_kernels_stages():
+    """The stages of c2c_1d.bulk's two K1 lengths, as ``fft_direct.cu``'s
+    header names them: 16 = 4·4, 256 = 8·8·4."""
+    assert torch_fft.radix_stages(16) == [4, 4]
+    assert torch_fft.radix_stages(256) == [8, 8, 4]
+    text = DIRECT_SOURCE.read_text()
+    for n in (16, 256, 512):
+        assert f"{n} = " + "*".join(map(str, torch_fft.radix_stages(n))) in text, n
+
+
+def direct_on_stages(raw: torch.Tensor, batch: int, sub, scale: float) -> torch.Tensor:
+    """K1 on the radix stages (``fft_direct.cu``'s ``direct_radix_kernel``)
+    on the PACKED interleaved buffer ``raw`` (2·batch·n floats): each row
+    of n = ``sub.m`` complex elements by ``radix_sub_plain`` of its DIRECT
+    tables, times ``scale`` on the store, interleaved as it was read."""
+    x = torch.view_as_complex(raw.view(batch, sub.m, 2))
+    return torch.view_as_real(torch_fft.radix_sub_plain(sub, x) * scale).reshape(-1)
+
+
+@pytest.mark.parametrize("n", [1, 16, 256, 509, 512])
+def test_direct_rows_on_the_stages_are_the_dft(n):
+    """The model of K1 at the smallest length (no stage: a copy with the
+    scale), bulk's 16 and 256, the prime 509 (one generic stage) and the
+    largest DIRECT length, both directions at the scales 0.5 and 3/n,
+    against ``np.fft`` in float64 at 4·eps·log2(n)·max|X|."""
+    plan = plan_1d(n, CFG, 4)
+    assert plan.level == Level.DIRECT
+    batch = 5
+    raw = np.random.default_rng(n).uniform(-1, 1, 2 * batch * n).astype(np.float32)
+    xc = raw.reshape(batch, n, 2).astype(np.float64) @ np.array([1, 1j])
+    for sign, scale in ((-1, 0.5), (+1, 3.0 / n)):
+        got = direct_on_stages(torch.from_numpy(raw), batch, _sub(plan, sign), scale)
+        got = got.numpy().reshape(batch, n, 2) @ np.array([1, 1j])
+        want = (np.fft.fft(xc) if sign < 0 else np.fft.ifft(xc) * n) * scale
+        tol = 4 * EPS * max(1.0, math.log2(n)) * np.abs(want).max()
+        err = np.abs(got - want).max()
+        assert err <= tol, (n, sign, err, tol)
+
+
+def test_k1_path_rule_mirrors_the_kernel():
+    """``cuda_fft.direct_path`` holds ``fft_direct.cu``'s plain lengths (2,
+    6 and the primes from ``kDirectPlainMin`` on) and sends bulk's 16 and
+    256 and every other length up to 512 to the radix stages."""
+    text = DIRECT_SOURCE.read_text()
+    least = int(re.search(r"kDirectPlainMin = (\d+);", text).group(1))
+    small = re.search(r"kDirectPlainSmall\[\] = \{([\d, ]+)\};", text).group(1)
+    assert cuda_fft.DIRECT_PLAIN_MIN == least
+    assert cuda_fft.DIRECT_PLAIN_SMALL == tuple(int(v) for v in small.split(","))
+    for n in range(1, 513):
+        prime = n > 1 and all(n % p for p in range(2, math.isqrt(n) + 1))
+        want = "plain" if (prime and n >= least) or n in (2, 6) else "radix"
+        assert cuda_fft.direct_path(n) == want, n
+    assert cuda_fft.direct_path(16) == cuda_fft.direct_path(256) == "radix"

@@ -94,3 +94,50 @@ def test_library_call_computes_the_path_function(n, batch, real):
         got = chip_smoke.library_call(x, n, batch, real, sign < 0)()
         got = torch.view_as_real(got).reshape(-1) if got.is_complex() else got.reshape(-1)
         assert torch.allclose(got, want, atol=1e-3 * want.abs().max().item())
+
+
+def test_k1_phase_checks_and_times_each_case(monkeypatch, capsys):
+    """The K1 phase on the CPU at bulk's two lengths, cut to a few rows
+    (timer stubbed): every case passes its plain version, ``torch.fft`` and
+    the in-place check both ways, and prints one line a direction with its
+    multiple of the byte bound; the phase's shapes are c2c_1d.bulk's K1
+    specs."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 1.0)[1])
+    cases = [(n, 3 + i) for i, (n, _) in enumerate(chip_smoke.K1_ALONE)]
+    out = chip_smoke.k1_phase(pf, "cpu", cases, device="cpu")
+    assert set(out) == {(n, b, d) for n, b in cases for d in ("forward", "backward")}
+    assert all(set(ms) == {"kernel", "plain", "torch.fft"} for ms in out.values())
+    assert len(calls) == 6 * len(cases)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("alone  K1 ")]
+    assert len(lines) == 2 * len(cases) and all("x bound" in ln for ln in lines)
+    assert chip_smoke.K1_ALONE == [(16, 8 * 1024 * 1024), (256, 512 * 1024)]
+
+
+@pytest.mark.parametrize("fault,match", [("zeros", r"max\|kernel - plain\|"),
+                                         ("conjugate", r"max\|kernel - plain\|"),
+                                         ("in place", "in place differs")])
+def test_k1_phase_rejects_a_faulty_kernel(monkeypatch, fault, match):
+    """A K1 that returns zeros, runs on a conjugated table, or differs in
+    place from out of place fails the phase."""
+    real = chip_smoke.kernel_and_args
+
+    def faulty_case(plan, direction):
+        kind, kernel, args = real(plan, direction)
+
+        def faulty(raw, *a, out=None):
+            if fault == "zeros" or (fault == "in place" and out is raw):
+                return torch.zeros_like(raw) if out is None else out.zero_()
+            if fault == "conjugate":
+                return kernel(raw, *chip_smoke.planted(kind, args), out=out)
+            return kernel(raw, *a, out=out)
+
+        faulty.plain = kernel.plain
+        faulty.kernel = "K1"
+        return kind, faulty, args
+
+    monkeypatch.setattr(chip_smoke, "kernel_and_args", faulty_case)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (fn(), 1.0)[1])
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.k1_phase(pf, "cpu", [(16, 3)], device="cpu")

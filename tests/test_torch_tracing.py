@@ -378,6 +378,9 @@ def test_every_registered_symbol_is_a_global_function_of_csrc():
      ("K3", "K3-ftw")),
     ("void (anonymous namespace)::radix_pass_kernel<pfft::ConstPlanes, pfft::Planes>"
      "(pfft::Pass, pfft::ConstPlanes, pfft::Planes)", ("K13",)),
+    ("(anonymous namespace)::direct_radix_kernel(pfft::PassT<float>, float2 const*, "
+     "float2*)", ("K1",)),
+    ("void__anonymous_namespace_::direct_radix_kernel_pfft::PassT_float__", ("K1",)),
     # the fp64 instantiations of K9 and K10 (one sliced kernel, shared by K12
     # and K14 in float32)
     ("void__anonymous_namespace_::small_real_fwd_f64_kernel_1___anonymous_", ("K9",)),
