@@ -208,7 +208,14 @@
    place once, one ``radix`` launch a call, and timed beside its byte bound,
    its plain version and one ``torch.fft`` call (``python -c "import
    chip_smoke, portfft_tpu_torch as pf; chip_smoke.k1_phase(pf, 'card')"``
-   runs it alone).
+   runs it alone).  Then K11 alone (``md2_phase``) at ``MD2_ALONE``: the
+   BCDI cell's 512 planes of 512 x 512 and the kernel table's 256, both
+   directions, each held to its plain version and to ``torch.fft.fft2`` in
+   complex128, in place once, one launch a call on its
+   ``cuda_multidim.md2_path`` (``spill`` at 512 x 512), and timed beside its
+   byte bound, its plain version and one ``torch.fft.fft2`` call (``python
+   -c "import chip_smoke, portfft_tpu_torch as pf; chip_smoke.md2_phase(pf,
+   'card')"`` runs it alone).
 12. Prints the kernel table as one JSON line (each kernel's launches on the
    main path, largest error against its plain version, ms, plain ms, bound
    ms and library ms; twenty-eight kernels), then, as the last line, ``{"ok":
@@ -323,6 +330,9 @@ K1_ALONE = [(16, 8 * 1024 * 1024), (256, 512 * 1024)]
 # rest) and precision of AFNO's column step and DNS's two.
 K10_ALONE = [((12288, 90, 91), torch.float32), ((512, 512, 257), torch.float64),
              ((1, 512, 131584), torch.float64)]
+# K11 timed alone (``md2_phase``): (batch, n1, n2) of the BCDI cell's K11
+# step (512 planes of 512 x 512, pynx_bcdi.cycle) and the kernel table's row.
+MD2_ALONE = [(512, 512, 512), (256, 512, 512)]
 # Plane path rows (bench.py EXTRA_CONFIGS large_1d_prime, both directions,
 # and one row per other route at about 1 GiB of input): name, n, batch,
 # direction.  1031: generic Bluestein over K13 [24, 128]; 1000: K13's
@@ -2078,6 +2088,73 @@ def k10_phase(pf, card: str, cases=K10_ALONE, device: str = "cuda") -> dict:
     return out
 
 
+def md2_phase(pf, card: str, cases=MD2_ALONE, device: str = "cuda") -> dict:
+    """K11 alone at ``cases`` (batch, n1, n2), both directions (scale 1
+    forward, 1/(n1·n2) backward), out of place into a kept buffer: each call
+    held to its plain version (``KERNEL_TOL`` of max|plain|) and to
+    ``torch.fft.fft2`` in complex128 (4·eps·log2(n1·n2) of its largest
+    element), in place equal to out of place, on the card one launch a call
+    on ``tracing.paths("K11")`` under ``cuda_multidim.md2_path``, then timed
+    beside its byte bound (16 bytes an element), its plain version and one
+    ``torch.fft.fft2`` call.  Prints one line a case and direction; returns
+    ``{(shape, direction): {name: ms}}``."""
+    from portfft_tpu_torch.ops import cuda_multidim
+    from portfft_tpu_torch.utils import tracing
+
+    out = {}
+    for shape in cases:
+        batch, n1, n2 = shape
+        path = cuda_multidim.md2_path(n1, n2)
+        x = hashed_uniform(2 * math.prod(shape), n1 + n2, device=device)
+        y = torch.empty_like(x)
+        xc = torch.view_as_complex(x.view(*shape, 2))
+        bound, by = bound_of("md2", n1 * n2, batch)
+        for direction, sign in (("forward", -1), ("backward", +1)):
+            what = f"K11 {shape} {direction}"
+            scale = 1.0 if sign < 0 else 1.0 / (n1 * n2)
+            kernel, args = md_kernel_case(pf, "md2", shape, sign, scale, device)
+            paths = tracing.paths("K11")
+            got = kernel(x, *args, out=y)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                if tracing.paths("K11") != {**paths, path: paths.get(path, 0) + 1}:
+                    raise SmokeFailure(f"{what}: not one {path} launch "
+                                       f"({paths} -> {tracing.paths('K11')})")
+            plain = kernel.plain(x, *args)
+            rel = (got - plain).abs().max().item() / plain.abs().max().item()
+            if not rel <= KERNEL_TOL:
+                raise SmokeFailure(f"{what}: max|kernel - plain| = {rel:.2e}·max|plain|")
+            del plain
+            xd = xc.to(torch.complex128)
+            want = (torch.fft.fft2(xd) if sign < 0 else torch.fft.ifft2(xd, norm="forward")) * scale
+            del xd
+            err = ((torch.view_as_complex(got.view(*shape, 2)) - want).abs().max()
+                   / want.abs().max()).item()
+            del want
+            if not err <= 4 * EPS32 * math.log2(n1 * n2):
+                raise SmokeFailure(f"{what}: {err / EPS32:.1f} eps of max|torch.fft|")
+            inplace = x.clone()
+            kernel(inplace, *args, out=inplace)
+            if not torch.equal(inplace, got):
+                raise SmokeFailure(f"{what}: in place differs from out of place")
+            del inplace
+            library = ((lambda: torch.fft.fft2(xc)) if sign < 0
+                       else (lambda: torch.fft.ifft2(xc)))
+            ms = {"kernel": time_ms(lambda: kernel(x, *args, out=y)),
+                  "plain": time_ms(lambda: kernel.plain(x, *args)),
+                  "torch.fft": time_ms(library)}
+            out[(shape, direction)] = ms
+            print(f"alone  K11 {shape} {direction:8s} {path:8s} "
+                  f"kernel {ms['kernel']:.3f} ms | bound {bound:.3f} ms ({by}) | "
+                  f"{ms['kernel'] / bound:.2f}x bound | plain {ms['plain']:.3f} | "
+                  f"torch.fft {ms['torch.fft']:.3f} | {err / EPS32:.2f} eps of "
+                  f"torch.fft | {card}")
+        del x, y, xc
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def k1_phase(pf, card: str, cases=K1_ALONE, device: str = "cuda") -> dict:
     """K1 alone at ``cases``, both directions (scale 1 forward, 1/n
     backward), out of place into a kept buffer: each call held to its plain
@@ -3556,6 +3633,7 @@ def phases_run(t_start: float, card: str) -> None:
     phase("fp64 DNS", dns_phase, pf, card)
     phase("K10 alone", k10_phase, pf, card)
     phase("K1 alone", k1_phase, pf, card)
+    phase("K11 alone", md2_phase, pf, card)
     # K10-mm runs on the tuned multi-dim path, K16 on the tuned GLOBAL one
     mma_launches = {"col_mm": md_tuned_launches["col_mm"],
                     "global3": tuned_launches["global3"]}

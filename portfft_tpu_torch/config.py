@@ -15,10 +15,11 @@
 
 The module's ``H100_*`` constants are the **Hopper planning geometry**: an
 H100's opt-in shared memory per block, its portable thread-block cluster
-size and its L2 cache, from NVIDIA's data sheet.  The gates of the
-single-sweep GLOBAL kernels K4 and K5 (``ops/cuda_global.sq_cluster``,
-``ops/cuda_global_bf.global_bf_supported``) and K5's batch chunk read them.
-They are constants, not card properties, so a plan committed on the CPU
+size, its L2 cache and its streaming multiprocessors, from NVIDIA's data
+sheet.  The gates of the single-sweep GLOBAL kernels K4 and K5
+(``ops/cuda_global.sq_cluster``, ``ops/cuda_global_bf.global_bf_supported``),
+K5's batch chunk and K11's path count (``ops/cuda_multidim.md2_path``) read
+them.  They are constants, not card properties, so a plan committed on the CPU
 takes the route it takes on the card.
 """
 
@@ -31,6 +32,7 @@ import torch
 H100_SMEM_PER_BLOCK = 227 * 2**10
 H100_CLUSTER = 8
 H100_L2_BYTES = 50 * 10**6
+H100_SM_COUNT = 132
 
 
 @dataclasses.dataclass(frozen=True)

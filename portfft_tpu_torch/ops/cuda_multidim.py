@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import H100_L2_BYTES, H100_SM_COUNT
 from ..enums import Level
 from ..exceptions import InvalidConfiguration
 from ..planner import Plan1D
@@ -260,6 +261,23 @@ col_mm.plain = col_mm_plain
 
 # -- K11 md2 -------------------------------------------------------------------
 
+#: K11's resident blocks an SM (``__launch_bounds__(kBlock, 2)`` in
+#: ``csrc/fft_md2.cu``).
+MD2_BLOCKS_PER_SM = 2
+
+
+def md2_path(n1: int, n2: int) -> str:
+    """K11's regime at an (n1, n2) plane, by its kernel's header:
+    ``"resident"`` where the intermediate planes of the resident blocks (two
+    an SM on ``H100_SM_COUNT`` SMs, 8 bytes an element) fit the H100's L2,
+    so that each element crosses HBM once each way; else ``"spill"``, where
+    phase A's stores leave the L2 and the kernel moves about twice the bytes
+    of its bound.  From the Hopper constants, not the card's properties, so
+    that a CPU commit counts the same."""
+    blocks = MD2_BLOCKS_PER_SM * H100_SM_COUNT
+    return "resident" if blocks * n1 * n2 * 8 <= H100_L2_BYTES else "spill"
+
+
 
 def md2_plain(raw: torch.Tensor, batch: int, sub1: SubTables, sub2: SubTables,
               scale: float):
@@ -279,7 +297,8 @@ def md2(raw, batch: int, sub1: SubTables, sub2: SubTables, scale: float,
         out=None):
     """K11: ``batch`` 2D transforms of shape ``(sub1.m, sub2.m)``, one block
     a transform, on the radix stages (``csrc/fft_md2.cu``).  ``out`` (may be
-    ``raw`` itself) receives the result; otherwise a new tensor."""
+    ``raw`` itself) receives the result; otherwise a new tensor.  Each launch
+    counts on ``tracing.paths("K11")`` under :func:`md2_path`."""
     check_buffer(raw, 2 * batch * sub1.m * sub2.m, "md2")
     if raw.device.type == "cpu":
         return into(out, md2_plain(raw, batch, sub1, sub2, scale))
@@ -292,6 +311,7 @@ def md2(raw, batch: int, sub1: SubTables, sub2: SubTables, scale: float,
             sub2.m, sub2.a, *sub2.pointers(), batch, scale, stream_of(raw),
         )
     _build.check(lib, err, "md2 kernel")
+    tracing.path("K11", md2_path(sub1.m, sub2.m))
     return y
 
 

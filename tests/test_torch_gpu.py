@@ -1954,3 +1954,74 @@ def test_k1_kernels_are_named_k1_on_the_card(cuda):
     assert any("direct_radix_kernel" in k for k in names), names
     assert any("direct_kernel" in k for k in names), names
     assert all(tracing.kernels_of(k) == ("K1",) for k in names), names
+
+
+def _bcdi_cell():
+    """pynx_bcdi.cycle's call specs, with the descriptor keywords the cell
+    commits them with (``port_bench/configs/pynx_bcdi.json``)."""
+    root = pathlib.Path(__file__).resolve().parent.parent / "port_bench"
+    config = json.loads((root / "configs" / "pynx_bcdi.json").read_text())
+    traffic = json.loads((root / "traffic" / "pynx_bcdi.cycle.json").read_text())
+    enums = {"domain": pf.Domain, "complex_storage": pf.ComplexStorage,
+             "placement": pf.Placement}
+    kw = {k: enums[k][v] if k in enums else v for k, v in config["descriptor"].items()}
+    return traffic["calls"], kw
+
+
+def test_bcdi_cell_launches_one_k11_spill_and_one_k10_radix_a_call(cuda):
+    """The BCDI cell's FT and IFT of one 512^3 object, committed as the cell
+    commits them: each call launches K11 once on its ``spill`` path (512 x
+    512 planes) and K10 once on its ``radix`` path, nothing else, and
+    matches ``torch.fft`` in complex128 at the orthonormal scale within
+    1e-5 of its root mean square."""
+    calls, kw = _bcdi_cell()
+    assert [(c["lengths"], c["batch"], c["direction"]) for c in calls] == [
+        ([512] * 3, 1, "forward"), ([512] * 3, 1, "backward")]
+    plan = pf.Descriptor(lengths=[512] * 3, **kw).commit()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    raw = torch.empty(2 * 512**3, device=cuda).uniform_(-1.0, 1.0, generator=gen)
+    x = torch.view_as_complex(raw.view(-1, 2))
+    for call in calls:
+        forward = call["direction"] == "forward"
+        compute = plan.compute_forward if forward else plan.compute_backward
+        for _ in range(2):
+            launches = tracing.launches()
+            paths = {k: tracing.paths(k) for k in ("K11", "K10")}
+            y = compute(x)
+            torch.cuda.synchronize()
+            ran = {k: v - launches[k] for k, v in tracing.launches().items() if v != launches[k]}
+            assert ran == {"K11": 1, "K10": 1}
+            assert tracing.paths("K11") == {**paths["K11"],
+                                            "spill": paths["K11"].get("spill", 0) + 1}
+            assert tracing.paths("K10") == {**paths["K10"],
+                                            "radix": paths["K10"].get("radix", 0) + 1}
+        xd = x.view(512, 512, 512).to(torch.complex128)
+        want = (torch.fft.fftn if forward else torch.fft.ifftn)(xd, norm="ortho")
+        del xd
+        assert y.dtype == torch.complex64 and y.numel() == 512**3
+        assert _rel(y.view(512, 512, 512), want) <= 1e-5
+        del y, want
+
+
+def test_k11_kernel_is_named_k11_on_the_card(cuda):
+    """K11's ``__global__`` function, as the profiler names the device
+    operation, is ``md2_kernel`` and maps to K11 alone through
+    ``tracing.kernels_of``; the multi-dim C2C steps are ``portfft.axis``
+    spans with the notes ``1,2 K11`` and ``0 K10``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = pf.Descriptor(lengths=[8, 512, 512]).commit()
+    x = torch.randn(8, 512, 512, dtype=torch.complex64, device=cuda)
+    plan.compute_forward(x)
+    torch.cuda.synchronize()
+    # the first profile of a process may see no device operation
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            plan.compute_forward(x)
+            torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "md2" in e.key}
+    assert names and all("md2_kernel" in k for k in names), names
+    assert all(tracing.kernels_of(k) == ("K11",) for k in names), names
+    (call,) = tracing.calls(1)
+    notes = [s.note for s in sorted(call.named("portfft.axis"), key=lambda s: s.start_ns)]
+    assert notes == ["1,2 K11", "0 K10"]

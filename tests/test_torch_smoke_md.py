@@ -258,3 +258,54 @@ def test_k10_phase_rejects_a_faulty_kernel(monkeypatch, fault, match, dtype):
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (fn(), 1.0)[1])
     with pytest.raises(chip_smoke.SmokeFailure, match=match):
         chip_smoke.k10_phase(pf, "cpu", [((2, 90, 5), dtype)], device="cpu")
+
+
+def test_md2_phase_checks_and_times_each_case(monkeypatch, capsys):
+    """The K11 phase on the CPU at its planes, cut to one or two transforms (timer
+    stubbed): every case passes its plain version, ``torch.fft.fft2`` and
+    the in-place check both ways, and prints one line a direction with its
+    path and multiple of the byte bound; the phase's first shape is the BCDI
+    cell's K11 step."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (calls.append(fn()), 1.0)[1])
+    cases = ([(1 + i, n1, n2) for i, (_, n1, n2) in enumerate(chip_smoke.MD2_ALONE)]
+             + [(2, 128, 128)])
+    out = chip_smoke.md2_phase(pf, "cpu", cases, device="cpu")
+    assert len(out) == 2 * len(cases)
+    assert all(set(ms) == {"kernel", "plain", "torch.fft"} for ms in out.values())
+    assert len(calls) == 6 * len(cases)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("alone  K11")]
+    assert len(lines) == 2 * len(cases) and all("x bound" in ln for ln in lines)
+    assert sum(" spill " in ln for ln in lines) == 4
+    assert sum(" resident " in ln for ln in lines) == 2
+    assert chip_smoke.MD2_ALONE == [(512, 512, 512), (256, 512, 512)]
+
+
+@pytest.mark.parametrize("fault,match", [("zeros", r"max\|kernel - plain\|"),
+                                         ("in place", "in place differs"),
+                                         ("conjugate", "eps of max")])
+def test_md2_phase_rejects_a_faulty_kernel(monkeypatch, fault, match):
+    from portfft_tpu_torch.ops import cuda_multidim
+
+    md2 = cuda_multidim.md2
+
+    def faulty(raw, *a, out=None):
+        if fault == "zeros" or (fault == "in place" and out is raw):
+            return torch.zeros_like(raw) if out is None else out.zero_()
+        return md2(raw, *a, out=out)
+
+    # a plain version that agrees with the faulty kernel: only torch.fft
+    # can catch a table of the other direction
+    if fault == "conjugate":
+        def faulty(raw, batch, s1, s2, scale, out=None):  # noqa: F811
+            return md2(raw, batch, chip_smoke.conjugated(s1), s2, scale, out=out)
+        faulty.plain = lambda raw, batch, s1, s2, scale: md2.plain(
+            raw, batch, chip_smoke.conjugated(s1), s2, scale)
+    else:
+        faulty.plain = md2.plain
+    faulty.kernel = "K11"
+    monkeypatch.setattr(cuda_multidim, "md2", faulty)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: (fn(), 1.0)[1])
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.md2_phase(pf, "cpu", [(1, 128, 128)], device="cpu")
